@@ -3,14 +3,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``vault_tpu_torch/csrc``, holds each
-against its plain PyTorch version at the main path's shapes, times it beside
-its bound and a PyTorch library call, drives the VAuLT-base classifier
-(bert-base-uncased tower + ViLT-B/32, bf16, seeded random weights) through
-``VaultForClassification`` and a ``BatchingEngine``, and checks the launch
-counts and the outputs.  Each phase prints one JSON line; any failure exits
-non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Needs a CUDA
-card: without one it exits non-zero and prints no result.  Imports nothing of
-JAX or of the JAX package.
+(forward and backward) against its plain PyTorch version at the main path's
+shapes, times it beside its bound and a PyTorch library call, drives the
+VAuLT-base classifier (bert-base-uncased tower + ViLT-B/32, seeded random
+weights) through ``VaultForClassification`` and a ``BatchingEngine`` (bf16),
+then trains it: one step on the kernel path against one on the plain path
+(fp32 masters, bf16 compute, remat, dropout 0.1, batch 32 at the ``entry()``
+layout) and a short ``Trainer.train()`` with a dev evaluation and a
+checkpoint.  It checks the launch counts, the gradients and the outputs.
+Each phase prints one JSON line; any failure exits non-zero.  The last line
+is ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without one it
+exits non-zero and prints no result.  Imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -39,6 +43,31 @@ LIMITS = {"bfloat16": 6.25e-2, "float32": 1e-4}
 # |kernel path - plain path| of the full-width bf16 forward: 24 layers of
 # the per-kernel differences above, through the final LN and the tanh pooler.
 FORWARD_LIMITS = {"pooler": 6e-2, "logits": 2e-2}
+# Backward kernels vs their plain versions, per output: bf16 2^-5 of the
+# output's scale (max(1, max|plain|)), about four bf16 ulps there: the
+# outputs are bf16 sums of products of bf16-rounded activations, which the
+# kernel and the plain version accumulate in other orders; fp32 1e-4 of the
+# scale (summation order).  dgamma and dbeta are fp32 sums over the rows
+# before their cast: relative 1e-3 in bf16.
+BWD_LIMITS = {"bfloat16": 2.0 ** -5, "float32": 1e-4}
+BWD_LN_LIMIT = 1e-3
+# One training step, kernel path vs plain path (same parameters, batch and
+# generator seed): per parameter leaf ||g_kernel - g_plain|| / ||g_plain||,
+# and |loss difference|.  The paths round bf16 activations at different
+# points through 24 layers and their recomputes.
+STEP_LIMITS = {"grad_rel": 5e-2, "loss": 1e-2}
+TRAIN_BATCH = 32
+# Kernel launches of one full-depth forward without gradients (a forward,
+# an evaluation batch, a served batch): attention in each of the 24 layers,
+# one MLP block in each.
+EVAL_LAUNCHES = {"encoder_attention": 24, "mlp_block": 12, "mlp_postln": 12,
+                 "mlp_block_bwd": 0, "mlp_postln_bwd": 0}
+# One training step with remat: the forward launches each MLP block once per
+# layer and remat's recompute in the backward once more; each backward kernel
+# runs once per layer; attention takes its kernel only when deterministic, so
+# a training step launches none.
+STEP_LAUNCHES = {"encoder_attention": 0, "mlp_block": 24, "mlp_postln": 24,
+                 "mlp_block_bwd": 12, "mlp_postln_bwd": 12}
 
 
 def emit(**kw):
@@ -231,9 +260,12 @@ def check_mlp(gen, dev, postln: bool):
     kernel = cm.fused_mlp_postln_fwd if postln else cm.fused_mlp_block_fwd
     plain = cm._mlp_postln_plain if postln else cm._mlp_block_plain
     main_rows = 8 * 40 if postln else 8 * 256
+    # the training step's rows (batch 32; BERT's blocks carry the mask)
+    train_rows = TRAIN_BATCH * (40 if postln else 256)
     rows_out = []
     for rows, dtype, with_mask in ((main_rows, torch.bfloat16, False),
                                    (main_rows, torch.bfloat16, True),
+                                   (train_rows, torch.bfloat16, postln),
                                    (77, torch.float32, True)):
         x, o, m = mlp_operands(gen, rows, dtype, dev, with_mask)
         ln_p = {"scale": o["gamma"], "bias": o["beta"]}
@@ -250,24 +282,121 @@ def check_mlp(gen, dev, postln: bool):
             fail(f"{name} rows={rows} {dtype} mask={with_mask}: "
                  f"max |kernel - plain| {err} > {limit}")
         row = dict(kernel=name, rows=rows, dtype=str(dtype).split(".")[-1],
-                   mask=with_mask, max_abs_err=err, limit=limit)
-        if dtype == torch.bfloat16 and not with_mask:
+                   mask=with_mask, max_abs_err=err, limit=limit,
+                   path="train" if rows == train_rows else "forward")
+        if dtype == torch.bfloat16 and (rows == train_rows or not with_mask):
             w1t, w2t = o["w1"].t().contiguous(), o["w2"].t().contiguous()
             g, bt, b1, b2 = o["gamma"], o["beta"], o["b1"], o["b2"]
+            masked = (lambda t: t) if m is None else (lambda t: t * m)
             if postln:
                 lib = lambda: F.layer_norm(
-                    x + F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2),
+                    x + masked(F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2)),
                     (768,), g, bt, 1e-12)
             else:
-                lib = lambda: x + F.linear(F.gelu(F.linear(
-                    F.layer_norm(x, (768,), g, bt, 1e-12), w1t, b1)), w2t, b2)
+                lib = lambda: x + masked(F.linear(F.gelu(F.linear(
+                    F.layer_norm(x, (768,), g, bt, 1e-12), w1t, b1)), w2t, b2))
             timed(run, "", row)
             timed(ref_fn, "plain_", row)
             timed(lib, "library_", row)
             h, i = 768, 3072
             flops = 4.0 * rows * h * i
-            nbytes = (2 * rows * h + 2 * h * i + 3 * h + i) * x.element_size()
+            nbytes = ((2 + (1 if with_mask else 0)) * rows * h + 2 * h * i
+                      + 3 * h + i) * x.element_size()
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+        emit(phase="kernel_check", **row)
+        rows_out.append(row)
+    return rows_out
+
+
+BWD_NAMES = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dx")
+
+
+def check_mlp_bwd(gen, dev, postln: bool):
+    """The backward kernel against its plain version at the training main
+    path's rows (batch 32: 1280 BERT rows, 8192 ViLT rows): all seven
+    outputs of the wrapper, the kernel's fp32 dgamma/dbeta, and two launches
+    bit-equal.  ``ms`` times the kernel alone (what replaces the Pallas
+    call); ``wrapper_ms`` adds the weight-gradient products; ``plain_ms``
+    and ``library_ms`` compute all seven outputs (the library: autograd
+    through F.layer_norm/F.linear/F.gelu, backward only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    name = "mlp_postln_bwd" if postln else "mlp_block_bwd"
+    wrapper = cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd
+    plain = cm.mlp_postln_bwd_plain if postln else cm.mlp_block_bwd_plain
+    main_rows = TRAIN_BATCH * (40 if postln else 256)
+    rows_out = []
+    # the main path: BERT's blocks carry the dropout mask, ViLT's none
+    for rows, dtype, with_mask in ((main_rows, torch.bfloat16, postln),
+                                   (main_rows, torch.bfloat16, not postln),
+                                   (77, torch.float32, True)):
+        x, o, m = mlp_operands(gen, rows, dtype, dev, with_mask)
+        g = torch.randn((rows, 768), generator=gen, device=dev).to(dtype)
+        args = (o["gamma"], o["beta"], o["w1"], o["b1"], o["w2"], o["b2"], x, g, m)
+        dt = str(dtype).split(".")[-1]
+        out, ref, again = wrapper(*args), plain(*args), wrapper(*args)
+        # dgamma/dbeta before their cast: the kernel's fp32 sums, and the
+        # plain version's with fp32 gamma/beta (same arithmetic otherwise)
+        raw = cm._launch_bwd(postln, *args, 1e-12)[4:]
+        raw_ref = plain(o["gamma"].float(), o["beta"].float(), *args[2:])[:2]
+        torch.cuda.synchronize()
+        errs = {}
+        for n, a, b in zip(BWD_NAMES, out, ref):
+            scale = max(1.0, b.float().abs().max().item())
+            errs[n] = (a.float() - b.float()).abs().max().item() / scale
+        for n, a, b in zip(("dgamma_f32", "dbeta_f32"), raw, raw_ref):
+            scale = max(1.0, b.abs().max().item())
+            errs[n] = (a - b).abs().max().item() / scale
+        limit = BWD_LIMITS[dt]
+        bad = {n: e for n, e in errs.items() if not math.isfinite(e) or e > (
+            BWD_LN_LIMIT if n.endswith("_f32") and dtype == torch.bfloat16 else limit)}
+        if bad:
+            fail(f"{name} rows={rows} {dtype} mask={with_mask}: |kernel - plain| "
+                 f"/ scale {bad} over the limit {limit} (LN sums {BWD_LN_LIMIT})")
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        if not same:
+            fail(f"{name} rows={rows} {dtype}: two launches differ")
+        row = dict(kernel=name, rows=rows, dtype=dt, mask=with_mask,
+                   rel_err_by_output=errs, limit=limit, ln_sum_limit=BWD_LN_LIMIT,
+                   max_abs_err=max((a.float() - b.float()).abs().max().item()
+                                   for a, b in zip(out, ref)),
+                   bit_equal_repeat=same)
+        if dtype == torch.bfloat16 and with_mask == postln:
+            timed(lambda: cm._launch_bwd(postln, *args, 1e-12), "", row)
+            row["wrapper_ms"], _ = device_ms(lambda: wrapper(*args))
+            timed(lambda: plain(*args), "plain_", row)
+            leaves = [t.detach().clone().requires_grad_() for t in (
+                x, o["gamma"], o["beta"], o["w1"].t().contiguous(), o["b1"],
+                o["w2"].t().contiguous(), o["b2"])]
+            xl, gl, bl, w1t, b1, w2t, b2 = leaves
+            if postln:
+                mlp = F.linear(F.gelu(F.linear(xl, w1t, b1)), w2t, b2)
+                fwd = F.layer_norm(xl + (mlp if m is None else mlp * m), (768,),
+                                   gl, bl, 1e-12)
+            else:
+                mlp = F.linear(F.gelu(F.linear(F.layer_norm(xl, (768,), gl, bl, 1e-12),
+                                              w1t, b1)), w2t, b2)
+                fwd = xl + (mlp if m is None else mlp * m)
+            timed(lambda: torch.autograd.grad(fwd, leaves, g, retain_graph=True),
+                  "library_", row)
+            h, i = 768, 3072
+            # pre-LN: h1, da, dy (3 products); post-LN: h1 and o for the LN
+            # backward, then da and dx (4).  The JAX CostEstimate counts 3
+            # for both; the post-LN kernel must rebuild o before its LN
+            # backward, so 4 is the work it has to do.
+            products = 4 if postln else 3
+            esz = x.element_size()
+            nbytes = ((4 + (1 if with_mask else 0)) * rows * h + 2 * rows * i
+                      + 2 * h * i + 3 * h + i) * esz + 2 * h * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                2.0 * products * rows * h * i, nbytes, dtype)
+            row["products_in_bound"] = products
+            # the wrapper adds dW1 and dW2 (two products) and reads dh1, a
+            row["wrapper_bound_ms"], _ = bound_ms(
+                2.0 * (products + 2) * rows * h * i, nbytes + 4 * h * i * esz, dtype)
         emit(phase="kernel_check", **row)
         rows_out.append(row)
     return rows_out
@@ -301,7 +430,9 @@ def counters():
 
     return {"encoder_attention": ca.fused_attention,
             "mlp_block": cm.fused_mlp_block_fwd,
-            "mlp_postln": cm.fused_mlp_postln_fwd}
+            "mlp_postln": cm.fused_mlp_postln_fwd,
+            "mlp_block_bwd": cm.fused_mlp_block_bwd,
+            "mlp_postln_bwd": cm.fused_mlp_postln_block_bwd}
 
 
 def reset_counts():
@@ -336,7 +467,7 @@ def forward_phase(dev):
         logits = model(batch)
         torch.cuda.synchronize()
         counts = read_counts()
-    want = {"encoder_attention": 24, "mlp_block": 12, "mlp_postln": 12}
+    want = dict(EVAL_LAUNCHES)
     if counts != want:
         fail(f"launches per forward {counts}, expected {want}")
     if logits.shape != (8, 3) or not torch.isfinite(logits.float()).all():
@@ -455,8 +586,7 @@ def serving_phase(model):
     counts = read_counts()
     if engine._worker.is_alive():
         fail("serving worker did not stop")
-    per_batch = {"encoder_attention": 24, "mlp_block": 12, "mlp_postln": 12}
-    if counts != {k: v * stats["batches_run"] for k, v in per_batch.items()}:
+    if counts != {k: v * stats["batches_run"] for k, v in EVAL_LAUNCHES.items()}:
         fail(f"serving launches {counts} for {stats['batches_run']} batches")
     direct = []
     with torch.inference_mode():
@@ -477,6 +607,228 @@ def serving_phase(model):
          results_shape=list(np.stack(results).shape), launches=counts,
          processor_ms_batch8=proc_ms, pixel_max_abs_diff_card_vs_host=pixel_err,
          stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+UNUSED_LEAVES = {"vilt.text_embeddings.word", "vilt.text_embeddings.position"}
+
+
+def zero_in_exact_arithmetic(name: str) -> bool:
+    """The key projections' biases: b_k adds q . b_k to every score of a
+    query's row, and the softmax does not change under that, so their
+    gradient is 0 in exact arithmetic and both paths return rounding noise
+    there.  They are held to be finite; their norms are printed."""
+    return name.endswith(".k.b")
+
+
+def entry_features(cfg, n, seed):
+    """``n`` examples in the ``entry()`` layout as host numpy arrays (a
+    dataset's form): 40 text tokens with ragged padding, a 384x608 canvas,
+    3-way labels."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(20, 41, n)
+    mask = (np.arange(40)[None] < lens[:, None]).astype(np.int32)
+    feats = {"input_ids": (rng.integers(1, cfg.text_tower.vocab_size, (n, 40))
+                           * mask).astype(np.int32),
+             "attention_mask": mask,
+             "token_type_ids": np.zeros((n, 40), np.int32),
+             "pixel_values": rng.normal(size=(n, 3, 384, 608)).astype(np.float32),
+             "pixel_mask": np.ones((n, 384, 608), np.int32)}
+    return feats, rng.integers(0, 3, n)
+
+
+def train_args(**kw):
+    from vault_tpu_torch.training.trainer import TrainArgs
+
+    # the JAX package's defaults (batch 32, remat, bf16 moments,
+    # use_pallas "auto") with the bf16 compute copy of fp32 masters
+    return TrainArgs(compute_dtype="bfloat16", train_batch_size=TRAIN_BATCH,
+                     eval_batch_size=TRAIN_BATCH, disable_tqdm=True, **kw)
+
+
+def train_step_phase(dev):
+    """One step on the kernel path against one on the plain path (same
+    masters, batch and generator seed), the launch counts of a step, and
+    the step's time."""
+    import torch
+
+    from vault_tpu_torch.data.loader import InMemoryDataset
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.presets import vault_base
+    from vault_tpu_torch.training.trainer import Trainer, classifier_apply_fn
+
+    cfg = vault_base("bert-base-uncased")
+    feats, labels = entry_features(cfg, TRAIN_BATCH, seed=3)
+    paths = {impl: classifier_apply_fn(cfg, train_args(use_pallas=impl))
+             for impl in ("auto", False)}
+    tr = Trainer(paths["auto"],
+                 VaultForClassification(cfg, device=dev, dtype=torch.float32, seed=0),
+                 train_args(), InMemoryDataset(feats, labels), device=dev)
+    batch, lab, w = tr._to_device(*tr._pad(feats, labels))
+
+    res = {}
+    for impl in ("auto", False):
+        tr.apply_fn = paths[impl]
+        gen = tr.step_generator(0)
+        reset_counts()
+        loss, grads = tr.loss_and_grads(batch, lab, w, gen)
+        torch.cuda.synchronize()
+        res[impl] = dict(loss=loss.item(), grads=grads, gen=gen.get_state(),
+                         counts=read_counts())
+    kern, plain = res["auto"], res[False]
+    want_plain = {k: 0 for k in STEP_LAUNCHES}
+    if kern["counts"] != STEP_LAUNCHES or plain["counts"] != want_plain:
+        fail(f"launches of a training forward+backward: kernel path "
+             f"{kern['counts']} (expected {STEP_LAUNCHES}), plain path "
+             f"{plain['counts']}")
+    # the same draws in the same order on both paths: the generators end in
+    # the same state, so the dropout masks were the same
+    if not torch.equal(kern["gen"], plain["gen"]):
+        fail("the kernel path and the plain path drew different dropout streams")
+    loss_diff = abs(kern["loss"] - plain["loss"])
+    rel, zero, noise = {}, [], {}
+    for k, gp in plain["grads"].items():
+        gk = kern["grads"][k]
+        nk, np_ = (torch.linalg.vector_norm(t.double()).item() for t in (gk, gp))
+        if k in UNUSED_LEAVES:
+            if nk != 0.0 or np_ != 0.0:
+                fail(f"{k}: VAuLT never reads it, yet its gradient is nonzero")
+            continue
+        if zero_in_exact_arithmetic(k):
+            if not (math.isfinite(nk) and math.isfinite(np_)):
+                zero.append((k, nk, np_))
+            noise[k] = [nk, np_]
+            continue
+        if not (math.isfinite(nk) and math.isfinite(np_)) or nk == 0.0 or np_ == 0.0:
+            zero.append((k, nk, np_))
+            continue
+        rel[k] = torch.linalg.vector_norm(gk.double() - gp.double()).item() / np_
+    if zero:
+        fail(f"leaves without a finite nonzero gradient: {zero[:8]}")
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    loss_kernel = kern["loss"]
+    if loss_diff > STEP_LIMITS["loss"] or worst[0][1] > STEP_LIMITS["grad_rel"]:
+        fail(f"step kernel path vs plain path: loss diff {loss_diff}, worst "
+             f"leaves {worst} (limits {STEP_LIMITS})")
+    del res, kern, plain
+
+    # the main path: whole optimizer steps through the kernels
+    tr.apply_fn = paths["auto"]
+    tr._build_optimizer(1)
+    step = lambda i: tr.train_step(batch, lab, w, i)
+    for i in range(2):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step(2)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != STEP_LAUNCHES:
+        fail(f"launches per training step {counts}, expected {STEP_LAUNCHES}")
+    samples = {"kernel": [], "plain": []}
+    # plain, kernel, kernel, plain: both paths see the same host and card
+    for path in ("plain", "kernel", "kernel", "plain"):
+        tr.apply_fn = paths["auto" if path == "kernel" else False]
+        samples[path] += [time_ms(lambda: step(3), iters=1, warmup=0)
+                          for _ in range(2)]
+    tr.apply_fn = paths["auto"]
+    ms = float(np.median(samples["kernel"]))
+    busy, kernels = device_ms(lambda: step(4), iters=2, warmup=0)
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+    emit(phase="train_step", batch=TRAIN_BATCH, loss_kernel_path=loss_kernel,
+         loss_abs_diff=loss_diff, grad_rel_worst=worst,
+         grad_rel_median=float(np.median(list(rel.values()))),
+         leaves_checked=len(rel), unused_leaves=sorted(UNUSED_LEAVES),
+         key_bias_grad_norms_kernel_plain=dict(sorted(noise.items())[:4]),
+         key_bias_grad_norm_max=max(max(v) for v in noise.values()),
+         limits=STEP_LIMITS, launches_per_step=counts, ms=ms,
+         ms_samples=samples["kernel"], plain_ms=float(np.median(samples["plain"])),
+         plain_ms_samples=samples["plain"], pairs_per_s=TRAIN_BATCH / ms * 1e3,
+         device_busy_ms=busy, idle_share=1.0 - busy / ms,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         top_kernels_ms=top)
+    del tr
+    torch.cuda.empty_cache()
+    return cfg, counts
+
+
+def trainer_phase(dev, cfg):
+    """``Trainer.train()`` for six steps with one dev evaluation and a
+    checkpoint at its window; the checkpoint restores bit-equal."""
+    import shutil
+
+    import torch
+
+    from vault_tpu_torch.data.loader import InMemoryDataset
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.training.checkpoint import restore_checkpoint
+    from vault_tpu_torch.training.experiment import ExperimentHandler
+    from vault_tpu_torch.training.trainer import Trainer, classifier_apply_fn
+
+    feats, labels = entry_features(cfg, 2 * TRAIN_BATCH, seed=4)
+    dev_ds = InMemoryDataset(*entry_features(cfg, TRAIN_BATCH, seed=5))
+    # the checkpoint (1.8 GB) goes to the build directory, not the output
+    ckpt_dir = Path("build") / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    handler = ExperimentHandler(str(OUT_DIR / "experiment_logs"), "chip_smoke")
+    handler.set_params({"model": "vault_base(bert-base-uncased)", "steps": 6})
+    handler.set_name_params(["model"])
+    args = train_args(num_train_epochs=3, eval_steps=6, checkpoint_dir=str(ckpt_dir))
+    tr = Trainer(classifier_apply_fn(cfg, args),
+                 VaultForClassification(cfg, device=dev, dtype=torch.float32, seed=1),
+                 args, InMemoryDataset(feats, labels), dev_dataset=dev_ds,
+                 exp_handler=handler, device=dev)
+    before = {k: tr.params[k].detach().clone() for k in
+              ("bert.layers.0.mlp_in.w", "head.out.w",
+               f"vilt.layers.{cfg.vilt.num_hidden_layers - 1}.mlp_out.w")}
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: 6 * STEP_LAUNCHES[k] + EVAL_LAUNCHES[k] for k in STEP_LAUNCHES}
+    if counts != want:
+        fail(f"Trainer.train() launches {counts}, expected {want} (6 steps, 1 "
+             "evaluation batch)")
+    series = handler._series
+    values = series["train_loss"] + series["eval_loss"]
+    if len(series["train_loss"]) != 1 or not all(math.isfinite(v) for v in values):
+        fail(f"window losses {series}")
+    changed = {k: (tr.params[k] - v).abs().max().item() for k, v in before.items()}
+    if not all(c > 0.0 for c in changed.values()):
+        fail(f"parameters did not change: {changed}")
+    reset_counts()
+    tr.evaluate(dev_ds)
+    eval_counts = read_counts()
+    if eval_counts != EVAL_LAUNCHES:
+        fail(f"launches of one evaluation batch {eval_counts}, expected {EVAL_LAUNCHES}")
+    restored = restore_checkpoint(str(ckpt_dir / "last.ckpt"), tr.checkpoint_state(0))
+    live = tr.checkpoint_state(6)
+    flat = lambda t: [t["step"], t["opt_state"][0],
+                      *_leaves(t["params"]), *_leaves(t["opt_state"][1:])]
+    same = [bool(np.array_equal(np.asarray(a), np.asarray(b))) if not isinstance(
+        a, torch.Tensor) else torch.equal(a, b) for a, b in zip(flat(restored), flat(live))]
+    if not all(same) or len(same) != len(flat(live)):
+        fail(f"the checkpoint restores {sum(same)} of {len(same)} leaves bit-equal")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit(phase="trainer", steps=6, wall_s=wall, train_loss=series["train_loss"],
+         eval=dict(loss=series["eval_loss"], accuracy=series["eval_accuracy"]),
+         launches=counts, launches_per_eval_batch=eval_counts,
+         max_param_change=changed, checkpoint_leaves_bit_equal=len(same),
+         logs=handler.directory())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def main():
@@ -518,23 +870,39 @@ def main():
               "mlp_block": check_mlp(gen, dev, postln=False),
               "mlp_postln": check_mlp(gen, dev, postln=True)}
 
+    checks["mlp_block_bwd"] = check_mlp_bwd(gen, dev, postln=False)
+    checks["mlp_postln_bwd"] = check_mlp_bwd(gen, dev, postln=True)
+
     model, _, counts = forward_phase(dev)
     serving_phase(model)
+    del model
+    torch.cuda.empty_cache()
+    cfg, step_counts = train_step_phase(dev)
+    trainer_phase(dev, cfg)
 
     sources = {"encoder_attention": ("vault_tpu_torch/csrc/attention.cu",
                                      "vault_tpu/ops/pallas_attention.py:92"),
                "mlp_block": ("vault_tpu_torch/csrc/mlp.cu",
                              "vault_tpu/ops/pallas_mlp.py:132"),
                "mlp_postln": ("vault_tpu_torch/csrc/mlp.cu",
-                              "vault_tpu/ops/pallas_mlp.py:832")}
+                              "vault_tpu/ops/pallas_mlp.py:832"),
+               "mlp_block_bwd": ("vault_tpu_torch/csrc/mlp_bwd.cu",
+                                 "vault_tpu/ops/pallas_mlp.py:523"),
+               "mlp_postln_bwd": ("vault_tpu_torch/csrc/mlp_bwd.cu",
+                                  "vault_tpu/ops/pallas_mlp.py:1231")}
     kernels = []
     for name, rows in checks.items():
-        timed = [r for r in rows if "ms" in r]
+        timed = [r for r in rows if "ms" in r and r.get("path") != "train"]
+        at_train_rows = [r for r in rows if "ms" in r and r.get("path") == "train"]
         # attention: the main path launches it equally often at L = 40 and
         # L = 256, so its numbers are the mean over those two shapes
         mean = lambda key: sum(r[key] for r in timed) / len(timed)
+        # launches: the forward kernels' from one forward, the backward
+        # kernels' from one training step (the paths that run them)
         entry = dict(name=name, route="cuda", source=sources[name][0],
-                     replaces=sources[name][1], launches=counts[name],
+                     replaces=sources[name][1],
+                     launches=counts[name] or step_counts[name],
+                     launches_per_train_step=step_counts[name],
                      max_abs_err=max(r["max_abs_err"] for r in timed),
                      ms=mean("ms"), wall_ms=mean("wall_ms"), plain_ms=mean("plain_ms"),
                      bound_ms=mean("bound_ms"),
@@ -543,6 +911,13 @@ def main():
         if name == "encoder_attention":
             entry["replaces_also"] = ["vault_tpu/ops/pallas_attention.py:148",
                                       "vault_tpu/ops/pallas_attention.py:245"]
+        if name.endswith("_bwd"):
+            entry["wrapper_ms"] = mean("wrapper_ms")
+        for r in at_train_rows:  # the forward kernels at the training rows
+            entry.update(train_rows=r["rows"], train_ms=r["ms"],
+                         train_plain_ms=r["plain_ms"],
+                         train_library_ms=r["library_ms"],
+                         train_bound_ms=r["bound_ms"], train_bound_by=r["bound_by"])
         kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,9 +2,11 @@
 
 Marked ``cuda``: without a CUDA device every test here skips (a skip is not
 verification; ``python3 chip_smoke.py`` holds the kernels at the main
-path's shapes).  On a machine with a card: ``python -m pytest -m cuda
-tests/test_torch_cuda.py``.  Limits as in chip_smoke.py: bf16 6.25e-2 (a few
-bf16 ulps of outputs of magnitude ~4), fp32 1e-4 (summation order).
+path's shapes).  On a machine with a card: ``python3 -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py`` (the repository's conftest imports JAX).  Limits
+as in chip_smoke.py: forward bf16 6.25e-2 (a few bf16 ulps of outputs of
+magnitude ~4), fp32 1e-4 (summation order); backward, per output, 2^-5
+(bf16) or 1e-4 (fp32) of max(1, max|plain|).
 """
 
 import pytest
@@ -137,3 +139,181 @@ def test_processor_on_the_card_matches_the_host(dev):
     np.testing.assert_array_equal(card["input_ids"], host["input_ids"])
     err = np.abs(card["pixel_values"].cpu().numpy() - host["pixel_values"]).max()
     assert err <= 2.0 / 255 + 1e-6, err
+
+
+BWD_LIMITS = {torch.bfloat16: 2.0 ** -5, torch.float32: 1e-4}
+
+
+def _mlp_operands(dev, rows, dtype, with_mask, i=3072, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * std + mean).to(dtype)
+
+    ops = dict(gamma=rnd(768, std=0.1, mean=1.0), beta=rnd(768, std=0.1),
+               w1=rnd(768, i, std=0.02), b1=rnd(i, std=0.02),
+               w2=rnd(i, 768, std=0.02), b2=rnd(768, std=0.02), x=rnd(rows, 768),
+               g=rnd(rows, 768))
+    ops["m"] = None
+    if with_mask:
+        ops["m"] = torch.where(torch.rand((rows, 768), generator=g, device=dev) < 0.9,
+                               1 / 0.9, 0.0).to(dtype)
+    return ops
+
+
+_ARGS = ("gamma", "beta", "w1", "b1", "w2", "b2", "x", "g", "m")
+
+
+def _assert_close_scaled(out, ref, dtype):
+    for n, a, b in zip(("dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dx"), out, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, n
+        scale = max(1.0, b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item() / scale
+        assert err <= BWD_LIMITS[dtype], (n, err)
+
+
+BWD_CASES = [(False, 8192, torch.bfloat16), (True, 1280, torch.bfloat16),
+             (False, 77, torch.bfloat16), (True, 77, torch.bfloat16),
+             (False, 77, torch.float32), (True, 1280, torch.float32)]
+
+
+@pytest.mark.parametrize("postln,rows,dtype", BWD_CASES)
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_mlp_bwd_kernels_match_plain(dev, postln, rows, dtype, with_mask):
+    """The backward kernels at the training main path's rows (batch 32:
+    8192 ViLT rows, 1280 BERT rows) and at a ragged 77; two launches give
+    the same bits."""
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    o = _mlp_operands(dev, rows, dtype, with_mask)
+    args = [o[k] for k in _ARGS]
+    kernel = cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd
+    plain = cm.mlp_postln_bwd_plain if postln else cm.mlp_block_bwd_plain
+    n = kernel.launches
+    out, again = kernel(*args), kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 2
+    _assert_close_scaled(out, ref, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("postln", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_gradients_flow_through_the_forward_kernels(dev, postln, with_mask):
+    """Before the forward kernels were autograd Functions their outputs had
+    no grad_fn and cut the graph.  Through the dispatcher on the card (the
+    forward kernel, then the backward kernel) every input but the mask gets
+    the gradient that autograd of the plain composition gives."""
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    o = _mlp_operands(dev, 300, torch.bfloat16, with_mask, i=768)
+    names = _ARGS[:7]
+    grads = []
+    for path in ("kernel", "plain"):
+        leaves = [o[k].clone().requires_grad_() for k in names]
+        ln_p = {"scale": leaves[0], "bias": leaves[1]}
+        p_in, p_out = {"w": leaves[2], "b": leaves[3]}, {"w": leaves[4], "b": leaves[5]}
+        if path == "kernel":
+            block = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
+            n = (cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd).launches
+            out = block(ln_p, p_in, p_out, leaves[6], 1e-12, "gelu", o["m"])
+            assert out.grad_fn is not None
+        else:
+            fwd = cm._mlp_postln_plain if postln else cm._mlp_block_plain
+            out = fwd(ln_p, p_in, p_out, leaves[6], 1e-12, "gelu", o["m"])
+        out.backward(o["g"])
+        grads.append([l.grad for l in leaves])
+    assert (cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd).launches == n + 1
+    torch.cuda.synchronize()
+    _assert_close_scaled(grads[0], grads[1], torch.bfloat16)
+
+
+def test_gradients_flow_through_the_attention_kernel(dev):
+    from vault_tpu_torch.ops import cuda_attention as ca
+    from vault_tpu_torch.ops.masks import extend_attention_mask
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 4, 40, 64), generator=g, device=dev)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    mask = torch.ones((2, 40), dtype=torch.int32, device=dev)
+    mask[1, 25:] = 0
+    bias = extend_attention_mask(mask)
+    cot = torch.randn((2, 4, 40, 64), generator=g, device=dev).to(torch.bfloat16)
+    n = ca.fused_attention.launches
+    out = ca.fused_attention(q, k, v, bias)
+    assert out.grad_fn is not None and ca.fused_attention.launches == n + 1
+    got = torch.autograd.grad(out, (q, k, v), cot)
+    ref = torch.autograd.grad(ca.attention_plain(q, k, v, bias), (q, k, v), cot)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)  # the backward recomputes the plain version
+
+
+def test_training_gradients_reach_every_layer(dev):
+    """A wide two-layer VAuLT, bf16, dropout on: one loss.backward() on the
+    kernel path gives every parameter read by the model a nonzero gradient
+    within 5e-2 (relative norm) of the plain path's.  The key biases are
+    the exception: the softmax is invariant to the shift q . b_k they add
+    to a query's scores, so their gradient is 0 in exact arithmetic and
+    only its finiteness is checked."""
+    from vault_tpu_torch.config import VaultConfig, tiny_text_config, tiny_vilt_config
+    from vault_tpu_torch.convert import param_tree
+    from vault_tpu_torch.models.vault import (
+        VaultForClassification,
+        batch_to_device,
+        vault_for_classification,
+    )
+
+    wide = dict(hidden_size=768, num_attention_heads=12, intermediate_size=1536,
+                hidden_dropout_prob=0.1)
+    cfg = VaultConfig(vilt=tiny_vilt_config(**wide), text_tower=tiny_text_config(**wide))
+    sd = VaultForClassification(cfg, dtype=torch.bfloat16).state_dict()
+    batch = batch_to_device({
+        "input_ids": torch.randint(1, 99, (4, 8)),
+        "attention_mask": torch.ones((4, 8), dtype=torch.int64),
+        "token_type_ids": torch.zeros((4, 8), dtype=torch.int64),
+        "pixel_values": torch.randn((4, 3, 64, 64)),
+        "pixel_mask": torch.ones((4, 64, 64), dtype=torch.int64)}, dev)
+    grads = {}
+    for impl in ("auto", False):
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in sd.items()}
+        out = vault_for_classification(
+            param_tree(leaves), cfg, batch, deterministic=False,
+            generator=torch.Generator(device=dev).manual_seed(0), use_pallas=impl,
+            remat=True)
+        out.float().logsumexp(-1).sum().backward()
+        grads[impl] = {k: v.grad for k, v in leaves.items()}
+    unused = {"vilt.text_embeddings.word", "vilt.text_embeddings.position"}
+    for k, gp in grads[False].items():
+        gk = grads["auto"][k]
+        if k in unused:
+            assert gk is None and gp is None, k
+            continue
+        assert gk is not None and torch.isfinite(gk).all(), k
+        if k.endswith(".k.b"):
+            continue  # 0 in exact arithmetic (softmax shift): rounding noise
+        assert gk.float().abs().sum() > 0, k
+        rel = ((gk.float() - gp.float()).norm() / gp.float().norm()).item()
+        assert rel <= 5e-2, (k, rel)
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    o = _mlp_operands(dev, 16, torch.bfloat16, False, i=256)
+    args = [o[k] for k in _ARGS]
+    n = cm.fused_mlp_block_bwd.launches
+    small = [t[..., :32] if t is not None and t.shape[-1] == 768 else t for t in args]
+    bad = {
+        "hidden size": [a.contiguous() if a is not None else a for a in small],
+        "I multiple": [o["gamma"], o["beta"], o["w1"][:, :200].contiguous(),
+                       o["b1"][:200].contiguous(), o["w2"][:200].contiguous(),
+                       o["b2"], o["x"], o["g"], None],
+        "g not contiguous": args[:7] + [o["g"].t().contiguous().t(), None],
+        "g dtype": args[:7] + [o["g"].float(), None],
+    }
+    for fn in (cm.fused_mlp_block_bwd, cm.fused_mlp_postln_block_bwd):
+        for what, a in bad.items():
+            with pytest.raises((ValueError, TypeError)):
+                fn(*a)
+    assert cm.fused_mlp_block_bwd.launches == n

@@ -151,3 +151,162 @@ def test_postln_dispatch_draws_mask_in_x_dtype():
     tr2 = cm.fused_postln_mlp(lp, cfg, t["x"], g2, deterministic=False)
     assert tr1.dtype == torch.bfloat16 and torch.equal(tr1, tr2)
     assert not torch.equal(tr1, det)
+
+
+# ---------------------------------------------------------------------------
+# Backward: the plain versions against the Pallas backward kernels
+# (interpret mode) and against jax.vjp of the XLA compositions.  fp32
+# tolerances are the JAX package's own test's (atol 3e-5, rtol 2e-4: the
+# Pallas kernels use the A&S erf and another summation order).  bf16 compares
+# in fp32 after the cast, per output, at 2^-6 * max(1, max|reference|) (two
+# bf16 ulps at the output's scale): the outputs are sums of products of
+# bf16-rounded activations (dh1, a, y, ds) that the two sides round at
+# different points, and where such a sum cancels, the difference of an ulp
+# in its terms stays at the scale of the terms, not of the result.
+# ---------------------------------------------------------------------------
+
+BWD_ATOL = {"float32": 3e-5, "bfloat16": 2.0 ** -6}
+BWD_RTOL = {"float32": 2e-4, "bfloat16": 0.0}
+BWD_NAMES = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dx")
+
+
+def _bwd_inputs(dtype, with_mask, seed):
+    j, t = _mlp_inputs(dtype, with_mask, rows=(2, 12), seed=seed)
+    g = np.random.default_rng(seed + 100).normal(size=(2, 12, 32)).astype(np.float32)
+    j["g"] = jnp.asarray(g, getattr(jnp, dtype))
+    t["g"] = torch.from_numpy(g).to(getattr(torch, dtype))
+    return j, t
+
+
+_ORDER = ("gamma", "beta", "w1", "b1", "w2", "b2", "x", "g")
+
+
+def _assert_grads(out, ref, dtype):
+    assert len(out) == 7
+    for name, o, r in zip(BWD_NAMES, out, ref):
+        r = _np(r)
+        scale = max(1.0, float(np.abs(r).max())) if dtype == "bfloat16" else 1.0
+        np.testing.assert_allclose(_np(o), r, atol=BWD_ATOL[dtype] * scale,
+                                   rtol=BWD_RTOL[dtype], err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_bwd_plain_vs_pallas(dtype, with_mask, postln):
+    j, t = _bwd_inputs(dtype, with_mask, seed=3)
+    pallas = pm.fused_mlp_postln_block_bwd if postln else pm.fused_mlp_block_bwd
+    plain = cm.mlp_postln_bwd_plain if postln else cm.mlp_block_bwd_plain
+    ref = pallas(*(j[k] for k in _ORDER), j.get("m"), eps=1e-12, interpret=True,
+                 row_tile=8)
+    out = plain(*(t[k] for k in _ORDER), t.get("m"), eps=1e-12)
+    for o, name in zip(out, BWD_NAMES):
+        want = t["x"] if name == "dx" else t[name[1:]]
+        assert o.shape == want.shape and o.dtype == want.dtype, name
+    _assert_grads(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_bwd_plain_vs_xla_vjp(dtype, with_mask, postln):
+    import jax
+
+    j, t = _bwd_inputs(dtype, with_mask, seed=4)
+    xla = pm._mlp_postln_xla if postln else pm._mlp_block_xla
+    m = j.get("m")
+
+    def f(gamma, beta, w1, b1, w2, b2, x):
+        return xla({"scale": gamma, "bias": beta}, {"w": w1, "b": b1},
+                   {"w": w2, "b": b2}, x, 1e-12, "gelu", m)
+
+    _, vjp = jax.vjp(f, *(j[k] for k in _ORDER[:-1]))
+    ref = vjp(j["g"])
+    plain = cm.mlp_postln_bwd_plain if postln else cm.mlp_block_bwd_plain
+    _assert_grads(plain(*(t[k] for k in _ORDER), t.get("m"), eps=1e-12), ref,
+                  dtype)
+
+
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_bwd_plain_vs_autograd_of_plain_forward(postln):
+    """The second reference: autograd through the plain forward
+    composition, fp32 (summation order only: atol 1e-5)."""
+    _, t = _bwd_inputs("float32", True, seed=5)
+    fwd = cm._mlp_postln_plain if postln else cm._mlp_block_plain
+    leaves = [t[k].clone().requires_grad_() for k in _ORDER[:-1]]
+    out = fwd({"scale": leaves[0], "bias": leaves[1]}, {"w": leaves[2], "b": leaves[3]},
+              {"w": leaves[4], "b": leaves[5]}, leaves[6], 1e-12, "gelu", t["m"])
+    ref = torch.autograd.grad(out, leaves, t["g"])
+    plain = cm.mlp_postln_bwd_plain if postln else cm.mlp_block_bwd_plain
+    for name, o, r in zip(BWD_NAMES, plain(*(t[k] for k in _ORDER), t["m"]), ref):
+        np.testing.assert_allclose(_np(o), _np(r), atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("postln", [False, True])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_fused_mlp_function_gradcheck(postln, act):
+    """The autograd Function (plain forward and backward on the CPU) in
+    float64: torch.autograd.gradcheck against finite differences; the mask
+    is a constant of the draw and receives no gradient."""
+    rng = np.random.default_rng(6)
+    h, i, rows = 8, 16, 5
+
+    def t(*shape, std=1.0, mean=0.0):
+        return torch.tensor(rng.normal(size=shape) * std + mean,
+                            dtype=torch.float64, requires_grad=True)
+
+    args = [t(h, std=0.2, mean=1.0), t(h, std=0.1), t(h, i, std=0.3), t(i, std=0.1),
+            t(i, h, std=0.3), t(h, std=0.1), t(rows, h)]
+    m = torch.tensor(np.where(rng.random((rows, h)) < 0.8, 1.25, 0.0),
+                     requires_grad=True)
+    block = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
+
+    def f(gamma, beta, w1, b1, w2, b2, x):
+        return block({"scale": gamma, "bias": beta}, {"w": w1, "b": b1},
+                     {"w": w2, "b": b2}, x, 1e-12, act, m)
+
+    assert torch.autograd.gradcheck(f, args, eps=1e-6, atol=1e-6)
+    f(*args).sum().backward()
+    assert m.grad is None
+    assert all(a.grad is not None for a in args)
+
+
+def test_fused_mlp_function_grads_keep_input_dtypes():
+    _, t = _bwd_inputs("bfloat16", True, seed=7)
+    leaves = [t[k].clone().requires_grad_() for k in _ORDER[:-1]]
+    out = cm.fused_mlp_block({"scale": leaves[0], "bias": leaves[1]},
+                             {"w": leaves[2], "b": leaves[3]},
+                             {"w": leaves[4], "b": leaves[5]}, leaves[6],
+                             1e-12, "gelu", t["m"])
+    assert out.dtype == torch.bfloat16
+    out.backward(t["g"])
+    assert all(l.grad.dtype == torch.bfloat16 and l.grad.shape == l.shape
+               for l in leaves)
+
+
+def test_attention_function_grads_match_plain_autograd():
+    """fused_attention's Function recomputes through the plain composition:
+    its gradients equal autograd of attention_plain; the bias gets none."""
+    _, tx = _attn_inputs("float32", seed=2)
+    q, k, v = (a.clone().requires_grad_() for a in tx[:3])
+    bias = tx[3].clone().requires_grad_()
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    ca.fused_attention(q, k, v, bias).backward(g)
+    leaves = [a.clone().requires_grad_() for a in tx[:3]]
+    ref = torch.autograd.grad(ca.attention_plain(*leaves, tx[3]), leaves, g)
+    for a, r in zip((q, k, v), ref):
+        torch.testing.assert_close(a.grad, r, atol=1e-6, rtol=0)
+    assert bias.grad is None
+
+
+def test_backward_wrappers_never_fall_back():
+    """The backward kernel wrappers take CUDA tensors only: CPU tensors
+    raise before anything is built or counted."""
+    _, t = _mlp_inputs("float32", False, rows=(4,), h=768, i=256)
+    counts = (cm.fused_mlp_block_bwd.launches, cm.fused_mlp_postln_block_bwd.launches)
+    for fn in (cm.fused_mlp_block_bwd, cm.fused_mlp_postln_block_bwd):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"], t["b2"], t["x"],
+               t["x"])
+    assert counts == (cm.fused_mlp_block_bwd.launches,
+                      cm.fused_mlp_postln_block_bwd.launches)

@@ -242,3 +242,62 @@ def test_vault_base_geometry_matches_jax_fp32():
     with torch.inference_mode():
         out = tvault.vault_apply(model, tcfg, use_pallas=False, **tb).pooler_output
     np.testing.assert_allclose(_np(out), _np(ref), atol=ATOL["float32"])
+
+
+def test_params_to_jax_inverts_params_from_jax():
+    from vault_tpu_torch.convert import param_tree, params_to_jax
+
+    jcfg, tcfg = _cfgs()
+    jp = jax.tree.map(np.asarray, _jax_params(jcfg, "bfloat16"))
+    sd = params_from_jax(jp, tcfg)
+    back = params_to_jax(sd)
+    assert jax.tree.structure(back) == jax.tree.structure(jp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    tree = param_tree(sd)
+    assert tree["bert"]["layers"][1]["mlp_in"]["w"] is sd["bert.layers.1.mlp_in.w"]
+    assert len(tree["vilt"]["layers"]) == tcfg.vilt.num_hidden_layers
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("impl", IMPLS)
+def test_vault_gradients_match_jax(impl, remat):
+    """Gradients of the classifier's CE loss with respect to every
+    parameter: port autograd (through the kernels' Functions, which run
+    their plain versions on the CPU) against jax.value_and_grad of the JAX
+    package's vault_for_classification (Pallas kernels interpreted), fp32,
+    dropout off.  Per leaf, max|port - jax| <= 1e-4 * max(1, max|jax|):
+    summation order and the Pallas kernels' A&S erf (measured max 3e-6)."""
+    from vault_tpu_torch.convert import param_tree
+    from vault_tpu_torch.training.losses import softmax_cross_entropy
+
+    jcfg, tcfg = _cfgs()
+    jp = _jax_params(jcfg, "float32")
+    batch = _batch(seed=5)
+    jb, tb = _sides(batch, "float32")
+    labels = np.array([0, 2, 1])
+
+    def jloss(p):
+        logits = jvault.vault_for_classification(p, jcfg, jb, head_dropout=0.0,
+                                                 deterministic=True,
+                                                 use_pallas=impl, remat=remat)
+        logp = jax.nn.log_softmax(logits, axis=-1)
+        return -jnp.take_along_axis(logp, jnp.asarray(labels)[:, None], -1).mean()
+
+    jl, jg = jax.value_and_grad(jloss)(jp)
+    sd = {k: v.requires_grad_() for k, v in
+          params_from_jax(jax.tree.map(np.asarray, jp), tcfg).items()}
+    logits = tvault.vault_for_classification(param_tree(sd), tcfg, tb,
+                                             head_dropout=0.0, deterministic=True,
+                                             use_pallas=impl, remat=remat)
+    loss = softmax_cross_entropy(logits, torch.as_tensor(labels))
+    np.testing.assert_allclose(loss.item(), float(jl), atol=1e-6)
+    loss.backward()
+    want = params_from_jax(jax.tree.map(np.asarray, jg), tcfg)
+    for k, g in want.items():
+        got = sd[k].grad
+        got = torch.zeros_like(g) if got is None else got
+        scale = max(1.0, g.abs().max().item())
+        err = (got - g).abs().max().item()
+        assert err <= 1e-4 * scale, (k, err, scale)

@@ -116,6 +116,15 @@ def test_dropout_and_mask():
     assert set(np.unique(m1.numpy()).tolist()) <= {0.0, float(np.float32(1 / 0.9))}
 
 
+
+def test_dropout_mask_needs_a_generator():
+    """Like dropout, the mask never draws from the global generator: a
+    missing generator raises instead of drawing an unreproducible mask."""
+    state = torch.random.get_rng_state()
+    with pytest.raises(ValueError, match="Generator"):
+        tnn.dropout_mask(None, (4, 4), 0.1)
+    assert torch.equal(state, torch.random.get_rng_state())
+
 def test_extend_attention_mask():
     mask = np.array([[1, 1, 0], [1, 0, 0]], np.int32)
     ref = jmasks.extend_attention_mask(_j(mask))

@@ -1,24 +1,32 @@
-"""Parameter bridge from the JAX package.
+"""Parameter and optimizer-state bridge to and from the JAX package's
+layout.
 
 :func:`params_from_jax` turns that package's parameter pytree, given as
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` on the
-JAX side; this port never sees JAX), into this port's state dict.  Both
-packages store Linear weights (in, out) and the patch conv OIHW, so every
-leaf is a copy; the only reshaping is that the JAX package stacks encoder
-layers on axis 0 and the port keeps them as ``layers.<i>`` modules.
+JAX side; this port never sees JAX) or of tensors, into this port's state
+dict.  :func:`params_to_jax` is the reverse.  Both packages store Linear
+weights (in, out) and the patch conv OIHW, so every leaf is a copy; the only
+reshaping is that the JAX package stacks encoder layers on axis 0 and the
+port keeps them as ``layers.<i>`` modules.  The optimizer's moments are
+parameter-shaped trees, so :func:`opt_state_from_jax` and
+:func:`opt_state_to_jax` map them the same way, with the step count beside
+them as in the JAX package's ``HfAdamWState(count, mu, nu)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from vault_tpu_torch.config import VaultConfig
+from vault_tpu_torch.training.optimizer import AdamWState
 
 
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()
@@ -26,14 +34,30 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def params_from_jax(tree: Mapping, cfg: VaultConfig) -> Dict[str, torch.Tensor]:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 becomes ml_dtypes' bfloat16
+    (the JAX package's host type), so ``ml_dtypes`` is imported for bf16
+    leaves only.  The array is a copy: a host tensor's later in-place
+    updates do not reach it."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(tree: Mapping,
+                    cfg: Optional[VaultConfig] = None) -> Dict[str, torch.Tensor]:
     """State dict of :class:`~vault_tpu_torch.models.vault.
     VaultForClassification` (or of any subtree's module) from the JAX
     package's pytree.  Key ``a.layers.<i>.b.c`` holds leaf
-    ``tree[a]["layers"][b][c][i]``."""
+    ``tree[a]["layers"][b][c][i]``.  With ``cfg`` the stacked layer axes are
+    checked against its depths."""
     n_layers = {"bert": (cfg.text_tower.num_hidden_layers
-                         if cfg.text_tower is not None else None),
-                "vilt": cfg.vilt.num_hidden_layers}
+                         if cfg is not None and cfg.text_tower is not None
+                         else None),
+                "vilt": cfg.vilt.num_hidden_layers if cfg is not None else None}
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix, tower):
@@ -54,7 +78,7 @@ def params_from_jax(tree: Mapping, cfg: VaultConfig) -> Dict[str, torch.Tensor]:
                 for k, v in n.items():
                     collect(v, f"{path}.{k}" if path else k)
             else:
-                leaves[path] = np.asarray(n)
+                leaves[path] = n if isinstance(n, torch.Tensor) else np.asarray(n)
 
         collect(node, "")
         depth = {a.shape[0] for a in leaves.values()}
@@ -68,3 +92,81 @@ def params_from_jax(tree: Mapping, cfg: VaultConfig) -> Dict[str, torch.Tensor]:
 
     walk(tree, "", None)
     return out
+
+
+def _insert(tree: dict, parts, leaf):
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = leaf
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                  as_numpy: bool = True) -> Dict[str, Any]:
+    """The JAX package's nested parameter tree from a state dict: keys split
+    on ".", ``layers.<i>`` leaves stacked on axis 0 (on the host).  Leaves
+    are numpy arrays (:func:`to_numpy`), or CPU tensors when not
+    ``as_numpy``; either way they are copies, never the state dict's own
+    tensors."""
+    tree: Dict[str, Any] = {}
+    stacks: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        if "layers" in parts[:-1] and parts[parts.index("layers") + 1].isdigit():
+            j = parts.index("layers")
+            where = (tuple(parts[:j + 1]), tuple(parts[j + 2:]))
+            stacks.setdefault(where, {})[int(parts[j + 1])] = t
+        else:
+            # a copy even on the host: the trainer's checkpoint is written on
+            # another thread while the next step updates the masters in place
+            _insert(tree, parts, t.detach().to("cpu", copy=True))
+    for (prefix, rest), layers in stacks.items():
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"{'.'.join(prefix)}: layers {sorted(layers)} are "
+                             "not numbered 0..n-1")
+        _insert(tree, list(prefix + rest),
+                torch.stack([layers[i].detach() for i in range(len(layers))]).cpu())
+    if as_numpy:
+        tree = _map(to_numpy, tree)
+    return tree
+
+
+def _map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def opt_state_from_jax(state, cfg: Optional[VaultConfig] = None) -> AdamWState:
+    """The port's optimizer state from the JAX package's ``HfAdamWState``
+    (or any ``(count, mu, nu)`` triple of host trees)."""
+    count, mu, nu = state
+    return AdamWState(int(np.asarray(count)), params_from_jax(mu, cfg),
+                      params_from_jax(nu, cfg))
+
+
+def opt_state_to_jax(state: AdamWState, as_numpy: bool = True) -> tuple:
+    """``(count, mu, nu)`` in the JAX package's layout: count an int32
+    scalar, the moments nested and stacked as :func:`params_to_jax`."""
+    count = np.asarray(state.count, np.int32)
+    return (count if as_numpy else torch.tensor(state.count, dtype=torch.int32),
+            params_to_jax(state.mu, as_numpy), params_to_jax(state.nu, as_numpy))
+
+
+def param_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The nested form the model functions read, from a state dict: keys
+    split on "." into dicts, numbered children (``layers.<i>``) into lists.
+    The leaves are the state dict's own tensors, so autograd reaches them
+    (the trainer's bf16 compute copy is passed this way)."""
+    root: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        _insert(root, key.split("."), t)
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)

@@ -37,6 +37,13 @@ __device__ __forceinline__ float activate(float x, int act) {
   return fmaxf(x, 0.0f);
 }
 
+// d/dh of the exact GELU: Phi(h) + h phi(h), with erff.
+__device__ __forceinline__ float gelu_grad(float h) {
+  const float cdf = 0.5f * (1.0f + erff(h * 0.70710678118654752440f));
+  const float pdf = expf(-0.5f * h * h) * 0.39894228040143267794f;  // 1/sqrt(2 pi)
+  return cdf + h * pdf;
+}
+
 enum Dtype { kF32 = 0, kBF16 = 1 };
 
 }  // namespace vt

@@ -1,0 +1,317 @@
+// Pieces shared by the fused MLP kernels, forward (mlp.cu) and backward
+// (mlp_bwd.cu): the tiling constants, cp.async helpers, the split picker
+// and the main forward walk (mlp_main), which the post-LN backward reruns
+// to rebuild the MLP output before its LayerNorm backward.
+//
+// mlp_main: grid (row tiles, splits).  Block (r, s) owns rows [32 r, 32 r +
+// 32) and I columns [s * ic, (s + 1) * ic).  It computes LN(x) (pre-LN) or
+// x (post-LN) once into shared memory, then walks its slice 128 columns at
+// a time: act(xa W1[:, j:j+128] + b1) into shared memory (cast to x's
+// type; also written to a_out when that is given), then that slice's
+// contribution to all H output columns, accumulated in fp32 across the
+// walk.  W1 and W2 stream through shared memory in tiles, double-buffered
+// with cp.async.  The block writes its fp32 partial (32, H) to ws[s].
+#pragma once
+
+#include <mma.h>
+
+#include <math.h>
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int BM = 32;       // rows per block of mlp_main
+constexpr int NW = 8;        // warps per block
+constexpr int NT = NW * 32;  // threads per block
+constexpr int BN1 = 128;     // I columns per sub-slice (16 per warp)
+constexpr int TPR = NT / BM; // threads per row in mlp_main's prologue (8)
+
+template <typename T> struct Tiles {
+  static constexpr int PAD = 16 / sizeof(T);                // 16-byte row pad
+  static constexpr int KT1 = 256 / sizeof(T);               // W1 tile rows (k)
+  static constexpr int KT2 = 64 / sizeof(T);                // W2 tile rows (k)
+  static constexpr int LD1 = BN1 + PAD;                     // W1 tile / hs ld
+  static constexpr int LDF = BN1 + 4;                       // fp32 staging ld
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <int W>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared-memory bytes of mlp_main.
+template <typename T, int H>
+constexpr size_t main_smem() {
+  using TL = Tiles<T>;
+  constexpr size_t w1 = (size_t)TL::KT1 * TL::LD1 * sizeof(T);
+  constexpr size_t w2 = (size_t)TL::KT2 * (H + TL::PAD) * sizeof(T);
+  constexpr size_t buf = w1 > w2 ? w1 : w2;
+  return 2 * buf + (size_t)BM * (H + TL::PAD) * sizeof(T)   // wbuf x2, xa
+         + (size_t)BM * TL::LD1 * sizeof(T)                  // hs
+         + (std::is_same<T, float>::value ? 0 : (size_t)BM * TL::LDF * sizeof(float));
+}
+
+template <typename T, int NF, bool POSTLN>
+__global__ void __launch_bounds__(NT)
+mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
+         const T* __restrict__ beta, const T* __restrict__ w1,
+         const T* __restrict__ b1, const T* __restrict__ w2,
+         float* __restrict__ ws, T* __restrict__ a_out, int rows, int rows_pad,
+         int I, int ic, float eps, int act) {
+  using TL = Tiles<T>;
+  constexpr int H = NF * 16 * NW;
+  constexpr int LDX = H + TL::PAD;
+  constexpr int LD2 = H + TL::PAD;
+  constexpr int LD1 = TL::LD1;
+  constexpr int KT1 = TL::KT1, KT2 = TL::KT2;
+  constexpr int N1 = H / KT1;        // W1 tiles per sub-slice
+  constexpr int N2 = BN1 / KT2;      // W2 tiles per sub-slice
+  constexpr int BUF = (KT1 * LD1 > KT2 * LD2) ? KT1 * LD1 : KT2 * LD2;  // elements
+  constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* wbuf = reinterpret_cast<T*>(smem_raw);  // 2 x BUF
+  T* xa = wbuf + 2 * BUF;                    // (BM, LDX) first operand
+  T* hs = xa + BM * LDX;                     // (BM, LD1) activation
+  float* hf = reinterpret_cast<float*>(hs + BM * LD1);  // (BM, LDF) bf16 only
+
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * BM;
+  const int i0 = blockIdx.y * ic;
+  const int n_tiles = (ic / BN1) * (N1 + N2);
+
+  // tile t of the stream: sub-slice t / (N1 + N2); first N1 tiles are W1
+  // (KT1 x 128 at rows k0, columns i0 + 128 sub), then N2 tiles of W2
+  // (KT2 x H at rows i0 + 128 sub + k0).
+  auto fetch = [&](int t) {
+    T* dst = wbuf + (t & 1) * BUF;
+    const int sub = t / (N1 + N2), p = t % (N1 + N2);
+    constexpr int V = 16 / sizeof(T);  // elements per 16-byte copy
+    if (p < N1) {
+      const T* src = w1 + (size_t)(p * KT1) * I + i0 + sub * BN1;
+      for (int c = tid; c < KT1 * (BN1 / V); c += NT) {
+        const int r = c / (BN1 / V), col = (c % (BN1 / V)) * V;
+        cp_async16(dst + r * LD1 + col, src + (size_t)r * I + col);
+      }
+    } else {
+      const T* src = w2 + (size_t)(i0 + sub * BN1 + (p - N1) * KT2) * H;
+      for (int c = tid; c < KT2 * (H / V); c += NT) {
+        const int r = c / (H / V), col = (c % (H / V)) * V;
+        cp_async16(dst + r * LD2 + col, src + (size_t)r * H + col);
+      }
+    }
+    cp_async_commit();
+  };
+
+  fetch(0);
+
+  // ---- prologue: xa = LN(x) (pre-LN) or x (post-LN); rows past `rows` are 0
+  {
+    const int r = tid / TPR, cl = tid % TPR;
+    const bool ok = row0 + r < rows;
+    const T* xr = x + (size_t)(row0 + r) * H;
+    float sum = 0.0f;
+    for (int c = cl; c < H; c += TPR) {
+      const T v = ok ? xr[c] : vt::from_f<T>(0.0f);
+      xa[r * LDX + c] = v;
+      sum += vt::to_f(v);
+    }
+    if constexpr (!POSTLN) {
+      const float mean = group_sum<TPR>(sum) / H;
+      float sq = 0.0f;
+      for (int c = cl; c < H; c += TPR) {
+        const float d = vt::to_f(xa[r * LDX + c]) - mean;
+        sq += d * d;
+      }
+      const float inv = 1.0f / sqrtf(group_sum<TPR>(sq) / H + eps);
+      for (int c = cl; c < H; c += TPR) {
+        const float y = (vt::to_f(xa[r * LDX + c]) - mean) * inv;
+        xa[r * LDX + c] = vt::from_f<T>(y * vt::to_f(gamma[c]) + vt::to_f(beta[c]));
+      }
+    }
+  }
+
+  // accumulators: bf16 — warp w owns GEMM1 columns [16 w, 16 w + 16) of the
+  // sub-slice and GEMM2 columns [w H/8, (w+1) H/8), both for the two 16-row
+  // groups; fp32 — thread (r = tid/8, q = tid%8) owns GEMM1 columns
+  // 16 q .. 16 q + 16 and GEMM2 columns q + 8 j of row r.
+  constexpr int NA1 = kBF16 ? 2 : 1, NA2 = kBF16 ? 2 * NF : 1;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc1[NA1], acc2[NA2];
+  constexpr int F1 = kBF16 ? 1 : BN1 / 8, F2 = kBF16 ? 1 : H / 8;
+  float f1[F1], f2[F2];
+  if constexpr (kBF16) {
+#pragma unroll
+    for (int i = 0; i < NA1; ++i) wmma::fill_fragment(acc1[i], 0.0f);
+#pragma unroll
+    for (int i = 0; i < NA2; ++i) wmma::fill_fragment(acc2[i], 0.0f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < F1; ++i) f1[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < F2; ++i) f2[i] = 0.0f;
+  }
+  const int fr = tid >> 3, fq = tid & 7;  // fp32 thread mapping
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      fetch(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and, at t = 0, xa) visible to every warp
+    const T* wt = wbuf + (t & 1) * BUF;
+    const int sub = t / (N1 + N2), p = t % (N1 + N2);
+    if (p < N1) {
+      // GEMM1: acc1 += xa[:, k0:k0+KT1] wt
+      const int k0 = p * KT1;
+      if constexpr (kBF16) {
+#pragma unroll
+        for (int kk = 0; kk < KT1 / 16; ++kk) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+          wmma::load_matrix_sync(b, wt + kk * 16 * LD1 + w * 16, LD1);
+#pragma unroll
+          for (int g = 0; g < 2; ++g) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+            wmma::load_matrix_sync(a, xa + g * 16 * LDX + k0 + kk * 16, LDX);
+            wmma::mma_sync(acc1[g], a, b, acc1[g]);
+          }
+        }
+      } else {
+        for (int k = 0; k < KT1; ++k) {
+          const float a = vt::to_f(xa[fr * LDX + k0 + k]);
+#pragma unroll
+          for (int c = 0; c < F1; ++c) f1[c] = fmaf(a, vt::to_f(wt[k * LD1 + fq * F1 + c]), f1[c]);
+        }
+      }
+      if (p == N1 - 1) {
+        // sub-slice done: hs = act(acc1 + b1), cast to T
+        const int j0 = i0 + sub * BN1;
+        if constexpr (kBF16) {
+#pragma unroll
+          for (int g = 0; g < 2; ++g) {
+            wmma::store_matrix_sync(hf + g * 16 * Tiles<T>::LDF + w * 16, acc1[g],
+                                    Tiles<T>::LDF, wmma::mem_row_major);
+            wmma::fill_fragment(acc1[g], 0.0f);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const int idx = lane + 32 * e, rr = idx / 16, cc = w * 16 + idx % 16;
+            const float hv = hf[rr * Tiles<T>::LDF + cc] + vt::to_f(b1[j0 + cc]);
+            const T av = vt::from_f<T>(vt::activate(hv, act));
+            hs[rr * LD1 + cc] = av;
+            if (a_out && row0 + rr < rows) a_out[(size_t)(row0 + rr) * I + j0 + cc] = av;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < F1; ++c) {
+            const int cc = fq * F1 + c;
+            const float hv = f1[c] + vt::to_f(b1[j0 + cc]);
+            const T av = vt::from_f<T>(vt::activate(hv, act));
+            hs[fr * LD1 + cc] = av;
+            if (a_out && row0 + fr < rows) a_out[(size_t)(row0 + fr) * I + j0 + cc] = av;
+            f1[c] = 0.0f;
+          }
+        }
+      }
+    } else {
+      // GEMM2: acc2 += hs[:, k0:k0+KT2] wt   (hs complete: written before
+      // the previous iteration's closing barrier)
+      const int k0 = (p - N1) * KT2;
+      if constexpr (kBF16) {
+#pragma unroll
+        for (int kk = 0; kk < KT2 / 16; ++kk) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
+          wmma::load_matrix_sync(a0, hs + k0 + kk * 16, LD1);
+          wmma::load_matrix_sync(a1, hs + 16 * LD1 + k0 + kk * 16, LD1);
+#pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+            wmma::load_matrix_sync(b, wt + kk * 16 * LD2 + w * NF * 16 + f * 16, LD2);
+            wmma::mma_sync(acc2[f], a0, b, acc2[f]);
+            wmma::mma_sync(acc2[NF + f], a1, b, acc2[NF + f]);
+          }
+        }
+      } else {
+        for (int k = 0; k < KT2; ++k) {
+          const float a = vt::to_f(hs[fr * LD1 + k0 + k]);
+#pragma unroll
+          for (int j = 0; j < F2; ++j) f2[j] = fmaf(a, vt::to_f(wt[k * LD2 + fq + 8 * j]), f2[j]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with wbuf[t & 1] and hs
+  }
+
+  // partial sums of this split -> ws[split] (rows padded to BM)
+  float* dst = ws + ((size_t)blockIdx.y * rows_pad + row0) * H;
+  if constexpr (kBF16) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        wmma::store_matrix_sync(dst + (size_t)g * 16 * H + w * NF * 16 + f * 16,
+                                acc2[g * NF + f], H, wmma::mem_row_major);
+  } else {
+#pragma unroll
+    for (int j = 0; j < F2; ++j) dst[(size_t)fr * H + fq + 8 * j] = f2[j];
+  }
+}
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// Splits of I for blocks of `bm` rows: the fewest that keep the waves of
+// one-block-per-SM shortest.
+int pick_splits(int rows, int I, int bm = BM) {
+  const int tiles = (rows + bm - 1) / bm, nsub = I / BN1, sms = num_sms();
+  int best = 1;
+  long best_cost = -1;
+  for (int s = 1; s <= nsub; ++s) {
+    if (nsub % s) continue;
+    const long waves = (tiles * (long)s + sms - 1) / sms;
+    const long cost = waves * (nsub / s);
+    if (best_cost < 0 || cost < best_cost) best = s, best_cost = cost;
+  }
+  return best;
+}
+
+// Raise a kernel's dynamic shared-memory limit, once per kernel and process.
+template <auto KERNEL>
+cudaError_t allow_smem(size_t bytes) {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) done = true;
+  return e;
+}
+
+}  // namespace

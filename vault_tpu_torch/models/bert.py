@@ -34,6 +34,7 @@ from vault_tpu_torch.ops.nn import (
     init_linear,
     layer_norm,
     linear,
+    remat_apply,
 )
 
 
@@ -138,14 +139,15 @@ def _encoder_layer(lp, cfg: TextTowerConfig, x, bias, deterministic,
 
 def bert_encode(params, cfg: TextTowerConfig, x, attention_mask,
                 deterministic=True, generator=None, use_pallas="auto",
-                bias=None):
-    """Run the encoder layers.  ``bias`` (a prebuilt additive mask) takes
-    precedence over ``attention_mask``."""
+                bias=None, remat=False):
+    """Run the encoder layers, each under activation checkpointing when
+    ``remat`` (ops/nn.py ``remat_apply``).  ``bias`` (a prebuilt additive
+    mask) takes precedence over ``attention_mask``."""
     if bias is None and attention_mask is not None:
         bias = extend_attention_mask(attention_mask, torch.float32)
     for lp in params["layers"]:
-        x = _encoder_layer(lp, cfg, x, bias, deterministic, generator,
-                           use_pallas)
+        x = remat_apply(_encoder_layer, remat, generator, lp, cfg, x, bias,
+                        deterministic, use_pallas=use_pallas)
     return x
 
 
@@ -153,7 +155,7 @@ def bert_apply(params, cfg: TextTowerConfig, input_ids=None,
                attention_mask=None, token_type_ids=None, position_ids=None,
                inputs_embeds=None, deterministic=True,
                generator: Optional[torch.Generator] = None,
-               use_pallas="auto"):
+               use_pallas="auto", remat=False):
     """Full tower: embeddings + encoder.  Returns last_hidden_state (B, L, H).
 
     Mirrors ``self.bert(**bert_kwargs).last_hidden_state`` at
@@ -163,4 +165,4 @@ def bert_apply(params, cfg: TextTowerConfig, input_ids=None,
     x = bert_embed(params, cfg, input_ids, token_type_ids, position_ids,
                    inputs_embeds, attention_mask, deterministic, generator)
     return bert_encode(params, cfg, x, attention_mask, deterministic,
-                       generator, use_pallas)
+                       generator, use_pallas, remat=remat)

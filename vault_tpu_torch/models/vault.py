@@ -10,7 +10,7 @@ builds and calls.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
@@ -49,7 +49,7 @@ def init_vault(gen: torch.Generator, cfg: VaultConfig) -> ParamDict:
 
 def lm_encode(params, cfg: VaultConfig, input_ids, attention_mask,
               token_type_ids=None, inputs_embeds=None, deterministic=True,
-              generator=None, use_pallas="auto"):
+              generator=None, use_pallas="auto", remat=False):
     """The reference's ``lm_preprocess`` (vault/models/vault/model.py:151-202):
     run the LM tower; token-type guard for towers with <2 segment types
     (RoBERTa/BERTweet, :174-180); a frozen LM is detached (:189-190)."""
@@ -59,7 +59,7 @@ def lm_encode(params, cfg: VaultConfig, input_ids, attention_mask,
     hidden = bert_mod.bert_apply(
         params["bert"], tower, input_ids, attention_mask, token_type_ids,
         inputs_embeds=inputs_embeds, deterministic=deterministic,
-        generator=generator, use_pallas=use_pallas)
+        generator=generator, use_pallas=use_pallas, remat=remat)
     if cfg.freeze_lm:
         hidden = hidden.detach()
     return hidden
@@ -69,7 +69,7 @@ def vault_apply(params, cfg: VaultConfig, input_ids=None, attention_mask=None,
                 token_type_ids=None, pixel_values=None, pixel_mask=None,
                 inputs_embeds=None, image_embeds=None, image_token_type_idx=1,
                 deterministic=True, generator=None, use_pallas="auto",
-                merge_patches_to=None) -> ViltOutput:
+                remat=False, merge_patches_to=None) -> ViltOutput:
     """VaultModel.forward equivalent (vault/models/vault/model.py:207-218,
     369-372): optional LM pass, then ViLT with inputs_embeds."""
     vilt_cfg = cfg.resolved_vilt()
@@ -77,13 +77,13 @@ def vault_apply(params, cfg: VaultConfig, input_ids=None, attention_mask=None,
     if cfg.text_tower is not None:
         inputs_embeds = lm_encode(params, cfg, input_ids, attention_mask,
                                   token_type_ids, inputs_embeds, deterministic,
-                                  generator, use_pallas)
+                                  generator, use_pallas, remat)
         input_ids = None
         # ViLT's own text token-type add still runs on the provided ids
     return vilt_mod.vilt_apply(
         params["vilt"], vilt_cfg, input_ids, attention_mask, vilt_token_types,
         pixel_values, pixel_mask, inputs_embeds, image_embeds,
-        image_token_type_idx, deterministic, generator, use_pallas,
+        image_token_type_idx, deterministic, generator, use_pallas, remat,
         merge_patches_to)
 
 
@@ -105,15 +105,31 @@ def classifier_head_apply(head, pooled, dropout_prob=0.1, deterministic=True,
 
 def vault_for_classification(params, cfg: VaultConfig, batch: Dict[str, Any],
                              head_dropout: float = 0.1, deterministic=True,
-                             generator=None, use_pallas="auto",
+                             generator=None, use_pallas="auto", remat=False,
                              merge_patches_to=None):
     """VaultForTMSC.forward (vault/models/vault/model.py:547-570): backbone
     pooler -> dropout -> linear logits."""
     out = vault_apply(params, cfg, deterministic=deterministic,
                       generator=generator, use_pallas=use_pallas,
-                      merge_patches_to=merge_patches_to, **batch)
+                      remat=remat, merge_patches_to=merge_patches_to, **batch)
     return classifier_head_apply(params["head"], out.pooler_output,
                                  head_dropout, deterministic, generator)
+
+
+def unreached_leaf(cfg: VaultConfig) -> Callable[[str], bool]:
+    """Predicate on state-dict keys: the leaves the classifier's loss never
+    reaches, which autograd leaves without a gradient where ``jax.grad``
+    gives zeros.  With a text tower ViLT takes embeddings, not ids, so its
+    text word table is unread, and so is its text position table when
+    :meth:`VaultConfig.resolved_vilt` switches it off; a frozen text tower
+    is cut from the graph."""
+    if cfg.text_tower is None:
+        return lambda key: False
+    unread = {"vilt.text_embeddings.word"}
+    if not cfg.resolved_vilt().add_text_position_embeddings:
+        unread.add("vilt.text_embeddings.position")
+    frozen = cfg.freeze_lm
+    return lambda key: key in unread or (frozen and key.startswith("bert."))
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:

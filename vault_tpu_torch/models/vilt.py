@@ -44,6 +44,7 @@ from vault_tpu_torch.ops.nn import (
     layer_norm,
     linear,
     matmul_fp32,
+    remat_apply,
 )
 
 
@@ -255,12 +256,13 @@ def _encoder_layer(lp, cfg: ViltConfig, x, bias, deterministic,
 
 
 def vilt_encode(params, cfg: ViltConfig, x, attention_mask, deterministic=True,
-                generator=None, use_pallas="auto"):
-    """Encoder stack over the joint sequence."""
+                generator=None, use_pallas="auto", remat=False):
+    """Encoder stack over the joint sequence, each layer under activation
+    checkpointing when ``remat`` (ops/nn.py ``remat_apply``)."""
     bias = extend_attention_mask(attention_mask, torch.float32)
     for lp in params["layers"]:
-        x = _encoder_layer(lp, cfg, x, bias, deterministic, generator,
-                           use_pallas)
+        x = remat_apply(_encoder_layer, remat, generator, lp, cfg, x, bias,
+                        deterministic, use_pallas=use_pallas)
     return x
 
 
@@ -273,7 +275,7 @@ def vilt_apply(params, cfg: ViltConfig, input_ids=None, attention_mask=None,
                token_type_ids=None, pixel_values=None, pixel_mask=None,
                inputs_embeds=None, image_embeds=None, image_token_type_idx=1,
                deterministic=True, generator=None, use_pallas="auto",
-               merge_patches_to=None) -> ViltOutput:
+               remat=False, merge_patches_to=None) -> ViltOutput:
     """Full ViltModel.forward equivalent (modeling_vilt.py:599-717)."""
     if merge_patches_to is not None:
         raise NotImplementedError(
@@ -283,7 +285,7 @@ def vilt_apply(params, cfg: ViltConfig, input_ids=None, attention_mask=None,
                                inputs_embeds, image_embeds,
                                image_token_type_idx, deterministic, generator)
     x = vilt_encode(params, cfg, tokens, mask, deterministic, generator,
-                    use_pallas)
+                    use_pallas, remat)
     x = layer_norm(params["final_ln"], x, cfg.layer_norm_eps)
     pooled = pooler(params, x) if "pooler" in params else None
     return ViltOutput(last_hidden_state=x, pooler_output=pooled,

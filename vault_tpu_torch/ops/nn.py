@@ -53,22 +53,52 @@ class ParamDict(nn.Module):
         return self[key] if key in self else default
 
 
+class _MatmulFP32(torch.autograd.Function):
+    """``x2 @ w (+ b)`` for a bf16 pair on the card: the tensor cores with an
+    fp32 output, the bias added in fp32 by the same call.  PyTorch has no
+    derivative for ``mm``/``addmm`` with ``out_dtype``, so the two products
+    of the backward are written here, also with fp32 accumulation, cast to
+    the operands' dtypes (what XLA does for the JAX package's ``linear``).
+    The cotangent is cast to bf16 for them: it arrives from the cast of
+    this output to bf16 in :func:`linear` (or :func:`patchify`), so it is
+    exact in bf16."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b):
+        ctx.save_for_backward(x2, w)
+        ctx.has_bias = b is not None
+        if b is None:
+            return torch.mm(x2, w, out_dtype=torch.float32)
+        return torch.addmm(b, x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2, w = ctx.saved_tensors
+        g = gy.to(x2.dtype)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, w.t(), out_dtype=torch.float32).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x2.t(), g, out_dtype=torch.float32).to(w.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = gy.sum(0)
+        return dx, dw, db
+
+
 def matmul_fp32(x: torch.Tensor, w: torch.Tensor,
                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ w (+ b)`` accumulated and returned in fp32.  On the card a bf16
     pair goes through the tensor cores with an fp32 output and the bias
-    added in fp32 by the same call (no rounding to bf16 before the bias);
-    elsewhere both operands are upcast, which gives the same exact
-    products."""
+    added in fp32 by the same call (no rounding to bf16 before the bias),
+    differentiable through :class:`_MatmulFP32`; elsewhere both operands
+    are upcast, which gives the same exact products."""
     if x.is_cuda and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
         x2 = x.reshape(-1, x.shape[-1])
-        if b is None:
-            y = torch.mm(x2, w, out_dtype=torch.float32)
-        else:
-            y = torch.addmm(b.float(), x2, w, out_dtype=torch.float32)
+        y = _MatmulFP32.apply(x2, w, None if b is None else b.float())
         return y.reshape(*x.shape[:-1], w.shape[-1])
-    y = torch.matmul(x.float(), w.float())
-    return y if b is None else y + b.float()
+    acc = torch.promote_types(x.dtype, torch.float32)  # float64 stays
+    y = torch.matmul(x.to(acc), w.to(acc))
+    return y if b is None else y + b.to(acc)
 
 
 def linear(params, x: torch.Tensor) -> torch.Tensor:
@@ -116,6 +146,8 @@ def dropout_mask(generator: torch.Generator, shape, rate: float,
     apply dropout inside a fused region (ops/cuda_mlp.py ``m`` operand).
     The draw comes from ``generator``; it does not reproduce JAX's stream,
     so parity tests feed both packages the same mask."""
+    if generator is None:
+        raise ValueError("dropout_mask needs a torch.Generator")
     keep = 1.0 - rate
     u = torch.rand(shape, generator=generator, device=device)
     return torch.where(u < keep, torch.tensor(1.0 / keep, dtype=dtype,
@@ -132,6 +164,49 @@ def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     u = torch.rand(x.shape, generator=generator, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def remat_apply(fn, remat, generator: Optional[torch.Generator], *args,
+                **kwargs):
+    """``fn(*args, generator=..., **kwargs)``, one encoder layer, under
+    per-layer activation checkpointing when ``remat`` is true and autograd
+    records (the counterpart of the JAX package's ``maybe_remat``):
+    the layer keeps no activations and reruns in the backward.
+
+    The layer draws its dropout masks from ``generator``, and
+    ``torch.utils.checkpoint`` replays only the default generators, so the
+    layer runs on a fresh generator started from the state ``generator``
+    had when the layer began: the rerun draws the same masks.  ``generator``
+    is then moved on to where the layer's first run left it, so the layers
+    draw the same stream with remat on and off.  ``remat="dots"`` (keep the
+    products, recompute the elementwise chains) is not ported yet: it
+    raises."""
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots': the dots-saveable policy is not ported yet; use "
+            "remat=True or False")
+    if not remat or not torch.is_grad_enabled():
+        return fn(*args, generator=generator, **kwargs)
+    from torch.utils.checkpoint import checkpoint
+
+    start = None if generator is None else generator.get_state()
+    end = []
+
+    def layer(*a):
+        gen = None
+        if start is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(start)
+        out = fn(*a, generator=gen, **kwargs)
+        if gen is not None and not end:
+            end.append(gen.get_state())
+        return out
+
+    out = checkpoint(layer, *args, use_reentrant=False,
+                     preserve_rng_state=False)
+    if end:
+        generator.set_state(end[0])
+    return out
 
 
 # ---------------------------------------------------------------------------
