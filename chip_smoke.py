@@ -6,8 +6,9 @@ Builds the port's CUDA kernels from ``vault_tpu_torch/csrc``, holds each
 (forward and backward) against its plain PyTorch version at the main path's
 shapes, times it beside its bound and a PyTorch library call, drives the
 VAuLT-base classifier (bert-base-uncased tower + ViLT-B/32, seeded random
-weights) through ``VaultForClassification`` and a ``BatchingEngine`` (bf16),
-then trains it: one step on the kernel path against one on the plain path
+weights) through ``VaultForClassification`` and a ``BatchingEngine`` (bf16;
+then bf16 on the fused LN->QKV selector; then quantized w8a8, int8 weights
+and activations, forward and engine), then trains it: one step on the kernel path against one on the plain path
 (fp32 masters, bf16 compute, remat, dropout 0.1, batch 32 at the ``entry()``
 layout) and a short ``Trainer.train()`` with a dev evaluation and a
 checkpoint.  It checks the launch counts, the gradients and the outputs.
@@ -20,6 +21,7 @@ package.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import subprocess
@@ -30,6 +32,7 @@ from pathlib import Path
 import numpy as np
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM fp32 without tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 OUT_DIR = Path("chiprun_out") / "chip_smoke"
@@ -40,9 +43,27 @@ OUT_DIR = Path("chiprun_out") / "chip_smoke"
 # bf16 first), so they differ by a few bf16 ulps of the output (2^-7
 # relative); fp32: only the summation order differs.
 LIMITS = {"bfloat16": 6.25e-2, "float32": 1e-4}
+# The int8 kernels round at the cast points of their plain versions, which
+# take the LN statistics in double as the kernels do and compute every
+# fp32 step in the same order: K2-K4 (the w8a8 LN->QKV and MLP kernels)
+# must equal them bit for bit.  K1, the fp LN->QKV kernel, is held to its
+# plain version, the XLA composition: in bf16 they differ in the LN
+# statistics' rounding and the product's summation order, by at most 2^-7
+# of the output's scale (max(1, max|plain|)), one or two bf16 ulps there.
+LNQKV_BF16_LIMIT = 2.0 ** -7
 # |kernel path - plain path| of the full-width bf16 forward: 24 layers of
 # the per-kernel differences above, through the final LN and the tanh pooler.
 FORWARD_LIMITS = {"pooler": 6e-2, "logits": 2e-2}
+# The w8a8 model's kernel path is held bit-equal to the same path with the
+# int8 kernels' plain versions in their place (``int8_plain_versions``).
+# Its distance from the XLA composition (``use_pallas=False``) is reported,
+# not gated: a w8a8 forward is discontinuous, each linear rounding its input
+# to int8 codes, and the XLA composition rounds at other points (GELU on the
+# bf16 product, the post-LN sum in bf16, LN statistics in another order), as
+# the JAX package's does against its Pallas kernels, so codes flip now and
+# then and the flips grow through 24 layers.  The "fuselnqkv" path, which
+# differs from the XLA composition only in ViLT's LN statistics, shows that
+# sensitivity in every run (``sensitivity_fuselnqkv_only``).
 # Backward kernels vs their plain versions, per output: bf16 2^-5 of the
 # output's scale (max(1, max|plain|)), about four bf16 ulps there: the
 # outputs are bf16 sums of products of bf16-rounded activations, which the
@@ -61,13 +82,24 @@ TRAIN_BATCH = 32
 # an evaluation batch, a served batch): attention in each of the 24 layers,
 # one MLP block in each.
 EVAL_LAUNCHES = {"encoder_attention": 24, "mlp_block": 12, "mlp_postln": 12,
-                 "mlp_block_bwd": 0, "mlp_postln_bwd": 0}
+                 "mlp_block_bwd": 0, "mlp_postln_bwd": 0, "ln_qkv": 0,
+                 "ln_qkv_w8a8": 0, "mlp_block_w8a8": 0, "mlp_postln_w8a8": 0}
+# The bf16 forward on "fuselnqkv+fusemlp+batched": the fused LN->QKV kernel
+# in each ViLT layer besides the above.
+LNQKV_LAUNCHES = dict(EVAL_LAUNCHES, ln_qkv=12)
+# The w8a8 model's forward (its selector, "fuselnqkv+fusemlp+batched"): the
+# int8 LN->QKV and MLP kernels in place of the bf16 MLP kernels.  BERT's
+# Q/K/V and every attention output projection are plain int8 linears
+# (torch._int_mm), as in the JAX package.
+W8A8_LAUNCHES = dict(EVAL_LAUNCHES, mlp_block=0, mlp_postln=0, ln_qkv_w8a8=12,
+                     mlp_block_w8a8=12, mlp_postln_w8a8=12)
 # One training step with remat: the forward launches each MLP block once per
 # layer and remat's recompute in the backward once more; each backward kernel
 # runs once per layer; attention takes its kernel only when deterministic, so
 # a training step launches none.
 STEP_LAUNCHES = {"encoder_attention": 0, "mlp_block": 24, "mlp_postln": 24,
-                 "mlp_block_bwd": 12, "mlp_postln_bwd": 12}
+                 "mlp_block_bwd": 12, "mlp_postln_bwd": 12, "ln_qkv": 0,
+                 "ln_qkv_w8a8": 0, "mlp_block_w8a8": 0, "mlp_postln_w8a8": 0}
 
 
 def emit(**kw):
@@ -107,20 +139,25 @@ def device_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = name.removeprefix("void ").split("(")[0].split("<")[0][:60]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    total = sum(by_name.values())
-    if total <= 0.0:
-        fail("the profiler trace holds no device time")
-    return total, by_name
+    # CUPTI has handed back a trace without device events (once in ten runs,
+    # cause not found): each such trace is reported, and the call traced again
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.replace("(anonymous namespace)::", "")
+                name = name.removeprefix("void ").split("(")[0].split("<")[0][:60]
+                by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        total = sum(by_name.values())
+        if total > 0.0:
+            return total, by_name
+        print(f"chip_smoke: profiler trace {attempt + 1} of {fn} holds no device "
+              f"time ({len(prof.events())} host events)", file=sys.stderr, flush=True)
+    fail("three profiler traces in a row hold no device time")
 
 
 def timed(fn, prefix, row, iters=20):
@@ -130,10 +167,11 @@ def timed(fn, prefix, row, iters=20):
     row[prefix + "device_kernels"] = kernels
 
 
-def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
+def bound_ms(flops: float, nbytes: float, dtype, peak=None) -> tuple:
     import torch
 
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -402,6 +440,127 @@ def check_mlp_bwd(gen, dev, postln: bool):
     return rows_out
 
 
+def int8_operands(gen, rows, dtype, dev, h=768, i=3072):
+    """x and the LN/bias vectors in ``dtype``; the QKV and MLP weights drawn
+    in ``dtype`` and quantized as the model's are (int8 codes, fp32
+    per-out-channel scales)."""
+    import torch
+
+    from vault_tpu_torch.ops.quantize import quantize_weight
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std + mean).to(dtype)
+
+    o = dict(x=rnd(rows, h), gamma=rnd(h, std=0.1, mean=1.0), beta=rnd(h, std=0.1),
+             wqkv=rnd(h, 3 * h, std=0.02), bqkv=rnd(3 * h, std=0.02),
+             b1=rnd(i, std=0.02), b2=rnd(h, std=0.02))
+    for name, w in (("wqkv", o["wqkv"]), ("w1", rnd(h, i, std=0.02)),
+                    ("w2", rnd(i, h, std=0.02))):
+        q, sc = quantize_weight(w)
+        o[name + "q"], o["s" + name[1:]] = q, sc.reshape(-1)
+    return o
+
+
+def _int8_linear_lib(a, wq, sc, b):
+    """The library yardstick's w8a8 linear: per-row absmax quantization in
+    PyTorch ops, torch._int_mm, dequantization and bias."""
+    import torch
+
+    af = a.float()
+    rs = af.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.round(af / rs).clamp_(-127, 127).to(torch.int8)
+    return torch._int_mm(q, wq).float() * (rs * sc) + b
+
+
+INT8_KERNELS = {
+    # name: (wrapper, plain, operands, main-path rows, library label)
+    "ln_qkv": ("fused_ln_qkv_fwd", "ln_qkv_plain",
+               ("gamma", "beta", "wqkv", "bqkv", "x"), 8 * 256,
+               "F.layer_norm + F.linear"),
+    "ln_qkv_w8a8": ("fused_ln_qkv_fwd_w8a8", "ln_qkv_w8a8_plain",
+                    ("gamma", "beta", "wqkvq", "sqkv", "bqkv", "x"), 8 * 256,
+                    "F.layer_norm + row quantization + torch._int_mm (composition)"),
+    "mlp_block_w8a8": ("fused_mlp_block_fwd_w8a8", "mlp_block_w8a8_plain",
+                       ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x"),
+                       8 * 256, "F.layer_norm + 2 x (row quantization + "
+                       "torch._int_mm) + F.gelu (composition)"),
+    "mlp_postln_w8a8": ("fused_mlp_postln_fwd_w8a8", "mlp_postln_w8a8_plain",
+                        ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x"),
+                        8 * 40, "2 x (row quantization + torch._int_mm) + F.gelu + "
+                        "F.layer_norm (composition)"),
+}
+
+
+def check_int8_family(gen, dev, name):
+    """One LN->QKV or w8a8 MLP kernel against its plain version at the
+    serving path's rows (batch 8: 2,048 ViLT rows, 320 BERT rows) and at 77
+    fp32 rows (w8a8: bit-equal; fp: see ``LNQKV_BF16_LIMIT``); two launches
+    bit-equal; times beside the bound and the library composition."""
+    import torch
+    import torch.nn.functional as F
+
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    wrapper_name, plain_name, names, main_rows, library = INT8_KERNELS[name]
+    mod = cl if name.startswith("ln_qkv") else cm
+    wrapper, plain = getattr(mod, wrapper_name), getattr(mod, plain_name)
+    rows_out = []
+    for rows, dtype in ((main_rows, torch.bfloat16), (77, torch.float32)):
+        o = int8_operands(gen, rows, dtype, dev)
+        args = [o[k] for k in names]
+        out, again, ref = wrapper(*args), wrapper(*args), plain(*args)
+        torch.cuda.synchronize()
+        dt = str(dtype).split(".")[-1]
+        err = (out.float() - ref.float()).abs().max().item()
+        if name != "ln_qkv":
+            limit = 0.0
+        elif dtype == torch.bfloat16:
+            limit = LNQKV_BF16_LIMIT * max(1.0, ref.float().abs().max().item())
+        else:
+            limit = LIMITS[dt]
+        if not math.isfinite(err) or err > limit:
+            fail(f"{name} rows={rows} {dtype}: max |kernel - plain| {err} > {limit}")
+        if not torch.equal(out, again):
+            fail(f"{name} rows={rows} {dtype}: two launches differ")
+        row = dict(kernel=name, rows=rows, dtype=dt, max_abs_err=err, limit=limit,
+                   bit_equal_repeat=True, path="forward")
+        if dtype == torch.bfloat16:
+            x, g, bt, eps = o["x"], o["gamma"], o["beta"], 1e-12
+            ln = lambda t: F.layer_norm(t, (768,), g, bt, eps)
+            if name == "ln_qkv":
+                wt = o["wqkv"].t().contiguous()
+                lib = lambda: F.linear(ln(x), wt, o["bqkv"])
+            elif name == "ln_qkv_w8a8":
+                lib = lambda: _int8_linear_lib(ln(x), o["wqkvq"], o["sqkv"],
+                                               o["bqkv"]).to(dtype)
+            else:
+                def lib(postln=name == "mlp_postln_w8a8"):
+                    a = F.gelu(_int8_linear_lib(x if postln else ln(x), o["w1q"],
+                                                o["s1"], o["b1"])).to(dtype)
+                    mlp = _int8_linear_lib(a, o["w2q"], o["s2"], o["b2"])
+                    return ln(x + mlp.to(dtype)) if postln else mlp.to(dtype) + x
+            timed(lambda: wrapper(*args), "", row)
+            timed(lambda: plain(*args), "plain_", row)
+            timed(lib, "library_", row)
+            row["library"] = library
+            h, i, n = 768, 3072, 2304
+            if name.startswith("ln_qkv"):
+                ops = 2.0 * rows * h * n
+                wbytes = h * n * (2 if name == "ln_qkv" else 1) + (0 if name == "ln_qkv"
+                                                                   else 4 * n)
+                nbytes = 2 * rows * (h + n) + wbytes + 2 * (2 * h + n)
+                peak = PEAK_BF16_FLOPS if name == "ln_qkv" else PEAK_INT8_OPS
+            else:
+                ops = 4.0 * rows * h * i
+                nbytes = 2 * 2 * rows * h + 2 * h * i + 4 * (h + i) + 2 * (3 * h + i)
+                peak = PEAK_INT8_OPS
+            row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, dtype, peak)
+        emit(phase="kernel_check", **row)
+        rows_out.append(row)
+    return rows_out
+
+
 # ---------------------------------------------------------------------------
 # Full-width forward and serving
 # ---------------------------------------------------------------------------
@@ -426,13 +585,18 @@ def entry_batch(cfg, batch_size, dev, seed=0):
 
 def counters():
     from vault_tpu_torch.ops import cuda_attention as ca
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
     from vault_tpu_torch.ops import cuda_mlp as cm
 
     return {"encoder_attention": ca.fused_attention,
             "mlp_block": cm.fused_mlp_block_fwd,
             "mlp_postln": cm.fused_mlp_postln_fwd,
             "mlp_block_bwd": cm.fused_mlp_block_bwd,
-            "mlp_postln_bwd": cm.fused_mlp_postln_block_bwd}
+            "mlp_postln_bwd": cm.fused_mlp_postln_block_bwd,
+            "ln_qkv": cl.fused_ln_qkv_fwd,
+            "ln_qkv_w8a8": cl.fused_ln_qkv_fwd_w8a8,
+            "mlp_block_w8a8": cm.fused_mlp_block_fwd_w8a8,
+            "mlp_postln_w8a8": cm.fused_mlp_postln_fwd_w8a8}
 
 
 def reset_counts():
@@ -447,11 +611,7 @@ def read_counts():
 def forward_phase(dev):
     import torch
 
-    from vault_tpu_torch.models.vault import (
-        VaultForClassification,
-        classifier_head_apply,
-        vault_apply,
-    )
+    from vault_tpu_torch.models.vault import VaultForClassification
     from vault_tpu_torch.presets import vault_base
 
     cfg = vault_base("bert-base-uncased")
@@ -473,20 +633,9 @@ def forward_phase(dev):
     if logits.shape != (8, 3) or not torch.isfinite(logits.float()).all():
         fail(f"logits {tuple(logits.shape)} not finite")
 
-    with torch.inference_mode():
-        outs = {}
-        for impl in ("auto", False):
-            out = vault_apply(model, cfg, deterministic=True, use_pallas=impl,
-                              **batch)
-            outs[impl] = (out.pooler_output.float(),
-                          classifier_head_apply(model["head"], out.pooler_output,
-                                                deterministic=True).float())
-    err_pool = (outs["auto"][0] - outs[False][0]).abs().max().item()
-    err_logits = (outs["auto"][1] - outs[False][1]).abs().max().item()
-    if (err_logits > FORWARD_LIMITS["logits"] or err_pool > FORWARD_LIMITS["pooler"]
-            or (outs["auto"][1] - logits.float()).abs().max().item() != 0.0):
-        fail(f"forward kernel path vs plain path: pooler {err_pool}, logits "
-             f"{err_logits} (limits {FORWARD_LIMITS})")
+    err_pool, err_logits, (_, k_logits) = kernel_vs_plain(model, cfg, batch, "auto")
+    if (k_logits - logits.float()).abs().max().item() != 0.0:
+        fail("forward: model(batch) and vault_apply disagree")
     timings = {}
     with torch.inference_mode():
         for bs in (8, 16):
@@ -530,7 +679,9 @@ def synthetic_vocab(size=30522):
     return {t: i for i, t in enumerate(vocab)}
 
 
-def serving_phase(model):
+def serving_phase(model, launches=EVAL_LAUNCHES, phase="serving"):
+    """16 concurrent requests through a ``BatchingEngine`` on ``model``:
+    ``launches`` per served batch, rows equal to a direct forward."""
     import torch
 
     from vault_tpu_torch.data.processor import VaultProcessor
@@ -586,7 +737,7 @@ def serving_phase(model):
     counts = read_counts()
     if engine._worker.is_alive():
         fail("serving worker did not stop")
-    if counts != {k: v * stats["batches_run"] for k, v in EVAL_LAUNCHES.items()}:
+    if counts != {k: v * stats["batches_run"] for k, v in launches.items()}:
         fail(f"serving launches {counts} for {stats['batches_run']} batches")
     direct = []
     with torch.inference_mode():
@@ -603,10 +754,169 @@ def serving_phase(model):
         fail(f"engine rows vs direct forward: max abs diff {err}")
     if stats["requests_served"] != n_req:
         fail(f"engine served {stats['requests_served']} of {n_req}")
-    emit(phase="serving", requests=n_req, max_abs_diff_vs_direct=err,
+    emit(phase=phase, requests=n_req, max_abs_diff_vs_direct=err,
          results_shape=list(np.stack(results).shape), launches=counts,
          processor_ms_batch8=proc_ms, pixel_max_abs_diff_card_vs_host=pixel_err,
          stats=stats)
+
+
+def pooler_logits(model, cfg, batch, impl):
+    """(pooler, logits) in fp32 of one deterministic forward on ``impl``."""
+    import torch
+
+    from vault_tpu_torch.models.vault import classifier_head_apply, vault_apply
+
+    with torch.inference_mode():
+        out = vault_apply(model, cfg, deterministic=True, use_pallas=impl, **batch)
+        return (out.pooler_output.float(),
+                classifier_head_apply(model["head"], out.pooler_output,
+                                      deterministic=True).float())
+
+
+def kernel_vs_plain(model, cfg, batch, impl, limits=FORWARD_LIMITS):
+    """Max |kernel path ``impl`` - plain path| of the pooler and the logits
+    (failing past ``limits`` unless it is None), and the kernel path's
+    (pooler, logits) in fp32, on the same model and batch."""
+    outs = {key: pooler_logits(model, cfg, batch, key) for key in (impl, False)}
+    err_pool = (outs[impl][0] - outs[False][0]).abs().max().item()
+    err_logits = (outs[impl][1] - outs[False][1]).abs().max().item()
+    if limits is not None and not (err_logits <= limits["logits"]
+                                   and err_pool <= limits["pooler"]):
+        fail(f"{impl} kernel path vs plain path: pooler {err_pool}, logits "
+             f"{err_logits} (limits {limits})")
+    return err_pool, err_logits, outs[impl]
+
+
+def lnqkv_phase(model, cfg, dev):
+    """The bf16 model on "fuselnqkv+fusemlp+batched": one forward with the
+    fused LN->QKV kernel in every ViLT layer, held against the plain path."""
+    import torch
+
+    impl = "fuselnqkv+fusemlp+batched"
+    batch = entry_batch(cfg, 8, dev)
+    with torch.inference_mode():
+        reset_counts()
+        logits = model(batch, use_pallas=impl)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    if counts != LNQKV_LAUNCHES:
+        fail(f"{impl}: launches per forward {counts}, expected {LNQKV_LAUNCHES}")
+    err_pool, err_logits, (_, k_logits) = kernel_vs_plain(model, cfg, batch, impl)
+    if (k_logits - logits.float()).abs().max().item() != 0.0:
+        fail(f"{impl}: model(batch) and vault_apply disagree")
+    emit(phase="forward_fuselnqkv", use_pallas=impl, launches_per_forward=counts,
+         pooler_max_abs_err=err_pool, logits_max_abs_err=err_logits,
+         limits=FORWARD_LIMITS)
+    return counts
+
+
+@contextlib.contextmanager
+def int8_plain_versions():
+    """The w8a8 kernels' plain versions in their wrappers' place (the
+    dispatchers look the wrappers up at each call): a forward on the same
+    selector then runs every int8 block in plain PyTorch, with the kernels'
+    cast points, and every other step as before, attention kernel included."""
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    swaps = [(cl, "fused_ln_qkv_fwd_w8a8", cl.ln_qkv_w8a8_plain),
+             (cm, "fused_mlp_block_fwd_w8a8", cm.mlp_block_w8a8_plain),
+             (cm, "fused_mlp_postln_fwd_w8a8", cm.mlp_postln_w8a8_plain)]
+    wrappers = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, wrappers):
+            setattr(mod, name, fn)
+
+
+def w8a8_forward_phase(dev, cfg, bf16_model):
+    """The same seeded VAuLT-base, cast to bf16 and then quantized w8a8
+    (``VaultForClassification.quantize``), on its serving selector: launches
+    per forward, the kernel path bit-equal to the same path through the
+    int8 kernels' plain versions, its distance from the XLA composition and
+    from the bf16 model (reported), weight bytes, and times at batch 8 and
+    16 taken alternately with the plain path."""
+    import torch
+
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.ops.quantize import quantized_bytes
+
+    t0 = time.perf_counter()
+    model = VaultForClassification(cfg, n_classes=3, device=dev, dtype=torch.bfloat16,
+                                   seed=0).quantize("w8a8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    impl = model.use_pallas
+    batch = entry_batch(cfg, 8, dev)
+    with torch.inference_mode():
+        reset_counts()
+        logits = model(batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    if counts != W8A8_LAUNCHES:
+        fail(f"w8a8 launches per forward {counts}, expected {W8A8_LAUNCHES}")
+    if logits.shape != (8, 3) or not torch.isfinite(logits.float()).all():
+        fail(f"w8a8 logits {tuple(logits.shape)} not finite")
+    k_pool, k_logits = pooler_logits(model, cfg, batch, impl)
+    if (k_logits - logits.float()).abs().max().item() != 0.0:
+        fail("w8a8: model(batch) and vault_apply disagree")
+    reset_counts()
+    with int8_plain_versions():
+        p_pool, p_logits = pooler_logits(model, cfg, batch, impl)
+    torch.cuda.synchronize()
+    plain_counts = read_counts()
+    want_plain = dict(W8A8_LAUNCHES, ln_qkv_w8a8=0, mlp_block_w8a8=0, mlp_postln_w8a8=0)
+    if plain_counts != want_plain:
+        fail(f"w8a8 through the plain versions: launches {plain_counts}, "
+             f"expected {want_plain}")
+    vs_plain = {"pooler": (k_pool - p_pool).abs().max().item(),
+                "logits": (k_logits - p_logits).abs().max().item()}
+    if not (torch.equal(k_pool, p_pool) and torch.equal(k_logits, p_logits)):
+        fail(f"w8a8 kernel path vs the int8 kernels' plain versions: max |diff| "
+             f"{vs_plain}, expected bit-equal")
+    err_pool, err_logits, _ = kernel_vs_plain(model, cfg, batch, impl, None)
+    sens_pool, sens_logits, _ = kernel_vs_plain(model, cfg, batch, "fuselnqkv", None)
+    _, _, (b_pool, b_logits) = kernel_vs_plain(bf16_model, cfg, batch, "auto")
+    divergence = {"pooler_max_abs": (k_pool - b_pool).abs().max().item(),
+                  "logits_max_abs": (k_logits - b_logits).abs().max().item(),
+                  "argmax_agree": int((k_logits.argmax(-1) == b_logits.argmax(-1)).sum())}
+    weight_bytes = {"bf16": quantized_bytes(bf16_model), "w8a8": quantized_bytes(model)}
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for bs in (8, 16):
+            b = entry_batch(cfg, bs, dev, seed=1)
+            kernel_path = lambda: model(b)
+            plain_path = lambda: model(b, use_pallas=False)
+            samples = {"kernel": [], "plain": []}
+            for path in ("plain", "kernel", "kernel", "plain"):
+                fn = kernel_path if path == "kernel" else plain_path
+                samples[path] += [time_ms(fn, iters=5, warmup=2) for _ in range(3)]
+            ms = float(np.median(samples["kernel"]))
+            dev_ms, kernels = device_ms(kernel_path, iters=3, warmup=1)
+            top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+            timings[bs] = dict(ms=ms, ms_samples=samples["kernel"],
+                               pairs_per_s=bs / ms * 1e3,
+                               plain_ms=float(np.median(samples["plain"])),
+                               plain_ms_samples=samples["plain"],
+                               device_busy_ms=dev_ms, idle_share=1.0 - dev_ms / ms,
+                               top_kernels_ms=top)
+    emit(phase="forward_w8a8", use_pallas=impl, build_s=build_s,
+         launches_per_forward=counts, vs_int8_plain_versions=vs_plain,
+         vs_int8_plain_versions_limit="bit-equal",
+         launches_through_plain_versions=plain_counts,
+         vs_xla_path={"pooler": err_pool, "logits": err_logits},
+         vs_xla_path_within_forward_limits=(err_pool <= FORWARD_LIMITS["pooler"] and
+                                            err_logits <= FORWARD_LIMITS["logits"]),
+         forward_limits=FORWARD_LIMITS,
+         sensitivity_fuselnqkv_only={"pooler": sens_pool, "logits": sens_logits},
+         divergence_from_bf16=divergence, weight_bytes=weight_bytes,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         timings={str(k): v for k, v in timings.items()})
+    return model, counts
 
 
 # ---------------------------------------------------------------------------
@@ -872,10 +1182,16 @@ def main():
 
     checks["mlp_block_bwd"] = check_mlp_bwd(gen, dev, postln=False)
     checks["mlp_postln_bwd"] = check_mlp_bwd(gen, dev, postln=True)
+    for name in INT8_KERNELS:
+        checks[name] = check_int8_family(gen, dev, name)
 
-    model, _, counts = forward_phase(dev)
+    model, cfg, counts = forward_phase(dev)
     serving_phase(model)
+    lnqkv_counts = lnqkv_phase(model, cfg, dev)
+    qmodel, w8a8_counts = w8a8_forward_phase(dev, cfg, model)
     del model
+    serving_phase(qmodel, W8A8_LAUNCHES, "serving_w8a8")
+    del qmodel
     torch.cuda.empty_cache()
     cfg, step_counts = train_step_phase(dev)
     trainer_phase(dev, cfg)
@@ -889,7 +1205,18 @@ def main():
                "mlp_block_bwd": ("vault_tpu_torch/csrc/mlp_bwd.cu",
                                  "vault_tpu/ops/pallas_mlp.py:523"),
                "mlp_postln_bwd": ("vault_tpu_torch/csrc/mlp_bwd.cu",
-                                  "vault_tpu/ops/pallas_mlp.py:1231")}
+                                  "vault_tpu/ops/pallas_mlp.py:1231"),
+               "ln_qkv": ("vault_tpu_torch/csrc/ln_qkv.cu",
+                          "vault_tpu/ops/pallas_mlp.py:282"),
+               "ln_qkv_w8a8": ("vault_tpu_torch/csrc/ln_qkv.cu",
+                               "vault_tpu/ops/pallas_mlp.py:360"),
+               "mlp_block_w8a8": ("vault_tpu_torch/csrc/mlp_w8a8.cu",
+                                  "vault_tpu/ops/pallas_mlp.py:720"),
+               "mlp_postln_w8a8": ("vault_tpu_torch/csrc/mlp_w8a8.cu",
+                                   "vault_tpu/ops/pallas_mlp.py:1054")}
+    # each kernel's launches in the run of the path that drives it
+    path_counts = {"forward": counts, "forward_fuselnqkv": lnqkv_counts,
+                   "forward_w8a8": w8a8_counts, "train_step": step_counts}
     kernels = []
     for name, rows in checks.items():
         timed = [r for r in rows if "ms" in r and r.get("path") != "train"]
@@ -897,11 +1224,13 @@ def main():
         # attention: the main path launches it equally often at L = 40 and
         # L = 256, so its numbers are the mean over those two shapes
         mean = lambda key: sum(r[key] for r in timed) / len(timed)
-        # launches: the forward kernels' from one forward, the backward
-        # kernels' from one training step (the paths that run them)
+        # launches: from the first path that runs the kernel (the bf16
+        # forward, the fuselnqkv forward, the w8a8 forward, a training step)
+        path, launches = next(((p, c[name]) for p, c in path_counts.items()
+                               if c[name]), (None, 0))
         entry = dict(name=name, route="cuda", source=sources[name][0],
-                     replaces=sources[name][1],
-                     launches=counts[name] or step_counts[name],
+                     replaces=sources[name][1], launches=launches,
+                     launches_path=path,
                      launches_per_train_step=step_counts[name],
                      max_abs_err=max(r["max_abs_err"] for r in timed),
                      ms=mean("ms"), wall_ms=mean("wall_ms"), plain_ms=mean("plain_ms"),
@@ -913,6 +1242,8 @@ def main():
                                       "vault_tpu/ops/pallas_attention.py:245"]
         if name.endswith("_bwd"):
             entry["wrapper_ms"] = mean("wrapper_ms")
+        if name in INT8_KERNELS:
+            entry["library"] = INT8_KERNELS[name][4]
         for r in at_train_rows:  # the forward kernels at the training rows
             entry.update(train_rows=r["rows"], train_ms=r["ms"],
                          train_plain_ms=r["plain_ms"],

@@ -6,7 +6,8 @@ path's shapes).  On a machine with a card: ``python3 -m pytest --noconftest -m c
 tests/test_torch_cuda.py`` (the repository's conftest imports JAX).  Limits
 as in chip_smoke.py: forward bf16 6.25e-2 (a few bf16 ulps of outputs of
 magnitude ~4), fp32 1e-4 (summation order); backward, per output, 2^-5
-(bf16) or 1e-4 (fp32) of max(1, max|plain|).
+(bf16) or 1e-4 (fp32) of max(1, max|plain|); the w8a8 kernels bit-equal,
+the fp LN->QKV kernel in bf16 2^-7 of max(1, max|plain|).
 """
 
 import pytest
@@ -317,3 +318,180 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(dev):
             with pytest.raises((ValueError, TypeError)):
                 fn(*a)
     assert cm.fused_mlp_block_bwd.launches == n
+
+
+# ---------------------------------------------------------------------------
+# LN -> QKV (csrc/ln_qkv.cu) and the w8a8 MLP blocks (csrc/mlp_w8a8.cu)
+# ---------------------------------------------------------------------------
+
+def _int8_operands(dev, rows, dtype, i=3072, seed=4):
+    from vault_tpu_torch.ops.quantize import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * std + mean).to(dtype)
+
+    o = dict(gamma=rnd(768, std=0.1, mean=1.0), beta=rnd(768, std=0.1),
+             b1=rnd(i, std=0.02), b2=rnd(768, std=0.02), bqkv=rnd(2304, std=0.02),
+             x=rnd(rows, 768), wqkv=rnd(768, 2304, std=0.02))
+    for name, shape in (("w1", (768, i)), ("w2", (i, 768)), ("wqkv", None)):
+        w = o["wqkv"] if shape is None else rnd(*shape, std=0.02)
+        q, s = quantize_weight(w)
+        o[name + "q"], o["s" + name[1:]] = q, s.reshape(-1)
+    return o
+
+
+W8A8_ARGS = ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x")
+# The w8a8 kernels equal their plain versions bit for bit (same cast points,
+# LN statistics in double, every fp32 step in the same order); the fp
+# LN->QKV kernel differs from its plain version, the XLA composition, in the
+# LN statistics' rounding and the summation order: in bf16 by at most 2^-7
+# of the output's scale, one or two bf16 ulps there.
+LNQKV_BF16_LIMIT = 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 77, 320, 2048])
+def test_ln_qkv_kernels_match_plain(dev, dtype, rows):
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
+    o = _int8_operands(dev, rows, dtype)
+    cases = ((cl.fused_ln_qkv_fwd, cl.ln_qkv_plain, ("gamma", "beta", "wqkv", "bqkv", "x")),
+             (cl.fused_ln_qkv_fwd_w8a8, cl.ln_qkv_w8a8_plain,
+              ("gamma", "beta", "wqkvq", "sqkv", "bqkv", "x")))
+    for kernel, plain, names in cases:
+        args = [o[k] for k in names]
+        n = kernel.launches
+        out, again = kernel(*args), kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == n + 2
+        assert out.shape == (rows, 2304) and out.dtype == dtype
+        if kernel is cl.fused_ln_qkv_fwd_w8a8:
+            assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+        else:
+            limit = LIMITS[dtype] if dtype == torch.float32 else (
+                LNQKV_BF16_LIMIT * max(1.0, ref.float().abs().max().item()))
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= limit, (err, limit)
+        assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 77, 320, 2048])
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_w8a8_kernels_match_plain(dev, dtype, rows, postln):
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    o = _int8_operands(dev, rows, dtype)
+    args = [o[k] for k in W8A8_ARGS]
+    kernel = cm.fused_mlp_postln_fwd_w8a8 if postln else cm.fused_mlp_block_fwd_w8a8
+    plain = cm.mlp_postln_w8a8_plain if postln else cm.mlp_block_w8a8_plain
+    n = kernel.launches
+    out, again = kernel(*args), kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 2
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, again)
+
+
+def test_int8_matmul_on_the_card_is_exact(dev):
+    """torch._int_mm on the card (the plain linear's product), with the
+    short inputs padded to its 17-row minimum, against an int64 product."""
+    from vault_tpu_torch.ops.nn import int8_matmul
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for rows in (1, 16, 17, 320):
+        xq = torch.randint(-127, 128, (rows, 3072), generator=g, device=dev).to(torch.int8)
+        wq = torch.randint(-127, 128, (3072, 768), generator=g, device=dev).to(torch.int8)
+        ref = (xq.cpu().long() @ wq.cpu().long())
+        assert torch.equal(int8_matmul(xq, wq).cpu().long(), ref), rows
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_matmul(xq[:, :20], wq[:20, :12])
+
+
+def test_w8_block_on_the_card_raises(dev):
+    """The w8 (int8 weight-only) Pallas kernels are not ported: a w8 block
+    on the card raises instead of running anything else."""
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    o = _int8_operands(dev, 8, torch.bfloat16, i=256)
+    ln = {"scale": o["gamma"], "bias": o["beta"]}
+    p_in = {"w_q": o["w1q"], "w_scale": o["s1"], "b": o["b1"]}
+    p_out = {"w_q": o["w2q"], "w_scale": o["s2"], "b": o["b2"]}
+    for block in (cm.fused_mlp_block, cm.fused_mlp_postln_block):
+        with pytest.raises(NotImplementedError, match="w8"):
+            block(ln, p_in, p_out, o["x"])
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    o = _int8_operands(dev, 16, torch.bfloat16, i=256)
+    args = [o[k] for k in W8A8_ARGS]
+    bad = {
+        "fp weights": [o["gamma"], o["beta"], o["w1q"].to(torch.bfloat16)] + args[3:],
+        "bf16 scales": args[:3] + [o["s1"].to(torch.bfloat16)] + args[4:],
+        "fp32 x": args[:8] + [o["x"].float()],
+        "x not contiguous": args[:8] + [o["x"].t().contiguous().t()],
+        "I multiple": args[:2] + [o["w1q"][:, :200].contiguous(), o["s1"][:200].contiguous(),
+                                  o["b1"][:200].contiguous(), o["w2q"][:200].contiguous()]
+        + args[6:],
+        "cpu x": args[:8] + [o["x"].cpu()],
+    }
+    counts = (cm.fused_mlp_block_fwd_w8a8.launches, cm.fused_mlp_postln_fwd_w8a8.launches)
+    for fn in (cm.fused_mlp_block_fwd_w8a8, cm.fused_mlp_postln_fwd_w8a8):
+        for what, a in bad.items():
+            with pytest.raises((ValueError, TypeError)):
+                fn(*a)
+        with pytest.raises(ValueError, match="GELU"):
+            fn(*args, act="relu")
+    assert counts == (cm.fused_mlp_block_fwd_w8a8.launches,
+                      cm.fused_mlp_postln_fwd_w8a8.launches)
+    n = cl.fused_ln_qkv_fwd_w8a8.launches
+    for a in ([o["gamma"], o["beta"], o["wqkv"], o["sqkv"], o["bqkv"], o["x"]],
+              [o["gamma"], o["beta"], o["wqkvq"], o["sqkv"], o["bqkv"].float(), o["x"]],
+              [o["gamma"], o["beta"], o["wqkvq"], o["sqkv"], o["bqkv"], o["x"].cpu()]):
+        with pytest.raises((ValueError, TypeError)):
+            cl.fused_ln_qkv_fwd_w8a8(*a)
+    with pytest.raises((ValueError, TypeError)):
+        cl.fused_ln_qkv_fwd(o["gamma"], o["beta"], o["wqkvq"], o["bqkv"], o["x"])
+    assert cl.fused_ln_qkv_fwd_w8a8.launches == n
+
+
+def test_w8a8_model_forward_launches_each_kernel_per_layer(dev, monkeypatch):
+    """A wide two-layer VAuLT, bf16, quantized w8a8: one forward launches
+    each int8 kernel once per layer of its tower, equals the same forward
+    with the int8 kernels' plain versions in their wrappers' place, and
+    stays close to the plain path of the same quantized model."""
+    from vault_tpu_torch.config import VaultConfig, tiny_text_config, tiny_vilt_config
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.ops import cuda_attention as ca
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    wide = dict(hidden_size=768, num_attention_heads=12, intermediate_size=1536)
+    cfg = VaultConfig(vilt=tiny_vilt_config(**wide), text_tower=tiny_text_config(**wide))
+    model = VaultForClassification(cfg, dtype=torch.bfloat16).quantize("w8a8")
+    assert model.use_pallas == "fuselnqkv+fusemlp+batched"
+    batch = {"input_ids": torch.randint(1, 99, (2, 8)),
+             "attention_mask": torch.ones((2, 8), dtype=torch.int64),
+             "token_type_ids": torch.zeros((2, 8), dtype=torch.int64),
+             "pixel_values": torch.randn((2, 3, 64, 64)),
+             "pixel_mask": torch.ones((2, 64, 64), dtype=torch.int64)}
+    fns = (ca.fused_attention, cl.fused_ln_qkv_fwd_w8a8, cm.fused_mlp_block_fwd_w8a8,
+           cm.fused_mlp_postln_fwd_w8a8, cm.fused_mlp_block_fwd, cm.fused_mlp_postln_fwd)
+    before = [f.launches for f in fns]
+    with torch.inference_mode():
+        out = model(batch)
+        plain = model(batch, use_pallas=False)
+    assert [f.launches - b for f, b in zip(fns, before)] == [4, 2, 2, 2, 0, 0]
+    assert (out.float() - plain.float()).abs().max().item() < 2e-2
+    monkeypatch.setattr(cl, "fused_ln_qkv_fwd_w8a8", cl.ln_qkv_w8a8_plain)
+    monkeypatch.setattr(cm, "fused_mlp_block_fwd_w8a8", cm.mlp_block_w8a8_plain)
+    monkeypatch.setattr(cm, "fused_mlp_postln_fwd_w8a8", cm.mlp_postln_w8a8_plain)
+    with torch.inference_mode():
+        assert torch.equal(model(batch), out)

@@ -310,3 +310,222 @@ def test_backward_wrappers_never_fall_back():
                t["x"])
     assert counts == (cm.fused_mlp_block_bwd.launches,
                       cm.fused_mlp_postln_block_bwd.launches)
+
+
+# ---------------------------------------------------------------------------
+# LN -> QKV and the w8a8 MLP blocks: the plain versions of csrc/ln_qkv.cu and
+# csrc/mlp_w8a8.cu against the Pallas kernels (interpret mode) and the XLA
+# compositions with w_q8 parameters.  fp32: the JAX package's own budgets
+# (test_quantize.py: atol 2e-5 LN->QKV, 3e-5 pre-LN, 5e-5 post-LN, rtol
+# 1e-4; the int8 sums are exact, so what differs is the erf (A&S in Pallas)
+# and the fp32 LN statistics).  bf16: the bf16 budget of ATOL/RTOL above.
+# ---------------------------------------------------------------------------
+
+from vault_tpu.ops import quantize as jq
+from vault_tpu_torch.ops import cuda_ln_qkv as cl
+from vault_tpu_torch.ops import quantize as tq
+
+W8A8_ATOL = {"ln_qkv": 2e-5, "preln": 3e-5, "postln": 5e-5}
+
+
+def _q_inputs(dtype, h=128, inner=256, rows=(2, 24), seed=21):
+    """test_quantize.py's operands: fp weights quantized on both sides
+    (equal codes and scales, tests/test_torch_quantize.py)."""
+    rng = np.random.default_rng(seed)
+    a = dict(x=rng.normal(size=(*rows, h)), gamma=rng.normal(size=h) * 0.1 + 1,
+             beta=rng.normal(size=h) * 0.1, w1=rng.normal(size=(h, inner)) * 0.05,
+             b1=rng.normal(size=inner) * 0.02, w2=rng.normal(size=(inner, h)) * 0.05,
+             b2=rng.normal(size=h) * 0.02,
+             wqkv=rng.normal(size=(h, 3 * h)) * 0.05, bqkv=rng.normal(size=3 * h) * 0.02)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    j = {k: jnp.asarray(v.astype(np.float32), jd) for k, v in a.items()}
+    t = {k: torch.from_numpy(v.astype(np.float32)).to(td) for k, v in a.items()}
+    for side, quant, lib in ((j, jq, jnp), (t, tq, torch)):
+        for name in ("w1", "w2", "wqkv"):
+            side[name + "q"], side["s" + name[1:]] = quant.quantize_weight(side[name])
+    return j, t
+
+
+def _w8a8_params(s, postln=False):
+    return ({"scale": s["gamma"], "bias": s["beta"]},
+            {"w_q8": s["w1q"], "w_scale": s["s1"], "b": s["b1"]},
+            {"w_q8": s["w2q"], "w_scale": s["s2"], "b": s["b2"]})
+
+
+def _close(out, ref, dtype, atol):
+    if dtype == "bfloat16":
+        atol = ATOL[dtype]
+    np.testing.assert_allclose(_np(out), _np(ref), atol=atol, rtol=RTOL[dtype]
+                               if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_qkv_plain_vs_pallas_and_xla(dtype):
+    j, t = _q_inputs(dtype)
+    args = ("gamma", "beta", "wqkv", "bqkv", "x")
+    ref = pm.fused_ln_qkv_fwd(*(j[k] for k in args), eps=1e-12, interpret=True)
+    xla = pm._ln_qkv_xla({"scale": j["gamma"], "bias": j["beta"]}, j["wqkv"],
+                         j["bqkv"], j["x"], 1e-12)
+    out = cl.ln_qkv_plain(*(t[k] for k in args))
+    assert out.dtype == t["x"].dtype and out.shape == (2, 24, 384)
+    _close(out, ref, dtype, W8A8_ATOL["ln_qkv"])
+    _close(out, xla, dtype, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_qkv_w8a8_plain_vs_pallas_and_xla(dtype):
+    j, t = _q_inputs(dtype, seed=7)
+    args = ("gamma", "beta", "wqkvq", "sqkv", "bqkv", "x")
+    ref = pm.fused_ln_qkv_fwd_w8a8(*(j[k] for k in args), eps=1e-12, interpret=True)
+    y = pm.layer_norm({"scale": j["gamma"], "bias": j["beta"]}, j["x"], 1e-12)
+    xla = pm.linear({"w_q8": j["wqkvq"], "w_scale": j["sqkv"], "b": j["bqkv"]}, y)
+    out = cl.ln_qkv_w8a8_plain(*(t[k] for k in args))
+    assert out.dtype == t["x"].dtype and out.shape == (2, 24, 384)
+    _close(out, ref, dtype, W8A8_ATOL["ln_qkv"])
+    _close(out, xla, dtype, W8A8_ATOL["ln_qkv"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_w8a8_plain_vs_pallas(dtype, postln):
+    j, t = _q_inputs(dtype)
+    args = ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x")
+    pallas = pm.fused_mlp_postln_fwd_w8a8 if postln else pm.fused_mlp_block_fwd_w8a8
+    plain = cm.mlp_postln_w8a8_plain if postln else cm.mlp_block_w8a8_plain
+    ref = pallas(*(j[k] for k in args), eps=1e-12, interpret=True)
+    out = plain(*(t[k] for k in args))
+    assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
+    _close(out, ref, dtype, W8A8_ATOL["postln" if postln else "preln"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_w8a8_dispatch_vs_jax(dtype, postln):
+    """The dispatchers with w_q8 parameters (the plain versions on the CPU)
+    against the JAX package's dispatchers (the Pallas kernels) and its XLA
+    compositions."""
+    j, t = _q_inputs(dtype, seed=22)
+    jblock = pm.fused_mlp_postln_block if postln else pm.fused_mlp_block
+    tblock = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
+    xla = pm._mlp_postln_xla if postln else pm._mlp_block_xla
+    out = tblock(*_w8a8_params(t), t["x"], 1e-12, "gelu")
+    atol = W8A8_ATOL["postln" if postln else "preln"]
+    _close(out, jblock(*_w8a8_params(j), j["x"], 1e-12, "gelu"), dtype, atol)
+    _close(out, xla(*_w8a8_params(j), j["x"], 1e-12, "gelu"), dtype, atol)
+
+
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_w8a8_grads_match_jax(postln):
+    """Gradients with respect to the float leaves (LN, scales, biases, x)
+    through the w8a8 dispatch: autograd of the XLA composition, as the JAX
+    package's vjp (test_quantize.py's budget, atol/rtol 1e-3)."""
+    import jax
+
+    j, t = _q_inputs("float32", seed=23)
+    jblock = pm.fused_mlp_postln_block if postln else pm.fused_mlp_block
+    tblock = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
+    names = ("gamma", "beta", "s1", "b1", "s2", "b2", "x")
+
+    def jloss(gamma, beta, s1, b1, s2, b2, x):
+        p = dict(j, gamma=gamma, beta=beta, s1=s1, b1=b1, s2=s2, b2=b2)
+        return jnp.sum(jblock(*_w8a8_params(p), x) ** 2)
+
+    ref = jax.grad(jloss, argnums=tuple(range(7)))(*(j[k] for k in names))
+    leaves = {k: t[k].clone().requires_grad_() for k in names}
+    out = tblock(*_w8a8_params(dict(t, **leaves)), leaves["x"])
+    (out ** 2).sum().backward()
+    for k, r in zip(names, ref):
+        np.testing.assert_allclose(_np(leaves[k].grad).reshape(np.shape(r)), _np(r),
+                                   atol=1e-3, rtol=1e-3, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_ln_qkv_dispatch_vs_jax(dtype):
+    """fused_ln_qkv with fp, w8a8 and w8 q/k/v, one without biases, against
+    the JAX package's dispatcher."""
+    j, t = _q_inputs(dtype, seed=24)
+    h = 128
+    for mode in (None, "w8a8", "w8"):
+        ps = {}
+        for side, quant in ((j, jq), (t, tq)):
+            lin = [{"w": side["wqkv"][:, i * h:(i + 1) * h], "b": side["bqkv"][i * h:(i + 1) * h]}
+                   for i in range(3)]
+            del lin[1]["b"]
+            ps[id(side)] = [quant.quantize_linear_params(p, mode) if mode else p
+                            for p in lin]
+        ref = pm.fused_ln_qkv({"scale": j["gamma"], "bias": j["beta"]}, *ps[id(j)],
+                              j["x"], 1e-12)
+        out = cl.fused_ln_qkv({"scale": t["gamma"], "bias": t["beta"]}, *ps[id(t)],
+                              t["x"], 1e-12)
+        assert out.shape == (2, 24, 3 * h)
+        _close(out, ref, dtype, W8A8_ATOL["ln_qkv"])
+
+
+def test_fused_ln_qkv_grads_match_jax():
+    """The fp LN->QKV Function's gradient is autograd of the plain
+    composition, as the JAX package's _fused_ln_qkv_bwd (fp32, atol 1e-5)."""
+    import jax
+
+    j, t = _q_inputs("float32", seed=25)
+    h = 128
+    names = ("gamma", "beta", "wqkv", "bqkv", "x")
+
+    def split(s):
+        return [{"w": s["wqkv"][:, i * h:(i + 1) * h], "b": s["bqkv"][i * h:(i + 1) * h]}
+                for i in range(3)]
+
+    def jloss(*vals):
+        p = dict(zip(names, vals))
+        return jnp.sum(pm.fused_ln_qkv({"scale": p["gamma"], "bias": p["beta"]},
+                                       *split(p), p["x"]) ** 2)
+
+    ref = jax.grad(jloss, argnums=tuple(range(5)))(*(j[k] for k in names))
+    leaves = {k: t[k].clone().requires_grad_() for k in names}
+    out = cl.fused_ln_qkv({"scale": leaves["gamma"], "bias": leaves["beta"]},
+                          *split(leaves), leaves["x"])
+    (out ** 2).sum().backward()
+    for k, r in zip(names, ref):
+        np.testing.assert_allclose(_np(leaves[k].grad), _np(r), atol=1e-5,
+                                   rtol=1e-5, err_msg=k)
+
+
+def test_quantized_blocks_dispatch_like_jax():
+    """A w8a8 block with a dropout mask and a w8 block take the plain
+    composition on the CPU, as the JAX package falls back to XLA (w8 has a
+    Pallas kernel there, not ported yet: on the card it raises)."""
+    j, t = _q_inputs("float32", seed=26)
+    m = torch.from_numpy(np.where(np.random.default_rng(0).random((2, 24, 128)) < 0.9,
+                                  1 / 0.9, 0.0).astype(np.float32))
+    p = _w8a8_params(t)
+    np.testing.assert_array_equal(
+        _np(cm.fused_mlp_block(*p, t["x"], 1e-12, "gelu", m)),
+        _np(cm._mlp_block_plain(*p, t["x"], 1e-12, "gelu", m)))
+    w8 = [{"w_q": t[k + "q"], "w_scale": t["s" + k[1:]], "b": t["b" + k[1:]]}
+          for k in ("w1", "w2")]
+    for postln, jblock in ((False, pm.fused_mlp_block), (True, pm.fused_mlp_postln_block)):
+        block = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
+        jw8 = [{"w_q": j[k + "q"], "w_scale": j["s" + k[1:]], "b": j["b" + k[1:]]}
+               for k in ("w1", "w2")]
+        out = block(p[0], *w8, t["x"], 1e-12, "gelu")
+        ref = jblock({"scale": j["gamma"], "bias": j["beta"]}, *jw8, j["x"], 1e-12, "gelu")
+        np.testing.assert_allclose(_np(out), _np(ref), atol=3e-5, rtol=1e-4)
+
+
+def test_int8_kernel_wrappers_never_fall_back():
+    """The LN->QKV and w8a8 kernel wrappers refuse CPU tensors before
+    anything is built or counted."""
+    _, t = _q_inputs("float32", h=768, inner=256, rows=(4,))
+    counts = lambda: (cl.fused_ln_qkv_fwd.launches, cl.fused_ln_qkv_fwd_w8a8.launches,
+                      cm.fused_mlp_block_fwd_w8a8.launches,
+                      cm.fused_mlp_postln_fwd_w8a8.launches)
+    before = counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        cl.fused_ln_qkv_fwd(t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["x"])
+    with pytest.raises(ValueError, match="CUDA"):
+        cl.fused_ln_qkv_fwd_w8a8(t["gamma"], t["beta"], t["wqkvq"], t["sqkv"],
+                                 t["bqkv"], t["x"])
+    for fn in (cm.fused_mlp_block_fwd_w8a8, cm.fused_mlp_postln_fwd_w8a8):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*(t[k] for k in ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2",
+                                "b2", "x")))
+    assert counts() == before

@@ -220,7 +220,7 @@ def test_unported_paths_raise():
     model = tvault.VaultForClassification(tcfg, device="cpu")
     _, tb = _sides(_batch(), "float32")
     with pytest.raises(NotImplementedError):
-        model(tb, use_pallas="fuselnqkv+fusemlp")
+        tvault.vault_for_classification(model, tcfg, tb, remat="dots")
     with pytest.raises(NotImplementedError):
         tvault.vault_apply(model, tcfg, merge_patches_to=4, **tb)
 
@@ -301,3 +301,72 @@ def test_vault_gradients_match_jax(impl, remat):
         scale = max(1.0, g.abs().max().item())
         err = (got - g).abs().max().item()
         assert err <= 1e-4 * scale, (k, err, scale)
+
+
+# ---------------------------------------------------------------------------
+# int8 serving and the fused LN->QKV path.  The JAX side quantizes its tree
+# (``quantize_model_params``), the port its model (``quantize``) from the
+# same fp weights: equal codes and scales (tests/test_torch_quantize.py).
+# "fuselnqkv+fusemlp" interprets the Pallas kernels on the JAX side and takes
+# the kernels' plain versions on the port's.  Tolerances as above: fp32
+# atol 5e-5 (measured <= 1.8e-7 on the w8a8 pooler and logits; a code could
+# flip where the two sides' fp32 values differ by an ulp at a rounding
+# boundary, which these inputs do not meet), bf16 atol 3e-2 + rtol 2^-7
+# (measured <= 2.9e-3 w8a8, 3.1e-2 on the fp fuselnqkv hidden state).
+# ---------------------------------------------------------------------------
+
+W8A8_IMPLS = [False, "fuselnqkv+fusemlp"]
+
+
+@pytest.mark.parametrize("impl", W8A8_IMPLS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vault_w8a8_matches_jax(dtype, impl):
+    from vault_tpu.ops.quantize import quantize_model_params
+
+    jcfg, tcfg = _cfgs()
+    jp = _jax_params(jcfg, dtype)
+    jqp = quantize_model_params(jp, mode="w8a8")
+    model = _model(tcfg, jp, dtype).quantize("w8a8")
+    assert model.use_pallas == "fuselnqkv+fusemlp"
+    jb, tb = _sides(_batch(seed=6), dtype)
+    ref_logits = jvault.vault_for_classification(jqp, jcfg, jb, head_dropout=0.0,
+                                                 deterministic=True, use_pallas=impl)
+    ref_pool = jvault.vault_apply(jqp, jcfg, use_pallas=impl, **jb).pooler_output
+    with torch.inference_mode():
+        logits = model(tb, use_pallas=impl)
+        pool = tvault.vault_apply(model, tcfg, use_pallas=impl, **tb).pooler_output
+    assert logits.shape == (3, 3) and logits.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(logits), _np(ref_logits), atol=ATOL[dtype],
+                               rtol=RTOL[dtype])
+    np.testing.assert_allclose(_np(pool), _np(ref_pool), atol=ATOL[dtype],
+                               rtol=RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vault_fuselnqkv_fp_matches_jax(dtype):
+    """The bf16/fp32 serving selector with the fused LN->QKV kernel."""
+    impl = "fuselnqkv+fusemlp+batched"
+    jcfg, tcfg = _cfgs()
+    jp = _jax_params(jcfg, dtype)
+    model = _model(tcfg, jp, dtype)
+    jb, tb = _sides(_batch(seed=7), dtype)
+    ref = jvault.vault_apply(jp, jcfg, use_pallas=impl, **jb)
+    with torch.inference_mode():
+        out = tvault.vault_apply(model, tcfg, use_pallas=impl, **tb)
+    for o, r in ((out.last_hidden_state, ref.last_hidden_state),
+                 (out.pooler_output, ref.pooler_output)):
+        np.testing.assert_allclose(_np(o), _np(r), atol=ATOL[dtype],
+                                   rtol=RTOL[dtype])
+
+
+def test_w8a8_model_stays_close_to_the_fp_model():
+    """The quantized classifier against its own fp32 weights: the pooler
+    within the JAX package's w8a8 budget (0.05, test_quantize.py)."""
+    jcfg, tcfg = _cfgs()
+    jp = _jax_params(jcfg, "float32")
+    fp, q = _model(tcfg, jp, "float32"), _model(tcfg, jp, "float32").quantize("w8a8")
+    _, tb = _sides(_batch(seed=8), "float32")
+    with torch.inference_mode():
+        a = tvault.vault_apply(fp, tcfg, **tb).pooler_output
+        b = tvault.vault_apply(q, tcfg, use_pallas=q.use_pallas, **tb).pooler_output
+    assert 0.0 < (a - b).abs().max().item() < 0.05

@@ -153,6 +153,7 @@ class VaultForClassification(ParamDict):
     Runs on the card unless ``device`` names another; with no card and no
     device it raises.  Weights are seeded random (``seed``) until loaded.
     ``forward(batch)`` returns the logits of a deterministic pass.
+    :meth:`quantize` turns it into its int8 serving form in place.
     """
 
     def __init__(self, cfg: VaultConfig, n_classes: int = 3, device=None,
@@ -168,7 +169,42 @@ class VaultForClassification(ParamDict):
         self.cfg = cfg
         self.use_pallas = use_pallas
         self.head_dropout = head_dropout
+        self.quant_mode = None
         self.to(device=device, dtype=dtype)
+
+    def quantize(self, mode: str = "w8a8") -> "VaultForClassification":
+        """Quantize every encoder linear in place (ops/quantize.py
+        ``quantize_model_params``: int8 codes and fp32 per-out-channel
+        scales), for serving, as the JAX package's ``scripts/serve.py``
+        does after its cast to bf16: cast first, then quantize.  A selector
+        left at "auto" becomes :func:`~vault_tpu_torch.serving.serving_impl`
+        (w8a8: the fused LN->QKV and MLP kernels).  Afterwards the model's
+        dtypes are fixed: a cast (``.to(dtype)``, ``.bfloat16()``) would
+        turn the fp32 scales into the new type, so it raises."""
+        from vault_tpu_torch.ops.quantize import quantize_model_params
+        from vault_tpu_torch.serving import serving_impl
+
+        if self.quant_mode is not None:
+            raise RuntimeError(f"the model is already quantized ({self.quant_mode})")
+        quantize_model_params(self, mode=mode)
+        self.quant_mode = mode
+        if self.use_pallas == "auto":
+            self.use_pallas = serving_impl(mode, self.device)
+        return self
+
+    def _apply(self, fn, recurse=True):
+        if getattr(self, "quant_mode", None) is None:
+            return super()._apply(fn, recurse)
+
+        def same_dtype(t):
+            out = fn(t)
+            if out.dtype != t.dtype:
+                raise RuntimeError(
+                    f"a {self.quant_mode}-quantized model keeps its dtypes (the "
+                    "scales stay fp32): cast before quantize(), not after")
+            return out
+
+        return super()._apply(same_dtype, recurse)
 
     @property
     def device(self) -> torch.device:

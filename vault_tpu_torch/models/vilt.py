@@ -12,7 +12,7 @@ The numerical contract of HF ``ViltModel`` that the reference delegates to
 As in the JAX package, valid patches are gathered valid-first in raster
 order into a fixed ``num_patch_tokens`` budget with the padded slots masked
 (HF instead samples them with ``torch.multinomial``).  Token merging (ToMe)
-and the fused LN->QKV path are not ported yet: they raise.
+is not ported yet: it raises.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from vault_tpu_torch.ops.attention import (
     merge_heads,
     parse_impl,
     project_qkv,
+    split_heads,
 )
 from vault_tpu_torch.ops.interpolate import (
     downsample_mask_nearest,
@@ -225,11 +226,15 @@ def _encoder_layer(lp, cfg: ViltConfig, x, bias, deterministic,
     """One pre-LN ViLT layer (modeling_vilt.py ViltLayer.forward)."""
     fuse_qkv, fuse_lnqkv, fuse_mlp, _ = parse_impl(use_pallas, x.device)
     if fuse_lnqkv:
-        raise NotImplementedError(
-            "use_pallas 'fuselnqkv': the fused LN->QKV kernel is not ported "
-            "yet; use 'fuseqkv'")
-    y = layer_norm(lp["ln_before"], x, cfg.layer_norm_eps)
-    q, k, v = project_qkv(lp, y, cfg.num_attention_heads, fuse_qkv)
+        from vault_tpu_torch.ops.cuda_ln_qkv import fused_ln_qkv
+
+        qkv = fused_ln_qkv(lp["ln_before"], lp["q"], lp["k"], lp["v"], x,
+                           cfg.layer_norm_eps)
+        q, k, v = (split_heads(t, cfg.num_attention_heads)
+                   for t in torch.chunk(qkv, 3, dim=-1))
+    else:
+        y = layer_norm(lp["ln_before"], x, cfg.layer_norm_eps)
+        q, k, v = project_qkv(lp, y, cfg.num_attention_heads, fuse_qkv)
     ctx = merge_heads(attend(q, k, v, bias, generator,
                              cfg.attention_probs_dropout_prob, deterministic,
                              use_pallas=use_pallas))

@@ -33,9 +33,9 @@ def parse_impl(use_pallas, device: Optional[torch.device] = None):
     True/"batched"/"grid"/"dotbatch" (the attention kernel; the three names
     of the JAX package all select the one kernel); "+"-combinable modifiers:
     "fuseqkv" computes Q/K/V with one fused (H, 3H) product, "fuselnqkv"
-    additionally folds the pre-LN LayerNorm into it (not ported yet: the
-    layer raises), "fusemlp" runs the MLP halves through the fused MLP-block
-    kernels (ops/cuda_mlp.py).  "auto" resolves to CUDA_DEFAULT_IMPL when
+    additionally folds the pre-LN LayerNorm into it (ops/cuda_ln_qkv.py;
+    the pre-LN ViLT layers only, as in the JAX package), "fusemlp" runs the
+    MLP halves through the fused MLP-block kernels (ops/cuda_mlp.py).  "auto" resolves to CUDA_DEFAULT_IMPL when
     ``device`` is a CUDA device and to False elsewhere.
     Returns (fuse_qkv, fuse_lnqkv, fuse_mlp, attn_impl)."""
     if use_pallas == "auto":
@@ -63,10 +63,16 @@ def parse_impl(use_pallas, device: Optional[torch.device] = None):
 def project_qkv(lp, y: torch.Tensor, num_heads: int, fuse: bool = False):
     """Q/K/V projections -> (B, heads, L, head_dim) each.  With ``fuse``,
     the three (H, H) products run as one (H, 3H) product (same contractions,
-    fp32 accumulation, so numerically identical)."""
-    if fuse:
-        fused = {"w": torch.cat([lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]],
-                                dim=1)}
+    fp32 accumulation, so numerically identical).  Quantized weights
+    (ops/quantize.py w8 ``w_q`` / w8a8 ``w_q8``) fuse the same way: weights
+    and per-out-channel scales concatenated along out; w8a8 then quantizes
+    the activations once (the per-row scale is the same y's either way)."""
+    wk = next((k for k in ("w", "w_q", "w_q8") if k in lp["q"]), None)
+    if fuse and wk is not None:
+        fused = {wk: torch.cat([lp["q"][wk], lp["k"][wk], lp["v"][wk]], dim=1)}
+        if wk != "w":
+            fused["w_scale"] = torch.cat([lp["q"]["w_scale"], lp["k"]["w_scale"],
+                                          lp["v"]["w_scale"]], dim=-1)
         if "b" in lp["q"]:  # qkv_bias=False models carry no bias leaves
             fused["b"] = torch.cat([lp["q"]["b"], lp["k"]["b"], lp["v"]["b"]])
         q, k, v = torch.chunk(linear(fused, y), 3, dim=-1)

@@ -6,14 +6,14 @@ kernels (``vault_tpu/ops/pallas_attention.py``: ``fused_attention``,
 ``fused_attention_batched``, ``fused_attention_dotbatch``); the selector
 names "grid", "batched" and "dotbatch" all reach :func:`fused_attention`.
 
-:func:`fused_attention` is differentiable through a
-``torch.autograd.Function`` (the counterpart of the JAX package's
-``_pallas_attend`` custom_vjp): the backward recomputes through the plain
-composition, as the JAX package's does through ``attend_xla`` (it has no
-attention backward kernel, so neither has the port); the bias gets no
-gradient.  The Function runs the plain version only for tensors on the CPU.
-A CUDA tensor launches the kernel, or the call raises: there is no
-fallback.  ``fused_attention.launches`` counts the kernel's launches.
+:func:`fused_attention` is differentiable through ``ops/_dispatch.py``'s
+Function (the counterpart of the JAX package's ``_pallas_attend``
+custom_vjp): the backward recomputes through the plain composition, as the
+JAX package's does through ``attend_xla`` (it has no attention backward
+kernel, so neither has the port); the bias gets no gradient.  The Function
+runs the plain version only for tensors on the CPU.  A CUDA tensor launches
+the kernel, or the call raises: there is no fallback.
+``fused_attention.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from vault_tpu_torch.ops import _build
+from vault_tpu_torch.ops._dispatch import kernel_or_plain
 from vault_tpu_torch.ops.attention import attend_plain
 
 HEAD_DIM = 64  # the kernel's head dim (BERT-base, ViLT-B/32, BERTweet)
@@ -83,31 +84,15 @@ def _kernel(q, k, v, bias):
     return out.permute(0, 2, 1, 3)
 
 
-class _FusedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, bias):
-        ctx.save_for_backward(q, k, v, bias)
-        if q.device.type == "cpu":
-            return attention_plain(q, k, v, bias)
-        return _kernel(q, k, v, bias)
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = attention_plain(*leaves, bias)
-            dq, dk, dv = torch.autograd.grad(out, leaves, g)
-        return dq, dk, dv, None
-
-
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """q/k/v: (B, H, L, 64), any strides with contiguous rows (for example
     head views of one fused projection); bias: (B, 1, 1, L) float32 additive
     key bias.  Returns (B, H, L, 64) in q's dtype: on the card a view of a
     (B, L, H, 64) tensor, so merging the heads back costs no copy."""
-    return _FusedAttention.apply(q, k, v, bias)
+    # the bias is a constant of the attention mask: no gradient
+    return kernel_or_plain(_kernel, attention_plain, attention_plain, q, k, v,
+                           bias.detach())
 
 
 fused_attention.launches = 0

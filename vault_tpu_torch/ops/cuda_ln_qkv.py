@@ -1,0 +1,179 @@
+"""Fused LayerNorm -> QKV projection through the hand-written Hopper kernels
+(``csrc/ln_qkv.cu``), with their plain PyTorch versions beside them.
+
+  * :func:`fused_ln_qkv_fwd`: ``LN(x) Wqkv + b`` for fp weights; replaces
+    the JAX package's ``fused_ln_qkv_fwd`` (``vault_tpu/ops/pallas_mlp.py``).
+    Plain version :func:`ln_qkv_plain` (its ``_ln_qkv_xla``).
+  * :func:`fused_ln_qkv_fwd_w8a8`: the same with int8 weights and
+    per-out-channel scales, the normalised rows quantized to int8 and one
+    int8 x int8 -> int32 product; replaces ``fused_ln_qkv_fwd_w8a8``.  Plain
+    version :func:`ln_qkv_w8a8_plain` (the kernel's LN, then the w8a8
+    ``linear``).
+
+The dispatcher :func:`fused_ln_qkv` mirrors the JAX package's: w8a8 q/k/v
+run the w8a8 kernel, fp ones the fp kernel, any other form (w8) LayerNorm
+and three plain linears.  Both kernels are differentiable through
+``ops/_dispatch.py``'s Function, whose backward is autograd of the plain
+composition (LN, then one linear over the concatenated weights), as the JAX
+package's ``_fused_ln_qkv_bwd``.  The kernel wrappers launch for CUDA
+tensors and raise on anything the kernels do not take; CPU tensors take the
+plain versions.  Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vault_tpu_torch.ops import _build
+from vault_tpu_torch.ops._dispatch import check_operands, kernel_or_plain
+from vault_tpu_torch.ops.nn import layer_norm, layer_norm_f32, linear
+
+HIDDEN_SIZES = (768,)  # H the kernels are built for
+N_MULTIPLE = 128       # the output width (3H) must be a multiple of this
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURES = {
+    "vt_ln_qkv": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                  + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "vt_ln_qkv_w8a8": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                       + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+}
+
+
+def ln_qkv_plain(gamma, beta, wqkv, bqkv, x, eps: float = 1e-12):
+    """``linear(LN(x))``: the JAX package's ``_ln_qkv_xla``."""
+    return linear({"w": wqkv, "b": bqkv},
+                  layer_norm({"scale": gamma, "bias": beta}, x, eps))
+
+
+def ln_qkv_w8a8_plain(gamma, beta, wqkv_q, sqkv, bqkv, x, eps: float = 1e-12):
+    """The w8a8 kernel's function: LN (``layer_norm_f32``) rounded to x's
+    type, then the w8a8 ``linear`` (per-row quantization, int8 product,
+    ``acc * (ys * s) + b``), cast to x's type."""
+    y = layer_norm_f32(gamma, beta, x, eps).to(x.dtype)
+    return linear({"w_q8": wqkv_q, "w_scale": sqkv.reshape(-1), "b": bqkv},
+                  y).to(x.dtype)
+
+
+def _ln_qkv_w8a8_ref(gamma, beta, wqkv_q, sqkv, bqkv, x, eps: float = 1e-12):
+    """The XLA composition the w8a8 gradients are taken of: LN, then the
+    w8a8 linear over the concatenated weights."""
+    return linear({"w_q8": wqkv_q, "w_scale": sqkv.reshape(-1), "b": bqkv},
+                  layer_norm({"scale": gamma, "bias": beta}, x, eps))
+
+
+def _shapes(what, x, w):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported (bfloat16 or "
+                        "float32)")
+    if w.dim() != 2:
+        raise ValueError(f"{what}: weights must be (H, 3H), got {tuple(w.shape)}")
+    h, n = w.shape
+    if h not in HIDDEN_SIZES or n % N_MULTIPLE:
+        raise ValueError(f"{what}: hidden size {h} (supported {HIDDEN_SIZES}) / "
+                         f"output width {n} (a multiple of {N_MULTIPLE})")
+    return h, n, x.numel() // h
+
+
+def fused_ln_qkv_fwd(gamma, beta, wqkv, bqkv, x, eps: float = 1e-12) -> torch.Tensor:
+    """fp LN -> QKV kernel.  x (..., H) -> (..., 3H), all operands in x's
+    type."""
+    what = "fused_ln_qkv_fwd"
+    h, n, rows = _shapes(what, x, wqkv)
+    dt = x.dtype
+    check_operands(what, x, {
+        "x": (x, (*x.shape[:-1], h), dt), "gamma": (gamma, (h,), dt),
+        "beta": (beta, (h,), dt), "wqkv": (wqkv, (h, n), dt), "bqkv": (bqkv, (n,), dt)})
+    lib = _build.load("ln_qkv", _SIGNATURES)
+    y = torch.empty((rows, h), dtype=dt, device=x.device)  # LN(x) in x's type
+    out = torch.empty((*x.shape[:-1], n), dtype=dt, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.vt_ln_qkv(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                         wqkv.data_ptr(), bqkv.data_ptr(), y.data_ptr(),
+                         out.data_ptr(), rows, h, n, float(eps), _DTYPES[dt], stream)
+    _build.check(lib, code, what)
+    fused_ln_qkv_fwd.launches += 1
+    return out
+
+
+def fused_ln_qkv_fwd_w8a8(gamma, beta, wqkv_q, sqkv, bqkv, x,
+                          eps: float = 1e-12) -> torch.Tensor:
+    """w8a8 LN -> QKV kernel.  x (..., H) -> (..., 3H); wqkv_q (H, 3H) int8,
+    sqkv (3H,) fp32, gamma/beta/bqkv in x's type."""
+    what = "fused_ln_qkv_fwd_w8a8"
+    h, n, rows = _shapes(what, x, wqkv_q)
+    dt, dev = x.dtype, x.device
+    sqkv = sqkv.reshape(-1)
+    check_operands(what, x, {
+        "x": (x, (*x.shape[:-1], h), dt), "gamma": (gamma, (h,), dt),
+        "beta": (beta, (h,), dt), "wqkv_q": (wqkv_q, (h, n), torch.int8),
+        "sqkv": (sqkv, (n,), torch.float32), "bqkv": (bqkv, (n,), dt)})
+    lib = _build.load("ln_qkv", _SIGNATURES)
+    yq = torch.empty((rows, h), dtype=torch.int8, device=dev)  # LN(x)'s codes
+    ys = torch.empty(rows, dtype=torch.float32, device=dev)    # and scales
+    out = torch.empty((*x.shape[:-1], n), dtype=dt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.vt_ln_qkv_w8a8(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                              wqkv_q.data_ptr(), sqkv.data_ptr(), bqkv.data_ptr(),
+                              yq.data_ptr(), ys.data_ptr(), out.data_ptr(), rows, h,
+                              n, float(eps), _DTYPES[dt], stream)
+    _build.check(lib, code, what)
+    fused_ln_qkv_fwd_w8a8.launches += 1
+    return out
+
+
+fused_ln_qkv_fwd.launches = 0
+fused_ln_qkv_fwd_w8a8.launches = 0
+
+
+def _zero_bias(ps, key, dtype):
+    """Each projection's bias, zeros where a ``qkv_bias=False`` model has
+    none (in the type of the biases present, else ``dtype``)."""
+    present = [p["b"].dtype for p in ps if "b" in p]
+    bdt = present[0] if present else dtype
+    return torch.cat([p["b"] if "b" in p else torch.zeros(
+        p[key].shape[1], dtype=bdt, device=p[key].device) for p in ps])
+
+
+def _w8a8_operands(ps, dtype):
+    """The w8a8 kernel's (wqkv_q, sqkv, bqkv): q/k/v's int8 weights, scales
+    and biases concatenated along out.  Under ``torch.no_grad`` or
+    ``torch.inference_mode``, when the projections are modules, the result is kept on the q module (not as a
+    parameter or buffer, so no checkpoint sees it) and built again only
+    when a source tensor was replaced, moved or written in place: a served
+    forward concatenates nothing."""
+    def build():
+        return (torch.cat([p["w_q8"] for p in ps], dim=1),
+                torch.cat([p["w_scale"] for p in ps], dim=-1).reshape(-1),
+                _zero_bias(ps, "w_q8", dtype))
+
+    srcs = [p[k] for p in ps for k in ("w_q8", "w_scale", "b") if k in p]
+    if (torch.is_grad_enabled() or not isinstance(ps[0], torch.nn.Module)
+            or any(t.is_inference() for t in srcs)):
+        return build()
+    # the sources themselves are held, so an id is never reused while kept
+    key = [(id(t), t.data_ptr(), t.device, t._version) for t in srcs]
+    kept = ps[0].__dict__.get("_w8a8_qkv")
+    if kept is None or kept[0] != key:
+        kept = ps[0].__dict__["_w8a8_qkv"] = (key, srcs, build())
+    return kept[2]
+
+
+def fused_ln_qkv(ln_p, pq, pk, pv, x, eps: float = 1e-12) -> torch.Tensor:
+    """LN(ln_before) + the Q/K/V projections of a pre-LN layer, returning
+    the (..., 3H) concatenation for the caller to split: the w8a8 kernel
+    for w8a8 weights ({w_q8, w_scale}), the fp kernel for fp weights, LN
+    and three plain linears for any other form."""
+    ps = (pq, pk, pv)
+    g, b = ln_p["scale"], ln_p["bias"]
+    if all("w_q8" in p for p in ps):
+        return kernel_or_plain(fused_ln_qkv_fwd_w8a8, ln_qkv_w8a8_plain,
+                               _ln_qkv_w8a8_ref, g, b, *_w8a8_operands(ps, x.dtype),
+                               x, eps=eps)
+    if any("w" not in p for p in ps):
+        y = layer_norm(ln_p, x, eps)
+        return torch.cat([linear(p, y) for p in ps], dim=-1)
+    w = torch.cat([p["w"] for p in ps], dim=1)
+    return kernel_or_plain(fused_ln_qkv_fwd, ln_qkv_plain, ln_qkv_plain, g, b, w,
+                           _zero_bias(ps, "w", pq["w"].dtype), x, eps=eps)

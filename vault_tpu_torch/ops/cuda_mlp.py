@@ -1,6 +1,6 @@
 """Fused MLP blocks through the hand-written Hopper kernels
-(``csrc/mlp.cu`` forward, ``csrc/mlp_bwd.cu`` backward), with their plain
-PyTorch versions beside them.
+(``csrc/mlp.cu`` forward, ``csrc/mlp_bwd.cu`` backward, ``csrc/mlp_w8a8.cu``
+int8 forward), with their plain PyTorch versions beside them.
 
   * :func:`fused_mlp_block_fwd` (pre-LN, the ViLT layers):
     ``x + m * (act(LN(x) W1 + b1) W2 + b2)``; replaces the JAX package's
@@ -12,6 +12,12 @@ PyTorch versions beside them.
     the blocks' gradients (GELU), replacing the JAX package's functions of
     the same names; plain versions :func:`mlp_block_bwd_plain` and
     :func:`mlp_postln_bwd_plain`.
+  * :func:`fused_mlp_block_fwd_w8a8` and :func:`fused_mlp_postln_fwd_w8a8`:
+    both blocks with int8 weights and activations (ops/quantize.py w8a8),
+    replacing the JAX package's functions of the same names; plain versions
+    :func:`mlp_block_w8a8_plain` and :func:`mlp_postln_w8a8_plain`, with the
+    kernels' cast points.  Inference serving: their gradient is autograd of
+    the XLA composition (``linear``'s w_q8 branch), as in the JAX package.
 
 The kernel wrappers launch their kernel for CUDA tensors and raise on
 anything the kernel does not take; they never fall back.  The dispatchers
@@ -35,14 +41,18 @@ import math
 import torch
 
 from vault_tpu_torch.ops import _build
+from vault_tpu_torch.ops._dispatch import check_operands, kernel_or_plain
 from vault_tpu_torch.ops.nn import (
     act_fn,
     dropout_mask,
     gelu,
+    int8_matmul,
     layer_norm,
+    layer_norm_f32,
     linear,
     matmul_fp32,
 )
+from vault_tpu_torch.ops.quantize import quantize_activation
 
 HIDDEN_SIZES = (768,)  # H the kernels are built for
 I_MULTIPLE = 128            # the intermediate size must be a multiple of this
@@ -79,38 +89,28 @@ def _mlp_postln_plain(ln_p, p_in, p_out, x, eps, act, m=None):
     return layer_norm(ln_p, x + mlp, eps)
 
 
-def _check(what, x, named, shapes):
-    """Every operand: the shape in ``shapes``, x's dtype and device,
-    contiguous and 32-byte aligned; x on the card, in a dtype and at sizes
-    the kernels take."""
-    if not x.is_cuda:
-        raise ValueError(f"{what}: the kernel takes CUDA tensors, got {x.device}")
+def _check_sizes(what, x, w1):
+    """x in a dtype and w1 at sizes the kernels take; returns (H, I)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported "
                         "(bfloat16 or float32)")
-    h, i = shapes["w1"]
+    if w1.dim() != 2:
+        raise ValueError(f"{what}: w1 must be (H, I), got {tuple(w1.shape)}")
+    h, i = w1.shape
     if h not in HIDDEN_SIZES or i % I_MULTIPLE:
         raise ValueError(f"{what}: hidden size {h} (supported {HIDDEN_SIZES}) "
                          f"/ intermediate size {i} (a multiple of {I_MULTIPLE})")
-    for name, t in named.items():
-        if t is None:
-            continue
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
-                             f"expected {shapes[name]}")
-        if t.dtype != x.dtype or t.device != x.device:
-            raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}; all "
-                             f"operands must be {x.dtype} on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 32:
-            raise ValueError(f"{what}: {name} must be contiguous and 32-byte "
-                             "aligned")
+    return h, i
 
 
-def _shapes(x, w1):
-    h, i = x.shape[-1], w1.shape[-1]
-    return {"gamma": (h,), "beta": (h,), "w1": (h, i), "b1": (i,),
-            "w2": (i, h), "b2": (h,), "x": tuple(x.shape), "m": tuple(x.shape),
-            "g": tuple(x.shape)}
+def _check(what, x, named):
+    """Every operand of an fp block kernel in x's dtype, at its shape, on
+    the card (``check_operands``)."""
+    h, i = _check_sizes(what, x, named["w1"])
+    shapes = {"gamma": (h,), "beta": (h,), "w1": (h, i), "b1": (i,),
+              "w2": (i, h), "b2": (h,), "x": (*x.shape[:-1], h)}
+    check_operands(what, x, {n: (t, shapes.get(n, shapes["x"]), x.dtype)
+                             for n, t in named.items()})
 
 
 def _launch(postln, gamma, beta, w1, b1, w2, b2, x, m, eps, act):
@@ -118,7 +118,7 @@ def _launch(postln, gamma, beta, w1, b1, w2, b2, x, m, eps, act):
     if act not in _ACTS:
         raise ValueError(f"{what}: activation {act!r} not supported")
     _check(what, x, {"gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
-                     "b2": b2, "x": x, "m": m}, _shapes(x, w1))
+                     "b2": b2, "x": x, "m": m})
     h, i = w1.shape
     rows = x.numel() // h
     lib = _build.load("mlp", _SIGNATURES)
@@ -244,8 +244,7 @@ def mlp_postln_bwd_plain(gamma, beta, w1, b1, w2, b2, x, g, m=None,
 def _launch_bwd(postln, gamma, beta, w1, b1, w2, b2, x, g, m, eps):
     what = "fused_mlp_postln_block_bwd" if postln else "fused_mlp_block_bwd"
     _check(what, x, {"gamma": gamma, "beta": beta, "w1": w1, "b1": b1,
-                     "w2": w2, "b2": b2, "x": x, "g": g, "m": m},
-           _shapes(x, w1))
+                     "w2": w2, "b2": b2, "x": x, "g": g, "m": m})
     h, i = w1.shape
     rows = x.numel() // h
     lib = _build.load("mlp_bwd", _BWD_SIGNATURES)
@@ -342,11 +341,151 @@ class _FusedMLP(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+# ---------------------------------------------------------------------------
+# w8a8: int8 weights and activations (csrc/mlp_w8a8.cu)
+# ---------------------------------------------------------------------------
+
+_W8A8_SIGNATURES = {
+    "vt_mlp_w8a8": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
+    "vt_mlp_w8a8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
+}
+_INV_SQRT2 = 0.7071067811865476  # fp32 0.70710677, the kernels' constant
+
+
+def _act_f32(act):
+    """The activation on fp32 values; GELU written as the kernels write it,
+    ``h * (erf(h * 0.70710677) + 1) * 0.5``, one rounding per step."""
+    if act == "gelu":
+        return lambda h: h * (torch.erf(h * _INV_SQRT2) + 1.0) * 0.5
+    return act_fn(act)
+
+
+def _w8a8_linear_f32(aq, a_scale, wq, s, b):
+    """``int32(aq wq) * (a_scale * s) + b`` in fp32."""
+    return int8_matmul(aq, wq).float() * (a_scale * s.reshape(-1)) + b
+
+
+def mlp_block_w8a8_plain(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
+                         eps: float = 1e-12, act: str = "gelu"):
+    """The pre-LN w8a8 kernel's function with its cast points: LN
+    (``layer_norm_f32``) rounded to x's type, quantized per row, the first
+    product dequantized with b1, the activation in fp32 rounded to x's type,
+    quantized per row, the second product dequantized with b2, rounded to
+    x's type, then the residual."""
+    dt = x.dtype
+    y = layer_norm_f32(gamma, beta, x, eps).to(dt)
+    h = _w8a8_linear_f32(*quantize_activation(y), w1q, s1, b1)
+    a = _act_f32(act)(h).to(dt)
+    o = _w8a8_linear_f32(*quantize_activation(a), w2q, s2, b2)
+    return o.to(dt) + x
+
+
+def mlp_postln_w8a8_plain(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
+                          eps: float = 1e-12, act: str = "gelu"):
+    """The post-LN w8a8 kernel's function: x quantized per row, the two
+    products as in :func:`mlp_block_w8a8_plain`, then ``LN(x + mlp)`` in
+    fp32 (``layer_norm_f32``), cast to x's type."""
+    dt = x.dtype
+    h = _w8a8_linear_f32(*quantize_activation(x), w1q, s1, b1)
+    a = _act_f32(act)(h).to(dt)
+    o = _w8a8_linear_f32(*quantize_activation(a), w2q, s2, b2)
+    return layer_norm_f32(gamma, beta, x.float() + o, eps).to(dt)
+
+
+def _w8a8_ref(postln):
+    """The XLA composition the w8a8 gradients are taken of (``linear``'s
+    w_q8 branch in both products), as the JAX package's vjp."""
+    plain = _mlp_postln_plain if postln else _mlp_block_plain
+
+    def ref(gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps=1e-12, act="gelu"):
+        return plain({"scale": gamma, "bias": beta},
+                     {"w_q8": w1q, "w_scale": s1, "b": b1},
+                     {"w_q8": w2q, "w_scale": s2, "b": b2}, x, eps, act)
+    return ref
+
+
+def _launch_w8a8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
+    what = "fused_mlp_postln_fwd_w8a8" if postln else "fused_mlp_block_fwd_w8a8"
+    if act != "gelu":
+        raise ValueError(f"{what}: the kernel computes GELU only, got {act!r}")
+    h, i = _check_sizes(what, x, w1q)
+    dt, dev, rows = x.dtype, x.device, x.numel() // h
+    s1, s2 = s1.reshape(-1), s2.reshape(-1)
+    check_operands(what, x, {
+        "x": (x, (*x.shape[:-1], h), dt), "gamma": (gamma, (h,), dt),
+        "beta": (beta, (h,), dt), "w1q": (w1q, (h, i), torch.int8),
+        "s1": (s1, (i,), torch.float32), "b1": (b1, (i,), dt),
+        "w2q": (w2q, (i, h), torch.int8), "s2": (s2, (h,), torch.float32),
+        "b2": (b2, (h,), dt)})
+    lib = _build.load("mlp_w8a8", _W8A8_SIGNATURES)
+    splits = lib.vt_mlp_w8a8_splits(rows, h, i)
+    new = lambda shape, t: torch.empty(shape, dtype=t, device=dev)
+    scratch = (new((rows, h), torch.int8), new(rows, torch.float32),   # q(x or LN x)
+               new((rows, i), dt), new((rows, i // 128), torch.float32),  # h, tile maxima
+               new((rows, i), torch.int8), new(rows, torch.float32),   # q(h)
+               new((splits, rows, h), torch.int32))                   # 2nd product
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.vt_mlp_w8a8(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                           w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
+                           s2.data_ptr(), b2.data_ptr(), *(t.data_ptr() for t in scratch),
+                           out.data_ptr(), rows, h, i, float(eps), int(postln),
+                           _DTYPES[dt], stream)
+    _build.check(lib, code, what)
+    return out
+
+
+def fused_mlp_block_fwd_w8a8(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
+                             eps: float = 1e-12, act: str = "gelu") -> torch.Tensor:
+    """Pre-LN w8a8 block kernel.  x: (..., H) -> same shape."""
+    out = _launch_w8a8(False, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act)
+    fused_mlp_block_fwd_w8a8.launches += 1
+    return out
+
+
+def fused_mlp_postln_fwd_w8a8(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
+                              eps: float = 1e-12, act: str = "gelu") -> torch.Tensor:
+    """Post-LN w8a8 block kernel.  x: (..., H) -> same shape."""
+    out = _launch_w8a8(True, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act)
+    fused_mlp_postln_fwd_w8a8.launches += 1
+    return out
+
+
+fused_mlp_block_fwd_w8a8.launches = 0
+fused_mlp_postln_fwd_w8a8.launches = 0
+
+
+def _quantized_block(postln, ln_p, p_in, p_out, x, eps, act, drop_mask):
+    """The JAX package's dispatch of weights that are not both fp: w8a8
+    without a mask takes the w8a8 kernel (differentiable through the XLA
+    composition), w8 without a mask its kernel, which is not ported yet
+    (CUDA raises, the CPU runs the plain composition), anything else the
+    plain composition."""
+    plain = _mlp_postln_plain if postln else _mlp_block_plain
+    if "w_q8" in p_in and "w_q8" in p_out and drop_mask is None:
+        kernel = fused_mlp_postln_fwd_w8a8 if postln else fused_mlp_block_fwd_w8a8
+        kplain = mlp_postln_w8a8_plain if postln else mlp_block_w8a8_plain
+        return kernel_or_plain(kernel, kplain, _w8a8_ref(postln), ln_p["scale"],
+                               ln_p["bias"], p_in["w_q8"], p_in["w_scale"], p_in["b"],
+                               p_out["w_q8"], p_out["w_scale"], p_out["b"], x,
+                               eps=eps, act=act)
+    if "w_q" in p_in and "w_q" in p_out and drop_mask is None and x.is_cuda:
+        raise NotImplementedError(
+            "w8 (int8 weight-only) MLP blocks on the card: the fused q8 kernels "
+            "(pallas_mlp.py fused_mlp_block_fwd_q8 / fused_mlp_postln_fwd_q8) "
+            "are not ported yet; serve w8a8 or bf16")
+    return plain(ln_p, p_in, p_out, x, eps, act, drop_mask)
+
+
 def fused_mlp_block(ln_p, p_in, p_out, x, eps: float = 1e-12,
                     act: str = "gelu", drop_mask=None) -> torch.Tensor:
     """The pre-LN MLP half of a ViLT layer, differentiable: the kernels for
     CUDA tensors, the plain versions for CPU tensors.  ``drop_mask``:
-    optional pre-scaled dropout mask on the MLP output."""
+    optional pre-scaled dropout mask on the MLP output.  Quantized weights
+    (ops/quantize.py) dispatch as in the JAX package (:func:`_quantized_block`)."""
+    if "w" not in p_in or "w" not in p_out:
+        return _quantized_block(False, ln_p, p_in, p_out, x, eps, act, drop_mask)
     return _FusedMLP.apply(ln_p["scale"], ln_p["bias"], p_in["w"], p_in["b"],
                            p_out["w"], p_out["b"], x, drop_mask, eps, act, False)
 
@@ -354,7 +493,10 @@ def fused_mlp_block(ln_p, p_in, p_out, x, eps: float = 1e-12,
 def fused_mlp_postln_block(ln_p, p_in, p_out, x, eps: float = 1e-12,
                            act: str = "gelu", drop_mask=None) -> torch.Tensor:
     """The post-LN MLP half of a BERT layer, differentiable: the kernels for
-    CUDA tensors, the plain versions for CPU tensors."""
+    CUDA tensors, the plain versions for CPU tensors; quantized weights as
+    in :func:`fused_mlp_block`."""
+    if "w" not in p_in or "w" not in p_out:
+        return _quantized_block(True, ln_p, p_in, p_out, x, eps, act, drop_mask)
     return _FusedMLP.apply(ln_p["scale"], ln_p["bias"], p_in["w"], p_in["b"],
                            p_out["w"], p_out["b"], x, drop_mask, eps, act, True)
 

@@ -101,9 +101,51 @@ def matmul_fp32(x: torch.Tensor, w: torch.Tensor,
     return y if b is None else y + b.to(acc)
 
 
+# torch._int_mm on the card takes more than 16 rows and both inner and
+# output widths in multiples of 8 (PyTorch's CUDA Blas.cpp checks)
+_INT_MM_MIN_ROWS = 17
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(..., K) int8 @ (K, N) int8 -> (..., N) int32, exact.  On the card
+    fewer than 17 rows are padded with zero rows (their products are
+    dropped); widths that are not multiples of 8 raise."""
+    k, n = wq.shape
+    x2 = xq.reshape(-1, k)
+    rows = x2.shape[0]
+    if xq.is_cuda:
+        if k % 8 or n % 8:
+            raise ValueError(f"int8 product on the card: widths {k} -> {n} must "
+                             "be multiples of 8 (torch._int_mm)")
+        if rows < _INT_MM_MIN_ROWS:
+            x2 = torch.cat([x2, x2.new_zeros((_INT_MM_MIN_ROWS - rows, k))])
+    y = torch._int_mm(x2, wq)[:rows]
+    return y.reshape(*xq.shape[:-1], n)
+
+
 def linear(params, x: torch.Tensor) -> torch.Tensor:
-    """Dense layer. params = {"w": (in, out), "b": (out,) [optional]}."""
-    y = matmul_fp32(x, params["w"], params.get("b"))
+    """Dense layer. params = {"w": (in, out), "b": (out,) [optional]}, the
+    int8 weight-only form {"w_q": int8, "w_scale": (1, out) fp32}, or the
+    w8a8 form {"w_q8": int8, "w_scale"} (ops/quantize.py).  w8 dequantizes
+    the weights to x's type (fp32 for fp32 x) and runs the fp product; w8a8
+    quantizes x per row and runs an int8 x int8 -> int32 product, then
+    ``y * (x_scale * w_scale) + b`` in fp32 (the two scales multiplied
+    first, as the JAX package does)."""
+    b = params.get("b")
+    if "w_q8" in params:
+        from vault_tpu_torch.ops.quantize import quantize_activation
+
+        xq, xs = quantize_activation(x)
+        y = int8_matmul(xq, params["w_q8"]).float() * (xs * params["w_scale"])
+        if b is not None:
+            y = y + b
+        return y.to(x.dtype) if x.dtype == torch.bfloat16 else y
+    if "w_q" in params:
+        w = (params["w_q"].float() * params["w_scale"]).to(
+            x.dtype if x.dtype == torch.bfloat16 else torch.float32)
+    else:
+        w = params["w"]
+    y = matmul_fp32(x, w, b)
     return y.to(x.dtype) if x.dtype == torch.bfloat16 else y
 
 
@@ -118,6 +160,21 @@ def layer_norm(params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
         return F.layer_norm(x, (h,), scale, bias, eps)
     y = F.layer_norm(x.float(), (h,), scale.float(), bias.float(), eps)
     return y.to(x.dtype)
+
+
+def layer_norm_f32(gamma, beta, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over the last dim in fp32 (returned fp32), its mean and
+    variance taken in double and rounded to fp32: the correctly rounded
+    statistics, which the int8 kernels (csrc/gemm_common.cuh ``ln_row``)
+    compute the same way, so both give the same bits and the same int8
+    codes.  Then ``(x - mean) * rstd * gamma + beta``, one rounding per
+    step, with rstd = 1 / sqrt(var + eps)."""
+    xf = x.float()
+    mean = xf.double().mean(-1, keepdim=True).float()
+    d = xf - mean
+    var = d.double().square().mean(-1, keepdim=True).float()
+    rstd = torch.reciprocal(torch.sqrt(var + eps))
+    return d * rstd * gamma.float() + beta.float()
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

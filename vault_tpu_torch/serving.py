@@ -10,8 +10,10 @@
   * the host half (image decode/resize + tokenize) of a request runs in the
     engine's worker, the forward on the card under ``torch.inference_mode``.
 
-Data-parallel serving and the serving-composition guard wait for the
-parallel and quantization slices of the port.
+:func:`serving_impl` picks the kernel selector a quantized model serves on,
+and :func:`check_serving_composition` refuses or warns about (head width,
+quantization, token merging) compositions whose divergence the JAX package
+measured.  Data-parallel serving waits for the parallel slice of the port.
 """
 
 from __future__ import annotations
@@ -29,6 +31,69 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+
+# The JAX package's measured-bad composition guard (vault_tpu/serving.py,
+# budgets from its docs/BENCHMARKS.md head-divergence table): narrow pooled
+# heads (TMSC 3-way, NLVR2 2-way) flipped <=1 of 48 decisions under every
+# lever, but a WIDE argmax (VQA's 3129-way) leaves tiny margins.  Anything
+# with >= WIDE_HEAD_CLASSES outputs is treated as that regime.
+WIDE_HEAD_CLASSES = 100
+
+
+def check_serving_composition(n_classes: int, quantize: Optional[str],
+                              merge_to: Optional[int],
+                              merge_at_layer: int = 0):
+    """Validate a (head width, quantize, merge) serving composition against
+    the JAX package's measured divergence budgets.  Returns (refusals,
+    warnings), lists of readable strings; a non-empty ``refusals`` means the
+    composition is measured-bad and a server must not start without an
+    explicit force."""
+    refusals, warnings = [], []
+    wide = n_classes >= WIDE_HEAD_CLASSES
+    merged_at_0 = merge_to is not None and merge_at_layer == 0
+    merged_mid = merge_to is not None and merge_at_layer > 0
+    if wide and quantize and merged_at_0:
+        refusals.append(
+            f"composing --quantize {quantize} with --merge_to {merge_to} "
+            f"at --merge_at_layer 0 on a wide ({n_classes}-way) head "
+            "flipped 12.5% (w8) / 16.7% (w8a8) of VQA decisions on the "
+            "measured real-photo proxy (docs/BENCHMARKS.md head table); "
+            "use --merge_at_layer 4, drop one lever, or pass --force to "
+            "serve it anyway")
+    elif wide and quantize and merged_mid:
+        warnings.append(
+            f"--quantize {quantize} composed with --merge_to {merge_to} "
+            f"at layer {merge_at_layer} on a wide ({n_classes}-way) head "
+            "measured 8.3% (w8) / 10.4% (w8a8) VQA decision flips on the "
+            "random-init real-photo proxy — roughly the sum of the single "
+            "levers; prefer a single lever for wide heads "
+            "(docs/BENCHMARKS.md head table)")
+    elif wide and merged_at_0:
+        warnings.append(
+            f"--merge_to {merge_to} at layer 0 on a wide ({n_classes}-way) "
+            "head measured a 4.2% decision-flip rate on the random-init "
+            "proxy; --merge_at_layer 4 halves it (2.1%) for 2/3 of the "
+            "speedup (docs/BENCHMARKS.md)")
+    elif wide and quantize:
+        warnings.append(
+            f"--quantize {quantize} on a wide ({n_classes}-way) head "
+            "measured a 6.2% decision-flip rate on the random-init proxy "
+            "(w8 and w8a8 alike); the lowest-divergence single lever is "
+            "--merge_to with --merge_at_layer 4 (docs/BENCHMARKS.md)")
+    return refusals, warnings
+
+
+def serving_impl(mode: Optional[str], device=None):
+    """The kernel selector a model quantized in ``mode`` serves on, as the
+    JAX package's ``scripts/serve.py`` picks it: w8a8 takes the fused
+    LN->QKV kernel and the fused MLP blocks ("fuselnqkv+fusemlp", plus the
+    port's attention kernel, "+batched", on the card); bf16 and w8 keep
+    "auto"."""
+    if mode != "w8a8":
+        return "auto"
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    return "fuselnqkv+fusemlp" + ("+batched" if on_cuda else "")
 
 
 def decode_image(data: bytes) -> np.ndarray:
