@@ -8,7 +8,11 @@ shapes, times it beside its bound and a PyTorch library call, drives the
 VAuLT-base classifier (bert-base-uncased tower + ViLT-B/32, seeded random
 weights) through ``VaultForClassification`` and a ``BatchingEngine`` (bf16;
 then bf16 on the fused LN->QKV selector; then quantized w8a8, int8 weights
-and activations, forward and engine), then trains it: one step on the kernel path against one on the plain path
+and activations, forward and engine; then quantized w8, int8 weights only,
+forward and engine), serves the Llama-3-8B-geometry tower feeding ViLT-B/32
+through ``VaultWithLlamaTower`` (all 32 layers, w8a8 tower, the GQA
+attention and SwiGLU kernels), then trains VAuLT-base: one step on the
+kernel path against one on the plain path
 (fp32 masters, bf16 compute, remat, dropout 0.1, batch 32 at the ``entry()``
 layout) and a short ``Trainer.train()`` with a dev evaluation and a
 checkpoint.  It checks the launch counts, the gradients and the outputs.
@@ -16,12 +20,18 @@ Each phase prints one JSON line; any failure exits non-zero.  The last line
 is ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without one it
 exits non-zero and prints no result.  Imports nothing of JAX or of the JAX
 package.
+
+``--phases a,b`` runs only the named groups of phases (``kernels``,
+``vault``, ``w8``, ``llama``, ``train``) while working on one of them; such
+a run ends with ``{"partial": [...]}``, not with the ``ok`` line.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -78,12 +88,21 @@ BWD_LN_LIMIT = 1e-3
 # points through 24 layers and their recomputes.
 STEP_LIMITS = {"grad_rel": 5e-2, "loss": 1e-2}
 TRAIN_BATCH = 32
+KERNEL_NAMES = ("encoder_attention", "mlp_block", "mlp_postln", "mlp_block_bwd",
+                "mlp_postln_bwd", "ln_qkv", "ln_qkv_w8a8", "mlp_block_w8a8",
+                "mlp_postln_w8a8", "mlp_block_q8", "mlp_postln_q8", "attention_gqa",
+                "swiglu_w8a8")
+
+
+def launches(**counts):
+    """A launch table: the named kernels' counts, every other kernel 0."""
+    return {**{k: 0 for k in KERNEL_NAMES}, **counts}
+
+
 # Kernel launches of one full-depth forward without gradients (a forward,
 # an evaluation batch, a served batch): attention in each of the 24 layers,
 # one MLP block in each.
-EVAL_LAUNCHES = {"encoder_attention": 24, "mlp_block": 12, "mlp_postln": 12,
-                 "mlp_block_bwd": 0, "mlp_postln_bwd": 0, "ln_qkv": 0,
-                 "ln_qkv_w8a8": 0, "mlp_block_w8a8": 0, "mlp_postln_w8a8": 0}
+EVAL_LAUNCHES = launches(encoder_attention=24, mlp_block=12, mlp_postln=12)
 # The bf16 forward on "fuselnqkv+fusemlp+batched": the fused LN->QKV kernel
 # in each ViLT layer besides the above.
 LNQKV_LAUNCHES = dict(EVAL_LAUNCHES, ln_qkv=12)
@@ -91,15 +110,24 @@ LNQKV_LAUNCHES = dict(EVAL_LAUNCHES, ln_qkv=12)
 # int8 LN->QKV and MLP kernels in place of the bf16 MLP kernels.  BERT's
 # Q/K/V and every attention output projection are plain int8 linears
 # (torch._int_mm), as in the JAX package.
-W8A8_LAUNCHES = dict(EVAL_LAUNCHES, mlp_block=0, mlp_postln=0, ln_qkv_w8a8=12,
-                     mlp_block_w8a8=12, mlp_postln_w8a8=12)
+W8A8_LAUNCHES = launches(encoder_attention=24, ln_qkv_w8a8=12, mlp_block_w8a8=12,
+                         mlp_postln_w8a8=12)
+# The w8 model's forward (its selector "auto": "fuseqkv+fusemlp+batched" on
+# the card): the q8 MLP kernels in place of the bf16 ones; Q/K/V and the
+# attention output projections dequantize and take the plain product.
+W8_LAUNCHES = launches(encoder_attention=24, mlp_block_q8=12, mlp_postln_q8=12)
+# The Llama-3-8B-geometry tower feeding ViLT-B/32: a GQA attention and a
+# SwiGLU kernel in each of the 32 tower layers, then ViLT's 12 layers on
+# "auto" (encoder attention and the pre-LN bf16 MLP block).
+LLAMA_LAYERS = 32
+LLAMA_LAUNCHES = launches(attention_gqa=LLAMA_LAYERS, swiglu_w8a8=LLAMA_LAYERS,
+                          encoder_attention=12, mlp_block=12)
 # One training step with remat: the forward launches each MLP block once per
 # layer and remat's recompute in the backward once more; each backward kernel
 # runs once per layer; attention takes its kernel only when deterministic, so
 # a training step launches none.
-STEP_LAUNCHES = {"encoder_attention": 0, "mlp_block": 24, "mlp_postln": 24,
-                 "mlp_block_bwd": 12, "mlp_postln_bwd": 12, "ln_qkv": 0,
-                 "ln_qkv_w8a8": 0, "mlp_block_w8a8": 0, "mlp_postln_w8a8": 0}
+STEP_LAUNCHES = launches(mlp_block=24, mlp_postln=24, mlp_block_bwd=12,
+                         mlp_postln_bwd=12)
 
 
 def emit(**kw):
@@ -488,14 +516,31 @@ INT8_KERNELS = {
                         ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x"),
                         8 * 40, "2 x (row quantization + torch._int_mm) + F.gelu + "
                         "F.layer_norm (composition)"),
+    "mlp_block_q8": ("fused_mlp_block_fwd_q8", "mlp_block_q8_plain",
+                     ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x"),
+                     8 * 256, "F.layer_norm + 2 x (dequantization + F.linear) + "
+                     "F.gelu (composition)"),
+    "mlp_postln_q8": ("fused_mlp_postln_fwd_q8", "mlp_postln_q8_plain",
+                      ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x"),
+                      8 * 40, "2 x (dequantization + F.linear) + F.gelu + "
+                      "F.layer_norm (composition)"),
 }
 
 
+def _q8_linear_lib(a, wq, sc, b):
+    """The library yardstick's w8 linear: the weights dequantized to a's
+    type (counted in the time), then F.linear's product."""
+    import torch.nn.functional as F
+
+    return F.linear(a, (wq.float() * sc[:, None]).to(a.dtype), b)
+
+
 def check_int8_family(gen, dev, name):
-    """One LN->QKV or w8a8 MLP kernel against its plain version at the
-    serving path's rows (batch 8: 2,048 ViLT rows, 320 BERT rows) and at 77
-    fp32 rows (w8a8: bit-equal; fp: see ``LNQKV_BF16_LIMIT``); two launches
-    bit-equal; times beside the bound and the library composition."""
+    """One LN->QKV, w8a8 MLP or q8 MLP kernel against its plain version at
+    the serving path's rows (batch 8: 2,048 ViLT rows, 320 BERT rows) and at
+    77 fp32 rows (w8a8: bit-equal; fp LN->QKV: see ``LNQKV_BF16_LIMIT``; q8,
+    which rounds no activation to int8: ``LIMITS``); two launches bit-equal;
+    times beside the bound and the library composition."""
     import torch
     import torch.nn.functional as F
 
@@ -513,9 +558,9 @@ def check_int8_family(gen, dev, name):
         torch.cuda.synchronize()
         dt = str(dtype).split(".")[-1]
         err = (out.float() - ref.float()).abs().max().item()
-        if name != "ln_qkv":
+        if name.endswith("_w8a8"):
             limit = 0.0
-        elif dtype == torch.bfloat16:
+        elif name == "ln_qkv" and dtype == torch.bfloat16:
             limit = LNQKV_BF16_LIMIT * max(1.0, ref.float().abs().max().item())
         else:
             limit = LIMITS[dt]
@@ -535,10 +580,17 @@ def check_int8_family(gen, dev, name):
                 lib = lambda: _int8_linear_lib(ln(x), o["wqkvq"], o["sqkv"],
                                                o["bqkv"]).to(dtype)
             else:
-                def lib(postln=name == "mlp_postln_w8a8"):
-                    a = F.gelu(_int8_linear_lib(x if postln else ln(x), o["w1q"],
-                                                o["s1"], o["b1"])).to(dtype)
-                    mlp = _int8_linear_lib(a, o["w2q"], o["s2"], o["b2"])
+                if name.endswith("_q8"):
+                    w1t, w2t = o["w1q"].t().contiguous(), o["w2q"].t().contiguous()
+                    lin1 = lambda a: _q8_linear_lib(a, w1t, o["s1"], o["b1"])
+                    lin2 = lambda a: _q8_linear_lib(a, w2t, o["s2"], o["b2"])
+                else:
+                    lin1 = lambda a: _int8_linear_lib(a, o["w1q"], o["s1"], o["b1"])
+                    lin2 = lambda a: _int8_linear_lib(a, o["w2q"], o["s2"], o["b2"])
+
+                def lib(postln=name.startswith("mlp_postln")):
+                    a = F.gelu(lin1(x if postln else ln(x))).to(dtype)
+                    mlp = lin2(a)
                     return ln(x + mlp.to(dtype)) if postln else mlp.to(dtype) + x
             timed(lambda: wrapper(*args), "", row)
             timed(lambda: plain(*args), "plain_", row)
@@ -554,8 +606,143 @@ def check_int8_family(gen, dev, name):
             else:
                 ops = 4.0 * rows * h * i
                 nbytes = 2 * 2 * rows * h + 2 * h * i + 4 * (h + i) + 2 * (3 * h + i)
-                peak = PEAK_INT8_OPS
+                # q8 dequantizes the weights and runs the products in bf16
+                peak = PEAK_BF16_FLOPS if name.endswith("_q8") else PEAK_INT8_OPS
             row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, dtype, peak)
+        emit(phase="kernel_check", **row)
+        rows_out.append(row)
+    return rows_out
+
+
+def gqa_case(gen, b, h, g, l, d, dtype, dev):
+    """q (B, H, L, D) and k, v (B, G, L, D) as head views of (B, L, heads D)
+    projections, the layout the tower hands the kernel, and a (B, 1, L, L)
+    causal and padding bias with the tower's finite fill: row 0 unpadded,
+    row 1 padded on the right, row 2 on the left (its first query rows see
+    no key at all), the rest at random lengths."""
+    import torch
+
+    from vault_tpu_torch.ops.attention import split_heads
+
+    q = split_heads(torch.randn((b, l, h * d), generator=gen, device=dev).to(dtype), h)
+    k, v = (split_heads(torch.randn((b, l, g * d), generator=gen, device=dev).to(dtype), g)
+            for _ in range(2))
+    lens = torch.randint(max(1, l // 2), l + 1, (b,), generator=gen, device=dev)
+    pos = torch.arange(l, device=dev)[None]
+    pad = (pos < lens[:, None]).float()
+    pad[0] = 1.0
+    if b > 2:
+        pad[2] = (pos >= l - lens[2]).float()[0]
+    keep = torch.tril(torch.ones((l, l), device=dev))[None, None] * pad[:, None, None, :]
+    return q, k, v, ((1.0 - keep) * torch.finfo(torch.float32).min).contiguous()
+
+
+def check_attention_gqa(gen, dev):
+    """The GQA kernel against its plain version: the tower's shape (16, 32
+    heads on 8, 40, 128) with a padded batch, once with one query head per
+    K/V head (rep = 1), and ragged fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    rows = []
+    for b, h, g, l, dtype in ((16, 32, 8, 40, torch.bfloat16),
+                              (4, 8, 8, 40, torch.bfloat16),
+                              (3, 8, 2, 77, torch.float32)):
+        q, k, v, bias = gqa_case(gen, b, h, g, l, 128, dtype, dev)
+        out, again = ca.fused_attention_gqa(q, k, v, bias), ca.fused_attention_gqa(q, k, v, bias)
+        ref = ca.attention_gqa_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        dt = str(dtype).split(".")[-1]
+        if not math.isfinite(err) or err > LIMITS[dt]:
+            fail(f"attention_gqa {(b, h, g, l)} {dtype}: max |kernel - plain| {err} > "
+                 f"{LIMITS[dt]}")
+        if not torch.equal(out, again):
+            fail(f"attention_gqa {(b, h, g, l)} {dtype}: two launches differ")
+        row = dict(kernel="attention_gqa", shape=[b, h, l, 128], kv_heads=g, dtype=dt,
+                   max_abs_err=err, limit=LIMITS[dt], bit_equal_repeat=True,
+                   path="forward" if (b, h, g) == (16, 32, 8) else "other")
+        if row["path"] == "forward":
+            timed(lambda: ca.fused_attention_gqa(q, k, v, bias), "", row)
+            timed(lambda: ca.attention_gqa_plain(q, k, v, bias), "plain_", row)
+            timed(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias.to(dtype), enable_gqa=True), "library_", row)
+            row["library"] = "F.scaled_dot_product_attention(enable_gqa=True)"
+            flops = 4.0 * b * h * l * l * 128
+            nbytes = (2.0 * q.numel() + 2.0 * k.numel()) * q.element_size() + bias.numel() * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+        emit(phase="kernel_check", **row)
+        rows.append(row)
+    return rows
+
+
+def swiglu_operands(gen, dev, h=4096, i=14336):
+    """The tower's MLP weights: drawn in fp32 (std 0.02) and quantized one
+    at a time, as the model's are; the norm weight fp32."""
+    import torch
+
+    from vault_tpu_torch.ops.quantize import quantize_weight
+
+    o = {"ln_w": 1.0 + 0.1 * torch.randn(h, generator=gen, device=dev)}
+    for name, shape in (("g", (h, i)), ("u", (h, i)), ("d", (i, h))):
+        w = torch.randn(shape, generator=gen, device=dev) * 0.02
+        o["w" + name + "q"], sc = quantize_weight(w)
+        o["s" + name] = sc.reshape(-1)
+        del w
+    return o
+
+
+def check_swiglu(gen, dev):
+    """The w8a8 SwiGLU kernel against ``swiglu_block_w8a8_plain`` at the
+    tower's rows (batch 16: 640) and half of them, bf16 and fp32: bit-equal,
+    repeats bit-equal.  Its distance from the per-row XLA composition
+    (``swiglu_block_plain``, another requantization grouping) is reported."""
+    import torch
+    import torch.nn.functional as F
+
+    from vault_tpu_torch.ops import cuda_swiglu as cs
+
+    o = swiglu_operands(gen, dev)
+    names = ("ln_w", "wgq", "sg", "wuq", "su", "wdq", "sd")
+    h, i = o["wgq"].shape
+    rows_out = []
+    for rows, dtype in ((640, torch.bfloat16), (320, torch.bfloat16),
+                        (640, torch.float32), (320, torch.float32)):
+        x = torch.randn((rows, h), generator=gen, device=dev).to(dtype)
+        args = [o[k] for k in names] + [x]
+        out, again = cs.fused_swiglu_block_fwd_w8a8(*args), cs.fused_swiglu_block_fwd_w8a8(*args)
+        ref = cs.swiglu_block_w8a8_plain(*args)
+        per_row = cs._w8a8_ref(*args)
+        torch.cuda.synchronize()
+        dt = str(dtype).split(".")[-1]
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if not math.isfinite(err) or err != 0.0:
+            fail(f"swiglu_w8a8 rows={rows} {dtype}: max |kernel - plain| {err} at "
+                 f"{int((diff > 0).sum())} of {diff.numel()} elements, expected bit-equal")
+        if not torch.equal(out, again):
+            fail(f"swiglu_w8a8 rows={rows} {dtype}: two launches differ")
+        row = dict(kernel="swiglu_w8a8", rows=rows, dtype=dt, max_abs_err=err, limit=0.0,
+                   bit_equal_repeat=True,
+                   vs_per_row_composition=(out.float() - per_row.float()).abs().max().item(),
+                   path="forward" if (rows, dtype) == (640, torch.bfloat16) else "other")
+        if dtype == torch.bfloat16:
+            def lib():
+                y = F.rms_norm(x, (h,), o["ln_w"].to(dtype), 1e-5)
+                zero = torch.zeros((), device=dev)
+                a = (F.silu(_int8_linear_lib(y, o["wgq"], o["sg"], zero))
+                     * _int8_linear_lib(y, o["wuq"], o["su"], zero)).to(dtype)
+                return x + _int8_linear_lib(a, o["wdq"], o["sd"], zero).to(dtype)
+            timed(lambda: cs.fused_swiglu_block_fwd_w8a8(*args), "", row, iters=5)
+            timed(lambda: cs.swiglu_block_w8a8_plain(*args), "plain_", row, iters=2)
+            timed(lib, "library_", row, iters=5)
+            row["library"] = ("F.rms_norm + 3 x (row quantization + torch._int_mm) + "
+                              "F.silu (composition, per-row requantization)")
+            ops = 6.0 * rows * h * i
+            nbytes = 3 * h * i + 2 * 2 * rows * h + 4 * (2 * i + h) + 4 * h
+            row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, dtype, PEAK_INT8_OPS)
         emit(phase="kernel_check", **row)
         rows_out.append(row)
     return rows_out
@@ -565,16 +752,18 @@ def check_int8_family(gen, dev, name):
 # Full-width forward and serving
 # ---------------------------------------------------------------------------
 
-def entry_batch(cfg, batch_size, dev, seed=0):
+def entry_batch(cfg, batch_size, dev, seed=0, vocab=None):
     """The JAX package's ``entry()`` input layout: 40 text tokens, a
-    384x608 canvas, bf16 pixels."""
+    384x608 canvas, bf16 pixels.  ``vocab``: the text tower's vocabulary
+    size when ``cfg`` is not a VAuLT config."""
     import torch
 
     rng = np.random.default_rng(seed)
     seq = 40
+    vocab = cfg.text_tower.vocab_size if vocab is None else vocab
     return {
         "input_ids": torch.as_tensor(rng.integers(
-            0, cfg.text_tower.vocab_size, (batch_size, seq)), device=dev),
+            0, vocab, (batch_size, seq)), device=dev),
         "attention_mask": torch.ones((batch_size, seq), dtype=torch.int64, device=dev),
         "token_type_ids": torch.zeros((batch_size, seq), dtype=torch.int64, device=dev),
         "pixel_values": torch.as_tensor(rng.normal(size=(batch_size, 3, 384, 608)),
@@ -587,8 +776,13 @@ def counters():
     from vault_tpu_torch.ops import cuda_attention as ca
     from vault_tpu_torch.ops import cuda_ln_qkv as cl
     from vault_tpu_torch.ops import cuda_mlp as cm
+    from vault_tpu_torch.ops import cuda_swiglu as cs
 
     return {"encoder_attention": ca.fused_attention,
+            "attention_gqa": ca.fused_attention_gqa,
+            "swiglu_w8a8": cs.fused_swiglu_block_fwd_w8a8,
+            "mlp_block_q8": cm.fused_mlp_block_fwd_q8,
+            "mlp_postln_q8": cm.fused_mlp_postln_fwd_q8,
             "mlp_block": cm.fused_mlp_block_fwd,
             "mlp_postln": cm.fused_mlp_postln_fwd,
             "mlp_block_bwd": cm.fused_mlp_block_bwd,
@@ -606,6 +800,35 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def forward_timings(model, cfg, dev, batch_sizes=(8, 16)):
+    """Wall ms of ``model(batch)`` per batch size on the model's own
+    selector and on the plain path, taken alternately (plain, kernel,
+    kernel, plain: both see the same host and card), with the kernel path's
+    device busy ms (CUPTI), idle share and heaviest kernels."""
+    import torch
+
+    timings = {}
+    with torch.inference_mode():
+        for bs in batch_sizes:
+            b = entry_batch(cfg, bs, dev, seed=1)
+            kernel_path = lambda: model(b)
+            plain_path = lambda: model(b, use_pallas=False)
+            samples = {"kernel": [], "plain": []}
+            for path in ("plain", "kernel", "kernel", "plain"):
+                fn = kernel_path if path == "kernel" else plain_path
+                samples[path] += [time_ms(fn, iters=5, warmup=2) for _ in range(3)]
+            ms = float(np.median(samples["kernel"]))
+            dev_ms, kernels = device_ms(kernel_path, iters=3, warmup=1)
+            top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+            timings[bs] = dict(ms=ms, ms_samples=samples["kernel"],
+                               pairs_per_s=bs / ms * 1e3,
+                               plain_ms=float(np.median(samples["plain"])),
+                               plain_ms_samples=samples["plain"],
+                               device_busy_ms=dev_ms, idle_share=1.0 - dev_ms / ms,
+                               top_kernels_ms=top)
+    return timings
 
 
 def forward_phase(dev):
@@ -636,27 +859,10 @@ def forward_phase(dev):
     err_pool, err_logits, (_, k_logits) = kernel_vs_plain(model, cfg, batch, "auto")
     if (k_logits - logits.float()).abs().max().item() != 0.0:
         fail("forward: model(batch) and vault_apply disagree")
-    timings = {}
+    timings = forward_timings(model, cfg, dev)
     with torch.inference_mode():
-        for bs in (8, 16):
-            b = entry_batch(cfg, bs, dev, seed=1)
-            kernel_path = lambda: model(b)
-            plain_path = lambda: model(b, use_pallas=False)
-            # parent-change style alternation: plain, kernel, kernel, plain
-            samples = {"kernel": [], "plain": []}
-            for path in ("plain", "kernel", "kernel", "plain"):
-                fn = kernel_path if path == "kernel" else plain_path
-                samples[path] += [time_ms(fn, iters=5, warmup=2) for _ in range(3)]
-            ms = float(np.median(samples["kernel"]))
-            dev_ms, kernels = device_ms(kernel_path, iters=3, warmup=1)
-            top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
-            timings[bs] = dict(ms=ms, ms_samples=samples["kernel"],
-                               pairs_per_s=bs / ms * 1e3,
-                               plain_ms=float(np.median(samples["plain"])),
-                               plain_ms_samples=samples["plain"],
-                               device_busy_ms=dev_ms, idle_share=1.0 - dev_ms / ms,
-                               top_kernels_ms=top)
-        timings["host_ops_ms"] = host_profile(kernel_path)
+        b = entry_batch(cfg, 16, dev, seed=1)
+        timings["host_ops_ms"] = host_profile(lambda: model(b))
     emit(phase="forward", params=n_params, build_s=build_s,
          launches_per_forward=counts, pooler_max_abs_err=err_pool,
          logits_max_abs_err=err_logits, limits=FORWARD_LIMITS,
@@ -811,17 +1017,12 @@ def lnqkv_phase(model, cfg, dev):
 
 
 @contextlib.contextmanager
-def int8_plain_versions():
-    """The w8a8 kernels' plain versions in their wrappers' place (the
-    dispatchers look the wrappers up at each call): a forward on the same
-    selector then runs every int8 block in plain PyTorch, with the kernels'
-    cast points, and every other step as before, attention kernel included."""
-    from vault_tpu_torch.ops import cuda_ln_qkv as cl
-    from vault_tpu_torch.ops import cuda_mlp as cm
-
-    swaps = [(cl, "fused_ln_qkv_fwd_w8a8", cl.ln_qkv_w8a8_plain),
-             (cm, "fused_mlp_block_fwd_w8a8", cm.mlp_block_w8a8_plain),
-             (cm, "fused_mlp_postln_fwd_w8a8", cm.mlp_postln_w8a8_plain)]
+def plain_versions(swaps):
+    """Kernel wrappers replaced by their plain versions, ``swaps`` a list of
+    (module, wrapper name, plain function): the dispatchers look the
+    wrappers up at each call, so a forward on the same selector then runs
+    those blocks in plain PyTorch, with the kernels' cast points, and every
+    other step as before, the other kernels included."""
     wrappers = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -830,6 +1031,23 @@ def int8_plain_versions():
     finally:
         for (mod, name, _), fn in zip(swaps, wrappers):
             setattr(mod, name, fn)
+
+
+def int8_plain_versions():
+    """The three w8a8 kernels of the VAuLT-base path as their plain versions."""
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    return plain_versions([(cl, "fused_ln_qkv_fwd_w8a8", cl.ln_qkv_w8a8_plain),
+                           (cm, "fused_mlp_block_fwd_w8a8", cm.mlp_block_w8a8_plain),
+                           (cm, "fused_mlp_postln_fwd_w8a8", cm.mlp_postln_w8a8_plain)])
+
+
+def swiglu_plain_version():
+    """The SwiGLU kernel of the Llama tower as its plain version."""
+    from vault_tpu_torch.ops import cuda_swiglu as cs
+
+    return plain_versions([(cs, "fused_swiglu_block_fwd_w8a8", cs.swiglu_block_w8a8_plain)])
 
 
 def w8a8_forward_phase(dev, cfg, bf16_model):
@@ -884,26 +1102,8 @@ def w8a8_forward_phase(dev, cfg, bf16_model):
                   "logits_max_abs": (k_logits - b_logits).abs().max().item(),
                   "argmax_agree": int((k_logits.argmax(-1) == b_logits.argmax(-1)).sum())}
     weight_bytes = {"bf16": quantized_bytes(bf16_model), "w8a8": quantized_bytes(model)}
-    timings = {}
     torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
-        for bs in (8, 16):
-            b = entry_batch(cfg, bs, dev, seed=1)
-            kernel_path = lambda: model(b)
-            plain_path = lambda: model(b, use_pallas=False)
-            samples = {"kernel": [], "plain": []}
-            for path in ("plain", "kernel", "kernel", "plain"):
-                fn = kernel_path if path == "kernel" else plain_path
-                samples[path] += [time_ms(fn, iters=5, warmup=2) for _ in range(3)]
-            ms = float(np.median(samples["kernel"]))
-            dev_ms, kernels = device_ms(kernel_path, iters=3, warmup=1)
-            top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
-            timings[bs] = dict(ms=ms, ms_samples=samples["kernel"],
-                               pairs_per_s=bs / ms * 1e3,
-                               plain_ms=float(np.median(samples["plain"])),
-                               plain_ms_samples=samples["plain"],
-                               device_busy_ms=dev_ms, idle_share=1.0 - dev_ms / ms,
-                               top_kernels_ms=top)
+    timings = forward_timings(model, cfg, dev)
     emit(phase="forward_w8a8", use_pallas=impl, build_s=build_s,
          launches_per_forward=counts, vs_int8_plain_versions=vs_plain,
          vs_int8_plain_versions_limit="bit-equal",
@@ -917,6 +1117,162 @@ def w8a8_forward_phase(dev, cfg, bf16_model):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          timings={str(k): v for k, v in timings.items()})
     return model, counts
+
+
+def w8_forward_phase(dev, cfg, bf16_model):
+    """The same seeded VAuLT-base, cast to bf16 and then quantized w8 (int8
+    weights only), on ``serving_impl("w8")`` = "auto": launches per forward,
+    the kernel path within ``FORWARD_LIMITS`` of the plain path (w8 rounds
+    no activation to int8, so the bf16 limits apply), its distance from the
+    bf16 model, weight bytes, and times at batch 8 and 16."""
+    import torch
+
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.ops.quantize import quantized_bytes
+
+    t0 = time.perf_counter()
+    model = VaultForClassification(cfg, n_classes=3, device=dev, dtype=torch.bfloat16,
+                                   seed=0).quantize("w8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    impl = model.use_pallas
+    counts = {}
+    with torch.inference_mode():
+        for bs in (8, 16):
+            batch = entry_batch(cfg, bs, dev)
+            reset_counts()
+            logits = model(batch)
+            torch.cuda.synchronize()
+            counts[bs] = read_counts()
+            if counts[bs] != W8_LAUNCHES:
+                fail(f"w8 launches per forward at batch {bs} {counts[bs]}, expected "
+                     f"{W8_LAUNCHES}")
+            if logits.shape != (bs, 3) or not torch.isfinite(logits.float()).all():
+                fail(f"w8 logits {tuple(logits.shape)} not finite")
+    errs = {}
+    for bs in (8, 16):
+        batch = entry_batch(cfg, bs, dev)
+        err_pool, err_logits, (k_pool, k_logits) = kernel_vs_plain(model, cfg, batch, impl)
+        errs[bs] = {"pooler": err_pool, "logits": err_logits}
+    if (k_logits - logits.float()).abs().max().item() != 0.0:
+        fail("w8: model(batch) and vault_apply disagree")
+    _, _, (b_pool, b_logits) = kernel_vs_plain(bf16_model, cfg, batch, "auto")
+    divergence = {"pooler_max_abs": (k_pool - b_pool).abs().max().item(),
+                  "logits_max_abs": (k_logits - b_logits).abs().max().item(),
+                  "argmax_agree": int((k_logits.argmax(-1) == b_logits.argmax(-1)).sum())}
+    weight_bytes = {"bf16": quantized_bytes(bf16_model), "w8": quantized_bytes(model)}
+    torch.cuda.reset_peak_memory_stats()
+    timings = forward_timings(model, cfg, dev)
+    emit(phase="forward_w8", use_pallas=impl, build_s=build_s,
+         launches_per_forward=counts[8], vs_plain_path={str(k): v for k, v in errs.items()},
+         limits=FORWARD_LIMITS, divergence_from_bf16_batch16=divergence,
+         weight_bytes=weight_bytes, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         timings={str(k): v for k, v in timings.items()})
+    return model, counts[8]
+
+
+def llama_phase(dev):
+    """The Llama-3-8B-geometry tower (published widths, all 32 layers,
+    seeded random weights quantized w8a8 on the card layer by layer) feeding
+    an unquantized bf16 ViLT-B/32 through ``VaultWithLlamaTower``: launches
+    per forward, the kernel path bit-equal to the same selectors with the
+    SwiGLU wrapper swapped for its plain version, its distance from the
+    tower's plain path (``attn_impl="xla", mlp_impl="xla"``, reported),
+    resident weight bytes, peak memory and times at batch 16."""
+    import torch
+
+    from vault_tpu_torch.config import ViltConfig
+    from vault_tpu_torch.models.llama import LlamaConfig
+    from vault_tpu_torch.models.vault import VaultWithLlamaTower, vault_with_llama_tower
+    from vault_tpu_torch.ops.quantize import quantized_bytes
+
+    bs = 16
+    vilt_cfg = ViltConfig()
+    llama_cfg = LlamaConfig(num_hidden_layers=LLAMA_LAYERS, attn_impl="pallas",
+                            mlp_impl="pallas")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = VaultWithLlamaTower(vilt_cfg, llama_cfg, device=dev, dtype=torch.bfloat16,
+                                seed=0, quantize="w8a8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tower = model["llama"]
+    leaf = tower["layers"][0]
+    dtypes = {"embed": tower["embed"].dtype, "input_ln": leaf["input_ln"].dtype,
+              "gate.w_q8": leaf["gate"]["w_q8"].dtype, "gate.w_scale": leaf["gate"]["w_scale"].dtype,
+              "vilt": model["vilt"]["layers"][0]["mlp_in"]["w"].dtype}
+    want = {"embed": torch.bfloat16, "input_ln": torch.float32, "gate.w_q8": torch.int8,
+            "gate.w_scale": torch.float32, "vilt": torch.bfloat16}
+    if dtypes != want:
+        fail(f"llama tower dtypes {dtypes}, expected {want}")
+    weight_bytes = {"tower_int8_codes": sum(
+        p.numel() for p in tower.parameters() if p.dtype == torch.int8),
+        "tower_embed": tower["embed"].numel() * tower["embed"].element_size(),
+        "all": quantized_bytes(model)}
+    batch = entry_batch(None, bs, dev, vocab=llama_cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        reset_counts()
+        out = model(batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != LLAMA_LAUNCHES:
+            fail(f"llama launches per forward {counts}, expected {LLAMA_LAUNCHES}")
+        pooled, hidden = out.pooler_output, out.last_hidden_state
+        if pooled.shape != (bs, vilt_cfg.hidden_size) or not (
+                torch.isfinite(pooled.float()).all() and torch.isfinite(hidden.float()).all()):
+            fail(f"llama pooler {tuple(pooled.shape)} not finite")
+        reset_counts()
+        with swiglu_plain_version():
+            p_out = model(batch)
+        torch.cuda.synchronize()
+        plain_counts = read_counts()
+        if plain_counts != dict(LLAMA_LAUNCHES, swiglu_w8a8=0):
+            fail(f"llama through the SwiGLU plain version: launches {plain_counts}")
+        vs_plain = {"pooler": (pooled.float() - p_out.pooler_output.float()).abs().max().item(),
+                    "hidden": (hidden.float() - p_out.last_hidden_state.float()
+                               ).abs().max().item()}
+        if not (torch.equal(pooled, p_out.pooler_output)
+                and torch.equal(hidden, p_out.last_hidden_state)):
+            fail(f"llama kernel path vs the SwiGLU kernel's plain version: max |diff| "
+                 f"{vs_plain}, expected bit-equal")
+        xla_cfg = dataclasses.replace(llama_cfg, attn_impl="xla", mlp_impl="xla")
+        reset_counts()
+        x_out = vault_with_llama_tower(model, vilt_cfg, xla_cfg, deterministic=True,
+                                       use_pallas=model.use_pallas, **batch)
+        torch.cuda.synchronize()
+        xla_counts = read_counts()
+        if xla_counts != dict(LLAMA_LAUNCHES, swiglu_w8a8=0, attention_gqa=0):
+            fail(f"llama tower on its plain path: launches {xla_counts}")
+        vs_xla = {"pooler": (pooled.float() - x_out.pooler_output.float()).abs().max().item(),
+                  "hidden": (hidden.float() - x_out.last_hidden_state.float()
+                             ).abs().max().item(),
+                  "pooler_rms": x_out.pooler_output.float().square().mean().sqrt().item()}
+        del p_out, x_out
+        run = lambda: model(batch)
+        plain_run = lambda: vault_with_llama_tower(
+            model, vilt_cfg, xla_cfg, deterministic=True, use_pallas=False, **batch)
+        samples = {"kernel": [], "plain": []}
+        for path in ("plain", "kernel", "kernel", "plain"):
+            fn = run if path == "kernel" else plain_run
+            samples[path] += [time_ms(fn, iters=2, warmup=1) for _ in range(2)]
+        ms = float(np.median(samples["kernel"]))
+        busy, kernels = device_ms(run, iters=2, warmup=0)
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+    emit(phase="llama_w8a8", tower="llama-3-8B geometry, w8a8", layers=LLAMA_LAYERS,
+         batch=bs, build_s=build_s, build_peak_mem_gb=build_peak_gb,
+         launches_per_forward=counts, vs_swiglu_plain_version=vs_plain,
+         vs_swiglu_plain_version_limit="bit-equal",
+         vs_tower_plain_path=vs_xla, weight_bytes=weight_bytes,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ms=ms,
+         ms_samples=samples["kernel"], plain_ms=float(np.median(samples["plain"])),
+         plain_ms_samples=samples["plain"], pairs_per_s=bs / ms * 1e3,
+         device_busy_ms=busy, idle_share=1.0 - busy / ms, top_kernels_ms=top)
+    del model
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1141,7 +1497,16 @@ def _leaves(tree):
     return [tree]
 
 
+PHASES = ("kernels", "vault", "w8", "llama", "train")
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated groups of phases to run (default: all)")
+    phases = [p for p in ap.parse_args().phases.split(",") if p]
+    if set(phases) - set(PHASES):
+        fail(f"unknown phases {sorted(set(phases) - set(PHASES))}; known: {PHASES}")
     try:
         import torch
     except ImportError:
@@ -1176,25 +1541,44 @@ def main():
          per_source={k: v[0] for k, v in built.items()}, ptxas=ptxas)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    checks = {"encoder_attention": check_attention(gen, dev),
-              "mlp_block": check_mlp(gen, dev, postln=False),
-              "mlp_postln": check_mlp(gen, dev, postln=True)}
+    checks, path_counts = {}, {}
+    if "kernels" in phases:
+        checks["encoder_attention"] = check_attention(gen, dev)
+        checks["mlp_block"] = check_mlp(gen, dev, postln=False)
+        checks["mlp_postln"] = check_mlp(gen, dev, postln=True)
+        checks["mlp_block_bwd"] = check_mlp_bwd(gen, dev, postln=False)
+        checks["mlp_postln_bwd"] = check_mlp_bwd(gen, dev, postln=True)
+        for name in INT8_KERNELS:
+            checks[name] = check_int8_family(gen, dev, name)
+        checks["attention_gqa"] = check_attention_gqa(gen, dev)
+        checks["swiglu_w8a8"] = check_swiglu(gen, dev)
+        torch.cuda.empty_cache()
 
-    checks["mlp_block_bwd"] = check_mlp_bwd(gen, dev, postln=False)
-    checks["mlp_postln_bwd"] = check_mlp_bwd(gen, dev, postln=True)
-    for name in INT8_KERNELS:
-        checks[name] = check_int8_family(gen, dev, name)
-
-    model, cfg, counts = forward_phase(dev)
-    serving_phase(model)
-    lnqkv_counts = lnqkv_phase(model, cfg, dev)
-    qmodel, w8a8_counts = w8a8_forward_phase(dev, cfg, model)
-    del model
-    serving_phase(qmodel, W8A8_LAUNCHES, "serving_w8a8")
-    del qmodel
-    torch.cuda.empty_cache()
-    cfg, step_counts = train_step_phase(dev)
-    trainer_phase(dev, cfg)
+    if "vault" in phases or "w8" in phases:
+        model, cfg, path_counts["forward"] = forward_phase(dev)
+    if "vault" in phases:
+        serving_phase(model)
+        path_counts["forward_fuselnqkv"] = lnqkv_phase(model, cfg, dev)
+        qmodel, path_counts["forward_w8a8"] = w8a8_forward_phase(dev, cfg, model)
+        serving_phase(qmodel, W8A8_LAUNCHES, "serving_w8a8")
+        del qmodel
+    if "w8" in phases:
+        qmodel, path_counts["forward_w8"] = w8_forward_phase(dev, cfg, model)
+        serving_phase(qmodel, W8_LAUNCHES, "serving_w8")
+        del qmodel
+    if "vault" in phases or "w8" in phases:
+        del model
+        torch.cuda.empty_cache()
+    if "llama" in phases:
+        path_counts["llama_w8a8"] = llama_phase(dev)
+    step_counts = launches()
+    if "train" in phases:
+        cfg, step_counts = train_step_phase(dev)
+        path_counts["train_step"] = step_counts
+        trainer_phase(dev, cfg)
+    if set(phases) != set(PHASES):
+        print(json.dumps({"partial": sorted(phases)}), flush=True)
+        return
 
     sources = {"encoder_attention": ("vault_tpu_torch/csrc/attention.cu",
                                      "vault_tpu/ops/pallas_attention.py:92"),
@@ -1213,23 +1597,31 @@ def main():
                "mlp_block_w8a8": ("vault_tpu_torch/csrc/mlp_w8a8.cu",
                                   "vault_tpu/ops/pallas_mlp.py:720"),
                "mlp_postln_w8a8": ("vault_tpu_torch/csrc/mlp_w8a8.cu",
-                                   "vault_tpu/ops/pallas_mlp.py:1054")}
+                                   "vault_tpu/ops/pallas_mlp.py:1054"),
+               "mlp_block_q8": ("vault_tpu_torch/csrc/mlp.cu",
+                                "vault_tpu/ops/pallas_mlp.py:607"),
+               "mlp_postln_q8": ("vault_tpu_torch/csrc/mlp.cu",
+                                 "vault_tpu/ops/pallas_mlp.py:966"),
+               "attention_gqa": ("vault_tpu_torch/csrc/attention_gqa.cu",
+                                 "vault_tpu/ops/pallas_attention.py:214"),
+               "swiglu_w8a8": ("vault_tpu_torch/csrc/swiglu_w8a8.cu",
+                               "vault_tpu/ops/pallas_swiglu.py:186")}
     # each kernel's launches in the run of the path that drives it
-    path_counts = {"forward": counts, "forward_fuselnqkv": lnqkv_counts,
-                   "forward_w8a8": w8a8_counts, "train_step": step_counts}
+    # (path_counts, in the order the paths ran)
     kernels = []
     for name, rows in checks.items():
-        timed = [r for r in rows if "ms" in r and r.get("path") != "train"]
+        timed = [r for r in rows if "ms" in r and r.get("path", "forward") == "forward"]
         at_train_rows = [r for r in rows if "ms" in r and r.get("path") == "train"]
         # attention: the main path launches it equally often at L = 40 and
         # L = 256, so its numbers are the mean over those two shapes
         mean = lambda key: sum(r[key] for r in timed) / len(timed)
         # launches: from the first path that runs the kernel (the bf16
-        # forward, the fuselnqkv forward, the w8a8 forward, a training step)
-        path, launches = next(((p, c[name]) for p, c in path_counts.items()
-                               if c[name]), (None, 0))
+        # forward, the fuselnqkv, w8a8 and w8 forwards, the Llama-tower
+        # forward, a training step)
+        path, n_launches = next(((p, c[name]) for p, c in path_counts.items()
+                                 if c[name]), (None, 0))
         entry = dict(name=name, route="cuda", source=sources[name][0],
-                     replaces=sources[name][1], launches=launches,
+                     replaces=sources[name][1], launches=n_launches,
                      launches_path=path,
                      launches_per_train_step=step_counts[name],
                      max_abs_err=max(r["max_abs_err"] for r in timed),
@@ -1242,8 +1634,8 @@ def main():
                                       "vault_tpu/ops/pallas_attention.py:245"]
         if name.endswith("_bwd"):
             entry["wrapper_ms"] = mean("wrapper_ms")
-        if name in INT8_KERNELS:
-            entry["library"] = INT8_KERNELS[name][4]
+        if "library" in timed[0]:
+            entry["library"] = timed[0]["library"]
         for r in at_train_rows:  # the forward kernels at the training rows
             entry.update(train_rows=r["rows"], train_ms=r["ms"],
                          train_plain_ms=r["plain_ms"],

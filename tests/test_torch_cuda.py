@@ -6,8 +6,9 @@ path's shapes).  On a machine with a card: ``python3 -m pytest --noconftest -m c
 tests/test_torch_cuda.py`` (the repository's conftest imports JAX).  Limits
 as in chip_smoke.py: forward bf16 6.25e-2 (a few bf16 ulps of outputs of
 magnitude ~4), fp32 1e-4 (summation order); backward, per output, 2^-5
-(bf16) or 1e-4 (fp32) of max(1, max|plain|); the w8a8 kernels bit-equal,
-the fp LN->QKV kernel in bf16 2^-7 of max(1, max|plain|).
+(bf16) or 1e-4 (fp32) of max(1, max|plain|); the w8a8 kernels (the SwiGLU
+block included) bit-equal, the fp LN->QKV kernel in bf16 2^-7 of max(1,
+max|plain|); the q8 MLP blocks and the GQA attention at the forward limits.
 """
 
 import pytest
@@ -412,18 +413,238 @@ def test_int8_matmul_on_the_card_is_exact(dev):
         int8_matmul(xq[:, :20], wq[:20, :12])
 
 
-def test_w8_block_on_the_card_raises(dev):
-    """The w8 (int8 weight-only) Pallas kernels are not ported: a w8 block
-    on the card raises instead of running anything else."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 77, 320, 2048])
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_q8_kernels_match_plain(dev, dtype, rows, postln):
+    """The w8 blocks (int8 weights dequantized in the kernel) against the
+    plain composition on the same ``w_q`` weights, through the wrappers and
+    through the dispatch a w8 model takes."""
     from vault_tpu_torch.ops import cuda_mlp as cm
 
-    o = _int8_operands(dev, 8, torch.bfloat16, i=256)
-    ln = {"scale": o["gamma"], "bias": o["beta"]}
-    p_in = {"w_q": o["w1q"], "w_scale": o["s1"], "b": o["b1"]}
-    p_out = {"w_q": o["w2q"], "w_scale": o["s2"], "b": o["b2"]}
-    for block in (cm.fused_mlp_block, cm.fused_mlp_postln_block):
-        with pytest.raises(NotImplementedError, match="w8"):
-            block(ln, p_in, p_out, o["x"])
+    o = _int8_operands(dev, rows, dtype)
+    args = [o[k] for k in W8A8_ARGS]
+    kernel = cm.fused_mlp_postln_fwd_q8 if postln else cm.fused_mlp_block_fwd_q8
+    plain = cm.mlp_postln_q8_plain if postln else cm.mlp_block_q8_plain
+    block = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
+    n = kernel.launches
+    out, again = kernel(*args), kernel(*args)
+    via_block = block({"scale": o["gamma"], "bias": o["beta"]},
+                      {"w_q": o["w1q"], "w_scale": o["s1"][None], "b": o["b1"]},
+                      {"w_q": o["w2q"], "w_scale": o["s2"][None], "b": o["b2"]}, o["x"])
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 3
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= LIMITS[dtype], err
+    assert torch.equal(out, again) and torch.equal(out, via_block)
+
+
+def test_gradients_flow_through_the_q8_kernels(dev):
+    """The q8 dispatch's backward is autograd of the plain composition on
+    the same weights: gradients to the LN, scales, biases and x."""
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    o = _int8_operands(dev, 64, torch.float32, i=256)
+    for postln in (False, True):
+        block = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
+        plain = cm._mlp_postln_plain if postln else cm._mlp_block_plain
+        grads = []
+        for fn in (block, plain):
+            leaves = {k: o[k].clone().requires_grad_()
+                      for k in ("gamma", "beta", "s1", "b1", "s2", "b2", "x")}
+            out = fn({"scale": leaves["gamma"], "bias": leaves["beta"]},
+                     {"w_q": o["w1q"], "w_scale": leaves["s1"], "b": leaves["b1"]},
+                     {"w_q": o["w2q"], "w_scale": leaves["s2"], "b": leaves["b2"]},
+                     leaves["x"], 1e-12, "gelu")
+            out.square().sum().backward()
+            grads.append({k: v.grad for k, v in leaves.items()})
+        for k in grads[0]:
+            scale = max(1.0, grads[1][k].abs().max().item())
+            assert (grads[0][k] - grads[1][k]).abs().max().item() <= 1e-3 * scale, k
+
+
+def _gqa_case(dev, b, h, g, l, d, dtype, seed):
+    """Head views of (B, L, heads D) projections and a causal and padding
+    bias: row 1 padded on the right, row 2 on the left."""
+    from vault_tpu_torch.ops.attention import split_heads
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = split_heads(torch.randn((b, l, h * d), generator=gen, device=dev).to(dtype), h)
+    k, v = (split_heads(torch.randn((b, l, g * d), generator=gen, device=dev).to(dtype), g)
+            for _ in range(2))
+    pad = torch.ones((b, l), device=dev)
+    pad[1, (l + 1) // 2:] = 0
+    pad[2, :l // 3] = 0
+    keep = torch.tril(torch.ones((l, l), device=dev))[None, None] * pad[:, None, None, :]
+    return q, k, v, ((1.0 - keep) * torch.finfo(torch.float32).min).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("l", [1, 40, 77, 300])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_gqa_kernel_matches_plain(dev, dtype, l, rep, d):
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    q, k, v, bias = _gqa_case(dev, 3, 2 * rep, 2, l, d, dtype, seed=l)
+    n = ca.fused_attention_gqa.launches
+    out, again = ca.fused_attention_gqa(q, k, v, bias), ca.fused_attention_gqa(q, k, v, bias)
+    ref = ca.attention_gqa_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert ca.fused_attention_gqa.launches == n + 2
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= LIMITS[dtype], err
+    assert torch.equal(out, again)
+
+
+def test_attention_gqa_wrapper_rejects_and_differentiates(dev):
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    q, k, v, bias = _gqa_case(dev, 3, 8, 2, 40, 128, torch.float32, seed=9)
+    n = ca.fused_attention_gqa.launches
+    for bad in ((q[..., :32], k[..., :32], v[..., :32], bias),        # head dim 32
+                (q, k[:, :1].expand(3, 3, 40, 128), v, bias),          # 3 does not divide 8
+                (q, k, v, bias[:, :, :1]),                             # a key bias
+                (q, k, v, bias.to(torch.bfloat16)),
+                (q.to(torch.float16), k.to(torch.float16), v.to(torch.float16), bias)):
+        with pytest.raises((ValueError, TypeError)):
+            ca.fused_attention_gqa(*bad)
+    assert ca.fused_attention_gqa.launches == n
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ca.fused_attention_gqa(*leaves, bias).square().sum().backward()
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    ca.attention_gqa_plain(*ref, bias).square().sum().backward()
+    for a, b in zip(leaves, ref):
+        assert (a.grad - b.grad).abs().max().item() <= 1e-3
+
+
+def _swiglu_operands(dev, i=2048, seed=6):
+    from vault_tpu_torch.ops.quantize import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    o = {"ln_w": 1.0 + 0.1 * torch.randn(4096, generator=g, device=dev)}
+    for name, shape in (("g", (4096, i)), ("u", (4096, i)), ("d", (i, 4096))):
+        q, s = quantize_weight(torch.randn(shape, generator=g, device=dev) * 0.02)
+        o["w" + name + "q"], o["s" + name] = q, s
+    return o, g
+
+
+SWIGLU_ARGS = ("ln_w", "wgq", "sg", "wuq", "su", "wdq", "sd")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 77, 320, 640])
+def test_swiglu_w8a8_kernel_matches_plain(dev, dtype, rows):
+    """Bit-equal to ``swiglu_block_w8a8_plain`` (two I-tiles here, fourteen
+    at the tower's width in chip_smoke.py), through the wrapper and through
+    the dispatch; the gradient is that of the per-row composition."""
+    from vault_tpu_torch.ops import cuda_swiglu as cs
+
+    o, g = _swiglu_operands(dev)
+    x = torch.randn((rows, 4096), generator=g, device=dev).to(dtype)
+    args = [o[k] for k in SWIGLU_ARGS] + [x]
+    n = cs.fused_swiglu_block_fwd_w8a8.launches
+    out, again = cs.fused_swiglu_block_fwd_w8a8(*args), cs.fused_swiglu_block_fwd_w8a8(*args)
+    params = [{"w_q8": o["w" + k + "q"], "w_scale": o["s" + k]} for k in "gud"]
+    xg = x.clone().requires_grad_()
+    via_block = cs.swiglu_block(o["ln_w"], *params, xg)
+    ref = cs.swiglu_block_w8a8_plain(*args)
+    torch.cuda.synchronize()
+    assert cs.fused_swiglu_block_fwd_w8a8.launches == n + 3
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, again) and torch.equal(out, via_block)
+    via_block.float().square().sum().backward()
+    xr = x.clone().requires_grad_()
+    cs.swiglu_block_plain(o["ln_w"], *params, xr).float().square().sum().backward()
+    assert torch.isfinite(xg.grad.float()).all() and xg.grad.abs().max() > 0
+    scale = max(1.0, xr.grad.float().abs().max().item())
+    assert (xg.grad.float() - xr.grad.float()).abs().max().item() <= 0.25 * scale
+
+
+def test_swiglu_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from vault_tpu_torch.ops import cuda_swiglu as cs
+
+    o, g = _swiglu_operands(dev, i=1024)
+    x = torch.randn((8, 4096), generator=g, device=dev).to(torch.bfloat16)
+    args = [o[k] for k in SWIGLU_ARGS] + [x]
+    bad = {"bf16 norm weight": [o["ln_w"].to(torch.bfloat16)] + args[1:],
+           "fp weights": [args[0], o["wgq"].float()] + args[2:],
+           "I not a multiple of 1024": [args[0], o["wgq"][:, :512].contiguous(),
+                                        o["sg"][:, :512].contiguous(),
+                                        o["wuq"][:, :512].contiguous(),
+                                        o["su"][:, :512].contiguous(),
+                                        o["wdq"][:512].contiguous(), args[6], x],
+           "H 768": [args[0][:768].contiguous(), o["wgq"][:768].contiguous(), args[2],
+                     o["wuq"][:768].contiguous(), args[4], o["wdq"][:, :768].contiguous(),
+                     o["sd"][:, :768].contiguous(), x[:, :768].contiguous()],
+           "fp16 x": args[:7] + [x.to(torch.float16)],
+           "cpu x": args[:7] + [x.cpu()]}
+    n = cs.fused_swiglu_block_fwd_w8a8.launches
+    for what, a in bad.items():
+        with pytest.raises((ValueError, TypeError)):
+            cs.fused_swiglu_block_fwd_w8a8(*a)
+    assert cs.fused_swiglu_block_fwd_w8a8.launches == n
+
+
+def test_llama_tower_forward_launches_each_kernel_per_layer(dev, monkeypatch):
+    """Two layers at the Llama-3-8B widths over a small vocabulary, w8a8,
+    feeding a tiny ViLT: one forward launches the GQA and SwiGLU kernels
+    once per layer, and equals the same forward with the SwiGLU wrapper
+    swapped for its plain version."""
+    from vault_tpu_torch.config import tiny_vilt_config
+    from vault_tpu_torch.models.llama import LlamaConfig
+    from vault_tpu_torch.models.vault import VaultWithLlamaTower
+    from vault_tpu_torch.ops import cuda_attention as ca
+    from vault_tpu_torch.ops import cuda_swiglu as cs
+
+    cfg = LlamaConfig(vocab_size=512, num_hidden_layers=2, attn_impl="pallas",
+                      mlp_impl="pallas")
+    model = VaultWithLlamaTower(tiny_vilt_config(), cfg, dtype=torch.bfloat16,
+                                quantize="w8a8", use_pallas=False)
+    batch = {"input_ids": torch.randint(1, 512, (3, 8)),
+             "attention_mask": torch.ones((3, 8), dtype=torch.int64),
+             "token_type_ids": torch.zeros((3, 8), dtype=torch.int64),
+             "pixel_values": torch.randn((3, 3, 64, 64)),
+             "pixel_mask": torch.ones((3, 64, 64), dtype=torch.int64)}
+    batch["attention_mask"][1, 5:] = 0
+    fns = (ca.fused_attention_gqa, cs.fused_swiglu_block_fwd_w8a8, ca.fused_attention)
+    before = [f.launches for f in fns]
+    with torch.inference_mode():
+        out = model(batch)
+    assert [f.launches - b for f, b in zip(fns, before)] == [2, 2, 0]
+    assert torch.isfinite(out.pooler_output.float()).all()
+    monkeypatch.setattr(cs, "fused_swiglu_block_fwd_w8a8", cs.swiglu_block_w8a8_plain)
+    with torch.inference_mode():
+        assert torch.equal(model(batch).last_hidden_state, out.last_hidden_state)
+
+
+def test_w8_model_forward_launches_each_kernel_per_layer(dev):
+    """A wide two-layer VAuLT, bf16, quantized w8: "auto" launches each q8
+    kernel once per layer of its tower and stays close to the plain path."""
+    from vault_tpu_torch.config import VaultConfig, tiny_text_config, tiny_vilt_config
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.ops import cuda_attention as ca
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    wide = dict(hidden_size=768, num_attention_heads=12, intermediate_size=1536)
+    cfg = VaultConfig(vilt=tiny_vilt_config(**wide), text_tower=tiny_text_config(**wide))
+    model = VaultForClassification(cfg, dtype=torch.bfloat16).quantize("w8")
+    assert model.use_pallas == "auto"
+    batch = {"input_ids": torch.randint(1, 99, (2, 8)),
+             "attention_mask": torch.ones((2, 8), dtype=torch.int64),
+             "token_type_ids": torch.zeros((2, 8), dtype=torch.int64),
+             "pixel_values": torch.randn((2, 3, 64, 64)),
+             "pixel_mask": torch.ones((2, 64, 64), dtype=torch.int64)}
+    fns = (ca.fused_attention, cm.fused_mlp_block_fwd_q8, cm.fused_mlp_postln_fwd_q8,
+           cm.fused_mlp_block_fwd, cm.fused_mlp_postln_fwd)
+    before = [f.launches for f in fns]
+    with torch.inference_mode():
+        out = model(batch)
+        plain = model(batch, use_pallas=False)
+    assert [f.launches - b for f, b in zip(fns, before)] == [4, 2, 2, 0, 0]
+    assert (out.float() - plain.float()).abs().max().item() < 2e-2
 
 
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):

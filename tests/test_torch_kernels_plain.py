@@ -490,9 +490,9 @@ def test_fused_ln_qkv_grads_match_jax():
 
 
 def test_quantized_blocks_dispatch_like_jax():
-    """A w8a8 block with a dropout mask and a w8 block take the plain
-    composition on the CPU, as the JAX package falls back to XLA (w8 has a
-    Pallas kernel there, not ported yet: on the card it raises)."""
+    """A w8a8 block with a dropout mask takes the plain composition, as the
+    JAX package falls back to XLA; a w8 block goes through its dispatch (on
+    the CPU the q8 kernels' plain versions) and matches the JAX package's."""
     j, t = _q_inputs("float32", seed=26)
     m = torch.from_numpy(np.where(np.random.default_rng(0).random((2, 24, 128)) < 0.9,
                                   1 / 0.9, 0.0).astype(np.float32))
@@ -528,4 +528,224 @@ def test_int8_kernel_wrappers_never_fall_back():
         with pytest.raises(ValueError, match="CUDA"):
             fn(*(t[k] for k in ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2",
                                 "b2", "x")))
+    assert counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The w8 (int8 weight-only) MLP blocks, the GQA attention and the w8a8
+# SwiGLU block.  Tolerances: q8 and GQA fp32 atol 5e-5 + rtol 1e-4, bf16
+# atol 2e-2 + rtol 2^-7 (as above); SwiGLU against swiglu_block_xla_grouped
+# fp32 atol 2e-5 (the JAX test's own), bf16 atol 2e-2 + rtol 2^-7.
+# ---------------------------------------------------------------------------
+
+from vault_tpu.models import llama as jllama
+from vault_tpu.ops import pallas_swiglu as ps
+from vault_tpu_torch.ops import cuda_swiglu as cs
+
+Q8_ARGS = ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x")
+
+
+def _w8_params(s):
+    return ({"scale": s["gamma"], "bias": s["beta"]},
+            {"w_q": s["w1q"], "w_scale": s["s1"], "b": s["b1"]},
+            {"w_q": s["w2q"], "w_scale": s["s2"], "b": s["b2"]})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_q8_plain_vs_pallas_and_xla(dtype, postln):
+    j, t = _q_inputs(dtype, seed=31)
+    pallas = pm.fused_mlp_postln_fwd_q8 if postln else pm.fused_mlp_block_fwd_q8
+    xla = pm._mlp_postln_xla if postln else pm._mlp_block_xla
+    plain = cm.mlp_postln_q8_plain if postln else cm.mlp_block_q8_plain
+    out = plain(*(t[k] for k in Q8_ARGS))
+    assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
+    _close(out, pallas(*(j[k] for k in Q8_ARGS), eps=1e-12, interpret=True), dtype, 5e-5)
+    _close(out, xla(*_w8_params(j), j["x"], 1e-12, "gelu"), dtype, 5e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_q8_dispatch_vs_jax(dtype, postln):
+    """The dispatchers with w_q parameters against the JAX package's (its
+    q8 Pallas kernels, interpreted)."""
+    j, t = _q_inputs(dtype, seed=32)
+    jblock = pm.fused_mlp_postln_block if postln else pm.fused_mlp_block
+    tblock = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
+    out = tblock(*_w8_params(t), t["x"], 1e-12, "gelu")
+    _close(out, jblock(*_w8_params(j), j["x"], 1e-12, "gelu"), dtype, 5e-5)
+
+
+@pytest.mark.parametrize("postln", [False, True])
+def test_mlp_q8_grads_match_jax(postln):
+    """Gradients through the q8 dispatch: to the LN, both scales, both
+    biases and x, none to the codes, as the JAX package's vjp."""
+    import jax
+
+    j, t = _q_inputs("float32", seed=33)
+    jblock = pm.fused_mlp_postln_block if postln else pm.fused_mlp_block
+    tblock = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
+    names = ("gamma", "beta", "s1", "b1", "s2", "b2", "x")
+
+    def jloss(gamma, beta, s1, b1, s2, b2, x):
+        p = dict(j, gamma=gamma, beta=beta, s1=s1, b1=b1, s2=s2, b2=b2)
+        return jnp.sum(jblock(*_w8_params(p), x) ** 2)
+
+    ref = jax.grad(jloss, argnums=tuple(range(7)))(*(j[k] for k in names))
+    leaves = {k: t[k].clone().requires_grad_() for k in names}
+    out = tblock(*_w8_params(dict(t, **leaves)), leaves["x"])
+    (out ** 2).sum().backward()
+    assert t["w1q"].grad is None and t["w2q"].grad is None
+    for k, r in zip(names, ref):
+        np.testing.assert_allclose(_np(leaves[k].grad).reshape(np.shape(r)), _np(r),
+                                   atol=1e-3, rtol=1e-3, err_msg=k)
+
+
+def _gqa_inputs(dtype, rep, padded, b=3, g=2, l=11, d=8, seed=41):
+    """q (B, G rep, L, D), k/v (B, G, L, D) and the tower's (B, 1, L, L)
+    causal and padding bias; with ``padded`` row 1 is padded on the right
+    and row 2 on the left (its first queries see no key)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, g * rep, l, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, g, l, d)).astype(np.float32) for _ in range(2))
+    pad = np.ones((b, l), np.float32)
+    if padded:
+        pad[1, 7:] = 0
+        pad[2, :4] = 0
+    keep = np.tril(np.ones((l, l), np.float32))[None, None] * pad[:, None, None, :]
+    bias = (1.0 - keep) * np.finfo(np.float32).min
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    return ([jnp.asarray(a, jd) for a in (q, k, v)] + [jnp.asarray(bias)],
+            [torch.from_numpy(a).to(td) for a in (q, k, v)] + [torch.from_numpy(bias)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("padded", [False, True])
+def test_attention_gqa_plain_vs_pallas_and_xla(dtype, rep, padded):
+    jx, tx = _gqa_inputs(dtype, rep, padded)
+    out = ca.fused_attention_gqa(*tx)       # CPU tensors: the plain version
+    assert out.dtype == tx[0].dtype and out.shape == tx[0].shape
+    assert torch.isfinite(out.float()).all()
+    _close(out, pa.fused_attention_gqa(*jx, interpret=True), dtype, 5e-5)
+    _close(out, jllama._gqa_attend(*jx, rep), dtype, 5e-5)
+
+
+def test_attention_gqa_function_grads_match_plain_autograd():
+    _, tx = _gqa_inputs("float32", 2, True)
+    leaves = [t.clone().requires_grad_() for t in tx[:3]]
+    ca.fused_attention_gqa(*leaves, tx[3]).square().sum().backward()
+    ref = [t.clone().requires_grad_() for t in tx[:3]]
+    ca.attention_gqa_plain(*ref, tx[3]).square().sum().backward()
+    for a, b in zip(leaves, ref):
+        np.testing.assert_allclose(_np(a.grad), _np(b.grad), atol=1e-6)
+
+
+def _swiglu_inputs(dtype, rows=8, h=64, i=64, seed=51):
+    """tests/test_pallas_swiglu.py's operands, quantized on both sides."""
+    rng = np.random.default_rng(seed)
+    w = {n: (rng.normal(size=shape) * 0.05).astype(np.float32)
+         for n, shape in (("g", (h, i)), ("u", (h, i)), ("d", (i, h)))}
+    ln = (1.0 + 0.1 * rng.normal(size=h)).astype(np.float32)
+    x = (rng.normal(size=(rows, h)) * 0.5).astype(np.float32)
+    j = {"ln": jnp.asarray(ln), "x": jnp.asarray(x, getattr(jnp, dtype))}
+    t = {"ln": torch.from_numpy(ln), "x": torch.from_numpy(x).to(getattr(torch, dtype))}
+    for side, quant, conv in ((j, jq, jnp.asarray), (t, tq, torch.from_numpy)):
+        for n, a in w.items():
+            side["w" + n + "q"], side["s" + n] = quant.quantize_weight(conv(a))
+    return j, t
+
+
+SWIGLU_ARGS = ("ln", "wgq", "sg", "wuq", "su", "wdq", "sd", "x")
+
+
+def _swiglu_params(s, key="w_q8"):
+    return (s["ln"], *({key: s["w" + n + "q"], "w_scale": s["s" + n]} for n in "gud"))
+
+
+def _swiglu_close(out, ref, dtype):
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5 if dtype == "float32" else 2e-2,
+                               rtol=RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("i_tile", [16, 32, 48, 64])
+def test_swiglu_w8a8_plain_vs_grouped_xla_and_pallas(dtype, i_tile):
+    """48 does not divide I = 64: both sides then tile at 32 (the largest
+    divisor below it); 64 is the single-tile case."""
+    j, t = _swiglu_inputs(dtype)
+    out = cs.swiglu_block_w8a8_plain(*(t[k] for k in SWIGLU_ARGS), eps=1e-5, i_tile=i_tile)
+    assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
+    jargs = [j[k] for k in SWIGLU_ARGS]
+    _swiglu_close(out, ps.swiglu_block_xla_grouped(*jargs, eps=1e-5, i_tile=i_tile), dtype)
+    _swiglu_close(out, ps.fused_swiglu_block_fwd_w8a8(*jargs, eps=1e-5, interpret=True,
+                                                      row_tile=4, i_tile=i_tile), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["w", "w_q", "w_q8"])
+def test_swiglu_dispatch_vs_jax(dtype, form):
+    """``swiglu_block``: three w_q8 projections take the kernel's function
+    (one I-tile at this size, so the grouping equals the per-row one),
+    anything else the plain composition, as the JAX package's dispatch."""
+    j, t = _swiglu_inputs(dtype, seed=52)
+    if form == "w":
+        for side, quant in ((j, jq), (t, tq)):
+            for n in "gud":
+                side["w" + n + "q"] = quant.dequantize_weight(
+                    side["w" + n + "q"], side["s" + n], side["x"].dtype)
+        jp = (j["ln"], *({"w": j["w" + n + "q"]} for n in "gud"))
+        tp = (t["ln"], *({"w": t["w" + n + "q"]} for n in "gud"))
+    else:
+        jp, tp = _swiglu_params(j, form), _swiglu_params(t, form)
+    out = cs.swiglu_block(*tp, t["x"], 1e-5)
+    _swiglu_close(out, ps.swiglu_block(*jp, j["x"], 1e-5), dtype)
+    _swiglu_close(out, ps.swiglu_block_xla(*jp, j["x"], 1e-5), dtype)
+    mixed = (tp[0], tp[1], tp[2], {"w": tq.dequantize_weight(
+        t["wdq"], t["sd"], t["x"].dtype)} if form != "w" else tp[3])
+    np.testing.assert_array_equal(_np(cs.swiglu_block(*mixed, t["x"], 1e-5)),
+                                  _np(cs.swiglu_block_plain(*mixed, t["x"], 1e-5)))
+
+
+def test_swiglu_grads_match_jax():
+    """The w8a8 dispatch's gradient is autograd of the per-row composition
+    on the same weights: to the norm weight, the three scales and x."""
+    import jax
+
+    j, t = _swiglu_inputs("float32", seed=53)
+    names = ("ln", "sg", "su", "sd", "x")
+
+    def jloss(ln, sg, su, sd, x):
+        p = dict(j, ln=ln, sg=sg, su=su, sd=sd)
+        return jnp.sum(ps.swiglu_block(*_swiglu_params(p), x, 1e-5) ** 2)
+
+    ref = jax.grad(jloss, argnums=tuple(range(5)))(*(j[k] for k in names))
+    leaves = {k: t[k].clone().requires_grad_() for k in names}
+    out = cs.swiglu_block(*_swiglu_params(dict(t, **leaves)), leaves["x"], 1e-5)
+    (out ** 2).sum().backward()
+    assert t["wgq"].grad is None
+    for k, r in zip(names, ref):
+        np.testing.assert_allclose(_np(leaves[k].grad).reshape(np.shape(r)), _np(r),
+                                   atol=1e-3, rtol=1e-3, err_msg=k)
+
+
+def test_new_kernel_wrappers_never_fall_back():
+    """The q8, GQA and SwiGLU kernel wrappers refuse CPU tensors before
+    anything is built or counted."""
+    _, t = _q_inputs("float32", h=768, inner=256, rows=(4,))
+    counts = lambda: (cm.fused_mlp_block_fwd_q8.launches, cm.fused_mlp_postln_fwd_q8.launches,
+                      ca.fused_attention_gqa.launches, cs.fused_swiglu_block_fwd_w8a8.launches)
+    before = counts()
+    for fn in (cm.fused_mlp_block_fwd_q8, cm.fused_mlp_postln_fwd_q8):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*(t[k] for k in Q8_ARGS))
+    _, tx = _gqa_inputs("float32", 2, False, d=128)
+    with pytest.raises(ValueError, match="no kernel"):
+        ca._gqa_kernel(*tx)
+    _, s = _swiglu_inputs("float32", rows=2, h=4096, i=1024)
+    with pytest.raises(ValueError, match="CUDA"):
+        cs.fused_swiglu_block_fwd_w8a8(*(s[k] for k in SWIGLU_ARGS))
+    _, s = _swiglu_inputs("float32", rows=2, h=64, i=64)
+    with pytest.raises(ValueError, match="hidden size"):
+        cs.fused_swiglu_block_fwd_w8a8(*(s[k] for k in SWIGLU_ARGS))
     assert counts() == before

@@ -342,6 +342,33 @@ def test_vault_w8a8_matches_jax(dtype, impl):
                                rtol=RTOL[dtype])
 
 
+@pytest.mark.parametrize("impl", [False, "fusemlp", "fuseqkv+fusemlp+batched"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vault_w8_matches_jax(dtype, impl):
+    """int8 weights only: "fusemlp" interprets the q8 Pallas kernels on the
+    JAX side and takes the q8 kernels' plain versions on the port's; the
+    last selector is what "auto" (``serving_impl("w8")``) is on the card."""
+    from vault_tpu.ops.quantize import quantize_model_params
+
+    jcfg, tcfg = _cfgs()
+    jp = _jax_params(jcfg, dtype)
+    jqp = quantize_model_params(jp, mode="w8")
+    model = _model(tcfg, jp, dtype).quantize("w8")
+    assert model.use_pallas == "auto" and model.quant_mode == "w8"
+    jb, tb = _sides(_batch(seed=9), dtype)
+    ref_logits = jvault.vault_for_classification(jqp, jcfg, jb, head_dropout=0.0,
+                                                 deterministic=True, use_pallas=impl)
+    ref_pool = jvault.vault_apply(jqp, jcfg, use_pallas=impl, **jb).pooler_output
+    with torch.inference_mode():
+        logits = model(tb, use_pallas=impl)
+        pool = tvault.vault_apply(model, tcfg, use_pallas=impl, **tb).pooler_output
+    assert logits.shape == (3, 3) and logits.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(logits), _np(ref_logits), atol=ATOL[dtype],
+                               rtol=RTOL[dtype])
+    np.testing.assert_allclose(_np(pool), _np(ref_pool), atol=ATOL[dtype],
+                               rtol=RTOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_vault_fuselnqkv_fp_matches_jax(dtype):
     """The bf16/fp32 serving selector with the fused LN->QKV kernel."""

@@ -181,6 +181,40 @@ def test_quantize_model_params_matches_jax_through_the_bridge(mode):
     assert tq.quantized_bytes(model) < jq.quantized_bytes(jp)
 
 
+@pytest.mark.parametrize("mode", ["w8", "w8a8"])
+def test_quantize_model_params_walks_the_llama_tree(mode):
+    """The Llama tower's seven projections (q, k, v, o, gate, up, down) are
+    quantized in a module tree and in a plain stacked dict, to the JAX
+    package's codes and scales; the table and the norms stay as they are."""
+    from vault_tpu.models import llama as jllama
+    from vault_tpu_torch.convert import params_from_jax, params_to_jax
+    from vault_tpu_torch.models import llama as tllama
+    from vault_tpu_torch.ops.nn import ParamDict
+
+    jcfg, tcfg = jllama.tiny_llama_config(), tllama.tiny_llama_config()
+    jp = jllama.init_llama(jax.random.PRNGKey(4), jcfg)
+    ref = jax.tree.map(np.asarray, jq.quantize_model_params(jp, mode=mode))
+    host = jax.tree.map(np.asarray, jp)
+    tower = ParamDict(llama=tllama.init_llama(torch.Generator().manual_seed(0), tcfg))
+    tower.load_state_dict(params_from_jax({"llama": host}, llama_cfg=tcfg))
+    tq.quantize_model_params(tower, mode=mode)
+    back = params_to_jax(tower.state_dict())["llama"]
+    as_dict = tq.quantize_model_params(
+        jax.tree.map(lambda a: torch.from_numpy(np.array(a)), host), mode=mode)
+    key = "w_q8" if mode == "w8a8" else "w_q"
+    assert jax.tree.structure(back) == jax.tree.structure(ref)
+    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        assert set(back["layers"][name]) == {key, "w_scale"}
+        for leaf in (key, "w_scale"):
+            np.testing.assert_array_equal(back["layers"][name][leaf],
+                                          ref["layers"][name][leaf])
+            np.testing.assert_array_equal(as_dict["layers"][name][leaf].numpy(),
+                                          ref["layers"][name][leaf])
+    for name in ("input_ln", "post_ln"):
+        np.testing.assert_array_equal(back["layers"][name], ref["layers"][name])
+    np.testing.assert_array_equal(back["embed"], ref["embed"])
+
+
 def test_quantize_model_params_on_a_plain_dict_returns_a_new_tree():
     rng = np.random.default_rng(4)
     tree = {"enc": {"q": {"w": torch.from_numpy(rng.normal(size=(8, 8)).astype(

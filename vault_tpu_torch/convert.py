@@ -47,17 +47,23 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_jax(tree: Mapping,
-                    cfg: Optional[VaultConfig] = None) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping, cfg: Optional[VaultConfig] = None,
+                    llama_cfg=None) -> Dict[str, torch.Tensor]:
     """State dict of :class:`~vault_tpu_torch.models.vault.
-    VaultForClassification` (or of any subtree's module) from the JAX
-    package's pytree.  Key ``a.layers.<i>.b.c`` holds leaf
-    ``tree[a]["layers"][b][c][i]``.  With ``cfg`` the stacked layer axes are
-    checked against its depths."""
+    VaultForClassification` or :class:`~vault_tpu_torch.models.vault.
+    VaultWithLlamaTower` (or of any subtree's module) from the JAX package's
+    pytree.  Key ``a.layers.<i>.b.c`` holds leaf
+    ``tree[a]["layers"][b][c][i]``; a layer's bare arrays (the Llama
+    tower's ``input_ln`` and ``post_ln``) unstack the same way, and
+    quantized leaves keep their int8 and fp32 types.  With ``cfg`` (and
+    ``llama_cfg``, a ``LlamaConfig``, for the ``llama`` subtree) the stacked
+    layer axes are checked against the configs' depths."""
     n_layers = {"bert": (cfg.text_tower.num_hidden_layers
                          if cfg is not None and cfg.text_tower is not None
                          else None),
-                "vilt": cfg.vilt.num_hidden_layers if cfg is not None else None}
+                "vilt": cfg.vilt.num_hidden_layers if cfg is not None else None,
+                "llama": (llama_cfg.num_hidden_layers if llama_cfg is not None
+                          else None)}
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix, tower):

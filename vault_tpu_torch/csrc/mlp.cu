@@ -37,6 +37,17 @@
 //     small kernel adds them in a fixed order (deterministic), then applies
 //     b2, the mask, the residual and, post-LN, the LayerNorm.
 // fp32 operands take the same tiling with plain FMA in full fp32.
+//
+// The w8 blocks (vt_mlp_fwd_q8) are the same two kernels with int8 weights
+// and per-out-channel fp32 scales s1 (I), s2 (H), dequantized tile by tile
+// in shared memory (mlp_common.cuh): w = T(float(q) * s), rounded to x's
+// type before the product, so the tensor cores see the weights that the
+// plain composition's linear sees.  They replace fused_mlp_block_fwd_q8
+// (_mlp_kernel_q8) and fused_mlp_postln_fwd_q8 (_mlp_postln_kernel_q8) of
+// vault_tpu/ops/pallas_mlp.py.  Same operations as the fp blocks against
+// half the weight bytes (2 H I), so the byte bound halves and the pre-LN
+// block at 2,048 rows stays bound by the tensor cores; no dropout mask (the
+// JAX package has no masked q8 kernel either).
 #include "mlp_common.cuh"
 
 namespace {
@@ -105,22 +116,24 @@ mlp_epilogue(const T* __restrict__ x, const T* __restrict__ gamma,
   }
 }
 
-template <typename T, int NF, bool POSTLN>
+// W: the weights' type, T or int8_t (then s1, s2 are their scales).
+template <typename T, int NF, bool POSTLN, typename W = T>
 int launch(const void* x, const void* gamma, const void* beta, const void* w1,
            const void* b1, const void* w2, const void* b2, const void* m, void* out,
-           float* ws, int rows, int I, float eps, int act, cudaStream_t stream) {
+           float* ws, int rows, int I, float eps, int act, cudaStream_t stream,
+           const float* s1 = nullptr, const float* s2 = nullptr) {
   constexpr int H = NF * 16 * NW;
   const int splits = pick_splits(rows, I);
   const int tiles = (rows + BM - 1) / BM;
-  const size_t smem = main_smem<T, H>();
+  const size_t smem = main_smem<T, H, W>();
   {
-    const cudaError_t e = allow_smem<mlp_main<T, NF, POSTLN>>(smem);
+    const cudaError_t e = allow_smem<mlp_main<T, NF, POSTLN, W>>(smem);
     if (e != cudaSuccess) return (int)e;
   }
-  mlp_main<T, NF, POSTLN><<<dim3(tiles, splits), NT, smem, stream>>>(
+  mlp_main<T, NF, POSTLN, W><<<dim3(tiles, splits), NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2), ws,
-      nullptr, rows, tiles * BM, I, I / splits, eps, act);
+      static_cast<const W*>(w1), static_cast<const T*>(b1), static_cast<const W*>(w2), ws,
+      nullptr, rows, tiles * BM, I, I / splits, eps, act, s1, s2);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   mlp_epilogue<T, NF, POSTLN><<<rows, EPI, 0, stream>>>(
@@ -130,13 +143,14 @@ int launch(const void* x, const void* gamma, const void* beta, const void* w1,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool POSTLN>
+template <typename T, bool POSTLN, typename W = T>
 int dispatch_h(int H, const void* x, const void* gamma, const void* beta,
                const void* w1, const void* b1, const void* w2, const void* b2,
                const void* m, void* out, float* ws, int rows, int I, float eps, int act,
-               cudaStream_t st) {
+               cudaStream_t st, const float* s1 = nullptr, const float* s2 = nullptr) {
   if (H == 768)
-    return launch<T, 6, POSTLN>(x, gamma, beta, w1, b1, w2, b2, m, out, ws, rows, I, eps, act, st);
+    return launch<T, 6, POSTLN, W>(x, gamma, beta, w1, b1, w2, b2, m, out, ws, rows, I, eps,
+                                   act, st, s1, s2);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -166,5 +180,27 @@ extern "C" int vt_mlp_fwd(const void* x, const void* gamma, const void* beta,
         ? dispatch_h<float, true>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st)
         : dispatch_h<float, false>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The w8 blocks: w1q (H, I) and w2q (I, H) int8, s1 (I) and s2 (H) fp32; x,
+// gamma, beta, b1, b2 and out in one type; no mask.  Workspace as vt_mlp_fwd.
+extern "C" int vt_mlp_fwd_q8(const void* x, const void* gamma, const void* beta,
+                             const void* w1q, const void* s1, const void* b1,
+                             const void* w2q, const void* s2, const void* b2, void* out,
+                             void* ws, int rows, int H, int I, float eps, int act,
+                             int postln, int dtype, void* stream) {
+  if (rows <= 0 || I <= 0 || I % BN1 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* wsf = static_cast<float*>(ws);
+  const float* s1f = static_cast<const float*>(s1);
+  const float* s2f = static_cast<const float*>(s2);
+#define VT_MLP_Q8(T, P)                                                                  \
+  dispatch_h<T, P, int8_t>(H, x, gamma, beta, w1q, b1, w2q, b2, nullptr, out, wsf, rows, \
+                           I, eps, act, st, s1f, s2f)
+  if (dtype == vt::kBF16)
+    return postln ? VT_MLP_Q8(__nv_bfloat16, true) : VT_MLP_Q8(__nv_bfloat16, false);
+  if (dtype == vt::kF32) return postln ? VT_MLP_Q8(float, true) : VT_MLP_Q8(float, false);
+#undef VT_MLP_Q8
   return (int)cudaErrorInvalidValue;
 }

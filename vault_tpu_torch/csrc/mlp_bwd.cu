@@ -578,7 +578,7 @@ int launch_bwd(const T* x, const T* g, const T* gamma, const T* beta, const T* w
     if ((e = allow_smem<mlp_main<T, NF, true>>(smem_a)) != cudaSuccess) return (int)e;
     mlp_main<T, NF, true><<<dim3(l.pad_a / BM, l.splits_a), NT, smem_a, st>>>(
         x, gamma, beta, w1, b1, w2, acc, a, rows, l.pad_a, I, I / l.splits_a,
-        eps, vt::kGeluErf);
+        eps, vt::kGeluErf, nullptr, nullptr);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     mlp_bwd_postln_rows<T, NF><<<l.nblocks, RT, 0, st>>>(
         x, g, gamma, b2, m, acc, l.splits_a, l.pad_a, yds, dsf, part, rows, eps);

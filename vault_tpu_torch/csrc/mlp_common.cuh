@@ -11,11 +11,20 @@
 // contribution to all H output columns, accumulated in fp32 across the
 // walk.  W1 and W2 stream through shared memory in tiles, double-buffered
 // with cp.async.  The block writes its fp32 partial (32, H) to ws[s].
+//
+// Weight type W: T (the fp blocks), or int8_t with per-column fp32 scales s1
+// (I) and s2 (H) (the w8 blocks).  int8 tiles arrive through the same
+// cp.async ring at half the bytes (dense rows of 128 or H bytes, every copy
+// 16-byte aligned), and each is dequantized into one tile of T in shared
+// memory before the product reads it: w = T(float(q) * s), rounded to x's
+// type once, as the plain version's linear does.  One barrier separates the
+// copy's arrival from that pass, another the pass from the fragments' loads.
 #pragma once
 
 #include <mma.h>
 
 #include <math.h>
+#include <stdint.h>
 #include <type_traits>
 
 #include "common.cuh"
@@ -57,25 +66,48 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// Shared-memory bytes of mlp_main.
-template <typename T, int H>
+// Shared-memory bytes of mlp_main: the weight ring (two tiles of W, plus
+// one dequantized tile of T when W is int8), xa, hs and the fp32 staging.
+template <typename T, int H, typename W = T>
 constexpr size_t main_smem() {
   using TL = Tiles<T>;
-  constexpr size_t w1 = (size_t)TL::KT1 * TL::LD1 * sizeof(T);
-  constexpr size_t w2 = (size_t)TL::KT2 * (H + TL::PAD) * sizeof(T);
-  constexpr size_t buf = w1 > w2 ? w1 : w2;
-  return 2 * buf + (size_t)BM * (H + TL::PAD) * sizeof(T)   // wbuf x2, xa
+  constexpr size_t w1 = (size_t)TL::KT1 * TL::LD1;
+  constexpr size_t w2 = (size_t)TL::KT2 * (H + TL::PAD);
+  constexpr size_t buf = w1 > w2 ? w1 : w2;  // elements
+  constexpr size_t ring = std::is_same<W, T>::value ? 2 * buf * sizeof(T)
+                                                     : 2 * buf + buf * sizeof(T);
+  return ring + (size_t)BM * (H + TL::PAD) * sizeof(T)       // ring, xa
          + (size_t)BM * TL::LD1 * sizeof(T)                  // hs
          + (std::is_same<T, float>::value ? 0 : (size_t)BM * TL::LDF * sizeof(float));
 }
 
-template <typename T, int NF, bool POSTLN>
+// (rows, cols) int8 codes, dense, -> dst (ld elements a row) as
+// T(float(q) * scale[col]), four columns a step.
+template <typename T>
+__device__ __forceinline__ void dequant_tile(const int8_t* __restrict__ src, T* __restrict__ dst,
+                                             int rows, int cols, int ld,
+                                             const float* __restrict__ scale) {
+  const int per_row = cols / 4;
+  for (int c = threadIdx.x; c < rows * per_row; c += NT) {
+    const int r = c / per_row, col = (c % per_row) * 4;
+    const char4 q = *reinterpret_cast<const char4*>(src + r * cols + col);
+    const float4 s = *reinterpret_cast<const float4*>(scale + col);
+    T* d = dst + r * ld + col;
+    d[0] = vt::from_f<T>(__fmul_rn(static_cast<float>(q.x), s.x));
+    d[1] = vt::from_f<T>(__fmul_rn(static_cast<float>(q.y), s.y));
+    d[2] = vt::from_f<T>(__fmul_rn(static_cast<float>(q.z), s.z));
+    d[3] = vt::from_f<T>(__fmul_rn(static_cast<float>(q.w), s.w));
+  }
+}
+
+template <typename T, int NF, bool POSTLN, typename W = T>
 __global__ void __launch_bounds__(NT)
 mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
-         const T* __restrict__ beta, const T* __restrict__ w1,
-         const T* __restrict__ b1, const T* __restrict__ w2,
+         const T* __restrict__ beta, const W* __restrict__ w1,
+         const T* __restrict__ b1, const W* __restrict__ w2,
          float* __restrict__ ws, T* __restrict__ a_out, int rows, int rows_pad,
-         int I, int ic, float eps, int act) {
+         int I, int ic, float eps, int act, const float* __restrict__ s1,
+         const float* __restrict__ s2) {
   using TL = Tiles<T>;
   constexpr int H = NF * 16 * NW;
   constexpr int LDX = H + TL::PAD;
@@ -86,10 +118,16 @@ mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
   constexpr int N2 = BN1 / KT2;      // W2 tiles per sub-slice
   constexpr int BUF = (KT1 * LD1 > KT2 * LD2) ? KT1 * LD1 : KT2 * LD2;  // elements
   constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kQ8 = !std::is_same<W, T>::value;
+  constexpr int SD1 = kQ8 ? BN1 : LD1;  // row strides of the ring's tiles
+  constexpr int SD2 = kQ8 ? H : LD2;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* wbuf = reinterpret_cast<T*>(smem_raw);  // 2 x BUF
-  T* xa = wbuf + 2 * BUF;                    // (BM, LDX) first operand
+  W* ring = reinterpret_cast<W*>(smem_raw);  // 2 x BUF: the cp.async ring
+  // the tiles the products read: the ring itself, or (int8 weights) one
+  // dequantized tile behind it
+  T* wbuf = kQ8 ? reinterpret_cast<T*>(ring + 2 * BUF) : reinterpret_cast<T*>(smem_raw);
+  T* xa = wbuf + (kQ8 ? 1 : 2) * BUF;        // (BM, LDX) first operand
   T* hs = xa + BM * LDX;                     // (BM, LD1) activation
   float* hf = reinterpret_cast<float*>(hs + BM * LD1);  // (BM, LDF) bf16 only
 
@@ -102,20 +140,20 @@ mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
   // (KT1 x 128 at rows k0, columns i0 + 128 sub), then N2 tiles of W2
   // (KT2 x H at rows i0 + 128 sub + k0).
   auto fetch = [&](int t) {
-    T* dst = wbuf + (t & 1) * BUF;
+    W* dst = ring + (t & 1) * BUF;
     const int sub = t / (N1 + N2), p = t % (N1 + N2);
-    constexpr int V = 16 / sizeof(T);  // elements per 16-byte copy
+    constexpr int V = 16 / sizeof(W);  // elements per 16-byte copy
     if (p < N1) {
-      const T* src = w1 + (size_t)(p * KT1) * I + i0 + sub * BN1;
+      const W* src = w1 + (size_t)(p * KT1) * I + i0 + sub * BN1;
       for (int c = tid; c < KT1 * (BN1 / V); c += NT) {
         const int r = c / (BN1 / V), col = (c % (BN1 / V)) * V;
-        cp_async16(dst + r * LD1 + col, src + (size_t)r * I + col);
+        cp_async16(dst + r * SD1 + col, src + (size_t)r * I + col);
       }
     } else {
-      const T* src = w2 + (size_t)(i0 + sub * BN1 + (p - N1) * KT2) * H;
+      const W* src = w2 + (size_t)(i0 + sub * BN1 + (p - N1) * KT2) * H;
       for (int c = tid; c < KT2 * (H / V); c += NT) {
         const int r = c / (H / V), col = (c % (H / V)) * V;
-        cp_async16(dst + r * LD2 + col, src + (size_t)r * H + col);
+        cp_async16(dst + r * SD2 + col, src + (size_t)r * H + col);
       }
     }
     cp_async_commit();
@@ -178,8 +216,14 @@ mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t (and, at t = 0, xa) visible to every warp
-    const T* wt = wbuf + (t & 1) * BUF;
     const int sub = t / (N1 + N2), p = t % (N1 + N2);
+    const T* wt = wbuf + (kQ8 ? 0 : (t & 1) * BUF);
+    if constexpr (kQ8) {
+      const W* q = ring + (t & 1) * BUF;
+      if (p < N1) dequant_tile<T>(q, wbuf, KT1, BN1, LD1, s1 + i0 + sub * BN1);
+      else dequant_tile<T>(q, wbuf, KT2, H, LD2, s2);
+      __syncthreads();  // the dequantized tile is whole before any fragment loads
+    }
     if (p < N1) {
       // GEMM1: acc1 += xa[:, k0:k0+KT1] wt
       const int k0 = p * KT1;
@@ -259,7 +303,7 @@ mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
         }
       }
     }
-    __syncthreads();  // every warp is done with wbuf[t & 1] and hs
+    __syncthreads();  // every warp is done with this tile and hs
   }
 
   // partial sums of this split -> ws[split] (rows padded to BM)

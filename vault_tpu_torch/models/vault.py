@@ -10,13 +10,15 @@ builds and calls.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+import dataclasses
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from vault_tpu_torch.config import VaultConfig
+from vault_tpu_torch.config import VaultConfig, ViltConfig
 from vault_tpu_torch.models import bert as bert_mod
+from vault_tpu_torch.models import llama as llama_mod
 from vault_tpu_torch.models import vilt as vilt_mod
 from vault_tpu_torch.models.vilt import ViltOutput
 from vault_tpu_torch.ops.nn import ParamDict, dropout, init_linear, linear
@@ -103,6 +105,29 @@ def classifier_head_apply(head, pooled, dropout_prob=0.1, deterministic=True,
     return linear(head["out"], x)
 
 
+def vault_with_llama_tower(params, vilt_cfg: ViltConfig, llama_cfg,
+                           input_ids, attention_mask=None, token_type_ids=None,
+                           pixel_values=None, pixel_mask=None,
+                           image_embeds=None, deterministic=True, generator=None,
+                           use_pallas="auto") -> ViltOutput:
+    """A Llama tower's hidden states, width-projected to ViLT's hidden size,
+    in place of the BERT contextual embeddings that feed the co-encoder
+    (the JAX package's function of the same name).  ViLT's own text position
+    embeddings are switched off; ``token_type_ids`` pass through.
+    ``use_pallas`` selects the ViLT half's kernels, ``llama_cfg.attn_impl``
+    and ``mlp_impl`` the tower's."""
+    hidden = llama_mod.llama_apply(params["llama"], llama_cfg, input_ids,
+                                   attention_mask)
+    if "lm_proj" in params:
+        hidden = linear(params["lm_proj"], hidden)
+    vcfg = dataclasses.replace(vilt_cfg, add_text_position_embeddings=False)
+    return vilt_mod.vilt_apply(
+        params["vilt"], vcfg, attention_mask=attention_mask,
+        token_type_ids=token_type_ids, pixel_values=pixel_values,
+        pixel_mask=pixel_mask, inputs_embeds=hidden, image_embeds=image_embeds,
+        deterministic=deterministic, generator=generator, use_pallas=use_pallas)
+
+
 def vault_for_classification(params, cfg: VaultConfig, batch: Dict[str, Any],
                              head_dropout: float = 0.1, deterministic=True,
                              generator=None, use_pallas="auto", remat=False,
@@ -145,7 +170,34 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
-class VaultForClassification(ParamDict):
+class _ServedModel(ParamDict):
+    """What the model modules share: the device they run on and, once
+    :attr:`quant_mode` is set, the refusal of a cast (``.to(dtype)``,
+    ``.bfloat16()``), which would turn the fp32 scales of the quantized
+    linears into the new type."""
+
+    quant_mode: Optional[str] = None
+
+    def _apply(self, fn, recurse=True):
+        if self.quant_mode is None:
+            return super()._apply(fn, recurse)
+
+        def same_dtype(t):
+            out = fn(t)
+            if out.dtype != t.dtype:
+                raise RuntimeError(
+                    f"a {self.quant_mode}-quantized model keeps its dtypes (the "
+                    "scales stay fp32): cast before quantize(), not after")
+            return out
+
+        return super()._apply(same_dtype, recurse)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+
+class VaultForClassification(_ServedModel):
     """The VAuLT classifier as a module: ``bert`` and ``vilt`` towers and a
     ``head``, parameters named after the JAX package's pytree keys (so
     ``load_state_dict(params_from_jax(...))`` loads that package's weights).
@@ -169,7 +221,6 @@ class VaultForClassification(ParamDict):
         self.cfg = cfg
         self.use_pallas = use_pallas
         self.head_dropout = head_dropout
-        self.quant_mode = None
         self.to(device=device, dtype=dtype)
 
     def quantize(self, mode: str = "w8a8") -> "VaultForClassification":
@@ -192,27 +243,59 @@ class VaultForClassification(ParamDict):
             self.use_pallas = serving_impl(mode, self.device)
         return self
 
-    def _apply(self, fn, recurse=True):
-        if getattr(self, "quant_mode", None) is None:
-            return super()._apply(fn, recurse)
-
-        def same_dtype(t):
-            out = fn(t)
-            if out.dtype != t.dtype:
-                raise RuntimeError(
-                    f"a {self.quant_mode}-quantized model keeps its dtypes (the "
-                    "scales stay fp32): cast before quantize(), not after")
-            return out
-
-        return super()._apply(same_dtype, recurse)
-
-    @property
-    def device(self) -> torch.device:
-        return self.head.out.w.device
-
     def forward(self, batch: Dict[str, Any], use_pallas=None) -> torch.Tensor:
         batch = batch_to_device(batch, self.device)
         return vault_for_classification(
             self, self.cfg, batch, head_dropout=self.head_dropout,
             deterministic=True,
             use_pallas=self.use_pallas if use_pallas is None else use_pallas)
+
+
+class VaultWithLlamaTower(_ServedModel):
+    """A Llama tower feeding ViLT through a width projection, as a module:
+    ``llama``, ``lm_proj`` and ``vilt``, parameters named after the JAX
+    package's pytree keys (:func:`vault_with_llama_tower` reads them).
+
+    Runs on the card unless ``device`` names another; with no card and no
+    device it raises.  Weights are seeded random (``seed``), drawn on the
+    device.  The tower's embedding table and projections, ``lm_proj`` and
+    ViLT are in ``dtype``; the tower's norm weights stay fp32.
+    ``quantize`` ("w8" or "w8a8") builds the tower's projections already
+    quantized, layer by layer, so the fp weights of a large tower never
+    exist at once; :meth:`quantize` does the same to a built model.  Either
+    way only the tower is quantized; ViLT and ``lm_proj`` stay in ``dtype``.
+    ``forward(batch)`` returns the :class:`ViltOutput` of a deterministic
+    pass.
+    """
+
+    def __init__(self, vilt_cfg: ViltConfig, llama_cfg: "llama_mod.LlamaConfig",
+                 device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                 use_pallas="auto", quantize: Optional[str] = None):
+        super().__init__()
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.llama = llama_mod.init_llama(gen, llama_cfg, dtype, quantize)
+        host_gen = torch.Generator().manual_seed(seed)
+        self.lm_proj = llama_mod.init_lm_projection(
+            host_gen, llama_cfg.hidden_size, vilt_cfg.hidden_size).to(device, dtype)
+        self.vilt = vilt_mod.init_vilt(host_gen, vilt_cfg).to(device, dtype)
+        self.vilt_cfg, self.llama_cfg = vilt_cfg, llama_cfg
+        self.use_pallas = use_pallas
+        self.quant_mode = quantize
+
+    def quantize(self, mode: str = "w8a8") -> "VaultWithLlamaTower":
+        """Quantize the tower's projections in place (ops/quantize.py
+        ``quantize_model_params``); afterwards a cast raises."""
+        from vault_tpu_torch.ops.quantize import quantize_model_params
+
+        if self.quant_mode is not None:
+            raise RuntimeError(f"the model is already quantized ({self.quant_mode})")
+        quantize_model_params(self.llama, mode=mode)
+        self.quant_mode = mode
+        return self
+
+    def forward(self, batch: Dict[str, Any], use_pallas=None) -> ViltOutput:
+        batch = batch_to_device(batch, self.device)
+        return vault_with_llama_tower(
+            self, self.vilt_cfg, self.llama_cfg, deterministic=True,
+            use_pallas=self.use_pallas if use_pallas is None else use_pallas, **batch)

@@ -122,6 +122,30 @@ def attend_plain(
     return out.to(v.dtype)
 
 
+def gqa_attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor], rep: int) -> torch.Tensor:
+    """Grouped-query attention without repeated K/V (the JAX package's
+    ``_gqa_attend``): q (B, H, L, D) against k/v (B, H // rep, L, D), query
+    head ``i`` on K/V head ``i // rep``, the group folded into the batch
+    dims of the two products.  ``bias``: (B or 1, 1, Lq, Lk), shared by the
+    heads, or per head (B, H, Lq, Lk).  fp32 scores and softmax, the
+    probabilities cast to v's type before the second product."""
+    b, h, l, d = q.shape
+    g = h // rep
+    qg = q.reshape(b, g, rep, l, d)
+    scores = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2))
+    scores = scores / math.sqrt(d)
+    if bias is not None:
+        if bias.shape[1] == 1:
+            bias5 = bias[:, :, None]
+        else:
+            bias5 = bias.reshape(bias.shape[0], g, rep, *bias.shape[2:])
+        scores = scores + bias5.float()
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float()[:, :, None])
+    return out.to(v.dtype).reshape(b, h, l, d)
+
+
 def attend(
     q: torch.Tensor,
     k: torch.Tensor,

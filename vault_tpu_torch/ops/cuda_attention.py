@@ -1,7 +1,9 @@
-"""Encoder attention through the hand-written Hopper kernel
-(``csrc/attention.cu``), with its plain PyTorch version beside it.
+"""Attention through the hand-written Hopper kernels: the encoder attention
+(``csrc/attention.cu``) and the Llama tower's grouped-query attention
+(``csrc/attention_gqa.cu``; both are ``csrc/attention_common.cuh``'s kernel
+under another index map), each with its plain PyTorch version beside it.
 
-The kernel replaces the JAX package's three Pallas encoder-attention
+The encoder kernel replaces the JAX package's three Pallas encoder-attention
 kernels (``vault_tpu/ops/pallas_attention.py``: ``fused_attention``,
 ``fused_attention_batched``, ``fused_attention_dotbatch``); the selector
 names "grid", "batched" and "dotbatch" all reach :func:`fused_attention`.
@@ -14,6 +16,13 @@ kernel, so neither has the port); the bias gets no gradient.  The Function
 runs the plain version only for tensors on the CPU.  A CUDA tensor launches
 the kernel, or the call raises: there is no fallback.
 ``fused_attention.launches`` counts the kernel's launches.
+
+:func:`fused_attention_gqa` replaces the JAX package's
+``fused_attention_gqa``: H query heads on H // rep unrepeated K/V heads and
+a full (B, 1, Lq, Lk) additive bias (causal and padding), head dim 128
+(Llama-3-8B) or 64.  Its plain version :func:`attention_gqa_plain` is the
+JAX package's ``_gqa_attend``; the backward recomputes through it, the bias
+detached.  ``fused_attention_gqa.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ import torch
 
 from vault_tpu_torch.ops import _build
 from vault_tpu_torch.ops._dispatch import kernel_or_plain
-from vault_tpu_torch.ops.attention import attend_plain
+from vault_tpu_torch.ops.attention import attend_plain, gqa_attend_plain
 
 HEAD_DIM = 64  # the kernel's head dim (BERT-base, ViLT-B/32, BERTweet)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -96,3 +105,79 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Grouped-query attention (csrc/attention_gqa.cu)
+# ---------------------------------------------------------------------------
+
+GQA_HEAD_DIMS = (64, 128)  # the GQA kernel's head dims (Llama-3-8B: 128)
+_GQA_SIGNATURES = {"vt_attention_gqa_fwd": (
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
+
+
+def attention_gqa_plain(q, k, v, bias):
+    """The GQA kernel's function in plain PyTorch: :func:`gqa_attend_plain`
+    with the group size read off the shapes."""
+    return gqa_attend_plain(q, k, v, bias, q.shape[1] // k.shape[1])
+
+
+def _check_gqa(q, k, v, bias):
+    what = "fused_attention_gqa"
+    if not q.is_cuda:
+        raise ValueError(f"{what}: tensors on {q.device} have no kernel; only "
+                         "CPU (plain) and CUDA are supported")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {q.dtype} not supported (bfloat16 or float32)")
+    if q.dim() != 4 or q.shape[-1] not in GQA_HEAD_DIMS:
+        raise ValueError(f"{what}: q must be (B, H, L, D) with D in {GQA_HEAD_DIMS}, "
+                         f"got {tuple(q.shape)}")
+    b, h, l, d = q.shape
+    if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (l, d)
+            or k.shape[1] == 0 or h % k.shape[1]):
+        raise ValueError(f"{what}: k and v must be (B, G, L, D) with G dividing H = {h}, "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)} for q {tuple(q.shape)}")
+    vec = 16 // q.element_size()  # elements per 16-byte copy
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}, q {q.dtype} "
+                             f"on {q.device}")
+        if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} needs contiguous rows, 16-byte aligned "
+                             "rows and base")
+    if (bias.shape != (b, 1, l, l) or bias.dtype != torch.float32
+            or bias.device != q.device or not bias.is_contiguous()):
+        raise ValueError(f"{what}: bias must be contiguous float32 (B, 1, L, L) = "
+                         f"{(b, 1, l, l)} on {q.device}, got {tuple(bias.shape)} "
+                         f"{bias.dtype} {bias.device}")
+
+
+def _gqa_kernel(q, k, v, bias):
+    _check_gqa(q, k, v, bias)
+    b, h, l, d = q.shape
+    out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load("attention_gqa", _GQA_SIGNATURES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       l * h * d, d, h * d)
+    code = lib.vt_attention_gqa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    bias.data_ptr(), out.data_ptr(), b, h, k.shape[1], l, d,
+                                    strides, _DTYPES[q.dtype], stream)
+    _build.check(lib, code, "attention_gqa")
+    fused_attention_gqa.launches += 1
+    return out.permute(0, 2, 1, 3)
+
+
+def fused_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, L, D); k/v: (B, G, L, D) with G dividing H, unrepeated;
+    bias: contiguous (B, 1, L, L) float32, additive (causal and padding,
+    masked entries at a finite fill).  Returns (B, H, L, D) in q's dtype: on
+    the card a view of a (B, L, H, D) tensor."""
+    return kernel_or_plain(_gqa_kernel, attention_gqa_plain, attention_gqa_plain,
+                           q, k, v, bias.detach())
+
+
+fused_attention_gqa.launches = 0

@@ -1,6 +1,7 @@
 """Fused MLP blocks through the hand-written Hopper kernels
-(``csrc/mlp.cu`` forward, ``csrc/mlp_bwd.cu`` backward, ``csrc/mlp_w8a8.cu``
-int8 forward), with their plain PyTorch versions beside them.
+(``csrc/mlp.cu`` forward, fp and int8 weights, ``csrc/mlp_bwd.cu`` backward,
+``csrc/mlp_w8a8.cu`` int8 forward), with their plain PyTorch versions beside
+them.
 
   * :func:`fused_mlp_block_fwd` (pre-LN, the ViLT layers):
     ``x + m * (act(LN(x) W1 + b1) W2 + b2)``; replaces the JAX package's
@@ -18,6 +19,13 @@ int8 forward), with their plain PyTorch versions beside them.
     :func:`mlp_block_w8a8_plain` and :func:`mlp_postln_w8a8_plain`, with the
     kernels' cast points.  Inference serving: their gradient is autograd of
     the XLA composition (``linear``'s w_q8 branch), as in the JAX package.
+  * :func:`fused_mlp_block_fwd_q8` and :func:`fused_mlp_postln_fwd_q8`: both
+    blocks with int8 weights only (ops/quantize.py w8), dequantized inside
+    the kernel, replacing the JAX package's functions of the same names;
+    plain versions :func:`mlp_block_q8_plain` and
+    :func:`mlp_postln_q8_plain`.  Their gradient is autograd of the plain
+    composition with ``w_q`` weights: to the LN, both scales, both biases
+    and x, none to the codes.
 
 The kernel wrappers launch their kernel for CUDA tensors and raise on
 anything the kernel does not take; they never fall back.  The dispatchers
@@ -36,6 +44,7 @@ wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -61,6 +70,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "vt_mlp_fwd": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
+    "vt_mlp_fwd_q8": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                      + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
 }
 _BWD_SIGNATURES = {
@@ -393,18 +404,6 @@ def mlp_postln_w8a8_plain(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
     return layer_norm_f32(gamma, beta, x.float() + o, eps).to(dt)
 
 
-def _w8a8_ref(postln):
-    """The XLA composition the w8a8 gradients are taken of (``linear``'s
-    w_q8 branch in both products), as the JAX package's vjp."""
-    plain = _mlp_postln_plain if postln else _mlp_block_plain
-
-    def ref(gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps=1e-12, act="gelu"):
-        return plain({"scale": gamma, "bias": beta},
-                     {"w_q8": w1q, "w_scale": s1, "b": b1},
-                     {"w_q8": w2q, "w_scale": s2, "b": b2}, x, eps, act)
-    return ref
-
-
 def _launch_w8a8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
     what = "fused_mlp_postln_fwd_w8a8" if postln else "fused_mlp_block_fwd_w8a8"
     if act != "gelu":
@@ -456,25 +455,101 @@ fused_mlp_block_fwd_w8a8.launches = 0
 fused_mlp_postln_fwd_w8a8.launches = 0
 
 
-def _quantized_block(postln, ln_p, p_in, p_out, x, eps, act, drop_mask):
-    """The JAX package's dispatch of weights that are not both fp: w8a8
-    without a mask takes the w8a8 kernel (differentiable through the XLA
-    composition), w8 without a mask its kernel, which is not ported yet
-    (CUDA raises, the CPU runs the plain composition), anything else the
-    plain composition."""
+# ---------------------------------------------------------------------------
+# w8: int8 weights dequantized in the kernel (csrc/mlp.cu, vt_mlp_fwd_q8)
+# ---------------------------------------------------------------------------
+
+def _plain_on_quantized(postln, key, gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
+                        eps=1e-12, act="gelu"):
+    """The plain composition on quantized weights (``linear``'s ``key``
+    branch, "w_q" or "w_q8") with the kernels' flat argument list: the q8
+    kernels' plain version, and the function both quantized families'
+    gradients are taken of, as the JAX package's vjps."""
     plain = _mlp_postln_plain if postln else _mlp_block_plain
-    if "w_q8" in p_in and "w_q8" in p_out and drop_mask is None:
-        kernel = fused_mlp_postln_fwd_w8a8 if postln else fused_mlp_block_fwd_w8a8
-        kplain = mlp_postln_w8a8_plain if postln else mlp_block_w8a8_plain
-        return kernel_or_plain(kernel, kplain, _w8a8_ref(postln), ln_p["scale"],
-                               ln_p["bias"], p_in["w_q8"], p_in["w_scale"], p_in["b"],
-                               p_out["w_q8"], p_out["w_scale"], p_out["b"], x,
-                               eps=eps, act=act)
-    if "w_q" in p_in and "w_q" in p_out and drop_mask is None and x.is_cuda:
-        raise NotImplementedError(
-            "w8 (int8 weight-only) MLP blocks on the card: the fused q8 kernels "
-            "(pallas_mlp.py fused_mlp_block_fwd_q8 / fused_mlp_postln_fwd_q8) "
-            "are not ported yet; serve w8a8 or bf16")
+    return plain({"scale": gamma, "bias": beta}, {key: w1q, "w_scale": s1, "b": b1},
+                 {key: w2q, "w_scale": s2, "b": b2}, x, eps, act)
+
+
+def mlp_block_q8_plain(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
+                       eps: float = 1e-12, act: str = "gelu"):
+    """The pre-LN q8 kernel's function: the plain block with the weights
+    ``(w_q.float() * w_scale)`` rounded to x's type before each product."""
+    return _plain_on_quantized(False, "w_q", gamma, beta, w1q, s1, b1, w2q, s2, b2,
+                               x, eps, act)
+
+
+def mlp_postln_q8_plain(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
+                        eps: float = 1e-12, act: str = "gelu"):
+    """The post-LN q8 kernel's function: as :func:`mlp_block_q8_plain`."""
+    return _plain_on_quantized(True, "w_q", gamma, beta, w1q, s1, b1, w2q, s2, b2,
+                               x, eps, act)
+
+
+def _launch_q8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
+    what = "fused_mlp_postln_fwd_q8" if postln else "fused_mlp_block_fwd_q8"
+    if act not in _ACTS:
+        raise ValueError(f"{what}: activation {act!r} not supported")
+    h, i = _check_sizes(what, x, w1q)
+    dt, rows = x.dtype, x.numel() // h
+    s1, s2 = s1.reshape(-1), s2.reshape(-1)  # (1, out) in the parameter tree
+    check_operands(what, x, {
+        "x": (x, (*x.shape[:-1], h), dt), "gamma": (gamma, (h,), dt),
+        "beta": (beta, (h,), dt), "w1q": (w1q, (h, i), torch.int8),
+        "s1": (s1, (i,), torch.float32), "b1": (b1, (i,), dt),
+        "w2q": (w2q, (i, h), torch.int8), "s2": (s2, (h,), torch.float32),
+        "b2": (b2, (h,), dt)})
+    lib = _build.load("mlp", _SIGNATURES)
+    out = torch.empty_like(x)
+    ws = torch.empty(lib.vt_mlp_workspace(rows, h, i), dtype=torch.float32,
+                     device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.vt_mlp_fwd_q8(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                             w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+                             w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+                             out.data_ptr(), ws.data_ptr(), rows, h, i, float(eps),
+                             _ACTS[act], int(postln), _DTYPES[dt], stream)
+    _build.check(lib, code, what)
+    return out
+
+
+def fused_mlp_block_fwd_q8(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
+                           eps: float = 1e-12, act: str = "gelu") -> torch.Tensor:
+    """Pre-LN block kernel with int8 weights.  x: (..., H) -> same shape."""
+    out = _launch_q8(False, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act)
+    fused_mlp_block_fwd_q8.launches += 1
+    return out
+
+
+def fused_mlp_postln_fwd_q8(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
+                            eps: float = 1e-12, act: str = "gelu") -> torch.Tensor:
+    """Post-LN block kernel with int8 weights.  x: (..., H) -> same shape."""
+    out = _launch_q8(True, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act)
+    fused_mlp_postln_fwd_q8.launches += 1
+    return out
+
+
+fused_mlp_block_fwd_q8.launches = 0
+fused_mlp_postln_fwd_q8.launches = 0
+
+
+def _quantized_block(postln, ln_p, p_in, p_out, x, eps, act, drop_mask):
+    """The JAX package's dispatch of weights that are not both fp: w8a8 or
+    w8 on both projections and no mask takes that family's kernel
+    (differentiable through the plain composition on the same weights),
+    anything else the plain composition."""
+    plain = _mlp_postln_plain if postln else _mlp_block_plain
+    families = {
+        "w_q8": ((fused_mlp_block_fwd_w8a8, fused_mlp_postln_fwd_w8a8),
+                 (mlp_block_w8a8_plain, mlp_postln_w8a8_plain)),
+        "w_q": ((fused_mlp_block_fwd_q8, fused_mlp_postln_fwd_q8),
+                (mlp_block_q8_plain, mlp_postln_q8_plain))}
+    for key, (kernels, plains) in families.items():
+        if key in p_in and key in p_out and drop_mask is None:
+            return kernel_or_plain(kernels[postln], plains[postln],
+                                   functools.partial(_plain_on_quantized, postln, key),
+                                   ln_p["scale"], ln_p["bias"], p_in[key],
+                                   p_in["w_scale"], p_in["b"], p_out[key],
+                                   p_out["w_scale"], p_out["b"], x, eps=eps, act=act)
     return plain(ln_p, p_in, p_out, x, eps, act, drop_mask)
 
 

@@ -177,6 +177,20 @@ def layer_norm_f32(gamma, beta, x: torch.Tensor, eps: float) -> torch.Tensor:
     return d * rstd * gamma.float() + beta.float()
 
 
+def rms_norm(weight: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm over the last dim (the JAX package's Llama ``_rms_norm``):
+    fp32 statistics, ``weight * (x * rsqrt(mean(x^2) + eps))``, one cast to
+    x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (weight * (xf * torch.rsqrt(var + eps))).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``, in the JAX package's form (``jax.nn.silu``)."""
+    return x * torch.sigmoid(x)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, in the JAX package's form x * (erf(x/√2) + 1) / 2."""
     return x * (torch.erf(x / math.sqrt(2.0)) + 1.0) / 2.0
