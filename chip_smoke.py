@@ -82,6 +82,13 @@ FORWARD_LIMITS = {"pooler": 6e-2, "logits": 2e-2}
 # before their cast: relative 1e-3 in bf16.
 BWD_LIMITS = {"bfloat16": 2.0 ** -5, "float32": 1e-4}
 BWD_LN_LIMIT = 1e-3
+# The wgmma GEMM core alone against the plain fp32 product (``cuda_gemm``):
+# both sum the same exact bf16 products in fp32, in other orders, so they
+# differ by fp32 rounding, far below one bf16 ulp (2^-8) of the output:
+# 1e-4 of max(1, max|plain|).
+GEMM_CORE_LIMIT = 1e-4
+# Device kernels that show which design ran a block (``cuda_mlp.mlp_route``).
+ROUTE_KERNELS = {"wgmma": ("gemm_kernel", "ln_rows_bf16"), "walk": ("mlp_main",)}
 # One training step, kernel path vs plain path (same parameters, batch and
 # generator seed): per parameter leaf ||g_kernel - g_plain|| / ||g_plain||,
 # and |loss difference|.  The paths round bf16 activations at different
@@ -178,7 +185,11 @@ def device_ms(fn, iters=20, warmup=3):
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 name = e.name.replace("(anonymous namespace)::", "")
-                name = name.removeprefix("void ").split("(")[0].split("<")[0][:60]
+                name = name.removeprefix("void ").split("(")[0]
+                # the wgmma core's instances keep their tile width, layouts
+                # and epilogue
+                if "gemm_kernel<" not in name:
+                    name = name.split("<")[0][:60]
                 by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
         total = sum(by_name.values())
         if total > 0.0:
@@ -329,10 +340,12 @@ def check_mlp(gen, dev, postln: bool):
     # the training step's rows (batch 32; BERT's blocks carry the mask)
     train_rows = TRAIN_BATCH * (40 if postln else 256)
     rows_out = []
-    for rows, dtype, with_mask in ((main_rows, torch.bfloat16, False),
-                                   (main_rows, torch.bfloat16, True),
-                                   (train_rows, torch.bfloat16, postln),
-                                   (77, torch.float32, True)):
+    cases = [(main_rows, torch.bfloat16, False), (main_rows, torch.bfloat16, True),
+             (train_rows, torch.bfloat16, postln), (77, torch.float32, True)]
+    if not postln:  # the wgmma route: ragged tiles and both mask settings
+        cases += [(train_rows, torch.bfloat16, True)] + [
+            (rows, torch.bfloat16, mask) for rows in (37, 77) for mask in (False, True)]
+    for rows, dtype, with_mask in cases:
         x, o, m = mlp_operands(gen, rows, dtype, dev, with_mask)
         ln_p = {"scale": o["gamma"], "bias": o["beta"]}
         p_in = {"w": o["w1"], "b": o["b1"]}
@@ -347,10 +360,13 @@ def check_mlp(gen, dev, postln: bool):
         if not math.isfinite(err) or err > limit:
             fail(f"{name} rows={rows} {dtype} mask={with_mask}: "
                  f"max |kernel - plain| {err} > {limit}")
+        route = cm.mlp_route(dtype, postln)
         row = dict(kernel=name, rows=rows, dtype=str(dtype).split(".")[-1],
-                   mask=with_mask, max_abs_err=err, limit=limit,
-                   path="train" if rows == train_rows else "forward")
-        if dtype == torch.bfloat16 and (rows == train_rows or not with_mask):
+                   mask=with_mask, max_abs_err=err, limit=limit, route=route,
+                   path="train" if rows == train_rows else (
+                       "forward" if rows == main_rows else "other"))
+        if dtype == torch.bfloat16 and rows in (main_rows, train_rows) and (
+                rows == train_rows and with_mask == postln or not with_mask):
             w1t, w2t = o["w1"].t().contiguous(), o["w2"].t().contiguous()
             g, bt, b1, b2 = o["gamma"], o["beta"], o["b1"], o["b2"]
             masked = (lambda t: t) if m is None else (lambda t: t * m)
@@ -364,13 +380,87 @@ def check_mlp(gen, dev, postln: bool):
             timed(run, "", row)
             timed(ref_fn, "plain_", row)
             timed(lib, "library_", row)
+            if route == "wgmma":
+                # what the first product's GELU (erff on every element)
+                # costs: the same launch with ReLU in its epilogue
+                row["relu_epilogue_ms"], _ = device_ms(lambda: kernel(
+                    o["gamma"], o["beta"], o["w1"], o["b1"], o["w2"], o["b2"], x, m,
+                    eps=1e-12, act="relu"))
             h, i = 768, 3072
             flops = 4.0 * rows * h * i
             nbytes = ((2 + (1 if with_mask else 0)) * rows * h + 2 * h * i
                       + 3 * h + i) * x.element_size()
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+            check_route(name, row)
         emit(phase="kernel_check", **row)
         rows_out.append(row)
+    return rows_out
+
+
+def check_route(name, row):
+    """The timed run went through the kernels of the block's route."""
+    want = ROUTE_KERNELS[row["route"]]
+    ran = row["device_kernels"]
+    if not all(any(k in n for n in ran) for k in want):
+        fail(f"{name} rows={row['rows']}: route {row['route']} should run {want}, ran "
+             f"{sorted(ran)}")
+    if row["route"] == "wgmma" and any("mlp_main" in n or "mlp_bwd_walk" in n for n in ran):
+        fail(f"{name} rows={row['rows']}: the wgmma route ran the walk: {sorted(ran)}")
+
+
+def check_gemm_core(gen, dev):
+    """The wgmma core alone (``cuda_gemm``) against the plain fp32 product,
+    each operand layout at the serving rows (2,048 x 768 x 3,072: W1
+    N-contiguous in y W1 at both tile widths, W1 K-contiguous in dh1 W1^T at
+    both, the dual y W1 and gc W2^T) and at ragged 77 rows; each timed at
+    the training rows (8,192) beside its bound and ``matmul_fp32``."""
+    import torch
+
+    from vault_tpu_torch.ops import cuda_gemm as cg
+
+    h, i = 768, 3072
+    rnd = lambda *shape, std=1.0: (torch.randn(shape, generator=gen, device=dev)
+                                   * std).to(torch.bfloat16)
+    w1, w2 = rnd(h, i, std=0.02), rnd(i, h, std=0.02)
+    cases = {  # name: (kernel call, plain call, M, N, K) on rows r
+        "n_contiguous_192": lambda y, d: (lambda: cg.gemm_bf16(y, w1),
+                                          lambda: cg.gemm_plain(y, w1), i, h),
+        "n_contiguous_128": lambda y, d: (lambda: cg.gemm_bf16(y, w1, tile_width=128),
+                                          lambda: cg.gemm_plain(y, w1), i, h),
+        "k_contiguous_192": lambda y, d: (lambda: cg.gemm_bf16(d, w1, True),
+                                          lambda: cg.gemm_plain(d, w1, True), h, i),
+        "k_contiguous_128": lambda y, d: (lambda: cg.gemm_bf16(d, w1, True, 128),
+                                          lambda: cg.gemm_plain(d, w1, True), h, i),
+        "dual": lambda y, d: (lambda: cg.gemm_dual_bf16(y, w1, gc, w2),
+                              lambda: cg.gemm_dual_plain(y, w1, gc, w2), i, h),
+    }
+    rows_out = []
+    for rows in (2048, 77, 8 * 1024):
+        y, d, gc = rnd(rows, h), rnd(rows, i), rnd(rows, h)
+        for name, make in cases.items():
+            run, plain, n, k = make(y, d)
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                      for a, b in zip(outs, refs))
+            if not math.isfinite(err) or err > GEMM_CORE_LIMIT:
+                fail(f"gemm core {name} rows={rows}: |kernel - plain| / scale {err} > "
+                     f"{GEMM_CORE_LIMIT}")
+            row = dict(kernel="gemm_core", layout=name, m=rows, n=n, k=k, rel_err=err,
+                       limit=GEMM_CORE_LIMIT)
+            if rows == 8 * 1024:
+                products = len(outs)
+                row["ms"], row["device_kernels"] = device_ms(run)
+                row["library_ms"], _ = device_ms(plain)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    2.0 * products * rows * n * k,
+                    2.0 * products * (rows * k + k * n) + 4.0 * products * rows * n,
+                    torch.bfloat16)
+                row["share_of_peak"] = row["bound_ms"] / row["ms"]
+            emit(phase="kernel_check", **row)
+            rows_out.append(row)
     return rows_out
 
 
@@ -396,9 +486,11 @@ def check_mlp_bwd(gen, dev, postln: bool):
     main_rows = TRAIN_BATCH * (40 if postln else 256)
     rows_out = []
     # the main path: BERT's blocks carry the dropout mask, ViLT's none
-    for rows, dtype, with_mask in ((main_rows, torch.bfloat16, postln),
-                                   (main_rows, torch.bfloat16, not postln),
-                                   (77, torch.float32, True)):
+    cases = [(main_rows, torch.bfloat16, postln), (main_rows, torch.bfloat16, not postln),
+             (77, torch.float32, True)]
+    if not postln:  # the wgmma route's ragged tiles
+        cases += [(77, torch.bfloat16, True), (2048 + 5, torch.bfloat16, False)]
+    for rows, dtype, with_mask in cases:
         x, o, m = mlp_operands(gen, rows, dtype, dev, with_mask)
         g = torch.randn((rows, 768), generator=gen, device=dev).to(dtype)
         args = (o["gamma"], o["beta"], o["w1"], o["b1"], o["w2"], o["b2"], x, g, m)
@@ -426,12 +518,14 @@ def check_mlp_bwd(gen, dev, postln: bool):
         if not same:
             fail(f"{name} rows={rows} {dtype}: two launches differ")
         row = dict(kernel=name, rows=rows, dtype=dt, mask=with_mask,
+                   route=cm.mlp_route(dtype, postln),
                    rel_err_by_output=errs, limit=limit, ln_sum_limit=BWD_LN_LIMIT,
                    max_abs_err=max((a.float() - b.float()).abs().max().item()
                                    for a, b in zip(out, ref)),
                    bit_equal_repeat=same)
-        if dtype == torch.bfloat16 and with_mask == postln:
+        if dtype == torch.bfloat16 and with_mask == postln and rows == main_rows:
             timed(lambda: cm._launch_bwd(postln, *args, 1e-12), "", row)
+            check_route(name, row)
             row["wrapper_ms"], _ = device_ms(lambda: wrapper(*args))
             timed(lambda: plain(*args), "plain_", row)
             leaves = [t.detach().clone().requires_grad_() for t in (
@@ -1543,6 +1637,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     checks, path_counts = {}, {}
     if "kernels" in phases:
+        check_gemm_core(gen, dev)
         checks["encoder_attention"] = check_attention(gen, dev)
         checks["mlp_block"] = check_mlp(gen, dev, postln=False)
         checks["mlp_postln"] = check_mlp(gen, dev, postln=True)
@@ -1634,6 +1729,8 @@ def main():
                                       "vault_tpu/ops/pallas_attention.py:245"]
         if name.endswith("_bwd"):
             entry["wrapper_ms"] = mean("wrapper_ms")
+        if timed[0].get("route") == "wgmma":  # a block redesigned on the wgmma core
+            entry.update(design="wgmma", device_kernels=timed[0]["device_kernels"])
         if "library" in timed[0]:
             entry["library"] = timed[0]["library"]
         for r in at_train_rows:  # the forward kernels at the training rows
@@ -1641,6 +1738,8 @@ def main():
                          train_plain_ms=r["plain_ms"],
                          train_library_ms=r["library_ms"],
                          train_bound_ms=r["bound_ms"], train_bound_by=r["bound_by"])
+            if r.get("route") == "wgmma":
+                entry["train_device_kernels"] = r["device_kernels"]
         kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -52,14 +52,20 @@ def test_attention_kernel_matches_plain(dev, dtype, l, fused):
     assert err <= LIMITS[dtype], err
 
 
+# Row counts at the edges of the tiles: 32-row walk tiles, 128-row wgmma
+# tiles (1, 77, 130, 2,048 + 5), and the training rows.
+MLP_ROWS = [37, 1, 77, 130, 2048 + 5, 8192]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("postln", [False, True])
 @pytest.mark.parametrize("with_mask", [False, True])
-def test_mlp_kernels_match_plain(dev, dtype, postln, with_mask):
+@pytest.mark.parametrize("rows", MLP_ROWS)
+def test_mlp_kernels_match_plain(dev, dtype, postln, with_mask, rows):
     from vault_tpu_torch.ops import cuda_mlp as cm
 
     g = torch.Generator(device=dev).manual_seed(1)
-    h, i, rows = 768, 384, 37
+    h, i = 768, 384
 
     def rnd(*shape, std=1.0, mean=0.0):
         return (torch.randn(shape, generator=g, device=dev) * std + mean).to(dtype)
@@ -176,7 +182,9 @@ def _assert_close_scaled(out, ref, dtype):
 
 BWD_CASES = [(False, 8192, torch.bfloat16), (True, 1280, torch.bfloat16),
              (False, 77, torch.bfloat16), (True, 77, torch.bfloat16),
-             (False, 77, torch.float32), (True, 1280, torch.float32)]
+             (False, 77, torch.float32), (True, 1280, torch.float32),
+             (False, 1, torch.bfloat16), (False, 130, torch.bfloat16),
+             (False, 2048 + 5, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("postln,rows,dtype", BWD_CASES)
@@ -229,6 +237,40 @@ def test_gradients_flow_through_the_forward_kernels(dev, postln, with_mask):
     assert (cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd).launches == n + 1
     torch.cuda.synchronize()
     _assert_close_scaled(grads[0], grads[1], torch.bfloat16)
+
+
+# The wgmma core alone: fp32 sums of the same exact bf16 products in other
+# orders, within 1e-4 of max(1, max|plain|) (a bf16 ulp of the output is
+# 2^-8 of it).
+GEMM_CORE_LIMIT = 1e-4
+
+
+@pytest.mark.parametrize("layout,tile_width", [
+    ("n_contiguous", 192), ("n_contiguous", 128), ("k_contiguous", 192),
+    ("k_contiguous", 128), ("dual", 128)])
+@pytest.mark.parametrize("rows", [2048, 77])
+def test_gemm_core_matches_plain(dev, layout, tile_width, rows):
+    """Each B layout of csrc/gemm_sm90.cuh at the blocks' shapes, 768 x
+    3,072 weights: y W1 (W1 N-contiguous), dh1 W1^T (W1 K-contiguous) and
+    the dual (y W1, gc W2^T), against matmul_fp32."""
+    from vault_tpu_torch.ops import cuda_gemm as cg
+
+    g = torch.Generator(device=dev).manual_seed(rows)
+    rnd = lambda *s, std=1.0: (torch.randn(s, generator=g, device=dev) * std).to(torch.bfloat16)
+    w1, w2 = rnd(768, 3072, std=0.02), rnd(3072, 768, std=0.02)
+    y, d, gc = rnd(rows, 768), rnd(rows, 3072), rnd(rows, 768)
+    if layout == "n_contiguous":
+        outs, refs = (cg.gemm_bf16(y, w1, tile_width=tile_width),), (cg.gemm_plain(y, w1),)
+    elif layout == "k_contiguous":
+        outs = (cg.gemm_bf16(d, w1, True, tile_width),)
+        refs = (cg.gemm_plain(d, w1, True),)
+    else:
+        outs, refs = cg.gemm_dual_bf16(y, w1, gc, w2), cg.gemm_dual_plain(y, w1, gc, w2)
+    torch.cuda.synchronize()
+    for a, b in zip(outs, refs):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        assert err <= GEMM_CORE_LIMIT, err
 
 
 def test_gradients_flow_through_the_attention_kernel(dev):

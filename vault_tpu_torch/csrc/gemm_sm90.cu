@@ -1,0 +1,55 @@
+// The wgmma core of gemm_sm90.cuh on its own, for holding each of its
+// operand layouts against a plain fp32 product (ops/cuda_gemm.py): the
+// products the MLP blocks run, with an epilogue that stores the fp32
+// accumulators.  No main path calls these entries.
+#include "common.cuh"
+#include "gemm_sm90.cuh"
+
+namespace {
+
+using bf = __nv_bfloat16;
+
+// Epilogue of the dual form: both fp32 products, (M, N) each.
+struct StoreF32Pair {
+  float *c1, *c2;
+  int n;
+  __device__ __forceinline__ void operator()(int r, int col, float v0, float v1, float u0,
+                                             float u1, bool in) const {
+    if (!in) return;
+    const size_t o = (size_t)r * n + col;
+    *reinterpret_cast<float2*>(c1 + o) = make_float2(v0, v1);
+    *reinterpret_cast<float2*>(c2 + o) = make_float2(u0, u1);
+  }
+};
+
+}  // namespace
+
+// c (M, N) fp32 = a (M, K) b: b is (N, K) when b_kmajor, else (K, N); bn, the
+// tile width, 128 or 192 (the MLP blocks' two widths).
+extern "C" int vt_gemm_bf16(const void* a, const void* b, void* c, int M, int N, int K,
+                            int b_kmajor, int bn, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf* ap = static_cast<const bf*>(a);
+  const bf* bp = static_cast<const bf*>(b);
+  const sm90::StoreF32 epi{static_cast<float*>(c), N};
+  cudaError_t e = cudaErrorInvalidValue;
+  if (bn == 128) {
+    e = b_kmajor ? sm90::gemm<128, false>(ap, bp, M, N, K, epi, st)
+                 : sm90::gemm<128, true>(ap, bp, M, N, K, epi, st);
+  } else if (bn == 192) {
+    e = b_kmajor ? sm90::gemm<192, false>(ap, bp, M, N, K, epi, st)
+                 : sm90::gemm<192, true>(ap, bp, M, N, K, epi, st);
+  }
+  return (int)e;
+}
+
+// The dual form of the backward: c1 = a1 b1 with b1 (K, N), c2 = a2 b2^T
+// with b2 (N, K), fp32 (M, N) each, one 128 x 128 tile holding both.
+extern "C" int vt_gemm_dual_bf16(const void* a1, const void* b1, const void* a2,
+                                 const void* b2, void* c1, void* c2, int M, int N, int K,
+                                 void* stream) {
+  return (int)sm90::gemm<128, true, sm90::DUAL>(
+      static_cast<const bf*>(a1), static_cast<const bf*>(b1), M, N, K,
+      StoreF32Pair{static_cast<float*>(c1), static_cast<float*>(c2), N},
+      static_cast<cudaStream_t>(stream), static_cast<const bf*>(a2), static_cast<const bf*>(b2));
+}

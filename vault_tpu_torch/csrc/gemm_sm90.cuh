@@ -1,0 +1,449 @@
+// The Hopper GEMM core of the port: C = A B for bf16 operands with fp32
+// accumulation, on the tensor cores through wgmma, fed by TMA through a
+// ring of shared-memory stages, with the elementwise work fused into an
+// epilogue.  The pre-LN MLP block's forward (mlp.cu) and backward
+// (mlp_bwd.cu) run on it.
+//
+// Operands, row-major bf16, 16-byte aligned, rows of 16-byte multiples:
+//   A (M, K): K-contiguous (LN(x), the activation, the masked cotangent, dh1);
+//   B either N-contiguous, (K, N) (W1 in y W1, W2 in a W2), read through
+//   wgmma's transpose bit, or K-contiguous, (N, K) (W2 in gc W2^T, W1 in
+//   dh1 W1^T).  Neither is copied or transposed on the host: the weights
+//   change every training step.
+//   K is a multiple of 64; M and N are anything: TMA fills the rows and
+//   columns past the edge with zeros on load and the epilogue skips them.
+//
+// The block: 128 x BN output tile, 384 threads in three warpgroups.
+//   * warpgroup 2 is the producer (setmaxnreg down to 40): one thread walks
+//     K 64 at a time, waits for a stage's "empty" mbarrier, arms its "full"
+//     mbarrier with the stage's bytes and issues the TMA loads (128-byte
+//     swizzle: A one box of 128 rows x 64; B K-contiguous one box of BN rows
+//     x 64, N-contiguous BN / 64 boxes of 64 k-rows x 64).
+//   * warpgroups 0 and 1 are the consumers (setmaxnreg up to 232), 64 rows
+//     of the tile each: per stage four wgmma.mma_async m64nBNk16 with the fp32
+//     accumulator in registers, one commit group, then wait until at most
+//     this group is in flight and release the previous stage (one arrive
+//     per warp on its "empty" mbarrier).  The dual form issues a second
+//     product (A2 B2, B2 K-contiguous) into a second accumulator of the same
+//     fragment layout, so the epilogue has both values of an element in the
+//     same thread.
+//   * the epilogue functor gets (row, col, v(row, col), v(row, col + 1)[,
+//     the second product's pair], in) for every pair of the tile, col even,
+//     row and col clamped into (M, N); it stores only when `in` (the pair
+//     lies inside).  It reads its other operands with __ldg: a plain load
+//     would be ordered behind the stores of the pairs before it.
+// Stages: as many as fit in 200 KB, at most 6.  The grid is persistent, a
+// block per SM walking tiles N fastest, so the blocks that run together
+// share A's rows and all read the same weights from L2, and the next tile's
+// loads overlap this one's epilogue.
+//
+// What bounds a product on the H100: 2 M N K operations at 989 TFLOP/s
+// against (M K + K N + M N) 2 bytes at 3.35 TB/s: the operations, for every
+// product of the MLP blocks at 2,048 rows and more.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Internal linkage: every library that includes the core gets its own
+// kernels and its own once-per-process flags (a static local of an inline
+// function with external linkage would be one object across all the
+// libraries loaded in a process).
+namespace {
+namespace sm90 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 128;       // rows of an output tile (two consumer warpgroups)
+constexpr int BK = 64;        // k per stage: one 128-byte swizzle row of bf16
+constexpr int THREADS = 384;  // two consumer warpgroups and the producer's
+constexpr int CONSUMER_WARPS = 8;
+
+// ---------------------------------------------------------------- host side
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major (outer, inner) bf16 matrix read in boxes of (box_outer, 64),
+// 128-byte swizzle, zeros past the edges.  cudaErrorInvalidValue for a
+// pointer or row that is not 16-byte aligned.
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int outer, int inner, int box_outer) {
+  if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || (inner * sizeof(bf16)) % 16 != 0 ||
+      outer <= 0 || inner <= 0)
+    return cudaErrorInvalidValue;
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorInvalidDeviceFunction;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// -------------------------------------------------------------- device side
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box at (inner c0, outer c1) of `map` into shared memory at dst;
+// completion counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (all >> 4).  K-contiguous tiles: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO), LBO unused; a k16 step
+// moves the start 32 bytes.  N-contiguous tiles: 64-column blocks of 64
+// k-rows, 8192 bytes apart (LBO), 8-k-row groups 1024 bytes apart (SBO); a
+// k16 step moves the start 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads across the async MMAs
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32, A and B from shared memory;
+// TB = 1: B N-contiguous (transposed), 0: K-contiguous.
+template <int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int BN, int TB>
+__device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  static_assert(BN == 128 || BN == 192, "tile widths with a wgmma wrapper: 128, 192");
+  if constexpr (BN == 128) wgmma_n128<TB>(d, da, db, 1);
+  else wgmma_n192<TB>(d, da, db, 1);
+}
+
+// The two consumer warpgroups share one 128 x BN tile, 64 rows each.
+//   COOP: one product.
+//   DUAL: a second product A2 B2^T (B2 K-contiguous) into a second
+//     accumulator of the same fragment layout.
+enum Mode { COOP = 0, DUAL = 1 };
+
+template <int BN, int MODE>
+struct Shape {
+  static constexpr int A_BYTES = BM * BK * 2;                 // 16 KB
+  static constexpr int B_BYTES = BN * BK * 2;                 // BN x 128 bytes
+  static constexpr int PAIR = A_BYTES + B_BYTES;
+  static constexpr int STAGE = (MODE == DUAL ? 2 : 1) * PAIR;
+  static constexpr int STAGES = (200 * 1024) / STAGE < 6 ? (200 * 1024) / STAGE : 6;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE + 1024 + 2 * STAGES * 8;
+  static_assert(STAGES >= 2 && BN % 64 == 0, "tile");
+};
+
+// Persistent: one block per SM (at most one per tile) walks the tiles t =
+// blockIdx.x, blockIdx.x + gridDim.x, ..., N fastest.  The producer runs on
+// into the next tile while the consumers are in this one's epilogue, so the
+// ring is full when they come back.  Non-dual launches pass ta2 = ta,
+// tb2 = tb.
+template <int BN, bool B_MN, int MODE, class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+            const __grid_constant__ CUtensorMap ta2, const __grid_constant__ CUtensorMap tb2,
+            int M, int N, int K, Epi epi) {
+  using S = Shape<BN, MODE>;
+  constexpr int ST = S::STAGES;
+  constexpr bool kDual = MODE == DUAL;
+  extern __shared__ unsigned char smem_raw[];
+  // stages start on a 1024-byte boundary, the 128-byte swizzle's period
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + ST * S::STAGE;  // full[ST], then empty[ST]
+  const int wg = threadIdx.x / 128;
+  const int kt_n = K / BK;
+  const int tiles_n = (N + BN - 1) / BN, tiles = tiles_n * ((M + BM - 1) / BM);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (ST + s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
+        for (int kt = 0; kt < kt_n; ++kt) {
+          const uint32_t full = bars + 8 * s, empty = bars + 8 * (ST + s);
+          mbar_wait(empty, ph ^ 1);
+          mbar_expect_tx(full, S::STAGE);
+          const uint32_t sa = base + s * S::STAGE, sb = sa + S::A_BYTES;
+          const int k0 = kt * BK;
+          tma_load(sa, &ta, k0, m0, full);
+          if constexpr (B_MN) {
+#pragma unroll
+            for (int q = 0; q < BN / 64; ++q)
+              tma_load(sb + q * (64 * BK * 2), &tb, n0 + 64 * q, k0, full);
+          } else {
+            tma_load(sb, &tb, k0, n0, full);
+          }
+          if constexpr (kDual) {
+            tma_load(sa + S::PAIR, &ta2, k0, m0, full);
+            tma_load(sb + S::PAIR, &tb2, k0, n0, full);
+          }
+          if (++s == ST) s = 0, ph ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows [m0 + 64 wg, m0 + 64 wg + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
+      // acc[0]: the product; dual: acc[1] the second one
+      float acc[kDual ? 2 : 1][BN / 2];
+#pragma unroll
+      for (int a = 0; a < (kDual ? 2 : 1); ++a)
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) acc[a][e] = 0.0f;
+      int prev = -1;
+      for (int kt = 0; kt < kt_n; ++kt) {
+        mbar_wait(bars + 8 * s, ph);
+        const uint32_t sa = base + s * S::STAGE + wg * (64 * BK * 2);
+        const uint32_t sb = base + s * S::STAGE + S::A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t db =
+              B_MN ? desc(sb + 2048 * kk, 64 * BK * 2, 1024) : desc(sb + 32 * kk, 0, 1024);
+          mma<BN, B_MN ? 1 : 0>(acc[0], desc(sa + 32 * kk, 0, 1024), db);
+          if constexpr (kDual)
+            mma<BN, 0>(acc[1], desc(sa + S::PAIR + 32 * kk, 0, 1024),
+                       desc(sb + S::PAIR + 32 * kk, 0, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (prev >= 0 && lane == 0) mbar_arrive(bars + 8 * (ST + prev));
+        prev = s;
+        if (++s == ST) s = 0, ph ^= 1;
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(bars + 8 * (ST + prev));  // the tile's last stage
+#pragma unroll
+      for (int a = 0; a < (kDual ? 2 : 1); ++a) fence_regs(acc[a]);
+
+      // ---- epilogue: thread (warp w, lane l) of the warpgroup holds rows
+      // 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1) of its 64 x BN.
+      // Every pair is computed, at indices clamped into (M, N), and stored
+      // only inside: branch-free arithmetic the compiler can interleave.
+      const int r0 = m0 + 64 * wg + 16 * w + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = n0 + 8 * j + 2 * (lane & 3);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h, e = 4 * j + 2 * h;
+          const bool in = r < M && c < N;
+          const int rc = r < M ? r : M - 1, cc = c < N ? c : N - 2;
+          if constexpr (kDual)
+            epi(rc, cc, acc[0][e], acc[0][e + 1], acc[1][e], acc[1][e + 1], in);
+          else
+            epi(rc, cc, acc[0][e], acc[0][e + 1], in);
+        }
+      }
+    }
+  }
+}
+
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// Of the tile widths offered, the one whose waves of tiles over the SMs
+// take least time (waves x width); of equal ones the widest, which reads
+// the fewest bytes from L2 per operation.
+inline int pick_width(int M, int N, int narrow, int wide) {
+  auto cost = [&](int bn) {
+    const long tiles = (long)((N + bn - 1) / bn) * ((M + BM - 1) / BM);
+    return (tiles + sm_count() - 1) / sm_count() * bn;
+  };
+  return cost(wide) <= cost(narrow) ? wide : narrow;
+}
+
+// C = A B through the kernel above, epilogue `epi`.  a: (M, K); b: (K, N)
+// when B_MN, else (N, K); dual: a2 (M, K), b2 (N, K).  Returns the launch's
+// error (cudaErrorInvalidValue for a shape or pointer the maps refuse).
+template <int BN, bool B_MN, int MODE = COOP, class Epi>
+cudaError_t gemm(const bf16* a, const bf16* b, int M, int N, int K, Epi epi, cudaStream_t st,
+                 const bf16* a2 = nullptr, const bf16* b2 = nullptr) {
+  using S = Shape<BN, MODE>;
+  if (M <= 0 || N <= 0 || K <= 0 || K % BK != 0) return cudaErrorInvalidValue;
+  CUtensorMap ta, tb, ta2, tb2;
+  cudaError_t e;
+  if ((e = make_map(&ta, a, M, K, BM)) != cudaSuccess) return e;
+  if ((e = B_MN ? make_map(&tb, b, K, N, 64) : make_map(&tb, b, N, K, BN)) != cudaSuccess) return e;
+  ta2 = ta, tb2 = tb;
+  if constexpr (MODE == DUAL) {
+    if ((e = make_map(&ta2, a2, M, K, BM)) != cudaSuccess) return e;
+    if ((e = make_map(&tb2, b2, N, K, BN)) != cudaSuccess) return e;
+  }
+  auto kernel = gemm_kernel<BN, B_MN, MODE, Epi>;
+  static bool smem_set = false;  // once per instantiation and library
+  if (!smem_set) {
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)S::SMEM)) != cudaSuccess)
+      return e;
+    smem_set = true;
+  }
+  const int tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  kernel<<<tiles < sm_count() ? tiles : sm_count(), THREADS, S::SMEM, st>>>(ta, tb, ta2, tb2, M,
+                                                                          N, K, epi);
+  return cudaGetLastError();
+}
+
+// Epilogue: the fp32 product itself, (M, N) at c.
+struct StoreF32 {
+  float* c;
+  int n;
+  __device__ __forceinline__ void operator()(int r, int col, float v0, float v1, bool in) const {
+    if (in) *reinterpret_cast<float2*>(c + (size_t)r * n + col) = make_float2(v0, v1);
+  }
+};
+
+}  // namespace sm90
+}  // namespace

@@ -48,7 +48,39 @@
 // half the weight bytes (2 H I), so the byte bound halves and the pre-LN
 // block at 2,048 rows stays bound by the tensor cores; no dropout mask (the
 // JAX package has no masked q8 kernel either).
+//
+// The bf16 pre-LN block with bf16 weights (the ViLT layers, 12 per forward
+// and 24 per training step) takes another design, vt_mlp_fwd_wgmma on the
+// wgmma core of gemm_sm90.cuh (ops/cuda_mlp.py mlp_route picks the entry;
+// vt_mlp_fwd takes the fp32 blocks and the bf16 post-LN block), in three
+// launches:
+//   1. ln_rows_bf16 (mlp_common.cuh): y = bf16(LN(x)) into the workspace;
+//   2. a = bf16(act(y W1 + b1)), (rows, I), into the workspace: 128 x 128
+//      tiles, W1 read N-contiguous (wgmma's transpose bit); the narrow tile
+//      because the epilogue, GELU with erff on every element, costs as much
+//      as the product over K = 768, and 64 values a thread leave it the
+//      registers to interleave them;
+//   3. out = bf16(bf16(m (a W2 + b2)) + x), W2 read N-contiguous; the
+//      epilogue is mlp_epilogue's arithmetic.
+// The intermediate a goes through L2 / device memory, where the TPU kernel
+// and mlp_main keep it on chip.  Keeping it on chip ties a row tile to a
+// 768-wide fp32 accumulator in registers for the second product, which
+// forces the 32-row wmma tile and makes every block re-stream the whole
+// 9.4 MB of weights from L2 (2.4 GB of L2 -> shared memory traffic per
+// launch at 8,192 rows).  Writing it costs 2 rows I 2 bytes each way (50 MB
+// at 8,192 rows, 0.030 ms at 3.35 TB/s, and mostly L2-resident at 2,048
+// rows) against an operations bound of 0.078 ms, and frees both products
+// to run on 128-row wgmma tiles.  Bound on the H100: the operations (4 rows
+// H I at 989 TFLOP/s) at 2,048 rows and more.  Tile widths: the first
+// product always takes 128 x 128 tiles (above; 16 x 24 = 384 tiles at 2,048
+// rows, under three waves on 132 SMs).  The second takes 128 x 128 or
+// 128 x 192, whichever sm90::pick_width finds needs the least time in waves
+// x width: at 2,048 rows 128 (16 x 6 = 96 tiles, one wave on 73% of the SMs;
+// a 64-wide tile gives no more waves, and split-K would need float atomics
+// or a second pass), at 8,192 rows 192 (256 tiles in two waves, against
+// three of 128), which reads fewer bytes from L2 per operation.
 #include "mlp_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -116,6 +148,71 @@ mlp_epilogue(const T* __restrict__ x, const T* __restrict__ gamma,
   }
 }
 
+// Epilogue of the first product: a = bf16(act(acc + b1)).
+struct EpiAct {
+  const __nv_bfloat16* b1;
+  __nv_bfloat16* a;
+  int n, act;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1, bool in) const {
+    const __nv_bfloat162 b = __ldg(reinterpret_cast<const __nv_bfloat162*>(b1 + c));
+    const __nv_bfloat162 o(vt::from_f<__nv_bfloat16>(vt::activate(v0 + vt::to_f(b.x), act)),
+                           vt::from_f<__nv_bfloat16>(vt::activate(v1 + vt::to_f(b.y), act)));
+    if (in) *reinterpret_cast<__nv_bfloat162*>(a + (size_t)r * n + c) = o;
+  }
+};
+
+// Epilogue of the second product: mlp_epilogue's pre-LN arithmetic, o = acc
+// + b2, times m in fp32, out = bf16(bf16(o) + x).
+struct EpiResidual {
+  const __nv_bfloat16 *b2, *m, *x;
+  __nv_bfloat16* out;
+  int n;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1, bool in) const {
+    const size_t o = (size_t)r * n + c;
+    const __nv_bfloat162 b = __ldg(reinterpret_cast<const __nv_bfloat162*>(b2 + c));
+    const __nv_bfloat162 xv = __ldg(reinterpret_cast<const __nv_bfloat162*>(x + o));
+    float o0 = v0 + vt::to_f(b.x), o1 = v1 + vt::to_f(b.y);
+    if (m) {
+      const __nv_bfloat162 mv = __ldg(reinterpret_cast<const __nv_bfloat162*>(m + o));
+      o0 *= vt::to_f(mv.x);
+      o1 *= vt::to_f(mv.y);
+    }
+    const __nv_bfloat162 res(
+        vt::from_f<__nv_bfloat16>(vt::to_f(vt::from_f<__nv_bfloat16>(o0)) + vt::to_f(xv.x)),
+        vt::from_f<__nv_bfloat16>(vt::to_f(vt::from_f<__nv_bfloat16>(o1)) + vt::to_f(xv.y)));
+    if (in) *reinterpret_cast<__nv_bfloat162*>(out + o) = res;
+  }
+};
+
+// Workspace of the wgmma route: y (rows, H) then a (rows, I), bf16.
+size_t wgmma_workspace_floats(int rows, int H, int I) {
+  return ((size_t)rows * H + (size_t)rows * I + 1) / 2;
+}
+
+int launch_wgmma(const void* x, const void* gamma, const void* beta, const void* w1,
+                 const void* b1, const void* w2, const void* b2, const void* m, void* out,
+                 float* ws, int rows, int H, int I, float eps, int act, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  if (H != 768) return (int)cudaErrorInvalidValue;
+  bf* y = reinterpret_cast<bf*>(ws);
+  bf* a = y + (size_t)rows * H;
+  ln_rows_bf16<768><<<(rows + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
+      static_cast<const bf*>(x), static_cast<const bf*>(gamma), static_cast<const bf*>(beta), y,
+      nullptr, nullptr, nullptr, rows, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const EpiAct act_epi{static_cast<const bf*>(b1), a, I, act};
+  const bf* w1p = static_cast<const bf*>(w1);
+  e = sm90::gemm<128, true>(y, w1p, rows, I, H, act_epi, st);
+  if (e != cudaSuccess) return (int)e;
+  const EpiResidual res_epi{static_cast<const bf*>(b2), static_cast<const bf*>(m),
+                            static_cast<const bf*>(x), static_cast<bf*>(out), H};
+  const bf* w2p = static_cast<const bf*>(w2);
+  return (int)(sm90::pick_width(rows, H, 128, 192) == 192
+                   ? sm90::gemm<192, true>(a, w2p, rows, H, I, res_epi, st)
+                   : sm90::gemm<128, true>(a, w2p, rows, H, I, res_epi, st));
+}
+
 // W: the weights' type, T or int8_t (then s1, s2 are their scales).
 template <typename T, int NF, bool POSTLN, typename W = T>
 int launch(const void* x, const void* gamma, const void* beta, const void* w1,
@@ -156,12 +253,14 @@ int dispatch_h(int H, const void* x, const void* gamma, const void* beta,
 
 }  // namespace
 
-// fp32 elements of workspace vt_mlp_fwd needs for these shapes.
+// fp32 elements of workspace vt_mlp_fwd and vt_mlp_fwd_q8 need for these
+// shapes (the fp32 partial sums of the I splits).
 extern "C" long long vt_mlp_workspace(int rows, int H, int I) {
   if (rows <= 0 || I <= 0 || I % BN1 != 0) return -1;
   return (long long)pick_splits(rows, I) * ((rows + BM - 1) / BM) * BM * H;
 }
 
+// The walk: the fp32 blocks and the bf16 post-LN block.
 extern "C" int vt_mlp_fwd(const void* x, const void* gamma, const void* beta,
                           const void* w1, const void* b1, const void* w2,
                           const void* b2, const void* m, void* out, void* ws,
@@ -170,17 +269,31 @@ extern "C" int vt_mlp_fwd(const void* x, const void* gamma, const void* beta,
   if (rows <= 0 || I <= 0 || I % BN1 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
-  if (dtype == vt::kBF16) {
-    return postln
-        ? dispatch_h<__nv_bfloat16, true>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st)
-        : dispatch_h<__nv_bfloat16, false>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st);
-  }
+  if (dtype == vt::kBF16 && postln)
+    return dispatch_h<__nv_bfloat16, true>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows,
+                                           I, eps, act, st);
   if (dtype == vt::kF32) {
     return postln
         ? dispatch_h<float, true>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st)
         : dispatch_h<float, false>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// fp32 elements of workspace vt_mlp_fwd_wgmma needs for these shapes.
+extern "C" long long vt_mlp_wgmma_workspace(int rows, int H, int I) {
+  if (rows <= 0 || I <= 0 || I % BN1 != 0) return -1;
+  return (long long)wgmma_workspace_floats(rows, H, I);
+}
+
+// The bf16 pre-LN block on the wgmma core: every operand bf16.
+extern "C" int vt_mlp_fwd_wgmma(const void* x, const void* gamma, const void* beta,
+                                const void* w1, const void* b1, const void* w2,
+                                const void* b2, const void* m, void* out, void* ws, int rows,
+                                int H, int I, float eps, int act, void* stream) {
+  if (rows <= 0 || I <= 0 || I % BN1 != 0) return (int)cudaErrorInvalidValue;
+  return launch_wgmma(x, gamma, beta, w1, b1, w2, b2, m, out, static_cast<float*>(ws), rows, H,
+                      I, eps, act, static_cast<cudaStream_t>(stream));
 }
 
 // The w8 blocks: w1q (H, I) and w2q (I, H) int8, s1 (I) and s2 (H) fp32; x,

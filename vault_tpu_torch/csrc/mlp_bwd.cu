@@ -48,9 +48,33 @@
 //     written and read again for one product of 6 GFLOP), the dx row sum,
 //     and the dgamma/dbeta reduction.  At 1280 rows there are 40 row blocks
 //     against 132 SMs, so both walks split I across blocks.
+//
+// The bf16 pre-LN backward (the ViLT layers of a training step, 12 per
+// step) takes another design, vt_mlp_bwd_wgmma on the wgmma core of
+// gemm_sm90.cuh (ops/cuda_mlp.py mlp_route picks the entry; vt_mlp_bwd
+// takes the fp32 blocks and the bf16 post-LN block), in five launches:
+//   1. ln_rows_bf16 (mlp_common.cuh): y = bf16(LN(x)), the y output, and,
+//      with a mask, gc = bf16(g m) into the workspace (else gc is g);
+//   2. a dual product per (128-row, 128-column) tile of (rows, I): one
+//      warpgroup holds h1 = y W1[:, tile] (W1 N-contiguous) and da = gc
+//      W2[tile, :]^T (W2 K-contiguous) in two accumulators of one fragment
+//      layout; the epilogue writes a = bf16(gelu(h1 + b1)) and dh1 =
+//      bf16(da gelu'(h1 + b1)) (exact erff, vt::gelu_grad);
+//   3. dy = dh1 W1^T (W1 K-contiguous, K = I) in fp32 into the workspace,
+//      128 x 192 tiles (128 x 128 where they fill the SMs' waves better),
+//      as one "split";
+//   4. mlp_bwd_preln_rows (splits = 1) and 5. mlp_bwd_reduce_cols, as
+//      before: the LN backward, dx = g + dx_ln, fixed-order dgamma/dbeta.
+// dh1 goes to device memory between the products (it is an output anyway:
+// 50 MB at 8,192 rows, written by 2, read by 3, 0.030 ms at 3.35 TB/s
+// against the 0.117 ms bound of the three products).  That frees the tile
+// from the 768-wide fp32 dy accumulator that mlp_bwd_walk keeps in
+// registers, which forces its 32-row wmma tile and makes W1 stream twice
+// per slice.  No float atomics anywhere: two launches give the same bits.
 #include <algorithm>
 
 #include "mlp_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -551,21 +575,21 @@ Layout layout(int rows, int H, int I, bool postln) {
   return l;
 }
 
-template <typename T, int NF>
+template <typename T, int NF, bool POSTLN>
 int launch_bwd(const T* x, const T* g, const T* gamma, const T* beta, const T* w1,
                const T* b1, const T* w2, const T* b2, const T* m, T* dx, T* dh1,
                T* a, T* yds, float* dgamma, float* dbeta, float* ws, int rows,
-               int I, float eps, bool postln, cudaStream_t st) {
+               int I, float eps, cudaStream_t st) {
   using B = BwdTiles<T>;
   constexpr int H = NF * 16 * NW;
-  const Layout l = layout<T>(rows, H, I, postln);
+  const Layout l = layout<T>(rows, H, I, POSTLN);
   float* acc = ws;
   float* dsf = acc + l.acc;
   float* part = dsf + l.dsf;
   const dim3 walk_grid((rows + B::BMW - 1) / B::BMW, l.splits_w);
   const size_t smem = walk_smem<T, H>();
   cudaError_t e;
-  if (!postln) {
+  if constexpr (!POSTLN) {
     if ((e = allow_smem<mlp_bwd_walk<T, NF, true>>(smem)) != cudaSuccess) return (int)e;
     mlp_bwd_walk<T, NF, true><<<walk_grid, NT, smem, st>>>(
         x, g, m, gamma, beta, w1, b1, w2, acc, a, dh1, yds, rows, l.pad_w, I,
@@ -598,32 +622,104 @@ int launch_bwd(const T* x, const T* g, const T* gamma, const T* beta, const T* w
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// Epilogue of the dual product: a = bf16(gelu(h1 + b1)), dh1 = bf16(da
+// gelu'(h1 + b1)).
+struct EpiGeluGrad {
+  const __nv_bfloat16* b1;
+  __nv_bfloat16 *a, *dh1;
+  int n;
+  __device__ __forceinline__ void operator()(int r, int c, float h0, float h1, float d0,
+                                             float d1, bool in) const {
+    const __nv_bfloat162 b = __ldg(reinterpret_cast<const __nv_bfloat162*>(b1 + c));
+    const float z0 = h0 + vt::to_f(b.x), z1 = h1 + vt::to_f(b.y);
+    const size_t o = (size_t)r * n + c;
+    const __nv_bfloat162 av(vt::from_f<__nv_bfloat16>(vt::activate(z0, vt::kGeluErf)),
+                            vt::from_f<__nv_bfloat16>(vt::activate(z1, vt::kGeluErf)));
+    const __nv_bfloat162 dv(vt::from_f<__nv_bfloat16>(d0 * vt::gelu_grad(z0)),
+                            vt::from_f<__nv_bfloat16>(d1 * vt::gelu_grad(z1)));
+    if (in) {
+      *reinterpret_cast<__nv_bfloat162*>(a + o) = av;
+      *reinterpret_cast<__nv_bfloat162*>(dh1 + o) = dv;
+    }
+  }
+};
+
+// Workspace of the wgmma route (fp32 elements): dy (rows, H), the
+// dgamma/dbeta partial rows, then gc (rows, H) bf16.
+struct WgmmaLayout {
+  size_t dy, part, gc;
+  int nblocks;
+};
+
+WgmmaLayout wgmma_layout(int rows, int H) {
+  WgmmaLayout l;
+  l.nblocks = (rows + RB - 1) / RB;
+  l.dy = (size_t)rows * H;
+  l.part = (size_t)l.nblocks * 2 * H;
+  l.gc = ((size_t)rows * H + 1) / 2;
+  return l;
+}
+
+int launch_bwd_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                     const __nv_bfloat16* gamma, const __nv_bfloat16* beta,
+                     const __nv_bfloat16* w1, const __nv_bfloat16* b1,
+                     const __nv_bfloat16* w2, const __nv_bfloat16* m, __nv_bfloat16* dx,
+                     __nv_bfloat16* dh1, __nv_bfloat16* a, __nv_bfloat16* y, float* dgamma,
+                     float* dbeta, float* ws, int rows, int H, int I, float eps,
+                     cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  if (H != 768) return (int)cudaErrorInvalidValue;
+  const WgmmaLayout l = wgmma_layout(rows, H);
+  float* dy = ws;
+  float* part = dy + l.dy;
+  bf* gc = m ? reinterpret_cast<bf*>(part + l.part) : nullptr;
+  ln_rows_bf16<768><<<(rows + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
+      x, gamma, beta, y, g, m, gc, rows, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = sm90::gemm<128, true, sm90::DUAL>(y, w1, rows, I, H, EpiGeluGrad{b1, a, dh1, I}, st,
+                                  m ? gc : g, w2);
+  if (e != cudaSuccess) return (int)e;
+  e = sm90::pick_width(rows, H, 128, 192) == 192
+          ? sm90::gemm<192, false>(dh1, w1, rows, H, I, sm90::StoreF32{dy, H}, st)
+          : sm90::gemm<128, false>(dh1, w1, rows, H, I, sm90::StoreF32{dy, H}, st);
+  if (e != cudaSuccess) return (int)e;
+  mlp_bwd_preln_rows<bf, 6><<<l.nblocks, RT, 0, st>>>(x, g, gamma, dy, 1, rows, dx, part,
+                                                      rows, eps);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  mlp_bwd_reduce_cols<<<(2 * H + RT - 1) / RT, RT, 0, st>>>(part, l.nblocks, H, dgamma, dbeta);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool POSTLN>
 int dispatch_bwd(int H, const void* x, const void* g, const void* gamma,
                  const void* beta, const void* w1, const void* b1, const void* w2,
                  const void* b2, const void* m, void* dx, void* dh1, void* a,
                  void* yds, float* dgamma, float* dbeta, float* ws, int rows, int I,
-                 float eps, bool postln, cudaStream_t st) {
+                 float eps, cudaStream_t st) {
   if (H != 768) return (int)cudaErrorInvalidValue;
   auto c = [](const void* p) { return static_cast<const T*>(p); };
   auto v = [](void* p) { return static_cast<T*>(p); };
-  return launch_bwd<T, 6>(c(x), c(g), c(gamma), c(beta), c(w1), c(b1), c(w2), c(b2),
-                          c(m), v(dx), v(dh1), v(a), v(yds), dgamma, dbeta, ws, rows,
-                          I, eps, postln, st);
+  return launch_bwd<T, 6, POSTLN>(c(x), c(g), c(gamma), c(beta), c(w1), c(b1), c(w2),
+                                  c(b2), c(m), v(dx), v(dh1), v(a), v(yds), dgamma, dbeta,
+                                  ws, rows, I, eps, st);
 }
 
 }  // namespace
 
-// fp32 elements of workspace vt_mlp_bwd needs for these shapes.
+// fp32 elements of workspace vt_mlp_bwd needs for these shapes; -1 for the
+// bf16 pre-LN block, which runs on vt_mlp_bwd_wgmma.
 extern "C" long long vt_mlp_bwd_workspace(int rows, int H, int I, int dtype, int postln) {
   if (rows <= 0 || I <= 0 || I % BN1 != 0) return -1;
-  const Layout l = dtype == vt::kBF16 ? layout<__nv_bfloat16>(rows, H, I, postln)
+  if (dtype == vt::kBF16 && !postln) return -1;
+  const Layout l = dtype == vt::kBF16 ? layout<__nv_bfloat16>(rows, H, I, true)
                                       : layout<float>(rows, H, I, postln);
   return (long long)(l.acc + l.dsf + l.part);
 }
 
-// yds: y = LN(x) (pre-LN) or ds (post-LN), (rows, H) in x's type; dh1 and
-// a (rows, I); dgamma, dbeta (H) fp32.
+// The walk: the fp32 blocks and the bf16 post-LN block.  yds: y = LN(x)
+// (pre-LN) or ds (post-LN), (rows, H) in x's type; dh1 and a (rows, I);
+// dgamma, dbeta (H) fp32.
 extern "C" int vt_mlp_bwd(const void* x, const void* g, const void* gamma,
                           const void* beta, const void* w1, const void* b1,
                           const void* w2, const void* b2, const void* m, void* dx,
@@ -635,11 +731,37 @@ extern "C" int vt_mlp_bwd(const void* x, const void* g, const void* gamma,
   float* dg = static_cast<float*>(dgamma);
   float* db = static_cast<float*>(dbeta);
   float* wsf = static_cast<float*>(ws);
-  if (dtype == vt::kBF16)
-    return dispatch_bwd<__nv_bfloat16>(H, x, g, gamma, beta, w1, b1, w2, b2, m, dx, dh1,
-                                       a, yds, dg, db, wsf, rows, I, eps, postln != 0, st);
+  if (dtype == vt::kBF16 && postln)
+    return dispatch_bwd<__nv_bfloat16, true>(H, x, g, gamma, beta, w1, b1, w2, b2, m, dx,
+                                             dh1, a, yds, dg, db, wsf, rows, I, eps, st);
   if (dtype == vt::kF32)
-    return dispatch_bwd<float>(H, x, g, gamma, beta, w1, b1, w2, b2, m, dx, dh1, a, yds,
-                               dg, db, wsf, rows, I, eps, postln != 0, st);
+    return postln ? dispatch_bwd<float, true>(H, x, g, gamma, beta, w1, b1, w2, b2, m, dx,
+                                              dh1, a, yds, dg, db, wsf, rows, I, eps, st)
+                  : dispatch_bwd<float, false>(H, x, g, gamma, beta, w1, b1, w2, b2, m, dx,
+                                               dh1, a, yds, dg, db, wsf, rows, I, eps, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// fp32 elements of workspace vt_mlp_bwd_wgmma needs for these shapes.
+extern "C" long long vt_mlp_bwd_wgmma_workspace(int rows, int H, int I) {
+  if (rows <= 0 || I <= 0 || I % BN1 != 0) return -1;
+  const WgmmaLayout w = wgmma_layout(rows, H);
+  return (long long)(w.dy + w.part + w.gc);
+}
+
+// The bf16 pre-LN block on the wgmma core: every operand bf16, y = LN(x)
+// (rows, H); dh1 and a (rows, I); dgamma, dbeta (H) fp32.
+extern "C" int vt_mlp_bwd_wgmma(const void* x, const void* g, const void* gamma,
+                                const void* beta, const void* w1, const void* b1,
+                                const void* w2, const void* m, void* dx, void* dh1, void* a,
+                                void* y, void* dgamma, void* dbeta, void* ws, int rows, int H,
+                                int I, float eps, void* stream) {
+  if (rows <= 0 || I <= 0 || I % BN1 != 0) return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  auto c = [](const void* p) { return static_cast<const bf*>(p); };
+  auto v = [](void* p) { return static_cast<bf*>(p); };
+  return launch_bwd_wgmma(c(x), c(g), c(gamma), c(beta), c(w1), c(b1), c(w2), c(m), v(dx),
+                          v(dh1), v(a), v(y), static_cast<float*>(dgamma),
+                          static_cast<float*>(dbeta), static_cast<float*>(ws), rows, H, I, eps,
+                          static_cast<cudaStream_t>(stream));
 }

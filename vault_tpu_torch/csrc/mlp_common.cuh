@@ -358,4 +358,62 @@ cudaError_t allow_smem(size_t bytes) {
   return e;
 }
 
+// One warp per row of H bf16 values: y = bf16(LN(x)) with fp32 statistics
+// as mlp_main's prologue takes them; with g given also gc = bf16(g m) (the
+// masked cotangent of the backward).  Rows past `rows` are skipped.
+constexpr int LN_WARPS = 8;
+
+template <int H>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+ln_rows_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gamma,
+             const __nv_bfloat16* __restrict__ beta, __nv_bfloat16* __restrict__ y,
+             const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ m,
+             __nv_bfloat16* __restrict__ gc, int rows, float eps) {
+  constexpr int V = 8, PER = H / (32 * V);  // 16-byte vectors per lane
+  static_assert(H % (32 * V) == 0, "H");
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const size_t off = (size_t)row * H;
+  float v[PER][V];
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const uint4 q = *reinterpret_cast<const uint4*>(x + off + (32 * i + lane) * V);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+    for (int k = 0; k < V; ++k) sum += (v[i][k] = vt::to_f(e[k]));
+  }
+  const float mean = group_sum<32>(sum) / H;
+  float sq = 0.0f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+#pragma unroll
+    for (int k = 0; k < V; ++k) sq += (v[i][k] - mean) * (v[i][k] - mean);
+  const float inv = 1.0f / sqrtf(group_sum<32>(sq) / H + eps);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = (32 * i + lane) * V;
+    const uint4 gq = *reinterpret_cast<const uint4*>(gamma + c);
+    const uint4 bq = *reinterpret_cast<const uint4*>(beta + c);
+    const __nv_bfloat16* ga = reinterpret_cast<const __nv_bfloat16*>(&gq);
+    const __nv_bfloat16* be = reinterpret_cast<const __nv_bfloat16*>(&bq);
+    uint4 out;
+    __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      o[k] = vt::from_f<__nv_bfloat16>((v[i][k] - mean) * inv * vt::to_f(ga[k]) + vt::to_f(be[k]));
+    *reinterpret_cast<uint4*>(y + off + c) = out;
+    if (gc != nullptr) {
+      const uint4 gv = *reinterpret_cast<const uint4*>(g + off + c);
+      const uint4 mv = *reinterpret_cast<const uint4*>(m + off + c);
+      const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv);
+      const __nv_bfloat16* me = reinterpret_cast<const __nv_bfloat16*>(&mv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) o[k] = vt::from_f<__nv_bfloat16>(vt::to_f(ge[k]) * vt::to_f(me[k]));
+      *reinterpret_cast<uint4*>(gc + off + c) = out;
+    }
+  }
+}
+
 }  // namespace

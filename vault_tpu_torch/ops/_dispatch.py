@@ -16,11 +16,11 @@ Spec = Tuple[Optional[torch.Tensor], tuple, torch.dtype]
 
 
 def check_operands(what: str, x: torch.Tensor, operands: Dict[str, Spec]) -> None:
-    """x on the card; every given operand of its (shape, dtype), on x's
-    device, contiguous and 16-byte aligned (the kernels load 16 bytes at a
-    time).  Raises on anything else: nothing falls back."""
-    if not x.is_cuda:
-        raise ValueError(f"{what}: the kernel takes CUDA tensors, got {x.device}")
+    """Every given operand of its (shape, dtype), on x's device, contiguous
+    and 16-byte aligned (the kernels load 16 bytes at a time, TMA takes
+    16-byte aligned rows), and x on the card.  Raises on anything else:
+    nothing falls back.  The operands are checked before the device, so a
+    malformed operand is named wherever it lies."""
     for name, (t, shape, dtype) in operands.items():
         if t is None:
             continue
@@ -34,6 +34,8 @@ def check_operands(what: str, x: torch.Tensor, operands: Dict[str, Spec]) -> Non
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte "
                              "aligned")
+    if not x.is_cuda:
+        raise ValueError(f"{what}: the kernel takes CUDA tensors, got {x.device}")
 
 
 class _KernelOrPlain(torch.autograd.Function):

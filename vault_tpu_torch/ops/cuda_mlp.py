@@ -3,6 +3,15 @@
 ``csrc/mlp_w8a8.cu`` int8 forward), with their plain PyTorch versions beside
 them.
 
+Two designs sit behind ``csrc/mlp.cu`` and ``csrc/mlp_bwd.cu``, each
+behind its own C entries; :func:`mlp_route` picks one for a block: the
+bf16 pre-LN block with bf16 weights (the ViLT layers) runs forward and
+backward on the wgmma/TMA GEMM core (``csrc/gemm_sm90.cuh``,
+``vt_mlp_fwd_wgmma`` / ``vt_mlp_bwd_wgmma``), its (rows, I) intermediates
+through device memory; fp32, post-LN and int8-weight blocks on the 32-row
+``wmma`` walk (``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``,
+``vt_mlp_fwd_q8``, ``vt_mlp_bwd``), which keeps them on chip.
+
   * :func:`fused_mlp_block_fwd` (pre-LN, the ViLT layers):
     ``x + m * (act(LN(x) W1 + b1) W2 + b2)``; replaces the JAX package's
     ``fused_mlp_block_fwd`` (``vault_tpu/ops/pallas_mlp.py``).
@@ -73,12 +82,29 @@ _SIGNATURES = {
     "vt_mlp_fwd_q8": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float]
                       + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "vt_mlp_fwd_wgmma": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                         + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "vt_mlp_wgmma_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
 }
 _BWD_SIGNATURES = {
     "vt_mlp_bwd": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_bwd_workspace": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    "vt_mlp_bwd_wgmma": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                         + [ctypes.c_void_p], ctypes.c_int),
+    "vt_mlp_bwd_wgmma_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
 }
+
+
+def mlp_route(dtype: torch.dtype, postln: bool) -> str:
+    """Which design runs a block with weights in x's dtype on the card,
+    forward and backward: "wgmma" (the ``*_wgmma`` C entries) for the bf16
+    pre-LN block; "walk" (``mlp_main`` / ``mlp_bwd_walk``) for fp32 and
+    post-LN blocks.  The wrappers launch the entries it names; int8-weight
+    blocks have only the walk (``vt_mlp_fwd_q8``)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"mlp_route: dtype {dtype} not supported (bfloat16 or float32)")
+    return "wgmma" if dtype == torch.bfloat16 and not postln else "walk"
 
 
 def _mlp_block_plain(ln_p, p_in, p_out, x, eps, act, m=None):
@@ -134,15 +160,22 @@ def _launch(postln, gamma, beta, w1, b1, w2, b2, x, m, eps, act):
     rows = x.numel() // h
     lib = _build.load("mlp", _SIGNATURES)
     out = torch.empty_like(x)
-    # fp32 partial sums of the I splits (the kernel picks the split count)
-    ws = torch.empty(lib.vt_mlp_workspace(rows, h, i), dtype=torch.float32,
-                     device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.vt_mlp_fwd(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                          w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                          b2.data_ptr(), None if m is None else m.data_ptr(),
-                          out.data_ptr(), ws.data_ptr(), rows, h, i, float(eps),
-                          _ACTS[act], int(postln), _DTYPES[x.dtype], stream)
+    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            None if m is None else m.data_ptr(), out.data_ptr())
+    # the route's scratch, sized by the C side: LN(x) and the activation
+    # (wgmma), or the fp32 partial sums of the I splits (walk)
+    if mlp_route(x.dtype, postln) == "wgmma":
+        ws = torch.empty(lib.vt_mlp_wgmma_workspace(rows, h, i), dtype=torch.float32,
+                         device=x.device)
+        code = lib.vt_mlp_fwd_wgmma(*ptrs, ws.data_ptr(), rows, h, i, float(eps),
+                                    _ACTS[act], stream)
+    else:
+        ws = torch.empty(lib.vt_mlp_workspace(rows, h, i), dtype=torch.float32,
+                         device=x.device)
+        code = lib.vt_mlp_fwd(*ptrs, ws.data_ptr(), rows, h, i, float(eps), _ACTS[act],
+                              int(postln), _DTYPES[x.dtype], stream)
     _build.check(lib, code, what)
     return out
 
@@ -266,16 +299,24 @@ def _launch_bwd(postln, gamma, beta, w1, b1, w2, b2, x, g, m, eps):
     yds = torch.empty((rows, h), dtype=dt, device=dev)  # y, or ds post-LN
     dgamma = torch.empty(h, dtype=torch.float32, device=dev)
     dbeta = torch.empty(h, dtype=torch.float32, device=dev)
-    ws = torch.empty(lib.vt_mlp_bwd_workspace(rows, h, i, _DTYPES[dt],
-                                              int(postln)),
-                     dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.vt_mlp_bwd(
-        x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        None if m is None else m.data_ptr(), dx.data_ptr(), dh1.data_ptr(),
-        a.data_ptr(), yds.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        ws.data_ptr(), rows, h, i, float(eps), int(postln), _DTYPES[dt], stream)
+    mask = None if m is None else m.data_ptr()
+    outs = (dx.data_ptr(), dh1.data_ptr(), a.data_ptr(), yds.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr())
+    if mlp_route(dt, postln) == "wgmma":
+        ws = torch.empty(lib.vt_mlp_bwd_wgmma_workspace(rows, h, i), dtype=torch.float32,
+                         device=dev)
+        code = lib.vt_mlp_bwd_wgmma(
+            x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), mask, *outs, ws.data_ptr(), rows, h, i,
+            float(eps), stream)
+    else:
+        ws = torch.empty(lib.vt_mlp_bwd_workspace(rows, h, i, _DTYPES[dt], int(postln)),
+                         dtype=torch.float32, device=dev)
+        code = lib.vt_mlp_bwd(
+            x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), mask, *outs, ws.data_ptr(), rows,
+            h, i, float(eps), int(postln), _DTYPES[dt], stream)
     _build.check(lib, code, what)
     return dx, dh1, a, yds, dgamma, dbeta
 
