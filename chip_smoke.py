@@ -87,8 +87,20 @@ BWD_LN_LIMIT = 1e-3
 # differ by fp32 rounding, far below one bf16 ulp (2^-8) of the output:
 # 1e-4 of max(1, max|plain|).
 GEMM_CORE_LIMIT = 1e-4
-# Device kernels that show which design ran a block (``cuda_mlp.mlp_route``).
-ROUTE_KERNELS = {"wgmma": ("gemm_kernel", "ln_rows_bf16"), "walk": ("mlp_main",)}
+# Device kernels that show which design ran a block (``cuda_mlp.mlp_route``):
+# on the wgmma core the GEMM core's products and the block's row passes, on
+# the walk mlp_main.
+ROUTE_KERNELS = {
+    ("mlp_block", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
+    ("mlp_postln", "wgmma"): ("gemm_kernel", "mlp_epilogue"),
+    ("mlp_block_bwd", "wgmma"): ("gemm_kernel", "ln_rows_bf16", "mlp_bwd_preln_rows"),
+    ("mlp_postln_bwd", "wgmma"): ("gemm_kernel", "mlp_bwd_postln_rows", "mlp_bwd_postln_dx"),
+    **{(name, "walk"): ("mlp_main",) for name in ("mlp_block", "mlp_postln", "mlp_postln_bwd")},
+    ("mlp_block_bwd", "walk"): ("mlp_bwd_walk",),
+}
+# The second geometries the bf16 blocks are checked at (the wgmma core's
+# width contract): BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
+OTHER_WIDTHS = ((1024, 4096), (512, 2048))
 # One training step, kernel path vs plain path (same parameters, batch and
 # generator seed): per parameter leaf ||g_kernel - g_plain|| / ||g_plain||,
 # and |loss difference|.  The paths round bf16 activations at different
@@ -254,9 +266,9 @@ def host_profile(fn, iters=3, top=10):
 # Kernel checks
 # ---------------------------------------------------------------------------
 
-def attention_case(gen, b, h, l, dtype, dev, fused):
-    """q, k, v (B, H, L, 64) and a key-padding bias.  ``fused``: the heads
-    are views into one (B, L, 3 H 64) projection, as the main path's fused
+def attention_case(gen, b, h, l, dtype, dev, fused, d=64):
+    """q, k, v (B, H, L, D) and a key-padding bias.  ``fused``: the heads
+    are views into one (B, L, 3 H D) projection, as the main path's fused
     QKV product hands them to the kernel."""
     import torch
 
@@ -264,10 +276,10 @@ def attention_case(gen, b, h, l, dtype, dev, fused):
     from vault_tpu_torch.ops.masks import extend_attention_mask
 
     if fused:
-        qkv = torch.randn((b, l, 3 * h * 64), generator=gen, device=dev).to(dtype)
+        qkv = torch.randn((b, l, 3 * h * d), generator=gen, device=dev).to(dtype)
         q, k, v = (split_heads(t, h) for t in torch.chunk(qkv, 3, dim=-1))
     else:
-        q, k, v = (torch.randn((b, h, l, 64), generator=gen, device=dev).to(dtype)
+        q, k, v = (torch.randn((b, h, l, d), generator=gen, device=dev).to(dtype)
                    for _ in range(3))
     lens = torch.randint(max(1, l // 2), l + 1, (b,), generator=gen, device=dev)
     mask = (torch.arange(l, device=dev)[None] < lens[:, None]).to(torch.int32)
@@ -281,21 +293,30 @@ def check_attention(gen, dev):
     from vault_tpu_torch.ops import cuda_attention as ca
 
     rows = []
-    for b, h, l, dtype in ((8, 12, 40, torch.bfloat16),
-                           (8, 12, 256, torch.bfloat16),
-                           (2, 3, 77, torch.float32)):
+    # the main path's two shapes (timed), fp32, and the other head dims the
+    # kernel takes (BERT-small 32, 96, 128) at the joint length
+    for b, h, l, dtype, d in ((8, 12, 40, torch.bfloat16, 64),
+                              (8, 12, 256, torch.bfloat16, 64),
+                              (2, 3, 77, torch.float32, 64),
+                              *((8, 12, 256, torch.bfloat16, d) for d in (32, 96, 128)),
+                              (2, 3, 77, torch.float32, 128)):
         q, k, v, bias = attention_case(gen, b, h, l, dtype, dev,
-                                       fused=dtype == torch.bfloat16)
-        out = ca.fused_attention(q, k, v, bias)
+                                       fused=dtype == torch.bfloat16, d=d)
+        out, again = ca.fused_attention(q, k, v, bias), ca.fused_attention(q, k, v, bias)
         ref = ca.attention_plain(q, k, v, bias)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         limit = LIMITS[str(dtype).split(".")[-1]]
         if not math.isfinite(err) or err > limit:
-            fail(f"attention {(b, h, l)} {dtype}: max |kernel - plain| {err} > {limit}")
-        row = dict(kernel="encoder_attention", shape=[b, h, l, 64],
-                   dtype=str(dtype).split(".")[-1], max_abs_err=err, limit=limit)
-        if dtype == torch.bfloat16:
+            fail(f"attention {(b, h, l, d)} {dtype}: max |kernel - plain| {err} > {limit}")
+        if not torch.equal(out, again):
+            fail(f"attention {(b, h, l, d)} {dtype}: two launches differ")
+        row = dict(kernel="encoder_attention", shape=[b, h, l, d],
+                   dtype=str(dtype).split(".")[-1], max_abs_err=err, limit=limit,
+                   bit_equal_repeat=True)
+        if d != 64:
+            row["path"] = "other"
+        if dtype == torch.bfloat16 and d == 64:
             allowed = bias > -1.0  # True where a key is attended
             timed(lambda: ca.fused_attention(q, k, v, bias), "", row)
             timed(lambda: ca.attention_plain(q, k, v, bias), "plain_", row)
@@ -328,6 +349,10 @@ def mlp_operands(gen, rows, dtype, dev, with_mask, h=768, i=3072):
 
 
 def check_mlp(gen, dev, postln: bool):
+    """The forward block kernel against its plain version at the serving
+    and training rows (timed there, beside its bound and the library call),
+    at ragged rows, fp32, and at the second widths (``OTHER_WIDTHS``); two
+    launches bit-equal (split-K included)."""
     import torch
     import torch.nn.functional as F
 
@@ -340,32 +365,38 @@ def check_mlp(gen, dev, postln: bool):
     # the training step's rows (batch 32; BERT's blocks carry the mask)
     train_rows = TRAIN_BATCH * (40 if postln else 256)
     rows_out = []
-    cases = [(main_rows, torch.bfloat16, False), (main_rows, torch.bfloat16, True),
-             (train_rows, torch.bfloat16, postln), (77, torch.float32, True)]
-    if not postln:  # the wgmma route: ragged tiles and both mask settings
-        cases += [(train_rows, torch.bfloat16, True)] + [
-            (rows, torch.bfloat16, mask) for rows in (37, 77) for mask in (False, True)]
-    for rows, dtype, with_mask in cases:
-        x, o, m = mlp_operands(gen, rows, dtype, dev, with_mask)
+    bf, h0, i0 = torch.bfloat16, 768, 3072
+    cases = [(main_rows, bf, False, h0, i0), (main_rows, bf, True, h0, i0),
+             (train_rows, bf, postln, h0, i0), (77, torch.float32, True, h0, i0)]
+    # the wgmma route: ragged tiles and both mask settings, the other widths
+    cases += [(train_rows, bf, not postln, h0, i0)] + [
+        (rows, bf, mask, h0, i0) for rows in (37, 77) for mask in (False, True)] + [
+        (rows, bf, True, h, i) for h, i in OTHER_WIDTHS for rows in (77, main_rows)]
+    for rows, dtype, with_mask, h, i in cases:
+        x, o, m = mlp_operands(gen, rows, dtype, dev, with_mask, h=h, i=i)
         ln_p = {"scale": o["gamma"], "bias": o["beta"]}
         p_in = {"w": o["w1"], "b": o["b1"]}
         p_out = {"w": o["w2"], "b": o["b2"]}
         run = lambda: kernel(o["gamma"], o["beta"], o["w1"], o["b1"], o["w2"],
                              o["b2"], x, m, eps=1e-12)
         ref_fn = lambda: plain(ln_p, p_in, p_out, x, 1e-12, "gelu", m)
-        out, ref = run(), ref_fn()
+        out, again, ref = run(), run(), ref_fn()
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         limit = LIMITS[str(dtype).split(".")[-1]]
         if not math.isfinite(err) or err > limit:
-            fail(f"{name} rows={rows} {dtype} mask={with_mask}: "
+            fail(f"{name} rows={rows} {dtype} mask={with_mask} H={h} I={i}: "
                  f"max |kernel - plain| {err} > {limit}")
-        route = cm.mlp_route(dtype, postln)
-        row = dict(kernel=name, rows=rows, dtype=str(dtype).split(".")[-1],
-                   mask=with_mask, max_abs_err=err, limit=limit, route=route,
-                   path="train" if rows == train_rows else (
-                       "forward" if rows == main_rows else "other"))
-        if dtype == torch.bfloat16 and rows in (main_rows, train_rows) and (
+        if not torch.equal(out, again):
+            fail(f"{name} rows={rows} {dtype} mask={with_mask} H={h} I={i}: two launches differ")
+        route = cm.mlp_route(dtype)
+        row = dict(kernel=name, rows=rows, hidden=h, intermediate=i,
+                   dtype=str(dtype).split(".")[-1], mask=with_mask, max_abs_err=err,
+                   limit=limit, bit_equal_repeat=True, route=route,
+                   path="other" if (h, i) != (h0, i0) else (
+                       "train" if rows == train_rows else (
+                           "forward" if rows == main_rows else "other")))
+        if dtype == bf and (h, i) == (h0, i0) and rows in (main_rows, train_rows) and (
                 rows == train_rows and with_mask == postln or not with_mask):
             w1t, w2t = o["w1"].t().contiguous(), o["w2"].t().contiguous()
             g, bt, b1, b2 = o["gamma"], o["beta"], o["b1"], o["b2"]
@@ -373,10 +404,10 @@ def check_mlp(gen, dev, postln: bool):
             if postln:
                 lib = lambda: F.layer_norm(
                     x + masked(F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2)),
-                    (768,), g, bt, 1e-12)
+                    (h,), g, bt, 1e-12)
             else:
                 lib = lambda: x + masked(F.linear(F.gelu(F.linear(
-                    F.layer_norm(x, (768,), g, bt, 1e-12), w1t, b1)), w2t, b2))
+                    F.layer_norm(x, (h,), g, bt, 1e-12), w1t, b1)), w2t, b2))
             timed(run, "", row)
             timed(ref_fn, "plain_", row)
             timed(lib, "library_", row)
@@ -386,11 +417,11 @@ def check_mlp(gen, dev, postln: bool):
                 row["relu_epilogue_ms"], _ = device_ms(lambda: kernel(
                     o["gamma"], o["beta"], o["w1"], o["b1"], o["w2"], o["b2"], x, m,
                     eps=1e-12, act="relu"))
-            h, i = 768, 3072
             flops = 4.0 * rows * h * i
             nbytes = ((2 + (1 if with_mask else 0)) * rows * h + 2 * h * i
                       + 3 * h + i) * x.element_size()
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             check_route(name, row)
         emit(phase="kernel_check", **row)
         rows_out.append(row)
@@ -399,7 +430,7 @@ def check_mlp(gen, dev, postln: bool):
 
 def check_route(name, row):
     """The timed run went through the kernels of the block's route."""
-    want = ROUTE_KERNELS[row["route"]]
+    want = ROUTE_KERNELS[(name, row["route"])]
     ran = row["device_kernels"]
     if not all(any(k in n for n in ran) for k in want):
         fail(f"{name} rows={row['rows']}: route {row['route']} should run {want}, ran "
@@ -464,6 +495,57 @@ def check_gemm_core(gen, dev):
     return rows_out
 
 
+def check_postln_tiles(gen, dev):
+    """The tile shapes tried for the post-LN block's two products, on the
+    core alone (``cuda_gemm``) at the BERT rows of a batch-8 forward (320)
+    and of a training step (1,280): x W1 (N-contiguous, K = 768) 64, 128 and
+    192 wide, and a W2 (K = 3,072) 128 and 192 wide, unsplit and split 2, 4,
+    7 and 8 ways.  Each against matmul_fp32 (``GEMM_CORE_LIMIT``; split: the
+    slices' sum) and timed beside its bound; the split count the block
+    itself takes is read off its workspace (``vt_mlp_wgmma_workspace``)."""
+    import torch
+
+    from vault_tpu_torch.ops import _build
+    from vault_tpu_torch.ops import cuda_gemm as cg
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    h, i = 768, 3072
+    rnd = lambda *shape, std=1.0: (torch.randn(shape, generator=gen, device=dev)
+                                   * std).to(torch.bfloat16)
+    w1, w2 = rnd(h, i, std=0.02), rnd(i, h, std=0.02)
+    lib = _build.load("mlp", cm._SIGNATURES)
+    rows_out = []
+    for rows in (320, 1280):
+        x, a = rnd(rows, h), rnd(rows, i)
+        ws = lib.vt_mlp_wgmma_workspace(rows, h, i, 1)
+        picked = (ws - (rows * i + 1) // 2) // (rows * h)
+        cases = [("x_w1", x, w1, bn, 1) for bn in (64, 128, 192)] + [
+            ("a_w2", a, w2, bn, sp) for bn in (128, 192) for sp in (1, 2, 4, 7, 8)]
+        for product, lhs, rhs, bn, splits in cases:
+            run = (lambda: cg.gemm_bf16(lhs, rhs, tile_width=bn)) if splits == 1 else (
+                lambda: cg.gemm_bf16_split_k(lhs, rhs, splits, tile_width=bn))
+            out, ref = run(), cg.gemm_plain(lhs, rhs)
+            torch.cuda.synchronize()
+            whole = out if splits == 1 else out.sum(0)
+            err = (whole - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+            if not math.isfinite(err) or err > GEMM_CORE_LIMIT:
+                fail(f"post-LN tiles {product} rows={rows} bn={bn} splits={splits}: "
+                     f"|kernel - plain| / scale {err} > {GEMM_CORE_LIMIT}")
+            m_, k_ = lhs.shape
+            n_ = rhs.shape[1]
+            row = dict(kernel="postln_tiles", product=product, rows=rows, n=n_, k=k_,
+                       tile_width=bn, splits=splits, block_splits=picked, rel_err=err,
+                       limit=GEMM_CORE_LIMIT)
+            row["ms"], row["device_kernels"] = device_ms(run)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                2.0 * m_ * n_ * k_, 2.0 * (m_ * k_ + k_ * n_) + 4.0 * splits * m_ * n_,
+                torch.bfloat16)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            emit(phase="kernel_check", **row)
+            rows_out.append(row)
+    return rows_out
+
+
 BWD_NAMES = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2", "dx")
 
 
@@ -485,14 +567,16 @@ def check_mlp_bwd(gen, dev, postln: bool):
     plain = cm.mlp_postln_bwd_plain if postln else cm.mlp_block_bwd_plain
     main_rows = TRAIN_BATCH * (40 if postln else 256)
     rows_out = []
-    # the main path: BERT's blocks carry the dropout mask, ViLT's none
-    cases = [(main_rows, torch.bfloat16, postln), (main_rows, torch.bfloat16, not postln),
-             (77, torch.float32, True)]
-    if not postln:  # the wgmma route's ragged tiles
-        cases += [(77, torch.bfloat16, True), (2048 + 5, torch.bfloat16, False)]
-    for rows, dtype, with_mask in cases:
-        x, o, m = mlp_operands(gen, rows, dtype, dev, with_mask)
-        g = torch.randn((rows, 768), generator=gen, device=dev).to(dtype)
+    bf, h0, i0 = torch.bfloat16, 768, 3072
+    # the main path: BERT's blocks carry the dropout mask, ViLT's none; then
+    # fp32, the wgmma route's ragged tiles and the other widths
+    cases = [(main_rows, bf, postln, h0, i0), (main_rows, bf, not postln, h0, i0),
+             (77, torch.float32, True, h0, i0), (77, bf, True, h0, i0),
+             (37, bf, False, h0, i0), (2048 + 5, bf, False, h0, i0)] + [
+        (rows, bf, True, h, i) for h, i in OTHER_WIDTHS for rows in (77, 1280)]
+    for rows, dtype, with_mask, h, i in cases:
+        x, o, m = mlp_operands(gen, rows, dtype, dev, with_mask, h=h, i=i)
+        g = torch.randn((rows, h), generator=gen, device=dev).to(dtype)
         args = (o["gamma"], o["beta"], o["w1"], o["b1"], o["w2"], o["b2"], x, g, m)
         dt = str(dtype).split(".")[-1]
         out, ref, again = wrapper(*args), plain(*args), wrapper(*args)
@@ -512,18 +596,20 @@ def check_mlp_bwd(gen, dev, postln: bool):
         bad = {n: e for n, e in errs.items() if not math.isfinite(e) or e > (
             BWD_LN_LIMIT if n.endswith("_f32") and dtype == torch.bfloat16 else limit)}
         if bad:
-            fail(f"{name} rows={rows} {dtype} mask={with_mask}: |kernel - plain| "
-                 f"/ scale {bad} over the limit {limit} (LN sums {BWD_LN_LIMIT})")
+            fail(f"{name} rows={rows} {dtype} mask={with_mask} H={h} I={i}: |kernel - "
+                 f"plain| / scale {bad} over the limit {limit} (LN sums {BWD_LN_LIMIT})")
         same = all(torch.equal(a, b) for a, b in zip(out, again))
         if not same:
-            fail(f"{name} rows={rows} {dtype}: two launches differ")
-        row = dict(kernel=name, rows=rows, dtype=dt, mask=with_mask,
-                   route=cm.mlp_route(dtype, postln),
+            fail(f"{name} rows={rows} {dtype} H={h} I={i}: two launches differ")
+        row = dict(kernel=name, rows=rows, hidden=h, intermediate=i, dtype=dt, mask=with_mask,
+                   route=cm.mlp_route(dtype),
                    rel_err_by_output=errs, limit=limit, ln_sum_limit=BWD_LN_LIMIT,
                    max_abs_err=max((a.float() - b.float()).abs().max().item()
                                    for a, b in zip(out, ref)),
                    bit_equal_repeat=same)
-        if dtype == torch.bfloat16 and with_mask == postln and rows == main_rows:
+        if (h, i) != (h0, i0):
+            row["path"] = "other"
+        if dtype == bf and with_mask == postln and rows == main_rows and (h, i) == (h0, i0):
             timed(lambda: cm._launch_bwd(postln, *args, 1e-12), "", row)
             check_route(name, row)
             row["wrapper_ms"], _ = device_ms(lambda: wrapper(*args))
@@ -554,6 +640,7 @@ def check_mlp_bwd(gen, dev, postln: bool):
             row["bound_ms"], row["bound_by"] = bound_ms(
                 2.0 * products * rows * h * i, nbytes, dtype)
             row["products_in_bound"] = products
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             # the wrapper adds dW1 and dW2 (two products) and reads dh1, a
             row["wrapper_bound_ms"], _ = bound_ms(
                 2.0 * (products + 2) * rows * h * i, nbytes + 4 * h * i * esz, dtype)
@@ -645,10 +732,14 @@ def check_int8_family(gen, dev, name):
     mod = cl if name.startswith("ln_qkv") else cm
     wrapper, plain = getattr(mod, wrapper_name), getattr(mod, plain_name)
     rows_out = []
-    for rows, dtype in ((main_rows, torch.bfloat16), (77, torch.float32)):
+    cases = [(main_rows, torch.bfloat16, {}), (77, torch.float32, {})]
+    if name.startswith("mlp_"):  # the other activations the MLP blocks take
+        cases += [(rows, dtype, {"act": act}) for act in ("gelu_new", "relu")
+                  for rows, dtype in ((main_rows, torch.bfloat16), (77, torch.float32))]
+    for rows, dtype, kw in cases:
         o = int8_operands(gen, rows, dtype, dev)
         args = [o[k] for k in names]
-        out, again, ref = wrapper(*args), wrapper(*args), plain(*args)
+        out, again, ref = wrapper(*args, **kw), wrapper(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
         dt = str(dtype).split(".")[-1]
         err = (out.float() - ref.float()).abs().max().item()
@@ -659,12 +750,13 @@ def check_int8_family(gen, dev, name):
         else:
             limit = LIMITS[dt]
         if not math.isfinite(err) or err > limit:
-            fail(f"{name} rows={rows} {dtype}: max |kernel - plain| {err} > {limit}")
+            fail(f"{name} rows={rows} {dtype} {kw}: max |kernel - plain| {err} > {limit}")
         if not torch.equal(out, again):
-            fail(f"{name} rows={rows} {dtype}: two launches differ")
+            fail(f"{name} rows={rows} {dtype} {kw}: two launches differ")
         row = dict(kernel=name, rows=rows, dtype=dt, max_abs_err=err, limit=limit,
-                   bit_equal_repeat=True, path="forward")
-        if dtype == torch.bfloat16:
+                   bit_equal_repeat=True, path="other" if kw else "forward",
+                   act=kw.get("act", "gelu"))
+        if dtype == torch.bfloat16 and not kw:
             x, g, bt, eps = o["x"], o["gamma"], o["beta"], 1e-12
             ln = lambda t: F.layer_norm(t, (768,), g, bt, eps)
             if name == "ln_qkv":
@@ -734,28 +826,29 @@ def gqa_case(gen, b, h, g, l, d, dtype, dev):
 def check_attention_gqa(gen, dev):
     """The GQA kernel against its plain version: the tower's shape (16, 32
     heads on 8, 40, 128) with a padded batch, once with one query head per
-    K/V head (rep = 1), and ragged fp32."""
+    K/V head (rep = 1), ragged fp32, and the other head dims (32, 64, 96)."""
     import torch
     import torch.nn.functional as F
 
     from vault_tpu_torch.ops import cuda_attention as ca
 
     rows = []
-    for b, h, g, l, dtype in ((16, 32, 8, 40, torch.bfloat16),
-                              (4, 8, 8, 40, torch.bfloat16),
-                              (3, 8, 2, 77, torch.float32)):
-        q, k, v, bias = gqa_case(gen, b, h, g, l, 128, dtype, dev)
+    for b, h, g, l, dtype, d in ((16, 32, 8, 40, torch.bfloat16, 128),
+                                 (4, 8, 8, 40, torch.bfloat16, 128),
+                                 (3, 8, 2, 77, torch.float32, 128),
+                                 *((4, 8, 2, 77, torch.bfloat16, d) for d in (32, 64, 96))):
+        q, k, v, bias = gqa_case(gen, b, h, g, l, d, dtype, dev)
         out, again = ca.fused_attention_gqa(q, k, v, bias), ca.fused_attention_gqa(q, k, v, bias)
         ref = ca.attention_gqa_plain(q, k, v, bias)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         dt = str(dtype).split(".")[-1]
         if not math.isfinite(err) or err > LIMITS[dt]:
-            fail(f"attention_gqa {(b, h, g, l)} {dtype}: max |kernel - plain| {err} > "
+            fail(f"attention_gqa {(b, h, g, l, d)} {dtype}: max |kernel - plain| {err} > "
                  f"{LIMITS[dt]}")
         if not torch.equal(out, again):
-            fail(f"attention_gqa {(b, h, g, l)} {dtype}: two launches differ")
-        row = dict(kernel="attention_gqa", shape=[b, h, l, 128], kv_heads=g, dtype=dt,
+            fail(f"attention_gqa {(b, h, g, l, d)} {dtype}: two launches differ")
+        row = dict(kernel="attention_gqa", shape=[b, h, l, d], kv_heads=g, dtype=dt,
                    max_abs_err=err, limit=LIMITS[dt], bit_equal_repeat=True,
                    path="forward" if (b, h, g) == (16, 32, 8) else "other")
         if row["path"] == "forward":
@@ -1638,6 +1731,7 @@ def main():
     checks, path_counts = {}, {}
     if "kernels" in phases:
         check_gemm_core(gen, dev)
+        check_postln_tiles(gen, dev)
         checks["encoder_attention"] = check_attention(gen, dev)
         checks["mlp_block"] = check_mlp(gen, dev, postln=False)
         checks["mlp_postln"] = check_mlp(gen, dev, postln=True)

@@ -29,17 +29,18 @@ def dev():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("l", [1, 40, 77, 256, 300])
 @pytest.mark.parametrize("fused", [False, True])
-def test_attention_kernel_matches_plain(dev, dtype, l, fused):
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_attention_kernel_matches_plain(dev, dtype, l, fused, d):
     from vault_tpu_torch.ops import cuda_attention as ca
     from vault_tpu_torch.ops.attention import split_heads
     from vault_tpu_torch.ops.masks import extend_attention_mask
 
     g = torch.Generator(device=dev).manual_seed(l)
     if fused:  # head views into one (B, L, 3 H D) projection
-        qkv = torch.randn((3, l, 3 * 4 * 64), generator=g, device=dev).to(dtype)
+        qkv = torch.randn((3, l, 3 * 4 * d), generator=g, device=dev).to(dtype)
         q, k, v = (split_heads(t, 4) for t in torch.chunk(qkv, 3, dim=-1))
     else:
-        q, k, v = (torch.randn((3, 4, l, 64), generator=g, device=dev).to(dtype)
+        q, k, v = (torch.randn((3, 4, l, d), generator=g, device=dev).to(dtype)
                    for _ in range(3))
     mask = torch.ones((3, l), dtype=torch.int32, device=dev)
     mask[1, (l + 1) // 2:] = 0
@@ -53,8 +54,9 @@ def test_attention_kernel_matches_plain(dev, dtype, l, fused):
 
 
 # Row counts at the edges of the tiles: 32-row walk tiles, 128-row wgmma
-# tiles (1, 77, 130, 2,048 + 5), and the training rows.
-MLP_ROWS = [37, 1, 77, 130, 2048 + 5, 8192]
+# tiles (1, 77, 130, 2,048 + 5), the serving and training rows of the BERT
+# blocks (320, 1,280) and of the ViLT blocks (8,192).
+MLP_ROWS = [37, 1, 77, 130, 320, 1280, 2048 + 5, 8192]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -91,7 +93,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     from vault_tpu_torch.ops import cuda_attention as ca
     from vault_tpu_torch.ops import cuda_mlp as cm
 
-    q = torch.zeros((1, 2, 8, 32), device=dev)
+    q = torch.zeros((1, 2, 8, 48), device=dev)  # head dim 48: not 32, 64, 96, 128
     with pytest.raises(ValueError):
         ca.fused_attention(q, q, q, torch.zeros((1, 1, 1, 8), device=dev))
     x = torch.zeros((4, 32), device=dev)
@@ -237,6 +239,65 @@ def test_gradients_flow_through_the_forward_kernels(dev, postln, with_mask):
     assert (cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd).launches == n + 1
     torch.cuda.synchronize()
     _assert_close_scaled(grads[0], grads[1], torch.bfloat16)
+
+
+# The post-LN block on the wgmma core at the main path's rows (the BERT
+# layers: 320 at batch 8, 1,280 with a mask at batch 32) and ragged ones,
+# at BERT-base's widths; two launches give the same bits (split-K slices
+# are added in a fixed order, no float atomics).
+@pytest.mark.parametrize("rows,with_mask", [(320, False), (320, True), (1280, True),
+                                            (77, True), (37, False)])
+def test_postln_block_on_the_core_at_the_main_rows(dev, rows, with_mask):
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    o = _mlp_operands(dev, rows, torch.bfloat16, with_mask)
+    args = [o[k] for k in _ARGS]
+    fwd_args = args[:7] + [args[8]]
+    n = cm.fused_mlp_postln_fwd.launches, cm.fused_mlp_postln_block_bwd.launches
+    out, again = cm.fused_mlp_postln_fwd(*fwd_args), cm.fused_mlp_postln_fwd(*fwd_args)
+    ref = cm._mlp_postln_plain({"scale": o["gamma"], "bias": o["beta"]},
+                               {"w": o["w1"], "b": o["b1"]}, {"w": o["w2"], "b": o["b2"]},
+                               o["x"], 1e-12, "gelu", o["m"])
+    grads, grads_again = cm.fused_mlp_postln_block_bwd(*args), cm.fused_mlp_postln_block_bwd(*args)
+    torch.cuda.synchronize()
+    assert (cm.fused_mlp_postln_fwd.launches, cm.fused_mlp_postln_block_bwd.launches) == (
+        n[0] + 2, n[1] + 2)
+    assert (out.float() - ref.float()).abs().max().item() <= LIMITS[torch.bfloat16]
+    assert torch.equal(out, again)
+    _assert_close_scaled(grads, cm.mlp_postln_bwd_plain(*args), torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_again))
+
+
+# Second geometries of the bf16 blocks (the wgmma core's width contract):
+# BERT-large (H 1,024, I 4,096), H 512 / I 2,048, the smallest (64, 64) and
+# an I that is a multiple of 64 but not of 128.
+@pytest.mark.parametrize("h,i", [(1024, 4096), (512, 2048), (64, 64), (768, 1088)])
+@pytest.mark.parametrize("postln", [False, True])
+@pytest.mark.parametrize("rows", [77, 320])
+def test_bf16_blocks_at_other_widths(dev, h, i, postln, rows):
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    g = torch.Generator(device=dev).manual_seed(h + i + rows)
+    rnd = lambda *s, std=1.0, mean=0.0: (torch.randn(s, generator=g, device=dev) * std
+                                         + mean).to(torch.bfloat16)
+    o = dict(gamma=rnd(h, std=0.1, mean=1.0), beta=rnd(h, std=0.1), w1=rnd(h, i, std=0.02),
+             b1=rnd(i, std=0.02), w2=rnd(i, h, std=0.02), b2=rnd(h, std=0.02), x=rnd(rows, h),
+             g=rnd(rows, h))
+    o["m"] = torch.where(torch.rand((rows, h), generator=g, device=dev) < 0.9, 1 / 0.9,
+                         0.0).to(torch.bfloat16)
+    args = [o[k] for k in _ARGS]
+    kernel = cm.fused_mlp_postln_fwd if postln else cm.fused_mlp_block_fwd
+    plain = cm._mlp_postln_plain if postln else cm._mlp_block_plain
+    out = kernel(*args[:7], o["m"])
+    ref = plain({"scale": o["gamma"], "bias": o["beta"]}, {"w": o["w1"], "b": o["b1"]},
+                {"w": o["w2"], "b": o["b2"]}, o["x"], 1e-12, "gelu", o["m"])
+    bwd = cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd
+    bwd_plain = cm.mlp_postln_bwd_plain if postln else cm.mlp_block_bwd_plain
+    grads, grads_again = bwd(*args), bwd(*args)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= LIMITS[torch.bfloat16]
+    _assert_close_scaled(grads, bwd_plain(*args), torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_again))
 
 
 # The wgmma core alone: fp32 sums of the same exact bf16 products in other
@@ -424,7 +485,8 @@ def test_ln_qkv_kernels_match_plain(dev, dtype, rows):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rows", [1, 77, 320, 2048])
 @pytest.mark.parametrize("postln", [False, True])
-def test_mlp_w8a8_kernels_match_plain(dev, dtype, rows, postln):
+@pytest.mark.parametrize("act", ["gelu", "gelu_new", "relu"])
+def test_mlp_w8a8_kernels_match_plain(dev, dtype, rows, postln, act):
     from vault_tpu_torch.ops import cuda_mlp as cm
 
     o = _int8_operands(dev, rows, dtype)
@@ -432,8 +494,8 @@ def test_mlp_w8a8_kernels_match_plain(dev, dtype, rows, postln):
     kernel = cm.fused_mlp_postln_fwd_w8a8 if postln else cm.fused_mlp_block_fwd_w8a8
     plain = cm.mlp_postln_w8a8_plain if postln else cm.mlp_block_w8a8_plain
     n = kernel.launches
-    out, again = kernel(*args), kernel(*args)
-    ref = plain(*args)
+    out, again = kernel(*args, act=act), kernel(*args, act=act)
+    ref = plain(*args, act=act)
     torch.cuda.synchronize()
     assert kernel.launches == n + 2
     assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
@@ -525,7 +587,7 @@ def _gqa_case(dev, b, h, g, l, d, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("l", [1, 40, 77, 300])
 @pytest.mark.parametrize("rep", [1, 4])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_attention_gqa_kernel_matches_plain(dev, dtype, l, rep, d):
     from vault_tpu_torch.ops import cuda_attention as ca
 
@@ -546,7 +608,7 @@ def test_attention_gqa_wrapper_rejects_and_differentiates(dev):
 
     q, k, v, bias = _gqa_case(dev, 3, 8, 2, 40, 128, torch.float32, seed=9)
     n = ca.fused_attention_gqa.launches
-    for bad in ((q[..., :32], k[..., :32], v[..., :32], bias),        # head dim 32
+    for bad in ((q[..., :48], k[..., :48], v[..., :48], bias),        # head dim 48
                 (q, k[:, :1].expand(3, 3, 40, 128), v, bias),          # 3 does not divide 8
                 (q, k, v, bias[:, :, :1]),                             # a key bias
                 (q, k, v, bias.to(torch.bfloat16)),
@@ -710,8 +772,8 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         for what, a in bad.items():
             with pytest.raises((ValueError, TypeError)):
                 fn(*a)
-        with pytest.raises(ValueError, match="GELU"):
-            fn(*args, act="relu")
+        with pytest.raises(ValueError, match="activation"):
+            fn(*args, act="swish")
     assert counts == (cm.fused_mlp_block_fwd_w8a8.launches,
                       cm.fused_mlp_postln_fwd_w8a8.launches)
     n = cl.fused_ln_qkv_fwd_w8a8.launches

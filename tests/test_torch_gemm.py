@@ -1,10 +1,13 @@
 """The Python side of the wgmma route of the MLP blocks, without a card:
 which design a block takes (``cuda_mlp.mlp_route``) and which C entries
-the wrappers launch for it, the GEMM core's plain versions (``cuda_gemm``)
-against numpy, and the wrappers refusing operands the kernels do not take
-(checked before the device, so here on the CPU) without counting a
-launch.  The kernels themselves are held against these plain versions on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+the wrappers launch for it, the GEMM core's plain versions (``cuda_gemm``,
+split-K included) against numpy, the width contract of each wrapper, and
+the wrappers refusing operands the kernels do not take (checked before the
+device, so here on the CPU) without counting a launch.  The kernels
+themselves are held against these plain versions on the card: the tests
+marked ``cuda`` here (the core's split-K) and in ``tests/test_torch_cuda.py``
+skip without a card and run there with ``python3 -m pytest --noconftest -m
+cuda tests/test_torch_gemm.py tests/test_torch_cuda.py``; ``chip_smoke.py``.
 """
 
 import types
@@ -17,21 +20,23 @@ from vault_tpu_torch.ops import cuda_gemm as cg
 from vault_tpu_torch.ops import cuda_mlp as cm
 
 
-@pytest.mark.parametrize("dtype,postln,route", [
+@pytest.mark.parametrize("dtype,int8_weights,route", [
     (torch.bfloat16, False, "wgmma"),
     (torch.bfloat16, True, "walk"),
     (torch.float32, False, "walk"),
     (torch.float32, True, "walk"),
 ])
-def test_mlp_route(dtype, postln, route):
-    """bf16 pre-LN blocks go to the wgmma core; fp32 and post-LN blocks stay
-    on the walk (int8-weight blocks: the q8 case of the test below)."""
-    assert cm.mlp_route(dtype, postln) == route
+def test_mlp_route(dtype, int8_weights, route):
+    """Every bf16 block with bf16 weights, pre-LN and post-LN alike, goes to
+    the wgmma core; fp32 blocks and int8 weights (the q8 blocks) stay on the
+    walk.  Which entries each wrapper launches, for both forms: the test
+    below."""
+    assert cm.mlp_route(dtype, int8_weights) == route
 
 
 def test_mlp_route_refuses_other_dtypes():
     with pytest.raises(TypeError):
-        cm.mlp_route(torch.float16, False)
+        cm.mlp_route(torch.float16)
 
 
 class _EntryRecorder:
@@ -50,11 +55,13 @@ class _EntryRecorder:
 
 @pytest.mark.parametrize("wrapper,dtype,postln,entry", [
     ("fwd", torch.bfloat16, False, "vt_mlp_fwd_wgmma"),
-    ("fwd", torch.bfloat16, True, "vt_mlp_fwd"),
+    ("fwd", torch.bfloat16, True, "vt_mlp_fwd_wgmma"),
     ("fwd", torch.float32, False, "vt_mlp_fwd"),
+    ("fwd", torch.float32, True, "vt_mlp_fwd"),
     ("bwd", torch.bfloat16, False, "vt_mlp_bwd_wgmma"),
-    ("bwd", torch.bfloat16, True, "vt_mlp_bwd"),
+    ("bwd", torch.bfloat16, True, "vt_mlp_bwd_wgmma"),
     ("bwd", torch.float32, False, "vt_mlp_bwd"),
+    ("bwd", torch.float32, True, "vt_mlp_bwd"),
     ("q8", torch.bfloat16, False, "vt_mlp_fwd_q8"),
     ("q8", torch.bfloat16, True, "vt_mlp_fwd_q8"),
 ])
@@ -188,3 +195,180 @@ def test_gemm_wrappers_refuse_shapes_the_core_does_not_take(bad):
         else:
             cg.gemm_dual_bf16(a, b, a.float(), b.t().contiguous())
     assert (cg.gemm_bf16.launches, cg.gemm_dual_bf16.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The width contract: each wrapper, given CPU tensors, raises its width error
+# before anything else when the width is outside its kernels' contract, and
+# otherwise gets as far as the device check ("the kernel takes CUDA
+# tensors"), so the contract shows without a card.
+# ---------------------------------------------------------------------------
+
+# (H, I) the wgmma core takes (bf16 blocks) and some it refuses: H a
+# multiple of 64 from 64 to 8,192, I a multiple of 64.
+CORE_WIDTHS = [(64, 64), (512, 2048), (768, 3072), (1024, 4096), (8192, 64)]
+CORE_REFUSED = [(32, 64), (96, 128), (8256, 64), (768, 96), (768, 0)]
+# the walk's (fp32 blocks, int8 weights) and the w8a8 kernels': H 768, I a
+# multiple of 128
+WALK_WIDTHS = [(768, 128), (768, 3072)]
+WALK_REFUSED = [(512, 2048), (1024, 4096), (768, 192)]
+
+
+def _block_args(dtype, h, i, rows=2):
+    z = lambda *shape: torch.zeros(shape, dtype=dtype)
+    return dict(gamma=z(h), beta=z(h), w1=z(h, i), b1=z(i), w2=z(i, h), b2=z(h),
+                x=z(rows, h), g=z(rows, h))
+
+
+def _call_fp(kind, postln, a):
+    if kind == "fwd":
+        fn = cm.fused_mlp_postln_fwd if postln else cm.fused_mlp_block_fwd
+        return fn, lambda: fn(*(a[k] for k in ("gamma", "beta", "w1", "b1", "w2", "b2", "x")))
+    fn = cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd
+    return fn, lambda: fn(*(a[k] for k in ("gamma", "beta", "w1", "b1", "w2", "b2", "x", "g")))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("postln", [False, True])
+@pytest.mark.parametrize("dtype,h,i,accepted", [
+    *[(torch.bfloat16, h, i, True) for h, i in CORE_WIDTHS],
+    *[(torch.bfloat16, h, i, False) for h, i in CORE_REFUSED],
+    *[(torch.float32, h, i, True) for h, i in WALK_WIDTHS],
+    *[(torch.float32, h, i, False) for h, i in WALK_REFUSED],
+])
+def test_mlp_wrappers_hold_their_width_contract(kind, postln, dtype, h, i, accepted):
+    fn, call = _call_fp(kind, postln, _block_args(dtype, h, i))
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA" if accepted else "hidden size"):
+        call()
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("family", ["q8", "w8a8"])
+@pytest.mark.parametrize("postln", [False, True])
+@pytest.mark.parametrize("h,i,accepted", [
+    *[(h, i, True) for h, i in WALK_WIDTHS], *[(h, i, False) for h, i in WALK_REFUSED]])
+def test_int8_mlp_wrappers_hold_their_width_contract(family, postln, h, i, accepted):
+    a = _block_args(torch.bfloat16, h, i)
+    fn = getattr(cm, f"fused_mlp_{'postln' if postln else 'block'}_fwd_{family}")
+    q = lambda t: t.to(torch.int8)
+    args = (a["gamma"], a["beta"], q(a["w1"]), torch.ones(i), a["b1"], q(a["w2"]),
+            torch.ones(h), a["b2"], a["x"])
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA" if accepted else "hidden size"):
+        fn(*args)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_new", "gelu_pytorch_tanh", "relu"])
+@pytest.mark.parametrize("postln", [False, True])
+def test_w8a8_wrappers_take_every_activation(postln, act):
+    """The w8a8 kernels take the activations of the fp and q8 blocks: a CPU
+    call gets past the activation to the device check."""
+    a = _block_args(torch.bfloat16, 768, 256)
+    fn = cm.fused_mlp_postln_fwd_w8a8 if postln else cm.fused_mlp_block_fwd_w8a8
+    q = lambda t: t.to(torch.int8)
+    args = (a["gamma"], a["beta"], q(a["w1"]), torch.ones(256), a["b1"], q(a["w2"]),
+            torch.ones(768), a["b2"], a["x"])
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args, act=act)
+    with pytest.raises(ValueError, match="activation"):
+        fn(*args, act="swish")
+
+
+@pytest.mark.parametrize("gqa", [False, True])
+@pytest.mark.parametrize("d,accepted", [(32, True), (64, True), (96, True), (128, True),
+                                        (16, False), (48, False), (80, False),
+                                        (256, False)])
+def test_attention_wrappers_hold_their_head_dim_contract(gqa, d, accepted):
+    """Both attention kernels take head dims 32, 64, 96 and 128: a CPU call
+    reaches the device check ("no kernel" for a CPU tensor) or raises the
+    head-dim error first."""
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    q = torch.zeros((1, 2, 5, d))
+    if gqa:
+        fn, bias = ca._gqa_kernel, torch.zeros((1, 1, 5, 5))
+        counter = ca.fused_attention_gqa
+    else:
+        fn, bias = ca._kernel, torch.zeros((1, 1, 1, 5))
+        counter = ca.fused_attention
+    before = counter.launches
+    with pytest.raises(ValueError, match="no kernel" if accepted else "with D in"):
+        fn(q, q, q, bias)
+    assert counter.launches == before
+    assert d in ca.HEAD_DIMS if accepted else d not in ca.HEAD_DIMS
+
+
+# ---------------------------------------------------------------------------
+# Split-K: the plain version here, the core on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,splits", [(64, 1), (3072, 7), (3072, 2), (768, 8), (192, 3)])
+def test_split_bounds_cover_k_in_order(k, splits):
+    bounds = cg.split_bounds(k, splits)
+    assert len(bounds) == splits and bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(k1 > k0 and k0 % 64 == 0 for k0, k1 in bounds)
+
+
+@pytest.mark.parametrize("k_contiguous", [False, True])
+@pytest.mark.parametrize("splits", [1, 3, 4])
+def test_gemm_split_k_plain_sums_to_the_product(k_contiguous, splits):
+    rng = np.random.default_rng(5)
+    a = _rnd(rng, 20, 256)
+    b = _rnd(rng, 48, 256, std=0.05) if k_contiguous else _rnd(rng, 256, 48, std=0.05)
+    slices = cg.gemm_split_k_plain(a, b, splits, k_contiguous)
+    assert slices.shape == (splits, 20, 48)
+    np.testing.assert_allclose(slices.sum(0).numpy(), cg.gemm_plain(a, b, k_contiguous).numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("splits", [0, 5])
+def test_gemm_split_k_wrapper_refuses_splits_past_k(splits):
+    rng = np.random.default_rng(6)
+    a, b = _rnd(rng, 16, 256).bfloat16(), _rnd(rng, 256, 64).bfloat16()
+    before = cg.gemm_bf16_split_k.launches
+    with pytest.raises(ValueError, match="splits"):
+        cg.gemm_bf16_split_k(a, b, splits)
+    assert cg.gemm_bf16_split_k.launches == before
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+# The core alone against matmul_fp32: fp32 sums of the same exact bf16
+# products in other orders, within 1e-4 of max(1, max|plain|).
+GEMM_CORE_LIMIT = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_contiguous", [False, True])
+@pytest.mark.parametrize("tile_width", [64, 128, 192])
+@pytest.mark.parametrize("rows,n,k,splits", [(320, 768, 3072, 7), (1280, 768, 3072, 2),
+                                             (77, 768, 3072, 8), (37, 512, 2048, 3),
+                                             (320, 3072, 768, 1)])
+def test_gemm_split_k_on_the_core(dev, k_contiguous, tile_width, rows, n, k, splits):
+    """Each split's slice against the plain product over its K range, and
+    the slices' sum against the core's S = 1 product, at the post-LN
+    blocks' shapes (a W2 and dh1 W1^T: K = I) and a ragged one."""
+    g = torch.Generator(device=dev).manual_seed(rows + splits)
+    rnd = lambda *s, std=1.0: (torch.randn(s, generator=g, device=dev) * std).to(torch.bfloat16)
+    a = rnd(rows, k)
+    b = rnd(n, k, std=0.02) if k_contiguous else rnd(k, n, std=0.02)
+    before = cg.gemm_bf16_split_k.launches
+    out = cg.gemm_bf16_split_k(a, b, splits, k_contiguous, tile_width)
+    again = cg.gemm_bf16_split_k(a, b, splits, k_contiguous, tile_width)
+    ref = cg.gemm_split_k_plain(a, b, splits, k_contiguous)
+    whole = cg.gemm_bf16(a, b, k_contiguous, tile_width)
+    torch.cuda.synchronize()
+    assert cg.gemm_bf16_split_k.launches == before + 2
+    assert out.shape == (splits, rows, n) and torch.equal(out, again)
+    scale = max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() / scale <= GEMM_CORE_LIMIT
+    scale = max(1.0, whole.abs().max().item())
+    assert (out.sum(0) - whole).abs().max().item() / scale <= GEMM_CORE_LIMIT

@@ -227,6 +227,30 @@ def test_mlp_bwd_plain_vs_xla_vjp(dtype, with_mask, postln):
                   dtype)
 
 
+@pytest.mark.parametrize("h,i", [(32, 64), (64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_mlp_postln_plain_at_a_second_width(dtype, with_mask, h, i):
+    """The post-LN block's plain forward and backward at two widths (the
+    kernels on the card take any H a multiple of 64 and I a multiple of
+    64): the forward against _mlp_postln_xla, the backward against the JAX
+    package's fused_mlp_postln_block_bwd in interpret mode."""
+    j, t = _mlp_inputs(dtype, with_mask, rows=(2, 12), h=h, i=i, seed=5)
+    ref = pm._mlp_postln_xla({"scale": j["gamma"], "bias": j["beta"]},
+                             {"w": j["w1"], "b": j["b1"]}, {"w": j["w2"], "b": j["b2"]},
+                             j["x"], 1e-12, "gelu", j.get("m"))
+    out = cm._mlp_postln_plain(*_plain_args(t), t["x"], 1e-12, "gelu", t.get("m"))
+    tol = 1e-5 if dtype == "float32" else ATOL[dtype]
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol, rtol=RTOL[dtype])
+    g = np.random.default_rng(105).normal(size=(2, 12, h)).astype(np.float32)
+    j["g"], t["g"] = jnp.asarray(g, getattr(jnp, dtype)), torch.from_numpy(g).to(
+        getattr(torch, dtype))
+    ref = pm.fused_mlp_postln_block_bwd(*(j[k] for k in _ORDER), j.get("m"), eps=1e-12,
+                                        interpret=True, row_tile=8)
+    _assert_grads(cm.mlp_postln_bwd_plain(*(t[k] for k in _ORDER), t.get("m"), eps=1e-12),
+                  ref, dtype)
+
+
 @pytest.mark.parametrize("postln", [False, True])
 def test_mlp_bwd_plain_vs_autograd_of_plain_forward(postln):
     """The second reference: autograd through the plain forward
@@ -385,33 +409,37 @@ def test_ln_qkv_w8a8_plain_vs_pallas_and_xla(dtype):
     _close(out, xla, dtype, W8A8_ATOL["ln_qkv"])
 
 
+@pytest.mark.parametrize("act", ["gelu", "gelu_new", "relu"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("postln", [False, True])
-def test_mlp_w8a8_plain_vs_pallas(dtype, postln):
+def test_mlp_w8a8_plain_vs_pallas(dtype, postln, act):
+    """Each activation the w8a8 kernels take, against the JAX package's
+    kernel in interpret mode (its GELU through the A&S erf)."""
     j, t = _q_inputs(dtype)
     args = ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x")
     pallas = pm.fused_mlp_postln_fwd_w8a8 if postln else pm.fused_mlp_block_fwd_w8a8
     plain = cm.mlp_postln_w8a8_plain if postln else cm.mlp_block_w8a8_plain
-    ref = pallas(*(j[k] for k in args), eps=1e-12, interpret=True)
-    out = plain(*(t[k] for k in args))
+    ref = pallas(*(j[k] for k in args), eps=1e-12, act=act, interpret=True)
+    out = plain(*(t[k] for k in args), act=act)
     assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
     _close(out, ref, dtype, W8A8_ATOL["postln" if postln else "preln"])
 
 
+@pytest.mark.parametrize("act", ["gelu", "gelu_new", "relu"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("postln", [False, True])
-def test_mlp_w8a8_dispatch_vs_jax(dtype, postln):
+def test_mlp_w8a8_dispatch_vs_jax(dtype, postln, act):
     """The dispatchers with w_q8 parameters (the plain versions on the CPU)
     against the JAX package's dispatchers (the Pallas kernels) and its XLA
-    compositions."""
+    compositions, for each activation the kernels take."""
     j, t = _q_inputs(dtype, seed=22)
     jblock = pm.fused_mlp_postln_block if postln else pm.fused_mlp_block
     tblock = cm.fused_mlp_postln_block if postln else cm.fused_mlp_block
     xla = pm._mlp_postln_xla if postln else pm._mlp_block_xla
-    out = tblock(*_w8a8_params(t), t["x"], 1e-12, "gelu")
+    out = tblock(*_w8a8_params(t), t["x"], 1e-12, act)
     atol = W8A8_ATOL["postln" if postln else "preln"]
-    _close(out, jblock(*_w8a8_params(j), j["x"], 1e-12, "gelu"), dtype, atol)
-    _close(out, xla(*_w8a8_params(j), j["x"], 1e-12, "gelu"), dtype, atol)
+    _close(out, jblock(*_w8a8_params(j), j["x"], 1e-12, act), dtype, atol)
+    _close(out, xla(*_w8a8_params(j), j["x"], 1e-12, act), dtype, atol)
 
 
 @pytest.mark.parametrize("postln", [False, True])

@@ -6,7 +6,8 @@
 // (_attn_kernel_batched) and fused_attention_dotbatch
 // (_attn_kernel_dotbatch), all in vault_tpu/ops/pallas_attention.py.
 //
-// Operands: q, k, v, out (B, H, L, 64) with contiguous rows of 64 (any
+// Operands: q, k, v, out (B, H, L, D), D = 32, 64, 96 or 128 (BERT-base
+// and ViLT-B/32: 64), with contiguous rows of D (any
 // batch, head and row strides, so q, k and v can be views into the fused
 // QKV projection and out a view of the (B, L, H) layout the next product
 // reads), all bf16 or all fp32; bias (B, 1, 1, L) fp32, an additive key
@@ -16,7 +17,7 @@
 // work is tiny (4 B H L^2 d FLOP, well under 1 us of tensor-core time at
 // 989 TFLOP/s) and the bytes are a few MB, so the kernel is bound by
 // latency and by how many blocks fill the 132 SMs.  The kernel is
-// attention_common.cuh's at head dim 64, one query head per K/V head and a
+// attention_common.cuh's, one query head per K/V head and a
 // key bias shared by every query row: one block per (query tile of 64
 // rows, head, batch row).
 #include "attention_common.cuh"
@@ -28,9 +29,8 @@ extern "C" int vt_attention_fwd(const void* q, const void* k, const void* v,
                                 int head_dim, long long sb, long long sh, long long sl,
                                 long long ob, long long oh, long long ol, int dtype,
                                 void* stream) {
-  if (head_dim != 64) return (int)cudaErrorInvalidValue;
   const Strides in{sb, sh, sl};
   const Map mp{L, 1, in, in, in, Strides{ob, oh, ol}, L, 0, 0.0f};
-  return launch_attention<64>(q, k, v, bias, out, B, H, mp, dtype,
-                              static_cast<cudaStream_t>(stream));
+  return launch_attention_d(head_dim, q, k, v, bias, out, B, H, mp, dtype,
+                            static_cast<cudaStream_t>(stream));
 }

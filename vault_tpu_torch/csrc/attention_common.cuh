@@ -1,6 +1,8 @@
 // The attention kernel shared by the encoder attention (attention.cu) and
 // the grouped-query attention of the Llama tower (attention_gqa.cu):
-// out = softmax(q k^T / sqrt(d) + bias) v, head dim D = 64 or 128.
+// out = softmax(q k^T / sqrt(d) + bias) v, head dim D = 32, 64, 96 or 128
+// (a multiple of 16: the wmma fragments; 32 BERT-small, 64 BERT-base and
+// -large, ViLT-B/32, 96, 128 Llama-3-8B).
 //
 // Index map.  q and out have H = G * rep heads, k and v have G.  Query head
 // g * rep + i reads K/V head g, so the rep query heads of a group are folded
@@ -32,7 +34,9 @@
 // tiles stream through shared memory double-buffered with cp.async; rows of
 // every tile are padded by 16 bytes against bank conflicts.  Shared memory
 // is fixed whatever L is (71 KB at D = 64 in bf16, 130 KB at D = 128), and
-// keys past L (the ragged edge) are excluded from both passes.
+// keys past L (the ragged edge) are excluded from both passes.  Shared
+// memory at D = 128 is 130 KB in bf16 and 220 KB in fp32 (of 227 KB), the
+// same at any L.
 #pragma once
 
 #include <mma.h>
@@ -327,6 +331,19 @@ int launch_attention(const void* q, const void* k, const void* v, const void* bi
     return launch<__nv_bfloat16, D, AccBF16<D>>(q, k, v, bias, out, B, G, mp, stream);
   if (dtype == vt::kF32) return launch<float, D, AccF32<D>>(q, k, v, bias, out, B, G, mp, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// launch_attention at a run-time head dim: 32, 64, 96 or 128.
+inline int launch_attention_d(int head_dim, const void* q, const void* k, const void* v,
+                              const void* bias, void* out, int B, int G, const Map& mp, int dtype,
+                              cudaStream_t stream) {
+  switch (head_dim) {
+    case 32: return launch_attention<32>(q, k, v, bias, out, B, G, mp, dtype, stream);
+    case 64: return launch_attention<64>(q, k, v, bias, out, B, G, mp, dtype, stream);
+    case 96: return launch_attention<96>(q, k, v, bias, out, B, G, mp, dtype, stream);
+    case 128: return launch_attention<128>(q, k, v, bias, out, B, G, mp, dtype, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -13,8 +13,9 @@
 // Masked entries carry finfo(float32).min, which the kernel keeps finite
 // (attention_common.cuh); rep = 1 is multi-head attention with a 2-D bias.
 //
-// Operands: q, out (B, H, L, d); k, v (B, G, L, d); d = 128 (Llama-3-8B) or
-// 64; contiguous rows, any other strides; bf16 or fp32; bias contiguous fp32.
+// Operands: q, out (B, H, L, d); k, v (B, G, L, d); d = 32, 64, 96 or 128
+// (Llama-3-8B); contiguous rows, any other strides; bf16 or fp32; bias
+// contiguous fp32.
 //
 // What bounds it on an H100: at the tower's (16, 32, 40, 128) the work is
 // 4 B H L^2 d = 1.3 GFLOP against 6.6 MB of operands (q and out 5.2 MB, K/V
@@ -35,8 +36,6 @@ extern "C" int vt_attention_gqa_fwd(const void* q, const void* k, const void* v,
   const Map mp{L, H / G, Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]},
                Strides{s[6], s[7], s[8]}, Strides{s[9], s[10], s[11]},
                (long long)L * L, L, 0.0f};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128) return launch_attention<128>(q, k, v, bias, out, B, G, mp, dtype, st);
-  if (head_dim == 64) return launch_attention<64>(q, k, v, bias, out, B, G, mp, dtype, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_attention_d(head_dim, q, k, v, bias, out, B, G, mp, dtype,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -21,8 +21,10 @@
 // column scale) + bias, the two scales multiplied first, as the JAX
 // package's linear does.  Every fp32 step is an _rn intrinsic, so nvcc
 // contracts none into an FMA (which rounds once where PyTorch rounds twice).
-// The exact-erf GELU is written the way the plain versions write it:
-// v * (erf(v * 0.70710677f) + 1) * 0.5.
+// The activations are written the way the plain versions write them, one
+// rounding a step: the exact-erf GELU v * (erf(v * 0.70710677f) + 1) * 0.5,
+// the tanh form 0.5 v (1 + tanh(0.7978846 (v + 0.044715 v v v))) in
+// ops/nn.py gelu_tanh's order (tanhf, as torch.tanh on the card), ReLU.
 //
 // gemm_tiles: a block owns a (64, 128) tile of C and walks K in steps of
 // 64, the next A and B tiles loading with cp.async while the tensor cores
@@ -52,14 +54,21 @@ constexpr int LDS = BN + 4;  // ld of the epilogue's staging tile
 enum Epi {
   kBias = 0,     // out = T(acc + bias)                      (fp products)
   kDequant = 1,  // out = T(acc * (rs * cs) + bias)           (int8)
-  kGelu = 2,     // out = T(gelu(acc * (rs * cs) + bias)); per-(row, column
-                 //   tile) absmax of the rounded values into pmax
+  kAct = 2,      // out = T(act(acc * (rs * cs) + bias)), act a vt::Act code;
+                 //   per-(row, column tile) absmax of the rounded values into pmax
   kPartial = 3,  // ws[z] = acc, int32, rows < M only
 };
 
-__device__ __forceinline__ float gelu_rn(float v) {
-  return __fmul_rn(__fmul_rn(v, __fadd_rn(erff(__fmul_rn(v, 0.70710678118654752440f)), 1.0f)),
-                   0.5f);
+__device__ __forceinline__ float act_rn(float v, int act) {
+  if (act == vt::kGeluErf)
+    return __fmul_rn(__fmul_rn(v, __fadd_rn(erff(__fmul_rn(v, 0.70710678118654752440f)), 1.0f)),
+                     0.5f);
+  if (act == vt::kGeluTanh) {
+    const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, v), v), v);
+    const float u = __fmul_rn(0.7978845608028654f, __fadd_rn(v, cube));
+    return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, tanhf(u)));
+  }
+  return fmaxf(v, 0.0f);
 }
 
 __device__ __forceinline__ float quant_scale(float absmax) {
@@ -168,12 +177,13 @@ constexpr size_t gemm_smem() {
 }
 
 struct EpiArgs {
-  void* out;              // (M, N) T: kBias, kDequant, kGelu
-  const float* rs;        // (M,) row scales: kDequant, kGelu
-  const float* cs;        // (N,) column scales: kDequant, kGelu
-  const void* bias;       // (N,) T: kBias, kDequant, kGelu
-  float* pmax;            // (M, N / BN): kGelu
+  void* out;              // (M, N) T: kBias, kDequant, kAct
+  const float* rs;        // (M,) row scales: kDequant, kAct
+  const float* cs;        // (N,) column scales: kDequant, kAct
+  const void* bias;       // (N,) T: kBias, kDequant, kAct
+  float* pmax;            // (M, N / BN): kAct
   int* ws;                // (splits, M, N): kPartial
+  int act;                // vt::Act code: kAct
 };
 
 template <typename E, typename T, int EPI>
@@ -295,15 +305,15 @@ gemm_tiles(const E* __restrict__ a, const E* __restrict__ b, int M, int N, int K
                                 __fmul_rn(rs, cs)),
                       bias);
       }
-      if constexpr (EPI == kGelu) o = gelu_rn(o);
+      if constexpr (EPI == kAct) o = act_rn(o, ep.act);
       const T ov = vt::from_f<T>(o);
       if (row < M) out[(size_t)row * N + col] = ov;
-      if constexpr (EPI == kGelu) {
+      if constexpr (EPI == kAct) {
         const float m = warp_max(fabsf(vt::to_f(ov)));  // a warp shares its row
         if (lane == 0) red[r][cc / 32] = m;
       }
     }
-    if constexpr (EPI == kGelu) {
+    if constexpr (EPI == kAct) {
       __syncthreads();
       if (tid < BM && row0 + tid < M) {
         float m = 0.0f;

@@ -1,7 +1,7 @@
 // The wgmma core of gemm_sm90.cuh on its own, for holding each of its
-// operand layouts against a plain fp32 product (ops/cuda_gemm.py): the
-// products the MLP blocks run, with an epilogue that stores the fp32
-// accumulators.  No main path calls these entries.
+// operand layouts, tile widths and split-K against a plain fp32 product
+// (ops/cuda_gemm.py): the products the MLP blocks run, with an epilogue that
+// stores the fp32 accumulators.  No main path calls these entries.
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 
@@ -22,25 +22,30 @@ struct StoreF32Pair {
   }
 };
 
+template <int BN>
+cudaError_t gemm_at(bool b_kmajor, const bf* a, const bf* b, int M, int N, int K,
+                    const sm90::StoreF32& epi, cudaStream_t st, int splits) {
+  return b_kmajor ? sm90::gemm<BN, false>(a, b, M, N, K, epi, st, nullptr, nullptr, splits)
+                  : sm90::gemm<BN, true>(a, b, M, N, K, epi, st, nullptr, nullptr, splits);
+}
+
 }  // namespace
 
-// c (M, N) fp32 = a (M, K) b: b is (N, K) when b_kmajor, else (K, N); bn, the
-// tile width, 128 or 192 (the MLP blocks' two widths).
+// c fp32 = a (M, K) b: b is (N, K) when b_kmajor, else (K, N); bn, the tile
+// width, 64, 128 or 192; splits of K: c holds `splits` (M, N) slices, slice
+// s the product over split s's K range (splits = 1: c is a b).
 extern "C" int vt_gemm_bf16(const void* a, const void* b, void* c, int M, int N, int K,
-                            int b_kmajor, int bn, void* stream) {
+                            int b_kmajor, int bn, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf* ap = static_cast<const bf*>(a);
   const bf* bp = static_cast<const bf*>(b);
   const sm90::StoreF32 epi{static_cast<float*>(c), N};
-  cudaError_t e = cudaErrorInvalidValue;
-  if (bn == 128) {
-    e = b_kmajor ? sm90::gemm<128, false>(ap, bp, M, N, K, epi, st)
-                 : sm90::gemm<128, true>(ap, bp, M, N, K, epi, st);
-  } else if (bn == 192) {
-    e = b_kmajor ? sm90::gemm<192, false>(ap, bp, M, N, K, epi, st)
-                 : sm90::gemm<192, true>(ap, bp, M, N, K, epi, st);
+  switch (bn) {
+    case 64: return (int)gemm_at<64>(b_kmajor, ap, bp, M, N, K, epi, st, splits);
+    case 128: return (int)gemm_at<128>(b_kmajor, ap, bp, M, N, K, epi, st, splits);
+    case 192: return (int)gemm_at<192>(b_kmajor, ap, bp, M, N, K, epi, st, splits);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)e;
 }
 
 // The dual form of the backward: c1 = a1 b1 with b1 (K, N), c2 = a2 b2^T

@@ -13,7 +13,15 @@
 //   K is a multiple of 64; M and N are anything: TMA fills the rows and
 //   columns past the edge with zeros on load and the epilogue skips them.
 //
-// The block: 128 x BN output tile, 384 threads in three warpgroups.
+// Split-K: with S splits a work item is (tile, split s); split s walks its
+// own range of K (K / 64 steps cut into S near-equal runs) and its epilogue
+// sees row r + s M, so StoreF32 writes the fp32 partial of slice s of an
+// (S M, N) workspace.  No float atomics: the row pass after the product
+// adds the S slices in a fixed order.  Only an epilogue that stores the
+// plain product (StoreF32) takes S > 1.
+//
+// The block: 128 x BN output tile (BN 64, 128 or 192), 384 threads in three
+// warpgroups.
 //   * warpgroup 2 is the producer (setmaxnreg down to 40): one thread walks
 //     K 64 at a time, waits for a stage's "empty" mbarrier, arms its "full"
 //     mbarrier with the stage's bytes and issues the TMA loads (128-byte
@@ -33,9 +41,9 @@
 //     lies inside).  It reads its other operands with __ldg: a plain load
 //     would be ordered behind the stores of the pairs before it.
 // Stages: as many as fit in 200 KB, at most 6.  The grid is persistent, a
-// block per SM walking tiles N fastest, so the blocks that run together
-// share A's rows and all read the same weights from L2, and the next tile's
-// loads overlap this one's epilogue.
+// block per SM walking work items N fastest, then rows, then splits, so the
+// blocks that run together share A's rows and all read the same weights
+// from L2, and the next item's loads overlap this one's epilogue.
 //
 // What bounds a product on the H100: 2 M N K operations at 989 TFLOP/s
 // against (M K + K N + M N) 2 bytes at 3.35 TB/s: the operations, for every
@@ -46,6 +54,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 // Internal linkage: every library that includes the core gets its own
 // kernels and its own once-per-process flags (a static local of an inline
@@ -174,6 +184,24 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+template <int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32, A and B from shared memory;
 // TB = 1: B N-contiguous (transposed), 0: K-contiguous.
 template <int TB>
@@ -238,8 +266,9 @@ __device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t da, uint64_t
 
 template <int BN, int TB>
 __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db) {
-  static_assert(BN == 128 || BN == 192, "tile widths with a wgmma wrapper: 128, 192");
-  if constexpr (BN == 128) wgmma_n128<TB>(d, da, db, 1);
+  static_assert(BN == 64 || BN == 128 || BN == 192, "tile widths with a wgmma wrapper: 64, 128, 192");
+  if constexpr (BN == 64) wgmma_n64<TB>(d, da, db, 1);
+  else if constexpr (BN == 128) wgmma_n128<TB>(d, da, db, 1);
   else wgmma_n192<TB>(d, da, db, 1);
 }
 
@@ -260,16 +289,17 @@ struct Shape {
   static_assert(STAGES >= 2 && BN % 64 == 0, "tile");
 };
 
-// Persistent: one block per SM (at most one per tile) walks the tiles t =
-// blockIdx.x, blockIdx.x + gridDim.x, ..., N fastest.  The producer runs on
-// into the next tile while the consumers are in this one's epilogue, so the
-// ring is full when they come back.  Non-dual launches pass ta2 = ta,
-// tb2 = tb.
+// Persistent: one block per SM (at most one per work item) walks the items
+// t = blockIdx.x, blockIdx.x + gridDim.x, ...: tile t % tiles (N fastest),
+// split t / tiles, k-steps [s kt / S, (s + 1) kt / S) of kt = K / 64 (each
+// split gets at least one: S <= kt).  The producer runs on into the next
+// item while the consumers are in this one's epilogue, so the ring is full
+// when they come back.  Non-dual launches pass ta2 = ta, tb2 = tb.
 template <int BN, bool B_MN, int MODE, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
             const __grid_constant__ CUtensorMap ta2, const __grid_constant__ CUtensorMap tb2,
-            int M, int N, int K, Epi epi) {
+            int M, int N, int K, int splits, Epi epi) {
   using S = Shape<BN, MODE>;
   constexpr int ST = S::STAGES;
   constexpr bool kDual = MODE == DUAL;
@@ -280,6 +310,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   const int wg = threadIdx.x / 128;
   const int kt_n = K / BK;
   const int tiles_n = (N + BN - 1) / BN, tiles = tiles_n * ((M + BM - 1) / BM);
+  const int items = tiles * splits;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -296,9 +327,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
     if (threadIdx.x == 256) {
       int s = 0;
       uint32_t ph = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
-        for (int kt = 0; kt < kt_n; ++kt) {
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        const int tile = t % tiles, sp = t / tiles;
+        const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+        const int k_end = (sp + 1) * kt_n / splits;
+        for (int kt = sp * kt_n / splits; kt < k_end; ++kt) {
           const uint32_t full = bars + 8 * s, empty = bars + 8 * (ST + s);
           mbar_wait(empty, ph ^ 1);
           mbar_expect_tx(full, S::STAGE);
@@ -326,8 +359,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
     const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
     int s = 0;
     uint32_t ph = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
+    for (int t = blockIdx.x; t < items; t += gridDim.x) {
+      const int tile = t % tiles, sp = t / tiles;
+      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+      const int k_end = (sp + 1) * kt_n / splits;
       // acc[0]: the product; dual: acc[1] the second one
       float acc[kDual ? 2 : 1][BN / 2];
 #pragma unroll
@@ -335,7 +370,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
 #pragma unroll
         for (int e = 0; e < BN / 2; ++e) acc[a][e] = 0.0f;
       int prev = -1;
-      for (int kt = 0; kt < kt_n; ++kt) {
+      for (int kt = sp * kt_n / splits; kt < k_end; ++kt) {
         mbar_wait(bars + 8 * s, ph);
         const uint32_t sa = base + s * S::STAGE + wg * (64 * BK * 2);
         const uint32_t sb = base + s * S::STAGE + S::A_BYTES;
@@ -364,6 +399,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
       // 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1) of its 64 x BN.
       // Every pair is computed, at indices clamped into (M, N), and stored
       // only inside: branch-free arithmetic the compiler can interleave.
+      // Split s hands the epilogue row r + s M (its slice).
+      const int slice = sp * M;
       const int r0 = m0 + 64 * wg + 16 * w + (lane >> 2);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
@@ -372,7 +409,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + 8 * h, e = 4 * j + 2 * h;
           const bool in = r < M && c < N;
-          const int rc = r < M ? r : M - 1, cc = c < N ? c : N - 2;
+          const int rc = (r < M ? r : M - 1) + slice, cc = c < N ? c : N - 2;
           if constexpr (kDual)
             epi(rc, cc, acc[0][e], acc[0][e + 1], acc[1][e], acc[1][e + 1], in);
           else
@@ -394,25 +431,46 @@ inline int sm_count() {
   return n;
 }
 
-// Of the tile widths offered, the one whose waves of tiles over the SMs
-// take least time (waves x width); of equal ones the widest, which reads
-// the fewest bytes from L2 per operation.
-inline int pick_width(int M, int N, int narrow, int wide) {
-  auto cost = [&](int bn) {
+// A tile width and a split count for an (M, N, K) product.
+struct Tiling {
+  int bn, splits;
+};
+
+// Of the tile widths offered (narrow, wide) and 1 .. max_splits splits of
+// K, the pair whose waves of work items over the SMs take least time:
+// waves x (k-steps per item + 2, a tile's fill and epilogue) x width; of
+// equal ones the wide tile (fewest bytes from L2 per operation) and the
+// fewest splits (fewest bytes of partial sums).
+inline Tiling pick_tiling(int M, int N, int K, int narrow, int wide, int max_splits) {
+  const int kt = K / BK;
+  Tiling best{wide, 1};
+  long best_cost = -1;
+  for (const int bn : {wide, narrow}) {
     const long tiles = (long)((N + bn - 1) / bn) * ((M + BM - 1) / BM);
-    return (tiles + sm_count() - 1) / sm_count() * bn;
-  };
-  return cost(wide) <= cost(narrow) ? wide : narrow;
+    for (int s = 1; s <= max_splits && s <= kt; ++s) {
+      const long waves = (tiles * s + sm_count() - 1) / sm_count();
+      const long cost = waves * ((kt + s - 1) / s + 2) * bn;
+      if (best_cost < 0 || cost < best_cost) best = Tiling{bn, s}, best_cost = cost;
+    }
+  }
+  return best;
 }
 
+// The tiling of a product whose fp32 slices a row pass adds (StoreF32):
+// 128 or 192 wide, at most MAX_SPLITS splits.
+constexpr int MAX_SPLITS = 8;
+inline Tiling split_k_tiling(int M, int N, int K) { return pick_tiling(M, N, K, 128, 192, MAX_SPLITS); }
+
 // C = A B through the kernel above, epilogue `epi`.  a: (M, K); b: (K, N)
-// when B_MN, else (N, K); dual: a2 (M, K), b2 (N, K).  Returns the launch's
-// error (cudaErrorInvalidValue for a shape or pointer the maps refuse).
+// when B_MN, else (N, K); dual: a2 (M, K), b2 (N, K); splits: of K (see
+// the head of this file).  Returns the launch's error
+// (cudaErrorInvalidValue for a shape or pointer the maps refuse).
 template <int BN, bool B_MN, int MODE = COOP, class Epi>
 cudaError_t gemm(const bf16* a, const bf16* b, int M, int N, int K, Epi epi, cudaStream_t st,
-                 const bf16* a2 = nullptr, const bf16* b2 = nullptr) {
+                 const bf16* a2 = nullptr, const bf16* b2 = nullptr, int splits = 1) {
   using S = Shape<BN, MODE>;
-  if (M <= 0 || N <= 0 || K <= 0 || K % BK != 0) return cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || K % BK != 0 || splits < 1 || splits > K / BK)
+    return cudaErrorInvalidValue;
   CUtensorMap ta, tb, ta2, tb2;
   cudaError_t e;
   if ((e = make_map(&ta, a, M, K, BM)) != cudaSuccess) return e;
@@ -430,13 +488,14 @@ cudaError_t gemm(const bf16* a, const bf16* b, int M, int N, int K, Epi epi, cud
       return e;
     smem_set = true;
   }
-  const int tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
-  kernel<<<tiles < sm_count() ? tiles : sm_count(), THREADS, S::SMEM, st>>>(ta, tb, ta2, tb2, M,
-                                                                          N, K, epi);
+  const int items = ((N + BN - 1) / BN) * ((M + BM - 1) / BM) * splits;
+  kernel<<<items < sm_count() ? items : sm_count(), THREADS, S::SMEM, st>>>(ta, tb, ta2, tb2, M,
+                                                                          N, K, splits, epi);
   return cudaGetLastError();
 }
 
-// Epilogue: the fp32 product itself, (M, N) at c.
+// Epilogue: the fp32 product itself, (M, N) at c; with S splits the
+// (S M, N) slices, slice s the partial sum of split s.
 struct StoreF32 {
   float* c;
   int n;

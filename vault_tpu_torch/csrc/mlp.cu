@@ -1,5 +1,4 @@
-// Fused MLP blocks for Hopper: the MLP half of a transformer layer, the
-// (rows, I) intermediate never written to device memory.
+// Fused MLP blocks for Hopper: the MLP half of a transformer layer.
 //
 //   pre-LN  (ViLT):  out = x + m * (act(LN(x) W1 + b1) W2 + b2)
 //   post-LN (BERT):  out = LN(x + m * (act(x W1 + b1) W2 + b2))
@@ -8,96 +7,97 @@
 // (_mlp_postln_kernel) of vault_tpu/ops/pallas_mlp.py.  Numerics follow
 // them: fp32 LN statistics, fp32 accumulation of both products, the bias
 // added in fp32, the activation cast to x's type before the second
-// product, the optional pre-scaled dropout mask m applied in fp32, and in
-// the pre-LN block the residual added after the cast to x's type.  GELU is
-// exact (erff); the TPU kernel used the A&S approximation only because
-// Mosaic lowers no erf.
+// product, the optional pre-scaled dropout mask m applied in fp32, in the
+// pre-LN block the residual added after the cast to x's type, in the
+// post-LN block the residual added in fp32 with no cast before the LN.
+// GELU is exact (erff); the TPU kernel used the A&S approximation only
+// because Mosaic lowers no erf.
 //
-// Operands: x, m, out (rows, H); w1 (H, I); w2 (I, H); gamma, beta, b2
-// (H); b1 (I); all bf16 or all fp32, contiguous.  H is 768 (BERT-base,
-// ViLT-B/32) and I a multiple of 128.
+// Two designs; ops/cuda_mlp.py mlp_route picks the entry, the C side does
+// not restate the rule.
 //
-// What bounds it on an H100: 4 rows H I FLOP against the weights' 4 H I
-// bytes (bf16), so it is bound by the tensor cores once rows reaches about
-// 300 and by the weight bytes below that (the post-LN block at 320 rows
-// sits at the line).  The TPU kernel kept W1 and W2 (9.4 MB at H = 768 in
-// bf16) resident in VMEM; an SM has 227 KB, so the work is cut two ways:
-//   * a block owns 32 rows and one slice of I ("split"); it computes LN(x)
-//     once into shared memory, then walks its slice 128 columns at a time:
-//     act(LN(x) W1[:, j:j+128] + b1) into shared memory (cast to x's type),
-//     then that slice's contribution to all H output columns, accumulated
-//     in fp32 fragments in registers across the whole walk;
-//   * W1 and W2 stream through shared memory in tiles (32 KB of W1, 48 KB
-//     of W2), double-buffered with cp.async so the next tile loads while
-//     the tensor cores (bf16 16x16x16 wmma, fp32 accumulation) work on the
-//     current one; rows are padded by 16 bytes against bank conflicts;
-//   * the number of splits is chosen so that about one block runs per SM
-//     (the 320-row post-LN block would otherwise fill 10 of 132 SMs); each
-//     split writes its fp32 partial sums to a workspace, and a second,
-//     small kernel adds them in a fixed order (deterministic), then applies
-//     b2, the mask, the residual and, post-LN, the LayerNorm.
-// fp32 operands take the same tiling with plain FMA in full fp32.
+// 1. The wgmma core (gemm_sm90.cuh), vt_mlp_fwd_wgmma: every bf16 block with
+//    bf16 weights (the ViLT and the BERT layers: 24 per forward, 48 per
+//    training step).  H a multiple of 64 up to 8,192, I a multiple of 64
+//    (the core walks K 64 at a time; TMA wants 16-byte rows).  The (rows, I)
+//    activation goes through L2 / device memory between the products: keeping
+//    it on chip ties a row tile to an H-wide fp32 accumulator, which forced
+//    the old walk's 32-row wmma tile and made every block re-stream the whole
+//    9.4 MB of weights from L2; written, it costs 2 rows I 2 bytes each way
+//    (50 MB at 8,192 rows, 0.030 ms at 3.35 TB/s; L2-resident at 320 and
+//    1,280 rows) and frees both products to run on 128-row wgmma tiles.
+//    Pre-LN, three launches:
+//      a. ln_rows_bf16 (mlp_common.cuh): y = bf16(LN(x)) into the workspace;
+//      b. a = bf16(act(y W1 + b1)) into the workspace, 128 x 128 tiles, W1
+//         read N-contiguous (wgmma's transpose bit): the narrow tile because
+//         the epilogue (erff on every element) costs as much as the product
+//         over K = 768, and 64 values a thread leave it the registers to
+//         interleave them;
+//      c. out = bf16(bf16(m (a W2 + b2)) + x), W2 N-contiguous, 128 x 128 or
+//         128 x 192 tiles, whichever sm90::pick_tiling finds takes the least
+//         time in waves (at 2,048 rows 128: 96 tiles, one wave; at 8,192
+//         rows 192: 256 tiles in two waves against three).
+//    Post-LN, three launches (one ctypes call):
+//      a. a = bf16(act(x W1 + b1)) into the workspace, as pre-LN b (128 x
+//         128: at 320 rows 72 tiles in one wave; 64- and 192-wide tiles
+//         measured slower there, PERF.md);
+//      b. a W2, split along K (sm90 split-K) into S fp32 slices of the
+//         workspace: at 320 rows a W2 has only 3 x 6 tiles of 128 x 128 for
+//         132 SMs, so S splits of K = I fill the card (pick_tiling: S = 7 at
+//         320 rows, 2 at 1,280, both the fastest of those measured), at one
+//         more pass over S rows H 4 bytes of L2-resident partial sums, which
+//         the LN needs a row pass for anyway;
+//      c. mlp_epilogue: the S slices added in order, b2, the mask and the
+//         residual in fp32, LN with fp32 statistics, one cast.
+//    The activation of every first product is a template argument of its
+//    epilogue (EpiAct, mlp_common.cuh), picked once per launch: a run-time
+//    switch there cost a quarter of the product's time.
+//    What bounds it: 4 rows H I operations at 989 TFLOP/s against the
+//    weights' 4 H I bytes at 3.35 TB/s: the bytes below about 300 rows (the
+//    BERT blocks of a batch-8 forward, 320 rows, sit at the line), the
+//    operations above (1,280 rows, 2,048 and 8,192).  At 320 rows the
+//    weights are read from L2 once per 128-row tile row: 3 times.
 //
-// The w8 blocks (vt_mlp_fwd_q8) are the same two kernels with int8 weights
-// and per-out-channel fp32 scales s1 (I), s2 (H), dequantized tile by tile
-// in shared memory (mlp_common.cuh): w = T(float(q) * s), rounded to x's
-// type before the product, so the tensor cores see the weights that the
-// plain composition's linear sees.  They replace fused_mlp_block_fwd_q8
-// (_mlp_kernel_q8) and fused_mlp_postln_fwd_q8 (_mlp_postln_kernel_q8) of
-// vault_tpu/ops/pallas_mlp.py.  Same operations as the fp blocks against
-// half the weight bytes (2 H I), so the byte bound halves and the pre-LN
-// block at 2,048 rows stays bound by the tensor cores; no dropout mask (the
-// JAX package has no masked q8 kernel either).
-//
-// The bf16 pre-LN block with bf16 weights (the ViLT layers, 12 per forward
-// and 24 per training step) takes another design, vt_mlp_fwd_wgmma on the
-// wgmma core of gemm_sm90.cuh (ops/cuda_mlp.py mlp_route picks the entry;
-// vt_mlp_fwd takes the fp32 blocks and the bf16 post-LN block), in three
-// launches:
-//   1. ln_rows_bf16 (mlp_common.cuh): y = bf16(LN(x)) into the workspace;
-//   2. a = bf16(act(y W1 + b1)), (rows, I), into the workspace: 128 x 128
-//      tiles, W1 read N-contiguous (wgmma's transpose bit); the narrow tile
-//      because the epilogue, GELU with erff on every element, costs as much
-//      as the product over K = 768, and 64 values a thread leave it the
-//      registers to interleave them;
-//   3. out = bf16(bf16(m (a W2 + b2)) + x), W2 read N-contiguous; the
-//      epilogue is mlp_epilogue's arithmetic.
-// The intermediate a goes through L2 / device memory, where the TPU kernel
-// and mlp_main keep it on chip.  Keeping it on chip ties a row tile to a
-// 768-wide fp32 accumulator in registers for the second product, which
-// forces the 32-row wmma tile and makes every block re-stream the whole
-// 9.4 MB of weights from L2 (2.4 GB of L2 -> shared memory traffic per
-// launch at 8,192 rows).  Writing it costs 2 rows I 2 bytes each way (50 MB
-// at 8,192 rows, 0.030 ms at 3.35 TB/s, and mostly L2-resident at 2,048
-// rows) against an operations bound of 0.078 ms, and frees both products
-// to run on 128-row wgmma tiles.  Bound on the H100: the operations (4 rows
-// H I at 989 TFLOP/s) at 2,048 rows and more.  Tile widths: the first
-// product always takes 128 x 128 tiles (above; 16 x 24 = 384 tiles at 2,048
-// rows, under three waves on 132 SMs).  The second takes 128 x 128 or
-// 128 x 192, whichever sm90::pick_width finds needs the least time in waves
-// x width: at 2,048 rows 128 (16 x 6 = 96 tiles, one wave on 73% of the SMs;
-// a 64-wide tile gives no more waves, and split-K would need float atomics
-// or a second pass), at 8,192 rows 192 (256 tiles in two waves, against
-// three of 128), which reads fewer bytes from L2 per operation.
+// 2. The walk, vt_mlp_fwd (fp32 blocks) and vt_mlp_fwd_q8 (int8 weights):
+//    H 768 and I a multiple of 128; the TPU kernel kept W1 and W2 resident
+//    in VMEM, an SM has 227 KB, so the work is cut two ways:
+//    * a block owns 32 rows and one slice of I ("split"); it computes LN(x)
+//      once into shared memory, then walks its slice 128 columns at a time:
+//      act(LN(x) W1[:, j:j+128] + b1) into shared memory (cast to x's type),
+//      then that slice's contribution to all H output columns, accumulated
+//      in registers across the whole walk;
+//    * W1 and W2 stream through shared memory in tiles, double-buffered with
+//      cp.async; rows are padded by 16 bytes against bank conflicts; fp32
+//      operands on plain FMA in full fp32, bf16 activations (the w8 blocks)
+//      on 16x16x16 wmma;
+//    * the number of splits keeps about one block per SM; each split writes
+//      its fp32 partial sums to a workspace and mlp_epilogue adds them in a
+//      fixed order (deterministic), then applies b2, the mask, the residual
+//      and, post-LN, the LayerNorm.
+//    The w8 blocks (vt_mlp_fwd_q8) take int8 weights and per-out-channel
+//    fp32 scales s1 (I), s2 (H), dequantized tile by tile in shared memory
+//    (mlp_common.cuh): w = T(float(q) * s), rounded to x's type before the
+//    product, as the plain composition's linear does.  They replace
+//    fused_mlp_block_fwd_q8 (_mlp_kernel_q8) and fused_mlp_postln_fwd_q8
+//    (_mlp_postln_kernel_q8) of vault_tpu/ops/pallas_mlp.py; no dropout mask
+//    (the JAX package has no masked q8 kernel either).  Their redesign on
+//    the core waits in ROADMAP.md Queue B: it needs a dequantizing producer.
 #include "mlp_common.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
 
-// One block per row, EPI threads: sum the splits' partials in order, then
-// b2, the mask, the residual and (post-LN) the LayerNorm.
-constexpr int EPI = 128;
-
-template <typename T, int NF, bool POSTLN>
-__global__ void __launch_bounds__(EPI)
+// One block per row, row_shape(H) threads (mlp_common.cuh): sum the S fp32
+// partial slices (slice s at ws + s rows_pad H) in order, then b2, the mask,
+// the residual and (post-LN) the LayerNorm.
+template <typename T, int PER, bool EXACT, bool POSTLN>
+__global__ void __launch_bounds__(row_threads<PER>())
 mlp_epilogue(const T* __restrict__ x, const T* __restrict__ gamma,
              const T* __restrict__ beta, const T* __restrict__ b2,
              const T* __restrict__ m, const float* __restrict__ ws,
-             T* __restrict__ out, int rows_pad, int splits, float eps) {
-  constexpr int H = NF * 16 * NW;
-  constexpr int PER = H / EPI;
-  __shared__ float red[EPI / 32];
-  const int row = blockIdx.x, tid = threadIdx.x;
+             T* __restrict__ out, int H, int rows_pad, int splits, float eps) {
+  __shared__ float red[ROW_MAX_THREADS / 32];
+  const int row = blockIdx.x, tid = threadIdx.x, nt = row_stride<PER>();
   const T* xr = x + (size_t)row * H;
   T* orow = out + (size_t)row * H;
   float v[PER];
@@ -106,12 +106,14 @@ mlp_epilogue(const T* __restrict__ x, const T* __restrict__ gamma,
   for (int s = 0; s < splits; ++s) {
     const float* p = ws + ((size_t)s * rows_pad + row) * H + tid;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) v[i] += p[EPI * i];
+    for (int i = 0; i < PER; ++i)
+      if (EXACT || tid + nt * i < H) v[i] += p[nt * i];
   }
   float sum = 0.0f;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    const int c = tid + EPI * i;
+    const int c = tid + nt * i;
+    if (!EXACT && c >= H) continue;
     float o = v[i] + vt::to_f(b2[c]);
     if (m) o *= vt::to_f(m[(size_t)row * H + c]);
     if constexpr (POSTLN) {
@@ -122,44 +124,34 @@ mlp_epilogue(const T* __restrict__ x, const T* __restrict__ gamma,
     }
   }
   if constexpr (POSTLN) {
-    auto block_sum = [&](float a) {
-      a = group_sum<32>(a);
-      __syncthreads();  // red is free (its last readers are done)
-      if ((tid & 31) == 0) red[tid >> 5] = a;
-      __syncthreads();
-      float t = 0.0f;
-#pragma unroll
-      for (int w = 0; w < EPI / 32; ++w) t += red[w];
-      return t;
-    };
-    const float mean = block_sum(sum) / H;
+    const float mean = row_block_sum(sum, red) / H;
     float sq = 0.0f;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const float d = v[i] - mean;
-      sq += d * d;
+      if (EXACT || tid + nt * i < H) sq += d * d;
     }
-    const float inv = 1.0f / sqrtf(block_sum(sq) / H + eps);
+    const float inv = 1.0f / sqrtf(row_block_sum(sq, red) / H + eps);
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int c = tid + EPI * i;
-      orow[c] = vt::from_f<T>((v[i] - mean) * inv * vt::to_f(gamma[c]) + vt::to_f(beta[c]));
+      const int c = tid + nt * i;
+      if (EXACT || c < H)
+        orow[c] = vt::from_f<T>((v[i] - mean) * inv * vt::to_f(gamma[c]) + vt::to_f(beta[c]));
     }
   }
 }
 
-// Epilogue of the first product: a = bf16(act(acc + b1)).
-struct EpiAct {
-  const __nv_bfloat16* b1;
-  __nv_bfloat16* a;
-  int n, act;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1, bool in) const {
-    const __nv_bfloat162 b = __ldg(reinterpret_cast<const __nv_bfloat162*>(b1 + c));
-    const __nv_bfloat162 o(vt::from_f<__nv_bfloat16>(vt::activate(v0 + vt::to_f(b.x), act)),
-                           vt::from_f<__nv_bfloat16>(vt::activate(v1 + vt::to_f(b.y), act)));
-    if (in) *reinterpret_cast<__nv_bfloat162*>(a + (size_t)r * n + c) = o;
-  }
-};
+// mlp_epilogue over rows of H, S slices of rows_pad rows each.
+template <typename T, bool POSTLN>
+cudaError_t launch_epilogue(const T* x, const T* gamma, const T* beta, const T* b2, const T* m,
+                            const float* ws, T* out, int rows, int H, int rows_pad, int splits,
+                            float eps, cudaStream_t st) {
+  const RowShape rs = row_shape(H);
+  return with_rows(rs, [&](auto P, auto E) {
+    mlp_epilogue<T, decltype(P)::value, decltype(E)::value, POSTLN><<<rows, rs.threads, 0, st>>>(
+        x, gamma, beta, b2, m, ws, out, H, rows_pad, splits, eps);
+  });
+}
 
 // Epilogue of the second product: mlp_epilogue's pre-LN arithmetic, o = acc
 // + b2, times m in fp32, out = bf16(bf16(o) + x).
@@ -184,31 +176,54 @@ struct EpiResidual {
   }
 };
 
-// Workspace of the wgmma route: y (rows, H) then a (rows, I), bf16.
-size_t wgmma_workspace_floats(int rows, int H, int I) {
-  return ((size_t)rows * H + (size_t)rows * I + 1) / 2;
+// Workspace of the wgmma route, bf16 elements then fp32: pre-LN y (rows, H)
+// and a (rows, I) bf16; post-LN a (rows, I) bf16, then the S fp32 slices
+// (S, rows, H) of a W2 (sm90::split_k_tiling).
+size_t wgmma_workspace_floats(int rows, int H, int I, bool postln) {
+  if (!postln) return ((size_t)rows * H + (size_t)rows * I + 1) / 2;
+  const size_t a = ((size_t)rows * I + 1) / 2;
+  return a + (size_t)sm90::split_k_tiling(rows, H, I).splits * rows * H;
 }
 
 int launch_wgmma(const void* x, const void* gamma, const void* beta, const void* w1,
                  const void* b1, const void* w2, const void* b2, const void* m, void* out,
-                 float* ws, int rows, int H, int I, float eps, int act, cudaStream_t st) {
+                 float* ws, int rows, int H, int I, float eps, int act, bool postln,
+                 cudaStream_t st) {
   using bf = __nv_bfloat16;
-  if (H != 768) return (int)cudaErrorInvalidValue;
+  if (!core_shape_ok(rows, H, I)) return (int)cudaErrorInvalidValue;
+  const bf* xp = static_cast<const bf*>(x);
+  const bf* w1p = static_cast<const bf*>(w1);
+  const bf* w2p = static_cast<const bf*>(w2);
+  cudaError_t e;
+  if (postln) {
+    bf* a = reinterpret_cast<bf*>(ws);
+    float* slices = ws + ((size_t)rows * I + 1) / 2;
+    if ((e = with_act(act, static_cast<const bf*>(b1), a, I, [&](auto epi) {
+           return sm90::gemm<128, true>(xp, w1p, rows, I, H, epi, st);
+         })) != cudaSuccess)
+      return (int)e;
+    const sm90::Tiling tl = sm90::split_k_tiling(rows, H, I);
+    const sm90::StoreF32 sf{slices, H};
+    e = tl.bn == 192 ? sm90::gemm<192, true>(a, w2p, rows, H, I, sf, st, nullptr, nullptr, tl.splits)
+                     : sm90::gemm<128, true>(a, w2p, rows, H, I, sf, st, nullptr, nullptr, tl.splits);
+    if (e != cudaSuccess) return (int)e;
+    return (int)launch_epilogue<bf, true>(
+        xp, static_cast<const bf*>(gamma), static_cast<const bf*>(beta), static_cast<const bf*>(b2),
+        static_cast<const bf*>(m), slices, static_cast<bf*>(out), rows, H, rows, tl.splits, eps, st);
+  }
   bf* y = reinterpret_cast<bf*>(ws);
   bf* a = y + (size_t)rows * H;
-  ln_rows_bf16<768><<<(rows + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
-      static_cast<const bf*>(x), static_cast<const bf*>(gamma), static_cast<const bf*>(beta), y,
-      nullptr, nullptr, nullptr, rows, eps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const EpiAct act_epi{static_cast<const bf*>(b1), a, I, act};
-  const bf* w1p = static_cast<const bf*>(w1);
-  e = sm90::gemm<128, true>(y, w1p, rows, I, H, act_epi, st);
-  if (e != cudaSuccess) return (int)e;
-  const EpiResidual res_epi{static_cast<const bf*>(b2), static_cast<const bf*>(m),
-                            static_cast<const bf*>(x), static_cast<bf*>(out), H};
-  const bf* w2p = static_cast<const bf*>(w2);
-  return (int)(sm90::pick_width(rows, H, 128, 192) == 192
+  ln_rows_bf16<<<(rows + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
+      xp, static_cast<const bf*>(gamma), static_cast<const bf*>(beta), y, nullptr, nullptr,
+      nullptr, rows, H, eps);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if ((e = with_act(act, static_cast<const bf*>(b1), a, I, [&](auto epi) {
+         return sm90::gemm<128, true>(y, w1p, rows, I, H, epi, st);
+       })) != cudaSuccess)
+    return (int)e;
+  const EpiResidual res_epi{static_cast<const bf*>(b2), static_cast<const bf*>(m), xp,
+                            static_cast<bf*>(out), H};
+  return (int)(sm90::pick_tiling(rows, H, I, 128, 192, 1).bn == 192
                    ? sm90::gemm<192, true>(a, w2p, rows, H, I, res_epi, st)
                    : sm90::gemm<128, true>(a, w2p, rows, H, I, res_epi, st));
 }
@@ -233,11 +248,10 @@ int launch(const void* x, const void* gamma, const void* beta, const void* w1,
       nullptr, rows, tiles * BM, I, I / splits, eps, act, s1, s2);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  mlp_epilogue<T, NF, POSTLN><<<rows, EPI, 0, stream>>>(
+  return (int)launch_epilogue<T, POSTLN>(
       static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      static_cast<const T*>(b2), static_cast<const T*>(m), ws, static_cast<T*>(out),
-      tiles * BM, splits, eps);
-  return (int)cudaGetLastError();
+      static_cast<const T*>(b2), static_cast<const T*>(m), ws, static_cast<T*>(out), rows, H,
+      tiles * BM, splits, eps, stream);
 }
 
 template <typename T, bool POSTLN, typename W = T>
@@ -260,40 +274,34 @@ extern "C" long long vt_mlp_workspace(int rows, int H, int I) {
   return (long long)pick_splits(rows, I) * ((rows + BM - 1) / BM) * BM * H;
 }
 
-// The walk: the fp32 blocks and the bf16 post-LN block.
+// The walk: the fp32 blocks.
 extern "C" int vt_mlp_fwd(const void* x, const void* gamma, const void* beta,
                           const void* w1, const void* b1, const void* w2,
                           const void* b2, const void* m, void* out, void* ws,
                           int rows, int H, int I, float eps, int act, int postln,
                           int dtype, void* stream) {
-  if (rows <= 0 || I <= 0 || I % BN1 != 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || I <= 0 || I % BN1 != 0 || dtype != vt::kF32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
-  if (dtype == vt::kBF16 && postln)
-    return dispatch_h<__nv_bfloat16, true>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows,
-                                           I, eps, act, st);
-  if (dtype == vt::kF32) {
-    return postln
-        ? dispatch_h<float, true>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st)
-        : dispatch_h<float, false>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return postln
+      ? dispatch_h<float, true>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st)
+      : dispatch_h<float, false>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st);
 }
 
 // fp32 elements of workspace vt_mlp_fwd_wgmma needs for these shapes.
-extern "C" long long vt_mlp_wgmma_workspace(int rows, int H, int I) {
-  if (rows <= 0 || I <= 0 || I % BN1 != 0) return -1;
-  return (long long)wgmma_workspace_floats(rows, H, I);
+extern "C" long long vt_mlp_wgmma_workspace(int rows, int H, int I, int postln) {
+  if (!core_shape_ok(rows, H, I)) return -1;
+  return (long long)wgmma_workspace_floats(rows, H, I, postln != 0);
 }
 
-// The bf16 pre-LN block on the wgmma core: every operand bf16.
+// Every bf16 block with bf16 weights, pre-LN or post-LN, on the wgmma core:
+// every operand bf16.
 extern "C" int vt_mlp_fwd_wgmma(const void* x, const void* gamma, const void* beta,
                                 const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* m, void* out, void* ws, int rows,
-                                int H, int I, float eps, int act, void* stream) {
-  if (rows <= 0 || I <= 0 || I % BN1 != 0) return (int)cudaErrorInvalidValue;
+                                int H, int I, float eps, int act, int postln, void* stream) {
   return launch_wgmma(x, gamma, beta, w1, b1, w2, b2, m, out, static_cast<float*>(ws), rows, H,
-                      I, eps, act, static_cast<cudaStream_t>(stream));
+                      I, eps, act, postln != 0, static_cast<cudaStream_t>(stream));
 }
 
 // The w8 blocks: w1q (H, I) and w2q (I, H) int8, s1 (I) and s2 (H) fp32; x,

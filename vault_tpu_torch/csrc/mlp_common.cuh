@@ -1,7 +1,10 @@
 // Pieces shared by the fused MLP kernels, forward (mlp.cu) and backward
-// (mlp_bwd.cu): the tiling constants, cp.async helpers, the split picker
-// and the main forward walk (mlp_main), which the post-LN backward reruns
-// to rebuild the MLP output before its LayerNorm backward.
+// (mlp_bwd.cu): the walk's tiling constants, cp.async helpers, the split
+// picker and the main forward walk (mlp_main: the fp32 blocks and the int8
+// weights; the fp32 post-LN backward reruns it to rebuild the MLP output
+// before its LayerNorm backward); for the wgmma route the width contract,
+// the row kernels' shapes (row_shape), ln_rows_bf16 and the first
+// products' activation epilogue (EpiAct).
 //
 // mlp_main: grid (row tiles, splits).  Block (r, s) owns rows [32 r, 32 r +
 // 32) and I columns [s * ic, (s + 1) * ic).  It computes LN(x) (pre-LN) or
@@ -358,59 +361,173 @@ cudaError_t allow_smem(size_t bytes) {
   return e;
 }
 
-// One warp per row of H bf16 values: y = bf16(LN(x)) with fp32 statistics
-// as mlp_main's prologue takes them; with g given also gc = bf16(g m) (the
-// masked cotangent of the backward).  Rows past `rows` are skipped.
-constexpr int LN_WARPS = 8;
+// Row kernels (the LN passes after the products) take H at run time, any
+// multiple of 64 up to 8,192.  A block takes a row at a time, thread t of
+// its T holding columns t + T i, i < PER, in registers: 128 threads and PER
+// the next of 2, 4, 6, 8 up to H = 1,024 (H = 768: PER 6), then 16 columns
+// a thread, T = 128 ceil(H / 2,048) up to 512 threads.  The launch bounds
+// follow (row_threads: 128 threads leave a thread up to 255 registers, 512
+// threads 128; bounded at 1,024 threads' 64, the LN backward rows spilled).
+// Sums over a row run in a fixed order: a thread's columns in order, the
+// warp's butterfly, then the warps in order.  (A warp a row, tried for
+// H <= 1,024, needed 145-230 registers a thread at H = 768 and took longer
+// at 320 and 8,192 rows.)
+constexpr int ROW_MAX_THREADS = 512;
+constexpr int ROW_MAX_H = 8192;
 
-template <int H>
+// The widths the bf16 blocks on the wgmma core take (the core: K a multiple
+// of 64 for both products, 16-byte TMA rows; the row kernels: H <= 8,192).
+inline bool core_shape_ok(int rows, int H, int I) {
+  return rows > 0 && H >= 64 && H <= ROW_MAX_H && H % 64 == 0 && I >= 64 && I % 64 == 0;
+}
+
+// exact: H = threads x PER, every column a thread holds lies in the row,
+// and the kernels drop the column masks (H = 256, 512, 768, 1,024, and 16
+// T above).  With run-time masks and stride the pre-LN rows at 8,192 rows
+// took twice their time at a fixed width; up to H = 1,024 the stride (128)
+// is a compile-time constant too.
+struct RowShape {
+  int threads, per;
+  bool exact;
+};
+
+inline RowShape row_shape(int H) {
+  RowShape rs;
+  if (H <= 1024) {
+    const int per = (H + 127) / 128;
+    rs = RowShape{128, per <= 2 ? 2 : per <= 4 ? 4 : per <= 6 ? 6 : 8, false};
+  } else {
+    rs = RowShape{(H + 2047) / 2048 * 128, 16, false};
+  }
+  rs.exact = H == rs.threads * rs.per;
+  return rs;
+}
+
+template <int PER>
+constexpr int row_threads() { return PER <= 8 ? 128 : ROW_MAX_THREADS; }
+
+// The column stride of a row kernel's thread: 128 at compile time up to
+// PER = 8 (row_shape), the block's size above.
+template <int PER>
+__device__ __forceinline__ int row_stride() { return PER <= 8 ? 128 : (int)blockDim.x; }
+
+// f(std::integral_constant<int, PER>, std::bool_constant<EXACT>) for the
+// shape row_shape picked; returns the launch's error.
+template <class F>
+cudaError_t with_rows(const RowShape& rs, F f) {
+  auto go = [&](auto P) {
+    if (rs.exact) f(P, std::true_type{});
+    else f(P, std::false_type{});
+  };
+  switch (rs.per) {
+    case 2: go(std::integral_constant<int, 2>{}); break;
+    case 4: go(std::integral_constant<int, 4>{}); break;
+    case 6: go(std::integral_constant<int, 6>{}); break;
+    case 8: go(std::integral_constant<int, 8>{}); break;
+    case 16: go(std::integral_constant<int, 16>{}); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// The sum of a over the block's threads (blockDim.x a multiple of 32), in
+// a fixed order; red holds blockDim.x / 32 floats.
+__device__ __forceinline__ float row_block_sum(float a, float* red) {
+  a = group_sum<32>(a);
+  __syncthreads();  // red is free (its last readers are done)
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = a;
+  __syncthreads();
+  float t = 0.0f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w];
+  return t;
+}
+
+// Epilogue of a first product: a = bf16(act(acc + b1)), ACT a vt::Act code
+// fixed at compile time (a run-time switch in the epilogue cost a quarter
+// of the product's time at 1,280 rows).
+template <int ACT>
+struct EpiAct {
+  const __nv_bfloat16* b1;
+  __nv_bfloat16* a;
+  int n;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1, bool in) const {
+    const __nv_bfloat162 b = __ldg(reinterpret_cast<const __nv_bfloat162*>(b1 + c));
+    const __nv_bfloat162 o(vt::from_f<__nv_bfloat16>(vt::activate(v0 + vt::to_f(b.x), ACT)),
+                           vt::from_f<__nv_bfloat16>(vt::activate(v1 + vt::to_f(b.y), ACT)));
+    if (in) *reinterpret_cast<__nv_bfloat162*>(a + (size_t)r * n + c) = o;
+  }
+};
+
+// f(EpiAct<code>{b1, a, n}) for the run-time activation code; returns f's
+// error, cudaErrorInvalidValue for an unknown code.
+template <class F>
+cudaError_t with_act(int act, const __nv_bfloat16* b1, __nv_bfloat16* a, int n, F f) {
+  switch (act) {
+    case vt::kGeluErf: return f(EpiAct<vt::kGeluErf>{b1, a, n});
+    case vt::kGeluTanh: return f(EpiAct<vt::kGeluTanh>{b1, a, n});
+    case vt::kRelu: return f(EpiAct<vt::kRelu>{b1, a, n});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// One warp per row of H bf16 values (H a multiple of 8): y = bf16(LN(x))
+// with fp32 statistics as mlp_main's prologue takes them; with g given also
+// gc = bf16(g m) (the masked cotangent of the backward).  Rows past `rows`
+// are skipped.  Three passes over the row, 16 bytes a lane at a time: the
+// sum, the squared deviations, the output; the second and third read the
+// row again (from L1), so no width is held in registers.
+constexpr int LN_WARPS = 8;
+constexpr int V8 = 8;  // bf16 values in 16 bytes
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[V8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+  for (int k = 0; k < V8; ++k) v[k] = vt::to_f(e[k]);
+}
+
 __global__ void __launch_bounds__(LN_WARPS * 32)
 ln_rows_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gamma,
              const __nv_bfloat16* __restrict__ beta, __nv_bfloat16* __restrict__ y,
              const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ m,
-             __nv_bfloat16* __restrict__ gc, int rows, float eps) {
-  constexpr int V = 8, PER = H / (32 * V);  // 16-byte vectors per lane
-  static_assert(H % (32 * V) == 0, "H");
+             __nv_bfloat16* __restrict__ gc, int rows, int H, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;
   const size_t off = (size_t)row * H;
-  float v[PER][V];
+  const int nv = H / V8;  // 16-byte vectors in the row
+  float v[V8];
   float sum = 0.0f;
+  for (int i = lane; i < nv; i += 32) {
+    load8(x + off + i * V8, v);
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const uint4 q = *reinterpret_cast<const uint4*>(x + off + (32 * i + lane) * V);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&q);
-#pragma unroll
-    for (int k = 0; k < V; ++k) sum += (v[i][k] = vt::to_f(e[k]));
+    for (int k = 0; k < V8; ++k) sum += v[k];
   }
   const float mean = group_sum<32>(sum) / H;
   float sq = 0.0f;
+  for (int i = lane; i < nv; i += 32) {
+    load8(x + off + i * V8, v);
 #pragma unroll
-  for (int i = 0; i < PER; ++i)
-#pragma unroll
-    for (int k = 0; k < V; ++k) sq += (v[i][k] - mean) * (v[i][k] - mean);
+    for (int k = 0; k < V8; ++k) sq += (v[k] - mean) * (v[k] - mean);
+  }
   const float inv = 1.0f / sqrtf(group_sum<32>(sq) / H + eps);
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int c = (32 * i + lane) * V;
-    const uint4 gq = *reinterpret_cast<const uint4*>(gamma + c);
-    const uint4 bq = *reinterpret_cast<const uint4*>(beta + c);
-    const __nv_bfloat16* ga = reinterpret_cast<const __nv_bfloat16*>(&gq);
-    const __nv_bfloat16* be = reinterpret_cast<const __nv_bfloat16*>(&bq);
+  for (int i = lane; i < nv; i += 32) {
+    const int c = i * V8;
+    float ga[V8], be[V8];
+    load8(x + off + c, v);
+    load8(gamma + c, ga);
+    load8(beta + c, be);
     uint4 out;
     __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
 #pragma unroll
-    for (int k = 0; k < V; ++k)
-      o[k] = vt::from_f<__nv_bfloat16>((v[i][k] - mean) * inv * vt::to_f(ga[k]) + vt::to_f(be[k]));
+    for (int k = 0; k < V8; ++k) o[k] = vt::from_f<__nv_bfloat16>((v[k] - mean) * inv * ga[k] + be[k]);
     *reinterpret_cast<uint4*>(y + off + c) = out;
     if (gc != nullptr) {
-      const uint4 gv = *reinterpret_cast<const uint4*>(g + off + c);
-      const uint4 mv = *reinterpret_cast<const uint4*>(m + off + c);
-      const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv);
-      const __nv_bfloat16* me = reinterpret_cast<const __nv_bfloat16*>(&mv);
+      float ge[V8], me[V8];
+      load8(g + off + c, ge);
+      load8(m + off + c, me);
 #pragma unroll
-      for (int k = 0; k < V; ++k) o[k] = vt::from_f<__nv_bfloat16>(vt::to_f(ge[k]) * vt::to_f(me[k]));
+      for (int k = 0; k < V8; ++k) o[k] = vt::from_f<__nv_bfloat16>(ge[k] * me[k]);
       *reinterpret_cast<uint4*>(gc + off + c) = out;
     }
   }

@@ -1,9 +1,9 @@
 // w8a8 fused MLP blocks for Hopper: both products int8 x int8 -> int32
 // through the tensor cores, activations quantized per row on the fly.
 //
-//   pre-LN  (ViLT):  y = T(LN(x)); h = T(gelu(int32(q(y) W1) * (ys s1) + b1));
+//   pre-LN  (ViLT):  y = T(LN(x)); h = T(act(int32(q(y) W1) * (ys s1) + b1));
 //                    out = T(int32(q(h) W2) * (hs s2) + b2) + x
-//   post-LN (BERT):  h = T(gelu(int32(q(x) W1) * (xs s1) + b1));
+//   post-LN (BERT):  h = T(act(int32(q(x) W1) * (xs s1) + b1));
 //                    out = LN(x + int32(q(h) W2) * (hs s2) + b2)
 //
 // q(.) is the per-row int8 quantization (codes and scale, gemm_common.cuh).
@@ -12,8 +12,11 @@
 // vault_tpu/ops/pallas_mlp.py, with their cast points: the LN output and h
 // rounded to x's type T before they are quantized, each product's int32
 // sum converted to fp32 once, whole, then scaled; the pre-LN residual added
-// after the cast to T.  GELU is the exact erf form (the TPU kernel used the
-// A&S approximation because Mosaic lowers no erf).
+// after the cast to T.  act is the exact-erf GELU (the TPU kernel used the
+// A&S approximation because Mosaic lowers no erf), the tanh GELU or ReLU
+// (vt::Act codes), applied in fp32 where the TPU kernel applies
+// _kernel_act, before h is rounded and requantized, one rounding a step as
+// the plain versions write it (gemm_common.cuh act_rn).
 //
 // Operands: x (rows, H) bf16 or fp32; gamma, beta, b2 (H) and b1 (I) in x's
 // type; W1 (H, I) and W2 (I, H) int8, s1 (I) and s2 (H) fp32.  H is 768
@@ -28,7 +31,7 @@
 // weight matrices in VMEM.  An SM has 227 KB (a 32-row tile of h in bf16 is
 // 192 KB), so the block is cut into five launches, counted as one call:
 //   1. row_prologue: LN (pre-LN) and q() of each row -> codes, scale;
-//   2. gemm_tiles, epilogue kGelu: h = T(gelu(...)) in (64, 128) tiles,
+//   2. gemm_tiles, epilogue kAct: h = T(act(...)) in (64, 128) tiles,
 //      written to device memory (12.6 MB at 2,048 rows, each way), and the
 //      absmax of each (row, 128-column tile) of the rounded h;
 //   3. requant_rows: the row's absmax is the max of its tiles' (exact in
@@ -106,7 +109,7 @@ struct Bufs {
 template <typename T, bool POSTLN>
 int mlp_w8a8(const void* x, const void* gamma, const void* beta, const void* w1q,
              const void* s1, const void* b1, const void* w2q, const void* s2, const void* b2,
-             const Bufs& bf, void* out, int rows, int I, float eps, cudaStream_t st) {
+             const Bufs& bf, void* out, int rows, int I, float eps, int act, cudaStream_t st) {
   constexpr int H = 768;
   const T* xt = static_cast<const T*>(x);
   const T* g = static_cast<const T*>(gamma);
@@ -115,8 +118,8 @@ int mlp_w8a8(const void* x, const void* gamma, const void* beta, const void* w1q
       xt, g, bt, nullptr, bf.aq, bf.as, eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const gm::EpiArgs ep1{bf.h, bf.as, static_cast<const float*>(s1), b1, bf.pmax, nullptr};
-  int code = gm::launch_gemm<int8_t, T, gm::kGelu>(bf.aq, static_cast<const int8_t*>(w1q),
+  const gm::EpiArgs ep1{bf.h, bf.as, static_cast<const float*>(s1), b1, bf.pmax, nullptr, act};
+  int code = gm::launch_gemm<int8_t, T, gm::kAct>(bf.aq, static_cast<const int8_t*>(w1q),
                                                     rows, I, H, 1, ep1, st);
   if (code) return code;
   requant_rows<T><<<rows, gm::RT, 0, st>>>(static_cast<const T*>(bf.h), bf.pmax, I / gm::BN,
@@ -124,7 +127,7 @@ int mlp_w8a8(const void* x, const void* gamma, const void* beta, const void* w1q
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int splits = gm::pick_k_splits(rows, H, I);
-  const gm::EpiArgs ep2{nullptr, nullptr, nullptr, nullptr, nullptr, bf.ws};
+  const gm::EpiArgs ep2{nullptr, nullptr, nullptr, nullptr, nullptr, bf.ws, 0};
   code = gm::launch_gemm<int8_t, T, gm::kPartial>(bf.hq, static_cast<const int8_t*>(w2q), rows,
                                                   H, I, splits, ep2, st);
   if (code) return code;
@@ -135,6 +138,7 @@ int mlp_w8a8(const void* x, const void* gamma, const void* beta, const void* w1q
 }
 
 bool bad_shape(int rows, int H, int I) { return rows <= 0 || H != 768 || I <= 0 || I % gm::BN; }
+bool bad_act(int act) { return act != vt::kGeluErf && act != vt::kGeluTanh && act != vt::kRelu; }
 
 }  // namespace
 
@@ -148,14 +152,14 @@ extern "C" int vt_mlp_w8a8(const void* x, const void* gamma, const void* beta, c
                            const void* s1, const void* b1, const void* w2q, const void* s2,
                            const void* b2, void* aq, void* as, void* h, void* pmax, void* hq,
                            void* hs, void* ws, void* out, int rows, int H, int I, float eps,
-                           int postln, int dtype, void* stream) {
-  if (bad_shape(rows, H, I)) return (int)cudaErrorInvalidValue;
+                           int act, int postln, int dtype, void* stream) {
+  if (bad_shape(rows, H, I) || bad_act(act)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Bufs bf{static_cast<int8_t*>(aq), static_cast<float*>(as), h,
                 static_cast<float*>(pmax), static_cast<int8_t*>(hq), static_cast<float*>(hs),
                 static_cast<int*>(ws)};
 #define VT_MLP_W8A8(T, P) \
-  mlp_w8a8<T, P>(x, gamma, beta, w1q, s1, b1, w2q, s2, b2, bf, out, rows, I, eps, st)
+  mlp_w8a8<T, P>(x, gamma, beta, w1q, s1, b1, w2q, s2, b2, bf, out, rows, I, eps, act, st)
   if (dtype == vt::kBF16)
     return postln ? VT_MLP_W8A8(__nv_bfloat16, true) : VT_MLP_W8A8(__nv_bfloat16, false);
   if (dtype == vt::kF32) return postln ? VT_MLP_W8A8(float, true) : VT_MLP_W8A8(float, false);

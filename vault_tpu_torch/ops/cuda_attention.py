@@ -19,10 +19,13 @@ the kernel, or the call raises: there is no fallback.
 
 :func:`fused_attention_gqa` replaces the JAX package's
 ``fused_attention_gqa``: H query heads on H // rep unrepeated K/V heads and
-a full (B, 1, Lq, Lk) additive bias (causal and padding), head dim 128
-(Llama-3-8B) or 64.  Its plain version :func:`attention_gqa_plain` is the
-JAX package's ``_gqa_attend``; the backward recomputes through it, the bias
-detached.  ``fused_attention_gqa.launches`` counts its launches.
+a full (B, 1, Lq, Lk) additive bias (causal and padding).  Its plain
+version :func:`attention_gqa_plain` is the JAX package's ``_gqa_attend``;
+the backward recomputes through it, the bias detached.
+``fused_attention_gqa.launches`` counts its launches.
+
+Both kernels take the head dims of :data:`HEAD_DIMS`; a wrapper refuses any
+other before it looks at the device, so the contract shows on any tensor.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ from vault_tpu_torch.ops import _build
 from vault_tpu_torch.ops._dispatch import kernel_or_plain
 from vault_tpu_torch.ops.attention import attend_plain, gqa_attend_plain
 
-HEAD_DIM = 64  # the kernel's head dim (BERT-base, ViLT-B/32, BERTweet)
+# The head dims both kernels take (attention_common.cuh's D): 32 (BERT-small),
+# 64 (BERT-base and -large, ViLT-B/32, BERTweet), 96, 128 (Llama-3-8B).
+HEAD_DIMS = (32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"vt_attention_fwd": (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
@@ -49,15 +54,15 @@ def attention_plain(q, k, v, bias):
 
 
 def _check(q, k, v, bias):
+    if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"fused_attention: q must be (B, H, L, D) with D in {HEAD_DIMS}, "
+                         f"got {tuple(q.shape)}")
     if not q.is_cuda:
         raise ValueError(f"fused_attention: tensors on {q.device} have no "
                          "kernel; only CPU (plain) and CUDA are supported")
     if q.dtype not in _DTYPES:
         raise TypeError(f"fused_attention: dtype {q.dtype} not supported "
                         "(bfloat16 or float32)")
-    if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"fused_attention: q must be (B, H, L, {HEAD_DIM}), "
-                         f"got {tuple(q.shape)}")
     vec = 16 // q.element_size()  # elements per 16-byte copy
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
@@ -95,10 +100,11 @@ def _kernel(q, k, v, bias):
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
-    """q/k/v: (B, H, L, 64), any strides with contiguous rows (for example
-    head views of one fused projection); bias: (B, 1, 1, L) float32 additive
-    key bias.  Returns (B, H, L, 64) in q's dtype: on the card a view of a
-    (B, L, H, 64) tensor, so merging the heads back costs no copy."""
+    """q/k/v: (B, H, L, D), D in :data:`HEAD_DIMS`, any strides with
+    contiguous rows (for example head views of one fused projection); bias:
+    (B, 1, 1, L) float32 additive key bias.  Returns (B, H, L, D) in q's
+    dtype: on the card a view of a (B, L, H, D) tensor, so merging the heads
+    back costs no copy."""
     # the bias is a constant of the attention mask: no gradient
     return kernel_or_plain(_kernel, attention_plain, attention_plain, q, k, v,
                            bias.detach())
@@ -111,7 +117,6 @@ fused_attention.launches = 0
 # Grouped-query attention (csrc/attention_gqa.cu)
 # ---------------------------------------------------------------------------
 
-GQA_HEAD_DIMS = (64, 128)  # the GQA kernel's head dims (Llama-3-8B: 128)
 _GQA_SIGNATURES = {"vt_attention_gqa_fwd": (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
@@ -125,14 +130,14 @@ def attention_gqa_plain(q, k, v, bias):
 
 def _check_gqa(q, k, v, bias):
     what = "fused_attention_gqa"
+    if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what}: q must be (B, H, L, D) with D in {HEAD_DIMS}, "
+                         f"got {tuple(q.shape)}")
     if not q.is_cuda:
         raise ValueError(f"{what}: tensors on {q.device} have no kernel; only "
                          "CPU (plain) and CUDA are supported")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {q.dtype} not supported (bfloat16 or float32)")
-    if q.dim() != 4 or q.shape[-1] not in GQA_HEAD_DIMS:
-        raise ValueError(f"{what}: q must be (B, H, L, D) with D in {GQA_HEAD_DIMS}, "
-                         f"got {tuple(q.shape)}")
     b, h, l, d = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (l, d)
             or k.shape[1] == 0 or h % k.shape[1]):

@@ -9,6 +9,10 @@ reaches the core only through the MLP block wrappers of ``ops/cuda_mlp.py``.
     transposed (W2 in ``gc W2^T``, W1 in ``dh1 W1^T``).
   * :func:`gemm_dual_bf16`: ``a1 @ b1`` and ``a2 @ b2^T`` in one tile walk,
     the backward's dual product.
+  * :func:`gemm_bf16_split_k`: ``a @ b`` with K cut into S splits, the fp32
+    product of each split's K range in a slice of its own (the post-LN
+    blocks' second products, whose slices a row pass adds in order);
+    plain version :func:`gemm_split_k_plain`.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -23,10 +27,10 @@ from vault_tpu_torch.ops import _build
 from vault_tpu_torch.ops._dispatch import check_operands
 from vault_tpu_torch.ops.nn import matmul_fp32
 
-TILE_WIDTHS = (128, 192)  # the MLP blocks' tile widths
-K_MULTIPLE = 64           # the core walks K 64 at a time
+TILE_WIDTHS = (64, 128, 192)  # the core's tile widths
+K_MULTIPLE = 64               # the core walks K 64 at a time
 _SIGNATURES = {
-    "vt_gemm_bf16": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "vt_gemm_bf16": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
                      ctypes.c_int),
     "vt_gemm_dual_bf16": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
                           ctypes.c_int),
@@ -49,23 +53,56 @@ def gemm_plain(a, b, k_contiguous: bool = False) -> torch.Tensor:
     return matmul_fp32(a, b.t() if k_contiguous else b)
 
 
-def gemm_bf16(a, b, k_contiguous: bool = False, tile_width: int = 192) -> torch.Tensor:
-    """``a @ b`` in fp32 on the core; ``k_contiguous``: ``b`` is (N, K) and
-    the product is ``a @ b^T``.  ``tile_width``: 128 or 192."""
-    what = "gemm_bf16"
+def _launch(what, a, b, k_contiguous, tile_width, splits):
+    """(splits, M, N) fp32: the core's product of each split's K range."""
     if tile_width not in TILE_WIDTHS:
         raise ValueError(f"{what}: tile width {tile_width} not in {TILE_WIDTHS}")
     m, n, k = _shapes(what, a, b, k_contiguous)
+    if not 1 <= splits <= k // K_MULTIPLE:
+        raise ValueError(f"{what}: {splits} splits of K = {k}: from 1 to "
+                         f"K / {K_MULTIPLE} = {k // K_MULTIPLE}")
     bf = torch.bfloat16
     check_operands(what, a, {"a": (a, (m, k), bf),
                              "b": (b, (n, k) if k_contiguous else (k, n), bf)})
     lib = _build.load("gemm_sm90", _SIGNATURES)
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    c = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = lib.vt_gemm_bf16(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                            int(k_contiguous), tile_width, stream)
+                            int(k_contiguous), tile_width, splits, stream)
     _build.check(lib, code, what)
+    return c
+
+
+def gemm_bf16(a, b, k_contiguous: bool = False, tile_width: int = 192) -> torch.Tensor:
+    """``a @ b`` in fp32 on the core; ``k_contiguous``: ``b`` is (N, K) and
+    the product is ``a @ b^T``.  ``tile_width``: 64, 128 or 192."""
+    c = _launch("gemm_bf16", a, b, k_contiguous, tile_width, 1)[0]
     gemm_bf16.launches += 1
+    return c
+
+
+def split_bounds(k: int, splits: int):
+    """The K range of each split, as the core cuts K: split s takes the
+    64-deep steps [s kt / S, (s + 1) kt / S) of kt = K / 64."""
+    kt = k // K_MULTIPLE
+    return [(s * kt // splits * K_MULTIPLE, (s + 1) * kt // splits * K_MULTIPLE)
+            for s in range(splits)]
+
+
+def gemm_split_k_plain(a, b, splits: int, k_contiguous: bool = False) -> torch.Tensor:
+    """(splits, M, N): slice s is ``a @ b`` over split s's K range
+    (:func:`split_bounds`) in fp32; the slices sum to ``a @ b``."""
+    return torch.stack([
+        gemm_plain(a[:, k0:k1], b[:, k0:k1] if k_contiguous else b[k0:k1], k_contiguous)
+        for k0, k1 in split_bounds(a.shape[1], splits)])
+
+
+def gemm_bf16_split_k(a, b, splits: int, k_contiguous: bool = False,
+                      tile_width: int = 128) -> torch.Tensor:
+    """(splits, M, N) fp32 on the core's split-K form: slice s is the
+    product over split s's K range (:func:`split_bounds`)."""
+    c = _launch("gemm_bf16_split_k", a, b, k_contiguous, tile_width, splits)
+    gemm_bf16_split_k.launches += 1
     return c
 
 
@@ -93,4 +130,5 @@ def gemm_dual_bf16(a1, b1, a2, b2):
 
 
 gemm_bf16.launches = 0
+gemm_bf16_split_k.launches = 0
 gemm_dual_bf16.launches = 0

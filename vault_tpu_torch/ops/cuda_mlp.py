@@ -4,13 +4,15 @@
 them.
 
 Two designs sit behind ``csrc/mlp.cu`` and ``csrc/mlp_bwd.cu``, each
-behind its own C entries; :func:`mlp_route` picks one for a block: the
-bf16 pre-LN block with bf16 weights (the ViLT layers) runs forward and
-backward on the wgmma/TMA GEMM core (``csrc/gemm_sm90.cuh``,
-``vt_mlp_fwd_wgmma`` / ``vt_mlp_bwd_wgmma``), its (rows, I) intermediates
-through device memory; fp32, post-LN and int8-weight blocks on the 32-row
-``wmma`` walk (``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``,
-``vt_mlp_fwd_q8``, ``vt_mlp_bwd``), which keeps them on chip.
+behind its own C entries; :func:`mlp_route` picks one for a block: every
+bf16 block with bf16 weights, pre-LN (the ViLT layers) and post-LN (the
+BERT layers), runs forward and backward on the wgmma/TMA GEMM core
+(``csrc/gemm_sm90.cuh``, ``vt_mlp_fwd_wgmma`` / ``vt_mlp_bwd_wgmma``), its
+(rows, I) intermediates through device memory; fp32 and int8-weight blocks
+on the 32-row walk (``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``,
+``vt_mlp_fwd_q8``, ``vt_mlp_bwd``), which keeps them on chip.  Each design
+has its width contract (:func:`_check_sizes`); a width outside it raises
+``ValueError`` before anything is built or launched.
 
   * :func:`fused_mlp_block_fwd` (pre-LN, the ViLT layers):
     ``x + m * (act(LN(x) W1 + b1) W2 + b2)``; replaces the JAX package's
@@ -72,8 +74,15 @@ from vault_tpu_torch.ops.nn import (
 )
 from vault_tpu_torch.ops.quantize import quantize_activation
 
-HIDDEN_SIZES = (768,)  # H the kernels are built for
-I_MULTIPLE = 128            # the intermediate size must be a multiple of this
+# The widths each design takes.  The wgmma core: H a multiple of 64 from 64
+# to 8,192, I a multiple of 64 (each product's K a multiple of the core's
+# 64-deep stage, 16-byte TMA rows, the row kernels' 8,192).  The walk and
+# the w8a8 kernels: H 768 alone (their row tiles hold an H-wide fp32
+# accumulator, instantiated at 768; widening them is their redesign) and I
+# a multiple of 128.
+CORE_H_MULTIPLE, CORE_H_MAX, CORE_I_MULTIPLE = 64, 8192, 64
+HIDDEN_SIZES = (768,)  # H of the walk and the w8a8 kernels
+I_MULTIPLE = 128       # their intermediate size is a multiple of this
 _ACTS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1, "relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
@@ -83,28 +92,29 @@ _SIGNATURES = {
                       + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
     "vt_mlp_fwd_wgmma": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
-                         + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
-    "vt_mlp_wgmma_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
+                         + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
+    "vt_mlp_wgmma_workspace": ([ctypes.c_int] * 4, ctypes.c_longlong),
 }
 _BWD_SIGNATURES = {
     "vt_mlp_bwd": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_bwd_workspace": ([ctypes.c_int] * 5, ctypes.c_longlong),
-    "vt_mlp_bwd_wgmma": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float]
-                         + [ctypes.c_void_p], ctypes.c_int),
-    "vt_mlp_bwd_wgmma_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "vt_mlp_bwd_wgmma": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                         + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "vt_mlp_bwd_wgmma_workspace": ([ctypes.c_int] * 4, ctypes.c_longlong),
 }
 
 
-def mlp_route(dtype: torch.dtype, postln: bool) -> str:
-    """Which design runs a block with weights in x's dtype on the card,
-    forward and backward: "wgmma" (the ``*_wgmma`` C entries) for the bf16
-    pre-LN block; "walk" (``mlp_main`` / ``mlp_bwd_walk``) for fp32 and
-    post-LN blocks.  The wrappers launch the entries it names; int8-weight
-    blocks have only the walk (``vt_mlp_fwd_q8``)."""
+def mlp_route(dtype: torch.dtype, int8_weights: bool = False) -> str:
+    """Which design runs a block with activations in ``dtype`` on the card,
+    forward and backward, pre-LN and post-LN alike: "wgmma" (the
+    ``*_wgmma`` C entries) for bf16 with bf16 weights; "walk" (``mlp_main``
+    / ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_bwd``, ``vt_mlp_fwd_q8``)
+    for fp32 and for int8 weights (the q8 blocks).  The wrappers launch the
+    entries it names and hold a block to its width contract."""
     if dtype not in _DTYPES:
         raise TypeError(f"mlp_route: dtype {dtype} not supported (bfloat16 or float32)")
-    return "wgmma" if dtype == torch.bfloat16 and not postln else "walk"
+    return "wgmma" if dtype == torch.bfloat16 and not int8_weights else "walk"
 
 
 def _mlp_block_plain(ln_p, p_in, p_out, x, eps, act, m=None):
@@ -126,24 +136,35 @@ def _mlp_postln_plain(ln_p, p_in, p_out, x, eps, act, m=None):
     return layer_norm(ln_p, x + mlp, eps)
 
 
-def _check_sizes(what, x, w1):
-    """x in a dtype and w1 at sizes the kernels take; returns (H, I)."""
+def _check_sizes(what, x, w1, design):
+    """x in a dtype and w1 (H, I) at widths ``design`` takes ("wgmma", or
+    "walk" and "w8a8", which share a contract); returns (H, I)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported "
                         "(bfloat16 or float32)")
     if w1.dim() != 2:
         raise ValueError(f"{what}: w1 must be (H, I), got {tuple(w1.shape)}")
     h, i = w1.shape
-    if h not in HIDDEN_SIZES or i % I_MULTIPLE:
-        raise ValueError(f"{what}: hidden size {h} (supported {HIDDEN_SIZES}) "
-                         f"/ intermediate size {i} (a multiple of {I_MULTIPLE})")
+    if design == "wgmma":
+        if h % CORE_H_MULTIPLE or not CORE_H_MULTIPLE <= h <= CORE_H_MAX \
+                or i % CORE_I_MULTIPLE or i == 0:
+            raise ValueError(
+                f"{what}: hidden size {h} / intermediate size {i}: the wgmma core "
+                f"takes H a multiple of {CORE_H_MULTIPLE} from {CORE_H_MULTIPLE} to "
+                f"{CORE_H_MAX} and I a multiple of {CORE_I_MULTIPLE}")
+    elif h not in HIDDEN_SIZES or i % I_MULTIPLE or i == 0:
+        raise ValueError(f"{what}: hidden size {h} / intermediate size {i}: the {design} "
+                         f"kernels take H in {HIDDEN_SIZES} and I a multiple of "
+                         f"{I_MULTIPLE}")
     return h, i
 
 
 def _check(what, x, named):
-    """Every operand of an fp block kernel in x's dtype, at its shape, on
-    the card (``check_operands``)."""
-    h, i = _check_sizes(what, x, named["w1"])
+    """Every operand of an fp block kernel at a width of its route, in
+    x's dtype, at its shape, on the card (``check_operands``)."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported (bfloat16 or float32)")
+    h, i = _check_sizes(what, x, named["w1"], mlp_route(x.dtype))
     shapes = {"gamma": (h,), "beta": (h,), "w1": (h, i), "b1": (i,),
               "w2": (i, h), "b2": (h,), "x": (*x.shape[:-1], h)}
     check_operands(what, x, {n: (t, shapes.get(n, shapes["x"]), x.dtype)
@@ -164,13 +185,14 @@ def _launch(postln, gamma, beta, w1, b1, w2, b2, x, m, eps, act):
     ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             None if m is None else m.data_ptr(), out.data_ptr())
-    # the route's scratch, sized by the C side: LN(x) and the activation
-    # (wgmma), or the fp32 partial sums of the I splits (walk)
-    if mlp_route(x.dtype, postln) == "wgmma":
-        ws = torch.empty(lib.vt_mlp_wgmma_workspace(rows, h, i), dtype=torch.float32,
-                         device=x.device)
+    # the route's scratch, sized by the C side: LN(x) or the fp32 split-K
+    # slices and the activation (wgmma), or the fp32 partial sums of the I
+    # splits (walk)
+    if mlp_route(x.dtype) == "wgmma":
+        ws = torch.empty(lib.vt_mlp_wgmma_workspace(rows, h, i, int(postln)),
+                         dtype=torch.float32, device=x.device)
         code = lib.vt_mlp_fwd_wgmma(*ptrs, ws.data_ptr(), rows, h, i, float(eps),
-                                    _ACTS[act], stream)
+                                    _ACTS[act], int(postln), stream)
     else:
         ws = torch.empty(lib.vt_mlp_workspace(rows, h, i), dtype=torch.float32,
                          device=x.device)
@@ -303,13 +325,13 @@ def _launch_bwd(postln, gamma, beta, w1, b1, w2, b2, x, g, m, eps):
     mask = None if m is None else m.data_ptr()
     outs = (dx.data_ptr(), dh1.data_ptr(), a.data_ptr(), yds.data_ptr(),
             dgamma.data_ptr(), dbeta.data_ptr())
-    if mlp_route(dt, postln) == "wgmma":
-        ws = torch.empty(lib.vt_mlp_bwd_wgmma_workspace(rows, h, i), dtype=torch.float32,
-                         device=dev)
+    if mlp_route(dt) == "wgmma":
+        ws = torch.empty(lib.vt_mlp_bwd_wgmma_workspace(rows, h, i, int(postln)),
+                         dtype=torch.float32, device=dev)
         code = lib.vt_mlp_bwd_wgmma(
             x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), mask, *outs, ws.data_ptr(), rows, h, i,
-            float(eps), stream)
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), mask, *outs, ws.data_ptr(), rows,
+            h, i, float(eps), int(postln), stream)
     else:
         ws = torch.empty(lib.vt_mlp_bwd_workspace(rows, h, i, _DTYPES[dt], int(postln)),
                          dtype=torch.float32, device=dev)
@@ -399,15 +421,17 @@ class _FusedMLP(torch.autograd.Function):
 
 _W8A8_SIGNATURES = {
     "vt_mlp_w8a8": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [ctypes.c_float]
-                    + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_w8a8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
 }
 _INV_SQRT2 = 0.7071067811865476  # fp32 0.70710677, the kernels' constant
 
 
 def _act_f32(act):
-    """The activation on fp32 values; GELU written as the kernels write it,
-    ``h * (erf(h * 0.70710677) + 1) * 0.5``, one rounding per step."""
+    """The activation on fp32 values as the w8a8 kernels write it, one
+    rounding per step: GELU ``h * (erf(h * 0.70710677) + 1) * 0.5``; the
+    tanh form in ``ops/nn.py`` ``gelu_tanh``'s order (the kernels mirror it,
+    ``gemm_common.cuh`` ``act_rn``); ReLU."""
     if act == "gelu":
         return lambda h: h * (torch.erf(h * _INV_SQRT2) + 1.0) * 0.5
     return act_fn(act)
@@ -447,9 +471,9 @@ def mlp_postln_w8a8_plain(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
 
 def _launch_w8a8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
     what = "fused_mlp_postln_fwd_w8a8" if postln else "fused_mlp_block_fwd_w8a8"
-    if act != "gelu":
-        raise ValueError(f"{what}: the kernel computes GELU only, got {act!r}")
-    h, i = _check_sizes(what, x, w1q)
+    if act not in _ACTS:
+        raise ValueError(f"{what}: activation {act!r} not supported")
+    h, i = _check_sizes(what, x, w1q, "w8a8")
     dt, dev, rows = x.dtype, x.device, x.numel() // h
     s1, s2 = s1.reshape(-1), s2.reshape(-1)
     check_operands(what, x, {
@@ -470,8 +494,8 @@ def _launch_w8a8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
     code = lib.vt_mlp_w8a8(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                            w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
                            s2.data_ptr(), b2.data_ptr(), *(t.data_ptr() for t in scratch),
-                           out.data_ptr(), rows, h, i, float(eps), int(postln),
-                           _DTYPES[dt], stream)
+                           out.data_ptr(), rows, h, i, float(eps), _ACTS[act],
+                           int(postln), _DTYPES[dt], stream)
     _build.check(lib, code, what)
     return out
 
@@ -530,7 +554,7 @@ def _launch_q8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
     what = "fused_mlp_postln_fwd_q8" if postln else "fused_mlp_block_fwd_q8"
     if act not in _ACTS:
         raise ValueError(f"{what}: activation {act!r} not supported")
-    h, i = _check_sizes(what, x, w1q)
+    h, i = _check_sizes(what, x, w1q, mlp_route(x.dtype, int8_weights=True))
     dt, rows = x.dtype, x.numel() // h
     s1, s2 = s1.reshape(-1), s2.reshape(-1)  # (1, out) in the parameter tree
     check_operands(what, x, {
