@@ -16,7 +16,9 @@ kernel path against one on the plain path
 (fp32 masters, bf16 compute, remat, dropout 0.1, batch 32 at the ``entry()``
 layout) and a short ``Trainer.train()`` with a dev evaluation and a
 checkpoint.  It checks the launch counts, the gradients and the outputs.
-Each phase prints one JSON line; any failure exits non-zero.  The last line
+Each phase prints one JSON line; any failure exits non-zero.  Device
+times come from CUPTI traces, each held against the CUDA-event time of the
+same calls (``device_ms``).  The last line
 is ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without one it
 exits non-zero and prints no result.  Imports nothing of JAX or of the JAX
 package.
@@ -87,19 +89,23 @@ BWD_LN_LIMIT = 1e-3
 # differ by fp32 rounding, far below one bf16 ulp (2^-8) of the output:
 # 1e-4 of max(1, max|plain|).
 GEMM_CORE_LIMIT = 1e-4
-# Device kernels that show which design ran a block (``cuda_mlp.mlp_route``):
-# on the wgmma core the GEMM core's products and the block's row passes, on
-# the walk mlp_main.
+# Device kernels that show which design ran a block (``cuda_mlp.mlp_route``,
+# ``cuda_ln_qkv.ln_qkv_route``): on the wgmma core the GEMM core's products
+# and the block's row passes, on the walk mlp_main.
 ROUTE_KERNELS = {
     ("mlp_block", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
+    ("mlp_block_q8", "wgmma"): ("dequant_kernel", "gemm_kernel", "ln_rows_bf16"),
+    ("ln_qkv", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
     ("mlp_postln", "wgmma"): ("gemm_kernel", "mlp_epilogue"),
     ("mlp_block_bwd", "wgmma"): ("gemm_kernel", "ln_rows_bf16", "mlp_bwd_preln_rows"),
     ("mlp_postln_bwd", "wgmma"): ("gemm_kernel", "mlp_bwd_postln_rows", "mlp_bwd_postln_dx"),
-    **{(name, "walk"): ("mlp_main",) for name in ("mlp_block", "mlp_postln", "mlp_postln_bwd")},
+    **{(name, "walk"): ("mlp_main",) for name in ("mlp_block", "mlp_postln", "mlp_postln_bwd",
+                                                  "mlp_postln_q8")},
     ("mlp_block_bwd", "walk"): ("mlp_bwd_walk",),
 }
-# The second geometries the bf16 blocks are checked at (the wgmma core's
-# width contract): BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
+# The second geometries the bf16 blocks (and the bf16 LN->QKV and the q8
+# pre-LN block on the core) are checked at (the wgmma core's width
+# contract): BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
 OTHER_WIDTHS = ((1024, 4096), (512, 2048))
 # One training step, kernel path vs plain path (same parameters, batch and
 # generator seed): per parameter leaf ||g_kernel - g_plain|| / ||g_plain||,
@@ -176,39 +182,101 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+# A CUPTI trace is held against the CUDA-event time of the same calls.  The
+# calls are queued behind a spin kernel long enough for the host to queue
+# them all, so the card runs them back to back and the event time is the
+# kernels' summed durations plus a launch gap after each kernel.  A trace
+# whose sum falls short of the event time by more than LAUNCH_GAP_MS a
+# kernel and TRACE_SHORT_SHARE of the event time, or whose sum exceeds the
+# event time by more than TRACE_LONG_SHARE (kernels of one stream cannot
+# overlap), is bad and is taken again; TRACE_ATTEMPTS bad traces in a row
+# fail the run.  The limits lie between the readings (NVIDIA H100 80GB
+# HBM3): good traces left gaps of 0.0012-0.0042 ms a kernel (never more
+# than 0.0042), and the short ones seen read 2/3 and 0.73 of it (a
+# 7-kernel call of 0.11 ms at 2/3 is short by 0.037 ms, above 7 x 0.003 +
+# 0.011; one attention kernel at 0.73 by about 0.019, above 0.003 + 0.007).
+# Calls the host could not queue before the spin ended (a call that waits
+# on the card) leave idle gaps the check cannot tell from a short trace:
+# their traces are kept unchecked.  TRACE_LOG counts both kinds and every
+# bad trace's ratio (kernel sum / event time), and per count of kernels a
+# call its good traces, their largest gap a kernel and their lowest ratio;
+# the run prints it.
+TRACE_SHORT_SHARE = 0.1
+TRACE_LONG_SHARE = 0.05
+LAUNCH_GAP_MS = 0.003
+TRACE_ATTEMPTS = 3
+SPIN_CYCLES_PER_MS = 1.98e6  # the H100's top SM clock: a spin at least this long
+TRACE_LOG = {"checked": 0, "unchecked": 0, "bad_ratios": [], "no_device_time": 0,
+             "good_by_kernels": {}}
+
+
 def device_ms(fn, iters=20, warmup=3):
     """Device time per call: the summed durations of the CUDA kernels the
-    call launches, from a torch.profiler trace (CUPTI).  Returns
-    (ms, {kernel name: ms}); fails if the trace holds no device time."""
+    call launches, from a torch.profiler trace (CUPTI), each trace held
+    against the CUDA-event time of the same calls (``TRACE_SHORT_SHARE``).
+    Returns (ms, {kernel name: ms}); fails if ``TRACE_ATTEMPTS`` traces in a
+    row hold no device time or fail the check."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # CUPTI has handed back a trace without device events (once in ten runs,
-    # cause not found): each such trace is reported, and the call traced again
-    for attempt in range(3):
+    # the spin: twice the host time the calls took in the warm-up
+    spin_ms = min(500.0, 2.0 * iters * (time.perf_counter() - t0) * 1e3 / warmup) if warmup else 0.0
+    for attempt in range(TRACE_ATTEMPTS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ev[0].record()
+            if spin_ms:
+                torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+            ev[1].record()
+            t_host = time.perf_counter()
             for _ in range(iters):
                 fn()
+            ev[2].record()
+            queued_ms = (time.perf_counter() - t_host) * 1e3
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, n_kernels = {}, 0
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
                 name = e.name.replace("(anonymous namespace)::", "")
                 name = name.removeprefix("void ").split("(")[0]
-                # the wgmma core's instances keep their tile width, layouts
+                # the wgmma core's instances keep their tile width, mode
                 # and epilogue
                 if "gemm_kernel<" not in name:
                     name = name.split("<")[0][:60]
                 by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+                n_kernels += 1
         total = sum(by_name.values())
-        if total > 0.0:
+        if total <= 0.0:
+            # CUPTI has handed back a trace without device events (once in
+            # ten runs, cause not found)
+            TRACE_LOG["no_device_time"] += 1
+            print(f"chip_smoke: profiler trace {attempt + 1} of {fn} holds no device "
+                  f"time ({len(prof.events())} host events)", file=sys.stderr, flush=True)
+            continue
+        if not spin_ms or queued_ms >= ev[0].elapsed_time(ev[1]):
+            TRACE_LOG["unchecked"] += 1
             return total, by_name
-        print(f"chip_smoke: profiler trace {attempt + 1} of {fn} holds no device "
-              f"time ({len(prof.events())} host events)", file=sys.stderr, flush=True)
-    fail("three profiler traces in a row hold no device time")
+        event_ms = ev[1].elapsed_time(ev[2]) / iters
+        gaps_ms = n_kernels / iters * LAUNCH_GAP_MS
+        if (event_ms - total - gaps_ms <= TRACE_SHORT_SHARE * event_ms
+                and total <= (1.0 + TRACE_LONG_SHARE) * event_ms):
+            TRACE_LOG["checked"] += 1
+            good = TRACE_LOG["good_by_kernels"].setdefault(str(round(n_kernels / iters)),
+                                                           [0, 0.0, 1.0])
+            good[0] += 1
+            good[1] = max(good[1], (event_ms - total) * iters / n_kernels)
+            good[2] = min(good[2], total / event_ms)
+            return total, by_name
+        TRACE_LOG["bad_ratios"].append(total / event_ms)
+        print(f"chip_smoke: profiler trace {attempt + 1} of {fn}: kernel sum {total:.4f} ms "
+              f"({n_kernels / iters:.0f} kernels) is {total / event_ms:.3f} of the "
+              f"CUDA-event time of the same calls", file=sys.stderr, flush=True)
+    fail(f"{TRACE_ATTEMPTS} profiler traces in a row hold no device time or disagree with "
+         f"the CUDA-event time of their calls ({TRACE_LOG['bad_ratios'][-TRACE_ATTEMPTS:]})")
 
 
 def timed(fn, prefix, row, iters=20):
@@ -435,8 +503,10 @@ def check_route(name, row):
     if not all(any(k in n for n in ran) for k in want):
         fail(f"{name} rows={row['rows']}: route {row['route']} should run {want}, ran "
              f"{sorted(ran)}")
-    if row["route"] == "wgmma" and any("mlp_main" in n or "mlp_bwd_walk" in n for n in ran):
-        fail(f"{name} rows={row['rows']}: the wgmma route ran the walk: {sorted(ran)}")
+    if row["route"] == "wgmma" and any(k in n for n in ran
+                                       for k in ("mlp_main", "mlp_bwd_walk", "gemm_tiles")):
+        fail(f"{name} rows={row['rows']}: the wgmma route ran the walk or gemm_tiles: "
+             f"{sorted(ran)}")
 
 
 def check_gemm_core(gen, dev):
@@ -720,8 +790,12 @@ def check_int8_family(gen, dev, name):
     """One LN->QKV, w8a8 MLP or q8 MLP kernel against its plain version at
     the serving path's rows (batch 8: 2,048 ViLT rows, 320 BERT rows) and at
     77 fp32 rows (w8a8: bit-equal; fp LN->QKV: see ``LNQKV_BF16_LIMIT``; q8,
-    which rounds no activation to int8: ``LIMITS``); two launches bit-equal;
-    times beside the bound and the library composition."""
+    which rounds no activation to int8: ``LIMITS``); the kernels on the
+    wgmma core (bf16 LN->QKV, the bf16 q8 pre-LN block) also at 77 and 37
+    rows and at ``OTHER_WIDTHS``, q8 with every activation; two launches
+    bit-equal; times beside the bound and the library composition, the
+    route's device kernels checked (``check_route``); the q8 pre-LN block's
+    dequantization pass held exact (``check_dequant_pass``)."""
     import torch
     import torch.nn.functional as F
 
@@ -731,13 +805,22 @@ def check_int8_family(gen, dev, name):
     wrapper_name, plain_name, names, main_rows, library = INT8_KERNELS[name]
     mod = cl if name.startswith("ln_qkv") else cm
     wrapper, plain = getattr(mod, wrapper_name), getattr(mod, plain_name)
+    route_of = {"ln_qkv": lambda dt: cl.ln_qkv_route(dt),
+                "mlp_block_q8": lambda dt: cm.mlp_route(dt, True, False),
+                "mlp_postln_q8": lambda dt: cm.mlp_route(dt, True, True)}.get(name)
+    bf, h0, i0 = torch.bfloat16, 768, 3072
     rows_out = []
-    cases = [(main_rows, torch.bfloat16, {}), (77, torch.float32, {})]
+    cases = [(main_rows, bf, h0, i0, {}), (77, torch.float32, h0, i0, {})]
     if name.startswith("mlp_"):  # the other activations the MLP blocks take
-        cases += [(rows, dtype, {"act": act}) for act in ("gelu_new", "relu")
-                  for rows, dtype in ((main_rows, torch.bfloat16), (77, torch.float32))]
-    for rows, dtype, kw in cases:
-        o = int8_operands(gen, rows, dtype, dev)
+        cases += [(rows, dtype, h0, i0, {"act": act}) for act in ("gelu_new", "relu")
+                  for rows, dtype in ((main_rows, bf), (77, torch.float32))]
+    if name in ("ln_qkv", "mlp_block_q8"):  # on the wgmma core: rows and widths
+        acts = [{}] if name == "ln_qkv" else [{}] + [{"act": a} for a in cm._ACTS if a != "gelu"]
+        cases += [c for c in ((rows, bf, h, i, kw) for h, i in ((h0, i0), *OTHER_WIDTHS)
+                              for rows in (main_rows, 77, 37) for kw in acts)
+                  if c not in cases]
+    for rows, dtype, h, i, kw in cases:
+        o = int8_operands(gen, rows, dtype, dev, h=h, i=i)
         args = [o[k] for k in names]
         out, again, ref = wrapper(*args, **kw), wrapper(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
@@ -745,20 +828,24 @@ def check_int8_family(gen, dev, name):
         err = (out.float() - ref.float()).abs().max().item()
         if name.endswith("_w8a8"):
             limit = 0.0
-        elif name == "ln_qkv" and dtype == torch.bfloat16:
+        elif name == "ln_qkv" and dtype == bf:
             limit = LNQKV_BF16_LIMIT * max(1.0, ref.float().abs().max().item())
         else:
             limit = LIMITS[dt]
+        what = f"{name} rows={rows} {dtype} H={h} I={i} {kw}"
         if not math.isfinite(err) or err > limit:
-            fail(f"{name} rows={rows} {dtype} {kw}: max |kernel - plain| {err} > {limit}")
+            fail(f"{what}: max |kernel - plain| {err} > {limit}")
         if not torch.equal(out, again):
-            fail(f"{name} rows={rows} {dtype} {kw}: two launches differ")
-        row = dict(kernel=name, rows=rows, dtype=dt, max_abs_err=err, limit=limit,
-                   bit_equal_repeat=True, path="other" if kw else "forward",
-                   act=kw.get("act", "gelu"))
-        if dtype == torch.bfloat16 and not kw:
+            fail(f"{what}: two launches differ")
+        forward = dtype == bf and not kw and (rows, h, i) == (main_rows, h0, i0)
+        row = dict(kernel=name, rows=rows, hidden=h, intermediate=i, dtype=dt,
+                   max_abs_err=err, limit=limit, bit_equal_repeat=True,
+                   path="forward" if forward else "other", act=kw.get("act", "gelu"))
+        if route_of is not None:
+            row["route"] = route_of(dtype)
+        if forward:
             x, g, bt, eps = o["x"], o["gamma"], o["beta"], 1e-12
-            ln = lambda t: F.layer_norm(t, (768,), g, bt, eps)
+            ln = lambda t: F.layer_norm(t, (h,), g, bt, eps)
             if name == "ln_qkv":
                 wt = o["wqkv"].t().contiguous()
                 lib = lambda: F.linear(ln(x), wt, o["bqkv"])
@@ -782,7 +869,7 @@ def check_int8_family(gen, dev, name):
             timed(lambda: plain(*args), "plain_", row)
             timed(lib, "library_", row)
             row["library"] = library
-            h, i, n = 768, 3072, 2304
+            n = 3 * h
             if name.startswith("ln_qkv"):
                 ops = 2.0 * rows * h * n
                 wbytes = h * n * (2 if name == "ln_qkv" else 1) + (0 if name == "ln_qkv"
@@ -795,6 +882,65 @@ def check_int8_family(gen, dev, name):
                 # q8 dequantizes the weights and runs the products in bf16
                 peak = PEAK_BF16_FLOPS if name.endswith("_q8") else PEAK_INT8_OPS
             row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, dtype, peak)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            if route_of is not None:
+                check_route(name, row)
+            if name == "mlp_block_q8":
+                check_dequant_pass(o, x, out)
+        emit(phase="kernel_check", **row)
+        rows_out.append(row)
+    return rows_out
+
+
+def check_dequant_pass(o, x, out):
+    """The q8 pre-LN block's route at the serving rows is its dequantization
+    pass (``dequant_kernel``), then the bf16 pre-LN block: the pass alone
+    must equal ``dequant_plain`` bit for bit, and the block's output must
+    equal the bf16 block's on the pass's weights."""
+    import torch
+
+    from vault_tpu_torch.ops import cuda_gemm as cg
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    w1, w2 = cg.dequant_bf16(o["w1q"], o["s1"]), cg.dequant_bf16(o["w2q"], o["s2"])
+    via_pass = cm.fused_mlp_block_fwd(o["gamma"], o["beta"], w1, o["b1"], w2, o["b2"], x)
+    torch.cuda.synchronize()
+    if not (torch.equal(w1, cg.dequant_plain(o["w1q"], o["s1"]))
+            and torch.equal(w2, cg.dequant_plain(o["w2q"], o["s2"]))):
+        fail("mlp_block_q8: the dequantization pass differs from dequant_plain")
+    if not torch.equal(via_pass, out):
+        fail("mlp_block_q8: the route and the bf16 block on the pass's weights differ")
+
+
+def check_lnqkv_tiles(gen, dev):
+    """The bf16 LN->QKV product's two tile widths on the core alone
+    (``cuda_gemm``) at the serving rows (2,048 x 2,304 x 768: 288 tiles 128
+    wide in three waves, 192 tiles 192 wide in two), each against
+    matmul_fp32 (``GEMM_CORE_LIMIT``) and timed beside its bound; the width
+    the kernel takes shows in its device kernels' names."""
+    import torch
+
+    from vault_tpu_torch.ops import cuda_gemm as cg
+
+    rows, h, n = 2048, 768, 2304
+    rnd = lambda *shape, std=1.0: (torch.randn(shape, generator=gen, device=dev)
+                                   * std).to(torch.bfloat16)
+    y, w = rnd(rows, h), rnd(h, n, std=0.02)
+    ref = cg.gemm_plain(y, w)
+    rows_out = []
+    for bn in (128, 192):
+        run = lambda: cg.gemm_bf16(y, w, tile_width=bn)
+        out = run()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+        if not math.isfinite(err) or err > GEMM_CORE_LIMIT:
+            fail(f"LN->QKV tiles bn={bn}: |kernel - plain| / scale {err} > {GEMM_CORE_LIMIT}")
+        row = dict(kernel="lnqkv_tiles", rows=rows, n=n, k=h, tile_width=bn, rel_err=err,
+                   limit=GEMM_CORE_LIMIT)
+        row["ms"], row["device_kernels"] = device_ms(run)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2.0 * rows * n * h, 2.0 * (rows * h + h * n) + 4.0 * rows * n, torch.bfloat16)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         emit(phase="kernel_check", **row)
         rows_out.append(row)
     return rows_out
@@ -989,18 +1135,20 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def forward_timings(model, cfg, dev, batch_sizes=(8, 16)):
+def forward_timings(model, cfg, dev, batch_sizes=(8, 16), impl=None):
     """Wall ms of ``model(batch)`` per batch size on the model's own
-    selector and on the plain path, taken alternately (plain, kernel,
-    kernel, plain: both see the same host and card), with the kernel path's
-    device busy ms (CUPTI), idle share and heaviest kernels."""
+    selector (or on ``impl``) and on the plain path, taken alternately
+    (plain, kernel, kernel, plain: both see the same host and card), with
+    the kernel path's device busy ms (CUPTI), idle share and heaviest
+    kernels."""
     import torch
 
     timings = {}
     with torch.inference_mode():
         for bs in batch_sizes:
             b = entry_batch(cfg, bs, dev, seed=1)
-            kernel_path = lambda: model(b)
+            kernel_path = (lambda: model(b)) if impl is None else (
+                lambda: model(b, use_pallas=impl))
             plain_path = lambda: model(b, use_pallas=False)
             samples = {"kernel": [], "plain": []}
             for path in ("plain", "kernel", "kernel", "plain"):
@@ -1182,7 +1330,8 @@ def kernel_vs_plain(model, cfg, batch, impl, limits=FORWARD_LIMITS):
 
 def lnqkv_phase(model, cfg, dev):
     """The bf16 model on "fuselnqkv+fusemlp+batched": one forward with the
-    fused LN->QKV kernel in every ViLT layer, held against the plain path."""
+    fused LN->QKV kernel in every ViLT layer, held against the plain path;
+    times at batch 8 and 16 as ``forward_timings``."""
     import torch
 
     impl = "fuselnqkv+fusemlp+batched"
@@ -1197,9 +1346,10 @@ def lnqkv_phase(model, cfg, dev):
     err_pool, err_logits, (_, k_logits) = kernel_vs_plain(model, cfg, batch, impl)
     if (k_logits - logits.float()).abs().max().item() != 0.0:
         fail(f"{impl}: model(batch) and vault_apply disagree")
+    timings = forward_timings(model, cfg, dev, impl=impl)
     emit(phase="forward_fuselnqkv", use_pallas=impl, launches_per_forward=counts,
          pooler_max_abs_err=err_pool, logits_max_abs_err=err_logits,
-         limits=FORWARD_LIMITS)
+         limits=FORWARD_LIMITS, timings={str(k): v for k, v in timings.items()})
     return counts
 
 
@@ -1732,6 +1882,7 @@ def main():
     if "kernels" in phases:
         check_gemm_core(gen, dev)
         check_postln_tiles(gen, dev)
+        check_lnqkv_tiles(gen, dev)
         checks["encoder_attention"] = check_attention(gen, dev)
         checks["mlp_block"] = check_mlp(gen, dev, postln=False)
         checks["mlp_postln"] = check_mlp(gen, dev, postln=True)
@@ -1765,6 +1916,8 @@ def main():
         cfg, step_counts = train_step_phase(dev)
         path_counts["train_step"] = step_counts
         trainer_phase(dev, cfg)
+    emit(phase="trace_checks", short_share=TRACE_SHORT_SHARE, long_share=TRACE_LONG_SHARE,
+         launch_gap_ms=LAUNCH_GAP_MS, **TRACE_LOG)
     if set(phases) != set(PHASES):
         print(json.dumps({"partial": sorted(phases)}), flush=True)
         return

@@ -8,7 +8,8 @@ as in chip_smoke.py: forward bf16 6.25e-2 (a few bf16 ulps of outputs of
 magnitude ~4), fp32 1e-4 (summation order); backward, per output, 2^-5
 (bf16) or 1e-4 (fp32) of max(1, max|plain|); the w8a8 kernels (the SwiGLU
 block included) bit-equal, the fp LN->QKV kernel in bf16 2^-7 of max(1,
-max|plain|); the q8 MLP blocks and the GQA attention at the forward limits.
+max|plain|); the q8 MLP blocks and the GQA attention at the forward limits;
+the dequantizing stage of the GEMM core exact.
 """
 
 import pytest
@@ -542,6 +543,100 @@ def test_mlp_q8_kernels_match_plain(dev, dtype, rows, postln):
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= LIMITS[dtype], err
     assert torch.equal(out, again) and torch.equal(out, via_block)
+
+
+# The kernels on the wgmma core: the bf16 pre-LN q8 block (behind its
+# dequantization pass) and the bf16 LN->QKV projection, at the ViLT rows of a
+# batch-8 forward (2,048) and ragged ones, at ViLT-B/32's widths, BERT-large's
+# (H 1,024, I 4,096) and H 512 / I 2,048; two launches give the same bits.
+CORE_Q8_WIDTHS = [(768, 3072), (1024, 4096), (512, 2048)]
+
+
+def _core_operands(dev, rows, h, i, seed):
+    from vault_tpu_torch.ops.quantize import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s, std=1.0, mean=0.0: (torch.randn(s, generator=g, device=dev) * std
+                                         + mean).to(torch.bfloat16)
+    o = dict(gamma=rnd(h, std=0.1, mean=1.0), beta=rnd(h, std=0.1), b1=rnd(i, std=0.02),
+             b2=rnd(h, std=0.02), x=rnd(rows, h), wqkv=rnd(h, 3 * h, std=0.02),
+             bqkv=rnd(3 * h, std=0.02))
+    for name, shape in (("w1", (h, i)), ("w2", (i, h))):
+        q, sc = quantize_weight(rnd(*shape, std=0.02))
+        o[name + "q"], o["s" + name[1:]] = q, sc.reshape(-1)
+    return o
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_new", "gelu_pytorch_tanh", "relu"])
+@pytest.mark.parametrize("h,i", CORE_Q8_WIDTHS)
+@pytest.mark.parametrize("rows", [2048, 77, 37])
+def test_q8_preln_block_on_the_core(dev, act, h, i, rows):
+    """The bf16 pre-LN q8 block against mlp_block_q8_plain within the bf16
+    forward limit, its repeat bit-equal, and bit-equal to the bf16 block on
+    the same weights dequantized by a pass of their own (the same tiles, the
+    same bf16 weights: the route is the pass, then the bf16 block)."""
+    from vault_tpu_torch.ops import cuda_gemm as cg
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    assert cm.mlp_route(torch.bfloat16, True, False) == "wgmma"
+    o = _core_operands(dev, rows, h, i, seed=h + i + rows)
+    args = [o[k] for k in W8A8_ARGS]
+    n = cm.fused_mlp_block_fwd_q8.launches
+    out, again = cm.fused_mlp_block_fwd_q8(*args, act=act), cm.fused_mlp_block_fwd_q8(*args, act=act)
+    ref = cm.mlp_block_q8_plain(*args, act=act)
+    via_pass = cm.fused_mlp_block_fwd(o["gamma"], o["beta"], cg.dequant_bf16(o["w1q"], o["s1"]),
+                                      o["b1"], cg.dequant_bf16(o["w2q"], o["s2"]), o["b2"],
+                                      o["x"], act=act)
+    torch.cuda.synchronize()
+    assert cm.fused_mlp_block_fwd_q8.launches == n + 2
+    assert out.shape == (rows, h) and out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= LIMITS[torch.bfloat16], err
+    assert torch.equal(out, again)
+    assert torch.equal(out, via_pass)
+
+
+@pytest.mark.parametrize("h", [768, 1024, 512])
+@pytest.mark.parametrize("rows", [2048, 77, 37])
+def test_ln_qkv_on_the_core(dev, h, rows):
+    """The bf16 LN->QKV kernel on the core against ln_qkv_plain within 2^-7
+    of the output's scale; its repeat bit-equal."""
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
+    assert cl.ln_qkv_route(torch.bfloat16) == "wgmma"
+    o = _core_operands(dev, rows, h, 64, seed=h + rows)
+    args = [o[k] for k in ("gamma", "beta", "wqkv", "bqkv", "x")]
+    n = cl.fused_ln_qkv_fwd.launches
+    out, again = cl.fused_ln_qkv_fwd(*args), cl.fused_ln_qkv_fwd(*args)
+    ref = cl.ln_qkv_plain(*args)
+    torch.cuda.synchronize()
+    assert cl.fused_ln_qkv_fwd.launches == n + 2
+    assert out.shape == (rows, 3 * h) and out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= LNQKV_BF16_LIMIT * max(1.0, ref.float().abs().max().item()), err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("k,n", [(256, 192), (256, 208), (768, 3072), (3072, 768)])
+def test_dequantizing_stage_is_exact(dev, k, n):
+    """The dequantization pass the w8 pre-LN block runs must equal
+    bf16(float(q) * s) bit for bit.  Each column has its own scale and every
+    code from -128 to 127 occurs (-128 in the first row of every column), so
+    a slip in the chunk order or the scale index shows; N = 208 is not a
+    multiple of 32 or 64; (768, 3,072) and (3,072, 768) are W1 and W2 of
+    ViLT-B/32."""
+    from vault_tpu_torch.ops import cuda_gemm as cg
+
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    q = torch.randint(-128, 128, (k, n), generator=g, device=dev).to(torch.int8)
+    q[0] = -128
+    q[1] = 127
+    s = (2.0 ** -7) * (1.0 + torch.arange(n, device=dev, dtype=torch.float32) / n)
+    n0 = cg.dequant_bf16.launches
+    out = cg.dequant_bf16(q, s)
+    torch.cuda.synchronize()
+    assert cg.dequant_bf16.launches == n0 + 1
+    assert torch.equal(out, cg.dequant_plain(q, s))
 
 
 def test_gradients_flow_through_the_q8_kernels(dev):

@@ -20,23 +20,41 @@ from vault_tpu_torch.ops import cuda_gemm as cg
 from vault_tpu_torch.ops import cuda_mlp as cm
 
 
-@pytest.mark.parametrize("dtype,int8_weights,route", [
-    (torch.bfloat16, False, "wgmma"),
-    (torch.bfloat16, True, "walk"),
-    (torch.float32, False, "walk"),
-    (torch.float32, True, "walk"),
+@pytest.mark.parametrize("dtype,int8_weights,postln,route", [
+    (torch.bfloat16, False, False, "wgmma"),
+    (torch.bfloat16, False, True, "wgmma"),
+    (torch.bfloat16, True, False, "wgmma"),
+    (torch.bfloat16, True, True, "walk"),
+    (torch.float32, False, False, "walk"),
+    (torch.float32, False, True, "walk"),
+    (torch.float32, True, False, "walk"),
+    (torch.float32, True, True, "walk"),
 ])
-def test_mlp_route(dtype, int8_weights, route):
-    """Every bf16 block with bf16 weights, pre-LN and post-LN alike, goes to
-    the wgmma core; fp32 blocks and int8 weights (the q8 blocks) stay on the
-    walk.  Which entries each wrapper launches, for both forms: the test
-    below."""
-    assert cm.mlp_route(dtype, int8_weights) == route
+def test_mlp_route(dtype, int8_weights, postln, route):
+    """Every bf16 block with bf16 weights, pre-LN and post-LN alike, and the
+    bf16 pre-LN block with int8 weights go to the wgmma core; fp32 blocks
+    and the post-LN block with int8 weights stay on the walk.  Which entries
+    each wrapper launches: the test below."""
+    assert cm.mlp_route(dtype, int8_weights, postln) == route
 
 
-def test_mlp_route_refuses_other_dtypes():
+@pytest.mark.parametrize("dtype,w8a8,route", [
+    (torch.bfloat16, False, "wgmma"), (torch.float32, False, "tiles"),
+    (torch.bfloat16, True, "tiles"), (torch.float32, True, "tiles")])
+def test_ln_qkv_route(dtype, w8a8, route):
+    """bf16 LN->QKV with fp weights goes to the wgmma core; fp32 and the
+    w8a8 kernel stay on gemm_tiles."""
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
+    assert cl.ln_qkv_route(dtype, w8a8) == route
+
+
+@pytest.mark.parametrize("which", ["mlp", "ln_qkv"])
+def test_mlp_route_refuses_other_dtypes(which):
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
     with pytest.raises(TypeError):
-        cm.mlp_route(torch.float16)
+        (cm.mlp_route if which == "mlp" else cl.ln_qkv_route)(torch.float16)
 
 
 class _EntryRecorder:
@@ -62,17 +80,25 @@ class _EntryRecorder:
     ("bwd", torch.bfloat16, True, "vt_mlp_bwd_wgmma"),
     ("bwd", torch.float32, False, "vt_mlp_bwd"),
     ("bwd", torch.float32, True, "vt_mlp_bwd"),
-    ("q8", torch.bfloat16, False, "vt_mlp_fwd_q8"),
+    ("q8", torch.bfloat16, False, "vt_mlp_fwd_q8_wgmma"),
     ("q8", torch.bfloat16, True, "vt_mlp_fwd_q8"),
+    ("q8", torch.float32, False, "vt_mlp_fwd_q8"),
+    ("q8", torch.float32, True, "vt_mlp_fwd_q8"),
+    ("ln_qkv", torch.bfloat16, False, "vt_ln_qkv_wgmma"),
+    ("ln_qkv", torch.float32, False, "vt_ln_qkv"),
 ])
 def test_wrappers_launch_the_entries_of_their_route(monkeypatch, wrapper, dtype, postln,
                                                     entry):
-    """The wrappers launch the C entries of the design ``mlp_route`` names,
-    with the workspace of that design."""
+    """The wrappers launch the C entries of the design ``mlp_route`` (or
+    ``ln_qkv_route``) names, with the workspace of that design (LN->QKV:
+    the wrapper's own scratch)."""
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
     lib = _EntryRecorder()
     monkeypatch.setattr(cm._build, "load", lambda name, signatures: lib)
     monkeypatch.setattr(cm, "_check", lambda *a: None)
     monkeypatch.setattr(cm, "check_operands", lambda *a: None)
+    monkeypatch.setattr(cl, "check_operands", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=None))
     a = {k: v.to(dtype) for k, v in _mlp_args().items()}
@@ -82,13 +108,20 @@ def test_wrappers_launch_the_entries_of_their_route(monkeypatch, wrapper, dtype,
     elif wrapper == "bwd":
         cm._launch_bwd(postln, a["gamma"], a["beta"], a["w1"], a["b1"], a["w2"], a["b2"],
                        a["x"], a["g"], None, 1e-12)
-    else:
+    elif wrapper == "q8":
         i = a["w1"].shape[1]
         cm._launch_q8(postln, a["gamma"], a["beta"], a["w1"].to(torch.int8),
                       torch.ones(i), a["b1"], a["w2"].to(torch.int8), torch.ones(768),
                       a["b2"], a["x"], 1e-12, "gelu")
+    else:
+        wqkv = torch.zeros((768, 2304), dtype=dtype)
+        cl.fused_ln_qkv_fwd(a["gamma"], a["beta"], wqkv, torch.zeros(2304, dtype=dtype),
+                            a["x"])
+        assert lib.called == [entry]
+        return
     design = "_wgmma" if entry.endswith("_wgmma") else ""
-    workspace = {"fwd": f"vt_mlp{design}_workspace", "q8": "vt_mlp_workspace",
+    workspace = {"fwd": f"vt_mlp{design}_workspace",
+                 "q8": "vt_mlp_q8_wgmma_workspace" if design else "vt_mlp_workspace",
                  "bwd": f"vt_mlp_bwd{design}_workspace"}[wrapper]
     assert lib.called == [workspace, entry]
 
@@ -244,12 +277,21 @@ def test_mlp_wrappers_hold_their_width_contract(kind, postln, dtype, h, i, accep
     assert fn.launches == before
 
 
-@pytest.mark.parametrize("family", ["q8", "w8a8"])
-@pytest.mark.parametrize("postln", [False, True])
-@pytest.mark.parametrize("h,i,accepted", [
-    *[(h, i, True) for h, i in WALK_WIDTHS], *[(h, i, False) for h, i in WALK_REFUSED]])
-def test_int8_mlp_wrappers_hold_their_width_contract(family, postln, h, i, accepted):
-    a = _block_args(torch.bfloat16, h, i)
+def _int8_contract(family, postln, dtype):
+    """The widths an int8-weight block takes: the bf16 pre-LN q8 block the
+    wgmma core's, every other one the walk's (w8a8: its kernels')."""
+    core = family == "q8" and not postln and dtype == torch.bfloat16
+    return (CORE_WIDTHS, CORE_REFUSED) if core else (WALK_WIDTHS, WALK_REFUSED)
+
+
+@pytest.mark.parametrize("family,postln,dtype,h,i,accepted", [
+    (family, postln, dtype, h, i, accepted)
+    for family in ("q8", "w8a8") for postln in (False, True)
+    for dtype in (torch.bfloat16, torch.float32)
+    for widths, accepted in zip(_int8_contract(family, postln, dtype), (True, False))
+    for h, i in widths])
+def test_int8_mlp_wrappers_hold_their_width_contract(family, postln, dtype, h, i, accepted):
+    a = _block_args(dtype, h, i)
     fn = getattr(cm, f"fused_mlp_{'postln' if postln else 'block'}_fwd_{family}")
     q = lambda t: t.to(torch.int8)
     args = (a["gamma"], a["beta"], q(a["w1"]), torch.ones(i), a["b1"], q(a["w2"]),
@@ -258,6 +300,103 @@ def test_int8_mlp_wrappers_hold_their_width_contract(family, postln, h, i, accep
     with pytest.raises(ValueError, match="CUDA" if accepted else "hidden size"):
         fn(*args)
     assert fn.launches == before
+
+
+# LN->QKV: bf16 on the wgmma core takes H a multiple of 64 from 64 to 8,192
+# (output width 3H); fp32 and the w8a8 kernel H 768 alone.
+LNQKV_CORE_H = [64, 512, 768, 1024, 8192]
+LNQKV_CORE_REFUSED_H = [32, 96, 8256]
+LNQKV_TILES_H = [768]
+LNQKV_TILES_REFUSED_H = [512, 1024, 64]
+
+
+@pytest.mark.parametrize("kernel,dtype,h,accepted", [
+    *[("fp", torch.bfloat16, h, True) for h in LNQKV_CORE_H],
+    *[("fp", torch.bfloat16, h, False) for h in LNQKV_CORE_REFUSED_H],
+    *[(k, dt, h, True) for k, dt in (("fp", torch.float32), ("w8a8", torch.bfloat16),
+                                     ("w8a8", torch.float32)) for h in LNQKV_TILES_H],
+    *[(k, dt, h, False) for k, dt in (("fp", torch.float32), ("w8a8", torch.bfloat16),
+                                      ("w8a8", torch.float32)) for h in LNQKV_TILES_REFUSED_H],
+])
+def test_ln_qkv_wrappers_hold_their_width_contract(kernel, dtype, h, accepted):
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
+    z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt)
+    if kernel == "fp":
+        fn, args = cl.fused_ln_qkv_fwd, (z(h), z(h), z(h, 3 * h), z(3 * h), z(2, h))
+    else:
+        fn = cl.fused_ln_qkv_fwd_w8a8
+        args = (z(h), z(h), z(h, 3 * h, dt=torch.int8), z(3 * h, dt=torch.float32), z(3 * h),
+                z(2, h))
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA" if accepted else "hidden size"):
+        fn(*args)
+    assert fn.launches == before
+
+
+def test_ln_qkv_core_refuses_an_output_width_off_its_multiple():
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
+    z = lambda *shape: torch.zeros(shape, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="output width"):
+        cl.fused_ln_qkv_fwd(z(64), z(64), z(64, 96), z(96), z(2, 64))
+
+
+# ---------------------------------------------------------------------------
+# The w8 pre-LN block's dequantization pass (dequant_bf16): its plain
+# version here, the kernel on the card
+# ---------------------------------------------------------------------------
+
+def _q8_case(rng, rows=20, k=128, n=48):
+    a = _rnd(rng, rows, k).bfloat16()
+    bq = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy((rng.uniform(0.5, 2.0, n) / 127).astype(np.float32))
+    return a, bq, s
+
+
+def test_dequant_plain_rounds_the_fp32_product_to_bf16():
+    """bf16(float(q) * s): one fp32 rounding of the exact product, then one
+    to bf16, as the w8 linear dequantizes."""
+    rng = np.random.default_rng(7)
+    _, bq, s = _q8_case(rng)
+    out = cg.dequant_plain(bq, s)
+    f32 = (bq.numpy().astype(np.float32) * s.numpy()[None]).astype(np.float32)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  torch.from_numpy(f32).bfloat16().float().numpy())
+    assert torch.equal(out, (bq.float() * s).bfloat16())
+
+
+@pytest.mark.parametrize("bad", ["n", "rank", "codes", "scales", "scale_shape"])
+def test_dequant_wrapper_refuses_what_the_pass_does_not_take(bad):
+    rng = np.random.default_rng(9)
+    _, bq, s = _q8_case(rng)
+    before = cg.dequant_bf16.launches
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "n":
+            cg.dequant_bf16(bq[:, :40].contiguous(), s[:40].contiguous())
+        elif bad == "rank":
+            cg.dequant_bf16(bq.reshape(-1), s)
+        elif bad == "codes":
+            cg.dequant_bf16(bq.bfloat16(), s)
+        elif bad == "scales":
+            cg.dequant_bf16(bq, s.bfloat16())
+        else:
+            cg.dequant_bf16(bq, s[:32].contiguous())
+    assert cg.dequant_bf16.launches == before
+
+
+@pytest.mark.parametrize("defect", [_misaligned, _strided])
+@pytest.mark.parametrize("operand", ["q", "s"])
+def test_dequant_wrapper_refuses_misaligned_or_strided_operands(defect, operand):
+    rng = np.random.default_rng(10)
+    _, bq, s = _q8_case(rng)
+    ops = {"q": bq, "s": s}
+    ops[operand] = defect(ops[operand])
+    before = cg.dequant_bf16.launches
+    with pytest.raises(ValueError, match=f"{operand} must be contiguous"):
+        cg.dequant_bf16(ops["q"], ops["s"])
+    assert cg.dequant_bf16.launches == before
 
 
 @pytest.mark.parametrize("act", ["gelu", "gelu_new", "gelu_pytorch_tanh", "relu"])

@@ -396,6 +396,23 @@ def test_ln_qkv_plain_vs_pallas_and_xla(dtype):
     _close(out, xla, dtype, 1e-5)
 
 
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_qkv_plain_at_a_second_width(dtype, h):
+    """The LN->QKV plain version at widths the bf16 kernel on the wgmma core
+    newly takes (H a multiple of 64): against the Pallas kernel
+    (interpret mode) and its XLA composition."""
+    j, t = _q_inputs(dtype, h=h, inner=2 * h, rows=(2, 12), seed=22)
+    args = ("gamma", "beta", "wqkv", "bqkv", "x")
+    out = cl.ln_qkv_plain(*(t[k] for k in args))
+    assert out.dtype == t["x"].dtype and out.shape == (2, 12, 3 * h)
+    ref = pm.fused_ln_qkv_fwd(*(j[k] for k in args), eps=1e-12, interpret=True)
+    xla = pm._ln_qkv_xla({"scale": j["gamma"], "bias": j["beta"]}, j["wqkv"],
+                         j["bqkv"], j["x"], 1e-12)
+    _close(out, ref, dtype, W8A8_ATOL["ln_qkv"])
+    _close(out, xla, dtype, 1e-5)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ln_qkv_w8a8_plain_vs_pallas_and_xla(dtype):
     j, t = _q_inputs(dtype, seed=7)
@@ -590,6 +607,22 @@ def test_mlp_q8_plain_vs_pallas_and_xla(dtype, postln):
     assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
     _close(out, pallas(*(j[k] for k in Q8_ARGS), eps=1e-12, interpret=True), dtype, 5e-5)
     _close(out, xla(*_w8_params(j), j["x"], 1e-12, "gelu"), dtype, 5e-5)
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("h,i", [(64, 128), (128, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_q8_plain_at_a_second_width(dtype, h, i, act):
+    """The pre-LN q8 block's plain version at widths the kernel on the
+    wgmma core newly takes (H a multiple of 64, I a multiple of 64): against
+    the Pallas kernel (interpret mode) and its XLA composition."""
+    j, t = _q_inputs(dtype, h=h, inner=i, rows=(2, 12), seed=34)
+    out = cm.mlp_block_q8_plain(*(t[k] for k in Q8_ARGS), act=act)
+    assert out.dtype == t["x"].dtype and out.shape == (2, 12, h)
+    ref = pm.fused_mlp_block_fwd_q8(*(j[k] for k in Q8_ARGS), eps=1e-12, act=act,
+                                    interpret=True)
+    _close(out, ref, dtype, 5e-5)
+    _close(out, pm._mlp_block_xla(*_w8_params(j), j["x"], 1e-12, act), dtype, 5e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,7 +1,8 @@
 // The wgmma core of gemm_sm90.cuh on its own, for holding each of its
 // operand layouts, tile widths and split-K against a plain fp32 product
 // (ops/cuda_gemm.py): the products the MLP blocks run, with an epilogue that
-// stores the fp32 accumulators.  No main path calls these entries.
+// stores the fp32 accumulators; and the w8 block's dequantization pass
+// alone, against its plain version.  No main path calls these entries.
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 
@@ -57,4 +58,15 @@ extern "C" int vt_gemm_dual_bf16(const void* a1, const void* b1, const void* a2,
       static_cast<const bf*>(a1), static_cast<const bf*>(b1), M, N, K,
       StoreF32Pair{static_cast<float*>(c1), static_cast<float*>(c2), N},
       static_cast<cudaStream_t>(stream), static_cast<const bf*>(a2), static_cast<const bf*>(b2));
+}
+
+// out (K, N) bf16 = bf16(float(q) * s[n]): q (K, N) int8, s (N) fp32, N a
+// multiple of 16, every pointer 16-byte aligned (sm90::dequant).
+extern "C" int vt_dequant_bf16(const void* q, const void* s, void* out, int K, int N,
+                               void* stream) {
+  if (K <= 0 || N <= 0 || (long long)K * N >= (1ll << 34)) return (int)cudaErrorInvalidValue;
+  const sm90::Dequant a{static_cast<const int8_t*>(q), static_cast<const float*>(s),
+                        static_cast<bf*>(out), (int)((long long)K * N / 16), N};
+  return (int)sm90::dequant(a, sm90::Dequant{nullptr, nullptr, nullptr, 0, 16},
+                            static_cast<cudaStream_t>(stream));
 }

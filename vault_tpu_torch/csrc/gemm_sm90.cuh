@@ -1,8 +1,9 @@
 // The Hopper GEMM core of the port: C = A B for bf16 operands with fp32
 // accumulation, on the tensor cores through wgmma, fed by TMA through a
 // ring of shared-memory stages, with the elementwise work fused into an
-// epilogue.  The pre-LN MLP block's forward (mlp.cu) and backward
-// (mlp_bwd.cu) run on it.
+// epilogue.  The bf16 MLP blocks, forward (mlp.cu) and backward
+// (mlp_bwd.cu), the w8 pre-LN block (mlp.cu, behind a dequantization pass,
+// dequant below) and the bf16 LN->QKV projection (ln_qkv.cu) run on it.
 //
 // Operands, row-major bf16, 16-byte aligned, rows of 16-byte multiples:
 //   A (M, K): K-contiguous (LN(x), the activation, the masked cotangent, dh1);
@@ -270,6 +271,73 @@ __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db
   if constexpr (BN == 64) wgmma_n64<TB>(d, da, db, 1);
   else if constexpr (BN == 128) wgmma_n128<TB>(d, da, db, 1);
   else wgmma_n192<TB>(d, da, db, 1);
+}
+
+// Eight int8 codes (q0: codes 0-3, q1: 4-7) -> four bf16 pairs
+// bf16(float(q) * sc[e]).  float(q) without a conversion instruction: the
+// code's byte plus 128 under the exponent of 2^23 is the float 2^23 + q +
+// 128 exactly, less 2^23 + 128 it is q; the product rounds once in fp32 and
+// once to bf16, as the plain version's (q.float() * s).to(bf16).
+__device__ __forceinline__ void dequant8(uint32_t q0, uint32_t q1, const float (&sc)[8],
+                                         uint32_t (&o)[4]) {
+  const uint32_t u[2] = {q0 ^ 0x80808080u, q1 ^ 0x80808080u};
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const uint32_t w = u[p / 2];
+    const int j = 2 * (p % 2);
+    const float f0 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u + j)) - 8388736.0f;
+    const float f1 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u + j + 1)) - 8388736.0f;
+    const __nv_bfloat162 b =
+        __floats2bfloat162_rn(__fmul_rn(f0, sc[2 * p]), __fmul_rn(f1, sc[2 * p + 1]));
+    o[p] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+}
+
+// A pass of its own: out = bf16(float(q) * s[n]) for int8 codes q (K, N),
+// N a multiple of 16, sixteen codes a thread; two matrices in one launch.
+struct Dequant {
+  const int8_t* q;
+  const float* s;
+  bf16* out;
+  int n16;  // codes / 16
+  int n;
+};
+
+__global__ void __launch_bounds__(256) dequant_kernel(const Dequant a, const Dequant b) {
+  int i = blockIdx.x * 256 + threadIdx.x;
+  const bool second = i >= a.n16;
+  if (second) i -= a.n16;
+  const int8_t* q = second ? b.q : a.q;
+  const float* s = second ? b.s : a.s;
+  bf16* out = second ? b.out : a.out;
+  const int n_cols = second ? b.n : a.n;
+  if (i >= (second ? b.n16 : a.n16)) return;
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(q) + i);
+  const float* sp = s + (unsigned)i % (unsigned)(n_cols / 16) * 16;
+  float sc[8];
+  uint32_t o[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(sp + 8 * h));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(sp + 8 * h + 4));
+    sc[0] = lo.x, sc[1] = lo.y, sc[2] = lo.z, sc[3] = lo.w;
+    sc[4] = hi.x, sc[5] = hi.y, sc[6] = hi.z, sc[7] = hi.w;
+    uint32_t (&oh)[4] = *reinterpret_cast<uint32_t(*)[4]>(o + 4 * h);
+    dequant8(h ? v.z : v.x, h ? v.w : v.y, sc, oh);
+  }
+  uint4* dst = reinterpret_cast<uint4*>(out) + 2 * i;
+  dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// a and b (b.n16 = 0: a alone) through dequant_kernel; every pointer 16-byte
+// aligned.
+inline cudaError_t dequant(const Dequant& a, const Dequant& b, cudaStream_t st) {
+  if (a.n16 <= 0 || b.n16 < 0 || a.n16 > (1 << 30) - b.n16 || a.n % 16 != 0 ||
+      (b.n16 > 0 && b.n % 16 != 0))
+    return cudaErrorInvalidValue;
+  dequant_kernel<<<(a.n16 + b.n16 + 255) / 256, 256, 0, st>>>(a, b);
+  return cudaGetLastError();
 }
 
 // The two consumer warpgroups share one 128 x BN tile, 64 rows each.

@@ -13,6 +13,10 @@ reaches the core only through the MLP block wrappers of ``ops/cuda_mlp.py``.
     product of each split's K range in a slice of its own (the post-LN
     blocks' second products, whose slices a row pass adds in order);
     plain version :func:`gemm_split_k_plain`.
+  * :func:`dequant_bf16`: ``bf16(float(q) * s)`` for int8 (K, N) codes
+    ``q`` and fp32 per-column scales ``s``, the pass the w8 pre-LN block
+    runs in front of its bf16 products; plain version
+    :func:`dequant_plain`.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -34,7 +38,10 @@ _SIGNATURES = {
                      ctypes.c_int),
     "vt_gemm_dual_bf16": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
                           ctypes.c_int),
+    "vt_dequant_bf16": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                        ctypes.c_int),
 }
+N_MULTIPLE_Q8 = 16  # the pass's N: sixteen codes a thread
 
 
 def _shapes(what, a, b, k_contiguous):
@@ -129,6 +136,29 @@ def gemm_dual_bf16(a1, b1, a2, b2):
     return c1, c2
 
 
+def dequant_plain(q, s) -> torch.Tensor:
+    """``bf16(float(q) * s)``: the w8 ``linear``'s weights in bf16."""
+    return (q.float() * s.reshape(-1)).to(torch.bfloat16)
+
+
+def dequant_bf16(q, s) -> torch.Tensor:
+    """``bf16(float(q) * s)`` in one pass on the card: q (K, N) int8, s
+    (N,) fp32, N a multiple of 16."""
+    what = "dequant_bf16"
+    if q.dim() != 2 or q.shape[1] % N_MULTIPLE_Q8:
+        raise ValueError(f"{what}: q must be (K, N) with N a multiple of {N_MULTIPLE_Q8}")
+    k, n = q.shape
+    check_operands(what, q, {"q": (q, (k, n), torch.int8), "s": (s, (n,), torch.float32)})
+    lib = _build.load("gemm_sm90", _SIGNATURES)
+    out = torch.empty((k, n), dtype=torch.bfloat16, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.vt_dequant_bf16(q.data_ptr(), s.data_ptr(), out.data_ptr(), k, n, stream)
+    _build.check(lib, code, what)
+    dequant_bf16.launches += 1
+    return out
+
+
 gemm_bf16.launches = 0
 gemm_bf16_split_k.launches = 0
 gemm_dual_bf16.launches = 0
+dequant_bf16.launches = 0

@@ -3,7 +3,9 @@
 
   * :func:`fused_ln_qkv_fwd`: ``LN(x) Wqkv + b`` for fp weights; replaces
     the JAX package's ``fused_ln_qkv_fwd`` (``vault_tpu/ops/pallas_mlp.py``).
-    Plain version :func:`ln_qkv_plain` (its ``_ln_qkv_xla``).
+    Plain version :func:`ln_qkv_plain` (its ``_ln_qkv_xla``).  bf16 runs on
+    the wgmma/TMA GEMM core (``vt_ln_qkv_wgmma``), fp32 on ``gemm_tiles``
+    (``vt_ln_qkv``): :func:`ln_qkv_route`.
   * :func:`fused_ln_qkv_fwd_w8a8`: the same with int8 weights and
     per-out-channel scales, the normalised rows quantized to int8 and one
     int8 x int8 -> int32 product; replaces ``fused_ln_qkv_fwd_w8a8``.  Plain
@@ -30,10 +32,18 @@ from vault_tpu_torch.ops import _build
 from vault_tpu_torch.ops._dispatch import check_operands, kernel_or_plain
 from vault_tpu_torch.ops.nn import layer_norm, layer_norm_f32, linear
 
-HIDDEN_SIZES = (768,)  # H the kernels are built for
-N_MULTIPLE = 128       # the output width (3H) must be a multiple of this
+# The widths each route takes.  The wgmma core (bf16 fp weights): H a
+# multiple of 64 from 64 to 8,192 (the core's 64-deep K steps, the row
+# kernel's 8,192) and an output width (3H) a multiple of 64.  gemm_tiles (fp32
+# fp weights, and the w8a8 kernel in both dtypes): H 768 alone (its row kernel
+# holds a row of 768 in registers) and an output width a multiple of 128.
+CORE_H_MULTIPLE, CORE_H_MAX, CORE_N_MULTIPLE = 64, 8192, 64
+HIDDEN_SIZES = (768,)  # H of gemm_tiles
+N_MULTIPLE = 128       # its output width (3H) must be a multiple of this
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
+    "vt_ln_qkv_wgmma": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                        + [ctypes.c_void_p], ctypes.c_int),
     "vt_ln_qkv": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float]
                   + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     "vt_ln_qkv_w8a8": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float]
@@ -63,14 +73,32 @@ def _ln_qkv_w8a8_ref(gamma, beta, wqkv_q, sqkv, bqkv, x, eps: float = 1e-12):
                   layer_norm({"scale": gamma, "bias": beta}, x, eps))
 
 
-def _shapes(what, x, w):
+def ln_qkv_route(dtype: torch.dtype, w8a8: bool = False) -> str:
+    """Which design runs an LN -> QKV call with activations in ``dtype`` on
+    the card: "wgmma" (``vt_ln_qkv_wgmma``) for bf16 with fp weights;
+    "tiles" (``gemm_tiles``: ``vt_ln_qkv``, ``vt_ln_qkv_w8a8``) for fp32 and
+    for int8 weights.  The wrappers launch its entry and hold a call to its
+    width contract."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"ln_qkv_route: dtype {dtype} not supported (bfloat16 or float32)")
+    return "wgmma" if dtype == torch.bfloat16 and not w8a8 else "tiles"
+
+
+def _shapes(what, x, w, route):
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported (bfloat16 or "
                         "float32)")
     if w.dim() != 2:
         raise ValueError(f"{what}: weights must be (H, 3H), got {tuple(w.shape)}")
     h, n = w.shape
-    if h not in HIDDEN_SIZES or n % N_MULTIPLE:
+    if route == "wgmma":
+        if h % CORE_H_MULTIPLE or not CORE_H_MULTIPLE <= h <= CORE_H_MAX \
+                or n % CORE_N_MULTIPLE or n == 0:
+            raise ValueError(
+                f"{what}: hidden size {h} / output width {n}: the wgmma core takes H a "
+                f"multiple of {CORE_H_MULTIPLE} from {CORE_H_MULTIPLE} to {CORE_H_MAX} and "
+                f"an output width a multiple of {CORE_N_MULTIPLE}")
+    elif h not in HIDDEN_SIZES or n % N_MULTIPLE or n == 0:
         raise ValueError(f"{what}: hidden size {h} (supported {HIDDEN_SIZES}) / "
                          f"output width {n} (a multiple of {N_MULTIPLE})")
     return h, n, x.numel() // h
@@ -80,7 +108,8 @@ def fused_ln_qkv_fwd(gamma, beta, wqkv, bqkv, x, eps: float = 1e-12) -> torch.Te
     """fp LN -> QKV kernel.  x (..., H) -> (..., 3H), all operands in x's
     type."""
     what = "fused_ln_qkv_fwd"
-    h, n, rows = _shapes(what, x, wqkv)
+    route = ln_qkv_route(x.dtype)
+    h, n, rows = _shapes(what, x, wqkv, route)
     dt = x.dtype
     check_operands(what, x, {
         "x": (x, (*x.shape[:-1], h), dt), "gamma": (gamma, (h,), dt),
@@ -89,9 +118,12 @@ def fused_ln_qkv_fwd(gamma, beta, wqkv, bqkv, x, eps: float = 1e-12) -> torch.Te
     y = torch.empty((rows, h), dtype=dt, device=x.device)  # LN(x) in x's type
     out = torch.empty((*x.shape[:-1], n), dtype=dt, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.vt_ln_qkv(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                         wqkv.data_ptr(), bqkv.data_ptr(), y.data_ptr(),
-                         out.data_ptr(), rows, h, n, float(eps), _DTYPES[dt], stream)
+    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), y.data_ptr(), out.data_ptr())
+    if route == "wgmma":
+        code = lib.vt_ln_qkv_wgmma(*ptrs, rows, h, n, float(eps), stream)
+    else:
+        code = lib.vt_ln_qkv(*ptrs, rows, h, n, float(eps), _DTYPES[dt], stream)
     _build.check(lib, code, what)
     fused_ln_qkv_fwd.launches += 1
     return out
@@ -102,7 +134,7 @@ def fused_ln_qkv_fwd_w8a8(gamma, beta, wqkv_q, sqkv, bqkv, x,
     """w8a8 LN -> QKV kernel.  x (..., H) -> (..., 3H); wqkv_q (H, 3H) int8,
     sqkv (3H,) fp32, gamma/beta/bqkv in x's type."""
     what = "fused_ln_qkv_fwd_w8a8"
-    h, n, rows = _shapes(what, x, wqkv_q)
+    h, n, rows = _shapes(what, x, wqkv_q, ln_qkv_route(x.dtype, w8a8=True))
     dt, dev = x.dtype, x.device
     sqkv = sqkv.reshape(-1)
     check_operands(what, x, {

@@ -8,11 +8,15 @@ behind its own C entries; :func:`mlp_route` picks one for a block: every
 bf16 block with bf16 weights, pre-LN (the ViLT layers) and post-LN (the
 BERT layers), runs forward and backward on the wgmma/TMA GEMM core
 (``csrc/gemm_sm90.cuh``, ``vt_mlp_fwd_wgmma`` / ``vt_mlp_bwd_wgmma``), its
-(rows, I) intermediates through device memory; fp32 and int8-weight blocks
-on the 32-row walk (``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``,
-``vt_mlp_fwd_q8``, ``vt_mlp_bwd``), which keeps them on chip.  Each design
-has its width contract (:func:`_check_sizes`); a width outside it raises
-``ValueError`` before anything is built or launched.
+(rows, I) intermediates through device memory, and so does the bf16
+pre-LN block with int8 weights (``vt_mlp_fwd_q8_wgmma``: one pass
+dequantizes both weight matrices to bf16 scratch in front of the same
+launches);
+fp32 blocks and the other int8-weight blocks run on the 32-row walk
+(``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_fwd_q8``,
+``vt_mlp_bwd``), which keeps them on chip.  Each design has its width
+contract (:func:`_check_sizes`); a width outside it raises ``ValueError``
+before anything is built or launched.
 
   * :func:`fused_mlp_block_fwd` (pre-LN, the ViLT layers):
     ``x + m * (act(LN(x) W1 + b1) W2 + b2)``; replaces the JAX package's
@@ -31,10 +35,11 @@ has its width contract (:func:`_check_sizes`); a width outside it raises
     kernels' cast points.  Inference serving: their gradient is autograd of
     the XLA composition (``linear``'s w_q8 branch), as in the JAX package.
   * :func:`fused_mlp_block_fwd_q8` and :func:`fused_mlp_postln_fwd_q8`: both
-    blocks with int8 weights only (ops/quantize.py w8), dequantized inside
-    the kernel, replacing the JAX package's functions of the same names;
-    plain versions :func:`mlp_block_q8_plain` and
-    :func:`mlp_postln_q8_plain`.  Their gradient is autograd of the plain
+    blocks with int8 weights only (ops/quantize.py w8), replacing the JAX
+    package's functions of the same names: the bf16 pre-LN block
+    dequantizes both matrices in one pass to bf16 scratch in front of the
+    core's launches, the others tile by tile inside the walk; plain
+    versions :func:`mlp_block_q8_plain` and :func:`mlp_postln_q8_plain`.  Their gradient is autograd of the plain
     composition with ``w_q`` weights: to the LN, both scales, both biases
     and x, none to the codes.
 
@@ -74,12 +79,12 @@ from vault_tpu_torch.ops.nn import (
 )
 from vault_tpu_torch.ops.quantize import quantize_activation
 
-# The widths each design takes.  The wgmma core: H a multiple of 64 from 64
-# to 8,192, I a multiple of 64 (each product's K a multiple of the core's
-# 64-deep stage, 16-byte TMA rows, the row kernels' 8,192).  The walk and
-# the w8a8 kernels: H 768 alone (their row tiles hold an H-wide fp32
-# accumulator, instantiated at 768; widening them is their redesign) and I
-# a multiple of 128.
+# The widths each design takes.  The wgmma core (its q8 block included): H
+# a multiple of 64 from 64 to 8,192, I a multiple of 64 (each product's K a
+# multiple of the core's 64-deep stage, 16-byte TMA rows, the row kernels'
+# 8,192).  The walk and the w8a8 kernels: H 768 alone (their row tiles hold
+# an H-wide fp32 accumulator, instantiated at 768; widening them is their
+# redesign) and I a multiple of 128.
 CORE_H_MULTIPLE, CORE_H_MAX, CORE_I_MULTIPLE = 64, 8192, 64
 HIDDEN_SIZES = (768,)  # H of the walk and the w8a8 kernels
 I_MULTIPLE = 128       # their intermediate size is a multiple of this
@@ -94,6 +99,9 @@ _SIGNATURES = {
     "vt_mlp_fwd_wgmma": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
                          + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_wgmma_workspace": ([ctypes.c_int] * 4, ctypes.c_longlong),
+    "vt_mlp_fwd_q8_wgmma": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                            + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "vt_mlp_q8_wgmma_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
 }
 _BWD_SIGNATURES = {
     "vt_mlp_bwd": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_float]
@@ -105,16 +113,18 @@ _BWD_SIGNATURES = {
 }
 
 
-def mlp_route(dtype: torch.dtype, int8_weights: bool = False) -> str:
-    """Which design runs a block with activations in ``dtype`` on the card,
-    forward and backward, pre-LN and post-LN alike: "wgmma" (the
-    ``*_wgmma`` C entries) for bf16 with bf16 weights; "walk" (``mlp_main``
-    / ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_bwd``, ``vt_mlp_fwd_q8``)
-    for fp32 and for int8 weights (the q8 blocks).  The wrappers launch the
-    entries it names and hold a block to its width contract."""
+def mlp_route(dtype: torch.dtype, int8_weights: bool = False, postln: bool = False) -> str:
+    """Which design runs a block with activations in ``dtype`` on the card:
+    "wgmma" (the ``*_wgmma`` C entries) for bf16 with bf16 weights, forward
+    and backward, pre-LN and post-LN, and for the bf16 pre-LN block with
+    int8 weights (``vt_mlp_fwd_q8_wgmma``); "walk" (``mlp_main`` /
+    ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_bwd``, ``vt_mlp_fwd_q8``) for
+    fp32 and for the post-LN block with int8 weights.  The wrappers launch
+    the entries it names and hold a block to its width contract."""
     if dtype not in _DTYPES:
         raise TypeError(f"mlp_route: dtype {dtype} not supported (bfloat16 or float32)")
-    return "wgmma" if dtype == torch.bfloat16 and not int8_weights else "walk"
+    core = dtype == torch.bfloat16 and not (int8_weights and postln)
+    return "wgmma" if core else "walk"
 
 
 def _mlp_block_plain(ln_p, p_in, p_out, x, eps, act, m=None):
@@ -521,7 +531,8 @@ fused_mlp_postln_fwd_w8a8.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# w8: int8 weights dequantized in the kernel (csrc/mlp.cu, vt_mlp_fwd_q8)
+# w8: int8 weights dequantized in the kernel (csrc/mlp.cu: vt_mlp_fwd_q8_wgmma
+# for the bf16 pre-LN block, vt_mlp_fwd_q8 for the others)
 # ---------------------------------------------------------------------------
 
 def _plain_on_quantized(postln, key, gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
@@ -554,7 +565,8 @@ def _launch_q8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
     what = "fused_mlp_postln_fwd_q8" if postln else "fused_mlp_block_fwd_q8"
     if act not in _ACTS:
         raise ValueError(f"{what}: activation {act!r} not supported")
-    h, i = _check_sizes(what, x, w1q, mlp_route(x.dtype, int8_weights=True))
+    route = mlp_route(x.dtype, int8_weights=True, postln=postln)
+    h, i = _check_sizes(what, x, w1q, route)
     dt, rows = x.dtype, x.numel() // h
     s1, s2 = s1.reshape(-1), s2.reshape(-1)  # (1, out) in the parameter tree
     check_operands(what, x, {
@@ -565,14 +577,22 @@ def _launch_q8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
         "b2": (b2, (h,), dt)})
     lib = _build.load("mlp", _SIGNATURES)
     out = torch.empty_like(x)
-    ws = torch.empty(lib.vt_mlp_workspace(rows, h, i), dtype=torch.float32,
-                     device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.vt_mlp_fwd_q8(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                             w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(),
-                             w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-                             out.data_ptr(), ws.data_ptr(), rows, h, i, float(eps),
-                             _ACTS[act], int(postln), _DTYPES[dt], stream)
+    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1q.data_ptr(), s1.data_ptr(),
+            b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr())
+    # the route's scratch, sized by the C side: the weights dequantized to
+    # bf16, LN(x) and the activation (wgmma), or the fp32 partial sums of
+    # the I splits (walk)
+    if route == "wgmma":
+        ws = torch.empty(lib.vt_mlp_q8_wgmma_workspace(rows, h, i), dtype=torch.float32,
+                         device=x.device)
+        code = lib.vt_mlp_fwd_q8_wgmma(*ptrs, ws.data_ptr(), rows, h, i, float(eps),
+                                       _ACTS[act], stream)
+    else:
+        ws = torch.empty(lib.vt_mlp_workspace(rows, h, i), dtype=torch.float32,
+                         device=x.device)
+        code = lib.vt_mlp_fwd_q8(*ptrs, ws.data_ptr(), rows, h, i, float(eps), _ACTS[act],
+                                 int(postln), _DTYPES[dt], stream)
     _build.check(lib, code, what)
     return out
 
