@@ -55,6 +55,17 @@ OUT_DIR = Path("chiprun_out") / "chip_smoke"
 # bf16 first), so they differ by a few bf16 ulps of the output (2^-7
 # relative); fp32: only the summation order differs.
 LIMITS = {"bfloat16": 6.25e-2, "float32": 1e-4}
+# bf16 attention is held, besides LIMITS, per query row: max |kernel -
+# plain| over the row's max |plain| (``attention_row_err``).  Its outputs
+# are means of V rows, about sqrt(e / L) for N(0, 1) scores, so at long L
+# LIMITS is as large as a typical output and would pass a P V product in a
+# lower precision.  The kernel and the plain version round the
+# probabilities at other points (after or before the division by the row
+# sum), a bf16 ulp of each, and the output once more: a few ulps of the
+# row's largest output, 2^-8 each.  Every bf16 row also reads the same
+# attention with its unnormalised probabilities cast to fp8 (e4m3) before
+# P V (``attention_p_cast``, the control) and fails if that would pass.
+ATTENTION_ROW_LIMIT = 2.0 ** -5
 # The int8 kernels round at the cast points of their plain versions, which
 # take the LN statistics in double as the kernels do and compute every
 # fp32 step in the same order: K2-K4 (the w8a8 LN->QKV and MLP kernels)
@@ -90,9 +101,12 @@ BWD_LN_LIMIT = 1e-3
 # 1e-4 of max(1, max|plain|).
 GEMM_CORE_LIMIT = 1e-4
 # Device kernels that show which design ran a block (``cuda_mlp.mlp_route``,
-# ``cuda_ln_qkv.ln_qkv_route``): on the wgmma core the GEMM core's products
-# and the block's row passes, on the walk mlp_main.
+# ``cuda_ln_qkv.ln_qkv_route``, ``cuda_attention.attention_route``): on the
+# wgmma core the GEMM core's products and the block's row passes, on the
+# walk mlp_main; bf16 attention the one-pass wgmma kernel.
 ROUTE_KERNELS = {
+    ("encoder_attention", "wgmma"): ("attention_wgmma",),
+    ("attention_gqa", "wgmma"): ("attention_wgmma",),
     ("mlp_block", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
     ("mlp_block_q8", "wgmma"): ("dequant_kernel", "gemm_kernel", "ln_rows_bf16"),
     ("ln_qkv", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
@@ -334,10 +348,11 @@ def host_profile(fn, iters=3, top=10):
 # Kernel checks
 # ---------------------------------------------------------------------------
 
-def attention_case(gen, b, h, l, dtype, dev, fused, d=64):
+def attention_case(gen, b, h, l, dtype, dev, fused, d=64, masked_row=False):
     """q, k, v (B, H, L, D) and a key-padding bias.  ``fused``: the heads
     are views into one (B, L, 3 H D) projection, as the main path's fused
-    QKV product hands them to the kernel."""
+    QKV product hands them to the kernel.  ``masked_row``: the last batch
+    row masks every key (its rows get the uniform distribution)."""
     import torch
 
     from vault_tpu_torch.ops.attention import split_heads
@@ -351,7 +366,50 @@ def attention_case(gen, b, h, l, dtype, dev, fused, d=64):
                    for _ in range(3))
     lens = torch.randint(max(1, l // 2), l + 1, (b,), generator=gen, device=dev)
     mask = (torch.arange(l, device=dev)[None] < lens[:, None]).to(torch.int32)
+    if masked_row:
+        mask[-1] = 0
     return q, k, v, extend_attention_mask(mask)
+
+
+def attention_row_err(out, ref):
+    """Max over query rows of max |out - ref| / max |ref| in that row."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().amax(-1)
+    return (err / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def attention_p_cast(q, k, v, bias, p_dtype):
+    """The attention (encoder or GQA: H // G query heads a K/V head, a
+    (B, 1, 1 or L, L) bias) with its unnormalised probabilities exp(s - max)
+    cast to ``p_dtype`` before P V and the row sum kept in fp32, divided
+    once at the end: in bf16 the one-pass kernel's rounding over several key
+    tiles, in float8_e4m3fn the control for ``ATTENTION_ROW_LIMIT``, a P V
+    product in a lower precision."""
+    import torch
+
+    b, h, l, d = q.shape
+    g = k.shape[1]
+    s = (torch.matmul(q.float().reshape(b, g, h // g, l, d),
+                      k.float()[:, :, None].transpose(-1, -2)) / math.sqrt(d)
+         + bias.float()[:, :, None])
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.matmul(e.to(p_dtype).float(), v.float()[:, :, None])
+    return (out / e.sum(-1, keepdim=True)).reshape(b, h, l, d).to(v.dtype)
+
+
+def check_attention_rows(name, shape, q, k, v, bias, out, ref, row):
+    """The bf16 row gate (``ATTENTION_ROW_LIMIT``) and its fp8 control."""
+    import torch
+
+    row_err = attention_row_err(out, ref)
+    control = attention_row_err(attention_p_cast(q, k, v, bias, torch.float8_e4m3fn), ref)
+    if not row_err <= ATTENTION_ROW_LIMIT:
+        fail(f"{name} {shape}: max over rows of max |kernel - plain| / max |plain| {row_err} "
+             f"> {ATTENTION_ROW_LIMIT}")
+    if not control > ATTENTION_ROW_LIMIT:
+        fail(f"{name} {shape}: P V in fp8 reads {control}, within the row limit "
+             f"{ATTENTION_ROW_LIMIT}: the limit would not catch it")
+    row.update(row_err=row_err, row_limit=ATTENTION_ROW_LIMIT, fp8_pv_control_row_err=control)
 
 
 def check_attention(gen, dev):
@@ -361,15 +419,22 @@ def check_attention(gen, dev):
     from vault_tpu_torch.ops import cuda_attention as ca
 
     rows = []
-    # the main path's two shapes (timed), fp32, and the other head dims the
-    # kernel takes (BERT-small 32, 96, 128) at the joint length
+    # the main path's two shapes (timed), fp32, the other head dims the
+    # kernel takes (BERT-small 32, 96, 128) at the joint length, and the
+    # longer lengths where the bf16 kernel's softmax runs online (timed, not
+    # main path): ViLT-B/32 at its largest canvas, 384 x 640 (40 + 1 + 240),
+    # and BERT's position limit, each with a batch row whose keys are all
+    # masked
+    long_rows = ((8, 12, 281, torch.bfloat16, 64), (8, 12, 512, torch.bfloat16, 64))
     for b, h, l, dtype, d in ((8, 12, 40, torch.bfloat16, 64),
                               (8, 12, 256, torch.bfloat16, 64),
                               (2, 3, 77, torch.float32, 64),
                               *((8, 12, 256, torch.bfloat16, d) for d in (32, 96, 128)),
-                              (2, 3, 77, torch.float32, 128)):
+                              (2, 3, 77, torch.float32, 128),
+                              *long_rows):
+        long = (b, h, l, dtype, d) in long_rows
         q, k, v, bias = attention_case(gen, b, h, l, dtype, dev,
-                                       fused=dtype == torch.bfloat16, d=d)
+                                       fused=dtype == torch.bfloat16, d=d, masked_row=long)
         out, again = ca.fused_attention(q, k, v, bias), ca.fused_attention(q, k, v, bias)
         ref = ca.attention_plain(q, k, v, bias)
         torch.cuda.synchronize()
@@ -381,9 +446,11 @@ def check_attention(gen, dev):
             fail(f"attention {(b, h, l, d)} {dtype}: two launches differ")
         row = dict(kernel="encoder_attention", shape=[b, h, l, d],
                    dtype=str(dtype).split(".")[-1], max_abs_err=err, limit=limit,
-                   bit_equal_repeat=True)
-        if d != 64:
-            row["path"] = "other"
+                   bit_equal_repeat=True, route=ca.attention_route(dtype))
+        if dtype == torch.bfloat16:
+            check_attention_rows("attention", (b, h, l, d), q, k, v, bias, out, ref, row)
+        if d != 64 or long:
+            row["path"] = "long" if long else "other"
         if dtype == torch.bfloat16 and d == 64:
             allowed = bias > -1.0  # True where a key is attended
             timed(lambda: ca.fused_attention(q, k, v, bias), "", row)
@@ -393,6 +460,7 @@ def check_attention(gen, dev):
             flops = 4.0 * b * h * l * l * 64
             nbytes = 4.0 * q.numel() * q.element_size() + bias.numel() * 4
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+            check_route("encoder_attention", row)
         emit(phase="kernel_check", **row)
         rows.append(row)
     return rows
@@ -496,17 +564,21 @@ def check_mlp(gen, dev, postln: bool):
     return rows_out
 
 
+# Kernels of the other designs that a timed run on the wgmma route must not
+# show: the MLP walk, gemm_tiles, the FMA attention, and attention_kernel,
+# the deleted bf16 wmma attention (a stale library would still carry it).
+NOT_WGMMA = ("mlp_main", "mlp_bwd_walk", "gemm_tiles", "attention_fma", "attention_kernel")
+
+
 def check_route(name, row):
     """The timed run went through the kernels of the block's route."""
     want = ROUTE_KERNELS[(name, row["route"])]
     ran = row["device_kernels"]
+    at = f"rows={row['rows']}" if "rows" in row else f"shape={row['shape']}"
     if not all(any(k in n for n in ran) for k in want):
-        fail(f"{name} rows={row['rows']}: route {row['route']} should run {want}, ran "
-             f"{sorted(ran)}")
-    if row["route"] == "wgmma" and any(k in n for n in ran
-                                       for k in ("mlp_main", "mlp_bwd_walk", "gemm_tiles")):
-        fail(f"{name} rows={row['rows']}: the wgmma route ran the walk or gemm_tiles: "
-             f"{sorted(ran)}")
+        fail(f"{name} {at}: route {row['route']} should run {want}, ran {sorted(ran)}")
+    if row["route"] == "wgmma" and any(k in n for n in ran for k in NOT_WGMMA):
+        fail(f"{name} {at}: the wgmma route ran another design's kernel: {sorted(ran)}")
 
 
 def check_gemm_core(gen, dev):
@@ -972,7 +1044,8 @@ def gqa_case(gen, b, h, g, l, d, dtype, dev):
 def check_attention_gqa(gen, dev):
     """The GQA kernel against its plain version: the tower's shape (16, 32
     heads on 8, 40, 128) with a padded batch, once with one query head per
-    K/V head (rep = 1), ragged fp32, and the other head dims (32, 64, 96)."""
+    K/V head (rep = 1), ragged fp32, the other head dims (32, 64, 96), and
+    at L = 300, where the bf16 kernel's softmax runs online."""
     import torch
     import torch.nn.functional as F
 
@@ -982,7 +1055,8 @@ def check_attention_gqa(gen, dev):
     for b, h, g, l, dtype, d in ((16, 32, 8, 40, torch.bfloat16, 128),
                                  (4, 8, 8, 40, torch.bfloat16, 128),
                                  (3, 8, 2, 77, torch.float32, 128),
-                                 *((4, 8, 2, 77, torch.bfloat16, d) for d in (32, 64, 96))):
+                                 *((4, 8, 2, 77, torch.bfloat16, d) for d in (32, 64, 96)),
+                                 (4, 32, 8, 300, torch.bfloat16, 128)):
         q, k, v, bias = gqa_case(gen, b, h, g, l, d, dtype, dev)
         out, again = ca.fused_attention_gqa(q, k, v, bias), ca.fused_attention_gqa(q, k, v, bias)
         ref = ca.attention_gqa_plain(q, k, v, bias)
@@ -996,7 +1070,10 @@ def check_attention_gqa(gen, dev):
             fail(f"attention_gqa {(b, h, g, l, d)} {dtype}: two launches differ")
         row = dict(kernel="attention_gqa", shape=[b, h, l, d], kv_heads=g, dtype=dt,
                    max_abs_err=err, limit=LIMITS[dt], bit_equal_repeat=True,
+                   route=ca.attention_route(dtype),
                    path="forward" if (b, h, g) == (16, 32, 8) else "other")
+        if dtype == torch.bfloat16:
+            check_attention_rows("attention_gqa", (b, h, g, l, d), q, k, v, bias, out, ref, row)
         if row["path"] == "forward":
             timed(lambda: ca.fused_attention_gqa(q, k, v, bias), "", row)
             timed(lambda: ca.attention_gqa_plain(q, k, v, bias), "plain_", row)
@@ -1006,6 +1083,7 @@ def check_attention_gqa(gen, dev):
             flops = 4.0 * b * h * l * l * 128
             nbytes = (2.0 * q.numel() + 2.0 * k.numel()) * q.element_size() + bias.numel() * 4
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+            check_route("attention_gqa", row)
         emit(phase="kernel_check", **row)
         rows.append(row)
     return rows
@@ -1135,12 +1213,18 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def attention_ms(kernels):
+    """Device ms of a forward's attention kernels (encoder and GQA), from
+    ``device_ms``'s kernels by name."""
+    return sum(ms for name, ms in kernels.items() if "attention" in name)
+
+
 def forward_timings(model, cfg, dev, batch_sizes=(8, 16), impl=None):
     """Wall ms of ``model(batch)`` per batch size on the model's own
     selector (or on ``impl``) and on the plain path, taken alternately
     (plain, kernel, kernel, plain: both see the same host and card), with
-    the kernel path's device busy ms (CUPTI), idle share and heaviest
-    kernels."""
+    the kernel path's device busy ms (CUPTI), idle share, heaviest kernels
+    and attention kernels' ms."""
     import torch
 
     timings = {}
@@ -1162,7 +1246,7 @@ def forward_timings(model, cfg, dev, batch_sizes=(8, 16), impl=None):
                                plain_ms=float(np.median(samples["plain"])),
                                plain_ms_samples=samples["plain"],
                                device_busy_ms=dev_ms, idle_share=1.0 - dev_ms / ms,
-                               top_kernels_ms=top)
+                               top_kernels_ms=top, attention_ms=attention_ms(kernels))
     return timings
 
 
@@ -1606,7 +1690,8 @@ def llama_phase(dev):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ms=ms,
          ms_samples=samples["kernel"], plain_ms=float(np.median(samples["plain"])),
          plain_ms_samples=samples["plain"], pairs_per_s=bs / ms * 1e3,
-         device_busy_ms=busy, idle_share=1.0 - busy / ms, top_kernels_ms=top)
+         device_busy_ms=busy, idle_share=1.0 - busy / ms, top_kernels_ms=top,
+         attention_ms=attention_ms(kernels))
     del model
     torch.cuda.empty_cache()
     return counts

@@ -8,8 +8,9 @@ as in chip_smoke.py: forward bf16 6.25e-2 (a few bf16 ulps of outputs of
 magnitude ~4), fp32 1e-4 (summation order); backward, per output, 2^-5
 (bf16) or 1e-4 (fp32) of max(1, max|plain|); the w8a8 kernels (the SwiGLU
 block included) bit-equal, the fp LN->QKV kernel in bf16 2^-7 of max(1,
-max|plain|); the q8 MLP blocks and the GQA attention at the forward limits;
-the dequantizing stage of the GEMM core exact.
+max|plain|); the q8 MLP blocks and the GQA attention at the forward limits,
+bf16 attention also per query row, 2^-5 of the row's max|plain|; the
+dequantizing stage of the GEMM core exact.
 """
 
 import pytest
@@ -18,6 +19,14 @@ import torch
 pytestmark = pytest.mark.cuda
 
 LIMITS = {torch.bfloat16: 6.25e-2, torch.float32: 1e-4}
+ATTENTION_ROW_LIMIT = 2.0 ** -5
+
+
+def _attention_row_err(out, ref):
+    """Max over query rows of max |out - ref| / max |ref| in that row."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().amax(-1)
+    return (err / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
 @pytest.fixture
@@ -28,7 +37,7 @@ def dev():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("l", [1, 40, 77, 256, 300])
+@pytest.mark.parametrize("l", [1, 40, 77, 256, 257, 300, 512])
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_attention_kernel_matches_plain(dev, dtype, l, fused, d):
@@ -50,8 +59,11 @@ def test_attention_kernel_matches_plain(dev, dtype, l, fused, d):
     out = ca.fused_attention(q, k, v, bias)
     torch.cuda.synchronize()
     assert ca.fused_attention.launches == n + 1
-    err = (out.float() - ca.attention_plain(q, k, v, bias).float()).abs().max().item()
+    ref = ca.attention_plain(q, k, v, bias)
+    err = (out.float() - ref.float()).abs().max().item()
     assert err <= LIMITS[dtype], err
+    if dtype == torch.bfloat16:
+        assert _attention_row_err(out, ref) <= ATTENTION_ROW_LIMIT
 
 
 # Row counts at the edges of the tiles: 32-row walk tiles, 128-row wgmma
@@ -680,7 +692,7 @@ def _gqa_case(dev, b, h, g, l, d, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("l", [1, 40, 77, 300])
+@pytest.mark.parametrize("l", [1, 40, 77, 256, 300])
 @pytest.mark.parametrize("rep", [1, 4])
 @pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_attention_gqa_kernel_matches_plain(dev, dtype, l, rep, d):
@@ -695,6 +707,8 @@ def test_attention_gqa_kernel_matches_plain(dev, dtype, l, rep, d):
     assert out.shape == q.shape and torch.isfinite(out.float()).all()
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= LIMITS[dtype], err
+    if dtype == torch.bfloat16:
+        assert _attention_row_err(out, ref) <= ATTENTION_ROW_LIMIT
     assert torch.equal(out, again)
 
 

@@ -49,6 +49,23 @@ def test_ln_qkv_route(dtype, w8a8, route):
     assert cl.ln_qkv_route(dtype, w8a8) == route
 
 
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.float32, "fma")])
+def test_attention_route(dtype, route):
+    """bf16 attention runs the one-pass wgmma kernel, fp32 the FMA kernel
+    (both attention wrappers, one C entry each)."""
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    assert ca.attention_route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int8, torch.float64])
+def test_attention_route_refuses_other_dtypes(dtype):
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    with pytest.raises(TypeError, match="attention_route"):
+        ca.attention_route(dtype)
+
+
 @pytest.mark.parametrize("which", ["mlp", "ln_qkv"])
 def test_mlp_route_refuses_other_dtypes(which):
     from vault_tpu_torch.ops import cuda_ln_qkv as cl
@@ -86,12 +103,20 @@ class _EntryRecorder:
     ("q8", torch.float32, True, "vt_mlp_fwd_q8"),
     ("ln_qkv", torch.bfloat16, False, "vt_ln_qkv_wgmma"),
     ("ln_qkv", torch.float32, False, "vt_ln_qkv"),
+    ("attention", torch.bfloat16, False, "vt_attention_fwd"),
+    ("attention", torch.float32, False, "vt_attention_fwd"),
+    ("attention_gqa", torch.bfloat16, False, "vt_attention_gqa_fwd"),
+    ("attention_gqa", torch.float32, False, "vt_attention_gqa_fwd"),
 ])
 def test_wrappers_launch_the_entries_of_their_route(monkeypatch, wrapper, dtype, postln,
                                                     entry):
     """The wrappers launch the C entries of the design ``mlp_route`` (or
     ``ln_qkv_route``) names, with the workspace of that design (LN->QKV:
-    the wrapper's own scratch)."""
+    the wrapper's own scratch).  Each attention wrapper has one C entry,
+    which runs the design ``attention_route`` names for the dtype it is
+    handed (bf16 1, fp32 0); the wrapper returns the (B, L, H, D) output as
+    a (B, H, L, D) view and counts the launch."""
+    from vault_tpu_torch.ops import cuda_attention as ca
     from vault_tpu_torch.ops import cuda_ln_qkv as cl
 
     lib = _EntryRecorder()
@@ -101,6 +126,26 @@ def test_wrappers_launch_the_entries_of_their_route(monkeypatch, wrapper, dtype,
     monkeypatch.setattr(cl, "check_operands", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=None))
+    if wrapper.startswith("attention"):
+        gqa = wrapper == "attention_gqa"
+        monkeypatch.setattr(ca, "_check_gqa" if gqa else "_check", lambda *a: None)
+        counter = ca.fused_attention_gqa if gqa else ca.fused_attention
+        monkeypatch.setattr(counter, "launches", 0)
+        args = []
+
+        def entry_fn(*a):
+            args.append(a)
+            lib.called.append(entry)
+            return 0
+        monkeypatch.setattr(lib, entry, entry_fn, raising=False)
+        q = torch.zeros((2, 4, 5, 64), dtype=dtype)
+        kv = torch.zeros((2, 2 if gqa else 4, 5, 64), dtype=dtype)
+        bias = torch.zeros((2, 1, 5, 5) if gqa else (2, 1, 1, 5))
+        out = (ca._gqa_kernel if gqa else ca._kernel)(q, kv, kv, bias)
+        assert lib.called == [entry] and counter.launches == 1
+        assert out.shape == q.shape and out.permute(0, 2, 1, 3).is_contiguous()
+        assert args[0][-2] == {"wgmma": 1, "fma": 0}[ca.attention_route(dtype)]
+        return
     a = {k: v.to(dtype) for k, v in _mlp_args().items()}
     if wrapper == "fwd":
         cm._launch(postln, a["gamma"], a["beta"], a["w1"], a["b1"], a["w2"], a["b2"],

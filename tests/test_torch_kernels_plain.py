@@ -47,11 +47,16 @@ def _attn_inputs(dtype, b=2, h=3, l=13, d=8, seed=0):
     return jx, tx
 
 
+# Key lengths: 13 and 11 (below one 64-key tile of the card's kernels), 21,
+# and 257 and 300, past 256: where the bf16 kernel's softmax runs online
+# over several key tiles, the plain versions it is held against on the card
+# are held here to the Pallas kernels and the XLA compositions.
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pallas_fn", ["fused_attention", "fused_attention_batched",
                                        "fused_attention_dotbatch"])
-def test_attention_plain_vs_pallas(dtype, pallas_fn):
-    jx, tx = _attn_inputs(dtype)
+@pytest.mark.parametrize("l", [13, 21, 257, 300])
+def test_attention_plain_vs_pallas(dtype, pallas_fn, l):
+    jx, tx = _attn_inputs(dtype, l=l)
     ref = getattr(pa, pallas_fn)(*jx, interpret=True)
     out = ca.fused_attention(*tx)          # CPU tensors: the plain version
     assert out.dtype == tx[0].dtype and out.shape == tx[0].shape
@@ -683,13 +688,40 @@ def _gqa_inputs(dtype, rep, padded, b=3, g=2, l=11, d=8, seed=41):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rep", [1, 2, 4])
 @pytest.mark.parametrize("padded", [False, True])
-def test_attention_gqa_plain_vs_pallas_and_xla(dtype, rep, padded):
-    jx, tx = _gqa_inputs(dtype, rep, padded)
+@pytest.mark.parametrize("l", [11, 21, 257, 300])
+def test_attention_gqa_plain_vs_pallas_and_xla(dtype, rep, padded, l):
+    jx, tx = _gqa_inputs(dtype, rep, padded, l=l)
     out = ca.fused_attention_gqa(*tx)       # CPU tensors: the plain version
     assert out.dtype == tx[0].dtype and out.shape == tx[0].shape
     assert torch.isfinite(out.float()).all()
     _close(out, pa.fused_attention_gqa(*jx, interpret=True), dtype, 5e-5)
     _close(out, jllama._gqa_attend(*jx, rep), dtype, 5e-5)
+
+
+@pytest.mark.parametrize("gqa", [False, True])
+@pytest.mark.parametrize("l", [40, 77, 257])
+def test_attention_row_limit_passes_bf16_p_and_catches_fp8_p(gqa, l):
+    """chip_smoke.py's per-row bf16 attention gate, on the case functions it
+    runs on the card (here on the CPU, head dim 64): the attention with its
+    unnormalised probabilities cast to bf16 before P V (the one-pass
+    kernel's rounding over several key tiles) stays within
+    ATTENTION_ROW_LIMIT of the plain version; cast to fp8 (the control that
+    every bf16 row on the card reads), it exceeds it."""
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(l)
+    cpu, bf = torch.device("cpu"), torch.bfloat16
+    if gqa:
+        ops = chip_smoke.gqa_case(gen, 3, 8, 2, l, 64, bf, cpu)
+        ref = ca.fused_attention_gqa(*ops)
+    else:
+        ops = chip_smoke.attention_case(gen, 3, 4, l, bf, cpu, fused=True, masked_row=True)
+        ref = ca.fused_attention(*ops)
+    limit = chip_smoke.ATTENTION_ROW_LIMIT
+    sound = chip_smoke.attention_row_err(chip_smoke.attention_p_cast(*ops, bf), ref)
+    control = chip_smoke.attention_row_err(
+        chip_smoke.attention_p_cast(*ops, torch.float8_e4m3fn), ref)
+    assert sound <= limit / 2 and control > limit, (sound, control)
 
 
 def test_attention_gqa_function_grads_match_plain_autograd():

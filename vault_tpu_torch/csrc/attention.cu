@@ -14,12 +14,14 @@
 // bias with a finite fill for masked keys.
 //
 // What bounds it on an H100: at the main path's L = 40 and L = 256 the
-// work is tiny (4 B H L^2 d FLOP, well under 1 us of tensor-core time at
-// 989 TFLOP/s) and the bytes are a few MB, so the kernel is bound by
-// latency and by how many blocks fill the 132 SMs.  The kernel is
-// attention_common.cuh's, one query head per K/V head and a
-// key bias shared by every query row: one block per (query tile of 64
-// rows, head, batch row).
+// work is small (4 B H L^2 d FLOP: 1.6 GFLOP at (8, 12, 256, 64), 1.6 us
+// of tensor-core time at 989 TFLOP/s) against 12.6 MB of operands (the
+// bytes bound it, 0.0038 ms at L = 256), so the kernel is bound by latency
+// and by how many blocks fill the 132 SMs.  The kernel is
+// attention_common.cuh's (bf16: one pass on wgmma; fp32: FMA), one query
+// head per K/V head and a key bias shared by every query row: one block per
+// (query tile of 64 rows, head, batch row), 384 blocks at L = 256 that fit
+// the card at once (five a SM at D = 64), 96 at L = 40.
 #include "attention_common.cuh"
 
 // q, k, v share the strides (sb, sh, sl); out has (ob, oh, ol); all rows

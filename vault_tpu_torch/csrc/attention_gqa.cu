@@ -7,8 +7,9 @@
 // i / rep without any repeated copy of K or V: the rep heads of a group are
 // folded into one (rep L, d) query matrix against the group's (L, d) keys
 // and values, and the bias row of folded row f is that of position f % L.
-// fp32 scores and softmax, probabilities cast to v's type before P V.  The
-// kernel multiplies the scores by 1 / sqrt(d) where the plain composition
+// fp32 scores and softmax; in bf16 the probabilities are cast before P V
+// (normalised first when the key row is one tile, attention_common.cuh).
+// The kernel multiplies the scores by 1 / sqrt(d) where the plain composition
 // divides by sqrt(d): one fp32 ulp of the score, inside the stated limits.
 // Masked entries carry finfo(float32).min, which the kernel keeps finite
 // (attention_common.cuh); rep = 1 is multi-head attention with a 2-D bias.
@@ -18,11 +19,13 @@
 // contiguous fp32.
 //
 // What bounds it on an H100: at the tower's (16, 32, 40, 128) the work is
-// 4 B H L^2 d = 1.3 GFLOP against 6.6 MB of operands (q and out 5.2 MB, K/V
+// 4 B H L^2 d = 0.4 GFLOP against 6.6 MB of operands (q and out 5.2 MB, K/V
 // 1.3 MB, bias 0.1 MB): bound by the bytes, about 0.002 ms, and in practice
 // by latency.  The fold fills the 64-row query tiles (rep L = 160 rows of a
 // group are 3 tiles, where 4 heads of 40 rows would be 4) and reads each
-// K/V head once per tile of its group: grid (3, 8, 16) = 384 blocks.
+// K/V head once per tile of its group: grid (3, 8, 16) = 384 blocks of one
+// warpgroup, all resident at once at L = 40 (one 64-key stage, 50 KB of
+// shared memory and 128 registers a thread: four blocks a SM).
 #include "attention_common.cuh"
 
 // strides: the (batch, head, row) element strides of q, k, v and out, twelve

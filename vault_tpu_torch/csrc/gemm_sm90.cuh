@@ -4,6 +4,9 @@
 // epilogue.  The bf16 MLP blocks, forward (mlp.cu) and backward
 // (mlp_bwd.cu), the w8 pre-LN block (mlp.cu, behind a dequantization pass,
 // dequant below) and the bf16 LN->QKV projection (ln_qkv.cu) run on it.
+// The bf16 attention kernel (attention_common.cuh) is not a product of the
+// core but is built from its pieces: tensor maps, mbarriers, TMA loads,
+// descriptors and the wgmma forms, the register-A form included.
 //
 // Operands, row-major bf16, 16-byte aligned, rows of 16-byte multiples:
 //   A (M, K): K-contiguous (LN(x), the activation, the masked cotangent, dh1);
@@ -96,24 +99,33 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A row-major (outer, inner) bf16 matrix read in boxes of (box_outer, 64),
-// 128-byte swizzle, zeros past the edges.  cudaErrorInvalidValue for a
-// pointer or row that is not 16-byte aligned.
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int outer, int inner, int box_outer) {
-  if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || (inner * sizeof(bf16)) % 16 != 0 ||
-      outer <= 0 || inner <= 0)
-    return cudaErrorInvalidValue;
+// A bf16 array of `rank` dimensions (dims[0] contiguous; strides[i], in
+// bytes, of dimension i + 1), read in boxes of `box` under swizzle `sw`,
+// zeros past the edges.  cudaErrorInvalidValue for a pointer or stride that
+// is not 16-byte aligned.
+inline cudaError_t make_map_nd(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                               const cuuint64_t* strides, const cuuint32_t* box,
+                               CUtensorMapSwizzle sw) {
+  if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorInvalidValue;
+  for (int i = 0; i < rank; ++i)
+    if (dims[i] == 0 || (i + 1 < rank && strides[i] % 16 != 0)) return cudaErrorInvalidValue;
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorInvalidDeviceFunction;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major (outer, inner) bf16 matrix read in boxes of (box_outer, 64),
+// 128-byte swizzle, zeros past the edges.
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int outer, int inner, int box_outer) {
+  if (outer <= 0 || inner <= 0) return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
   const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(bf16)};
   const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_map_nd(map, ptr, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // -------------------------------------------------------------- device side
@@ -159,15 +171,30 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (all >> 4).  K-contiguous tiles: rows of
-// 128 bytes, 8-row groups 1024 bytes apart (SBO), LBO unused; a k16 step
-// moves the start 32 bytes.  N-contiguous tiles: 64-column blocks of 64
-// k-rows, 8192 bytes apart (LBO), 8-k-row groups 1024 bytes apart (SBO); a
-// k16 step moves the start 16 rows, 2048 bytes.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// The same for a 4-d map: the box at coordinates (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (all >> 4), swizzle (SW128 or SW64).  128-byte swizzle:
+// K-contiguous tiles: rows of 128 bytes, 8-row groups 1024 bytes apart
+// (SBO), LBO unused; a k16 step moves the start 32 bytes.  N-contiguous
+// tiles: 64-column blocks of 64 k-rows, 8192 bytes apart (LBO), 8-k-row
+// groups 1024 bytes apart (SBO); a k16 step moves the start 16 rows, 2048
+// bytes.  64-byte swizzle: rows of 64 bytes (32 columns), 8-row groups 512
+// bytes apart (SBO); K-contiguous, a k16 step moves the start 32 bytes;
+// N-contiguous, 32-column blocks LBO apart, a k16 step 16 rows, 1024 bytes.
+constexpr uint64_t SW128 = 1, SW64 = 2;
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint64_t swizzle = SW128) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | (swizzle << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -183,6 +210,13 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// and the A fragments of the register-A form, which the hardware reads until
+// the wait: live, and in place, across it
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int TB>
@@ -271,6 +305,105 @@ __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db
   if constexpr (BN == 64) wgmma_n64<TB>(d, da, db, 1);
   else if constexpr (BN == 128) wgmma_n128<TB>(d, da, db, 1);
   else wgmma_n192<TB>(d, da, db, 1);
+}
+
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32, A from registers: a[0..3]
+// are the thread's four bf16 pairs of the 64 x 16 A slice, in the layout of
+// the fp32 accumulator of a 64 x 16 product (warp w rows 16 w + lane / 4 (+
+// 8), columns 2 (lane % 4) (+ 8)), so a product's accumulators cast pairwise
+// to bf16 are the A operand of the next; B from shared memory, TB as above.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t* a, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128,
+                "widths with a register-A wgmma wrapper: 32, 64, 96, 128");
+  if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, 1);
+  else if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, 1);
+  else if constexpr (N == 96) wgmma_rs_n96<TB>(d, a, db, 1);
+  else wgmma_rs_n128<TB>(d, a, db, 1);
 }
 
 // Eight int8 codes (q0: codes 0-3, q1: 4-7) -> four bf16 pairs

@@ -1,7 +1,10 @@
 """Attention through the hand-written Hopper kernels: the encoder attention
 (``csrc/attention.cu``) and the Llama tower's grouped-query attention
-(``csrc/attention_gqa.cu``; both are ``csrc/attention_common.cuh``'s kernel
+(``csrc/attention_gqa.cu``; both are ``csrc/attention_common.cuh``'s kernels
 under another index map), each with its plain PyTorch version beside it.
+:func:`attention_route` names the design a call takes on the card: bf16
+runs one pass on ``wgmma`` (``attention_wgmma``), fp32 the FMA kernel
+(``attention_fma``); both C entries pick it by the dtype they are given.
 
 The encoder kernel replaces the JAX package's three Pallas encoder-attention
 kernels (``vault_tpu/ops/pallas_attention.py``: ``fused_attention``,
@@ -47,6 +50,17 @@ _SIGNATURES = {"vt_attention_fwd": (
     + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
 
 
+def attention_route(dtype: torch.dtype) -> str:
+    """Which design an attention call with operands in ``dtype`` runs on the
+    card: "wgmma" for bf16 (one pass, scores and probabilities in the
+    ``wgmma`` accumulators), "fma" for fp32 (full fp32, the two-pass FMA
+    kernel: tf32 ``wgmma`` would not keep the 1e-4 limit).  Both wrappers
+    refuse any other dtype."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"attention_route: dtype {dtype} not supported (bfloat16 or float32)")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
 def attention_plain(q, k, v, bias):
     """The kernel's function in plain PyTorch: :func:`attend_plain`
     without dropout."""
@@ -60,9 +74,7 @@ def _check(q, k, v, bias):
     if not q.is_cuda:
         raise ValueError(f"fused_attention: tensors on {q.device} have no "
                          "kernel; only CPU (plain) and CUDA are supported")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"fused_attention: dtype {q.dtype} not supported "
-                        "(bfloat16 or float32)")
+    attention_route(q.dtype)
     vec = 16 // q.element_size()  # elements per 16-byte copy
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
@@ -136,8 +148,7 @@ def _check_gqa(q, k, v, bias):
     if not q.is_cuda:
         raise ValueError(f"{what}: tensors on {q.device} have no kernel; only "
                          "CPU (plain) and CUDA are supported")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"{what}: dtype {q.dtype} not supported (bfloat16 or float32)")
+    attention_route(q.dtype)
     b, h, l, d = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (l, d)
             or k.shape[1] == 0 or h % k.shape[1]):
