@@ -101,14 +101,18 @@ BWD_LN_LIMIT = 1e-3
 # 1e-4 of max(1, max|plain|).
 GEMM_CORE_LIMIT = 1e-4
 # Device kernels that show which design ran a block (``cuda_mlp.mlp_route``,
-# ``cuda_ln_qkv.ln_qkv_route``, ``cuda_attention.attention_route``): on the
-# wgmma core the GEMM core's products and the block's row passes, on the
-# walk mlp_main; bf16 attention the one-pass wgmma kernel.
+# ``cuda_ln_qkv.ln_qkv_route``, ``cuda_attention.attention_route``,
+# ``cuda_swiglu.swiglu_route``): on the wgmma core the GEMM core's products
+# and the block's row passes, on the walk mlp_main; bf16 attention the
+# one-pass wgmma kernel; the SwiGLU block the int8 core's products between
+# its row passes.
 ROUTE_KERNELS = {
     ("encoder_attention", "wgmma"): ("attention_wgmma",),
     ("attention_gqa", "wgmma"): ("attention_wgmma",),
     ("mlp_block", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
     ("mlp_block_q8", "wgmma"): ("dequant_kernel", "gemm_kernel", "ln_rows_bf16"),
+    ("mlp_postln_q8", "wgmma"): ("dequant_kernel", "gemm_kernel", "mlp_epilogue"),
+    ("swiglu_w8a8", "wgmma"): ("rms_quant_rows", "gemm_kernel", "requant_tiles"),
     ("ln_qkv", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
     ("mlp_postln", "wgmma"): ("gemm_kernel", "mlp_epilogue"),
     ("mlp_block_bwd", "wgmma"): ("gemm_kernel", "ln_rows_bf16", "mlp_bwd_preln_rows"),
@@ -117,10 +121,14 @@ ROUTE_KERNELS = {
                                                   "mlp_postln_q8")},
     ("mlp_block_bwd", "walk"): ("mlp_bwd_walk",),
 }
-# The second geometries the bf16 blocks (and the bf16 LN->QKV and the q8
-# pre-LN block on the core) are checked at (the wgmma core's width
-# contract): BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
+# The second geometries the bf16 blocks (and the bf16 LN->QKV and both q8
+# blocks on the core) are checked at (the wgmma core's width contract):
+# BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
 OTHER_WIDTHS = ((1024, 4096), (512, 2048))
+# The SwiGLU block's other widths (its contract: H a multiple of 128, an
+# I-tile pick_tile(I, 1,024) a multiple of 128): Llama-3.2-1B (H 2,048, I
+# 8,192) and H 512 / I 1,536 (two tiles of 768).
+SWIGLU_WIDTHS = ((2048, 8192), (512, 1536))
 # One training step, kernel path vs plain path (same parameters, batch and
 # generator seed): per parameter leaf ||g_kernel - g_plain|| / ||g_plain||,
 # and |loss difference|.  The paths round bf16 activations at different
@@ -565,9 +573,11 @@ def check_mlp(gen, dev, postln: bool):
 
 
 # Kernels of the other designs that a timed run on the wgmma route must not
-# show: the MLP walk, gemm_tiles, the FMA attention, and attention_kernel,
-# the deleted bf16 wmma attention (a stale library would still carry it).
-NOT_WGMMA = ("mlp_main", "mlp_bwd_walk", "gemm_tiles", "attention_fma", "attention_kernel")
+# show: the MLP walk, gemm_tiles, the FMA attention, and the deleted wmma
+# kernels (a stale library would still carry them): attention_kernel, the
+# bf16 attention, and gate_up_tiles / down_tiles, the SwiGLU products.
+NOT_WGMMA = ("mlp_main", "mlp_bwd_walk", "gemm_tiles", "attention_fma", "attention_kernel",
+             "gate_up_tiles", "down_tiles")
 
 
 def check_route(name, row):
@@ -863,10 +873,10 @@ def check_int8_family(gen, dev, name):
     the serving path's rows (batch 8: 2,048 ViLT rows, 320 BERT rows) and at
     77 fp32 rows (w8a8: bit-equal; fp LN->QKV: see ``LNQKV_BF16_LIMIT``; q8,
     which rounds no activation to int8: ``LIMITS``); the kernels on the
-    wgmma core (bf16 LN->QKV, the bf16 q8 pre-LN block) also at 77 and 37
-    rows and at ``OTHER_WIDTHS``, q8 with every activation; two launches
+    wgmma core (bf16 LN->QKV, both bf16 q8 blocks) also at 77 and 37 rows
+    and at ``OTHER_WIDTHS``, q8 with every activation; two launches
     bit-equal; times beside the bound and the library composition, the
-    route's device kernels checked (``check_route``); the q8 pre-LN block's
+    route's device kernels checked (``check_route``); each q8 block's
     dequantization pass held exact (``check_dequant_pass``)."""
     import torch
     import torch.nn.functional as F
@@ -886,7 +896,7 @@ def check_int8_family(gen, dev, name):
     if name.startswith("mlp_"):  # the other activations the MLP blocks take
         cases += [(rows, dtype, h0, i0, {"act": act}) for act in ("gelu_new", "relu")
                   for rows, dtype in ((main_rows, bf), (77, torch.float32))]
-    if name in ("ln_qkv", "mlp_block_q8"):  # on the wgmma core: rows and widths
+    if name in ("ln_qkv", "mlp_block_q8", "mlp_postln_q8"):  # on the core: rows, widths
         acts = [{}] if name == "ln_qkv" else [{}] + [{"act": a} for a in cm._ACTS if a != "gelu"]
         cases += [c for c in ((rows, bf, h, i, kw) for h, i in ((h0, i0), *OTHER_WIDTHS)
                               for rows in (main_rows, 77, 37) for kw in acts)
@@ -957,31 +967,32 @@ def check_int8_family(gen, dev, name):
             row["bound_share"] = row["bound_ms"] / row["ms"]
             if route_of is not None:
                 check_route(name, row)
-            if name == "mlp_block_q8":
-                check_dequant_pass(o, x, out)
+            if name.endswith("_q8"):
+                check_dequant_pass(name, o, x, out)
         emit(phase="kernel_check", **row)
         rows_out.append(row)
     return rows_out
 
 
-def check_dequant_pass(o, x, out):
-    """The q8 pre-LN block's route at the serving rows is its dequantization
-    pass (``dequant_kernel``), then the bf16 pre-LN block: the pass alone
-    must equal ``dequant_plain`` bit for bit, and the block's output must
-    equal the bf16 block's on the pass's weights."""
+def check_dequant_pass(name, o, x, out):
+    """A q8 block's route at the serving rows is its dequantization pass
+    (``dequant_kernel``), then the bf16 block of the same kind (pre-LN or
+    post-LN): the pass alone must equal ``dequant_plain`` bit for bit, and
+    the block's output must equal the bf16 block's on the pass's weights."""
     import torch
 
     from vault_tpu_torch.ops import cuda_gemm as cg
     from vault_tpu_torch.ops import cuda_mlp as cm
 
+    block = cm.fused_mlp_postln_fwd if name == "mlp_postln_q8" else cm.fused_mlp_block_fwd
     w1, w2 = cg.dequant_bf16(o["w1q"], o["s1"]), cg.dequant_bf16(o["w2q"], o["s2"])
-    via_pass = cm.fused_mlp_block_fwd(o["gamma"], o["beta"], w1, o["b1"], w2, o["b2"], x)
+    via_pass = block(o["gamma"], o["beta"], w1, o["b1"], w2, o["b2"], x)
     torch.cuda.synchronize()
     if not (torch.equal(w1, cg.dequant_plain(o["w1q"], o["s1"]))
             and torch.equal(w2, cg.dequant_plain(o["w2q"], o["s2"]))):
-        fail("mlp_block_q8: the dequantization pass differs from dequant_plain")
+        fail(f"{name}: the dequantization pass differs from dequant_plain")
     if not torch.equal(via_pass, out):
-        fail("mlp_block_q8: the route and the bf16 block on the pass's weights differ")
+        fail(f"{name}: the route and the bf16 block on the pass's weights differ")
 
 
 def check_lnqkv_tiles(gen, dev):
@@ -1091,36 +1102,47 @@ def check_attention_gqa(gen, dev):
 
 def swiglu_operands(gen, dev, h=4096, i=14336):
     """The tower's MLP weights: drawn in fp32 (std 0.02) and quantized one
-    at a time, as the model's are; the norm weight fp32."""
+    at a time, the codes held K-major, as the model's are; the norm weight
+    fp32."""
     import torch
 
-    from vault_tpu_torch.ops.quantize import quantize_weight
+    from vault_tpu_torch.ops.quantize import k_major, quantize_weight
 
     o = {"ln_w": 1.0 + 0.1 * torch.randn(h, generator=gen, device=dev)}
     for name, shape in (("g", (h, i)), ("u", (h, i)), ("d", (i, h))):
         w = torch.randn(shape, generator=gen, device=dev) * 0.02
-        o["w" + name + "q"], sc = quantize_weight(w)
-        o["s" + name] = sc.reshape(-1)
-        del w
+        q, sc = quantize_weight(w)
+        o["w" + name + "q"], o["s" + name] = k_major(q), sc.reshape(-1)
+        del w, q
     return o
 
 
 def check_swiglu(gen, dev):
     """The w8a8 SwiGLU kernel against ``swiglu_block_w8a8_plain`` at the
-    tower's rows (batch 16: 640) and half of them, bf16 and fp32: bit-equal,
-    repeats bit-equal.  Its distance from the per-row XLA composition
-    (``swiglu_block_plain``, another requantization grouping) is reported."""
+    tower's rows (batch 16: 640) and half of them, bf16 and fp32, and at
+    ``SWIGLU_WIDTHS`` (640 and 77 rows): bit-equal, repeats bit-equal.  Its
+    distance from the per-row XLA composition (``swiglu_block_plain``,
+    another requantization grouping) is reported; the bf16 main-width rows
+    are timed and held to the int8 core's kernels (``check_route``)."""
     import torch
     import torch.nn.functional as F
 
     from vault_tpu_torch.ops import cuda_swiglu as cs
 
-    o = swiglu_operands(gen, dev)
     names = ("ln_w", "wgq", "sg", "wuq", "su", "wdq", "sd")
-    h, i = o["wgq"].shape
     rows_out = []
-    for rows, dtype in ((640, torch.bfloat16), (320, torch.bfloat16),
-                        (640, torch.float32), (320, torch.float32)):
+    cases = [((4096, 14336), rows, dtype) for rows, dtype in (
+        (640, torch.bfloat16), (320, torch.bfloat16), (640, torch.float32),
+        (320, torch.float32))]
+    cases += [(hi, rows, dtype) for hi in SWIGLU_WIDTHS
+              for rows, dtype in ((640, torch.bfloat16), (77, torch.bfloat16),
+                                  (77, torch.float32))]
+    o = None
+    for (h, i), rows, dtype in cases:
+        if o is None or tuple(o["wgq"].shape) != (h, i):
+            o = None
+            torch.cuda.empty_cache()
+            o = swiglu_operands(gen, dev, h, i)
         x = torch.randn((rows, h), generator=gen, device=dev).to(dtype)
         args = [o[k] for k in names] + [x]
         out, again = cs.fused_swiglu_block_fwd_w8a8(*args), cs.fused_swiglu_block_fwd_w8a8(*args)
@@ -1130,16 +1152,20 @@ def check_swiglu(gen, dev):
         dt = str(dtype).split(".")[-1]
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
+        what = f"swiglu_w8a8 rows={rows} {dtype} H={h} I={i}"
         if not math.isfinite(err) or err != 0.0:
-            fail(f"swiglu_w8a8 rows={rows} {dtype}: max |kernel - plain| {err} at "
-                 f"{int((diff > 0).sum())} of {diff.numel()} elements, expected bit-equal")
+            fail(f"{what}: max |kernel - plain| {err} at {int((diff > 0).sum())} of "
+                 f"{diff.numel()} elements, expected bit-equal")
         if not torch.equal(out, again):
-            fail(f"swiglu_w8a8 rows={rows} {dtype}: two launches differ")
-        row = dict(kernel="swiglu_w8a8", rows=rows, dtype=dt, max_abs_err=err, limit=0.0,
-                   bit_equal_repeat=True,
+            fail(f"{what}: two launches differ")
+        main = (h, i) == (4096, 14336)
+        row = dict(kernel="swiglu_w8a8", rows=rows, hidden=h, intermediate=i, dtype=dt,
+                   max_abs_err=err, limit=0.0, bit_equal_repeat=True,
+                   i_tile=cs.pick_tile(i, cs.I_TILE), route=cs.swiglu_route(dtype),
                    vs_per_row_composition=(out.float() - per_row.float()).abs().max().item(),
-                   path="forward" if (rows, dtype) == (640, torch.bfloat16) else "other")
-        if dtype == torch.bfloat16:
+                   path="forward" if main and (rows, dtype) == (640, torch.bfloat16)
+                   else "other")
+        if main and dtype == torch.bfloat16:
             def lib():
                 y = F.rms_norm(x, (h,), o["ln_w"].to(dtype), 1e-5)
                 zero = torch.zeros((), device=dev)
@@ -1154,8 +1180,51 @@ def check_swiglu(gen, dev):
             ops = 6.0 * rows * h * i
             nbytes = 3 * h * i + 2 * 2 * rows * h + 4 * (2 * i + h) + 4 * h
             row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, dtype, PEAK_INT8_OPS)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            check_route("swiglu_w8a8", row)
         emit(phase="kernel_check", **row)
         rows_out.append(row)
+    del o
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def check_gemm_core_s8(gen, dev):
+    """The int8 instance of the core alone (``cuda_gemm.gemm_s8``) against
+    the exact int32 product, at the SwiGLU block's gate/up shape (640 x
+    14,336 x 4,096), its down product over one I-tile (640 x 4,096 x 1,024)
+    and a ragged one, each tile width, rows first or N first: equal; the
+    gate/up shape timed beside its bound and ``torch._int_mm``."""
+    import torch
+
+    from vault_tpu_torch.ops import cuda_gemm as cg
+
+    rows_out = []
+    for m, n, k in ((640, 14336, 4096), (640, 4096, 1024), (77, 768, 384)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        ref = cg.gemm_s8_plain(a, b)
+        for bn in cg.TILE_WIDTHS:
+            for rows_first in (True, False):
+                run = lambda: cg.gemm_s8(a, b, bn, rows_first)
+                out = run()
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    fail(f"gemm core s8 {(m, n, k)} bn={bn} rows_first={rows_first}: "
+                         f"{int((out != ref).sum())} elements differ from the int32 product")
+                row = dict(kernel="gemm_core_s8", m=m, n=n, k=k, tile_width=bn,
+                           rows_first=rows_first, exact=True)
+                if (m, n, k) == (640, 14336, 4096):
+                    row["ms"], row["device_kernels"] = device_ms(run)
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        2.0 * m * n * k, m * k + n * k + 4.0 * m * n, torch.int8, PEAK_INT8_OPS)
+                    row["share_of_peak"] = row["bound_ms"] / row["ms"]
+                    if bn == 128 and rows_first:
+                        bt = b.t()
+                        row["library_ms"], _ = device_ms(lambda: torch._int_mm(a, bt))
+                emit(phase="kernel_check", **row)
+                rows_out.append(row)
+        del a, b, ref
     return rows_out
 
 
@@ -1628,6 +1697,10 @@ def llama_phase(dev):
             "gate.w_scale": torch.float32, "vilt": torch.bfloat16}
     if dtypes != want:
         fail(f"llama tower dtypes {dtypes}, expected {want}")
+    from vault_tpu_torch.ops.quantize import is_k_major
+
+    if not all(is_k_major(lp[n]["w_q8"]) for lp in tower["layers"] for n in ("gate", "up", "down")):
+        fail("llama tower: the MLP's int8 codes are not held K-major (the SwiGLU kernel's layout)")
     weight_bytes = {"tower_int8_codes": sum(
         p.numel() for p in tower.parameters() if p.dtype == torch.int8),
         "tower_embed": tower["embed"].numel() * tower["embed"].element_size(),
@@ -1966,6 +2039,7 @@ def main():
     checks, path_counts = {}, {}
     if "kernels" in phases:
         check_gemm_core(gen, dev)
+        check_gemm_core_s8(gen, dev)
         check_postln_tiles(gen, dev)
         check_lnqkv_tiles(gen, dev)
         checks["encoder_attention"] = check_attention(gen, dev)

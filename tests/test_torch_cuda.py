@@ -608,6 +608,37 @@ def test_q8_preln_block_on_the_core(dev, act, h, i, rows):
     assert torch.equal(out, via_pass)
 
 
+@pytest.mark.parametrize("act", ["gelu", "gelu_new", "gelu_pytorch_tanh", "relu"])
+@pytest.mark.parametrize("h,i", CORE_Q8_WIDTHS)
+@pytest.mark.parametrize("rows", [320, 77, 37])
+def test_q8_postln_block_on_the_core(dev, act, h, i, rows):
+    """The bf16 post-LN q8 block (BERT's layers in a w8 model; 320 rows at
+    batch 8) against mlp_postln_q8_plain within the bf16 forward limit, its
+    repeat bit-equal, and bit-equal to the bf16 post-LN block on the same
+    weights dequantized by a pass of their own."""
+    from vault_tpu_torch.ops import cuda_gemm as cg
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    assert cm.mlp_route(torch.bfloat16, True, True) == "wgmma"
+    o = _core_operands(dev, rows, h, i, seed=h + i + rows + 1)
+    args = [o[k] for k in W8A8_ARGS]
+    fn = cm.fused_mlp_postln_fwd_q8
+    n = fn.launches
+    out, again = fn(*args, act=act), fn(*args, act=act)
+    ref = cm.mlp_postln_q8_plain(*args, act=act)
+    via_pass = cm.fused_mlp_postln_fwd(o["gamma"], o["beta"],
+                                       cg.dequant_bf16(o["w1q"], o["s1"]), o["b1"],
+                                       cg.dequant_bf16(o["w2q"], o["s2"]), o["b2"], o["x"],
+                                       act=act)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 2
+    assert out.shape == (rows, h) and out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= LIMITS[torch.bfloat16], err
+    assert torch.equal(out, again)
+    assert torch.equal(out, via_pass)
+
+
 @pytest.mark.parametrize("h", [768, 1024, 512])
 @pytest.mark.parametrize("rows", [2048, 77, 37])
 def test_ln_qkv_on_the_core(dev, h, rows):
@@ -733,14 +764,16 @@ def test_attention_gqa_wrapper_rejects_and_differentiates(dev):
         assert (a.grad - b.grad).abs().max().item() <= 1e-3
 
 
-def _swiglu_operands(dev, i=2048, seed=6):
-    from vault_tpu_torch.ops.quantize import quantize_weight
+def _swiglu_operands(dev, i=2048, seed=6, h=4096):
+    """The block's weights as the tower holds them: int8 codes K-major
+    (ops/quantize.py k_major), fp32 scales."""
+    from vault_tpu_torch.ops.quantize import k_major, quantize_weight
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    o = {"ln_w": 1.0 + 0.1 * torch.randn(4096, generator=g, device=dev)}
-    for name, shape in (("g", (4096, i)), ("u", (4096, i)), ("d", (i, 4096))):
+    o = {"ln_w": 1.0 + 0.1 * torch.randn(h, generator=g, device=dev)}
+    for name, shape in (("g", (h, i)), ("u", (h, i)), ("d", (i, h))):
         q, s = quantize_weight(torch.randn(shape, generator=g, device=dev) * 0.02)
-        o["w" + name + "q"], o["s" + name] = q, s
+        o["w" + name + "q"], o["s" + name] = k_major(q), s
     return o, g
 
 
@@ -749,14 +782,16 @@ SWIGLU_ARGS = ("ln_w", "wgq", "sg", "wuq", "su", "wdq", "sd")
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rows", [1, 77, 320, 640])
-def test_swiglu_w8a8_kernel_matches_plain(dev, dtype, rows):
-    """Bit-equal to ``swiglu_block_w8a8_plain`` (two I-tiles here, fourteen
-    at the tower's width in chip_smoke.py), through the wrapper and through
-    the dispatch; the gradient is that of the per-row composition."""
+@pytest.mark.parametrize("h,i", [(4096, 2048), (2048, 8192), (512, 1536)])
+def test_swiglu_w8a8_kernel_matches_plain(dev, dtype, rows, h, i):
+    """Bit-equal to ``swiglu_block_w8a8_plain`` (two I-tiles at H 4,096,
+    fourteen at the tower's width in chip_smoke.py; Llama-3.2-1B's widths,
+    eight; H 512 / I 1,536, two tiles of 768), through the wrapper and
+    through the dispatch; the gradient is that of the per-row composition."""
     from vault_tpu_torch.ops import cuda_swiglu as cs
 
-    o, g = _swiglu_operands(dev)
-    x = torch.randn((rows, 4096), generator=g, device=dev).to(dtype)
+    o, g = _swiglu_operands(dev, i=i, h=h)
+    x = torch.randn((rows, h), generator=g, device=dev).to(dtype)
     args = [o[k] for k in SWIGLU_ARGS] + [x]
     n = cs.fused_swiglu_block_fwd_w8a8.launches
     out, again = cs.fused_swiglu_block_fwd_w8a8(*args), cs.fused_swiglu_block_fwd_w8a8(*args)
@@ -782,16 +817,18 @@ def test_swiglu_wrapper_rejects_what_the_kernel_does_not_take(dev):
     o, g = _swiglu_operands(dev, i=1024)
     x = torch.randn((8, 4096), generator=g, device=dev).to(torch.bfloat16)
     args = [o[k] for k in SWIGLU_ARGS] + [x]
+    # a K-major slice: the first `cols` output columns of a code matrix
+    cols = lambda q, c: q[:, :c].t().contiguous().t()
     bad = {"bf16 norm weight": [o["ln_w"].to(torch.bfloat16)] + args[1:],
            "fp weights": [args[0], o["wgq"].float()] + args[2:],
-           "I not a multiple of 1024": [args[0], o["wgq"][:, :512].contiguous(),
-                                        o["sg"][:, :512].contiguous(),
-                                        o["wuq"][:, :512].contiguous(),
-                                        o["su"][:, :512].contiguous(),
-                                        o["wdq"][:512].contiguous(), args[6], x],
-           "H 768": [args[0][:768].contiguous(), o["wgq"][:768].contiguous(), args[2],
-                     o["wuq"][:768].contiguous(), args[4], o["wdq"][:, :768].contiguous(),
-                     o["sd"][:, :768].contiguous(), x[:, :768].contiguous()],
+           "row-major codes": [args[0], o["wgq"].contiguous()] + args[2:],
+           "I-tile not a multiple of 128": [args[0], cols(o["wgq"], 1000),
+                                            o["sg"][:, :1000].contiguous(),
+                                            cols(o["wuq"], 1000), o["su"][:, :1000].contiguous(),
+                                            o["wdq"][:1000], args[6], x],
+           "H 704": [args[0][:704].contiguous(), o["wgq"][:704], args[2], o["wuq"][:704],
+                     args[4], cols(o["wdq"], 704), o["sd"][:, :704].contiguous(),
+                     x[:, :704].contiguous()],
            "fp16 x": args[:7] + [x.to(torch.float16)],
            "cpu x": args[:7] + [x.cpu()]}
     n = cs.fused_swiglu_block_fwd_w8a8.launches

@@ -24,17 +24,17 @@ from vault_tpu_torch.ops import cuda_mlp as cm
     (torch.bfloat16, False, False, "wgmma"),
     (torch.bfloat16, False, True, "wgmma"),
     (torch.bfloat16, True, False, "wgmma"),
-    (torch.bfloat16, True, True, "walk"),
+    (torch.bfloat16, True, True, "wgmma"),
     (torch.float32, False, False, "walk"),
     (torch.float32, False, True, "walk"),
     (torch.float32, True, False, "walk"),
     (torch.float32, True, True, "walk"),
 ])
 def test_mlp_route(dtype, int8_weights, postln, route):
-    """Every bf16 block with bf16 weights, pre-LN and post-LN alike, and the
-    bf16 pre-LN block with int8 weights go to the wgmma core; fp32 blocks
-    and the post-LN block with int8 weights stay on the walk.  Which entries
-    each wrapper launches: the test below."""
+    """Every bf16 block, pre-LN and post-LN alike, with bf16 weights or int8
+    ones (behind the dequantization pass), goes to the wgmma core; fp32
+    blocks stay on the walk.  Which entries each wrapper launches: the test
+    below."""
     assert cm.mlp_route(dtype, int8_weights, postln) == route
 
 
@@ -98,7 +98,7 @@ class _EntryRecorder:
     ("bwd", torch.float32, False, "vt_mlp_bwd"),
     ("bwd", torch.float32, True, "vt_mlp_bwd"),
     ("q8", torch.bfloat16, False, "vt_mlp_fwd_q8_wgmma"),
-    ("q8", torch.bfloat16, True, "vt_mlp_fwd_q8"),
+    ("q8", torch.bfloat16, True, "vt_mlp_fwd_q8_wgmma"),
     ("q8", torch.float32, False, "vt_mlp_fwd_q8"),
     ("q8", torch.float32, True, "vt_mlp_fwd_q8"),
     ("ln_qkv", torch.bfloat16, False, "vt_ln_qkv_wgmma"),
@@ -323,9 +323,9 @@ def test_mlp_wrappers_hold_their_width_contract(kind, postln, dtype, h, i, accep
 
 
 def _int8_contract(family, postln, dtype):
-    """The widths an int8-weight block takes: the bf16 pre-LN q8 block the
-    wgmma core's, every other one the walk's (w8a8: its kernels')."""
-    core = family == "q8" and not postln and dtype == torch.bfloat16
+    """The widths an int8-weight block takes: the bf16 q8 blocks the wgmma
+    core's, every other one the walk's (w8a8: its kernels')."""
+    core = family == "q8" and dtype == torch.bfloat16
     return (CORE_WIDTHS, CORE_REFUSED) if core else (WALK_WIDTHS, WALK_REFUSED)
 
 
@@ -556,3 +556,157 @@ def test_gemm_split_k_on_the_core(dev, k_contiguous, tile_width, rows, n, k, spl
     assert (out - ref).abs().max().item() / scale <= GEMM_CORE_LIMIT
     scale = max(1.0, whole.abs().max().item())
     assert (out.sum(0) - whole).abs().max().item() / scale <= GEMM_CORE_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# The int8 instance of the core (gemm_s8) and the w8a8 SwiGLU block on it:
+# plain versions, routes, width and layout contracts here, the kernels on
+# the card
+# ---------------------------------------------------------------------------
+
+def _codes(rng, *shape):
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+
+def test_gemm_s8_plain_is_the_exact_int32_product():
+    rng = np.random.default_rng(11)
+    a, b = _codes(rng, 37, 256), _codes(rng, 48, 256)
+    out = cg.gemm_s8_plain(a, b)
+    assert out.dtype == torch.int32 and out.shape == (37, 48)
+    ref = a.numpy().astype(np.int64) @ b.numpy().astype(np.int64).T
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert torch.equal(out, torch._int_mm(a, b.t()))
+
+
+@pytest.mark.parametrize("bad", ["k", "n", "tile", "dtype", "strided"])
+def test_gemm_s8_wrapper_refuses_what_the_core_does_not_take(bad):
+    rng = np.random.default_rng(12)
+    a, b = _codes(rng, 16, 256), _codes(rng, 64, 256)
+    before = cg.gemm_s8.launches
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "k":
+            cg.gemm_s8(a[:, :192].contiguous(), b[:, :192].contiguous())
+        elif bad == "n":
+            cg.gemm_s8(a, b[:63].contiguous())
+        elif bad == "tile":
+            cg.gemm_s8(a, b, tile_width=256)
+        elif bad == "dtype":
+            cg.gemm_s8(a.float(), b)
+        else:
+            cg.gemm_s8(a, _strided(b))
+    assert cg.gemm_s8.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swiglu_route(dtype):
+    """The w8a8 SwiGLU block runs on the int8 core for both dtypes: its
+    products are exact in int32, only its casts depend on the dtype."""
+    from vault_tpu_torch.ops import cuda_swiglu as csw
+
+    assert csw.swiglu_route(dtype) == "wgmma"
+
+
+def test_swiglu_route_refuses_other_dtypes():
+    from vault_tpu_torch.ops import cuda_swiglu as csw
+
+    with pytest.raises(TypeError, match="not supported"):
+        csw.swiglu_route(torch.float16)
+
+
+def _swiglu_args(h, i, dtype=torch.bfloat16, rows=2, layout=None):
+    """Zero operands of the SwiGLU wrapper at (H, I), the codes K-major
+    (``layout`` names one held row-major instead)."""
+    from vault_tpu_torch.ops.quantize import k_major
+
+    def codes(name, shape):
+        q = torch.zeros(shape, dtype=torch.int8)
+        return q if name == layout else k_major(q)
+
+    return (torch.ones(h), codes("wgq", (h, i)), torch.ones(i), codes("wuq", (h, i)),
+            torch.ones(i), codes("wdq", (i, h)), torch.ones(h),
+            torch.zeros((rows, h), dtype=dtype))
+
+
+# (H, I) the SwiGLU kernel takes: H a multiple of 128 up to 8,192, I whose
+# tile pick_tile(I, 1024) is a multiple of 128 (Llama-3-8B, Llama-3.2-1B, a
+# tile below 1,024) and some it refuses
+SWIGLU_WIDTHS = [(4096, 14336), (2048, 8192), (512, 1536), (128, 128), (8192, 1024),
+                 (256, 768)]
+SWIGLU_REFUSED = [(64, 1024), (4160, 1024), (8320, 1024), (512, 1000), (512, 1152),
+                  (512, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,i,accepted", [*[(h, i, True) for h, i in SWIGLU_WIDTHS],
+                                          *[(h, i, False) for h, i in SWIGLU_REFUSED]])
+def test_swiglu_wrapper_holds_its_width_contract(dtype, h, i, accepted):
+    from vault_tpu_torch.ops import cuda_swiglu as csw
+
+    fn = csw.fused_swiglu_block_fwd_w8a8
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA" if accepted else "hidden size"):
+        fn(*_swiglu_args(h, i, dtype))
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("layout", ["wgq", "wuq", "wdq"])
+def test_swiglu_wrapper_refuses_codes_not_held_k_major(layout):
+    """Row-major codes (the JAX package's layout) are refused, not
+    transposed per call: the port holds them K-major from the start."""
+    from vault_tpu_torch.ops import cuda_swiglu as csw
+
+    fn = csw.fused_swiglu_block_fwd_w8a8
+    before = fn.launches
+    with pytest.raises(ValueError, match=f"{layout} must be held K-major"):
+        fn(*_swiglu_args(512, 1536, layout=layout))
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,i", [(4096, 14336), (512, 1536)])
+def test_swiglu_wrapper_launches_its_entry(monkeypatch, dtype, h, i):
+    """One C entry, the codes' storage handed as it lies (no copy), the
+    I-tile pick_tile(I, 1024) and the scratch of the four launches: the
+    rows' codes and scales, the activation in x's dtype, its codes and one
+    scale per (row, tile)."""
+    from vault_tpu_torch.ops import cuda_swiglu as csw
+
+    calls = []
+    lib = types.SimpleNamespace(vt_swiglu_w8a8=lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(csw._build, "load", lambda name, signatures: lib)
+    monkeypatch.setattr(csw, "check_operands", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=None))
+    sizes = []
+    real_empty = torch.empty
+    monkeypatch.setattr(csw.torch, "empty", lambda shape, **kw: sizes.append(
+        (tuple(shape) if not isinstance(shape, int) else (shape,), kw["dtype"]))
+        or real_empty(shape, **kw))
+    args = _swiglu_args(h, i, dtype, rows=3)
+    monkeypatch.setattr(csw.fused_swiglu_block_fwd_w8a8, "launches", 0)
+    out = csw.fused_swiglu_block_fwd_w8a8(*args)
+    ti = csw.pick_tile(i, csw.I_TILE)
+    (call,) = calls
+    assert call[2] == args[1].data_ptr() and call[6] == args[5].data_ptr()
+    assert call[14:18] == (3, h, i, ti)
+    assert sizes == [((3, h), torch.int8), ((3,), torch.float32), ((3, i), dtype),
+                     ((3, i), torch.int8), ((3, i // ti), torch.float32)]
+    assert out.shape == (3, h) and csw.fused_swiglu_block_fwd_w8a8.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_width", [64, 128, 192])
+@pytest.mark.parametrize("rows_first", [False, True])
+@pytest.mark.parametrize("rows,n,k", [(640, 4096, 1024), (77, 768, 384), (320, 1536, 512)])
+def test_gemm_s8_on_the_core(dev, tile_width, rows_first, rows, n, k):
+    """The int8 instance against the exact int32 product: equal, repeats
+    equal, at the SwiGLU down product's shape (one I-tile) and ragged ones."""
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    a = torch.randint(-127, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    before = cg.gemm_s8.launches
+    out = cg.gemm_s8(a, b, tile_width, rows_first)
+    again = cg.gemm_s8(a, b, tile_width, rows_first)
+    torch.cuda.synchronize()
+    assert cg.gemm_s8.launches == before + 2
+    assert torch.equal(out, cg.gemm_s8_plain(a, b)) and torch.equal(out, again)

@@ -735,7 +735,8 @@ def test_attention_gqa_function_grads_match_plain_autograd():
 
 
 def _swiglu_inputs(dtype, rows=8, h=64, i=64, seed=51):
-    """tests/test_pallas_swiglu.py's operands, quantized on both sides."""
+    """tests/test_pallas_swiglu.py's operands, quantized on both sides; the
+    port's codes K-major, as it holds the Llama MLP's (ops/quantize.py)."""
     rng = np.random.default_rng(seed)
     w = {n: (rng.normal(size=shape) * 0.05).astype(np.float32)
          for n, shape in (("g", (h, i)), ("u", (h, i)), ("d", (i, h)))}
@@ -746,6 +747,8 @@ def _swiglu_inputs(dtype, rows=8, h=64, i=64, seed=51):
     for side, quant, conv in ((j, jq, jnp.asarray), (t, tq, torch.from_numpy)):
         for n, a in w.items():
             side["w" + n + "q"], side["s" + n] = quant.quantize_weight(conv(a))
+    for n in w:
+        t["w" + n + "q"] = tq.k_major(t["w" + n + "q"])
     return j, t
 
 
@@ -767,6 +770,21 @@ def test_swiglu_w8a8_plain_vs_grouped_xla_and_pallas(dtype, i_tile):
     """48 does not divide I = 64: both sides then tile at 32 (the largest
     divisor below it); 64 is the single-tile case."""
     j, t = _swiglu_inputs(dtype)
+    out = cs.swiglu_block_w8a8_plain(*(t[k] for k in SWIGLU_ARGS), eps=1e-5, i_tile=i_tile)
+    assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
+    jargs = [j[k] for k in SWIGLU_ARGS]
+    _swiglu_close(out, ps.swiglu_block_xla_grouped(*jargs, eps=1e-5, i_tile=i_tile), dtype)
+    _swiglu_close(out, ps.fused_swiglu_block_fwd_w8a8(*jargs, eps=1e-5, interpret=True,
+                                                      row_tile=4, i_tile=i_tile), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("i_tile", [256, 1024])
+def test_swiglu_w8a8_plain_at_a_second_width(dtype, i_tile):
+    """H 256, I 768, the kernel's widths (H a multiple of 128; its I-tile
+    pick_tile(768, 1024) = 768, a multiple of 128): one tile of 768, or
+    three of 256, against both of the JAX package's functions."""
+    j, t = _swiglu_inputs(dtype, h=256, i=768, seed=54)
     out = cs.swiglu_block_w8a8_plain(*(t[k] for k in SWIGLU_ARGS), eps=1e-5, i_tile=i_tile)
     assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
     jargs = [j[k] for k in SWIGLU_ARGS]

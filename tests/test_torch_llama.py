@@ -33,7 +33,7 @@ from vault_tpu_torch.convert import params_from_jax, params_to_jax
 from vault_tpu_torch.models import llama as tllama
 from vault_tpu_torch.models import vault as tvault
 from vault_tpu_torch.ops.nn import ParamDict
-from vault_tpu_torch.ops.quantize import quantize_model_params
+from vault_tpu_torch.ops.quantize import is_k_major, quantize_model_params
 
 DTYPES = ["float32", "bfloat16"]
 IMPLS = ["xla", "pallas"]
@@ -166,6 +166,7 @@ def test_quantized_llama_apply_matches_jax(dtype, mode, impl):
     key = "w_q8" if mode == "w8a8" else "w_q"
     np.testing.assert_array_equal(_np(tower["layers"][1]["gate"][key]),
                                   np.asarray(jqp["layers"]["gate"][key][1]))
+    assert is_k_major(tower["layers"][1]["gate"][key]) == (mode == "w8a8")
     ids, mask = _ids(seed=3)
     ref = jllama.llama_apply(jqp, jcfg, jnp.asarray(ids), jnp.asarray(mask))
     with torch.inference_mode():
@@ -196,6 +197,42 @@ def test_llama_tree_crosses_the_bridge_both_ways(mode):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="layer axis"):
         params_from_jax(host, llama_cfg=tllama.tiny_llama_config(num_hidden_layers=3))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_k_major_swiglu_codes_cross_the_bridge_both_ways(impl):
+    """The Llama MLP's w8a8 codes arrive K-major (the same (in, out) values,
+    K contiguous: the SwiGLU kernel's layout), the attention projections'
+    row-major; loaded into a tower built quantized they stay K-major; they
+    leave as the JAX package's arrays, shapes unchanged; the tower on them
+    matches the JAX package's."""
+    jcfg, jp = _jax_tower("float32", attn_impl=impl, mlp_impl=impl)
+    jqp = j_quantize(jp, mode="w8a8")
+    tcfg = tllama.tiny_llama_config(attn_impl=impl, mlp_impl=impl)
+    host = {"llama": jax.tree.map(np.asarray, jqp)}
+    sd = params_from_jax(host, llama_cfg=tcfg)
+    for name in ("gate", "up", "down"):
+        leaf = sd[f"llama.layers.1.{name}.w_q8"]
+        assert is_k_major(leaf) and not leaf.is_contiguous()
+        assert leaf.shape == host["llama"]["layers"][name]["w_q8"].shape[1:]
+    assert sd["llama.layers.1.q.w_q8"].is_contiguous()
+    tower = ParamDict(llama=tllama.init_llama(torch.Generator().manual_seed(0), tcfg,
+                                              quantize="w8a8"))
+    assert is_k_major(tower["llama"]["layers"][0]["down"]["w_q8"])
+    tower.load_state_dict(sd)
+    assert all(is_k_major(lp[n]["w_q8"]) for lp in tower["llama"]["layers"]
+               for n in ("gate", "up", "down"))
+    back = params_to_jax(tower.state_dict())
+    assert jax.tree.structure(back) == jax.tree.structure(host)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(host)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    ids, mask = _ids(seed=4)
+    ref = jllama.llama_apply(jqp, jcfg, jnp.asarray(ids), jnp.asarray(mask))
+    with torch.inference_mode():
+        out = tllama.llama_apply(tower["llama"], tcfg, torch.from_numpy(ids),
+                                 torch.from_numpy(mask))
+    _close(out, ref, "float32")
 
 
 def test_init_llama_quantized_layer_by_layer_equals_quantizing_afterwards():

@@ -7,7 +7,11 @@ JAX side; this port never sees JAX) or of tensors, into this port's state
 dict.  :func:`params_to_jax` is the reverse.  Both packages store Linear
 weights (in, out) and the patch conv OIHW, so every leaf is a copy; the only
 reshaping is that the JAX package stacks encoder layers on axis 0 and the
-port keeps them as ``layers.<i>`` modules.  The optimizer's moments are
+port keeps them as ``layers.<i>`` modules.  The w8a8 codes of the Llama
+MLP (``gate``, ``up``, ``down``) come K-major, the same (in, out) values as
+a transposed view of (out, in) storage (``ops/quantize.py`` ``k_major``),
+the layout the port's SwiGLU kernel reads; going back, every leaf leaves in
+the JAX package's row-major layout.  The optimizer's moments are
 parameter-shaped trees, so :func:`opt_state_from_jax` and
 :func:`opt_state_to_jax` map them the same way, with the step count beside
 them as in the JAX package's ``HfAdamWState(count, mu, nu)``.
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from vault_tpu_torch.config import VaultConfig
+from vault_tpu_torch.ops.quantize import k_major, k_major_site
 from vault_tpu_torch.training.optimizer import AdamWState
 
 
@@ -97,6 +102,10 @@ def params_from_jax(tree: Mapping, cfg: Optional[VaultConfig] = None,
                 out[f"{prefix}.{i}.{path}"] = _tensor(a[i])
 
     walk(tree, "", None)
+    for key, t in out.items():
+        parts = key.split(".")
+        if len(parts) > 1 and parts[-1] == "w_q8" and k_major_site(parts[-2], "w8a8"):
+            out[key] = k_major(t)
     return out
 
 

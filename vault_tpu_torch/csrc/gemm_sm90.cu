@@ -1,7 +1,8 @@
 // The wgmma core of gemm_sm90.cuh on its own, for holding each of its
-// operand layouts, tile widths and split-K against a plain fp32 product
-// (ops/cuda_gemm.py): the products the MLP blocks run, with an epilogue that
-// stores the fp32 accumulators; and the w8 block's dequantization pass
+// operand layouts, tile widths and split-K against a plain product
+// (ops/cuda_gemm.py): the bf16 products the MLP blocks run, with an
+// epilogue that stores the fp32 accumulators, and the int8 instance's, with
+// one that stores the s32 ones; and the w8 block's dequantization pass
 // alone, against its plain version.  No main path calls these entries.
 #include "common.cuh"
 #include "gemm_sm90.cuh"
@@ -22,6 +23,22 @@ struct StoreF32Pair {
     *reinterpret_cast<float2*>(c2 + o) = make_float2(u0, u1);
   }
 };
+
+// Epilogue of the int8 instance: the s32 product itself, (M, N) at c.
+struct StoreS32 {
+  int* c;
+  int n;
+  __device__ __forceinline__ void operator()(int r, int col, int v0, int v1, bool in) const {
+    if (in) *reinterpret_cast<int2*>(c + (size_t)r * n + col) = make_int2(v0, v1);
+  }
+};
+
+template <int BN>
+cudaError_t gemm_s8_at(bool rows_first, const int8_t* a, const int8_t* b, int M, int N, int K,
+                       const StoreS32& epi, cudaStream_t st) {
+  return rows_first ? sm90::gemm<BN, false, sm90::COOP, true>(a, b, M, N, K, epi, st)
+                    : sm90::gemm<BN, false, sm90::COOP, false>(a, b, M, N, K, epi, st);
+}
 
 template <int BN>
 cudaError_t gemm_at(bool b_kmajor, const bf* a, const bf* b, int M, int N, int K,
@@ -45,6 +62,24 @@ extern "C" int vt_gemm_bf16(const void* a, const void* b, void* c, int M, int N,
     case 64: return (int)gemm_at<64>(b_kmajor, ap, bp, M, N, K, epi, st, splits);
     case 128: return (int)gemm_at<128>(b_kmajor, ap, bp, M, N, K, epi, st, splits);
     case 192: return (int)gemm_at<192>(b_kmajor, ap, bp, M, N, K, epi, st, splits);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// c s32 (M, N) = a (M, K) b^T: a int8, b (N, K) int8 (K-contiguous, the
+// only int8 B layout), K a multiple of 128, N even; bn, the tile width, 64,
+// 128 or 192; rows_first: the work items walk rows fastest.
+extern "C" int vt_gemm_s8(const void* a, const void* b, void* c, int M, int N, int K, int bn,
+                          int rows_first, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* ap = static_cast<const int8_t*>(a);
+  const int8_t* bp = static_cast<const int8_t*>(b);
+  const StoreS32 epi{static_cast<int*>(c), N};
+  if (N % 2) return (int)cudaErrorInvalidValue;
+  switch (bn) {
+    case 64: return (int)gemm_s8_at<64>(rows_first != 0, ap, bp, M, N, K, epi, st);
+    case 128: return (int)gemm_s8_at<128>(rows_first != 0, ap, bp, M, N, K, epi, st);
+    case 192: return (int)gemm_s8_at<192>(rows_first != 0, ap, bp, M, N, K, epi, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

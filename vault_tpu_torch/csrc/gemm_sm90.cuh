@@ -1,57 +1,77 @@
-// The Hopper GEMM core of the port: C = A B for bf16 operands with fp32
-// accumulation, on the tensor cores through wgmma, fed by TMA through a
-// ring of shared-memory stages, with the elementwise work fused into an
-// epilogue.  The bf16 MLP blocks, forward (mlp.cu) and backward
-// (mlp_bwd.cu), the w8 pre-LN block (mlp.cu, behind a dequantization pass,
-// dequant below) and the bf16 LN->QKV projection (ln_qkv.cu) run on it.
-// The bf16 attention kernel (attention_common.cuh) is not a product of the
-// core but is built from its pieces: tensor maps, mbarriers, TMA loads,
-// descriptors and the wgmma forms, the register-A form included.
+// The Hopper GEMM core of the port: C = A B on the tensor cores through
+// wgmma, fed by TMA through a ring of shared-memory stages, with the
+// elementwise work fused into an epilogue.  Two operand types: bf16 with
+// fp32 accumulation, and int8 (s8 x s8 -> s32).  The bf16 MLP blocks,
+// forward (mlp.cu) and backward (mlp_bwd.cu), the w8 blocks (mlp.cu, behind
+// a dequantization pass, dequant below) and the bf16 LN->QKV projection
+// (ln_qkv.cu) run on the bf16 instance; the w8a8 SwiGLU block
+// (swiglu_w8a8.cu) on the int8 one.  The bf16 attention kernel
+// (attention_common.cuh) is not a product of the core but is built from its
+// pieces: tensor maps, mbarriers, TMA loads, descriptors and the wgmma
+// forms, the register-A form included.
 //
-// Operands, row-major bf16, 16-byte aligned, rows of 16-byte multiples:
-//   A (M, K): K-contiguous (LN(x), the activation, the masked cotangent, dh1);
+// Operands, row-major, 16-byte aligned, rows of 16-byte multiples:
+//   A (M, K): K-contiguous (LN(x), the activation, the masked cotangent, dh1,
+//   the int8 codes of a row);
 //   B either N-contiguous, (K, N) (W1 in y W1, W2 in a W2), read through
 //   wgmma's transpose bit, or K-contiguous, (N, K) (W2 in gc W2^T, W1 in
 //   dh1 W1^T).  Neither is copied or transposed on the host: the weights
-//   change every training step.
-//   K is a multiple of 64; M and N are anything: TMA fills the rows and
-//   columns past the edge with zeros on load and the epilogue skips them.
+//   change every training step.  The int8 forms of wgmma have no transpose
+//   bit, so an int8 B is K-contiguous: the SwiGLU weights are held so at
+//   rest (ops/quantize.py k_major).
+//   A stage holds 128 bytes of K, one 128-byte swizzle row: K is a multiple
+//   of 64 (bf16) or 128 (int8); M and N are anything: TMA fills the rows
+//   and columns past the edge with zeros on load and the epilogue skips them.
 //
 // Split-K: with S splits a work item is (tile, split s); split s walks its
-// own range of K (K / 64 steps cut into S near-equal runs) and its epilogue
+// own range of K (the k-steps cut into S near-equal runs) and its epilogue
 // sees row r + s M, so StoreF32 writes the fp32 partial of slice s of an
 // (S M, N) workspace.  No float atomics: the row pass after the product
 // adds the S slices in a fixed order.  Only an epilogue that stores the
 // plain product (StoreF32) takes S > 1.
 //
+// Segments (int8): an epilogue with a `scale` member (Segmented below) cuts
+// K into runs of `seg` k-steps.  At the end of each run the consumers wait
+// for the run's products and fold the s32 accumulator into an fp32 sum in
+// order, sum = sum + float(acc) * scale(row, run), then start the next run
+// from zero; the epilogue gets the fp32 sum.  The int32 sum of a run is
+// exact and its conversion too while |acc| < 2^24, so the result has the
+// bits of the same sum taken run by run in plain fp32 arithmetic.
+//
 // The block: 128 x BN output tile (BN 64, 128 or 192), 384 threads in three
 // warpgroups.
 //   * warpgroup 2 is the producer (setmaxnreg down to 40): one thread walks
-//     K 64 at a time, waits for a stage's "empty" mbarrier, arms its "full"
-//     mbarrier with the stage's bytes and issues the TMA loads (128-byte
-//     swizzle: A one box of 128 rows x 64; B K-contiguous one box of BN rows
-//     x 64, N-contiguous BN / 64 boxes of 64 k-rows x 64).
+//     K a stage at a time, waits for a stage's "empty" mbarrier, arms its
+//     "full" mbarrier with the stage's bytes and issues the TMA loads
+//     (128-byte swizzle: A one box of 128 rows x 128 bytes; B K-contiguous
+//     one box of BN rows x 128 bytes, N-contiguous BN / 64 boxes of 64
+//     k-rows x 64).
 //   * warpgroups 0 and 1 are the consumers (setmaxnreg up to 232), 64 rows
-//     of the tile each: per stage four wgmma.mma_async m64nBNk16 with the fp32
-//     accumulator in registers, one commit group, then wait until at most
-//     this group is in flight and release the previous stage (one arrive
-//     per warp on its "empty" mbarrier).  The dual form issues a second
-//     product (A2 B2, B2 K-contiguous) into a second accumulator of the same
-//     fragment layout, so the epilogue has both values of an element in the
-//     same thread.
+//     of the tile each: per stage four wgmma.mma_async (m64nBNk16 bf16,
+//     m64nBNk32 int8, 32 bytes of K each) with the accumulator in
+//     registers, one commit group, then wait until at most this group is in
+//     flight and release the previous stage (one arrive per warp on its
+//     "empty" mbarrier).  The dual forms issue a second product into a
+//     second accumulator of the same fragment layout, so the epilogue has
+//     both values of an element in the same thread: DUAL A2 B2^T (B2
+//     K-contiguous), DUAL_A A B2^T, the stage holding A once.
 //   * the epilogue functor gets (row, col, v(row, col), v(row, col + 1)[,
 //     the second product's pair], in) for every pair of the tile, col even,
 //     row and col clamped into (M, N); it stores only when `in` (the pair
 //     lies inside).  It reads its other operands with __ldg: a plain load
 //     would be ordered behind the stores of the pairs before it.
 // Stages: as many as fit in 200 KB, at most 6.  The grid is persistent, a
-// block per SM walking work items N fastest, then rows, then splits, so the
-// blocks that run together share A's rows and all read the same weights
-// from L2, and the next item's loads overlap this one's epilogue.
+// block per SM walking work items N fastest, then rows, then splits (or,
+// ROWS_FIRST, rows fastest), so the blocks that run together share A's
+// rows and all read the same weights from L2 (or, rows first, each weight
+// tile is read by all the row tiles at once: a weight larger than L2 is
+// then read from memory once), and the next item's loads overlap this
+// one's epilogue.
 //
 // What bounds a product on the H100: 2 M N K operations at 989 TFLOP/s
-// against (M K + K N + M N) 2 bytes at 3.35 TB/s: the operations, for every
-// product of the MLP blocks at 2,048 rows and more.
+// (bf16) or 1,979 TOP/s (int8) against the bytes of A, B and C at 3.35
+// TB/s: the operations, for every product of the MLP blocks at 2,048 rows
+// and more and for the SwiGLU block's at 640.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
@@ -60,6 +80,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 // Internal linkage: every library that includes the core gets its own
 // kernels and its own once-per-process flags (a static local of an inline
@@ -72,8 +93,26 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128;       // rows of an output tile (two consumer warpgroups)
 constexpr int BK = 64;        // k per stage: one 128-byte swizzle row of bf16
+constexpr int ROW_BYTES = 128;  // bytes of K per stage, any operand type
 constexpr int THREADS = 384;  // two consumer warpgroups and the producer's
 constexpr int CONSUMER_WARPS = 8;
+
+// What the core needs of an operand type: k per stage, the accumulator's
+// type and the tensor map's element type.
+template <class T>
+struct Operand;
+template <>
+struct Operand<bf16> {
+  static constexpr int K = BK;
+  using Acc = float;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Operand<int8_t> {
+  static constexpr int K = ROW_BYTES;
+  using Acc = int;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
 
 // ---------------------------------------------------------------- host side
 
@@ -99,33 +138,36 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 array of `rank` dimensions (dims[0] contiguous; strides[i], in
-// bytes, of dimension i + 1), read in boxes of `box` under swizzle `sw`,
-// zeros past the edges.  cudaErrorInvalidValue for a pointer or stride that
-// is not 16-byte aligned.
+// An array of `rank` dimensions (dims[0] contiguous; strides[i], in bytes,
+// of dimension i + 1) of elements `type` (bf16 unless said), read in boxes
+// of `box` under swizzle `sw`, zeros past the edges.  cudaErrorInvalidValue
+// for a pointer or stride that is not 16-byte aligned.
 inline cudaError_t make_map_nd(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
                                const cuuint64_t* strides, const cuuint32_t* box,
-                               CUtensorMapSwizzle sw) {
+                               CUtensorMapSwizzle sw,
+                               CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorInvalidValue;
   for (int i = 0; i < rank; ++i)
     if (dims[i] == 0 || (i + 1 < rank && strides[i] % 16 != 0)) return cudaErrorInvalidValue;
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorInvalidDeviceFunction;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+  const CUresult r = encode(map, type, rank, const_cast<void*>(ptr), dims,
                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A row-major (outer, inner) bf16 matrix read in boxes of (box_outer, 64),
-// 128-byte swizzle, zeros past the edges.
+// A row-major (outer, inner) matrix of T read in boxes of (box_outer, 128
+// bytes), 128-byte swizzle, zeros past the edges.
+template <class T = bf16>
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int outer, int inner, int box_outer) {
   if (outer <= 0 || inner <= 0) return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_outer};
-  return make_map_nd(map, ptr, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)Operand<T>::K, (cuuint32_t)box_outer};
+  return make_map_nd(map, ptr, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                     Operand<T>::MAP);
 }
 
 // -------------------------------------------------------------- device side
@@ -218,6 +260,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+// and the s32 accumulators of the int8 forms
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 template <int TB>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
@@ -305,6 +353,96 @@ __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db
   if constexpr (BN == 64) wgmma_n64<TB>(d, da, db, 1);
   else if constexpr (BN == 128) wgmma_n128<TB>(d, da, db, 1);
   else wgmma_n192<TB>(d, da, db, 1);
+}
+
+// wgmma.mma_async m64nNk32, s8 x s8 -> s32, A and B from shared memory, both
+// K-contiguous (the integer forms have no transpose bit); scale_d 0 starts
+// the accumulator from zero.  The accumulator's fragment layout is the fp32
+// one above.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_n192(int (&d)[96], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void mma_s8(int (&d)[BN / 2], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(BN == 64 || BN == 128 || BN == 192, "int8 tile widths: 64, 128, 192");
+  if constexpr (BN == 64) wgmma_s8_n64(d, da, db, scale_d);
+  else if constexpr (BN == 128) wgmma_s8_n128(d, da, db, scale_d);
+  else wgmma_s8_n192(d, da, db, scale_d);
 }
 
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32, A from registers: a[0..3]
@@ -477,41 +615,73 @@ inline cudaError_t dequant(const Dequant& a, const Dequant& b, cudaStream_t st) 
 //   COOP: one product.
 //   DUAL: a second product A2 B2^T (B2 K-contiguous) into a second
 //     accumulator of the same fragment layout.
-enum Mode { COOP = 0, DUAL = 1 };
+//   DUAL_A: a second product A B2^T (B2 K-contiguous), the stage holding A
+//     once (the SwiGLU block's gate and up).
+enum Mode { COOP = 0, DUAL = 1, DUAL_A = 2 };
 
 template <int BN, int MODE>
 struct Shape {
-  static constexpr int A_BYTES = BM * BK * 2;                 // 16 KB
-  static constexpr int B_BYTES = BN * BK * 2;                 // BN x 128 bytes
+  static constexpr int A_BYTES = BM * ROW_BYTES;              // 16 KB
+  static constexpr int B_BYTES = BN * ROW_BYTES;              // BN x 128 bytes
   static constexpr int PAIR = A_BYTES + B_BYTES;
-  static constexpr int STAGE = (MODE == DUAL ? 2 : 1) * PAIR;
+  static constexpr int STAGE = MODE == DUAL ? 2 * PAIR : MODE == DUAL_A ? PAIR + B_BYTES : PAIR;
   static constexpr int STAGES = (200 * 1024) / STAGE < 6 ? (200 * 1024) / STAGE : 6;
   static constexpr size_t SMEM = (size_t)STAGES * STAGE + 1024 + 2 * STAGES * 8;
   static_assert(STAGES >= 2 && BN % 64 == 0, "tile");
 };
 
+// An epilogue with `seg` (k-steps per segment) and `scale(row, segment)`
+// takes K in segments (see the head of this file).
+template <class E, class = void>
+struct Segmented : std::false_type {};
+template <class E>
+struct Segmented<E, decltype((void)&E::scale)> : std::true_type {};
+template <class E>
+__device__ __forceinline__ int seg_steps(const E& epi) {
+  if constexpr (Segmented<E>::value) return epi.seg;
+  else return 0;
+}
+
+// The origin of tile `tile` of a (M, N) product in BM x BN tiles: N fastest,
+// or rows fastest (ROWS_FIRST).
+template <int BN, bool ROWS_FIRST>
+__device__ __forceinline__ void tile_origin(int tile, int tiles_n, int tiles_m, int& m0, int& n0) {
+  if constexpr (ROWS_FIRST) {
+    m0 = (tile % tiles_m) * BM, n0 = (tile / tiles_m) * BN;
+  } else {
+    m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+  }
+}
+
 // Persistent: one block per SM (at most one per work item) walks the items
-// t = blockIdx.x, blockIdx.x + gridDim.x, ...: tile t % tiles (N fastest),
-// split t / tiles, k-steps [s kt / S, (s + 1) kt / S) of kt = K / 64 (each
-// split gets at least one: S <= kt).  The producer runs on into the next
-// item while the consumers are in this one's epilogue, so the ring is full
-// when they come back.  Non-dual launches pass ta2 = ta, tb2 = tb.
-template <int BN, bool B_MN, int MODE, class Epi>
+// t = blockIdx.x, blockIdx.x + gridDim.x, ...: tile t % tiles (tile_origin),
+// split t / tiles, k-steps [s kt / S, (s + 1) kt / S) of kt = K / (k per
+// stage) (each split gets at least one: S <= kt).  The producer runs on into
+// the next item while the consumers are in this one's epilogue, so the ring
+// is full when they come back.  Non-dual launches pass ta2 = ta, tb2 = tb.
+template <class T, int BN, bool B_MN, int MODE, bool ROWS_FIRST, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
             const __grid_constant__ CUtensorMap ta2, const __grid_constant__ CUtensorMap tb2,
             int M, int N, int K, int splits, Epi epi) {
   using S = Shape<BN, MODE>;
+  using Acc = typename Operand<T>::Acc;
   constexpr int ST = S::STAGES;
-  constexpr bool kDual = MODE == DUAL;
+  constexpr bool kDual = MODE != COOP;
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  constexpr bool kSeg = Segmented<Epi>::value;
+  static_assert(!(kInt8 && B_MN), "an int8 B is K-contiguous: wgmma has no int8 transpose");
+  static_assert(kInt8 || !kSeg, "segments fold an s32 accumulator");
+  static_assert(kInt8 ? MODE != DUAL : MODE != DUAL_A, "int8: COOP or DUAL_A; bf16: COOP or DUAL");
   extern __shared__ unsigned char smem_raw[];
   // stages start on a 1024-byte boundary, the 128-byte swizzle's period
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + ST * S::STAGE;  // full[ST], then empty[ST]
   const int wg = threadIdx.x / 128;
-  const int kt_n = K / BK;
-  const int tiles_n = (N + BN - 1) / BN, tiles = tiles_n * ((M + BM - 1) / BM);
+  const int kt_n = K / Operand<T>::K;
+  const int tiles_n = (N + BN - 1) / BN, tiles_m = (M + BM - 1) / BM, tiles = tiles_n * tiles_m;
   const int items = tiles * splits;
+  const int seg_n = seg_steps(epi);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -530,14 +700,15 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
       uint32_t ph = 0;
       for (int t = blockIdx.x; t < items; t += gridDim.x) {
         const int tile = t % tiles, sp = t / tiles;
-        const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+        int m0, n0;
+        tile_origin<BN, ROWS_FIRST>(tile, tiles_n, tiles_m, m0, n0);
         const int k_end = (sp + 1) * kt_n / splits;
         for (int kt = sp * kt_n / splits; kt < k_end; ++kt) {
           const uint32_t full = bars + 8 * s, empty = bars + 8 * (ST + s);
           mbar_wait(empty, ph ^ 1);
           mbar_expect_tx(full, S::STAGE);
           const uint32_t sa = base + s * S::STAGE, sb = sa + S::A_BYTES;
-          const int k0 = kt * BK;
+          const int k0 = kt * Operand<T>::K;
           tma_load(sa, &ta, k0, m0, full);
           if constexpr (B_MN) {
 #pragma unroll
@@ -546,9 +717,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
           } else {
             tma_load(sb, &tb, k0, n0, full);
           }
-          if constexpr (kDual) {
+          if constexpr (MODE == DUAL) {
             tma_load(sa + S::PAIR, &ta2, k0, m0, full);
             tma_load(sb + S::PAIR, &tb2, k0, n0, full);
+          } else if constexpr (MODE == DUAL_A) {
+            tma_load(sb + S::B_BYTES, &tb2, k0, n0, full);
           }
           if (++s == ST) s = 0, ph ^= 1;
         }
@@ -562,31 +735,70 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
     uint32_t ph = 0;
     for (int t = blockIdx.x; t < items; t += gridDim.x) {
       const int tile = t % tiles, sp = t / tiles;
-      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
-      const int k_end = (sp + 1) * kt_n / splits;
+      int m0, n0;
+      tile_origin<BN, ROWS_FIRST>(tile, tiles_n, tiles_m, m0, n0);
+      const int k_begin = sp * kt_n / splits, k_end = (sp + 1) * kt_n / splits;
+      // thread (warp w, lane l) of the warpgroup holds rows 16 w + l / 4 (+
+      // 8) and columns 8 j + 2 (l % 4) (+ 1) of its 64 x BN
+      const int r0 = m0 + 64 * wg + 16 * w + (lane >> 2);
       // acc[0]: the product; dual: acc[1] the second one
-      float acc[kDual ? 2 : 1][BN / 2];
+      Acc acc[kDual ? 2 : 1][BN / 2];
+      // segments: the fp32 sum of the segments done
+      float sum[kSeg ? BN / 2 : 1];
+      if constexpr (!kInt8) {
 #pragma unroll
-      for (int a = 0; a < (kDual ? 2 : 1); ++a)
+        for (int a = 0; a < (kDual ? 2 : 1); ++a)
 #pragma unroll
-        for (int e = 0; e < BN / 2; ++e) acc[a][e] = 0.0f;
+          for (int e = 0; e < BN / 2; ++e) acc[a][e] = 0.0f;
+      }
       int prev = -1;
-      for (int kt = sp * kt_n / splits; kt < k_end; ++kt) {
+      for (int kt = k_begin; kt < k_end; ++kt) {
         mbar_wait(bars + 8 * s, ph);
-        const uint32_t sa = base + s * S::STAGE + wg * (64 * BK * 2);
+        const uint32_t sa = base + s * S::STAGE + wg * (64 * ROW_BYTES);
         const uint32_t sb = base + s * S::STAGE + S::A_BYTES;
         wgmma_fence();
+        if constexpr (kInt8) {
+          // each segment (or item) starts its s32 sums from zero
+          const bool first = kt == k_begin || (kSeg && (kt - k_begin) % seg_n == 0);
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint64_t db =
-              B_MN ? desc(sb + 2048 * kk, 64 * BK * 2, 1024) : desc(sb + 32 * kk, 0, 1024);
-          mma<BN, B_MN ? 1 : 0>(acc[0], desc(sa + 32 * kk, 0, 1024), db);
-          if constexpr (kDual)
-            mma<BN, 0>(acc[1], desc(sa + S::PAIR + 32 * kk, 0, 1024),
-                       desc(sb + S::PAIR + 32 * kk, 0, 1024));
+          for (int kk = 0; kk < 4; ++kk) {
+            const int scale_d = first && kk == 0 ? 0 : 1;
+            mma_s8<BN>(acc[0], desc(sa + 32 * kk, 0, 1024), desc(sb + 32 * kk, 0, 1024), scale_d);
+            if constexpr (MODE == DUAL_A)
+              mma_s8<BN>(acc[1], desc(sa + 32 * kk, 0, 1024),
+                         desc(sb + S::B_BYTES + 32 * kk, 0, 1024), scale_d);
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint64_t db =
+                B_MN ? desc(sb + 2048 * kk, 64 * BK * 2, 1024) : desc(sb + 32 * kk, 0, 1024);
+            mma<BN, B_MN ? 1 : 0>(acc[0], desc(sa + 32 * kk, 0, 1024), db);
+            if constexpr (MODE == DUAL)
+              mma<BN, 0>(acc[1], desc(sa + S::PAIR + 32 * kk, 0, 1024),
+                         desc(sb + S::PAIR + 32 * kk, 0, 1024));
+          }
         }
         wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if constexpr (kSeg) {
+          const int seg = (kt - k_begin) / seg_n;
+          if ((kt - k_begin + 1) % seg_n == 0) {
+            // the segment's last stage: its sums, converted once, times the
+            // segment's row factors, onto the fp32 sum in order
+            wgmma_wait<0>();
+            fence_regs(acc[0]);
+            const float f0 = epi.scale(min(r0, M - 1), seg), f1 = epi.scale(min(r0 + 8, M - 1), seg);
+#pragma unroll
+            for (int e = 0; e < BN / 2; ++e) {
+              const float v = __fmul_rn(__int2float_rn(acc[0][e]), (e & 2) ? f1 : f0);
+              sum[e] = seg == 0 ? v : __fadd_rn(sum[e], v);
+            }
+          } else {
+            wgmma_wait<1>();
+          }
+        } else {
+          wgmma_wait<1>();  // the previous stage's products are done: release it
+        }
         if (prev >= 0 && lane == 0) mbar_arrive(bars + 8 * (ST + prev));
         prev = s;
         if (++s == ST) s = 0, ph ^= 1;
@@ -596,13 +808,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
 #pragma unroll
       for (int a = 0; a < (kDual ? 2 : 1); ++a) fence_regs(acc[a]);
 
-      // ---- epilogue: thread (warp w, lane l) of the warpgroup holds rows
-      // 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1) of its 64 x BN.
-      // Every pair is computed, at indices clamped into (M, N), and stored
-      // only inside: branch-free arithmetic the compiler can interleave.
-      // Split s hands the epilogue row r + s M (its slice).
+      // ---- epilogue.  Every pair is computed, at indices clamped into (M,
+      // N), and stored only inside: branch-free arithmetic the compiler can
+      // interleave.  Split s hands the epilogue row r + s M (its slice).
       const int slice = sp * M;
-      const int r0 = m0 + 64 * wg + 16 * w + (lane >> 2);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int c = n0 + 8 * j + 2 * (lane & 3);
@@ -611,7 +820,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
           const int r = r0 + 8 * h, e = 4 * j + 2 * h;
           const bool in = r < M && c < N;
           const int rc = (r < M ? r : M - 1) + slice, cc = c < N ? c : N - 2;
-          if constexpr (kDual)
+          if constexpr (kSeg)
+            epi(rc, cc, sum[e], sum[e + 1], in);
+          else if constexpr (kDual)
             epi(rc, cc, acc[0][e], acc[0][e + 1], acc[1][e], acc[1][e + 1], in);
           else
             epi(rc, cc, acc[0][e], acc[0][e + 1], in);
@@ -641,7 +852,7 @@ struct Tiling {
 // K, the pair whose waves of work items over the SMs take least time:
 // waves x (k-steps per item + 2, a tile's fill and epilogue) x width; of
 // equal ones the wide tile (fewest bytes from L2 per operation) and the
-// fewest splits (fewest bytes of partial sums).
+// fewest splits (fewest bytes of partial sums).  K in bf16 k-steps.
 inline Tiling pick_tiling(int M, int N, int K, int narrow, int wide, int max_splits) {
   const int kt = K / BK;
   Tiling best{wide, 1};
@@ -662,26 +873,40 @@ inline Tiling pick_tiling(int M, int N, int K, int narrow, int wide, int max_spl
 constexpr int MAX_SPLITS = 8;
 inline Tiling split_k_tiling(int M, int N, int K) { return pick_tiling(M, N, K, 128, 192, MAX_SPLITS); }
 
+template <class T>
+struct Same {
+  using type = T;
+};
+
 // C = A B through the kernel above, epilogue `epi`.  a: (M, K); b: (K, N)
-// when B_MN, else (N, K); dual: a2 (M, K), b2 (N, K); splits: of K (see
-// the head of this file).  Returns the launch's error
+// when B_MN, else (N, K); dual: a2 (M, K), b2 (N, K); DUAL_A: b2 (N, K);
+// splits: of K (see the head of this file; 1 for a segmented epilogue,
+// whose seg must divide the k-steps).  Returns the launch's error
 // (cudaErrorInvalidValue for a shape or pointer the maps refuse).
-template <int BN, bool B_MN, int MODE = COOP, class Epi>
-cudaError_t gemm(const bf16* a, const bf16* b, int M, int N, int K, Epi epi, cudaStream_t st,
-                 const bf16* a2 = nullptr, const bf16* b2 = nullptr, int splits = 1) {
+template <int BN, bool B_MN, int MODE = COOP, bool ROWS_FIRST = false, class Epi, class T>
+cudaError_t gemm(const T* a, const T* b, int M, int N, int K, Epi epi, cudaStream_t st,
+                 const typename Same<T>::type* a2 = nullptr,
+                 const typename Same<T>::type* b2 = nullptr, int splits = 1) {
   using S = Shape<BN, MODE>;
-  if (M <= 0 || N <= 0 || K <= 0 || K % BK != 0 || splits < 1 || splits > K / BK)
+  constexpr int KB = Operand<T>::K;
+  if (M <= 0 || N <= 0 || K <= 0 || K % KB != 0 || splits < 1 || splits > K / KB)
     return cudaErrorInvalidValue;
+  if constexpr (Segmented<Epi>::value) {
+    if (splits != 1 || epi.seg <= 0 || (K / KB) % epi.seg != 0) return cudaErrorInvalidValue;
+  }
   CUtensorMap ta, tb, ta2, tb2;
   cudaError_t e;
-  if ((e = make_map(&ta, a, M, K, BM)) != cudaSuccess) return e;
-  if ((e = B_MN ? make_map(&tb, b, K, N, 64) : make_map(&tb, b, N, K, BN)) != cudaSuccess) return e;
+  if ((e = make_map<T>(&ta, a, M, K, BM)) != cudaSuccess) return e;
+  if ((e = B_MN ? make_map<T>(&tb, b, K, N, 64) : make_map<T>(&tb, b, N, K, BN)) != cudaSuccess)
+    return e;
   ta2 = ta, tb2 = tb;
   if constexpr (MODE == DUAL) {
-    if ((e = make_map(&ta2, a2, M, K, BM)) != cudaSuccess) return e;
-    if ((e = make_map(&tb2, b2, N, K, BN)) != cudaSuccess) return e;
+    if ((e = make_map<T>(&ta2, a2, M, K, BM)) != cudaSuccess) return e;
   }
-  auto kernel = gemm_kernel<BN, B_MN, MODE, Epi>;
+  if constexpr (MODE != COOP) {
+    if ((e = make_map<T>(&tb2, b2, N, K, BN)) != cudaSuccess) return e;
+  }
+  auto kernel = gemm_kernel<T, BN, B_MN, MODE, ROWS_FIRST, Epi>;
   static bool smem_set = false;  // once per instantiation and library
   if (!smem_set) {
     if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -58,47 +58,46 @@
 //    operations above (1,280 rows, 2,048 and 8,192).  At 320 rows the
 //    weights are read from L2 once per 128-row tile row: 3 times.
 //
-//    The w8 pre-LN block with bf16 activations (vt_mlp_fwd_q8_wgmma, the
-//    ViLT layers of a w8 model): one pass turns both int8 weight matrices
-//    into bf16(float(q) * s) in the workspace (sm90::dequant, the plain
-//    version's cast points: the scale is not moved into the epilogue,
-//    which would round elsewhere), then the three launches above run on
-//    them.  The weights stay int8 at rest; the bf16 copy lives for one call
-//    (2 H I bytes, 9.4 MB at ViLT-B/32's widths, L2-resident).  It replaces
-//    fused_mlp_block_fwd_q8 (_mlp_kernel_q8) of vault_tpu/ops/pallas_mlp.py
-//    at the core's widths; no dropout mask (the JAX package has no masked
-//    q8 kernel either).  A dequantizing stage inside the core (each
-//    128-row tile converting its own int8 weight tiles in shared memory)
-//    measured slower at the ViLT rows (PERF.md): it converts each weight
-//    once per 128 rows, 16 times at 2,048, and the conversion's
-//    shared-memory traffic competes with the products' operand reads; the
-//    pass converts once, at 2 H I (1 + 2) bytes.
+//    The w8 blocks with bf16 activations (vt_mlp_fwd_q8_wgmma: the ViLT
+//    layers of a w8 model, pre-LN, and its BERT layers, post-LN): one pass
+//    turns both int8 weight matrices into bf16(float(q) * s) in the
+//    workspace (sm90::dequant, the plain version's cast points: the scale
+//    is not moved into the epilogue, which would round elsewhere), then the
+//    block's launches above run on them (post-LN: split-K slices and the row
+//    pass included).  The weights stay int8 at rest; the bf16 copy lives for
+//    one call (2 H I bytes, 9.4 MB at ViLT-B/32's and BERT-base's widths,
+//    L2-resident).  It replaces fused_mlp_block_fwd_q8 (_mlp_kernel_q8) and
+//    fused_mlp_postln_fwd_q8 (_mlp_postln_kernel_q8) of
+//    vault_tpu/ops/pallas_mlp.py at the core's widths; no dropout mask (the
+//    JAX package has no masked q8 kernel either).  A dequantizing stage
+//    inside the core (each 128-row tile converting its own int8 weight
+//    tiles in shared memory) measured slower at the ViLT rows (PERF.md): it
+//    converts each weight once per 128 rows, 16 times at 2,048, and the
+//    conversion's shared-memory traffic competes with the products' operand
+//    reads; the pass converts once, at 2 H I (1 + 2) bytes.
 //
-// 2. The walk, vt_mlp_fwd (fp32 blocks) and vt_mlp_fwd_q8 (the other int8
-//    weight blocks: post-LN, and fp32 activations):
+// 2. The walk, vt_mlp_fwd (fp32 blocks) and vt_mlp_fwd_q8 (the int8 weight
+//    blocks with fp32 activations):
 //    H 768 and I a multiple of 128; the TPU kernel kept W1 and W2 resident
 //    in VMEM, an SM has 227 KB, so the work is cut two ways:
 //    * a block owns 32 rows and one slice of I ("split"); it computes LN(x)
 //      once into shared memory, then walks its slice 128 columns at a time:
-//      act(LN(x) W1[:, j:j+128] + b1) into shared memory (cast to x's type),
+//      act(LN(x) W1[:, j:j+128] + b1) into shared memory,
 //      then that slice's contribution to all H output columns, accumulated
 //      in registers across the whole walk;
 //    * W1 and W2 stream through shared memory in tiles, double-buffered with
-//      cp.async; rows are padded by 16 bytes against bank conflicts; fp32
-//      operands on plain FMA in full fp32, bf16 activations (the w8 blocks)
-//      on 16x16x16 wmma;
+//      cp.async; rows are padded by 16 bytes against bank conflicts; plain
+//      FMA in full fp32;
 //    * the number of splits keeps about one block per SM; each split writes
 //      its fp32 partial sums to a workspace and mlp_epilogue adds them in a
 //      fixed order (deterministic), then applies b2, the mask, the residual
 //      and, post-LN, the LayerNorm.
-//    The w8 blocks here (vt_mlp_fwd_q8) take int8 weights and
+//    The fp32 w8 blocks here (vt_mlp_fwd_q8) take int8 weights and
 //    per-out-channel fp32 scales s1 (I), s2 (H), dequantized tile by tile in
-//    shared memory (mlp_common.cuh): w = T(float(q) * s), rounded to x's
-//    type before the product, as the plain composition's linear does.  They
-//    replace fused_mlp_postln_fwd_q8 (_mlp_postln_kernel_q8) and the fp32
-//    fused_mlp_block_fwd_q8 of vault_tpu/ops/pallas_mlp.py; no dropout
-//    mask.  The post-LN block's move to the core (a dequantization and the
-//    split-K second product) waits in ROADMAP.md Queue B.
+//    shared memory (mlp_common.cuh): w = float(q) * s, as the plain
+//    composition's linear does.  They replace the fp32 fused_mlp_block_fwd_q8
+//    and fused_mlp_postln_fwd_q8 of vault_tpu/ops/pallas_mlp.py; no dropout
+//    mask.
 #include "mlp_common.cuh"
 #include "gemm_sm90.cuh"
 
@@ -245,18 +244,18 @@ int launch_wgmma(const void* x, const void* gamma, const void* beta, const void*
                    : sm90::gemm<128, true>(a, w2p, rows, H, I, res_epi, st));
 }
 
-// The w8 pre-LN block on the core: W1 and W2 dequantized to bf16 by one pass
+// The w8 blocks on the core: W1 and W2 dequantized to bf16 by one pass
 // (sm90::dequant: w = bf16(float(q) * s)) into the workspace, then
-// launch_wgmma's pre-LN route on them.  Workspace: the bf16 W1 (H, I) and
-// W2 (I, H), then the pre-LN route's.
-size_t q8_workspace_floats(int rows, int H, int I) {
-  return (size_t)H * I + wgmma_workspace_floats(rows, H, I, false);
+// launch_wgmma's route of the block on them.  Workspace: the bf16 W1 (H, I)
+// and W2 (I, H), then the route's.
+size_t q8_workspace_floats(int rows, int H, int I, bool postln) {
+  return (size_t)H * I + wgmma_workspace_floats(rows, H, I, postln);
 }
 
 int launch_q8_wgmma(const void* x, const void* gamma, const void* beta, const void* w1q,
                     const float* s1, const void* b1, const void* w2q, const float* s2,
                     const void* b2, void* out, float* ws, int rows, int H, int I, float eps,
-                    int act, cudaStream_t st) {
+                    int act, bool postln, cudaStream_t st) {
   using bf = __nv_bfloat16;
   // the pass indexes 16 codes a thread in 32 bits
   if (!core_shape_ok(rows, H, I) || (long long)H * I / 16 > (1 << 29))
@@ -269,7 +268,7 @@ int launch_q8_wgmma(const void* x, const void* gamma, const void* beta, const vo
       sm90::Dequant{static_cast<const int8_t*>(w2q), s2, w2, n16, H}, st);
   if (e != cudaSuccess) return (int)e;
   return launch_wgmma(x, gamma, beta, w1, b1, w2, b2, nullptr, out, ws + (size_t)H * I, rows, H,
-                      I, eps, act, false, st);
+                      I, eps, act, postln, st);
 }
 
 // W: the weights' type, T or int8_t (then s1, s2 are their scales).
@@ -349,27 +348,28 @@ extern "C" int vt_mlp_fwd_wgmma(const void* x, const void* gamma, const void* be
 }
 
 // fp32 elements of workspace vt_mlp_fwd_q8_wgmma needs for these shapes.
-extern "C" long long vt_mlp_q8_wgmma_workspace(int rows, int H, int I) {
+extern "C" long long vt_mlp_q8_wgmma_workspace(int rows, int H, int I, int postln) {
   if (!core_shape_ok(rows, H, I)) return -1;
-  return (long long)q8_workspace_floats(rows, H, I);
+  return (long long)q8_workspace_floats(rows, H, I, postln != 0);
 }
 
-// The w8 pre-LN block with bf16 activations on the core: w1q (H, I) and w2q
-// (I, H) int8, s1 (I) and s2 (H) fp32, every other operand bf16; no mask.
+// The w8 blocks with bf16 activations on the core, pre-LN or post-LN: w1q
+// (H, I) and w2q (I, H) int8, s1 (I) and s2 (H) fp32, every other operand
+// bf16; no mask.
 extern "C" int vt_mlp_fwd_q8_wgmma(const void* x, const void* gamma, const void* beta,
                                    const void* w1q, const void* s1, const void* b1,
                                    const void* w2q, const void* s2, const void* b2, void* out,
                                    void* ws, int rows, int H, int I, float eps, int act,
-                                   void* stream) {
+                                   int postln, void* stream) {
   return launch_q8_wgmma(x, gamma, beta, w1q, static_cast<const float*>(s1), b1, w2q,
                          static_cast<const float*>(s2), b2, out, static_cast<float*>(ws), rows,
-                         H, I, eps, act, static_cast<cudaStream_t>(stream));
+                         H, I, eps, act, postln != 0, static_cast<cudaStream_t>(stream));
 }
 
-// The other w8 blocks on the walk (ops/cuda_mlp.py mlp_route): w1q (H, I)
-// and w2q (I, H) int8, s1 (I) and s2 (H) fp32; x, gamma, beta, b1, b2 and
-// out in one type; no mask.  Workspace as vt_mlp_fwd.  A bf16 pre-LN block
-// is refused: it runs on the core (vt_mlp_fwd_q8_wgmma).
+// The w8 blocks with fp32 activations on the walk (ops/cuda_mlp.py
+// mlp_route): w1q (H, I) and w2q (I, H) int8, s1 (I) and s2 (H) fp32; x,
+// gamma, beta, b1, b2 and out fp32; no mask.  Workspace as vt_mlp_fwd.  A
+// bf16 block is refused: it runs on the core (vt_mlp_fwd_q8_wgmma).
 extern "C" int vt_mlp_fwd_q8(const void* x, const void* gamma, const void* beta,
                              const void* w1q, const void* s1, const void* b1,
                              const void* w2q, const void* s2, const void* b2, void* out,
@@ -383,8 +383,6 @@ extern "C" int vt_mlp_fwd_q8(const void* x, const void* gamma, const void* beta,
 #define VT_MLP_Q8(T, P)                                                                  \
   dispatch_h<T, P, int8_t>(H, x, gamma, beta, w1q, b1, w2q, b2, nullptr, out, wsf, rows, \
                            I, eps, act, st, s1f, s2f)
-  if (dtype == vt::kBF16)
-    return postln ? VT_MLP_Q8(__nv_bfloat16, true) : (int)cudaErrorInvalidValue;
   if (dtype == vt::kF32) return postln ? VT_MLP_Q8(float, true) : VT_MLP_Q8(float, false);
 #undef VT_MLP_Q8
   return (int)cudaErrorInvalidValue;

@@ -1,27 +1,28 @@
 // Pieces shared by the fused MLP kernels, forward (mlp.cu) and backward
 // (mlp_bwd.cu): the walk's tiling constants, cp.async helpers, the split
-// picker and the main forward walk (mlp_main: the fp32 blocks and the int8
-// weights; the fp32 post-LN backward reruns it to rebuild the MLP output
-// before its LayerNorm backward); for the wgmma route the width contract,
+// picker and the main forward walk (mlp_main: the fp32 blocks, with fp32 or
+// int8 weights; the fp32 post-LN backward reruns it to rebuild the MLP
+// output before its LayerNorm backward); for the wgmma route the width contract,
 // the row kernels' shapes (row_shape), ln_rows_bf16 and the first
 // products' activation epilogue (EpiAct).
 //
 // mlp_main: grid (row tiles, splits).  Block (r, s) owns rows [32 r, 32 r +
 // 32) and I columns [s * ic, (s + 1) * ic).  It computes LN(x) (pre-LN) or
 // x (post-LN) once into shared memory, then walks its slice 128 columns at
-// a time: act(xa W1[:, j:j+128] + b1) into shared memory (cast to x's
-// type; also written to a_out when that is given), then that slice's
+// a time: act(xa W1[:, j:j+128] + b1) into shared memory (also written to
+// a_out when that is given), then that slice's
 // contribution to all H output columns, accumulated in fp32 across the
 // walk.  W1 and W2 stream through shared memory in tiles, double-buffered
-// with cp.async.  The block writes its fp32 partial (32, H) to ws[s].
+// with cp.async; plain FMA in full fp32.  The block writes its fp32
+// partial (32, H) to ws[s].
 //
 // Weight type W: T (the fp blocks), or int8_t with per-column fp32 scales s1
 // (I) and s2 (H) (the w8 blocks).  int8 tiles arrive through the same
-// cp.async ring at half the bytes (dense rows of 128 or H bytes, every copy
-// 16-byte aligned), and each is dequantized into one tile of T in shared
-// memory before the product reads it: w = T(float(q) * s), rounded to x's
-// type once, as the plain version's linear does.  One barrier separates the
-// copy's arrival from that pass, another the pass from the fragments' loads.
+// cp.async ring at a quarter of the bytes (dense rows of 128 or H bytes,
+// every copy 16-byte aligned), and each is dequantized into one tile of T in
+// shared memory before the product reads it: w = T(float(q) * s), as the
+// plain version's linear does.  One barrier separates the copy's arrival
+// from that pass, another the pass from the product.
 #pragma once
 
 #include <mma.h>
@@ -47,7 +48,6 @@ template <typename T> struct Tiles {
   static constexpr int KT1 = 256 / sizeof(T);               // W1 tile rows (k)
   static constexpr int KT2 = 64 / sizeof(T);                // W2 tile rows (k)
   static constexpr int LD1 = BN1 + PAD;                     // W1 tile / hs ld
-  static constexpr int LDF = BN1 + 4;                       // fp32 staging ld
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -70,7 +70,7 @@ __device__ __forceinline__ float group_sum(float v) {
 }
 
 // Shared-memory bytes of mlp_main: the weight ring (two tiles of W, plus
-// one dequantized tile of T when W is int8), xa, hs and the fp32 staging.
+// one dequantized tile of T when W is int8), xa and hs.
 template <typename T, int H, typename W = T>
 constexpr size_t main_smem() {
   using TL = Tiles<T>;
@@ -80,8 +80,7 @@ constexpr size_t main_smem() {
   constexpr size_t ring = std::is_same<W, T>::value ? 2 * buf * sizeof(T)
                                                      : 2 * buf + buf * sizeof(T);
   return ring + (size_t)BM * (H + TL::PAD) * sizeof(T)       // ring, xa
-         + (size_t)BM * TL::LD1 * sizeof(T)                  // hs
-         + (std::is_same<T, float>::value ? 0 : (size_t)BM * TL::LDF * sizeof(float));
+         + (size_t)BM * TL::LD1 * sizeof(T);                 // hs
 }
 
 // (rows, cols) int8 codes, dense, -> dst (ld elements a row) as
@@ -120,7 +119,7 @@ mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
   constexpr int N1 = H / KT1;        // W1 tiles per sub-slice
   constexpr int N2 = BN1 / KT2;      // W2 tiles per sub-slice
   constexpr int BUF = (KT1 * LD1 > KT2 * LD2) ? KT1 * LD1 : KT2 * LD2;  // elements
-  constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(std::is_same<T, float>::value, "the walk runs the fp32 blocks alone");
   constexpr bool kQ8 = !std::is_same<W, T>::value;
   constexpr int SD1 = kQ8 ? BN1 : LD1;  // row strides of the ring's tiles
   constexpr int SD2 = kQ8 ? H : LD2;
@@ -132,7 +131,6 @@ mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
   T* wbuf = kQ8 ? reinterpret_cast<T*>(ring + 2 * BUF) : reinterpret_cast<T*>(smem_raw);
   T* xa = wbuf + (kQ8 ? 1 : 2) * BUF;        // (BM, LDX) first operand
   T* hs = xa + BM * LDX;                     // (BM, LD1) activation
-  float* hf = reinterpret_cast<float*>(hs + BM * LD1);  // (BM, LDF) bf16 only
 
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.x * BM;
@@ -190,25 +188,14 @@ mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
     }
   }
 
-  // accumulators: bf16 — warp w owns GEMM1 columns [16 w, 16 w + 16) of the
-  // sub-slice and GEMM2 columns [w H/8, (w+1) H/8), both for the two 16-row
-  // groups; fp32 — thread (r = tid/8, q = tid%8) owns GEMM1 columns
-  // 16 q .. 16 q + 16 and GEMM2 columns q + 8 j of row r.
-  constexpr int NA1 = kBF16 ? 2 : 1, NA2 = kBF16 ? 2 * NF : 1;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc1[NA1], acc2[NA2];
-  constexpr int F1 = kBF16 ? 1 : BN1 / 8, F2 = kBF16 ? 1 : H / 8;
+  // accumulators: thread (r = tid/8, q = tid%8) owns GEMM1 columns 16 q ..
+  // 16 q + 16 and GEMM2 columns q + 8 j of row r.
+  constexpr int F1 = BN1 / 8, F2 = H / 8;
   float f1[F1], f2[F2];
-  if constexpr (kBF16) {
 #pragma unroll
-    for (int i = 0; i < NA1; ++i) wmma::fill_fragment(acc1[i], 0.0f);
+  for (int i = 0; i < F1; ++i) f1[i] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < NA2; ++i) wmma::fill_fragment(acc2[i], 0.0f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < F1; ++i) f1[i] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < F2; ++i) f2[i] = 0.0f;
-  }
+  for (int i = 0; i < F2; ++i) f2[i] = 0.0f;
   const int fr = tid >> 3, fq = tid & 7;  // fp32 thread mapping
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -230,80 +217,31 @@ mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
     if (p < N1) {
       // GEMM1: acc1 += xa[:, k0:k0+KT1] wt
       const int k0 = p * KT1;
-      if constexpr (kBF16) {
+      for (int k = 0; k < KT1; ++k) {
+        const float a = xa[fr * LDX + k0 + k];
 #pragma unroll
-        for (int kk = 0; kk < KT1 / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, wt + kk * 16 * LD1 + w * 16, LD1);
-#pragma unroll
-          for (int g = 0; g < 2; ++g) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-            wmma::load_matrix_sync(a, xa + g * 16 * LDX + k0 + kk * 16, LDX);
-            wmma::mma_sync(acc1[g], a, b, acc1[g]);
-          }
-        }
-      } else {
-        for (int k = 0; k < KT1; ++k) {
-          const float a = vt::to_f(xa[fr * LDX + k0 + k]);
-#pragma unroll
-          for (int c = 0; c < F1; ++c) f1[c] = fmaf(a, vt::to_f(wt[k * LD1 + fq * F1 + c]), f1[c]);
-        }
+        for (int c = 0; c < F1; ++c) f1[c] = fmaf(a, wt[k * LD1 + fq * F1 + c], f1[c]);
       }
       if (p == N1 - 1) {
-        // sub-slice done: hs = act(acc1 + b1), cast to T
+        // sub-slice done: hs = act(acc1 + b1)
         const int j0 = i0 + sub * BN1;
-        if constexpr (kBF16) {
 #pragma unroll
-          for (int g = 0; g < 2; ++g) {
-            wmma::store_matrix_sync(hf + g * 16 * Tiles<T>::LDF + w * 16, acc1[g],
-                                    Tiles<T>::LDF, wmma::mem_row_major);
-            wmma::fill_fragment(acc1[g], 0.0f);
-          }
-          __syncwarp();
-#pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            const int idx = lane + 32 * e, rr = idx / 16, cc = w * 16 + idx % 16;
-            const float hv = hf[rr * Tiles<T>::LDF + cc] + vt::to_f(b1[j0 + cc]);
-            const T av = vt::from_f<T>(vt::activate(hv, act));
-            hs[rr * LD1 + cc] = av;
-            if (a_out && row0 + rr < rows) a_out[(size_t)(row0 + rr) * I + j0 + cc] = av;
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < F1; ++c) {
-            const int cc = fq * F1 + c;
-            const float hv = f1[c] + vt::to_f(b1[j0 + cc]);
-            const T av = vt::from_f<T>(vt::activate(hv, act));
-            hs[fr * LD1 + cc] = av;
-            if (a_out && row0 + fr < rows) a_out[(size_t)(row0 + fr) * I + j0 + cc] = av;
-            f1[c] = 0.0f;
-          }
+        for (int c = 0; c < F1; ++c) {
+          const int cc = fq * F1 + c;
+          const float av = vt::activate(f1[c] + b1[j0 + cc], act);
+          hs[fr * LD1 + cc] = av;
+          if (a_out && row0 + fr < rows) a_out[(size_t)(row0 + fr) * I + j0 + cc] = av;
+          f1[c] = 0.0f;
         }
       }
     } else {
       // GEMM2: acc2 += hs[:, k0:k0+KT2] wt   (hs complete: written before
       // the previous iteration's closing barrier)
       const int k0 = (p - N1) * KT2;
-      if constexpr (kBF16) {
+      for (int k = 0; k < KT2; ++k) {
+        const float a = hs[fr * LD1 + k0 + k];
 #pragma unroll
-        for (int kk = 0; kk < KT2 / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-          wmma::load_matrix_sync(a0, hs + k0 + kk * 16, LD1);
-          wmma::load_matrix_sync(a1, hs + 16 * LD1 + k0 + kk * 16, LD1);
-#pragma unroll
-          for (int f = 0; f < NF; ++f) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-            wmma::load_matrix_sync(b, wt + kk * 16 * LD2 + w * NF * 16 + f * 16, LD2);
-            wmma::mma_sync(acc2[f], a0, b, acc2[f]);
-            wmma::mma_sync(acc2[NF + f], a1, b, acc2[NF + f]);
-          }
-        }
-      } else {
-        for (int k = 0; k < KT2; ++k) {
-          const float a = vt::to_f(hs[fr * LD1 + k0 + k]);
-#pragma unroll
-          for (int j = 0; j < F2; ++j) f2[j] = fmaf(a, vt::to_f(wt[k * LD2 + fq + 8 * j]), f2[j]);
-        }
+        for (int j = 0; j < F2; ++j) f2[j] = fmaf(a, wt[k * LD2 + fq + 8 * j], f2[j]);
       }
     }
     __syncthreads();  // every warp is done with this tile and hs
@@ -311,17 +249,8 @@ mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
 
   // partial sums of this split -> ws[split] (rows padded to BM)
   float* dst = ws + ((size_t)blockIdx.y * rows_pad + row0) * H;
-  if constexpr (kBF16) {
 #pragma unroll
-    for (int g = 0; g < 2; ++g)
-#pragma unroll
-      for (int f = 0; f < NF; ++f)
-        wmma::store_matrix_sync(dst + (size_t)g * 16 * H + w * NF * 16 + f * 16,
-                                acc2[g * NF + f], H, wmma::mem_row_major);
-  } else {
-#pragma unroll
-    for (int j = 0; j < F2; ++j) dst[(size_t)fr * H + fq + 8 * j] = f2[j];
-  }
+  for (int j = 0; j < F2; ++j) dst[(size_t)fr * H + fq + 8 * j] = f2[j];
 }
 
 int num_sms() {

@@ -3,7 +3,7 @@
 //
 //   y  = T(w * (x * rstd(x)))                         RMSNorm, rounded to T
 //   (yq, ys) = q(y)                                   per-row int8 codes, scale
-//   per 1024-column tile t of I:
+//   per I-tile t (pick_tile(I, 1024) columns):
 //     g = int32(yq Wg[:, t]) * (ys * sg[t]);  u = int32(yq Wu[:, t]) * (ys * su[t])
 //     a = T(silu(g) * u);  (aq, as[t]) = q(a)         per-(row, tile) codes, scale
 //     acc += float(int32(aq Wd[t, :])) * as[t]        fp32, tiles in order
@@ -11,362 +11,267 @@
 //
 // Replaces fused_swiglu_block_fwd_w8a8 (_swiglu_kernel_w8a8) of
 // vault_tpu/ops/pallas_swiglu.py with its numerics: the requantization
-// group is one row of one 1024-column I-tile (a constant of the function:
-// it decides the codes), each tile's int32 down product is scaled by that
-// tile's row scale and added in fp32 in tile order 0, 1, ..., sd multiplies
-// once at the end, then the cast to T, then the residual.  The RMSNorm takes
-// its mean of squares in double and rounds it to fp32 (the correctly
-// rounded value, which any summation order reaches), rstd = 1 / sqrt(var +
-// eps) with a correctly rounded square root and division, silu(g) = g * (1 /
-// (1 + exp(-g))), and every fp32 step is an _rn intrinsic so that nvcc
-// contracts none into an FMA: the plain version in ops/cuda_swiglu.py takes
-// the same steps in PyTorch and gives the same bits.
+// group is one row of one I-tile (a constant of the function: it decides
+// the codes), each tile's int32 down product is scaled by that tile's row
+// scale and added in fp32 in tile order 0, 1, ..., sd multiplies once at the
+// end, then the cast to T, then the residual.  The RMSNorm takes its mean of
+// squares in double and rounds it to fp32 (the correctly rounded value,
+// which any summation order reaches), rstd = 1 / sqrt(var + eps) with a
+// correctly rounded square root and division, silu(g) = g * (1 / (1 +
+// exp(-g))), and every fp32 step is an _rn intrinsic so that nvcc contracts
+// none into an FMA: the plain version in ops/cuda_swiglu.py takes the same
+// steps in PyTorch and gives the same bits, for bf16 and fp32 x alike (only
+// the row passes and the epilogues' casts depend on T).
 //
 // Operands: x, out (rows, H) bf16 or fp32; w (H) fp32; Wg, Wu (H, I) and Wd
-// (I, H) int8; sg, su (I) and sd (H) fp32.  H is 4096 and I a multiple of
-// 1024 (Llama-3-8B: 14336 = 14 tiles).
+// (I, H) int8 held K-major, i.e. stored as their transposes Wg^T, Wu^T (I,
+// H) and Wd^T (H, I), row-major (ops/quantize.py k_major: the int8 wgmma has
+// no transpose bit); sg, su (I) and sd (H) fp32.  H a multiple of 128 up to
+// 8,192, I with an I-tile that is a multiple of 128 (Llama-3-8B: H 4,096, I
+// 14,336 = 14 tiles of 1,024; Llama-3.2-1B: 2,048 and 8,192).
 //
 // What bounds it on an H100: 6 rows H I int8 operations (225 GOP at 640
 // rows, 0.114 ms at 1,979 TOP/s) against 176 MB of weights (0.053 ms): the
 // tensor cores at 640 rows, level with the bytes near 320.  The TPU kernel
 // walks the I-tiles in sequence on one core with a (rows, H) fp32
-// accumulator in VMEM; here the work is spread over the SMs in four
-// launches, counted as one call:
+// accumulator in VMEM; here four launches, counted as one call:
 //   1. rms_quant_rows: one block a row, the row in registers -> yq, ys;
-//   2. gate_up_tiles: one block per (64 rows, 128 columns of I) runs BOTH
-//      products on the same yq tile (two sets of int32 accumulators, wmma
-//      16x16x16, cp.async double buffering as gemm_tiles), then the
-//      epilogue above: a in T to device memory (18 MB at 640 rows, it stays
-//      in the 50 MB L2) with the absmax of each (row, 128 columns);
-//   3. requant_tiles: a tile's row maximum is the maximum of its eight
-//      128-column maxima (exact in any order) -> aq, as;
-//   4. down_tiles: one block per (64 rows, 128 columns of H) walks all of I;
-//      every 1024 steps of K it moves its int32 accumulators through shared
-//      memory into fp32 ones, scaled by the tile's row scale, so the fp32
-//      sum runs in tile order inside one block (no split of K: fp32
-//      addition in another order changes bits); then sd, the cast, + x.
+//   2. the gate and up products on the int8 core of gemm_sm90.cuh in its
+//      DUAL_A form (one yq tile in each stage, both weights' tiles beside it,
+//      two s32 accumulators in registers), the epilogue EpiSwiGLU: a =
+//      T(silu(g) u) to device memory (18 MB at 640 rows in bf16: L2);
+//   3. requant_tiles: one block per (row, I-tile), the tile in registers
+//      (16-byte loads): its absmax, then aq and as;
+//   4. the down product on the int8 core, K = I cut into segments of one
+//      I-tile (the core's Segmented epilogue, EpiDown): each tile's s32 sum
+//      starts from zero, is converted once (exact: |sum| <= 1024 127^2 <
+//      2^24), times as[row, t], onto the fp32 sum in tile order; then sd,
+//      the cast, + x.  No split of K: fp32 addition in another order changes
+//      bits.
+// Both products walk their tiles rows fastest: every weight is larger than
+// L2 at Llama-3-8B's widths (58.7 MB each), and the blocks that run at once
+// then share each weight tile, so it is read from memory once.  The tile
+// widths were chosen by scripts/torch_swiglu_tiles.py on the card (PERF.md).
 #include "gemm_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int IT = 1024;  // I columns per requantization tile
-constexpr int H_SWIGLU = 4096;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, int8_t, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, int8_t, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
+constexpr int IT = 1024;           // the largest I-tile (pick_tile(I, IT))
+constexpr int H_MAX = 8192;        // the row pass holds a row in registers
+constexpr int GATE_UP_BN = 128;    // tile width of the gate/up products
+constexpr int DOWN_BN = 128;       // tile width of the down product
+constexpr bool ROWS_FIRST = true;  // both products walk rows fastest
 
 __device__ __forceinline__ float silu_mul_rn(float g, float u) {
   const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
   return __fmul_rn(__fmul_rn(g, sig), u);
 }
 
-// One row per block: RMSNorm rounded to T, then the row's int8 codes and scale.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float v0, float v1);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+template <typename T>
+__device__ __forceinline__ float2 load_pair(const T* p);
+template <>
+__device__ __forceinline__ float2 load_pair<float>(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+template <>
+__device__ __forceinline__ float2 load_pair<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+// One row per block, H = RT n columns, n <= PER: RMSNorm rounded to T, then
+// the row's int8 codes and scale.
 template <typename T, int PER>
 __global__ void __launch_bounds__(gm::RT)
 rms_quant_rows(const T* __restrict__ x, const float* __restrict__ w, int8_t* __restrict__ q,
-               float* __restrict__ scale, float eps) {
-  constexpr int H = gm::RT * PER;
+               float* __restrict__ scale, int H, float eps) {
   __shared__ double redd[gm::RT / 32];
   __shared__ float redf[gm::RT / 32];
+  const int n = H / gm::RT;
   const size_t base = static_cast<size_t>(blockIdx.x) * H + threadIdx.x;
   float v[PER];
   double ss = 0.0;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    v[i] = vt::to_f(x[base + gm::RT * i]);
-    ss += static_cast<double>(v[i]) * static_cast<double>(v[i]);
+    if (i < n) {
+      v[i] = vt::to_f(x[base + gm::RT * i]);
+      ss += static_cast<double>(v[i]) * static_cast<double>(v[i]);
+    }
   }
   const float var = static_cast<float>(gm::block_sum(ss, redd) / H);
   const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
   float m = 0.0f;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    const float y = __fmul_rn(w[threadIdx.x + gm::RT * i], __fmul_rn(v[i], rstd));
-    v[i] = vt::to_f(vt::from_f<T>(y));
-    m = fmaxf(m, fabsf(v[i]));
+    if (i < n) {
+      const float y = __fmul_rn(w[threadIdx.x + gm::RT * i], __fmul_rn(v[i], rstd));
+      v[i] = vt::to_f(vt::from_f<T>(y));
+      m = fmaxf(m, fabsf(v[i]));
+    }
   }
   const float s = gm::quant_scale(gm::block_max(m, redf));
 #pragma unroll
-  for (int i = 0; i < PER; ++i) q[base + gm::RT * i] = gm::quant(v[i], s);
+  for (int i = 0; i < PER; ++i)
+    if (i < n) q[base + gm::RT * i] = gm::quant(v[i], s);
   if (threadIdx.x == 0) scale[blockIdx.x] = s;
 }
 
-// A (64, 64) tile of a (rows past M repeat row M - 1: loaded, never stored)
-// and `nb` (64, 128) tiles of b into one stage, as 16-column chunks.
-__device__ __forceinline__ void fetch_stage(int8_t* stage, const int8_t* a, int M, int K,
-                                            int row0, int k0, const int8_t* const* b, int nb,
-                                            int N, int n0) {
-  constexpr int V = 16, BM = gm::BM, BN = gm::BN, BK = gm::BK, CH = gm::CH;
-  const int tid = threadIdx.x;
-  for (int c = tid; c < BM * (BK / V); c += gm::NT) {
-    const int r = c / (BK / V), e = (c % (BK / V)) * V;
-    const int src = min(row0 + r, M - 1);
-    cp_async16(stage + ((e / CH) * BM + r) * CH + e % CH, a + (size_t)src * K + k0 + e);
-  }
-  for (int j = 0; j < nb; ++j) {
-    int8_t* bs = stage + BM * BK + j * BK * BN;
-    for (int c = tid; c < BK * (BN / V); c += gm::NT) {
-      const int k = c / (BN / V), e = (c % (BN / V)) * V;
-      cp_async16(bs + ((e / CH) * BK + k) * CH + e % CH, b[j] + (size_t)(k0 + k) * N + n0 + e);
-    }
-  }
-  cp_async_commit();
-}
-
-__device__ __forceinline__ void load_a(FragA (&fa)[2], const int8_t* as, int kk, int wm) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    wmma::load_matrix_sync(fa[i], as + (kk * gm::BM + wm * 32 + i * 16) * gm::CH, gm::CH);
-}
-
-// acc += fa (the warp's 32 rows, 16 of K) x the warp's 32 columns of bs.
-__device__ __forceinline__ void mma_b(FragC (&acc)[2][2], const FragA (&fa)[2], const int8_t* bs,
-                                      int kk, int wn) {
-  FragB fb[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::load_matrix_sync(fb[j], bs + ((wn * 2 + j) * gm::BK + kk * gm::CH) * gm::CH, gm::CH);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-}
-
-__device__ __forceinline__ void zero(FragC (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-}
-
-__device__ __forceinline__ void store(int* st, const FragC (&acc)[2][2], int wm, int wn) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(st + (wm * 32 + i * 16) * gm::LDS + wn * 32 + j * 16, acc[i][j],
-                              gm::LDS, wmma::mem_row_major);
-}
-
-constexpr size_t kStaging = (size_t)gm::BM * gm::LDS * sizeof(int);  // one int32 tile
-constexpr size_t kGateUpStage = gm::BM * gm::BK + 2 * gm::BK * gm::BN;
-constexpr size_t kGateUpSmem =
-    2 * kGateUpStage > 2 * kStaging ? 2 * kGateUpStage : 2 * kStaging;
-constexpr size_t kDownStage = gm::BM * gm::BK + gm::BK * gm::BN;
-constexpr size_t kDownSmem = 2 * kDownStage + kStaging;
-
-// a = T(silu(g) * u) for one (64, 128) tile of (M, N = I), K = H, and the
-// absmax of each of its rows into pmax (M, N / 128).
+// Epilogue of the gate/up products: a = T(silu(g) * u), g = float(s32) *
+// (ys[row] * sg[col]), u likewise.
 template <typename T>
-__global__ void __launch_bounds__(gm::NT)
-gate_up_tiles(const int8_t* __restrict__ yq, const int8_t* __restrict__ wg,
-              const int8_t* __restrict__ wu, int M, int N, int K,
-              const float* __restrict__ ys, const float* __restrict__ sg,
-              const float* __restrict__ su, T* __restrict__ a_out, float* __restrict__ pmax) {
-  constexpr int BM = gm::BM, BN = gm::BN, BK = gm::BK, LDS = gm::LDS;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ float red[BM][BN / 32];
-  int8_t* sm = reinterpret_cast<int8_t*>(smem_raw);
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int wm = w >> 2, wn = w & 3;
-  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN, nk = K / BK;
-  const int8_t* const bmat[2] = {wg, wu};
+struct EpiSwiGLU {
+  const float *ys, *sg, *su;
+  T* a;
+  int n;  // I
+  __device__ __forceinline__ void operator()(int r, int c, int g0, int g1, int u0, int u1,
+                                             bool in) const {
+    const float rs = __ldg(ys + r);
+    const float2 sgc = __ldg(reinterpret_cast<const float2*>(sg + c));
+    const float2 suc = __ldg(reinterpret_cast<const float2*>(su + c));
+    const float v0 = silu_mul_rn(__fmul_rn(__int2float_rn(g0), __fmul_rn(rs, sgc.x)),
+                                 __fmul_rn(__int2float_rn(u0), __fmul_rn(rs, suc.x)));
+    const float v1 = silu_mul_rn(__fmul_rn(__int2float_rn(g1), __fmul_rn(rs, sgc.y)),
+                                 __fmul_rn(__int2float_rn(u1), __fmul_rn(rs, suc.y)));
+    if (in) store_pair<T>(a + (size_t)r * n + c, v0, v1);
+  }
+};
 
-  FragC accg[2][2], accu[2][2];
-  zero(accg);
-  zero(accu);
-  fetch_stage(sm, yq, M, K, row0, 0, bmat, 2, N, n0);
-  for (int t = 0; t < nk; ++t) {
-    if (t + 1 < nk) {
-      fetch_stage(sm + ((t + 1) & 1) * kGateUpStage, yq, M, K, row0, (t + 1) * BK, bmat, 2, N,
-                  n0);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // stage t visible to every warp
-    const int8_t* as = sm + (t & 1) * kGateUpStage;
-    const int8_t* bg = as + BM * BK;
-    const int8_t* bu = bg + BK * BN;
-#pragma unroll
-    for (int kk = 0; kk < BK / gm::CH; ++kk) {
-      FragA fa[2];
-      load_a(fa, as, kk, wm);
-      mma_b(accg, fa, bg, kk, wn);
-      mma_b(accu, fa, bu, kk, wn);
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  // ---- epilogue: both tiles through shared memory (the stages are free now)
-  int* stg = reinterpret_cast<int*>(smem_raw);
-  int* stu = stg + BM * LDS;
-  store(stg, accg, wm, wn);
-  store(stu, accu, wm, wn);
-  __syncthreads();
-  const int cc = tid % BN, rg = tid / BN, col = n0 + cc;
-  const float sgc = sg[col], suc = su[col];
-  for (int i = 0; i < BM / 2; ++i) {
-    const int r = rg + 2 * i, row = row0 + r;
-    const float rs = ys[min(row, M - 1)];
-    const float g = __fmul_rn(__int2float_rn(stg[r * LDS + cc]), __fmul_rn(rs, sgc));
-    const float u = __fmul_rn(__int2float_rn(stu[r * LDS + cc]), __fmul_rn(rs, suc));
-    const T av = vt::from_f<T>(silu_mul_rn(g, u));
-    if (row < M) a_out[(size_t)row * N + col] = av;
-    const float m = gm::warp_max(fabsf(vt::to_f(av)));  // a warp shares its row
-    if (lane == 0) red[r][cc / 32] = m;
-  }
-  __syncthreads();
-  if (tid < BM && row0 + tid < M) {
-    float m = 0.0f;
-#pragma unroll
-    for (int j = 0; j < BN / 32; ++j) m = fmaxf(m, red[tid][j]);
-    pmax[(size_t)(row0 + tid) * gridDim.y + blockIdx.y] = m;
-  }
+// Eight consecutive fp32 elements at p (16-byte aligned); the bf16 form is
+// mlp_common.cuh's.
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
 
-// One row per block: each 1024-column tile's int8 codes and scale from the
-// maxima of its eight 128-column pieces.
+// One block per (row, I-tile of ti <= IT columns, a multiple of 128), eight
+// consecutive columns a thread: the tile's row maximum, then its int8 codes
+// and scale.
 template <typename T>
 __global__ void __launch_bounds__(gm::RT)
-requant_tiles(const T* __restrict__ a, const float* __restrict__ pmax, int I,
-              int8_t* __restrict__ q, float* __restrict__ scale) {
-  constexpr int PIECES = IT / gm::BN;
-  const size_t row = blockIdx.x;
-  const int tiles = I / IT;
-  for (int t = 0; t < tiles; ++t) {
-    float m = 0.0f;
+requant_tiles(const T* __restrict__ a, int I, int ti, int8_t* __restrict__ q,
+              float* __restrict__ scale) {
+  static_assert(IT == 8 * gm::RT, "a block holds one tile, eight columns a thread");
+  __shared__ float redf[gm::RT / 32];
+  const size_t base = (size_t)blockIdx.x * I + (size_t)blockIdx.y * ti + 8 * threadIdx.x;
+  const bool on = 8 * (int)threadIdx.x < ti;
+  float v[8];
+  float m = 0.0f;
+  if (on) {
+    load8(a + base, v);
 #pragma unroll
-    for (int j = 0; j < PIECES; ++j) m = fmaxf(m, pmax[row * (I / gm::BN) + t * PIECES + j]);
-    const float s = gm::quant_scale(m);
-    const size_t base = row * I + (size_t)t * IT;
-    for (int c = threadIdx.x; c < IT; c += gm::RT) q[base + c] = gm::quant(vt::to_f(a[base + c]), s);
-    if (threadIdx.x == 0) scale[row * tiles + t] = s;
+    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
   }
+  const float s = gm::quant_scale(gm::block_max(m, redf));
+  if (on) {
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      w[e / 4] |= (uint32_t)(uint8_t)gm::quant(v[e], s) << (8 * (e % 4));
+    *reinterpret_cast<uint2*>(q + base) = make_uint2(w[0], w[1]);
+  }
+  if (threadIdx.x == 0) scale[(size_t)blockIdx.x * gridDim.y + blockIdx.y] = s;
 }
 
-// out = T(acc * sd) + x for one (64, 128) tile of (M, N = H), K = I: acc is
-// the fp32 sum, in tile order, of float(int32 tile product) * its row scale.
+// Epilogue of the down product, segmented by I-tile (sm90::Segmented):
+// scale(row, t) = as[row, t]; then out = T(T(sum * sd[col]) + x).
 template <typename T>
-__global__ void __launch_bounds__(gm::NT)
-down_tiles(const int8_t* __restrict__ aq, const int8_t* __restrict__ wd, int M, int N, int K,
-           const float* __restrict__ as_, const float* __restrict__ sd,
-           const T* __restrict__ x, T* __restrict__ out) {
-  constexpr int BM = gm::BM, BN = gm::BN, BK = gm::BK, LDS = gm::LDS;
-  constexpr int FLUSH = IT / BK;  // K steps per requantization tile
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int8_t* sm = reinterpret_cast<int8_t*>(smem_raw);
-  int* st = reinterpret_cast<int*>(smem_raw + 2 * kDownStage);  // beside the stages
-  const int tid = threadIdx.x, w = tid >> 5;
-  const int wm = w >> 2, wn = w & 3;
-  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN, nk = K / BK, tiles = K / IT;
-  const int cc = tid % BN, rg = tid / BN, col = n0 + cc;
-  const int8_t* const bmat[1] = {wd};
-
-  FragC acc[2][2];
-  zero(acc);
-  float facc[BM / 2];
-#pragma unroll
-  for (int i = 0; i < BM / 2; ++i) facc[i] = 0.0f;
-
-  fetch_stage(sm, aq, M, K, row0, 0, bmat, 1, N, n0);
-  for (int t = 0; t < nk; ++t) {
-    if (t + 1 < nk) {
-      fetch_stage(sm + ((t + 1) & 1) * kDownStage, aq, M, K, row0, (t + 1) * BK, bmat, 1, N, n0);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // stage t visible to every warp
-    const int8_t* as = sm + (t & 1) * kDownStage;
-    const int8_t* bs = as + BM * BK;
-#pragma unroll
-    for (int kk = 0; kk < BK / gm::CH; ++kk) {
-      FragA fa[2];
-      load_a(fa, as, kk, wm);
-      mma_b(acc, fa, bs, kk, wn);
-    }
-    if ((t + 1) % FLUSH == 0) {
-      // a requantization tile is complete: its int32 sums, converted once,
-      // times the tile's row scale, onto the fp32 sum.  st was last read
-      // FLUSH steps (and as many barriers) ago.
-      store(st, acc, wm, wn);
-      zero(acc);
-      __syncthreads();
-      const int tile = t / FLUSH;
-#pragma unroll
-      for (int i = 0; i < BM / 2; ++i) {
-        const int r = rg + 2 * i, row = min(row0 + r, M - 1);
-        facc[i] = __fadd_rn(facc[i], __fmul_rn(__int2float_rn(st[r * LDS + cc]),
-                                               as_[(size_t)row * tiles + tile]));
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
+struct EpiDown {
+  const float* as;
+  int tiles, seg;  // I-tiles; k-steps of one
+  const float* sd;
+  const T* x;
+  T* out;
+  int n;  // H
+  __device__ __forceinline__ float scale(int r, int t) const {
+    return __ldg(as + (size_t)r * tiles + t);
   }
-
-  const float sdc = sd[col];
-#pragma unroll
-  for (int i = 0; i < BM / 2; ++i) {
-    const int row = row0 + rg + 2 * i;
-    if (row < M) {
-      const float o = vt::to_f(vt::from_f<T>(__fmul_rn(facc[i], sdc)));
-      out[(size_t)row * N + col] = vt::from_f<T>(__fadd_rn(vt::to_f(x[(size_t)row * N + col]), o));
-    }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1, bool in) const {
+    const size_t o = (size_t)r * n + c;
+    const float2 sdc = __ldg(reinterpret_cast<const float2*>(sd + c));
+    const float2 xv = load_pair<T>(x + o);
+    const float o0 = vt::to_f(vt::from_f<T>(__fmul_rn(v0, sdc.x)));
+    const float o1 = vt::to_f(vt::from_f<T>(__fmul_rn(v1, sdc.y)));
+    if (in) store_pair<T>(out + o, __fadd_rn(xv.x, o0), __fadd_rn(xv.y, o1));
   }
-}
+};
 
 struct Bufs {
-  int8_t* yq;   // (rows, H) codes of the normalised rows
-  float* ys;    // (rows,) their scales
-  void* a;      // (rows, I) T
-  float* pmax;  // (rows, I / 128)
-  int8_t* aq;   // (rows, I) codes of a
-  float* as;    // (rows, I / 1024) their scales
+  int8_t* yq;  // (rows, H) codes of the normalised rows
+  float* ys;   // (rows,) their scales
+  void* a;     // (rows, I) T
+  int8_t* aq;  // (rows, I) codes of a
+  float* as;   // (rows, I / ti) their scales
 };
 
 template <typename T>
-int swiglu(const void* x, const void* w, const void* wg, const void* sg, const void* wu,
-           const void* su, const void* wd, const void* sd, const Bufs& bf, void* out, int rows,
-           int I, float eps, cudaStream_t st) {
-  constexpr int H = H_SWIGLU;
+cudaError_t rms_quant(const T* x, const float* w, const Bufs& bf, int rows, int H, float eps,
+                      cudaStream_t st) {
+  if (H <= 8 * gm::RT)
+    rms_quant_rows<T, 8><<<rows, gm::RT, 0, st>>>(x, w, bf.yq, bf.ys, H, eps);
+  else if (H <= 32 * gm::RT)
+    rms_quant_rows<T, 32><<<rows, gm::RT, 0, st>>>(x, w, bf.yq, bf.ys, H, eps);
+  else
+    rms_quant_rows<T, H_MAX / gm::RT><<<rows, gm::RT, 0, st>>>(x, w, bf.yq, bf.ys, H, eps);
+  return cudaGetLastError();
+}
+
+// wgt, wut (I, H) and wdt (H, I): the weights' K-major codes.
+template <typename T>
+int swiglu(const void* x, const void* w, const void* wgt, const void* sg, const void* wut,
+           const void* su, const void* wdt, const void* sd, const Bufs& bf, void* out, int rows,
+           int H, int I, int ti, float eps, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  rms_quant_rows<T, H / gm::RT><<<rows, gm::RT, 0, st>>>(xt, static_cast<const float*>(w), bf.yq,
-                                                         bf.ys, eps);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = rms_quant(xt, static_cast<const float*>(w), bf, rows, H, eps, st);
   if (e != cudaSuccess) return (int)e;
-  if ((e = allow_smem<gate_up_tiles<T>>(kGateUpSmem)) != cudaSuccess) return (int)e;
-  const int row_tiles = (rows + gm::BM - 1) / gm::BM;
-  gate_up_tiles<T><<<dim3(row_tiles, I / gm::BN), gm::NT, kGateUpSmem, st>>>(
-      bf.yq, static_cast<const int8_t*>(wg), static_cast<const int8_t*>(wu), rows, I, H, bf.ys,
-      static_cast<const float*>(sg), static_cast<const float*>(su), static_cast<T*>(bf.a),
-      bf.pmax);
+  const EpiSwiGLU<T> gu{bf.ys, static_cast<const float*>(sg), static_cast<const float*>(su),
+                        static_cast<T*>(bf.a), I};
+  e = sm90::gemm<GATE_UP_BN, false, sm90::DUAL_A, ROWS_FIRST>(
+      bf.yq, static_cast<const int8_t*>(wgt), rows, I, H, gu, st, nullptr,
+      static_cast<const int8_t*>(wut));
+  if (e != cudaSuccess) return (int)e;
+  requant_tiles<T><<<dim3(rows, I / ti), gm::RT, 0, st>>>(static_cast<const T*>(bf.a), I, ti,
+                                                           bf.aq, bf.as);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  requant_tiles<T><<<rows, gm::RT, 0, st>>>(static_cast<const T*>(bf.a), bf.pmax, I, bf.aq,
-                                            bf.as);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = allow_smem<down_tiles<T>>(kDownSmem)) != cudaSuccess) return (int)e;
-  down_tiles<T><<<dim3(row_tiles, H / gm::BN), gm::NT, kDownSmem, st>>>(
-      bf.aq, static_cast<const int8_t*>(wd), rows, H, I, bf.as, static_cast<const float*>(sd), xt,
-      static_cast<T*>(out));
-  return (int)cudaGetLastError();
+  const EpiDown<T> down{bf.as, I / ti, ti / sm90::ROW_BYTES, static_cast<const float*>(sd), xt,
+                        static_cast<T*>(out), H};
+  return (int)sm90::gemm<DOWN_BN, false, sm90::COOP, ROWS_FIRST>(
+      bf.aq, static_cast<const int8_t*>(wdt), rows, H, I, down, st);
 }
 
 }  // namespace
 
-// Scratch: yq (rows, H) int8, ys (rows,) fp32, a (rows, I) in x's type, pmax
-// (rows, I / 128) fp32, aq (rows, I) int8, as (rows, I / 1024) fp32.
-extern "C" int vt_swiglu_w8a8(const void* x, const void* w, const void* wg, const void* sg,
-                              const void* wu, const void* su, const void* wd, const void* sd,
-                              void* yq, void* ys, void* a, void* pmax, void* aq, void* as,
-                              void* out, int rows, int H, int I, float eps, int dtype,
+// Scratch: yq (rows, H) int8, ys (rows,) fp32, a (rows, I) in x's type, aq
+// (rows, I) int8, as (rows, I / ti) fp32.  ti: the I-tile, pick_tile(I,
+// 1024) (ops/cuda_swiglu.py), a multiple of 128 dividing I.  Every pointer
+// 16-byte aligned.
+extern "C" int vt_swiglu_w8a8(const void* x, const void* w, const void* wgt, const void* sg,
+                              const void* wut, const void* su, const void* wdt, const void* sd,
+                              void* yq, void* ys, void* a, void* aq, void* as, void* out,
+                              int rows, int H, int I, int ti, float eps, int dtype,
                               void* stream) {
-  if (rows <= 0 || H != H_SWIGLU || I <= 0 || I % IT) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || H <= 0 || H % sm90::ROW_BYTES || H > H_MAX || ti <= 0 ||
+      ti % sm90::ROW_BYTES || ti > IT || I <= 0 || I % ti)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Bufs bf{static_cast<int8_t*>(yq), static_cast<float*>(ys), a, static_cast<float*>(pmax),
-                static_cast<int8_t*>(aq), static_cast<float*>(as)};
+  const Bufs bf{static_cast<int8_t*>(yq), static_cast<float*>(ys), a, static_cast<int8_t*>(aq),
+                static_cast<float*>(as)};
   if (dtype == vt::kBF16)
-    return swiglu<__nv_bfloat16>(x, w, wg, sg, wu, su, wd, sd, bf, out, rows, I, eps, st);
-  if (dtype == vt::kF32) return swiglu<float>(x, w, wg, sg, wu, su, wd, sd, bf, out, rows, I, eps, st);
+    return swiglu<__nv_bfloat16>(x, w, wgt, sg, wut, su, wdt, sd, bf, out, rows, H, I, ti, eps,
+                                 st);
+  if (dtype == vt::kF32)
+    return swiglu<float>(x, w, wgt, sg, wut, su, wdt, sd, bf, out, rows, H, I, ti, eps, st);
   return (int)cudaErrorInvalidValue;
 }

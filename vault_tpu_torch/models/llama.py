@@ -26,7 +26,7 @@ from vault_tpu_torch.ops.attention import attend, merge_heads, split_heads
 from vault_tpu_torch.ops.attention import gqa_attend_plain as _gqa_attend
 from vault_tpu_torch.ops.nn import ParamDict, init_linear, linear
 from vault_tpu_torch.ops.nn import rms_norm as _rms_norm
-from vault_tpu_torch.ops.quantize import QUANT_MODES, quantize_linear_params
+from vault_tpu_torch.ops.quantize import QUANT_MODES, k_major_site, quantize_linear_params
 
 
 @dataclass(frozen=True)
@@ -95,22 +95,25 @@ def _rope(x, position_ids, theta, head_dim):
 def _init_layer(gen: torch.Generator, cfg: LlamaConfig, dtype, quantize) -> ParamDict:
     """One layer, drawn on the generator's device.  With ``quantize`` each
     projection is drawn in fp32 and turned into int8 codes and fp32 scales
-    at once, so no more than one projection's fp weights exist at a time."""
+    at once, so no more than one projection's fp weights exist at a time;
+    the MLP's w8a8 codes come K-major (ops/quantize.py ``k_major``), the
+    layout the SwiGLU kernel reads."""
     h, i = cfg.hidden_size, cfg.intermediate_size
     kvh = cfg.num_key_value_heads * cfg.head_dim
     dev = gen.device
 
-    def proj(in_dim, out_dim):
+    def proj(name, in_dim, out_dim):
         w = torch.randn((in_dim, out_dim), generator=gen, device=dev) * cfg.initializer_range
         if quantize is None:
             return ParamDict(w=w.to(dtype))
-        return ParamDict(**quantize_linear_params({"w": w}, quantize))
+        return ParamDict(**quantize_linear_params({"w": w}, quantize,
+                                                  k_major_site(name, quantize)))
 
     return ParamDict(
         input_ln=torch.ones(h, device=dev),
-        q=proj(h, h), k=proj(h, kvh), v=proj(h, kvh), o=proj(h, h),
+        q=proj("q", h, h), k=proj("k", h, kvh), v=proj("v", h, kvh), o=proj("o", h, h),
         post_ln=torch.ones(h, device=dev),
-        gate=proj(h, i), up=proj(h, i), down=proj(i, h))
+        gate=proj("gate", h, i), up=proj("up", h, i), down=proj("down", i, h))
 
 
 def init_llama(gen: torch.Generator, cfg: LlamaConfig, dtype=torch.float32,

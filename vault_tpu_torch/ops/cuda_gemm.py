@@ -1,8 +1,10 @@
 """The wgmma/TMA GEMM core of the MLP blocks (``csrc/gemm_sm90.cuh``) on its
 own, through the entries of ``csrc/gemm_sm90.cu``, with plain versions
-beside them: bf16 operands, fp32 products.  They exist to hold each operand
-layout of the core against a plain product on the card; the main path
-reaches the core only through the MLP block wrappers of ``ops/cuda_mlp.py``.
+beside them: bf16 operands with fp32 products, and int8 operands with
+int32 products.  They exist to hold each operand layout of the core
+against a plain product on the card; the main path reaches the core only
+through the block wrappers of ``ops/cuda_mlp.py``, ``ops/cuda_ln_qkv.py``
+and ``ops/cuda_swiglu.py``.
 
   * :func:`gemm_bf16`: ``a (M, K) @ b`` with ``b`` N-contiguous, (K, N)
     (W1 in ``y W1``, W2 in ``a W2``), or K-contiguous, (N, K), given
@@ -13,6 +15,9 @@ reaches the core only through the MLP block wrappers of ``ops/cuda_mlp.py``.
     product of each split's K range in a slice of its own (the post-LN
     blocks' second products, whose slices a row pass adds in order);
     plain version :func:`gemm_split_k_plain`.
+  * :func:`gemm_s8`: ``a (M, K) @ b^T`` for int8 ``a`` and ``b`` (N, K),
+    K-contiguous (int8 ``wgmma`` has no transpose bit), exact int32; plain
+    version :func:`gemm_s8_plain`.
   * :func:`dequant_bf16`: ``bf16(float(q) * s)`` for int8 (K, N) codes
     ``q`` and fp32 per-column scales ``s``, the pass the w8 pre-LN block
     runs in front of its bf16 products; plain version
@@ -33,11 +38,14 @@ from vault_tpu_torch.ops.nn import matmul_fp32
 
 TILE_WIDTHS = (64, 128, 192)  # the core's tile widths
 K_MULTIPLE = 64               # the core walks K 64 at a time
+K_MULTIPLE_S8 = 128           # its int8 instance 128 at a time
 _SIGNATURES = {
     "vt_gemm_bf16": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
                      ctypes.c_int),
     "vt_gemm_dual_bf16": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
                           ctypes.c_int),
+    "vt_gemm_s8": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                   ctypes.c_int),
     "vt_dequant_bf16": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
                         ctypes.c_int),
 }
@@ -136,6 +144,37 @@ def gemm_dual_bf16(a1, b1, a2, b2):
     return c1, c2
 
 
+def gemm_s8_plain(a, b) -> torch.Tensor:
+    """``a @ b^T`` for int8 ``a`` (M, K) and ``b`` (N, K), exact int32 (the
+    products summed in float64, exact below 2^53)."""
+    return (a.double() @ b.double().t()).to(torch.int32)
+
+
+def gemm_s8(a, b, tile_width: int = 128, rows_first: bool = False) -> torch.Tensor:
+    """``a @ b^T`` in int32 on the core's int8 instance: a (M, K) and b (N,
+    K) int8, K a multiple of 128, N even; ``tile_width`` 64, 128 or 192;
+    ``rows_first``: the work items walk the rows fastest (the SwiGLU
+    block's order)."""
+    what = "gemm_s8"
+    if tile_width not in TILE_WIDTHS:
+        raise ValueError(f"{what}: tile width {tile_width} not in {TILE_WIDTHS}")
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"{what}: a and b must be matrices")
+    (m, k), n = a.shape, b.shape[0]
+    if k % K_MULTIPLE_S8 or n % 2:
+        raise ValueError(f"{what}: K = {k} must be a multiple of {K_MULTIPLE_S8} and "
+                         f"N = {n} even")
+    check_operands(what, a, {"a": (a, (m, k), torch.int8), "b": (b, (n, k), torch.int8)})
+    lib = _build.load("gemm_sm90", _SIGNATURES)
+    c = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    code = lib.vt_gemm_s8(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, tile_width,
+                          int(rows_first), stream)
+    _build.check(lib, code, what)
+    gemm_s8.launches += 1
+    return c
+
+
 def dequant_plain(q, s) -> torch.Tensor:
     """``bf16(float(q) * s)``: the w8 ``linear``'s weights in bf16."""
     return (q.float() * s.reshape(-1)).to(torch.bfloat16)
@@ -161,4 +200,5 @@ def dequant_bf16(q, s) -> torch.Tensor:
 gemm_bf16.launches = 0
 gemm_bf16_split_k.launches = 0
 gemm_dual_bf16.launches = 0
+gemm_s8.launches = 0
 dequant_bf16.launches = 0

@@ -8,11 +8,10 @@ behind its own C entries; :func:`mlp_route` picks one for a block: every
 bf16 block with bf16 weights, pre-LN (the ViLT layers) and post-LN (the
 BERT layers), runs forward and backward on the wgmma/TMA GEMM core
 (``csrc/gemm_sm90.cuh``, ``vt_mlp_fwd_wgmma`` / ``vt_mlp_bwd_wgmma``), its
-(rows, I) intermediates through device memory, and so does the bf16
-pre-LN block with int8 weights (``vt_mlp_fwd_q8_wgmma``: one pass
+(rows, I) intermediates through device memory, and so do the bf16 blocks
+with int8 weights, pre-LN and post-LN (``vt_mlp_fwd_q8_wgmma``: one pass
 dequantizes both weight matrices to bf16 scratch in front of the same
-launches);
-fp32 blocks and the other int8-weight blocks run on the 32-row walk
+launches); fp32 blocks, int8 weights or not, run on the 32-row walk
 (``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_fwd_q8``,
 ``vt_mlp_bwd``), which keeps them on chip.  Each design has its width
 contract (:func:`_check_sizes`); a width outside it raises ``ValueError``
@@ -36,10 +35,10 @@ before anything is built or launched.
     the XLA composition (``linear``'s w_q8 branch), as in the JAX package.
   * :func:`fused_mlp_block_fwd_q8` and :func:`fused_mlp_postln_fwd_q8`: both
     blocks with int8 weights only (ops/quantize.py w8), replacing the JAX
-    package's functions of the same names: the bf16 pre-LN block
-    dequantizes both matrices in one pass to bf16 scratch in front of the
-    core's launches, the others tile by tile inside the walk; plain
-    versions :func:`mlp_block_q8_plain` and :func:`mlp_postln_q8_plain`.  Their gradient is autograd of the plain
+    package's functions of the same names: the bf16 blocks dequantize both
+    matrices in one pass to bf16 scratch in front of the core's launches,
+    the fp32 ones tile by tile inside the walk; plain versions
+    :func:`mlp_block_q8_plain` and :func:`mlp_postln_q8_plain`.  Their gradient is autograd of the plain
     composition with ``w_q`` weights: to the LN, both scales, both biases
     and x, none to the codes.
 
@@ -79,7 +78,7 @@ from vault_tpu_torch.ops.nn import (
 )
 from vault_tpu_torch.ops.quantize import quantize_activation
 
-# The widths each design takes.  The wgmma core (its q8 block included): H
+# The widths each design takes.  The wgmma core (its q8 blocks included): H
 # a multiple of 64 from 64 to 8,192, I a multiple of 64 (each product's K a
 # multiple of the core's 64-deep stage, 16-byte TMA rows, the row kernels'
 # 8,192).  The walk and the w8a8 kernels: H 768 alone (their row tiles hold
@@ -100,8 +99,8 @@ _SIGNATURES = {
                          + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_wgmma_workspace": ([ctypes.c_int] * 4, ctypes.c_longlong),
     "vt_mlp_fwd_q8_wgmma": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float]
-                            + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
-    "vt_mlp_q8_wgmma_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
+                            + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
+    "vt_mlp_q8_wgmma_workspace": ([ctypes.c_int] * 4, ctypes.c_longlong),
 }
 _BWD_SIGNATURES = {
     "vt_mlp_bwd": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_float]
@@ -115,16 +114,16 @@ _BWD_SIGNATURES = {
 
 def mlp_route(dtype: torch.dtype, int8_weights: bool = False, postln: bool = False) -> str:
     """Which design runs a block with activations in ``dtype`` on the card:
-    "wgmma" (the ``*_wgmma`` C entries) for bf16 with bf16 weights, forward
-    and backward, pre-LN and post-LN, and for the bf16 pre-LN block with
-    int8 weights (``vt_mlp_fwd_q8_wgmma``); "walk" (``mlp_main`` /
-    ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_bwd``, ``vt_mlp_fwd_q8``) for
-    fp32 and for the post-LN block with int8 weights.  The wrappers launch
-    the entries it names and hold a block to its width contract."""
+    "wgmma" (the ``*_wgmma`` C entries) for every bf16 block, forward and
+    backward, pre-LN and post-LN, with bf16 weights or int8 ones
+    (``vt_mlp_fwd_q8_wgmma``, behind its dequantization pass); "walk"
+    (``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_bwd``,
+    ``vt_mlp_fwd_q8``) for fp32.  The wrappers launch the entries it names
+    and hold a block to its width contract.  ``int8_weights`` and
+    ``postln`` name the block; neither moves it off its dtype's design."""
     if dtype not in _DTYPES:
         raise TypeError(f"mlp_route: dtype {dtype} not supported (bfloat16 or float32)")
-    core = dtype == torch.bfloat16 and not (int8_weights and postln)
-    return "wgmma" if core else "walk"
+    return "wgmma" if dtype == torch.bfloat16 else "walk"
 
 
 def _mlp_block_plain(ln_p, p_in, p_out, x, eps, act, m=None):
@@ -532,7 +531,7 @@ fused_mlp_postln_fwd_w8a8.launches = 0
 
 # ---------------------------------------------------------------------------
 # w8: int8 weights dequantized in the kernel (csrc/mlp.cu: vt_mlp_fwd_q8_wgmma
-# for the bf16 pre-LN block, vt_mlp_fwd_q8 for the others)
+# for the bf16 blocks, vt_mlp_fwd_q8 for the fp32 ones)
 # ---------------------------------------------------------------------------
 
 def _plain_on_quantized(postln, key, gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
@@ -584,10 +583,10 @@ def _launch_q8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
     # bf16, LN(x) and the activation (wgmma), or the fp32 partial sums of
     # the I splits (walk)
     if route == "wgmma":
-        ws = torch.empty(lib.vt_mlp_q8_wgmma_workspace(rows, h, i), dtype=torch.float32,
-                         device=x.device)
+        ws = torch.empty(lib.vt_mlp_q8_wgmma_workspace(rows, h, i, int(postln)),
+                         dtype=torch.float32, device=x.device)
         code = lib.vt_mlp_fwd_q8_wgmma(*ptrs, ws.data_ptr(), rows, h, i, float(eps),
-                                       _ACTS[act], stream)
+                                       _ACTS[act], int(postln), stream)
     else:
         ws = torch.empty(lib.vt_mlp_workspace(rows, h, i), dtype=torch.float32,
                          device=x.device)

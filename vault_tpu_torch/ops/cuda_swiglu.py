@@ -1,6 +1,8 @@
 """The Llama layer's MLP half, RMSNorm -> SwiGLU -> residual, through the
-hand-written w8a8 Hopper kernel (``csrc/swiglu_w8a8.cu``), with its plain
-PyTorch versions beside it (port of ``vault_tpu/ops/pallas_swiglu.py``).
+hand-written w8a8 Hopper kernel (``csrc/swiglu_w8a8.cu``: its three int8
+products on the int8 instance of the ``wgmma`` core, ``csrc/gemm_sm90.cuh``),
+with its plain PyTorch versions beside it (port of
+``vault_tpu/ops/pallas_swiglu.py``).
 
   * :func:`swiglu_block_plain`: ``x + down(silu(gate(rms(x))) * up(rms(x)))``
     on any weight form ``linear`` takes (the JAX package's
@@ -14,8 +16,12 @@ PyTorch versions beside it (port of ``vault_tpu/ops/pallas_swiglu.py``).
     (the mean of squares in double, rounded once; ``1 / sqrt``; silu as
     ``g * (1 / (1 + exp(-g)))``), so on the card the two agree bit for bit.
   * :func:`fused_swiglu_block_fwd_w8a8`: the kernel; it launches for CUDA
-    tensors and raises on anything it does not take.
-    ``fused_swiglu_block_fwd_w8a8.launches`` counts its launches.
+    tensors and raises on anything it does not take: a width outside its
+    contract (:func:`check_widths`) or weight codes not held K-major
+    (``ops/quantize.py`` ``k_major``: the int8 ``wgmma`` has no transpose
+    bit, and the port lays the codes out so once, never per call).
+    ``fused_swiglu_block_fwd_w8a8.launches`` counts its launches;
+    :func:`swiglu_route` names its design.
   * :func:`swiglu_block`: the dispatch.  Three ``w_q8`` projections take
     the kernel (CPU tensors its plain version); anything else
     :func:`swiglu_block_plain`.  Inference math: the gradient is autograd of
@@ -36,14 +42,41 @@ import torch
 from vault_tpu_torch.ops import _build
 from vault_tpu_torch.ops._dispatch import check_operands, kernel_or_plain
 from vault_tpu_torch.ops.nn import int8_matmul, linear, rms_norm, silu
-from vault_tpu_torch.ops.quantize import quantize_activation
+from vault_tpu_torch.ops.quantize import is_k_major, quantize_activation
 
-I_TILE = 1024        # I columns per requantization group
-HIDDEN_SIZES = (4096,)  # H the kernel is built for (Llama-3-8B)
+I_TILE = 1024        # the largest group of I columns requantized together
+# The kernel's widths: H a multiple of 128 (the int8 core's 128-byte stage)
+# up to 8,192 (its row pass holds a row in registers); I whose tile
+# pick_tile(I, I_TILE) is a multiple of 128 (a tile is a whole number of the
+# down product's stages).
+H_MULTIPLE, H_MAX, TILE_MULTIPLE = 128, 8192, 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"vt_swiglu_w8a8": (
-    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                                     ctypes.c_void_p], ctypes.c_int)}
+
+
+def swiglu_route(dtype: torch.dtype) -> str:
+    """Which design runs the w8a8 SwiGLU block with x in ``dtype`` on the
+    card: "wgmma", the int8 instance of the core (s8 x s8 -> s32 ``wgmma``
+    through TMA), for bf16 and fp32 alike: the products are exact in int32,
+    and only the row passes and the epilogues' casts depend on the type."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"swiglu_route: dtype {dtype} not supported (bfloat16 or float32)")
+    return "wgmma"
+
+
+def check_widths(what: str, h: int, i: int) -> int:
+    """The kernel's width contract (:data:`H_MULTIPLE`, :data:`H_MAX`,
+    :data:`TILE_MULTIPLE`); returns the I-tile.  Raises ``ValueError``
+    outside it: nothing falls back."""
+    ti = pick_tile(i, I_TILE) if i > 0 else 0
+    if h % H_MULTIPLE or not H_MULTIPLE <= h <= H_MAX or ti == 0 or ti % TILE_MULTIPLE:
+        raise ValueError(
+            f"{what}: hidden size {h} / intermediate size {i}: the kernel takes H a "
+            f"multiple of {H_MULTIPLE} from {H_MULTIPLE} to {H_MAX} and I whose tile "
+            f"pick_tile(I, {I_TILE}) = {ti} is a multiple of {TILE_MULTIPLE}")
+    return ti
 
 
 def swiglu_block_plain(ln_w, p_gate, p_up, p_down, x, eps: float = 1e-5):
@@ -96,33 +129,39 @@ def swiglu_block_w8a8_plain(ln_w, wgq, sg, wuq, su, wdq, sd, x,
 def fused_swiglu_block_fwd_w8a8(ln_w, wgq, sg, wuq, su, wdq, sd, x,
                                 eps: float = 1e-5) -> torch.Tensor:
     """The w8a8 SwiGLU block kernel.  x: (..., H) bf16 or fp32 -> same
-    shape; H 4096, I a multiple of :data:`I_TILE`; ln_w (H) fp32."""
+    shape; ln_w (H) fp32; wgq, wuq (H, I) and wdq (I, H) int8 held K-major;
+    widths as :func:`check_widths`."""
     what = "fused_swiglu_block_fwd_w8a8"
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported (bfloat16 or float32)")
     if wgq.dim() != 2:
         raise ValueError(f"{what}: wgq must be (H, I), got {tuple(wgq.shape)}")
     h, i = wgq.shape
-    if h not in HIDDEN_SIZES or i % I_TILE:
-        raise ValueError(f"{what}: hidden size {h} (supported {HIDDEN_SIZES}) / "
-                         f"intermediate size {i} (a multiple of {I_TILE})")
+    ti = check_widths(what, h, i)
+    for name, q in (("wgq", wgq), ("wuq", wuq), ("wdq", wdq)):
+        if not is_k_major(q):
+            raise ValueError(f"{what}: {name} must be held K-major (a transposed view of "
+                             f"contiguous storage, ops/quantize.py k_major), got strides "
+                             f"{tuple(q.stride())}")
     dev, dt, rows = x.device, x.dtype, x.numel() // h
     sg, su, sd = sg.reshape(-1), su.reshape(-1), sd.reshape(-1)
     f32, i8 = torch.float32, torch.int8
+    # the kernel reads the codes' storage: Wg^T, Wu^T (I, H) and Wd^T (H, I)
     check_operands(what, x, {
         "x": (x, (*x.shape[:-1], h), dt), "ln_w": (ln_w, (h,), f32),
-        "wgq": (wgq, (h, i), i8), "sg": (sg, (i,), f32), "wuq": (wuq, (h, i), i8),
-        "su": (su, (i,), f32), "wdq": (wdq, (i, h), i8), "sd": (sd, (h,), f32)})
+        "wgq^T": (wgq.t(), (i, h), i8), "sg": (sg, (i,), f32),
+        "wuq^T": (wuq.t(), (i, h), i8), "su": (su, (i,), f32),
+        "wdq^T": (wdq.t(), (h, i), i8), "sd": (sd, (h,), f32)})
     lib = _build.load("swiglu_w8a8", _SIGNATURES)
     new = lambda shape, t: torch.empty(shape, dtype=t, device=dev)
-    scratch = (new((rows, h), i8), new(rows, f32),            # q(rms(x))
-               new((rows, i), dt), new((rows, i // 128), f32),  # a, 128-column maxima
-               new((rows, i), i8), new((rows, i // I_TILE), f32))  # q(a) per tile
+    scratch = (new((rows, h), i8), new(rows, f32),               # q(rms(x))
+               new((rows, i), dt),                                # a
+               new((rows, i), i8), new((rows, i // ti), f32))     # q(a) per tile
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.vt_swiglu_w8a8(x.data_ptr(), ln_w.data_ptr(), wgq.data_ptr(), sg.data_ptr(),
                               wuq.data_ptr(), su.data_ptr(), wdq.data_ptr(), sd.data_ptr(),
-                              *(t.data_ptr() for t in scratch), out.data_ptr(), rows, h, i,
+                              *(t.data_ptr() for t in scratch), out.data_ptr(), rows, h, i, ti,
                               float(eps), _DTYPES[dt], stream)
     _build.check(lib, code, what)
     fused_swiglu_block_fwd_w8a8.launches += 1

@@ -15,6 +15,15 @@ pooler, the heads and the attention core stay in floating point.
 The form is encoded in the parameter names, as in the JAX package: ``w_q``
 and ``w_scale`` select w8, ``w_q8`` and ``w_scale`` select w8a8.
 
+Layout: every leaf keeps the JAX package's (in, out) shape.  The w8a8
+codes of the Llama MLP's projections (:data:`K_MAJOR_SUBLAYERS`) are held
+K-major: the (in, out) leaf is a transposed view of contiguous (out, in)
+storage (:func:`k_major`), the layout the int8 ``wgmma`` of the SwiGLU
+kernel reads (``ops/cuda_swiglu.py``; the int8 forms have no transpose
+bit).  They are laid out so once, where they are quantized (here) or
+converted (``convert.params_from_jax``), never per call.  ``torch._int_mm``
+takes either layout.
+
 Rounding is half to even (``torch.round``, as ``jnp.round``), codes are
 clipped to +-127, and both divisions are true divisions.  On the card a
 division by a Python number is a multiplication by its reciprocal in
@@ -36,6 +45,25 @@ from vault_tpu_torch.ops.nn import ParamDict
 QUANT_SUBLAYERS = {"q", "k", "v", "attn_out", "mlp_in", "mlp_out",
                    "o", "gate", "up", "down"}
 QUANT_MODES = ("w8", "w8a8")
+# sublayers whose w8a8 codes are held K-major (the Llama MLP's)
+K_MAJOR_SUBLAYERS = frozenset({"gate", "up", "down"})
+
+
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """(..., in, out) codes as a transposed view of a contiguous (..., out,
+    in) copy: the same values and shape, K (in) contiguous."""
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def is_k_major(q: torch.Tensor) -> bool:
+    """A matrix whose first dimension (K) is contiguous: a transposed view
+    of contiguous storage."""
+    return q.dim() == 2 and q.t().is_contiguous()
+
+
+def k_major_site(key, mode: str) -> bool:
+    """Whether the ``mode`` codes of sublayer ``key`` are held K-major."""
+    return mode == "w8a8" and key in K_MAJOR_SUBLAYERS
 
 
 def _scale(absmax: torch.Tensor) -> torch.Tensor:
@@ -70,19 +98,22 @@ def quantize_activation(x: torch.Tensor):
     return _codes(xf.detach(), scale.detach()), scale
 
 
-def quantize_linear_params(p, mode: str = "w8") -> dict:
-    """{"w", "b"?} -> {"w_q" or "w_q8", "w_scale", "b"?} (a new dict)."""
+def quantize_linear_params(p, mode: str = "w8", codes_k_major: bool = False) -> dict:
+    """{"w", "b"?} -> {"w_q" or "w_q8", "w_scale", "b"?} (a new dict); the
+    codes K-major (:func:`k_major`) when ``codes_k_major``."""
     q, scale = quantize_weight(p["w"])
+    if codes_k_major:
+        q = k_major(q)
     out = {("w_q8" if mode == "w8a8" else "w_q"): q, "w_scale": scale}
     if "b" in p:
         out["b"] = p["b"]
     return out
 
 
-def _quantize_module(mod: ParamDict, mode: str) -> None:
+def _quantize_module(mod: ParamDict, mode: str, codes_k_major: bool) -> None:
     """Replace a linear module's ``w`` parameter by its quantized pair, in
     place: the int8 codes (no gradient) and the fp32 scales."""
-    q = quantize_linear_params({"w": mod["w"]}, mode)
+    q = quantize_linear_params({"w": mod["w"]}, mode, codes_k_major)
     del mod._parameters["w"]
     for k, v in q.items():
         setattr(mod, k, nn.Parameter(v, requires_grad=v.is_floating_point()))
@@ -94,7 +125,7 @@ def quantize_model_params(params, path_filter=None, mode: str = "w8"):
     dict with {w_q, w_scale} (mode "w8") or {w_q8, w_scale} (mode "w8a8")
     in place of {w} at those sites, as the JAX package's function does; a
     module tree (``ParamDict``, ``nn.ModuleList``) is changed in place and
-    returned."""
+    returned.  The w8a8 codes of :data:`K_MAJOR_SUBLAYERS` come K-major."""
     if mode not in QUANT_MODES:
         raise ValueError(f"unknown quantization mode {mode!r}")
 
@@ -105,7 +136,7 @@ def quantize_model_params(params, path_filter=None, mode: str = "w8"):
     def walk(node, key=None):
         if isinstance(node, ParamDict):
             if take(node, key):
-                _quantize_module(node, mode)
+                _quantize_module(node, mode, k_major_site(key, mode))
             else:
                 for k, child in node.named_children():
                     walk(child, k)
@@ -116,7 +147,7 @@ def quantize_model_params(params, path_filter=None, mode: str = "w8"):
             return node
         if isinstance(node, Mapping):
             if take(node, key):
-                return quantize_linear_params(node, mode)
+                return quantize_linear_params(node, mode, k_major_site(key, mode))
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
