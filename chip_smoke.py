@@ -104,8 +104,9 @@ GEMM_CORE_LIMIT = 1e-4
 # ``cuda_ln_qkv.ln_qkv_route``, ``cuda_attention.attention_route``,
 # ``cuda_swiglu.swiglu_route``): on the wgmma core the GEMM core's products
 # and the block's row passes, on the walk mlp_main; bf16 attention the
-# one-pass wgmma kernel; the SwiGLU block the int8 core's products between
-# its row passes.
+# one-pass wgmma kernel; the SwiGLU block and the w8a8 MLP blocks the int8
+# core's products between their row passes (the row codes, the
+# requantization of the activation; post-LN also the slices' row pass).
 ROUTE_KERNELS = {
     ("encoder_attention", "wgmma"): ("attention_wgmma",),
     ("attention_gqa", "wgmma"): ("attention_wgmma",),
@@ -113,6 +114,9 @@ ROUTE_KERNELS = {
     ("mlp_block_q8", "wgmma"): ("dequant_kernel", "gemm_kernel", "ln_rows_bf16"),
     ("mlp_postln_q8", "wgmma"): ("dequant_kernel", "gemm_kernel", "mlp_epilogue"),
     ("swiglu_w8a8", "wgmma"): ("rms_quant_rows", "gemm_kernel", "requant_tiles"),
+    ("mlp_block_w8a8", "wgmma"): ("row_prologue", "gemm_kernel", "h_requant_rows"),
+    ("mlp_postln_w8a8", "wgmma"): ("row_prologue", "gemm_kernel", "h_requant_rows",
+                                   "w8a8_out"),
     ("ln_qkv", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
     ("mlp_postln", "wgmma"): ("gemm_kernel", "mlp_epilogue"),
     ("mlp_block_bwd", "wgmma"): ("gemm_kernel", "ln_rows_bf16", "mlp_bwd_preln_rows"),
@@ -121,9 +125,9 @@ ROUTE_KERNELS = {
                                                   "mlp_postln_q8")},
     ("mlp_block_bwd", "walk"): ("mlp_bwd_walk",),
 }
-# The second geometries the bf16 blocks (and the bf16 LN->QKV and both q8
-# blocks on the core) are checked at (the wgmma core's width contract):
-# BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
+# The second geometries the bf16 blocks (and the bf16 LN->QKV, both q8
+# blocks and both w8a8 blocks on the core) are checked at (the wgmma core's
+# width contract): BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
 OTHER_WIDTHS = ((1024, 4096), (512, 2048))
 # The SwiGLU block's other widths (its contract: H a multiple of 128, an
 # I-tile pick_tile(I, 1,024) a multiple of 128): Llama-3.2-1B (H 2,048, I
@@ -801,13 +805,14 @@ def check_mlp_bwd(gen, dev, postln: bool):
     return rows_out
 
 
-def int8_operands(gen, rows, dtype, dev, h=768, i=3072):
+def int8_operands(gen, rows, dtype, dev, h=768, i=3072, w8a8=False):
     """x and the LN/bias vectors in ``dtype``; the QKV and MLP weights drawn
     in ``dtype`` and quantized as the model's are (int8 codes, fp32
-    per-out-channel scales)."""
+    per-out-channel scales); ``w8a8``: the MLP codes K-major, as a w8a8
+    model holds them (``k_major``; the w8 and QKV codes row-major)."""
     import torch
 
-    from vault_tpu_torch.ops.quantize import quantize_weight
+    from vault_tpu_torch.ops.quantize import k_major, quantize_weight
 
     def rnd(*shape, std=1.0, mean=0.0):
         return (torch.randn(shape, generator=gen, device=dev) * std + mean).to(dtype)
@@ -819,12 +824,15 @@ def int8_operands(gen, rows, dtype, dev, h=768, i=3072):
                     ("w2", rnd(i, h, std=0.02))):
         q, sc = quantize_weight(w)
         o[name + "q"], o["s" + name[1:]] = q, sc.reshape(-1)
+        if w8a8 and name != "wqkv":
+            o[name + "q"] = k_major(q)
     return o
 
 
 def _int8_linear_lib(a, wq, sc, b):
     """The library yardstick's w8a8 linear: per-row absmax quantization in
-    PyTorch ops, torch._int_mm, dequantization and bias."""
+    PyTorch ops, torch._int_mm (on the codes as they lie: K-major for the
+    MLP's, row-major for the QKV's), dequantization and bias."""
     import torch
 
     af = a.float()
@@ -873,11 +881,13 @@ def check_int8_family(gen, dev, name):
     the serving path's rows (batch 8: 2,048 ViLT rows, 320 BERT rows) and at
     77 fp32 rows (w8a8: bit-equal; fp LN->QKV: see ``LNQKV_BF16_LIMIT``; q8,
     which rounds no activation to int8: ``LIMITS``); the kernels on the
-    wgmma core (bf16 LN->QKV, both bf16 q8 blocks) also at 77 and 37 rows
-    and at ``OTHER_WIDTHS``, q8 with every activation; two launches
-    bit-equal; times beside the bound and the library composition, the
-    route's device kernels checked (``check_route``); each q8 block's
-    dequantization pass held exact (``check_dequant_pass``)."""
+    wgmma core (bf16 LN->QKV, both bf16 q8 blocks, both w8a8 blocks on its
+    int8 instance) also at 77 and 37 rows and at ``OTHER_WIDTHS``, q8 and
+    w8a8 with every activation, w8a8 in bf16 and fp32 alike (their codes
+    K-major, as the model holds them); two launches bit-equal; times beside
+    the bound and the library composition, the route's device kernels
+    checked (``check_route``); each q8 block's dequantization pass held
+    exact (``check_dequant_pass``)."""
     import torch
     import torch.nn.functional as F
 
@@ -889,20 +899,23 @@ def check_int8_family(gen, dev, name):
     wrapper, plain = getattr(mod, wrapper_name), getattr(mod, plain_name)
     route_of = {"ln_qkv": lambda dt: cl.ln_qkv_route(dt),
                 "mlp_block_q8": lambda dt: cm.mlp_route(dt, True, False),
-                "mlp_postln_q8": lambda dt: cm.mlp_route(dt, True, True)}.get(name)
+                "mlp_postln_q8": lambda dt: cm.mlp_route(dt, True, True),
+                "mlp_block_w8a8": cm.w8a8_route, "mlp_postln_w8a8": cm.w8a8_route}.get(name)
     bf, h0, i0 = torch.bfloat16, 768, 3072
     rows_out = []
     cases = [(main_rows, bf, h0, i0, {}), (77, torch.float32, h0, i0, {})]
     if name.startswith("mlp_"):  # the other activations the MLP blocks take
         cases += [(rows, dtype, h0, i0, {"act": act}) for act in ("gelu_new", "relu")
                   for rows, dtype in ((main_rows, bf), (77, torch.float32))]
-    if name in ("ln_qkv", "mlp_block_q8", "mlp_postln_q8"):  # on the core: rows, widths
+    if name != "ln_qkv_w8a8":  # on the core: rows, widths
         acts = [{}] if name == "ln_qkv" else [{}] + [{"act": a} for a in cm._ACTS if a != "gelu"]
-        cases += [c for c in ((rows, bf, h, i, kw) for h, i in ((h0, i0), *OTHER_WIDTHS)
-                              for rows in (main_rows, 77, 37) for kw in acts)
+        dtypes = (bf, torch.float32) if name.endswith("_w8a8") else (bf,)
+        cases += [c for c in ((rows, dt, h, i, kw) for h, i in ((h0, i0), *OTHER_WIDTHS)
+                              for rows in (main_rows, 77, 37) for kw in acts for dt in dtypes)
                   if c not in cases]
     for rows, dtype, h, i, kw in cases:
-        o = int8_operands(gen, rows, dtype, dev, h=h, i=i)
+        o = int8_operands(gen, rows, dtype, dev, h=h, i=i,
+                          w8a8=name in ("mlp_block_w8a8", "mlp_postln_w8a8"))
         args = [o[k] for k in names]
         out, again, ref = wrapper(*args, **kw), wrapper(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
@@ -1542,7 +1555,8 @@ def swiglu_plain_version():
 
 def w8a8_forward_phase(dev, cfg, bf16_model):
     """The same seeded VAuLT-base, cast to bf16 and then quantized w8a8
-    (``VaultForClassification.quantize``), on its serving selector: launches
+    (``VaultForClassification.quantize``, its MLP codes held K-major), on
+    its serving selector: launches
     per forward, the kernel path bit-equal to the same path through the
     int8 kernels' plain versions, its distance from the XLA composition and
     from the bf16 model (reported), weight bytes, and times at batch 8 and
@@ -1550,13 +1564,17 @@ def w8a8_forward_phase(dev, cfg, bf16_model):
     import torch
 
     from vault_tpu_torch.models.vault import VaultForClassification
-    from vault_tpu_torch.ops.quantize import quantized_bytes
+    from vault_tpu_torch.ops.quantize import is_k_major, quantized_bytes
 
     t0 = time.perf_counter()
     model = VaultForClassification(cfg, n_classes=3, device=dev, dtype=torch.bfloat16,
                                    seed=0).quantize("w8a8")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    # the int8 MLP kernels take the codes K-major only: the model holds them so
+    if not all(is_k_major(lp[n]["w_q8"]) for tower in ("vilt", "bert")
+               for lp in model[tower]["layers"] for n in ("mlp_in", "mlp_out")):
+        fail("w8a8: the MLP codes are not held K-major")
     impl = model.use_pallas
     batch = entry_batch(cfg, 8, dev)
     with torch.inference_mode():

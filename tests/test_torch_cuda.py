@@ -441,21 +441,24 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(dev):
 # LN -> QKV (csrc/ln_qkv.cu) and the w8a8 MLP blocks (csrc/mlp_w8a8.cu)
 # ---------------------------------------------------------------------------
 
-def _int8_operands(dev, rows, dtype, i=3072, seed=4):
-    from vault_tpu_torch.ops.quantize import quantize_weight
+def _int8_operands(dev, rows, dtype, i=3072, seed=4, h=768, w8a8=False):
+    """x, the LN and bias vectors and the quantized QKV and MLP weights;
+    ``w8a8``: the MLP codes K-major, as a w8a8 model holds them (the w8
+    codes and the QKV codes stay row-major)."""
+    from vault_tpu_torch.ops.quantize import k_major, quantize_weight
 
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape, std=1.0, mean=0.0):
         return (torch.randn(shape, generator=g, device=dev) * std + mean).to(dtype)
 
-    o = dict(gamma=rnd(768, std=0.1, mean=1.0), beta=rnd(768, std=0.1),
-             b1=rnd(i, std=0.02), b2=rnd(768, std=0.02), bqkv=rnd(2304, std=0.02),
-             x=rnd(rows, 768), wqkv=rnd(768, 2304, std=0.02))
-    for name, shape in (("w1", (768, i)), ("w2", (i, 768)), ("wqkv", None)):
+    o = dict(gamma=rnd(h, std=0.1, mean=1.0), beta=rnd(h, std=0.1),
+             b1=rnd(i, std=0.02), b2=rnd(h, std=0.02), bqkv=rnd(3 * h, std=0.02),
+             x=rnd(rows, h), wqkv=rnd(h, 3 * h, std=0.02))
+    for name, shape in (("w1", (h, i)), ("w2", (i, h)), ("wqkv", None)):
         w = o["wqkv"] if shape is None else rnd(*shape, std=0.02)
         q, s = quantize_weight(w)
-        o[name + "q"], o["s" + name[1:]] = q, s.reshape(-1)
+        o[name + "q"], o["s" + name[1:]] = k_major(q) if w8a8 and shape else q, s.reshape(-1)
     return o
 
 
@@ -496,13 +499,17 @@ def test_ln_qkv_kernels_match_plain(dev, dtype, rows):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows", [1, 77, 320, 2048])
+@pytest.mark.parametrize("rows", [1, 37, 77, 320, 2048])
 @pytest.mark.parametrize("postln", [False, True])
 @pytest.mark.parametrize("act", ["gelu", "gelu_new", "relu"])
-def test_mlp_w8a8_kernels_match_plain(dev, dtype, rows, postln, act):
+@pytest.mark.parametrize("h,i", [(768, 3072), (1024, 4096), (512, 2048)])
+def test_mlp_w8a8_kernels_match_plain(dev, dtype, rows, postln, act, h, i):
+    """Both w8a8 blocks on the int8 core, K-major codes, bit-equal to
+    their plain versions and across two launches, at BERT-base/ViLT-B
+    widths, BERT-large's and H 512 / I 2,048."""
     from vault_tpu_torch.ops import cuda_mlp as cm
 
-    o = _int8_operands(dev, rows, dtype)
+    o = _int8_operands(dev, rows, dtype, i=i, h=h, w8a8=True)
     args = [o[k] for k in W8A8_ARGS]
     kernel = cm.fused_mlp_postln_fwd_w8a8 if postln else cm.fused_mlp_block_fwd_w8a8
     plain = cm.mlp_postln_w8a8_plain if postln else cm.mlp_block_w8a8_plain
@@ -901,9 +908,10 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
     from vault_tpu_torch.ops import cuda_ln_qkv as cl
     from vault_tpu_torch.ops import cuda_mlp as cm
 
-    o = _int8_operands(dev, 16, torch.bfloat16, i=256)
+    o = _int8_operands(dev, 16, torch.bfloat16, i=256, w8a8=True)
     args = [o[k] for k in W8A8_ARGS]
     bad = {
+        "row-major codes": args[:2] + [o["w1q"].contiguous()] + args[3:],
         "fp weights": [o["gamma"], o["beta"], o["w1q"].to(torch.bfloat16)] + args[3:],
         "bf16 scales": args[:3] + [o["s1"].to(torch.bfloat16)] + args[4:],
         "fp32 x": args[:8] + [o["x"].float()],

@@ -18,6 +18,7 @@ import torch
 
 from vault_tpu_torch.ops import cuda_gemm as cg
 from vault_tpu_torch.ops import cuda_mlp as cm
+from vault_tpu_torch.ops.quantize import k_major
 
 
 @pytest.mark.parametrize("dtype,int8_weights,postln,route", [
@@ -36,6 +37,20 @@ def test_mlp_route(dtype, int8_weights, postln, route):
     blocks stay on the walk.  Which entries each wrapper launches: the test
     below."""
     assert cm.mlp_route(dtype, int8_weights, postln) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_route(dtype):
+    """The w8a8 MLP blocks, pre-LN and post-LN, run on the int8 core for
+    both dtypes: their products are exact in int32, only their casts depend
+    on the dtype."""
+    assert cm.w8a8_route(dtype) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int8, torch.float64])
+def test_w8a8_route_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="w8a8_route"):
+        cm.w8a8_route(dtype)
 
 
 @pytest.mark.parametrize("dtype,w8a8,route", [
@@ -107,12 +122,18 @@ class _EntryRecorder:
     ("attention", torch.float32, False, "vt_attention_fwd"),
     ("attention_gqa", torch.bfloat16, False, "vt_attention_gqa_fwd"),
     ("attention_gqa", torch.float32, False, "vt_attention_gqa_fwd"),
+    ("w8a8", torch.bfloat16, False, "vt_mlp_w8a8"),
+    ("w8a8", torch.bfloat16, True, "vt_mlp_w8a8"),
+    ("w8a8", torch.float32, False, "vt_mlp_w8a8"),
+    ("w8a8", torch.float32, True, "vt_mlp_w8a8"),
 ])
 def test_wrappers_launch_the_entries_of_their_route(monkeypatch, wrapper, dtype, postln,
                                                     entry):
     """The wrappers launch the C entries of the design ``mlp_route`` (or
-    ``ln_qkv_route``) names, with the workspace of that design (LN->QKV:
-    the wrapper's own scratch).  Each attention wrapper has one C entry,
+    ``ln_qkv_route``, ``w8a8_route``) names, with the workspace of that
+    design (LN->QKV: the wrapper's own scratch; w8a8: the second product's
+    s32 slices, as many as ``vt_mlp_w8a8_slices`` says, and the codes'
+    K-major storage handed as it lies).  Each attention wrapper has one C entry,
     which runs the design ``attention_route`` names for the dtype it is
     handed (bf16 1, fp32 0); the wrapper returns the (B, L, H, D) output as
     a (B, H, L, D) view and counts the launch."""
@@ -158,6 +179,20 @@ def test_wrappers_launch_the_entries_of_their_route(monkeypatch, wrapper, dtype,
         cm._launch_q8(postln, a["gamma"], a["beta"], a["w1"].to(torch.int8),
                       torch.ones(i), a["b1"], a["w2"].to(torch.int8), torch.ones(768),
                       a["b2"], a["x"], 1e-12, "gelu")
+    elif wrapper == "w8a8":
+        i = a["w1"].shape[1]
+        w1q, w2q = (k_major(a[w].to(torch.int8)) for w in ("w1", "w2"))
+        calls = []
+        monkeypatch.setattr(lib, entry, lambda *args: calls.append(args) or
+                            lib.called.append(entry) or 0, raising=False)
+        cm._launch_w8a8(postln, a["gamma"], a["beta"], w1q, torch.ones(i), a["b1"], w2q,
+                        torch.ones(768), a["b2"], a["x"], 1e-12, "gelu")
+        assert lib.called == ["vt_mlp_w8a8_slices", entry]
+        (call,) = calls
+        assert call[3] == w1q.data_ptr() and call[6] == w2q.data_ptr()
+        assert call[16:19] == (a["x"].shape[0], 768, i)
+        assert call[-3:-1] == (int(postln), cm._DTYPES[dtype])
+        return
     else:
         wqkv = torch.zeros((768, 2304), dtype=dtype)
         cl.fused_ln_qkv_fwd(a["gamma"], a["beta"], wqkv, torch.zeros(2304, dtype=dtype),
@@ -286,10 +321,14 @@ def test_gemm_wrappers_refuse_shapes_the_core_does_not_take(bad):
 # multiple of 64 from 64 to 8,192, I a multiple of 64.
 CORE_WIDTHS = [(64, 64), (512, 2048), (768, 3072), (1024, 4096), (8192, 64)]
 CORE_REFUSED = [(32, 64), (96, 128), (8256, 64), (768, 96), (768, 0)]
-# the walk's (fp32 blocks, int8 weights) and the w8a8 kernels': H 768, I a
-# multiple of 128
+# the walk's (fp32 blocks, int8 weights): H 768, I a multiple of 128
 WALK_WIDTHS = [(768, 128), (768, 3072)]
 WALK_REFUSED = [(512, 2048), (1024, 4096), (768, 192)]
+# the w8a8 blocks' on the int8 core: H a multiple of 128 from 128 to 8,192,
+# I a multiple of 128 up to 32,768
+W8A8_WIDTHS = [(128, 128), (512, 2048), (768, 3072), (1024, 4096), (8192, 128),
+               (128, 32768)]
+W8A8_REFUSED = [(64, 128), (192, 128), (8320, 128), (768, 192), (768, 0), (128, 32896)]
 
 
 def _block_args(dtype, h, i, rows=2):
@@ -324,9 +363,23 @@ def test_mlp_wrappers_hold_their_width_contract(kind, postln, dtype, h, i, accep
 
 def _int8_contract(family, postln, dtype):
     """The widths an int8-weight block takes: the bf16 q8 blocks the wgmma
-    core's, every other one the walk's (w8a8: its kernels')."""
-    core = family == "q8" and dtype == torch.bfloat16
+    core's, the fp32 ones the walk's, the w8a8 ones the int8 core's."""
+    if family == "w8a8":
+        return W8A8_WIDTHS, W8A8_REFUSED
+    core = dtype == torch.bfloat16
     return (CORE_WIDTHS, CORE_REFUSED) if core else (WALK_WIDTHS, WALK_REFUSED)
+
+
+def _int8_block_args(family, a, h, i, layout=None):
+    """The int8 wrappers' arguments from ``_block_args``: the codes of w1
+    and w2, K-major for w8a8 (``layout`` names one held row-major
+    instead)."""
+    def codes(name):
+        q = a[name].to(torch.int8)
+        return k_major(q) if family == "w8a8" and name != layout else q
+
+    return (a["gamma"], a["beta"], codes("w1"), torch.ones(i), a["b1"], codes("w2"),
+            torch.ones(h), a["b2"], a["x"])
 
 
 @pytest.mark.parametrize("family,postln,dtype,h,i,accepted", [
@@ -336,13 +389,24 @@ def _int8_contract(family, postln, dtype):
     for widths, accepted in zip(_int8_contract(family, postln, dtype), (True, False))
     for h, i in widths])
 def test_int8_mlp_wrappers_hold_their_width_contract(family, postln, dtype, h, i, accepted):
-    a = _block_args(dtype, h, i)
     fn = getattr(cm, f"fused_mlp_{'postln' if postln else 'block'}_fwd_{family}")
-    q = lambda t: t.to(torch.int8)
-    args = (a["gamma"], a["beta"], q(a["w1"]), torch.ones(i), a["b1"], q(a["w2"]),
-            torch.ones(h), a["b2"], a["x"])
+    args = _int8_block_args(family, _block_args(dtype, h, i), h, i)
     before = fn.launches
     with pytest.raises(ValueError, match="CUDA" if accepted else "hidden size"):
+        fn(*args)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("layout", ["w1", "w2"])
+@pytest.mark.parametrize("postln", [False, True])
+def test_w8a8_wrappers_refuse_codes_not_held_k_major(postln, layout):
+    """Row-major codes (the JAX package's layout) are refused, not
+    transposed per call: the port holds the MLP's w8a8 codes K-major from
+    the start (ops/quantize.py k_major)."""
+    fn = cm.fused_mlp_postln_fwd_w8a8 if postln else cm.fused_mlp_block_fwd_w8a8
+    args = _int8_block_args("w8a8", _block_args(torch.bfloat16, 768, 256), 768, 256, layout)
+    before = fn.launches
+    with pytest.raises(ValueError, match=f"{layout}q must be held K-major.*k_major"):
         fn(*args)
     assert fn.launches == before
 
@@ -449,11 +513,8 @@ def test_dequant_wrapper_refuses_misaligned_or_strided_operands(defect, operand)
 def test_w8a8_wrappers_take_every_activation(postln, act):
     """The w8a8 kernels take the activations of the fp and q8 blocks: a CPU
     call gets past the activation to the device check."""
-    a = _block_args(torch.bfloat16, 768, 256)
     fn = cm.fused_mlp_postln_fwd_w8a8 if postln else cm.fused_mlp_block_fwd_w8a8
-    q = lambda t: t.to(torch.int8)
-    args = (a["gamma"], a["beta"], q(a["w1"]), torch.ones(256), a["b1"], q(a["w2"]),
-            torch.ones(768), a["b2"], a["x"])
+    args = _int8_block_args("w8a8", _block_args(torch.bfloat16, 768, 256), 768, 256)
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args, act=act)
     with pytest.raises(ValueError, match="activation"):
@@ -595,6 +656,21 @@ def test_gemm_s8_wrapper_refuses_what_the_core_does_not_take(bad):
         else:
             cg.gemm_s8(a, _strided(b))
     assert cg.gemm_s8.launches == before
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4, 6])
+def test_gemm_s8_split_k_plain_sums_to_the_product(splits):
+    """The s32 slices of the int8 split-K (the w8a8 post-LN block's second
+    product) sum exactly to the whole product, in any order."""
+    rng = np.random.default_rng(13)
+    a, b = _codes(rng, 37, 768), _codes(rng, 48, 768)
+    slices = cg.gemm_s8_split_k_plain(a, b, splits)
+    assert slices.dtype == torch.int32 and slices.shape == (splits, 37, 48)
+    whole = cg.gemm_s8_plain(a, b)
+    assert torch.equal(slices.sum(0, dtype=torch.int32), whole)
+    assert torch.equal(slices.flip(0).sum(0, dtype=torch.int32), whole)
+    bounds = cg.split_bounds(768, splits, cg.K_MULTIPLE_S8)
+    assert all(k0 % 128 == 0 and k1 > k0 for k0, k1 in bounds) and bounds[-1][1] == 768
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

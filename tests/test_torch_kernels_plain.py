@@ -376,9 +376,12 @@ def _q_inputs(dtype, h=128, inner=256, rows=(2, 24), seed=21):
 
 
 def _w8a8_params(s, postln=False):
+    """The w8a8 MLP parameters; the port's codes K-major, as it holds the
+    MLP's (ops/quantize.py)."""
+    codes = lambda q: tq.k_major(q) if isinstance(q, torch.Tensor) else q
     return ({"scale": s["gamma"], "bias": s["beta"]},
-            {"w_q8": s["w1q"], "w_scale": s["s1"], "b": s["b1"]},
-            {"w_q8": s["w2q"], "w_scale": s["s2"], "b": s["b2"]})
+            {"w_q8": codes(s["w1q"]), "w_scale": s["s1"], "b": s["b1"]},
+            {"w_q8": codes(s["w2q"]), "w_scale": s["s2"], "b": s["b2"]})
 
 
 def _close(out, ref, dtype, atol):
@@ -445,6 +448,79 @@ def test_mlp_w8a8_plain_vs_pallas(dtype, postln, act):
     out = plain(*(t[k] for k in args), act=act)
     assert out.dtype == t["x"].dtype and out.shape == t["x"].shape
     _close(out, ref, dtype, W8A8_ATOL["postln" if postln else "preln"])
+
+
+def _w8a8_inside(t, postln, eps=1e-12):
+    """The plain versions' steps up to the second product: h (its input,
+    in x's type) and the post-LN block's LN input x + o2 in fp32."""
+    x = t["x"]
+    y = x if postln else cm.layer_norm_f32(t["gamma"], t["beta"], x, eps).to(x.dtype)
+    h = cm._w8a8_linear_f32(*tq.quantize_activation(y), t["w1q"], t["s1"], t["b1"])
+    h = cm._act_f32("gelu")(h).to(x.dtype)
+    o2 = cm._w8a8_linear_f32(*tq.quantize_activation(h), t["w2q"], t["s2"], t["b2"])
+    return h, x.float() + o2
+
+
+def _code_step(t, postln):
+    """Per row, the most that one code of q(h) one step off moves the
+    output: h's scale times the largest |W2|; post-LN also times the LN's
+    1 / std and the largest |gamma|."""
+    h, s = _w8a8_inside(t, postln)
+    w2 = (t["w2q"].float() * t["s2"].float().reshape(1, -1)).abs().max()
+    step = h.float().abs().amax(-1) / 127 * w2
+    if postln:
+        step = step * torch.rsqrt(s.var(-1, unbiased=False) + 1e-12) * t["gamma"].float().abs().max()
+    return _np(step).reshape(-1).astype(np.float64)
+
+
+def _close_but_one_row(out, ref, dtype, atol, step):
+    """:func:`_close`'s tolerance on every row but at most one, and that
+    row past it by at most one code step (``_code_step``): a code of q(h)
+    flips where the two sides' h lie either side of a rounding point."""
+    out = _np(out).astype(np.float64).reshape(len(step), -1)
+    ref = _np(ref).astype(np.float64).reshape(len(step), -1)
+    atol, rtol = (ATOL[dtype], RTOL[dtype]) if dtype == "bfloat16" else (atol, 1e-4)
+    over = (np.abs(out - ref) - atol - rtol * np.abs(ref)).max(-1)
+    assert (over > 0).sum() <= 1 and (over <= step).all(), (over, step)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("postln", [False, True])
+@pytest.mark.parametrize("h,i", [(256, 1024), (128, 384)])
+def test_mlp_w8a8_plain_at_a_second_width(dtype, postln, h, i):
+    """Both w8a8 plain versions at widths the kernels on the int8 core
+    newly take (H and I multiples of 128), on K-major codes as the model
+    holds them, against the Pallas kernel (interpret mode) and the XLA
+    composition at the file's tolerances, with an allowance for flipped
+    codes of q(h): at most one row past the tolerance, by at most one code
+    step.  bf16 against XLA is held in two halves, each at the file's
+    tolerance: h against the composition's activation, and the output
+    against the composition's second half fed the plain version's h.  The
+    composition rounds the first product to bf16 before the activation
+    (nn.linear), so at I = 1,024 a tenth of h's codes differ by one step
+    and several rows of the whole output lie past the tolerance."""
+    j, t = _q_inputs(dtype, h=h, inner=i, rows=(2, 12))
+    args = ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x")
+    plain = cm.mlp_postln_w8a8_plain if postln else cm.mlp_block_w8a8_plain
+    pallas = pm.fused_mlp_postln_fwd_w8a8 if postln else pm.fused_mlp_block_fwd_w8a8
+    xla = pm._mlp_postln_xla if postln else pm._mlp_block_xla
+    codes = {k: tq.k_major(t[k]) if k in ("w1q", "w2q") else t[k] for k in args}
+    out = plain(*(codes[k] for k in args))
+    assert out.dtype == t["x"].dtype and out.shape == (2, 12, h)
+    assert torch.equal(out, plain(*(t[k] for k in args)))  # either layout
+    atol, step = W8A8_ATOL["postln" if postln else "preln"], _code_step(t, postln)
+    ref = pallas(*(j[k] for k in args), eps=1e-12, interpret=True)
+    _close_but_one_row(out, ref, dtype, atol, step)
+    if dtype == "float32":
+        _close_but_one_row(out, xla(*_w8a8_params(j), j["x"], 1e-12, "gelu"), dtype, atol, step)
+        return
+    ln_p, p_in, p_out = _w8a8_params(j)
+    y = j["x"] if postln else pm.layer_norm(ln_p, j["x"], 1e-12)
+    th, _ = _w8a8_inside(t, postln)
+    _close(th, pm.act_fn("gelu")(pm.linear(p_in, y)), dtype, atol)
+    mlp = pm.linear(p_out, jnp.asarray(_np(th), jnp.bfloat16))
+    ref = pm.layer_norm(ln_p, j["x"] + mlp, 1e-12) if postln else j["x"] + mlp
+    _close(out, ref, dtype, atol)
 
 
 @pytest.mark.parametrize("act", ["gelu", "gelu_new", "relu"])
@@ -574,10 +650,11 @@ def test_int8_kernel_wrappers_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         cl.fused_ln_qkv_fwd_w8a8(t["gamma"], t["beta"], t["wqkvq"], t["sqkv"],
                                  t["bqkv"], t["x"])
+    codes = {k: tq.k_major(t[k]) if k in ("w1q", "w2q") else t[k] for k in t}
     for fn in (cm.fused_mlp_block_fwd_w8a8, cm.fused_mlp_postln_fwd_w8a8):
         with pytest.raises(ValueError, match="CUDA"):
-            fn(*(t[k] for k in ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2",
-                                "b2", "x")))
+            fn(*(codes[k] for k in ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2",
+                                    "b2", "x")))
     assert counts() == before
 
 

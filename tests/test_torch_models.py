@@ -328,6 +328,11 @@ def test_vault_w8a8_matches_jax(dtype, impl):
     jqp = quantize_model_params(jp, mode="w8a8")
     model = _model(tcfg, jp, dtype).quantize("w8a8")
     assert model.use_pallas == "fuselnqkv+fusemlp"
+    # the MLP codes K-major, as the int8 MLP kernels take them
+    from vault_tpu_torch.ops.quantize import is_k_major
+
+    assert all(is_k_major(lp[n]["w_q8"]) for tower in ("vilt", "bert")
+               for lp in model[tower]["layers"] for n in ("mlp_in", "mlp_out"))
     jb, tb = _sides(_batch(seed=6), dtype)
     ref_logits = jvault.vault_for_classification(jqp, jcfg, jb, head_dropout=0.0,
                                                  deterministic=True, use_pallas=impl)

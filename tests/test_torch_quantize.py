@@ -227,6 +227,49 @@ def test_quantize_model_params_on_a_plain_dict_returns_a_new_tree():
         tq.quantize_model_params(tree, mode="int4")
 
 
+def _k_major(q):
+    """K (the second-to-last dimension, ``in``) contiguous: a transposed view
+    of contiguous storage, for a matrix or a stack of them."""
+    return q.transpose(-1, -2).is_contiguous() and not q.is_contiguous()
+
+
+@pytest.mark.parametrize("form", ["module", "dict", "bridge"])
+@pytest.mark.parametrize("mode", ["w8", "w8a8"])
+def test_mlp_codes_are_held_k_major_in_w8a8_alone(mode, form):
+    """Every mlp_in / mlp_out w8a8 code matrix, in both towers, is held
+    K-major (the int8 MLP kernels' layout) after ``quantize``, after
+    ``quantize_model_params`` on a plain stacked dict and after
+    ``params_from_jax``; the w8 codes and the q/k/v/attn_out codes stay
+    contiguous; ``params_to_jax`` returns the JAX package's arrays."""
+    _, tcfg, jp, jqp, model = _quantized_trees(mode)
+    key = "w_q8" if mode == "w8a8" else "w_q"
+    if form == "module":
+        leaves = model.state_dict()
+    elif form == "dict":
+        tree = tq.quantize_model_params(
+            jax.tree.map(lambda a: torch.from_numpy(np.array(a, np.float32)), jp), mode=mode)
+        leaves = {f"{tower}.layers.{name}.{key}": tree[tower]["layers"][name][key]
+                  for tower in ("vilt", "bert")
+                  for name in ("q", "k", "v", "attn_out", "mlp_in", "mlp_out")}
+    else:
+        leaves = params_from_jax(jax.tree.map(np.asarray, jqp), tcfg)
+        back = params_to_jax(leaves)
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jqp)):
+            assert a.dtype == np.asarray(b).dtype and a.shape == np.asarray(b).shape
+            np.testing.assert_array_equal(a, np.asarray(b))
+    codes = {k: t for k, t in leaves.items() if k.endswith("." + key)}
+    mlp = [k for k in codes if k.split(".")[-2] in ("mlp_in", "mlp_out")]
+    # two per layer, or two stacks per tower in the dict
+    assert len(mlp) == (4 if form == "dict" else
+                        2 * (tcfg.vilt.num_hidden_layers + tcfg.text_tower.num_hidden_layers))
+    for k, t in codes.items():
+        assert t.dtype == torch.int8, k
+        if mode == "w8a8" and k in mlp:
+            assert _k_major(t), (k, t.stride())
+        else:
+            assert t.is_contiguous(), (k, t.stride())
+
+
 def test_quantized_checkpoints_cross_both_ways(tmp_path):
     """scripts/quantize_ckpt.py's flow: the JAX package quantizes and saves;
     the port restores the npz into its quantized model bit-equal, and the

@@ -1,13 +1,16 @@
-// Pieces shared by the LN->QKV kernels (ln_qkv.cu) and the w8a8 MLP
-// kernels (mlp_w8a8.cu):
+// Pieces shared by the LN->QKV kernels (ln_qkv.cu) and the w8a8 kernels
+// (mlp_w8a8.cu, swiglu_w8a8.cu):
 //
-//   * row kernels, one block of RT threads per row, the whole row in
-//     registers: a LayerNorm (row_prologue), a row's int8 quantization
-//     (row_prologue, requant_rows), the w8a8 MLP's last step (w8a8_out);
+//   * row helpers for one block of RT threads per row, the whole row in
+//     registers: a LayerNorm (ln_row), a row's int8 quantization (quant,
+//     quant_scale), sums and maxima over the block in a fixed order, the
+//     row kernel row_prologue (LN and/or quantization of each row), pairs
+//     of T to and from fp32, and eight values' int8 codes (quant8);
 //   * gemm_tiles, a tiled product C = A B with A (M, K) and B (K, N) both
 //     row-major as the JAX package stores them, through the tensor cores
-//     (int8 x int8 -> int32, or bf16 with fp32 accumulation; wmma 16x16x16)
-//     or plain fp32 FMA, with the epilogues the kernels need.
+//     (int8 x int8 -> int32; wmma 16x16x16) or plain fp32 FMA, with a bias
+//     (fp32) or a dequantization and a bias (int8) in its epilogue: the
+//     fp32 and w8a8 LN->QKV products.
 //
 // Numerics.  The LayerNorm takes its mean and variance in double from the
 // fp32 row and rounds them to fp32, then normalises in fp32: the
@@ -34,18 +37,20 @@
 // reads 16-byte rows.  Eight warps, 2 x 4, each own a (32, 32) piece: four
 // accumulator fragments.  int8 B fragments are row-major, which wmma takes
 // (PTX mma.sync takes s8 B only column-major), so the weights keep their
-// (in, out) layout.  Split-K blocks (grid z) write int32 partial sums; the
-// caller adds them in a fixed order (integer sums are exact in any order).
+// (in, out) layout.
 #pragma once
 
 #include <stdint.h>
 
-#include "mlp_common.cuh"  // cp.async helpers, num_sms, allow_smem
+#include <type_traits>
+
+#include "mlp_common.cuh"  // cp.async helpers, allow_smem, load8
 
 namespace {
 namespace gm {
 
 constexpr int RT = 128;  // threads of a row kernel
+constexpr int ROW_H_MAX = 8192;  // the widest row a row kernel holds in registers
 constexpr int BM = 64, BN = 128, BK = 64;
 constexpr int CH = 16;   // columns per shared-memory chunk
 constexpr int NT = 256;  // threads of gemm_tiles (8 warps)
@@ -54,9 +59,6 @@ constexpr int LDS = BN + 4;  // ld of the epilogue's staging tile
 enum Epi {
   kBias = 0,     // out = T(acc + bias)                      (fp products)
   kDequant = 1,  // out = T(acc * (rs * cs) + bias)           (int8)
-  kAct = 2,      // out = T(act(acc * (rs * cs) + bias)), act a vt::Act code;
-                 //   per-(row, column tile) absmax of the rounded values into pmax
-  kPartial = 3,  // ws[z] = acc, int32, rows < M only
 };
 
 __device__ __forceinline__ float act_rn(float v, int act) {
@@ -99,6 +101,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The maximum of v >= 0 over a block of at most WARPS warps; red holds
+// WARPS floats, those of warps the block lacks 0.
+template <int WARPS = RT / 32>
 __device__ __forceinline__ float block_max(float v, float* red) {
   v = warp_max(v);
   __syncthreads();
@@ -106,64 +111,114 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   __syncthreads();
   float t = 0.0f;
 #pragma unroll
-  for (int w = 0; w < RT / 32; ++w) t = fmaxf(t, red[w]);
+  for (int w = 0; w < WARPS; ++w) t = fmaxf(t, red[w]);
   return t;
 }
 
-// LayerNorm of a row held as v[i] = column tid + RT i, in place.
+// LayerNorm of a row of H = RT n columns held as v[i] = column tid + RT i,
+// i < n <= PER, in place.
 template <typename T, int PER>
-__device__ __forceinline__ void ln_row(float (&v)[PER], const T* __restrict__ gamma,
+__device__ __forceinline__ void ln_row(float (&v)[PER], int n, const T* __restrict__ gamma,
                                        const T* __restrict__ beta, float eps, double* red) {
-  constexpr int H = RT * PER;
+  const int H = RT * n;
   double s = 0.0;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) s += static_cast<double>(v[i]);
+  for (int i = 0; i < PER; ++i)
+    if (i < n) s += static_cast<double>(v[i]);
   const float mean = static_cast<float>(block_sum(s, red) / H);
   double q = 0.0;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    v[i] = __fsub_rn(v[i], mean);
-    q += static_cast<double>(v[i]) * static_cast<double>(v[i]);
+    if (i < n) {
+      v[i] = __fsub_rn(v[i], mean);
+      q += static_cast<double>(v[i]) * static_cast<double>(v[i]);
+    }
   }
   const float var = static_cast<float>(block_sum(q, red) / H);
   const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int c = threadIdx.x + RT * i;
-    v[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i], rstd), vt::to_f(gamma[c])), vt::to_f(beta[c]));
+    if (i < n)
+      v[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i], rstd), vt::to_f(gamma[c])), vt::to_f(beta[c]));
   }
 }
 
-// One row per block: [LN(x) rounded to T (LN)] then either the row in T
-// (y) or its int8 codes and scale (QUANT: q, scale).
+// One row per block, H = RT n columns, n <= PER: [LN(x) rounded to T (LN)]
+// then either the row in T (y) or its int8 codes and scale (QUANT: q,
+// scale).
 template <typename T, int PER, bool LN, bool QUANT>
 __global__ void __launch_bounds__(RT)
 row_prologue(const T* __restrict__ x, const T* __restrict__ gamma, const T* __restrict__ beta,
-             T* __restrict__ y, int8_t* __restrict__ q, float* __restrict__ scale, float eps) {
-  constexpr int H = RT * PER;
+             T* __restrict__ y, int8_t* __restrict__ q, float* __restrict__ scale, int H,
+             float eps) {
   __shared__ double redd[RT / 32];
   __shared__ float redf[RT / 32];
+  const int n = H / RT;
   const size_t base = static_cast<size_t>(blockIdx.x) * H + threadIdx.x;
   float v[PER];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) v[i] = vt::to_f(x[base + RT * i]);
+  for (int i = 0; i < PER; ++i) v[i] = i < n ? vt::to_f(x[base + RT * i]) : 0.0f;
   if constexpr (LN) {
-    ln_row<T, PER>(v, gamma, beta, eps, redd);
+    ln_row<T, PER>(v, n, gamma, beta, eps, redd);
 #pragma unroll
     for (int i = 0; i < PER; ++i) v[i] = vt::to_f(vt::from_f<T>(v[i]));
   }
   if constexpr (!QUANT) {
 #pragma unroll
-    for (int i = 0; i < PER; ++i) y[base + RT * i] = vt::from_f<T>(v[i]);
+    for (int i = 0; i < PER; ++i)
+      if (i < n) y[base + RT * i] = vt::from_f<T>(v[i]);
   } else {
     float m = 0.0f;
 #pragma unroll
     for (int i = 0; i < PER; ++i) m = fmaxf(m, fabsf(v[i]));
     const float s = quant_scale(block_max(m, redf));
 #pragma unroll
-    for (int i = 0; i < PER; ++i) q[base + RT * i] = quant(v[i], s);
+    for (int i = 0; i < PER; ++i)
+      if (i < n) q[base + RT * i] = quant(v[i], s);
     if (threadIdx.x == 0) scale[blockIdx.x] = s;
   }
+}
+
+// f(std::integral_constant<int, PER>) for a row kernel of H = RT n
+// columns, n <= PER, H <= ROW_H_MAX; returns the launch's error.
+template <class F>
+cudaError_t with_per(int H, F f) {
+  if (H <= 8 * RT) f(std::integral_constant<int, 8>());
+  else if (H <= 32 * RT) f(std::integral_constant<int, 32>());
+  else f(std::integral_constant<int, ROW_H_MAX / RT>());
+  return cudaGetLastError();
+}
+
+// A pair of T at p (c even) from or to fp32, rounded to T on the way out.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float v0, float v1);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+template <typename T>
+__device__ __forceinline__ float2 load_pair(const T* p);
+template <>
+__device__ __forceinline__ float2 load_pair<float>(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+template <>
+__device__ __forceinline__ float2 load_pair<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+// The int8 codes of eight values in scale s, packed in two words.
+__device__ __forceinline__ uint2 quant8(const float (&v)[8], float s) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) w[e / 4] |= (uint32_t)(uint8_t)quant(v[e], s) << (8 * (e % 4));
+  return make_uint2(w[0], w[1]);
 }
 
 template <typename E> struct AccOf { using type = float; };
@@ -177,29 +232,24 @@ constexpr size_t gemm_smem() {
 }
 
 struct EpiArgs {
-  void* out;              // (M, N) T: kBias, kDequant, kAct
-  const float* rs;        // (M,) row scales: kDequant, kAct
-  const float* cs;        // (N,) column scales: kDequant, kAct
-  const void* bias;       // (N,) T: kBias, kDequant, kAct
-  float* pmax;            // (M, N / BN): kAct
-  int* ws;                // (splits, M, N): kPartial
-  int act;                // vt::Act code: kAct
+  void* out;              // (M, N) T
+  const float* rs;        // (M,) row scales: kDequant
+  const float* cs;        // (N,) column scales: kDequant
+  const void* bias;       // (N,) T
 };
 
 template <typename E, typename T, int EPI>
 __global__ void __launch_bounds__(NT)
-gemm_tiles(const E* __restrict__ a, const E* __restrict__ b, int M, int N, int K, int kc,
-           EpiArgs ep) {
+gemm_tiles(const E* __restrict__ a, const E* __restrict__ b, int M, int N, int K, EpiArgs ep) {
   using Acc = typename AccOf<E>::type;
   constexpr bool kScalar = std::is_same<E, float>::value;
   constexpr int STAGE = BM * BK + BK * BN;  // elements
   constexpr int V = 16 / sizeof(E);         // elements per 16-byte copy
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ float red[BM][BN / 32];
   E* sm = reinterpret_cast<E*>(smem_raw);
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN, kb = blockIdx.z * kc;
-  const int nk = kc / BK;
+  const int tid = threadIdx.x, w = tid >> 5;
+  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nk = K / BK;
 
   auto fetch = [&](int stage, int k0) {
     E* as = sm + stage * STAGE;
@@ -231,10 +281,10 @@ gemm_tiles(const E* __restrict__ a, const E* __restrict__ b, int M, int N, int K
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], static_cast<Acc>(0));
   }
 
-  fetch(0, kb);
+  fetch(0, 0);
   for (int t = 0; t < nk; ++t) {
     if (t + 1 < nk) {
-      fetch((t + 1) & 1, kb + (t + 1) * BK);
+      fetch((t + 1) & 1, (t + 1) * BK);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -284,66 +334,34 @@ gemm_tiles(const E* __restrict__ a, const E* __restrict__ b, int M, int N, int K
   }
   __syncthreads();
   const int col = n0 + cc;
-  if constexpr (EPI == kPartial) {
-    for (int i = 0; i < BM / 2; ++i) {
-      const int row = row0 + rg + 2 * i;
-      if (row < M) ep.ws[((size_t)blockIdx.z * M + row) * N + col] = st[(rg + 2 * i) * LDS + cc];
+  T* out = static_cast<T*>(ep.out);
+  const float bias = vt::to_f(static_cast<const T*>(ep.bias)[col]);
+  const float cs = EPI == kBias ? 0.0f : ep.cs[col];
+  for (int i = 0; i < BM / 2; ++i) {
+    const int r = rg + 2 * i, row = row0 + r;
+    float o;
+    if constexpr (EPI == kBias) {
+      o = __fadd_rn(static_cast<float>(st[r * LDS + cc]), bias);
+    } else {
+      const float rs = ep.rs[min(row, M - 1)];
+      o = __fadd_rn(__fmul_rn(__int2float_rn(static_cast<int>(st[r * LDS + cc])),
+                              __fmul_rn(rs, cs)),
+                    bias);
     }
-    return;
-  } else {
-    T* out = static_cast<T*>(ep.out);
-    const float bias = vt::to_f(static_cast<const T*>(ep.bias)[col]);
-    const float cs = EPI == kBias ? 0.0f : ep.cs[col];
-    for (int i = 0; i < BM / 2; ++i) {
-      const int r = rg + 2 * i, row = row0 + r;
-      float o;
-      if constexpr (EPI == kBias) {
-        o = __fadd_rn(static_cast<float>(st[r * LDS + cc]), bias);
-      } else {
-        const float rs = ep.rs[min(row, M - 1)];
-        o = __fadd_rn(__fmul_rn(__int2float_rn(static_cast<int>(st[r * LDS + cc])),
-                                __fmul_rn(rs, cs)),
-                      bias);
-      }
-      if constexpr (EPI == kAct) o = act_rn(o, ep.act);
-      const T ov = vt::from_f<T>(o);
-      if (row < M) out[(size_t)row * N + col] = ov;
-      if constexpr (EPI == kAct) {
-        const float m = warp_max(fabsf(vt::to_f(ov)));  // a warp shares its row
-        if (lane == 0) red[r][cc / 32] = m;
-      }
-    }
-    if constexpr (EPI == kAct) {
-      __syncthreads();
-      if (tid < BM && row0 + tid < M) {
-        float m = 0.0f;
-#pragma unroll
-        for (int j = 0; j < BN / 32; ++j) m = fmaxf(m, red[tid][j]);
-        ep.pmax[(size_t)(row0 + tid) * gridDim.y + blockIdx.y] = m;
-      }
-    }
+    if (row < M) out[(size_t)row * N + col] = vt::from_f<T>(o);
   }
 }
 
 template <typename E, typename T, int EPI>
-int launch_gemm(const E* a, const E* b, int M, int N, int K, int splits, const EpiArgs& ep,
+int launch_gemm(const E* a, const E* b, int M, int N, int K, const EpiArgs& ep,
                 cudaStream_t stream) {
-  if (M <= 0 || N % BN || K % (BK * splits)) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N % BN || K % BK) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = gemm_smem<E>();
   const cudaError_t e = allow_smem<gemm_tiles<E, T, EPI>>(smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((M + BM - 1) / BM, N / BN, splits);
-  gemm_tiles<E, T, EPI><<<grid, NT, smem, stream>>>(a, b, M, N, K, K / splits, ep);
+  const dim3 grid((M + BM - 1) / BM, N / BN);
+  gemm_tiles<E, T, EPI><<<grid, NT, smem, stream>>>(a, b, M, N, K, ep);
   return (int)cudaGetLastError();
-}
-
-// K splits of a (M, K) x (K, N) product: double them while the blocks fill
-// fewer than one wave of SMs (at most 8; each split keeps a whole K tile).
-inline int pick_k_splits(int M, int N, int K) {
-  const int tiles = ((M + BM - 1) / BM) * (N / BN);
-  int s = 1;
-  while (tiles * s < num_sms() && s < 8 && (K / BK) % (2 * s) == 0) s *= 2;
-  return s;
 }
 
 }  // namespace gm

@@ -24,18 +24,9 @@ struct StoreF32Pair {
   }
 };
 
-// Epilogue of the int8 instance: the s32 product itself, (M, N) at c.
-struct StoreS32 {
-  int* c;
-  int n;
-  __device__ __forceinline__ void operator()(int r, int col, int v0, int v1, bool in) const {
-    if (in) *reinterpret_cast<int2*>(c + (size_t)r * n + col) = make_int2(v0, v1);
-  }
-};
-
 template <int BN>
 cudaError_t gemm_s8_at(bool rows_first, const int8_t* a, const int8_t* b, int M, int N, int K,
-                       const StoreS32& epi, cudaStream_t st) {
+                       const sm90::StoreS32& epi, cudaStream_t st) {
   return rows_first ? sm90::gemm<BN, false, sm90::COOP, true>(a, b, M, N, K, epi, st)
                     : sm90::gemm<BN, false, sm90::COOP, false>(a, b, M, N, K, epi, st);
 }
@@ -74,7 +65,7 @@ extern "C" int vt_gemm_s8(const void* a, const void* b, void* c, int M, int N, i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* ap = static_cast<const int8_t*>(a);
   const int8_t* bp = static_cast<const int8_t*>(b);
-  const StoreS32 epi{static_cast<int*>(c), N};
+  const sm90::StoreS32 epi{static_cast<int*>(c), N};
   if (N % 2) return (int)cudaErrorInvalidValue;
   switch (bn) {
     case 64: return (int)gemm_s8_at<64>(rows_first != 0, ap, bp, M, N, K, epi, st);

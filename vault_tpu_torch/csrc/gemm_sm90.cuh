@@ -5,7 +5,8 @@
 // forward (mlp.cu) and backward (mlp_bwd.cu), the w8 blocks (mlp.cu, behind
 // a dequantization pass, dequant below) and the bf16 LN->QKV projection
 // (ln_qkv.cu) run on the bf16 instance; the w8a8 SwiGLU block
-// (swiglu_w8a8.cu) on the int8 one.  The bf16 attention kernel
+// (swiglu_w8a8.cu) and the w8a8 MLP blocks (mlp_w8a8.cu) on the int8 one.
+// The bf16 attention kernel
 // (attention_common.cuh) is not a product of the core but is built from its
 // pieces: tensor maps, mbarriers, TMA loads, descriptors and the wgmma
 // forms, the register-A form included.
@@ -17,18 +18,19 @@
 //   wgmma's transpose bit, or K-contiguous, (N, K) (W2 in gc W2^T, W1 in
 //   dh1 W1^T).  Neither is copied or transposed on the host: the weights
 //   change every training step.  The int8 forms of wgmma have no transpose
-//   bit, so an int8 B is K-contiguous: the SwiGLU weights are held so at
-//   rest (ops/quantize.py k_major).
+//   bit, so an int8 B is K-contiguous: the w8a8 MLP and SwiGLU weights are
+//   held so at rest (ops/quantize.py k_major).
 //   A stage holds 128 bytes of K, one 128-byte swizzle row: K is a multiple
 //   of 64 (bf16) or 128 (int8); M and N are anything: TMA fills the rows
 //   and columns past the edge with zeros on load and the epilogue skips them.
 //
 // Split-K: with S splits a work item is (tile, split s); split s walks its
 // own range of K (the k-steps cut into S near-equal runs) and its epilogue
-// sees row r + s M, so StoreF32 writes the fp32 partial of slice s of an
-// (S M, N) workspace.  No float atomics: the row pass after the product
-// adds the S slices in a fixed order.  Only an epilogue that stores the
-// plain product (StoreF32) takes S > 1.
+// sees row r + s M, so StoreF32 (StoreS32) writes the fp32 (s32) partial
+// of slice s of an (S M, N) workspace.  No atomics: the row pass after the
+// product adds the S slices, fp32 ones in a fixed order (integer sums are
+// exact in any order).  Only an epilogue that stores the plain product
+// (StoreF32, StoreS32) takes S > 1.
 //
 // Segments (int8): an epilogue with a `scale` member (Segmented below) cuts
 // K into runs of `seg` k-steps.  At the end of each run the consumers wait
@@ -852,9 +854,11 @@ struct Tiling {
 // K, the pair whose waves of work items over the SMs take least time:
 // waves x (k-steps per item + 2, a tile's fill and epilogue) x width; of
 // equal ones the wide tile (fewest bytes from L2 per operation) and the
-// fewest splits (fewest bytes of partial sums).  K in bf16 k-steps.
-inline Tiling pick_tiling(int M, int N, int K, int narrow, int wide, int max_splits) {
-  const int kt = K / BK;
+// fewest splits (fewest bytes of partial sums).  K in k-steps of kstep:
+// BK for bf16, ROW_BYTES (128) for int8.
+inline Tiling pick_tiling(int M, int N, int K, int narrow, int wide, int max_splits,
+                          int kstep = BK) {
+  const int kt = K / kstep;
   Tiling best{wide, 1};
   long best_cost = -1;
   for (const int bn : {wide, narrow}) {
@@ -927,6 +931,15 @@ struct StoreF32 {
   int n;
   __device__ __forceinline__ void operator()(int r, int col, float v0, float v1, bool in) const {
     if (in) *reinterpret_cast<float2*>(c + (size_t)r * n + col) = make_float2(v0, v1);
+  }
+};
+
+// The same for the int8 instance: the s32 product, or its (S M, N) slices.
+struct StoreS32 {
+  int* c;
+  int n;
+  __device__ __forceinline__ void operator()(int r, int col, int v0, int v1, bool in) const {
+    if (in) *reinterpret_cast<int2*>(c + (size_t)r * n + col) = make_int2(v0, v1);
   }
 };
 

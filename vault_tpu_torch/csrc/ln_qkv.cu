@@ -41,12 +41,12 @@ int ln_qkv(const void* x, const void* gamma, const void* beta, const void* w, co
            void* y, void* out, int rows, int N, float eps, cudaStream_t st) {
   gm::row_prologue<T, 6, true, false><<<rows, gm::RT, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      static_cast<T*>(y), nullptr, nullptr, eps);
+      static_cast<T*>(y), nullptr, nullptr, 768, eps);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  gm::EpiArgs ep{out, nullptr, nullptr, b, nullptr, nullptr};
+  gm::EpiArgs ep{out, nullptr, nullptr, b};
   return gm::launch_gemm<T, T, gm::kBias>(static_cast<const T*>(y), static_cast<const T*>(w),
-                                          rows, N, 768, 1, ep, st);
+                                          rows, N, 768, ep, st);
 }
 
 template <typename T>
@@ -55,13 +55,12 @@ int ln_qkv_w8a8(const void* x, const void* gamma, const void* beta, const void* 
                 float eps, cudaStream_t st) {
   gm::row_prologue<T, 6, true, true><<<rows, gm::RT, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      nullptr, static_cast<int8_t*>(yq), static_cast<float*>(ys), eps);
+      nullptr, static_cast<int8_t*>(yq), static_cast<float*>(ys), 768, eps);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  gm::EpiArgs ep{out, static_cast<const float*>(ys), static_cast<const float*>(s), b,
-                 nullptr, nullptr};
+  gm::EpiArgs ep{out, static_cast<const float*>(ys), static_cast<const float*>(s), b};
   return gm::launch_gemm<int8_t, T, gm::kDequant>(
-      static_cast<const int8_t*>(yq), static_cast<const int8_t*>(wq), rows, N, 768, 1, ep, st);
+      static_cast<const int8_t*>(yq), static_cast<const int8_t*>(wq), rows, N, 768, ep, st);
 }
 
 bool bad_shape(int rows, int H, int N) { return rows <= 0 || H != 768 || N % gm::BN; }

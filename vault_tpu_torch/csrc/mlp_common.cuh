@@ -415,6 +415,14 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[V8]) {
   for (int k = 0; k < V8; ++k) v[k] = vt::to_f(e[k]);
 }
 
+// The same for fp32 (two 16-byte loads).
+__device__ __forceinline__ void load8(const float* p, float (&v)[V8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+
 __global__ void __launch_bounds__(LN_WARPS * 32)
 ln_rows_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gamma,
              const __nv_bfloat16* __restrict__ beta, __nv_bfloat16* __restrict__ y,

@@ -58,7 +58,6 @@
 namespace {
 
 constexpr int IT = 1024;           // the largest I-tile (pick_tile(I, IT))
-constexpr int H_MAX = 8192;        // the row pass holds a row in registers
 constexpr int GATE_UP_BN = 128;    // tile width of the gate/up products
 constexpr int DOWN_BN = 128;       // tile width of the down product
 constexpr bool ROWS_FIRST = true;  // both products walk rows fastest
@@ -66,28 +65,6 @@ constexpr bool ROWS_FIRST = true;  // both products walk rows fastest
 __device__ __forceinline__ float silu_mul_rn(float g, float u) {
   const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
   return __fmul_rn(__fmul_rn(g, sig), u);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float v0, float v1);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-template <typename T>
-__device__ __forceinline__ float2 load_pair(const T* p);
-template <>
-__device__ __forceinline__ float2 load_pair<float>(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-template <>
-__device__ __forceinline__ float2 load_pair<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
 }
 
 // One row per block, H = RT n columns, n <= PER: RMSNorm rounded to T, then
@@ -143,18 +120,9 @@ struct EpiSwiGLU {
                                  __fmul_rn(__int2float_rn(u0), __fmul_rn(rs, suc.x)));
     const float v1 = silu_mul_rn(__fmul_rn(__int2float_rn(g1), __fmul_rn(rs, sgc.y)),
                                  __fmul_rn(__int2float_rn(u1), __fmul_rn(rs, suc.y)));
-    if (in) store_pair<T>(a + (size_t)r * n + c, v0, v1);
+    if (in) gm::store_pair<T>(a + (size_t)r * n + c, v0, v1);
   }
 };
-
-// Eight consecutive fp32 elements at p (16-byte aligned); the bf16 form is
-// mlp_common.cuh's.
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
-  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-}
 
 // One block per (row, I-tile of ti <= IT columns, a multiple of 128), eight
 // consecutive columns a thread: the tile's row maximum, then its int8 codes
@@ -175,13 +143,7 @@ requant_tiles(const T* __restrict__ a, int I, int ti, int8_t* __restrict__ q,
     for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
   }
   const float s = gm::quant_scale(gm::block_max(m, redf));
-  if (on) {
-    uint32_t w[2] = {0u, 0u};
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      w[e / 4] |= (uint32_t)(uint8_t)gm::quant(v[e], s) << (8 * (e % 4));
-    *reinterpret_cast<uint2*>(q + base) = make_uint2(w[0], w[1]);
-  }
+  if (on) *reinterpret_cast<uint2*>(q + base) = gm::quant8(v, s);
   if (threadIdx.x == 0) scale[(size_t)blockIdx.x * gridDim.y + blockIdx.y] = s;
 }
 
@@ -201,10 +163,10 @@ struct EpiDown {
   __device__ __forceinline__ void operator()(int r, int c, float v0, float v1, bool in) const {
     const size_t o = (size_t)r * n + c;
     const float2 sdc = __ldg(reinterpret_cast<const float2*>(sd + c));
-    const float2 xv = load_pair<T>(x + o);
+    const float2 xv = gm::load_pair<T>(x + o);
     const float o0 = vt::to_f(vt::from_f<T>(__fmul_rn(v0, sdc.x)));
     const float o1 = vt::to_f(vt::from_f<T>(__fmul_rn(v1, sdc.y)));
-    if (in) store_pair<T>(out + o, __fadd_rn(xv.x, o0), __fadd_rn(xv.y, o1));
+    if (in) gm::store_pair<T>(out + o, __fadd_rn(xv.x, o0), __fadd_rn(xv.y, o1));
   }
 };
 
@@ -216,25 +178,16 @@ struct Bufs {
   float* as;   // (rows, I / ti) their scales
 };
 
-template <typename T>
-cudaError_t rms_quant(const T* x, const float* w, const Bufs& bf, int rows, int H, float eps,
-                      cudaStream_t st) {
-  if (H <= 8 * gm::RT)
-    rms_quant_rows<T, 8><<<rows, gm::RT, 0, st>>>(x, w, bf.yq, bf.ys, H, eps);
-  else if (H <= 32 * gm::RT)
-    rms_quant_rows<T, 32><<<rows, gm::RT, 0, st>>>(x, w, bf.yq, bf.ys, H, eps);
-  else
-    rms_quant_rows<T, H_MAX / gm::RT><<<rows, gm::RT, 0, st>>>(x, w, bf.yq, bf.ys, H, eps);
-  return cudaGetLastError();
-}
-
 // wgt, wut (I, H) and wdt (H, I): the weights' K-major codes.
 template <typename T>
 int swiglu(const void* x, const void* w, const void* wgt, const void* sg, const void* wut,
            const void* su, const void* wdt, const void* sd, const Bufs& bf, void* out, int rows,
            int H, int I, int ti, float eps, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  cudaError_t e = rms_quant(xt, static_cast<const float*>(w), bf, rows, H, eps, st);
+  cudaError_t e = gm::with_per(H, [&](auto P) {
+    rms_quant_rows<T, decltype(P)::value><<<rows, gm::RT, 0, st>>>(
+        xt, static_cast<const float*>(w), bf.yq, bf.ys, H, eps);
+  });
   if (e != cudaSuccess) return (int)e;
   const EpiSwiGLU<T> gu{bf.ys, static_cast<const float*>(sg), static_cast<const float*>(su),
                         static_cast<T*>(bf.a), I};
@@ -262,7 +215,7 @@ extern "C" int vt_swiglu_w8a8(const void* x, const void* w, const void* wgt, con
                               void* yq, void* ys, void* a, void* aq, void* as, void* out,
                               int rows, int H, int I, int ti, float eps, int dtype,
                               void* stream) {
-  if (rows <= 0 || H <= 0 || H % sm90::ROW_BYTES || H > H_MAX || ti <= 0 ||
+  if (rows <= 0 || H <= 0 || H % sm90::ROW_BYTES || H > gm::ROW_H_MAX || ti <= 0 ||
       ti % sm90::ROW_BYTES || ti > IT || I <= 0 || I % ti)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -17,7 +17,10 @@ and ``ops/cuda_swiglu.py``.
     plain version :func:`gemm_split_k_plain`.
   * :func:`gemm_s8`: ``a (M, K) @ b^T`` for int8 ``a`` and ``b`` (N, K),
     K-contiguous (int8 ``wgmma`` has no transpose bit), exact int32; plain
-    version :func:`gemm_s8_plain`.
+    version :func:`gemm_s8_plain`.  :func:`gemm_s8_split_k_plain`: the
+    same with K cut into S splits, each split's int32 product in a slice of
+    its own, as the w8a8 post-LN block's second product stores them
+    (``csrc/mlp_w8a8.cu``, whose row pass adds them exactly).
   * :func:`dequant_bf16`: ``bf16(float(q) * s)`` for int8 (K, N) codes
     ``q`` and fp32 per-column scales ``s``, the pass the w8 pre-LN block
     runs in front of its bf16 products; plain version
@@ -96,12 +99,12 @@ def gemm_bf16(a, b, k_contiguous: bool = False, tile_width: int = 192) -> torch.
     return c
 
 
-def split_bounds(k: int, splits: int):
+def split_bounds(k: int, splits: int, step: int = K_MULTIPLE):
     """The K range of each split, as the core cuts K: split s takes the
-    64-deep steps [s kt / S, (s + 1) kt / S) of kt = K / 64."""
-    kt = k // K_MULTIPLE
-    return [(s * kt // splits * K_MULTIPLE, (s + 1) * kt // splits * K_MULTIPLE)
-            for s in range(splits)]
+    steps [s kt / S, (s + 1) kt / S) of kt = K / step, ``step`` the depth of
+    a stage (64 for bf16, :data:`K_MULTIPLE_S8` for int8)."""
+    kt = k // step
+    return [(s * kt // splits * step, (s + 1) * kt // splits * step) for s in range(splits)]
 
 
 def gemm_split_k_plain(a, b, splits: int, k_contiguous: bool = False) -> torch.Tensor:
@@ -148,6 +151,14 @@ def gemm_s8_plain(a, b) -> torch.Tensor:
     """``a @ b^T`` for int8 ``a`` (M, K) and ``b`` (N, K), exact int32 (the
     products summed in float64, exact below 2^53)."""
     return (a.double() @ b.double().t()).to(torch.int32)
+
+
+def gemm_s8_split_k_plain(a, b, splits: int) -> torch.Tensor:
+    """(splits, M, N) int32: slice s is ``a @ b^T`` over split s's K range
+    (:func:`split_bounds` in 128-deep steps), exact; the slices sum to
+    :func:`gemm_s8_plain` exactly."""
+    return torch.stack([gemm_s8_plain(a[:, k0:k1], b[:, k0:k1])
+                        for k0, k1 in split_bounds(a.shape[1], splits, K_MULTIPLE_S8)])
 
 
 def gemm_s8(a, b, tile_width: int = 128, rows_first: bool = False) -> torch.Tensor:

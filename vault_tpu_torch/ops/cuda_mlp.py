@@ -13,9 +13,12 @@ with int8 weights, pre-LN and post-LN (``vt_mlp_fwd_q8_wgmma``: one pass
 dequantizes both weight matrices to bf16 scratch in front of the same
 launches); fp32 blocks, int8 weights or not, run on the 32-row walk
 (``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_fwd_q8``,
-``vt_mlp_bwd``), which keeps them on chip.  Each design has its width
-contract (:func:`_check_sizes`); a width outside it raises ``ValueError``
-before anything is built or launched.
+``vt_mlp_bwd``), which keeps them on chip.  The w8a8 blocks, bf16 and fp32
+alike, run on the int8 instance of the same core (:func:`w8a8_route`,
+``vt_mlp_w8a8``), their weight codes held K-major (``ops/quantize.py``
+``k_major``).  Each design has its width contract (:func:`_check_sizes`); a
+width outside it raises ``ValueError`` before anything is built or
+launched.
 
   * :func:`fused_mlp_block_fwd` (pre-LN, the ViLT layers):
     ``x + m * (act(LN(x) W1 + b1) W2 + b2)``; replaces the JAX package's
@@ -31,8 +34,10 @@ before anything is built or launched.
     both blocks with int8 weights and activations (ops/quantize.py w8a8),
     replacing the JAX package's functions of the same names; plain versions
     :func:`mlp_block_w8a8_plain` and :func:`mlp_postln_w8a8_plain`, with the
-    kernels' cast points.  Inference serving: their gradient is autograd of
-    the XLA composition (``linear``'s w_q8 branch), as in the JAX package.
+    kernels' cast points, on either layout of the codes.  The kernels take
+    the codes K-major only and refuse them otherwise: nothing is transposed
+    per call.  Inference serving: their gradient is autograd of the XLA
+    composition (``linear``'s w_q8 branch), as in the JAX package.
   * :func:`fused_mlp_block_fwd_q8` and :func:`fused_mlp_postln_fwd_q8`: both
     blocks with int8 weights only (ops/quantize.py w8), replacing the JAX
     package's functions of the same names: the bf16 blocks dequantize both
@@ -76,17 +81,21 @@ from vault_tpu_torch.ops.nn import (
     linear,
     matmul_fp32,
 )
-from vault_tpu_torch.ops.quantize import quantize_activation
+from vault_tpu_torch.ops.quantize import is_k_major, quantize_activation
 
 # The widths each design takes.  The wgmma core (its q8 blocks included): H
 # a multiple of 64 from 64 to 8,192, I a multiple of 64 (each product's K a
 # multiple of the core's 64-deep stage, 16-byte TMA rows, the row kernels'
-# 8,192).  The walk and the w8a8 kernels: H 768 alone (their row tiles hold
-# an H-wide fp32 accumulator, instantiated at 768; widening them is their
-# redesign) and I a multiple of 128.
+# 8,192).  The w8a8 blocks on its int8 instance: H and I multiples of 128
+# (the int8 stage is 128 deep), H up to 8,192 (the row passes hold a row in
+# registers) and I up to 32,768 (so does the requantization pass, a row of
+# the activation).  The walk: H 768 alone (its row tiles hold an H-wide fp32
+# accumulator, instantiated at 768; widening it is its redesign) and I a
+# multiple of 128.
 CORE_H_MULTIPLE, CORE_H_MAX, CORE_I_MULTIPLE = 64, 8192, 64
-HIDDEN_SIZES = (768,)  # H of the walk and the w8a8 kernels
-I_MULTIPLE = 128       # their intermediate size is a multiple of this
+W8A8_MULTIPLE, W8A8_H_MAX, W8A8_I_MAX = 128, 8192, 32768
+HIDDEN_SIZES = (768,)  # H of the walk
+I_MULTIPLE = 128       # its intermediate size is a multiple of this
 _ACTS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1, "relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
@@ -145,9 +154,20 @@ def _mlp_postln_plain(ln_p, p_in, p_out, x, eps, act, m=None):
     return layer_norm(ln_p, x + mlp, eps)
 
 
+def w8a8_route(dtype: torch.dtype) -> str:
+    """Which design runs a w8a8 block (pre-LN or post-LN) with x in
+    ``dtype`` on the card: "wgmma", the int8 instance of the core (s8 x s8
+    -> s32 ``wgmma`` through TMA, ``vt_mlp_w8a8``), for bf16 and fp32 alike:
+    the products are exact in int32, and only the row passes' and the
+    epilogues' casts depend on the type."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"w8a8_route: dtype {dtype} not supported (bfloat16 or float32)")
+    return "wgmma"
+
+
 def _check_sizes(what, x, w1, design):
-    """x in a dtype and w1 (H, I) at widths ``design`` takes ("wgmma", or
-    "walk" and "w8a8", which share a contract); returns (H, I)."""
+    """x in a dtype and w1 (H, I) at widths ``design`` takes ("wgmma",
+    "w8a8" or "walk"); returns (H, I)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported "
                         "(bfloat16 or float32)")
@@ -161,6 +181,13 @@ def _check_sizes(what, x, w1, design):
                 f"{what}: hidden size {h} / intermediate size {i}: the wgmma core "
                 f"takes H a multiple of {CORE_H_MULTIPLE} from {CORE_H_MULTIPLE} to "
                 f"{CORE_H_MAX} and I a multiple of {CORE_I_MULTIPLE}")
+    elif design == "w8a8":
+        if h % W8A8_MULTIPLE or not W8A8_MULTIPLE <= h <= W8A8_H_MAX \
+                or i % W8A8_MULTIPLE or not W8A8_MULTIPLE <= i <= W8A8_I_MAX:
+            raise ValueError(
+                f"{what}: hidden size {h} / intermediate size {i}: the int8 core takes "
+                f"H a multiple of {W8A8_MULTIPLE} from {W8A8_MULTIPLE} to {W8A8_H_MAX} "
+                f"and I a multiple of {W8A8_MULTIPLE} up to {W8A8_I_MAX}")
     elif h not in HIDDEN_SIZES or i % I_MULTIPLE or i == 0:
         raise ValueError(f"{what}: hidden size {h} / intermediate size {i}: the {design} "
                          f"kernels take H in {HIDDEN_SIZES} and I a multiple of "
@@ -425,13 +452,13 @@ class _FusedMLP(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# w8a8: int8 weights and activations (csrc/mlp_w8a8.cu)
+# w8a8: int8 weights and activations (csrc/mlp_w8a8.cu, the int8 core)
 # ---------------------------------------------------------------------------
 
 _W8A8_SIGNATURES = {
-    "vt_mlp_w8a8": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [ctypes.c_float]
+    "vt_mlp_w8a8": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_float]
                     + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
-    "vt_mlp_w8a8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
+    "vt_mlp_w8a8_slices": ([ctypes.c_int] * 4, ctypes.c_int),
 }
 _INV_SQRT2 = 0.7071067811865476  # fp32 0.70710677, the kernels' constant
 
@@ -480,24 +507,31 @@ def mlp_postln_w8a8_plain(gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
 
 def _launch_w8a8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
     what = "fused_mlp_postln_fwd_w8a8" if postln else "fused_mlp_block_fwd_w8a8"
+    w8a8_route(x.dtype)  # the one design, for every dtype it takes
     if act not in _ACTS:
         raise ValueError(f"{what}: activation {act!r} not supported")
     h, i = _check_sizes(what, x, w1q, "w8a8")
+    for name, q in (("w1q", w1q), ("w2q", w2q)):
+        if not is_k_major(q):
+            raise ValueError(f"{what}: {name} must be held K-major (a transposed view of "
+                             f"contiguous storage, ops/quantize.py k_major), got strides "
+                             f"{tuple(q.stride())}")
     dt, dev, rows = x.dtype, x.device, x.numel() // h
     s1, s2 = s1.reshape(-1), s2.reshape(-1)
+    # the kernel reads the codes' storage: W1^T (I, H) and W2^T (H, I)
     check_operands(what, x, {
         "x": (x, (*x.shape[:-1], h), dt), "gamma": (gamma, (h,), dt),
-        "beta": (beta, (h,), dt), "w1q": (w1q, (h, i), torch.int8),
+        "beta": (beta, (h,), dt), "w1q^T": (w1q.t(), (i, h), torch.int8),
         "s1": (s1, (i,), torch.float32), "b1": (b1, (i,), dt),
-        "w2q": (w2q, (i, h), torch.int8), "s2": (s2, (h,), torch.float32),
+        "w2q^T": (w2q.t(), (h, i), torch.int8), "s2": (s2, (h,), torch.float32),
         "b2": (b2, (h,), dt)})
     lib = _build.load("mlp_w8a8", _W8A8_SIGNATURES)
-    splits = lib.vt_mlp_w8a8_splits(rows, h, i)
+    slices = lib.vt_mlp_w8a8_slices(rows, h, i, int(postln))
     new = lambda shape, t: torch.empty(shape, dtype=t, device=dev)
-    scratch = (new((rows, h), torch.int8), new(rows, torch.float32),   # q(x or LN x)
-               new((rows, i), dt), new((rows, i // 128), torch.float32),  # h, tile maxima
-               new((rows, i), torch.int8), new(rows, torch.float32),   # q(h)
-               new((splits, rows, h), torch.int32))                   # 2nd product
+    scratch = (new((rows, h), torch.int8), new(rows, torch.float32),  # q(x or LN x)
+               new((rows, i), dt),                                   # h
+               new((rows, i), torch.int8), new(rows, torch.float32),  # q(h)
+               new((slices, rows, h), torch.int32))                  # 2nd product
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.vt_mlp_w8a8(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
