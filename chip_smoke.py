@@ -104,9 +104,9 @@ GEMM_CORE_LIMIT = 1e-4
 # ``cuda_ln_qkv.ln_qkv_route``, ``cuda_attention.attention_route``,
 # ``cuda_swiglu.swiglu_route``): on the wgmma core the GEMM core's products
 # and the block's row passes, on the walk mlp_main; bf16 attention the
-# one-pass wgmma kernel; the SwiGLU block and the w8a8 MLP blocks the int8
-# core's products between their row passes (the row codes, the
-# requantization of the activation; post-LN also the slices' row pass).
+# one-pass wgmma kernel; the SwiGLU block, the w8a8 MLP blocks and the w8a8
+# LN->QKV the int8 core's products between their row passes (the row codes,
+# the requantization of the activation; post-LN also the slices' row pass).
 ROUTE_KERNELS = {
     ("encoder_attention", "wgmma"): ("attention_wgmma",),
     ("attention_gqa", "wgmma"): ("attention_wgmma",),
@@ -118,6 +118,7 @@ ROUTE_KERNELS = {
     ("mlp_postln_w8a8", "wgmma"): ("row_prologue", "gemm_kernel", "h_requant_rows",
                                    "w8a8_out"),
     ("ln_qkv", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
+    ("ln_qkv_w8a8", "wgmma"): ("row_prologue", "gemm_kernel"),
     ("mlp_postln", "wgmma"): ("gemm_kernel", "mlp_epilogue"),
     ("mlp_block_bwd", "wgmma"): ("gemm_kernel", "ln_rows_bf16", "mlp_bwd_preln_rows"),
     ("mlp_postln_bwd", "wgmma"): ("gemm_kernel", "mlp_bwd_postln_rows", "mlp_bwd_postln_dx"),
@@ -125,9 +126,9 @@ ROUTE_KERNELS = {
                                                   "mlp_postln_q8")},
     ("mlp_block_bwd", "walk"): ("mlp_bwd_walk",),
 }
-# The second geometries the bf16 blocks (and the bf16 LN->QKV, both q8
-# blocks and both w8a8 blocks on the core) are checked at (the wgmma core's
-# width contract): BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
+# The second geometries the bf16 blocks (and both LN->QKV kernels, both q8
+# blocks and both w8a8 blocks) are checked at (the wgmma core's width
+# contract): BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
 OTHER_WIDTHS = ((1024, 4096), (512, 2048))
 # The SwiGLU block's other widths (its contract: H a multiple of 128, an
 # I-tile pick_tile(I, 1,024) a multiple of 128): Llama-3.2-1B (H 2,048, I
@@ -808,8 +809,9 @@ def check_mlp_bwd(gen, dev, postln: bool):
 def int8_operands(gen, rows, dtype, dev, h=768, i=3072, w8a8=False):
     """x and the LN/bias vectors in ``dtype``; the QKV and MLP weights drawn
     in ``dtype`` and quantized as the model's are (int8 codes, fp32
-    per-out-channel scales); ``w8a8``: the MLP codes K-major, as a w8a8
-    model holds them (``k_major``; the w8 and QKV codes row-major)."""
+    per-out-channel scales); ``w8a8``: the codes K-major, as a w8a8 model
+    holds the MLP's and the LN->QKV kernel's concatenated operand
+    (``k_major``; the w8 codes row-major)."""
     import torch
 
     from vault_tpu_torch.ops.quantize import k_major, quantize_weight
@@ -824,15 +826,15 @@ def int8_operands(gen, rows, dtype, dev, h=768, i=3072, w8a8=False):
                     ("w2", rnd(i, h, std=0.02))):
         q, sc = quantize_weight(w)
         o[name + "q"], o["s" + name[1:]] = q, sc.reshape(-1)
-        if w8a8 and name != "wqkv":
+        if w8a8:
             o[name + "q"] = k_major(q)
     return o
 
 
 def _int8_linear_lib(a, wq, sc, b):
     """The library yardstick's w8a8 linear: per-row absmax quantization in
-    PyTorch ops, torch._int_mm (on the codes as they lie: K-major for the
-    MLP's, row-major for the QKV's), dequantization and bias."""
+    PyTorch ops, torch._int_mm (on the codes as they lie), dequantization
+    and bias."""
     import torch
 
     af = a.float()
@@ -848,7 +850,8 @@ INT8_KERNELS = {
                "F.layer_norm + F.linear"),
     "ln_qkv_w8a8": ("fused_ln_qkv_fwd_w8a8", "ln_qkv_w8a8_plain",
                     ("gamma", "beta", "wqkvq", "sqkv", "bqkv", "x"), 8 * 256,
-                    "F.layer_norm + row quantization + torch._int_mm (composition)"),
+                    "F.layer_norm + row quantization + torch._int_mm (composition, "
+                    "K-major codes)"),
     "mlp_block_w8a8": ("fused_mlp_block_fwd_w8a8", "mlp_block_w8a8_plain",
                        ("gamma", "beta", "w1q", "s1", "b1", "w2q", "s2", "b2", "x"),
                        8 * 256, "F.layer_norm + 2 x (row quantization + "
@@ -880,14 +883,14 @@ def check_int8_family(gen, dev, name):
     """One LN->QKV, w8a8 MLP or q8 MLP kernel against its plain version at
     the serving path's rows (batch 8: 2,048 ViLT rows, 320 BERT rows) and at
     77 fp32 rows (w8a8: bit-equal; fp LN->QKV: see ``LNQKV_BF16_LIMIT``; q8,
-    which rounds no activation to int8: ``LIMITS``); the kernels on the
-    wgmma core (bf16 LN->QKV, both bf16 q8 blocks, both w8a8 blocks on its
-    int8 instance) also at 77 and 37 rows and at ``OTHER_WIDTHS``, q8 and
-    w8a8 with every activation, w8a8 in bf16 and fp32 alike (their codes
-    K-major, as the model holds them); two launches bit-equal; times beside
-    the bound and the library composition, the route's device kernels
-    checked (``check_route``); each q8 block's dequantization pass held
-    exact (``check_dequant_pass``)."""
+    which rounds no activation to int8: ``LIMITS``); every kernel also at
+    77 and 37 rows and at ``OTHER_WIDTHS``, q8 and w8a8 MLP blocks with
+    every activation, w8a8 and the fp LN->QKV in bf16 and fp32 alike (the
+    w8a8 codes K-major, as the model holds them), the bf16 q8 blocks in
+    bf16; two launches bit-equal; times beside the bound and the library
+    composition (w8a8 LN->QKV: on K-major and on row-major codes), the
+    route's device kernels checked (``check_route``); each q8 block's
+    dequantization pass held exact (``check_dequant_pass``)."""
     import torch
     import torch.nn.functional as F
 
@@ -898,6 +901,7 @@ def check_int8_family(gen, dev, name):
     mod = cl if name.startswith("ln_qkv") else cm
     wrapper, plain = getattr(mod, wrapper_name), getattr(mod, plain_name)
     route_of = {"ln_qkv": lambda dt: cl.ln_qkv_route(dt),
+                "ln_qkv_w8a8": lambda dt: cl.ln_qkv_route(dt, w8a8=True),
                 "mlp_block_q8": lambda dt: cm.mlp_route(dt, True, False),
                 "mlp_postln_q8": lambda dt: cm.mlp_route(dt, True, True),
                 "mlp_block_w8a8": cm.w8a8_route, "mlp_postln_w8a8": cm.w8a8_route}.get(name)
@@ -907,15 +911,15 @@ def check_int8_family(gen, dev, name):
     if name.startswith("mlp_"):  # the other activations the MLP blocks take
         cases += [(rows, dtype, h0, i0, {"act": act}) for act in ("gelu_new", "relu")
                   for rows, dtype in ((main_rows, bf), (77, torch.float32))]
-    if name != "ln_qkv_w8a8":  # on the core: rows, widths
-        acts = [{}] if name == "ln_qkv" else [{}] + [{"act": a} for a in cm._ACTS if a != "gelu"]
-        dtypes = (bf, torch.float32) if name.endswith("_w8a8") else (bf,)
-        cases += [c for c in ((rows, dt, h, i, kw) for h, i in ((h0, i0), *OTHER_WIDTHS)
-                              for rows in (main_rows, 77, 37) for kw in acts for dt in dtypes)
-                  if c not in cases]
+    # every kernel: the rows and the widths of its contract
+    acts = ([{}] if name.startswith("ln_qkv")
+            else [{}] + [{"act": a} for a in cm._ACTS if a != "gelu"])
+    dtypes = (bf, torch.float32) if name.endswith("_w8a8") or name == "ln_qkv" else (bf,)
+    cases += [c for c in ((rows, dt, h, i, kw) for h, i in ((h0, i0), *OTHER_WIDTHS)
+                          for rows in (main_rows, 77, 37) for kw in acts for dt in dtypes)
+              if c not in cases]
     for rows, dtype, h, i, kw in cases:
-        o = int8_operands(gen, rows, dtype, dev, h=h, i=i,
-                          w8a8=name in ("mlp_block_w8a8", "mlp_postln_w8a8"))
+        o = int8_operands(gen, rows, dtype, dev, h=h, i=i, w8a8=name.endswith("_w8a8"))
         args = [o[k] for k in names]
         out, again, ref = wrapper(*args, **kw), wrapper(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
@@ -947,6 +951,10 @@ def check_int8_family(gen, dev, name):
             elif name == "ln_qkv_w8a8":
                 lib = lambda: _int8_linear_lib(ln(x), o["wqkvq"], o["sqkv"],
                                                o["bqkv"]).to(dtype)
+                row_major = o["wqkvq"].contiguous()  # the JAX package's layout
+                timed(lambda: _int8_linear_lib(ln(x), row_major, o["sqkv"],
+                                               o["bqkv"]).to(dtype),
+                      "library_row_major_", row)
             else:
                 if name.endswith("_q8"):
                     w1t, w2t = o["w1q"].t().contiguous(), o["w2q"].t().contiguous()
@@ -1009,21 +1017,42 @@ def check_dequant_pass(name, o, x, out):
 
 
 def check_lnqkv_tiles(gen, dev):
-    """The bf16 LN->QKV product's two tile widths on the core alone
-    (``cuda_gemm``) at the serving rows (2,048 x 2,304 x 768: 288 tiles 128
-    wide in three waves, 192 tiles 192 wide in two), each against
-    matmul_fp32 (``GEMM_CORE_LIMIT``) and timed beside its bound; the width
-    the kernel takes shows in its device kernels' names."""
+    """The LN->QKV products' tile widths on the core alone (``cuda_gemm``)
+    at the serving rows (2,048 x 2,304 x 768: 576 tiles 64 wide in five
+    waves, 288 tiles 128 wide in three, 192 tiles 192 wide in two): the bf16
+    product's two (128, 192) against matmul_fp32 (``GEMM_CORE_LIMIT``), the
+    int8 instance's three (64, 128, 192; K-major codes, s32 out) equal to
+    ``gemm_s8_plain``; each timed beside its bound.  The width a kernel takes
+    shows in its device kernels' names."""
     import torch
 
     from vault_tpu_torch.ops import cuda_gemm as cg
 
     rows, h, n = 2048, 768, 2304
+    rows_out = []
+    g8 = torch.Generator(device=dev).manual_seed(8)  # leaves gen's draws as they were
+    yq = torch.randint(-127, 128, (rows, h), generator=g8, device=dev, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (n, h), generator=g8, device=dev, dtype=torch.int8)
+    ref = cg.gemm_s8_plain(yq, wt)
+    for bn in cg.TILE_WIDTHS:
+        run = lambda: cg.gemm_s8(yq, wt, bn)
+        out = run()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"LN->QKV int8 tiles bn={bn}: {int((out != ref).sum())} elements differ "
+                 "from the int32 product")
+        row = dict(kernel="lnqkv_tiles_s8", rows=rows, n=n, k=h, tile_width=bn, exact=True)
+        row["ms"], row["device_kernels"] = device_ms(run)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2.0 * rows * n * h, rows * h + n * h + 4.0 * rows * n, torch.int8, PEAK_INT8_OPS)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        emit(phase="kernel_check", **row)
+        rows_out.append(row)
+    del yq, wt, ref
     rnd = lambda *shape, std=1.0: (torch.randn(shape, generator=gen, device=dev)
                                    * std).to(torch.bfloat16)
     y, w = rnd(rows, h), rnd(h, n, std=0.02)
     ref = cg.gemm_plain(y, w)
-    rows_out = []
     for bn in (128, 192):
         run = lambda: cg.gemm_bf16(y, w, tile_width=bn)
         out = run()
@@ -2157,6 +2186,8 @@ def main():
             entry.update(design="wgmma", device_kernels=timed[0]["device_kernels"])
         if "library" in timed[0]:
             entry["library"] = timed[0]["library"]
+        if "library_row_major_ms" in timed[0]:
+            entry["library_row_major_ms"] = mean("library_row_major_ms")
         for r in at_train_rows:  # the forward kernels at the training rows
             entry.update(train_rows=r["rows"], train_ms=r["ms"],
                          train_plain_ms=r["plain_ms"],

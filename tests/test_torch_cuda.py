@@ -442,9 +442,10 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(dev):
 # ---------------------------------------------------------------------------
 
 def _int8_operands(dev, rows, dtype, i=3072, seed=4, h=768, w8a8=False):
-    """x, the LN and bias vectors and the quantized QKV and MLP weights;
-    ``w8a8``: the MLP codes K-major, as a w8a8 model holds them (the w8
-    codes and the QKV codes stay row-major)."""
+    """x, the LN and bias vectors and the quantized QKV and MLP weights; the
+    QKV codes K-major, as the w8a8 LN->QKV kernel reads them; ``w8a8``: the
+    MLP codes K-major too, as a w8a8 model holds them (the w8 codes stay
+    row-major)."""
     from vault_tpu_torch.ops.quantize import k_major, quantize_weight
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -458,7 +459,8 @@ def _int8_operands(dev, rows, dtype, i=3072, seed=4, h=768, w8a8=False):
     for name, shape in (("w1", (h, i)), ("w2", (i, h)), ("wqkv", None)):
         w = o["wqkv"] if shape is None else rnd(*shape, std=0.02)
         q, s = quantize_weight(w)
-        o[name + "q"], o["s" + name[1:]] = k_major(q) if w8a8 and shape else q, s.reshape(-1)
+        o[name + "q"], o["s" + name[1:]] = (k_major(q) if w8a8 or shape is None else q,
+                                            s.reshape(-1))
     return o
 
 
@@ -495,6 +497,36 @@ def test_ln_qkv_kernels_match_plain(dev, dtype, rows):
                 LNQKV_BF16_LIMIT * max(1.0, ref.float().abs().max().item()))
             err = (out.float() - ref.float()).abs().max().item()
             assert err <= limit, (err, limit)
+        assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [2048, 77, 37])
+@pytest.mark.parametrize("h", [768, 1024, 512])
+def test_ln_qkv_kernels_at_other_widths(dev, dtype, rows, h):
+    """The w8a8 LN->QKV kernel on the int8 core bit-equal to its plain
+    version, and the fp32 one (gemm_tiles) within the fp32 limit of its
+    plain version, at ViLT-B/32's width, BERT-large's and H 512; repeats
+    bit-equal."""
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
+    assert cl.ln_qkv_route(dtype, w8a8=True) == "wgmma"
+    o = _int8_operands(dev, rows, dtype, i=256, seed=h + rows, h=h)
+    args = [o[k] for k in ("gamma", "beta", "wqkvq", "sqkv", "bqkv", "x")]
+    n = cl.fused_ln_qkv_fwd_w8a8.launches
+    out, again = cl.fused_ln_qkv_fwd_w8a8(*args), cl.fused_ln_qkv_fwd_w8a8(*args)
+    ref = cl.ln_qkv_w8a8_plain(*args)
+    torch.cuda.synchronize()
+    assert cl.fused_ln_qkv_fwd_w8a8.launches == n + 2
+    assert out.shape == (rows, 3 * h) and out.dtype == dtype
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, again)
+    if dtype == torch.float32:
+        args = [o[k] for k in ("gamma", "beta", "wqkv", "bqkv", "x")]
+        out, again = cl.fused_ln_qkv_fwd(*args), cl.fused_ln_qkv_fwd(*args)
+        ref = cl.ln_qkv_plain(*args)
+        torch.cuda.synchronize()
+        assert (out - ref).abs().max().item() <= LIMITS[dtype]
         assert torch.equal(out, again)
 
 
@@ -932,6 +964,7 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
                       cm.fused_mlp_postln_fwd_w8a8.launches)
     n = cl.fused_ln_qkv_fwd_w8a8.launches
     for a in ([o["gamma"], o["beta"], o["wqkv"], o["sqkv"], o["bqkv"], o["x"]],
+              [o["gamma"], o["beta"], o["wqkvq"].contiguous(), o["sqkv"], o["bqkv"], o["x"]],
               [o["gamma"], o["beta"], o["wqkvq"], o["sqkv"], o["bqkv"].float(), o["x"]],
               [o["gamma"], o["beta"], o["wqkvq"], o["sqkv"], o["bqkv"], o["x"].cpu()]):
         with pytest.raises((ValueError, TypeError)):

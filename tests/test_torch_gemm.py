@@ -55,10 +55,11 @@ def test_w8a8_route_refuses_other_dtypes(dtype):
 
 @pytest.mark.parametrize("dtype,w8a8,route", [
     (torch.bfloat16, False, "wgmma"), (torch.float32, False, "tiles"),
-    (torch.bfloat16, True, "tiles"), (torch.float32, True, "tiles")])
+    (torch.bfloat16, True, "wgmma"), (torch.float32, True, "wgmma")])
 def test_ln_qkv_route(dtype, w8a8, route):
-    """bf16 LN->QKV with fp weights goes to the wgmma core; fp32 and the
-    w8a8 kernel stay on gemm_tiles."""
+    """bf16 LN->QKV with fp weights goes to the wgmma core and the w8a8
+    kernel, in both dtypes, to its int8 instance; fp32 with fp weights stays
+    on gemm_tiles."""
     from vault_tpu_torch.ops import cuda_ln_qkv as cl
 
     assert cl.ln_qkv_route(dtype, w8a8) == route
@@ -412,11 +413,12 @@ def test_w8a8_wrappers_refuse_codes_not_held_k_major(postln, layout):
 
 
 # LN->QKV: bf16 on the wgmma core takes H a multiple of 64 from 64 to 8,192
-# (output width 3H); fp32 and the w8a8 kernel H 768 alone.
+# (output width 3H); the w8a8 kernel on the int8 core and fp32 on gemm_tiles
+# H a multiple of 128 from 128 to 8,192.
 LNQKV_CORE_H = [64, 512, 768, 1024, 8192]
 LNQKV_CORE_REFUSED_H = [32, 96, 8256]
-LNQKV_TILES_H = [768]
-LNQKV_TILES_REFUSED_H = [512, 1024, 64]
+LNQKV_TILES_H = [128, 512, 768, 1024, 8192]
+LNQKV_TILES_REFUSED_H = [64, 96, 8320]
 
 
 @pytest.mark.parametrize("kernel,dtype,h,accepted", [
@@ -435,12 +437,68 @@ def test_ln_qkv_wrappers_hold_their_width_contract(kernel, dtype, h, accepted):
         fn, args = cl.fused_ln_qkv_fwd, (z(h), z(h), z(h, 3 * h), z(3 * h), z(2, h))
     else:
         fn = cl.fused_ln_qkv_fwd_w8a8
-        args = (z(h), z(h), z(h, 3 * h, dt=torch.int8), z(3 * h, dt=torch.float32), z(3 * h),
-                z(2, h))
+        args = (z(h), z(h), k_major(z(h, 3 * h, dt=torch.int8)), z(3 * h, dt=torch.float32),
+                z(3 * h), z(2, h))
     before = fn.launches
     with pytest.raises(ValueError, match="CUDA" if accepted else "hidden size"):
         fn(*args)
     assert fn.launches == before
+
+
+def test_ln_qkv_w8a8_wrapper_refuses_codes_not_held_k_major():
+    """Row-major codes (the JAX package's layout) are refused, not
+    transposed per call: the dispatch hands the kernel its concatenated
+    operand K-major (``_w8a8_operands``)."""
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
+    z = lambda *shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt)
+    before = cl.fused_ln_qkv_fwd_w8a8.launches
+    with pytest.raises(ValueError, match="wqkv_q must be held K-major.*k_major"):
+        cl.fused_ln_qkv_fwd_w8a8(z(768), z(768), z(768, 2304, dt=torch.int8),
+                                 z(2304, dt=torch.float32), z(2304), z(2, 768))
+    assert cl.fused_ln_qkv_fwd_w8a8.launches == before
+
+
+@pytest.mark.parametrize("kernel,dtype,h,entry", [
+    ("w8a8", torch.bfloat16, 512, "vt_ln_qkv_w8a8"),
+    ("w8a8", torch.bfloat16, 1024, "vt_ln_qkv_w8a8"),
+    ("w8a8", torch.float32, 512, "vt_ln_qkv_w8a8"),
+    ("w8a8", torch.float32, 1024, "vt_ln_qkv_w8a8"),
+    ("fp", torch.float32, 512, "vt_ln_qkv"),
+    ("fp", torch.float32, 1024, "vt_ln_qkv"),
+])
+def test_ln_qkv_wrappers_launch_their_entry_at_other_widths(monkeypatch, kernel, dtype, h,
+                                                            entry):
+    """At widths past 768, where these entries refused to run before, the
+    LN->QKV wrappers launch their route's entry with the call's rows, H and
+    3H and the dtype's code; the w8a8 one hands the kernel its codes'
+    K-major storage as it lies, and counts the launch."""
+    from vault_tpu_torch.ops import cuda_ln_qkv as cl
+
+    calls = []
+    lib = _EntryRecorder()
+    monkeypatch.setattr(lib, entry, lambda *args: calls.append(args) or 0, raising=False)
+    monkeypatch.setattr(cl._build, "load", lambda name, signatures: lib)
+    monkeypatch.setattr(cl, "check_operands", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=None))
+    z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt)
+    x = z(3, h)
+    if kernel == "w8a8":
+        fn = cl.fused_ln_qkv_fwd_w8a8
+        wq = k_major(z(h, 3 * h, dt=torch.int8))
+        monkeypatch.setattr(fn, "launches", 0)
+        out = fn(z(h), z(h), wq, z(3 * h, dt=torch.float32), z(3 * h), x)
+        (call,) = calls
+        assert call[3] == wq.data_ptr() and call[9:12] == (3, h, 3 * h)
+        assert call[-2] == cl._DTYPES[dtype]
+    else:
+        fn = cl.fused_ln_qkv_fwd
+        monkeypatch.setattr(fn, "launches", 0)
+        out = fn(z(h), z(h), z(h, 3 * h), z(3 * h), x)
+        (call,) = calls
+        assert call[7:10] == (3, h, 3 * h) and call[-2] == cl._DTYPES[dtype]
+    assert out.shape == (3, 3 * h) and out.dtype == dtype and fn.launches == 1
 
 
 def test_ln_qkv_core_refuses_an_output_width_off_its_multiple():

@@ -434,6 +434,55 @@ def test_ln_qkv_w8a8_plain_vs_pallas_and_xla(dtype):
     _close(out, xla, dtype, W8A8_ATOL["ln_qkv"])
 
 
+@pytest.mark.parametrize("h", [256, 384])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_qkv_w8a8_plain_at_a_second_width(dtype, h):
+    """The w8a8 LN->QKV plain version at widths the kernel on the int8 core
+    newly takes (H a multiple of 128), on K-major codes as the kernel reads
+    them: bit-equal to the same call on row-major codes, and against the
+    Pallas kernel (interpret mode) and the XLA composition."""
+    j, t = _q_inputs(dtype, h=h, inner=128, rows=(2, 12), seed=27)
+    args = ("gamma", "beta", "wqkvq", "sqkv", "bqkv", "x")
+    codes = dict(t, wqkvq=tq.k_major(t["wqkvq"]))
+    assert tq.is_k_major(codes["wqkvq"]) and not tq.is_k_major(t["wqkvq"])
+    out = cl.ln_qkv_w8a8_plain(*(codes[k] for k in args))
+    assert out.dtype == t["x"].dtype and out.shape == (2, 12, 3 * h)
+    assert torch.equal(out, cl.ln_qkv_w8a8_plain(*(t[k] for k in args)))
+    ref = pm.fused_ln_qkv_fwd_w8a8(*(j[k] for k in args), eps=1e-12, interpret=True)
+    y = pm.layer_norm({"scale": j["gamma"], "bias": j["beta"]}, j["x"], 1e-12)
+    xla = pm.linear({"w_q8": j["wqkvq"], "w_scale": j["sqkv"], "b": j["bqkv"]}, y)
+    _close(out, ref, dtype, W8A8_ATOL["ln_qkv"])
+    _close(out, xla, dtype, W8A8_ATOL["ln_qkv"])
+
+
+def test_w8a8_qkv_operand_is_held_k_major_and_kept():
+    """The dispatch's concatenated w8a8 operand: (3H, H) contiguous storage
+    seen as (H, 3H), equal to q/k/v's codes side by side; kept on the q
+    module across two calls without autograd, built again after a source is
+    written in place, and never kept with autograd on."""
+    from vault_tpu_torch.ops.nn import ParamDict
+
+    _, t = _q_inputs("float32", h=128, seed=28)
+    h = 128
+    cols = [slice(i * h, (i + 1) * h) for i in range(3)]
+    mods = [ParamDict(w_q8=t["wqkvq"][:, c].contiguous(), w_scale=t["sqkv"][:, c],
+                      b=t["bqkv"][c]) for c in cols]
+    with torch.no_grad():
+        wq, sq, bq = first = cl._w8a8_operands(mods, torch.float32)
+        assert cl._w8a8_operands(mods, torch.float32) is first
+    assert tq.is_k_major(wq) and wq.shape == (h, 3 * h) and wq.t().shape == (3 * h, h)
+    assert torch.equal(wq, t["wqkvq"]) and torch.equal(sq, t["sqkv"].reshape(-1))
+    assert torch.equal(bq, t["bqkv"])
+    with torch.no_grad():
+        mods[1].w_q8.neg_()
+        again = cl._w8a8_operands(mods, torch.float32)
+    assert again is not first and tq.is_k_major(again[0])
+    assert torch.equal(again[0][:, h:2 * h], mods[1].w_q8)
+    built = cl._w8a8_operands(mods, torch.float32)  # autograd on: a fresh copy
+    assert built is not again and torch.equal(built[0], again[0])
+    assert tq.is_k_major(built[0])
+
+
 @pytest.mark.parametrize("act", ["gelu", "gelu_new", "relu"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("postln", [False, True])
@@ -648,7 +697,7 @@ def test_int8_kernel_wrappers_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         cl.fused_ln_qkv_fwd(t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["x"])
     with pytest.raises(ValueError, match="CUDA"):
-        cl.fused_ln_qkv_fwd_w8a8(t["gamma"], t["beta"], t["wqkvq"], t["sqkv"],
+        cl.fused_ln_qkv_fwd_w8a8(t["gamma"], t["beta"], tq.k_major(t["wqkvq"]), t["sqkv"],
                                  t["bqkv"], t["x"])
     codes = {k: tq.k_major(t[k]) if k in ("w1q", "w2q") else t[k] for k in t}
     for fn in (cm.fused_mlp_block_fwd_w8a8, cm.fused_mlp_postln_fwd_w8a8):

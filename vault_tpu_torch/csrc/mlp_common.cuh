@@ -25,8 +25,6 @@
 // from that pass, another the pass from the product.
 #pragma once
 
-#include <mma.h>
-
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
@@ -34,8 +32,6 @@
 #include "common.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int BM = 32;       // rows per block of mlp_main
 constexpr int NW = 8;        // warps per block

@@ -38,7 +38,8 @@
 // rows in bf16, which L2 holds), and the block is four launches (pre-LN)
 // or five (post-LN), counted as one call:
 //   1. row_prologue (gemm_common.cuh): LN (pre-LN) rounded to T, then the
-//      row's int8 codes and scale; one block a row, the row in registers;
+//      row's int8 codes and scale; one block a row, the row in registers
+//      (the exact instance at H 512, 768 and 1,024, gm::with_row);
 //   2. the first product on the int8 core, A the codes (rows, H), B W1^T,
 //      epilogue EpiAct8: h = T(act(...)) to device memory;
 //   3. h_requant_rows: one block a row, the I-wide row of h in registers
@@ -84,10 +85,6 @@ cudaError_t with_act_code(int act, F f) {
   }
 }
 
-__device__ __forceinline__ float dequant_acc(int acc, float rs, float cs, float b) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(rs, cs)), b);
-}
-
 // Epilogue of the first product: h = T(act(float(acc) * (as[r] * s1[c]) +
 // b1[c])).
 template <typename T, int ACT>
@@ -100,8 +97,8 @@ struct EpiAct8 {
     const float rs = __ldg(as + r);
     const float2 cs = __ldg(reinterpret_cast<const float2*>(s1 + c));
     const float2 b = gm::load_pair<T>(b1 + c);
-    const float o0 = gm::act_rn(dequant_acc(v0, rs, cs.x, b.x), ACT);
-    const float o1 = gm::act_rn(dequant_acc(v1, rs, cs.y, b.y), ACT);
+    const float o0 = gm::act_rn(gm::dequant_acc(v0, rs, cs.x, b.x), ACT);
+    const float o1 = gm::act_rn(gm::dequant_acc(v1, rs, cs.y, b.y), ACT);
     if (in) gm::store_pair<T>(h + (size_t)r * n + c, o0, o1);
   }
 };
@@ -120,8 +117,8 @@ struct EpiResidual8 {
     const float2 cs = __ldg(reinterpret_cast<const float2*>(s2 + c));
     const float2 b = gm::load_pair<T>(b2 + c);
     const float2 xv = gm::load_pair<T>(x + o);
-    const float o0 = vt::to_f(vt::from_f<T>(dequant_acc(v0, rs, cs.x, b.x)));
-    const float o1 = vt::to_f(vt::from_f<T>(dequant_acc(v1, rs, cs.y, b.y)));
+    const float o0 = vt::to_f(vt::from_f<T>(gm::dequant_acc(v0, rs, cs.x, b.x)));
+    const float o1 = vt::to_f(vt::from_f<T>(gm::dequant_acc(v1, rs, cs.y, b.y)));
     if (in) gm::store_pair<T>(out + o, __fadd_rn(o0, xv.x), __fadd_rn(o1, xv.y));
   }
 };
@@ -177,7 +174,7 @@ w8a8_out(const T* __restrict__ x, const int* __restrict__ ws, int splits, int ro
       const int c = threadIdx.x + gm::RT * i;
       int acc = 0;
       for (int z = 0; z < splits; ++z) acc += ws[((size_t)z * rows + row) * H + c];
-      const float o = dequant_acc(acc, rs, s2[c], vt::to_f(b2[c]));
+      const float o = gm::dequant_acc(acc, rs, s2[c], vt::to_f(b2[c]));
       v[i] = __fadd_rn(vt::to_f(x[base + gm::RT * i]), o);
     }
   }
@@ -231,9 +228,9 @@ int mlp_w8a8(const void* x, const void* gamma, const void* beta, const void* w1t
   const int8_t* w2 = static_cast<const int8_t*>(w2t);
   const float* s2f = static_cast<const float*>(s2);
   const T* b2t = static_cast<const T*>(b2);
-  cudaError_t e = gm::with_per(H, [&](auto P) {
-    gm::row_prologue<T, decltype(P)::value, !POSTLN, true><<<rows, gm::RT, 0, st>>>(
-        xt, g, bt, nullptr, bf.aq, bf.as, H, eps);
+  cudaError_t e = gm::with_row(H, [&](auto P, auto EXACT) {
+    gm::row_prologue<T, decltype(P)::value, !POSTLN, true, decltype(EXACT)::value>
+        <<<rows, gm::RT, 0, st>>>(xt, g, bt, nullptr, bf.aq, bf.as, H, eps);
   });
   if (e != cudaSuccess) return (int)e;
   e = with_act_code(act, [&](auto A) {

@@ -8,9 +8,12 @@
     (``vt_ln_qkv``): :func:`ln_qkv_route`.
   * :func:`fused_ln_qkv_fwd_w8a8`: the same with int8 weights and
     per-out-channel scales, the normalised rows quantized to int8 and one
-    int8 x int8 -> int32 product; replaces ``fused_ln_qkv_fwd_w8a8``.  Plain
-    version :func:`ln_qkv_w8a8_plain` (the kernel's LN, then the w8a8
-    ``linear``).
+    int8 x int8 -> int32 product on the core's int8 instance
+    (``vt_ln_qkv_w8a8``, bf16 and fp32 alike), its codes held K-major
+    (``ops/quantize.py`` ``k_major``: the int8 ``wgmma`` has no transpose
+    bit); replaces ``fused_ln_qkv_fwd_w8a8``.  Plain version
+    :func:`ln_qkv_w8a8_plain` (the kernel's LN, then the w8a8 ``linear``),
+    which takes either layout.
 
 The dispatcher :func:`fused_ln_qkv` mirrors the JAX package's: w8a8 q/k/v
 run the w8a8 kernel, fp ones the fp kernel, any other form (w8) LayerNorm
@@ -31,15 +34,17 @@ import torch
 from vault_tpu_torch.ops import _build
 from vault_tpu_torch.ops._dispatch import check_operands, kernel_or_plain
 from vault_tpu_torch.ops.nn import layer_norm, layer_norm_f32, linear
+from vault_tpu_torch.ops.quantize import is_k_major
 
-# The widths each route takes.  The wgmma core (bf16 fp weights): H a
-# multiple of 64 from 64 to 8,192 (the core's 64-deep K steps, the row
-# kernel's 8,192) and an output width (3H) a multiple of 64.  gemm_tiles (fp32
-# fp weights, and the w8a8 kernel in both dtypes): H 768 alone (its row kernel
-# holds a row of 768 in registers) and an output width a multiple of 128.
+# The widths each kernel takes, (H multiple, H max, output-width multiple).
+# bf16 with fp weights on the wgmma core: H a multiple of 64 from 64 to
+# 8,192 (the core's 64-deep K steps, the row kernel's 8,192) and an output
+# width (3H) a multiple of 64.  The w8a8 kernel on the core's int8 instance
+# and fp32 with fp weights on gemm_tiles: H a multiple of 128 from 128 to
+# 8,192 (the row pass's 128 threads, a row in registers; the int8 core's
+# 128-byte K steps) and an output width a multiple of 128 (gemm_tiles' tile).
 CORE_H_MULTIPLE, CORE_H_MAX, CORE_N_MULTIPLE = 64, 8192, 64
-HIDDEN_SIZES = (768,)  # H of gemm_tiles
-N_MULTIPLE = 128       # its output width (3H) must be a multiple of this
+H_MULTIPLE, H_MAX, N_MULTIPLE = 128, 8192, 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "vt_ln_qkv_wgmma": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float]
@@ -75,32 +80,33 @@ def _ln_qkv_w8a8_ref(gamma, beta, wqkv_q, sqkv, bqkv, x, eps: float = 1e-12):
 
 def ln_qkv_route(dtype: torch.dtype, w8a8: bool = False) -> str:
     """Which design runs an LN -> QKV call with activations in ``dtype`` on
-    the card: "wgmma" (``vt_ln_qkv_wgmma``) for bf16 with fp weights;
-    "tiles" (``gemm_tiles``: ``vt_ln_qkv``, ``vt_ln_qkv_w8a8``) for fp32 and
-    for int8 weights.  The wrappers launch its entry and hold a call to its
-    width contract."""
+    the card: "wgmma", the core (``vt_ln_qkv_wgmma``), for bf16 with fp
+    weights, and its int8 instance (``vt_ln_qkv_w8a8``) for int8 weights in
+    bf16 and fp32 alike (the product is exact in int32; only the row pass's
+    and the epilogue's casts depend on the type); "tiles" (``gemm_tiles``:
+    ``vt_ln_qkv``) for fp32 with fp weights.  The wrappers launch its entry
+    and hold a call to its width contract."""
     if dtype not in _DTYPES:
         raise TypeError(f"ln_qkv_route: dtype {dtype} not supported (bfloat16 or float32)")
-    return "wgmma" if dtype == torch.bfloat16 and not w8a8 else "tiles"
+    return "wgmma" if dtype == torch.bfloat16 or w8a8 else "tiles"
 
 
-def _shapes(what, x, w, route):
+def _shapes(what, x, w, bf16_core):
+    """(H, 3H, rows) of a call, its widths held to the bf16 core's contract
+    (``bf16_core``) or to the one the w8a8 kernel and gemm_tiles share."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported (bfloat16 or "
                         "float32)")
     if w.dim() != 2:
         raise ValueError(f"{what}: weights must be (H, 3H), got {tuple(w.shape)}")
     h, n = w.shape
-    if route == "wgmma":
-        if h % CORE_H_MULTIPLE or not CORE_H_MULTIPLE <= h <= CORE_H_MAX \
-                or n % CORE_N_MULTIPLE or n == 0:
-            raise ValueError(
-                f"{what}: hidden size {h} / output width {n}: the wgmma core takes H a "
-                f"multiple of {CORE_H_MULTIPLE} from {CORE_H_MULTIPLE} to {CORE_H_MAX} and "
-                f"an output width a multiple of {CORE_N_MULTIPLE}")
-    elif h not in HIDDEN_SIZES or n % N_MULTIPLE or n == 0:
-        raise ValueError(f"{what}: hidden size {h} (supported {HIDDEN_SIZES}) / "
-                         f"output width {n} (a multiple of {N_MULTIPLE})")
+    design, (h_mul, h_max, n_mul) = (
+        ("the wgmma core takes", (CORE_H_MULTIPLE, CORE_H_MAX, CORE_N_MULTIPLE)) if bf16_core
+        else ("the int8 core and gemm_tiles take", (H_MULTIPLE, H_MAX, N_MULTIPLE)))
+    if h % h_mul or not h_mul <= h <= h_max or n % n_mul or n == 0:
+        raise ValueError(f"{what}: hidden size {h} / output width {n}: {design} H a "
+                         f"multiple of {h_mul} from {h_mul} to {h_max} and an output width "
+                         f"a multiple of {n_mul}")
     return h, n, x.numel() // h
 
 
@@ -109,7 +115,7 @@ def fused_ln_qkv_fwd(gamma, beta, wqkv, bqkv, x, eps: float = 1e-12) -> torch.Te
     type."""
     what = "fused_ln_qkv_fwd"
     route = ln_qkv_route(x.dtype)
-    h, n, rows = _shapes(what, x, wqkv, route)
+    h, n, rows = _shapes(what, x, wqkv, route == "wgmma")
     dt = x.dtype
     check_operands(what, x, {
         "x": (x, (*x.shape[:-1], h), dt), "gamma": (gamma, (h,), dt),
@@ -131,15 +137,22 @@ def fused_ln_qkv_fwd(gamma, beta, wqkv, bqkv, x, eps: float = 1e-12) -> torch.Te
 
 def fused_ln_qkv_fwd_w8a8(gamma, beta, wqkv_q, sqkv, bqkv, x,
                           eps: float = 1e-12) -> torch.Tensor:
-    """w8a8 LN -> QKV kernel.  x (..., H) -> (..., 3H); wqkv_q (H, 3H) int8,
-    sqkv (3H,) fp32, gamma/beta/bqkv in x's type."""
+    """w8a8 LN -> QKV kernel.  x (..., H) -> (..., 3H); wqkv_q (H, 3H) int8
+    held K-major (a transposed view of contiguous (3H, H) storage), sqkv
+    (3H,) fp32, gamma/beta/bqkv in x's type."""
     what = "fused_ln_qkv_fwd_w8a8"
-    h, n, rows = _shapes(what, x, wqkv_q, ln_qkv_route(x.dtype, w8a8=True))
+    ln_qkv_route(x.dtype, w8a8=True)  # the one design, for every dtype it takes
+    h, n, rows = _shapes(what, x, wqkv_q, False)
+    if not is_k_major(wqkv_q):
+        raise ValueError(f"{what}: wqkv_q must be held K-major (a transposed view of "
+                         f"contiguous storage, ops/quantize.py k_major), got strides "
+                         f"{tuple(wqkv_q.stride())}")
     dt, dev = x.dtype, x.device
     sqkv = sqkv.reshape(-1)
+    # the kernel reads the codes' storage, Wqkv^T (3H, H)
     check_operands(what, x, {
         "x": (x, (*x.shape[:-1], h), dt), "gamma": (gamma, (h,), dt),
-        "beta": (beta, (h,), dt), "wqkv_q": (wqkv_q, (h, n), torch.int8),
+        "beta": (beta, (h,), dt), "wqkv_q^T": (wqkv_q.t(), (n, h), torch.int8),
         "sqkv": (sqkv, (n,), torch.float32), "bqkv": (bqkv, (n,), dt)})
     lib = _build.load("ln_qkv", _SIGNATURES)
     yq = torch.empty((rows, h), dtype=torch.int8, device=dev)  # LN(x)'s codes
@@ -170,13 +183,16 @@ def _zero_bias(ps, key, dtype):
 
 def _w8a8_operands(ps, dtype):
     """The w8a8 kernel's (wqkv_q, sqkv, bqkv): q/k/v's int8 weights, scales
-    and biases concatenated along out.  Under ``torch.no_grad`` or
-    ``torch.inference_mode``, when the projections are modules, the result is kept on the q module (not as a
-    parameter or buffer, so no checkpoint sees it) and built again only
-    when a source tensor was replaced, moved or written in place: a served
-    forward concatenates nothing."""
+    and biases concatenated along out, the weights held K-major (an (H, 3H)
+    view of (3H, H) storage, the layout the kernel reads; the concatenation
+    is the one copy, from either layout of the sources).  Under
+    ``torch.no_grad`` or ``torch.inference_mode``, when the projections are
+    modules, the result is kept on the q module (not as a parameter or
+    buffer, so no checkpoint sees it) and built again only when a source
+    tensor was replaced, moved or written in place: a served forward
+    concatenates nothing."""
     def build():
-        return (torch.cat([p["w_q8"] for p in ps], dim=1),
+        return (torch.cat([p["w_q8"].t() for p in ps]).t(),
                 torch.cat([p["w_scale"] for p in ps], dim=-1).reshape(-1),
                 _zero_bias(ps, "w_q8", dtype))
 
