@@ -15,7 +15,10 @@ attention and SwiGLU kernels), then trains VAuLT-base: one step on the
 kernel path against one on the plain path
 (fp32 masters, bf16 compute, remat, dropout 0.1, batch 32 at the ``entry()``
 layout) and a short ``Trainer.train()`` with a dev evaluation and a
-checkpoint.  It checks the launch counts, the gradients and the outputs.
+checkpoint; then serves and trains it with token merging (ToMe, the patch
+tokens merged to 87: bf16 and the w8a8 levered configuration at layer 0,
+batch 8 and 64, its engine, the fp32 model merged at layer 4, one merged
+training step).  It checks the launch counts, the gradients and the outputs.
 Each phase prints one JSON line; any failure exits non-zero.  Device
 times come from CUPTI traces, each held against the CUDA-event time of the
 same calls (``device_ms``).  The last line
@@ -24,7 +27,7 @@ exits non-zero and prints no result.  Imports nothing of JAX or of the JAX
 package.
 
 ``--phases a,b`` runs only the named groups of phases (``kernels``,
-``vault``, ``w8``, ``llama``, ``train``) while working on one of them; such
+``vault``, ``w8``, ``llama``, ``train``, ``merge``) while working on one of them; such
 a run ends with ``{"partial": [...]}``, not with the ``ok`` line.
 """
 
@@ -103,7 +106,8 @@ GEMM_CORE_LIMIT = 1e-4
 # Device kernels that show which design ran a block (``cuda_mlp.mlp_route``,
 # ``cuda_ln_qkv.ln_qkv_route``, ``cuda_attention.attention_route``,
 # ``cuda_swiglu.swiglu_route``): on the wgmma core the GEMM core's products
-# and the block's row passes, on the walk mlp_main; bf16 attention the
+# and the block's row passes, on the fp32 tiles gemm_tiles and the same row
+# passes (with int8 weights behind dequant_f32); bf16 attention the
 # one-pass wgmma kernel; the SwiGLU block, the w8a8 MLP blocks and the w8a8
 # LN->QKV the int8 core's products between their row passes (the row codes,
 # the requantization of the activation; post-LN also the slices' row pass).
@@ -122,9 +126,14 @@ ROUTE_KERNELS = {
     ("mlp_postln", "wgmma"): ("gemm_kernel", "mlp_epilogue"),
     ("mlp_block_bwd", "wgmma"): ("gemm_kernel", "ln_rows_bf16", "mlp_bwd_preln_rows"),
     ("mlp_postln_bwd", "wgmma"): ("gemm_kernel", "mlp_bwd_postln_rows", "mlp_bwd_postln_dx"),
-    **{(name, "walk"): ("mlp_main",) for name in ("mlp_block", "mlp_postln", "mlp_postln_bwd",
-                                                  "mlp_postln_q8")},
-    ("mlp_block_bwd", "walk"): ("mlp_bwd_walk",),
+    ("mlp_block", "tiles"): ("row_prologue", "gemm_tiles", "mlp_epilogue"),
+    ("mlp_postln", "tiles"): ("gemm_tiles", "mlp_epilogue"),
+    ("mlp_block_q8", "tiles"): ("dequant_f32", "row_prologue", "gemm_tiles", "mlp_epilogue"),
+    ("mlp_postln_q8", "tiles"): ("dequant_f32", "gemm_tiles", "mlp_epilogue"),
+    ("mlp_block_bwd", "tiles"): ("transpose", "row_prologue", "gemm_tiles",
+                                 "mlp_bwd_preln_rows", "mlp_bwd_reduce_cols"),
+    ("mlp_postln_bwd", "tiles"): ("transpose", "gemm_tiles", "mlp_bwd_postln_rows",
+                                  "mlp_bwd_postln_dx", "mlp_bwd_reduce_cols"),
 }
 # The second geometries the bf16 blocks (and both LN->QKV kernels, both q8
 # blocks and both w8a8 blocks) are checked at (the wgmma core's width
@@ -583,6 +592,8 @@ def check_mlp(gen, dev, postln: bool):
 # bf16 attention, and gate_up_tiles / down_tiles, the SwiGLU products.
 NOT_WGMMA = ("mlp_main", "mlp_bwd_walk", "gemm_tiles", "attention_fma", "attention_kernel",
              "gate_up_tiles", "down_tiles")
+# ... and a timed run on the fp32 tiles: the core's products, the walk.
+NOT_TILES = ("gemm_kernel", "mlp_main", "mlp_bwd_walk")
 
 
 def check_route(name, row):
@@ -594,6 +605,8 @@ def check_route(name, row):
         fail(f"{name} {at}: route {row['route']} should run {want}, ran {sorted(ran)}")
     if row["route"] == "wgmma" and any(k in n for n in ran for k in NOT_WGMMA):
         fail(f"{name} {at}: the wgmma route ran another design's kernel: {sorted(ran)}")
+    if row["route"] == "tiles" and any(k in n for n in ran for k in NOT_TILES):
+        fail(f"{name} {at}: the fp32 tiles ran another design's kernel: {sorted(ran)}")
 
 
 def check_gemm_core(gen, dev):
@@ -804,6 +817,128 @@ def check_mlp_bwd(gen, dev, postln: bool):
         emit(phase="kernel_check", **row)
         rows_out.append(row)
     return rows_out
+
+
+# The fp32 blocks on the fp32 tiles (``cuda_mlp.mlp_route`` "tiles"): every
+# width of their contract checked here (BERT-base / ViLT-B/32, BERT-large,
+# H 512 / I 2,048, H 128 / I 384) at ragged rows, and each block timed at H
+# 768 at its main path's rows (the bf16 block's: 2,048 ViLT and 320 BERT
+# rows forward, 8,192 and 1,280 in a training step).
+TILES_WIDTHS = ((768, 3072), (1024, 4096), (512, 2048), (128, 384))
+TILES_ROWS = {"mlp_block": 8 * 256, "mlp_postln": 8 * 40, "mlp_block_q8": 8 * 256,
+              "mlp_postln_q8": 8 * 40, "mlp_block_bwd": TRAIN_BATCH * 256,
+              "mlp_postln_bwd": TRAIN_BATCH * 40}
+
+
+def check_mlp_tiles(dev):
+    """Every fp32 block (forward, q8 forward, backward; pre-LN and post-LN)
+    against its plain version at ``TILES_WIDTHS``, 77 and 37 rows (and the
+    forward blocks with the mask): forward within ``LIMITS["float32"]``,
+    backward per output within ``BWD_LIMITS["float32"]`` of max(1,
+    max|plain|); two launches bit-equal.  At H 768 each is also checked and
+    timed at ``TILES_ROWS`` beside its bound (fp32 without the tensor cores),
+    its plain version and the library composition (F.layer_norm, F.linear,
+    F.gelu in fp32; backward: autograd of it), and its route's kernels
+    checked (``check_route``).  Its inputs come from a generator of its own.
+    Returns the timed rows by kernel name."""
+    import torch
+    import torch.nn.functional as F
+
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(12)
+    timed_rows = {}
+    for name, rows_main in TILES_ROWS.items():
+        postln = "postln" in name
+        q8, bwd = name.endswith("_q8"), name.endswith("_bwd")
+        cases = [(rows, h, i, mask) for h, i in TILES_WIDTHS for rows in (77, 37)
+                 for mask in ((False,) if q8 else (False, True))]
+        cases.insert(0, (rows_main, 768, 3072, postln and not q8))
+        for rows, h, i, with_mask in cases:
+            what = f"{name} fp32 rows={rows} H={h} I={i} mask={with_mask}"
+            if q8:
+                qo, m = int8_operands(gen, rows, f32, dev, h=h, i=i), None
+                args = [qo[k] for k in INT8_KERNELS[name][2]]
+                wrapper = getattr(cm, INT8_KERNELS[name][0])
+                plain = getattr(cm, INT8_KERNELS[name][1])
+                run, ref_fn = (lambda: wrapper(*args)), (lambda: plain(*args))
+            else:
+                x, o, m = mlp_operands(gen, rows, f32, dev, with_mask, h=h, i=i)
+            if bwd:
+                g = torch.randn((rows, h), generator=gen, device=dev)
+                args = (o["gamma"], o["beta"], o["w1"], o["b1"], o["w2"], o["b2"], x, g, m)
+                wrapper = cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd
+                plain = cm.mlp_postln_bwd_plain if postln else cm.mlp_block_bwd_plain
+                run, ref_fn = (lambda: wrapper(*args)), (lambda: plain(*args))
+            elif not q8:
+                kernel = cm.fused_mlp_postln_fwd if postln else cm.fused_mlp_block_fwd
+                plain = cm._mlp_postln_plain if postln else cm._mlp_block_plain
+                run = lambda: kernel(o["gamma"], o["beta"], o["w1"], o["b1"], o["w2"],
+                                     o["b2"], x, m, eps=1e-12)
+                ref_fn = lambda: plain({"scale": o["gamma"], "bias": o["beta"]},
+                                       {"w": o["w1"], "b": o["b1"]},
+                                       {"w": o["w2"], "b": o["b2"]}, x, 1e-12, "gelu", m)
+            out, again, ref = run(), run(), ref_fn()
+            torch.cuda.synchronize()
+            outs, refs, agains = ((out, ref, again) if bwd else ((out,), (ref,), (again,)))
+            errs = {}
+            for n, a, b in zip(BWD_NAMES if bwd else ("out",), outs, refs):
+                scale = max(1.0, b.abs().max().item()) if bwd else 1.0
+                errs[n] = (a - b).abs().max().item() / scale
+            limit = BWD_LIMITS["float32"] if bwd else LIMITS["float32"]
+            bad = {n: e for n, e in errs.items() if not math.isfinite(e) or e > limit}
+            if bad:
+                fail(f"{what}: |kernel - plain| {bad} over the limit {limit}")
+            if not all(torch.equal(a, b) for a, b in zip(outs, agains)):
+                fail(f"{what}: two launches differ")
+            row = dict(kernel=name, rows=rows, hidden=h, intermediate=i, dtype="float32",
+                       mask=with_mask, route=cm.mlp_route(f32), max_abs_err=max(
+                           (a - b).abs().max().item() for a, b in zip(outs, refs)),
+                       rel_err_by_output=errs if bwd else None, limit=limit,
+                       bit_equal_repeat=True, path="fp32")
+            if rows == rows_main:
+                row_run = (lambda: cm._launch_bwd(postln, *args, 1e-12)) if bwd else run
+                timed(row_run, "", row, iters=5 if bwd else 20)
+                check_route(name, row)
+                timed(ref_fn, "plain_", row, iters=5 if bwd else 20)
+                if q8:
+                    w1 = qo["w1q"].float() * qo["s1"].reshape(1, -1)
+                    w2 = qo["w2q"].float() * qo["s2"].reshape(1, -1)
+                    b1, b2, gam, bet = qo["b1"], qo["b2"], qo["gamma"], qo["beta"]
+                    xl = qo["x"]
+                else:
+                    w1, w2, b1, b2, xl = o["w1"], o["w2"], o["b1"], o["b2"], x
+                    gam, bet = o["gamma"], o["beta"]
+                leaves = [t.detach().clone().requires_grad_(bwd) for t in (
+                    xl, gam, bet, w1.t().contiguous(), b1, w2.t().contiguous(), b2)]
+                xv, gv, bv, w1t, b1v, w2t, b2v = leaves
+                ln = lambda t: F.layer_norm(t, (h,), gv, bv, 1e-12)
+                masked = (lambda t: t) if m is None else (lambda t: t * m)
+
+                def lib_fwd():
+                    if postln:
+                        return ln(xv + masked(F.linear(F.gelu(F.linear(xv, w1t, b1v)), w2t,
+                                                       b2v)))
+                    return xv + masked(F.linear(F.gelu(F.linear(ln(xv), w1t, b1v)), w2t, b2v))
+
+                if bwd:
+                    fwd = lib_fwd()
+                    timed(lambda: torch.autograd.grad(fwd, leaves, g, retain_graph=True),
+                          "library_", row, iters=5)
+                else:
+                    timed(lib_fwd, "library_", row)
+                products = (4 if postln else 3) if bwd else 2
+                nbytes = 4 * ((2 + (1 if with_mask else 0) + (3 if bwd else 0)) * rows * h
+                              + (2 * rows * i if bwd else 0) + 2 * h * i + 3 * h + i)
+                if q8:
+                    nbytes -= 3 * 2 * h * i - 4 * (h + i)  # int8 codes and their scales
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    2.0 * products * rows * h * i, nbytes, f32)
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                timed_rows[name] = row
+            emit(phase="kernel_check", **row)
+    return timed_rows
 
 
 def int8_operands(gen, rows, dtype, dev, h=768, i=3072, w8a8=False):
@@ -1818,6 +1953,230 @@ def llama_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Token merging (ToMe)
+# ---------------------------------------------------------------------------
+
+# ToMe on VAuLT-base: the 215 patch tokens merged to 87 (two bipartite steps,
+# r = 108 then 20), so the joint length is 40 + 1 + 87 = 128 and ViLT runs
+# 1,024 rows at batch 8, 8,192 at batch 64 and 4,096 in a batch-32 training
+# step; the key bias carries log(size).  The reference's best serving
+# configuration is w8a8 with merge_to 87 at layer 0 on "fuselnqkv+fusemlp".
+MERGE_TO = 87
+MERGED_L = 40 + 1 + MERGE_TO
+# Merging after layer 4: the kernel path and the plain path merge
+# contextualized tokens that differ by their rounding, so in bf16 they may
+# take other merge decisions; the layer-4 merge is gated in fp32, where the
+# fp32 kernels stay within 1e-4 of their plain versions (LIMITS), and the 24
+# layers, the final LN, the pooler and the head keep the path difference at
+# that order: 1e-4 of the pooler and the logits.
+MERGE_F32_LIMITS = {"pooler": 1e-4, "logits": 1e-4}
+MERGE_MID_LAYER = 4
+
+
+@contextlib.contextmanager
+def recorded_rows():
+    """The rows each MLP block launch of ``cuda_mlp`` runs on, by launcher
+    and form: ``{"fwd": [...], "bwd": [...], "w8a8": [...]}`` of (postln,
+    rows), recorded around the launchers the wrappers call."""
+    from vault_tpu_torch.ops import cuda_mlp as cm
+
+    seen = {"fwd": [], "bwd": [], "w8a8": []}
+    names = {"fwd": ("_launch", 7), "bwd": ("_launch_bwd", 7), "w8a8": ("_launch_w8a8", 9)}
+    originals = {k: getattr(cm, n) for k, (n, _) in names.items()}
+
+    def wrap(key, fn, at):
+        def launcher(postln, *args, **kw):
+            x = args[at - 1]
+            seen[key].append((bool(postln), x.numel() // x.shape[-1]))
+            return fn(postln, *args, **kw)
+        return launcher
+
+    for key, (name, at) in names.items():
+        setattr(cm, name, wrap(key, originals[key], at))
+    try:
+        yield seen
+    finally:
+        for key, (name, _) in names.items():
+            setattr(cm, name, originals[key])
+
+
+def vilt_rows(seen, key):
+    """The distinct row counts of the pre-LN (ViLT) blocks in ``seen[key]``."""
+    return sorted({rows for postln, rows in seen[key] if not postln})
+
+
+def merged_forward_phase(dev, cfg):
+    """bf16 VAuLT-base merged to 87 patch tokens at layer 0, batch 8: the
+    launches per forward on "auto" and on "fuselnqkv+fusemlp+batched" as
+    unmerged, ViLT's rows 1,024 and L 128, the kernel path within
+    ``FORWARD_LIMITS`` of the plain path on both selectors (both merge the
+    same patch embeddings), and busy ms beside the unmerged forward of the
+    same model in the same call."""
+    import torch
+
+    from vault_tpu_torch.models.vault import VaultForClassification, vault_apply
+
+    model = VaultForClassification(cfg, n_classes=3, device=dev, dtype=torch.bfloat16,
+                                   seed=0, merge_to=MERGE_TO)
+    batch = entry_batch(cfg, 8, dev)
+    counts, errs = {}, {}
+    for impl, want in (("auto", EVAL_LAUNCHES),
+                       ("fuselnqkv+fusemlp+batched", LNQKV_LAUNCHES)):
+        with torch.inference_mode(), recorded_rows() as seen:
+            reset_counts()
+            logits = model(batch, use_pallas=impl)
+            torch.cuda.synchronize()
+            counts[impl] = read_counts()
+        if counts[impl] != want:
+            fail(f"merged {impl}: launches per forward {counts[impl]}, expected {want}")
+        if vilt_rows(seen, "fwd") != [8 * MERGED_L]:
+            fail(f"merged {impl}: ViLT MLP blocks ran at rows {vilt_rows(seen, 'fwd')}, "
+                 f"expected {8 * MERGED_L}")
+        if logits.shape != (8, 3) or not torch.isfinite(logits.float()).all():
+            fail(f"merged {impl}: logits {tuple(logits.shape)} not finite")
+        err_pool, err_logits, (_, k_logits) = merged_kernel_vs_plain(
+            model, cfg, batch, impl, FORWARD_LIMITS)
+        if (k_logits - logits.float()).abs().max().item() != 0.0:
+            fail(f"merged {impl}: model(batch) and vault_apply disagree")
+        errs[impl] = {"pooler": err_pool, "logits": err_logits}
+    with torch.inference_mode():
+        out = vault_apply(model, cfg, merge_patches_to=MERGE_TO, **batch)
+    if tuple(out.last_hidden_state.shape[:2]) != (8, MERGED_L) or \
+            int(out.attention_mask.shape[1]) != MERGED_L:
+        fail(f"merged: joint length {tuple(out.last_hidden_state.shape)}, expected {MERGED_L}")
+    timings = {}
+    for label, merge_to in (("unmerged", None), ("merged", MERGE_TO), ("merged_again", MERGE_TO),
+                            ("unmerged_again", None)):
+        model.merge_to = merge_to
+        timings[label] = forward_timings(model, cfg, dev, batch_sizes=(8,))[8]
+    model.merge_to = MERGE_TO
+    # the merge itself (two bipartite steps on batch 8's patch tokens):
+    # device ms, and event wall ms per call with the host's launches in it
+    from vault_tpu_torch.ops.token_merge import merge_tokens_to
+
+    patches = torch.randn((8, cfg.vilt.num_patch_tokens, cfg.vilt.hidden_size), device=dev,
+                          dtype=torch.bfloat16)
+    valid = torch.ones(patches.shape[:2], dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        merge_cost = {"ms": device_ms(lambda: merge_tokens_to(patches, valid, MERGE_TO))[0],
+                      "wall_ms": time_ms(lambda: merge_tokens_to(patches, valid, MERGE_TO))}
+    emit(phase="forward_merged", merge_to=MERGE_TO, merge_at_layer=0, joint_length=MERGED_L,
+         vilt_rows=8 * MERGED_L, launches_per_forward=counts, vs_plain_path=errs,
+         limits=FORWARD_LIMITS, merge_tokens_to_batch8=merge_cost, timings_batch8=timings)
+    return model, counts["auto"]
+
+
+def merged_kernel_vs_plain(model, cfg, batch, impl, limits):
+    """``kernel_vs_plain`` on the model's own merge settings."""
+    import torch
+
+    from vault_tpu_torch.models.vault import classifier_head_apply, vault_apply
+
+    outs = {}
+    for key in (impl, False):
+        with torch.inference_mode():
+            out = vault_apply(model, cfg, deterministic=True, use_pallas=key,
+                              merge_patches_to=model.merge_to,
+                              merge_at_layer=model.merge_at_layer, **batch)
+            outs[key] = (out.pooler_output.float(), classifier_head_apply(
+                model["head"], out.pooler_output, deterministic=True).float())
+    err_pool = (outs[impl][0] - outs[False][0]).abs().max().item()
+    err_logits = (outs[impl][1] - outs[False][1]).abs().max().item()
+    if limits is not None and not (err_logits <= limits["logits"]
+                                   and err_pool <= limits["pooler"]):
+        fail(f"merged {impl} (merge_to {model.merge_to} at layer {model.merge_at_layer}) "
+             f"kernel path vs plain path: pooler {err_pool}, logits {err_logits} "
+             f"(limits {limits})")
+    return err_pool, err_logits, outs[impl]
+
+
+def merged_w8a8_phase(dev, cfg):
+    """The reference's levered serving configuration: w8a8, merge_to 87 at
+    layer 0, "fuselnqkv+fusemlp(+batched)", at batch 8 and 64 (8,192 ViLT
+    rows): launches, bit-equal to ``int8_plain_versions``, busy ms and
+    pairs/s beside the same model unmerged, in the same call."""
+    import torch
+
+    from vault_tpu_torch.models.vault import VaultForClassification
+
+    model = VaultForClassification(cfg, n_classes=3, device=dev, dtype=torch.bfloat16,
+                                   seed=0, merge_to=MERGE_TO).quantize("w8a8")
+    impl = model.use_pallas
+    res = {}
+    for bs in (8, 64):
+        batch = entry_batch(cfg, bs, dev)
+        with torch.inference_mode(), recorded_rows() as seen:
+            reset_counts()
+            logits = model(batch)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        if counts != W8A8_LAUNCHES:
+            fail(f"merged w8a8 batch {bs}: launches {counts}, expected {W8A8_LAUNCHES}")
+        if vilt_rows(seen, "w8a8") != [bs * MERGED_L]:
+            fail(f"merged w8a8 batch {bs}: ViLT blocks at rows {vilt_rows(seen, 'w8a8')}")
+        if logits.shape != (bs, 3) or not torch.isfinite(logits.float()).all():
+            fail(f"merged w8a8 batch {bs}: logits {tuple(logits.shape)} not finite")
+        k_pool, k_logits = merged_kernel_vs_plain(model, cfg, batch, impl, None)[2]
+        if (k_logits - logits.float()).abs().max().item() != 0.0:
+            fail(f"merged w8a8 batch {bs}: model(batch) and vault_apply disagree")
+        with int8_plain_versions():
+            p_pool, p_logits = merged_kernel_vs_plain(model, cfg, batch, impl, None)[2]
+        vs_plain = {"pooler": (k_pool - p_pool).abs().max().item(),
+                    "logits": (k_logits - p_logits).abs().max().item()}
+        if not (torch.equal(k_pool, p_pool) and torch.equal(k_logits, p_logits)):
+            fail(f"merged w8a8 batch {bs}: kernel path vs the int8 plain versions "
+                 f"{vs_plain}, expected bit-equal")
+        timings = {}
+        for label, merge_to in (("unmerged", None), ("merged", MERGE_TO),
+                                ("merged_again", MERGE_TO), ("unmerged_again", None)):
+            model.merge_to = merge_to
+            timings[label] = forward_timings(model, cfg, dev, batch_sizes=(bs,))[bs]
+        model.merge_to = MERGE_TO
+        res[bs] = dict(launches=counts, vilt_rows=bs * MERGED_L,
+                       vs_int8_plain_versions=vs_plain, timings=timings)
+    emit(phase="forward_merged_w8a8", use_pallas=impl, merge_to=MERGE_TO, merge_at_layer=0,
+         vs_int8_plain_versions_limit="bit-equal",
+         batches={str(k): v for k, v in res.items()})
+    return model, res[8]["launches"]
+
+
+def merged_mid_phase(dev, cfg, bf16_model):
+    """merge_to 87 after layer 4: the fp32 model (the fp32 attention kernel
+    and the fp32 tiles' MLP blocks at full width: 2,048 ViLT rows before the
+    merge, 1,024 after) within ``MERGE_F32_LIMITS`` of its plain path; the
+    bf16 model's distance from its plain path reported, not gated."""
+    import torch
+
+    from vault_tpu_torch.models.vault import VaultForClassification
+
+    batch = entry_batch(cfg, 8, dev)
+    model = VaultForClassification(cfg, n_classes=3, device=dev, dtype=torch.float32,
+                                   seed=0, merge_to=MERGE_TO, merge_at_layer=MERGE_MID_LAYER)
+    batch32 = dict(batch, pixel_values=batch["pixel_values"].float())
+    with torch.inference_mode(), recorded_rows() as seen:
+        reset_counts()
+        model(batch32)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    if counts != EVAL_LAUNCHES:
+        fail(f"fp32 merged at layer {MERGE_MID_LAYER}: launches {counts}")
+    rows = vilt_rows(seen, "fwd")
+    if rows != sorted({8 * MERGED_L, 8 * 256}):
+        fail(f"fp32 merged at layer {MERGE_MID_LAYER}: ViLT rows {rows}")
+    f32_pool, f32_logits, _ = merged_kernel_vs_plain(model, cfg, batch32, "auto",
+                                                     MERGE_F32_LIMITS)
+    del model
+    bf16_model.merge_to, bf16_model.merge_at_layer = MERGE_TO, MERGE_MID_LAYER
+    bf_pool, bf_logits, _ = merged_kernel_vs_plain(bf16_model, cfg, batch, "auto", None)
+    bf16_model.merge_at_layer = 0
+    emit(phase="forward_merged_mid", merge_to=MERGE_TO, merge_at_layer=MERGE_MID_LAYER,
+         launches_per_forward=counts, vilt_rows=rows,
+         fp32_vs_plain_path={"pooler": f32_pool, "logits": f32_logits},
+         fp32_limits=MERGE_F32_LIMITS,
+         bf16_vs_plain_path_reported={"pooler": bf_pool, "logits": bf_logits})
+
+
+# ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
 
@@ -1857,10 +2216,14 @@ def train_args(**kw):
                      eval_batch_size=TRAIN_BATCH, disable_tqdm=True, **kw)
 
 
-def train_step_phase(dev):
+def train_step_phase(dev, merge_to=None):
     """One step on the kernel path against one on the plain path (same
     masters, batch and generator seed), the launch counts of a step, and
-    the step's time."""
+    the step's time.  With ``merge_to`` the step trains through ToMe (at
+    layer 0: both paths merge the same patch embeddings, dropout included,
+    the generators drawing alike), its ViLT backward kernels must run at
+    ``TRAIN_BATCH * (40 + 1 + merge_to)`` rows, and it is timed beside the
+    unmerged step (kernel path) instead of the plain path."""
     import torch
 
     from vault_tpu_torch.data.loader import InMemoryDataset
@@ -1870,7 +2233,7 @@ def train_step_phase(dev):
 
     cfg = vault_base("bert-base-uncased")
     feats, labels = entry_features(cfg, TRAIN_BATCH, seed=3)
-    paths = {impl: classifier_apply_fn(cfg, train_args(use_pallas=impl))
+    paths = {impl: classifier_apply_fn(cfg, train_args(use_pallas=impl, merge_to=merge_to))
              for impl in ("auto", False)}
     tr = Trainer(paths["auto"],
                  VaultForClassification(cfg, device=dev, dtype=torch.float32, seed=0),
@@ -1882,10 +2245,15 @@ def train_step_phase(dev):
         tr.apply_fn = paths[impl]
         gen = tr.step_generator(0)
         reset_counts()
-        loss, grads = tr.loss_and_grads(batch, lab, w, gen)
-        torch.cuda.synchronize()
+        with recorded_rows() as seen:
+            loss, grads = tr.loss_and_grads(batch, lab, w, gen)
+            torch.cuda.synchronize()
         res[impl] = dict(loss=loss.item(), grads=grads, gen=gen.get_state(),
-                         counts=read_counts())
+                         counts=read_counts(), rows=vilt_rows(seen, "bwd"))
+    vilt_len = 40 + 1 + (cfg.vilt.num_patch_tokens if merge_to is None else merge_to)
+    if res["auto"]["rows"] != [TRAIN_BATCH * vilt_len]:
+        fail(f"training step (merge_to {merge_to}): the ViLT backward kernels ran at rows "
+             f"{res['auto']['rows']}, expected {TRAIN_BATCH * vilt_len}")
     kern, plain = res["auto"], res[False]
     want_plain = {k: 0 for k in STEP_LAUNCHES}
     if kern["counts"] != STEP_LAUNCHES or plain["counts"] != want_plain:
@@ -1937,28 +2305,39 @@ def train_step_phase(dev):
     counts = read_counts()
     if counts != STEP_LAUNCHES:
         fail(f"launches per training step {counts}, expected {STEP_LAUNCHES}")
-    samples = {"kernel": [], "plain": []}
-    # plain, kernel, kernel, plain: both paths see the same host and card
-    for path in ("plain", "kernel", "kernel", "plain"):
-        tr.apply_fn = paths["auto" if path == "kernel" else False]
+    # the yardstick beside the kernel path: the plain path, or (merged)
+    # the unmerged kernel path
+    other = "plain" if merge_to is None else "unmerged"
+    ref_fn = paths[False] if merge_to is None else classifier_apply_fn(cfg, train_args())
+    samples = {"kernel": [], other: []}
+    # other, kernel, kernel, other: both paths see the same host and card
+    for path in (other, "kernel", "kernel", other):
+        tr.apply_fn = paths["auto"] if path == "kernel" else ref_fn
         samples[path] += [time_ms(lambda: step(3), iters=1, warmup=0)
                           for _ in range(2)]
+    extra = {}
+    if merge_to is not None:
+        tr.apply_fn = ref_fn
+        extra["unmerged_device_busy_ms"], _ = device_ms(lambda: step(4), iters=2, warmup=1)
     tr.apply_fn = paths["auto"]
     ms = float(np.median(samples["kernel"]))
     busy, kernels = device_ms(lambda: step(4), iters=2, warmup=0)
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
-    emit(phase="train_step", batch=TRAIN_BATCH, loss_kernel_path=loss_kernel,
+    emit(phase="train_step" if merge_to is None else "train_step_merged", merge_to=merge_to,
+         vilt_bwd_rows=TRAIN_BATCH * vilt_len, batch=TRAIN_BATCH,
+         loss_kernel_path=loss_kernel,
          loss_abs_diff=loss_diff, grad_rel_worst=worst,
          grad_rel_median=float(np.median(list(rel.values()))),
          leaves_checked=len(rel), unused_leaves=sorted(UNUSED_LEAVES),
          key_bias_grad_norms_kernel_plain=dict(sorted(noise.items())[:4]),
          key_bias_grad_norm_max=max(max(v) for v in noise.values()),
          limits=STEP_LIMITS, launches_per_step=counts, ms=ms,
-         ms_samples=samples["kernel"], plain_ms=float(np.median(samples["plain"])),
-         plain_ms_samples=samples["plain"], pairs_per_s=TRAIN_BATCH / ms * 1e3,
+         ms_samples=samples["kernel"], **{f"{other}_ms": float(np.median(samples[other])),
+                                          f"{other}_ms_samples": samples[other]},
+         pairs_per_s=TRAIN_BATCH / ms * 1e3,
          device_busy_ms=busy, idle_share=1.0 - busy / ms,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         top_kernels_ms=top)
+         top_kernels_ms=top, **extra)
     del tr
     torch.cuda.empty_cache()
     return cfg, counts
@@ -2039,7 +2418,7 @@ def _leaves(tree):
     return [tree]
 
 
-PHASES = ("kernels", "vault", "w8", "llama", "train")
+PHASES = ("kernels", "vault", "w8", "llama", "train", "merge")
 
 
 def main():
@@ -2094,6 +2473,7 @@ def main():
         checks["mlp_postln"] = check_mlp(gen, dev, postln=True)
         checks["mlp_block_bwd"] = check_mlp_bwd(gen, dev, postln=False)
         checks["mlp_postln_bwd"] = check_mlp_bwd(gen, dev, postln=True)
+        tiles_rows = check_mlp_tiles(dev)
         for name in INT8_KERNELS:
             checks[name] = check_int8_family(gen, dev, name)
         checks["attention_gqa"] = check_attention_gqa(gen, dev)
@@ -2122,6 +2502,18 @@ def main():
         cfg, step_counts = train_step_phase(dev)
         path_counts["train_step"] = step_counts
         trainer_phase(dev, cfg)
+    if "merge" in phases:
+        from vault_tpu_torch.presets import vault_base
+
+        cfg = vault_base("bert-base-uncased")
+        model, path_counts["forward_merged"] = merged_forward_phase(dev, cfg)
+        qmodel, path_counts["forward_merged_w8a8"] = merged_w8a8_phase(dev, cfg)
+        serving_phase(qmodel, W8A8_LAUNCHES, "serving_merged_w8a8")
+        del qmodel
+        merged_mid_phase(dev, cfg, model)
+        del model
+        torch.cuda.empty_cache()
+        _, path_counts["train_step_merged"] = train_step_phase(dev, merge_to=MERGE_TO)
     emit(phase="trace_checks", short_share=TRACE_SHORT_SHARE, long_share=TRACE_LONG_SHARE,
          launch_gap_ms=LAUNCH_GAP_MS, **TRACE_LOG)
     if set(phases) != set(PHASES):
@@ -2188,6 +2580,12 @@ def main():
             entry["library"] = timed[0]["library"]
         if "library_row_major_ms" in timed[0]:
             entry["library_row_major_ms"] = mean("library_row_major_ms")
+        fp32 = tiles_rows.get(name)
+        if fp32 is not None:  # the fp32 block on the fp32 tiles, at H 768
+            entry.update(fp32_rows=fp32["rows"], fp32_ms=fp32["ms"],
+                         fp32_plain_ms=fp32["plain_ms"], fp32_library_ms=fp32["library_ms"],
+                         fp32_bound_ms=fp32["bound_ms"], fp32_bound_by=fp32["bound_by"],
+                         fp32_max_abs_err=fp32["max_abs_err"])
         for r in at_train_rows:  # the forward kernels at the training rows
             entry.update(train_rows=r["rows"], train_ms=r["ms"],
                          train_plain_ms=r["plain_ms"],

@@ -66,7 +66,7 @@ def test_attention_kernel_matches_plain(dev, dtype, l, fused, d):
         assert _attention_row_err(out, ref) <= ATTENTION_ROW_LIMIT
 
 
-# Row counts at the edges of the tiles: 32-row walk tiles, 128-row wgmma
+# Row counts at the edges of the tiles: 64-row fp32 tiles, 128-row wgmma
 # tiles (1, 77, 130, 2,048 + 5), the serving and training rows of the BERT
 # blocks (320, 1,280) and of the ViLT blocks (8,192).
 MLP_ROWS = [37, 1, 77, 130, 320, 1280, 2048 + 5, 8192]
@@ -310,6 +310,47 @@ def test_bf16_blocks_at_other_widths(dev, h, i, postln, rows):
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= LIMITS[torch.bfloat16]
     _assert_close_scaled(grads, bwd_plain(*args), torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_again))
+
+
+@pytest.mark.parametrize("h,i", [(768, 3072), (1024, 4096), (512, 2048), (128, 384)])
+@pytest.mark.parametrize("postln", [False, True])
+@pytest.mark.parametrize("rows", [77, 37])
+def test_fp32_blocks_on_the_tiles_at_their_widths(dev, h, i, postln, rows):
+    """The fp32 blocks (``mlp_route`` "tiles"), forward with fp32 and int8
+    weights and backward, at the widths of their contract: within 1e-4 of
+    their plain versions (backward per output of max(1, max|plain|)),
+    repeats bit-equal."""
+    from vault_tpu_torch.ops import cuda_mlp as cm
+    from vault_tpu_torch.ops.quantize import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(h + i + rows)
+    rnd = lambda *s, std=1.0, mean=0.0: torch.randn(s, generator=g, device=dev) * std + mean
+    o = dict(gamma=rnd(h, std=0.1, mean=1.0), beta=rnd(h, std=0.1), w1=rnd(h, i, std=0.02),
+             b1=rnd(i, std=0.02), w2=rnd(i, h, std=0.02), b2=rnd(h, std=0.02), x=rnd(rows, h),
+             g=rnd(rows, h))
+    o["m"] = torch.where(torch.rand((rows, h), generator=g, device=dev) < 0.9, 1 / 0.9, 0.0)
+    args = [o[k] for k in _ARGS]
+    kernel = cm.fused_mlp_postln_fwd if postln else cm.fused_mlp_block_fwd
+    plain = cm._mlp_postln_plain if postln else cm._mlp_block_plain
+    out, again = kernel(*args[:7], o["m"]), kernel(*args[:7], o["m"])
+    ref = plain({"scale": o["gamma"], "bias": o["beta"]}, {"w": o["w1"], "b": o["b1"]},
+                {"w": o["w2"], "b": o["b2"]}, o["x"], 1e-12, "gelu", o["m"])
+    (w1q, s1), (w2q, s2) = quantize_weight(o["w1"]), quantize_weight(o["w2"])
+    q8 = (o["gamma"], o["beta"], w1q, s1.reshape(-1), o["b1"], w2q, s2.reshape(-1), o["b2"],
+          o["x"])
+    q8_kernel = cm.fused_mlp_postln_fwd_q8 if postln else cm.fused_mlp_block_fwd_q8
+    q8_plain = cm.mlp_postln_q8_plain if postln else cm.mlp_block_q8_plain
+    q8_out = q8_kernel(*q8)
+    bwd = cm.fused_mlp_postln_block_bwd if postln else cm.fused_mlp_block_bwd
+    bwd_plain = cm.mlp_postln_bwd_plain if postln else cm.mlp_block_bwd_plain
+    grads, grads_again = bwd(*args), bwd(*args)
+    torch.cuda.synchronize()
+    assert cm.mlp_route(torch.float32) == "tiles"
+    assert (out - ref).abs().max().item() <= LIMITS[torch.float32]
+    assert torch.equal(out, again)
+    assert (q8_out - q8_plain(*q8)).abs().max().item() <= LIMITS[torch.float32]
+    _assert_close_scaled(grads, bwd_plain(*args), torch.float32)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads_again))
 
 

@@ -26,15 +26,15 @@ from vault_tpu_torch.ops.quantize import k_major
     (torch.bfloat16, False, True, "wgmma"),
     (torch.bfloat16, True, False, "wgmma"),
     (torch.bfloat16, True, True, "wgmma"),
-    (torch.float32, False, False, "walk"),
-    (torch.float32, False, True, "walk"),
-    (torch.float32, True, False, "walk"),
-    (torch.float32, True, True, "walk"),
+    (torch.float32, False, False, "tiles"),
+    (torch.float32, False, True, "tiles"),
+    (torch.float32, True, False, "tiles"),
+    (torch.float32, True, True, "tiles"),
 ])
 def test_mlp_route(dtype, int8_weights, postln, route):
     """Every bf16 block, pre-LN and post-LN alike, with bf16 weights or int8
     ones (behind the dequantization pass), goes to the wgmma core; fp32
-    blocks stay on the walk.  Which entries each wrapper launches: the test
+    blocks run the same launches on the fp32 tiles.  Which entries each wrapper launches: the test
     below."""
     assert cm.mlp_route(dtype, int8_weights, postln) == route
 
@@ -322,9 +322,11 @@ def test_gemm_wrappers_refuse_shapes_the_core_does_not_take(bad):
 # multiple of 64 from 64 to 8,192, I a multiple of 64.
 CORE_WIDTHS = [(64, 64), (512, 2048), (768, 3072), (1024, 4096), (8192, 64)]
 CORE_REFUSED = [(32, 64), (96, 128), (8256, 64), (768, 96), (768, 0)]
-# the walk's (fp32 blocks, int8 weights): H 768, I a multiple of 128
-WALK_WIDTHS = [(768, 128), (768, 3072)]
-WALK_REFUSED = [(512, 2048), (1024, 4096), (768, 192)]
+# the fp32 tiles' (fp32 blocks, int8 weights or not): H a multiple of 128
+# from 128 to 8,192, I a multiple of 128
+TILES_WIDTHS = [(128, 384), (512, 2048), (768, 128), (768, 3072), (1024, 4096),
+                (8192, 128)]
+TILES_REFUSED = [(96, 128), (8320, 128), (768, 192), (768, 0), (64, 128)]
 # the w8a8 blocks' on the int8 core: H a multiple of 128 from 128 to 8,192,
 # I a multiple of 128 up to 32,768
 W8A8_WIDTHS = [(128, 128), (512, 2048), (768, 3072), (1024, 4096), (8192, 128),
@@ -351,8 +353,8 @@ def _call_fp(kind, postln, a):
 @pytest.mark.parametrize("dtype,h,i,accepted", [
     *[(torch.bfloat16, h, i, True) for h, i in CORE_WIDTHS],
     *[(torch.bfloat16, h, i, False) for h, i in CORE_REFUSED],
-    *[(torch.float32, h, i, True) for h, i in WALK_WIDTHS],
-    *[(torch.float32, h, i, False) for h, i in WALK_REFUSED],
+    *[(torch.float32, h, i, True) for h, i in TILES_WIDTHS],
+    *[(torch.float32, h, i, False) for h, i in TILES_REFUSED],
 ])
 def test_mlp_wrappers_hold_their_width_contract(kind, postln, dtype, h, i, accepted):
     fn, call = _call_fp(kind, postln, _block_args(dtype, h, i))
@@ -364,11 +366,11 @@ def test_mlp_wrappers_hold_their_width_contract(kind, postln, dtype, h, i, accep
 
 def _int8_contract(family, postln, dtype):
     """The widths an int8-weight block takes: the bf16 q8 blocks the wgmma
-    core's, the fp32 ones the walk's, the w8a8 ones the int8 core's."""
+    core's, the fp32 ones the fp32 tiles', the w8a8 ones the int8 core's."""
     if family == "w8a8":
         return W8A8_WIDTHS, W8A8_REFUSED
     core = dtype == torch.bfloat16
-    return (CORE_WIDTHS, CORE_REFUSED) if core else (WALK_WIDTHS, WALK_REFUSED)
+    return (CORE_WIDTHS, CORE_REFUSED) if core else (TILES_WIDTHS, TILES_REFUSED)
 
 
 def _int8_block_args(family, a, h, i, layout=None):

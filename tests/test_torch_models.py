@@ -221,8 +221,12 @@ def test_unported_paths_raise():
     _, tb = _sides(_batch(), "float32")
     with pytest.raises(NotImplementedError):
         tvault.vault_for_classification(model, tcfg, tb, remat="dots")
-    with pytest.raises(NotImplementedError):
-        tvault.vault_apply(model, tcfg, merge_patches_to=4, **tb)
+    # token merging is ported (tests/test_torch_token_merge.py): the 16
+    # patch tokens merge down to 4, the mask follows
+    with torch.inference_mode():
+        out = tvault.vault_apply(model, tcfg, merge_patches_to=4, **tb)
+    assert out.last_hidden_state.shape == (3, 8 + 1 + 4, 32)
+    assert out.attention_mask.shape == (3, 8 + 1 + 4)
 
 
 @pytest.mark.slow

@@ -84,6 +84,48 @@ def test_processor_matches_jax(canvas):
                                atol=PIXEL_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("num_workers", [0, 1, 4])
+def test_parallel_map_keeps_order(num_workers):
+    """The decode pool maps in order for any worker count, as the JAX
+    package's ``parallel_map``."""
+    from vault_tpu.data.loader import parallel_map as jmap
+    from vault_tpu_torch.data.loader import parallel_map
+
+    items = list(range(23))
+    fn = lambda i: (i * 7) % 5 + i / 100
+    assert parallel_map(fn, items, num_workers) == [fn(i) for i in items]
+    assert parallel_map(fn, items, num_workers) == jmap(fn, items, num_workers)
+    assert parallel_map(fn, items[:1], num_workers) == [fn(0)]
+
+
+@pytest.mark.parametrize("canvas", ["auto", (384, 640)])
+def test_processor_workers_give_the_serial_result(canvas):
+    """``VaultProcessor(num_workers=...)``: 0, 1 and 4 worker threads give
+    the same batch, rows in order, bit for bit; and that batch equals the
+    JAX processor's (text fields and mask exactly, pixels within
+    ``PIXEL_ATOL``) at its own worker counts."""
+    images = _images(3)
+    outs = [VaultProcessor(WordPieceTokenizer(_vocab()), max_length=10, canvas=canvas,
+                           num_workers=n)(images, TEXTS) for n in (0, 1, 4)]
+    for out in outs[1:]:
+        assert set(out) == set(outs[0])
+        for k in out:
+            np.testing.assert_array_equal(out[k], outs[0][k])
+    ref = JProcessor(JTokenizer(_vocab()), max_length=10, canvas=canvas)
+    for n in (0, 4):
+        b = {**ref.encode_text(TEXTS)}
+        b["pixel_values"], b["pixel_mask"] = ref.encode_images(images, num_workers=n)
+        for k in ("input_ids", "attention_mask", "token_type_ids", "pixel_mask"):
+            np.testing.assert_array_equal(outs[0][k], b[k])
+        np.testing.assert_allclose(outs[0]["pixel_values"], b["pixel_values"],
+                                   atol=PIXEL_ATOL, rtol=0)
+    # the call's worker count overrides the processor's
+    proc = VaultProcessor(WordPieceTokenizer(_vocab()), max_length=10, canvas=canvas)
+    pv, pm = proc.encode_images(images, num_workers=4)
+    np.testing.assert_array_equal(pv, outs[0]["pixel_values"])
+    np.testing.assert_array_equal(pm, outs[0]["pixel_mask"])
+
+
 def test_target_size_matches_hf_geometry():
     assert target_size(480, 640) == (384, 512)
     assert target_size(640, 480) == (512, 384)

@@ -326,14 +326,16 @@ def test_step_generator_is_a_function_of_seed_and_step():
 
 
 def test_unported_knobs_raise():
+    # merge_to is ported (tests/test_torch_token_merge.py trains with it)
     for kw in (dict(zero_opt=True), dict(num_data_shards=2),
-               dict(profile_dir="trace"), dict(merge_to=87)):
+               dict(profile_dir="trace")):
         with pytest.raises(NotImplementedError):
             Trainer(None, {}, TrainArgs(**kw), None, device="cpu")
 
 
 def test_classifier_apply_fn_reads_the_train_args(monkeypatch):
-    """``use_pallas`` and ``remat`` have one home, the TrainArgs."""
+    """``use_pallas``, ``remat`` and the merge knobs have one home, the
+    TrainArgs."""
     import vault_tpu_torch.training.trainer as trainer_mod
 
     seen = {}
@@ -344,6 +346,10 @@ def test_classifier_apply_fn_reads_the_train_args(monkeypatch):
         fn = classifier_apply_fn(tcfg, TrainArgs(use_pallas=use_pallas, remat=remat))
         fn({}, {}, True, None)
         assert (seen["use_pallas"], seen["remat"]) == (use_pallas, remat)
+        assert (seen["merge_patches_to"], seen["merge_at_layer"]) == (None, 0)
+    fn = classifier_apply_fn(tcfg, TrainArgs(merge_to=87, merge_at_layer=4))
+    fn({}, {}, True, None)
+    assert (seen["merge_patches_to"], seen["merge_at_layer"]) == (87, 4)
 
 
 def test_a_cut_graph_raises_and_only_unread_leaves_get_zeros():

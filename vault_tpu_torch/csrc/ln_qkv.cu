@@ -38,12 +38,13 @@
 //     (QKV_NARROW, QKV_WIDE, picked by waves, sm90::pick_tiling) was timed
 //     on the card by scripts/torch_lnqkv_s8_tiles.py (PERF.md).
 //   * fp32 (vt_ln_qkv): row_prologue writes y = LN(x) in fp32, then
-//     gemm_tiles (below, plain fp32 FMA) runs y W + b.
+//     gemm_tiles (gemm_tiles.cuh, plain fp32 FMA) runs y W + b (EpiBias).
 //   The w8a8 and fp32 entries take H a multiple of 128 up to 8,192 (the row
 //   pass's 128 threads and its registers; the int8 core's 128-byte k-step)
 //   and 3H a multiple of 128 (gemm_tiles' tile width).
 #include "gemm_common.cuh"
 #include "gemm_sm90.cuh"
+#include "gemm_tiles.cuh"
 
 namespace {
 
@@ -51,94 +52,8 @@ constexpr int QKV_NARROW = 64;      // the int8 product's tile widths, picked by
 constexpr int QKV_WIDE = 192;
 constexpr bool ROWS_FIRST = false;  // walk N fastest: W^T (1.8 MB at H 768) sits in L2
 
-// gemm_tiles, the fp32 product y W + b: a block owns a (64, 128) tile of
-// the output and walks K in steps of 64, the next A and B tiles loading
-// with cp.async while the threads work on the current ones (double
-// buffering).  Each of the 256 threads owns one column of the tile and 32 of
-// its rows and sums over k in order with fmaf; a warp reads consecutive
-// words of B's row, and one broadcast of A.  What bounds it on an H100: 2
-// M N K fp32 operations at 67 TFLOP/s without the tensor cores.
-namespace tiles {
-
-constexpr int BM = 64, BN = 128, BK = 64;  // tile and k-step
-constexpr int NT = 256;                     // threads (8 warps)
-constexpr size_t SMEM = 2 * (size_t)(BM * BK + BK * BN) * sizeof(float);
-
-// out (M, N) = a (M, K) b (K, N) + bias (N), fp32.
-__global__ void __launch_bounds__(NT)
-gemm_tiles(const float* __restrict__ a, const float* __restrict__ b,
-           const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K) {
-  constexpr int STAGE = BM * BK + BK * BN;  // floats: A (BM, BK), then B (BK, BN)
-  constexpr int V = 4;                      // floats per 16-byte copy
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* sm = reinterpret_cast<float*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int nk = K / BK;
-
-  auto fetch = [&](int stage, int k0) {
-    float* as = sm + stage * STAGE;
-    float* bs = as + BM * BK;
-    for (int c = tid; c < BM * (BK / V); c += NT) {
-      const int r = c / (BK / V), e = (c % (BK / V)) * V;
-      const int src = min(row0 + r, M - 1);  // rows past M: loaded, never stored
-      cp_async16(as + r * BK + e, a + (size_t)src * K + k0 + e);
-    }
-    for (int c = tid; c < BK * (BN / V); c += NT) {
-      const int k = c / (BN / V), e = (c % (BN / V)) * V;
-      cp_async16(bs + k * BN + e, b + (size_t)(k0 + k) * N + n0 + e);
-    }
-    cp_async_commit();
-  };
-
-  const int cc = tid % BN, rg = tid / BN;  // the thread's column, rows rg + 2 i
-  float acc[BM / 2];
-#pragma unroll
-  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.0f;
-
-  fetch(0, 0);
-  for (int t = 0; t < nk; ++t) {
-    if (t + 1 < nk) {
-      fetch((t + 1) & 1, (t + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile t visible to every thread
-    const float* as = sm + (t & 1) * STAGE;
-    const float* bs = as + BM * BK;
-    for (int k = 0; k < BK; ++k) {
-      const float bv = bs[k * BN + cc];
-#pragma unroll
-      for (int i = 0; i < BM / 2; ++i) acc[i] = fmaf(as[(rg + 2 * i) * BK + k], bv, acc[i]);
-    }
-    __syncthreads();  // every thread is done with this stage
-  }
-
-  const int col = n0 + cc;
-  const float bc = bias[col];
-#pragma unroll
-  for (int i = 0; i < BM / 2; ++i) {
-    const int row = row0 + rg + 2 * i;
-    if (row < M) out[(size_t)row * N + col] = __fadd_rn(acc[i], bc);
-  }
-}
-
-// gemm_tiles on (M, N, K): N a multiple of BN, K of BK.
-inline int launch_gemm(const float* a, const float* b, const float* bias, float* out, int M,
-                       int N, int K, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || N % BN || K <= 0 || K % BK) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem<gemm_tiles>(SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((M + BM - 1) / BM, N / BN);
-  gemm_tiles<<<grid, NT, SMEM, stream>>>(a, b, bias, out, M, N, K);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace tiles
-
 bool bad_shape(int rows, int H, int N) {
-  return rows <= 0 || H <= 0 || H % gm::RT || H > gm::ROW_H_MAX || N <= 0 || N % tiles::BN;
+  return rows <= 0 || H <= 0 || H % gm::RT || H > gm::ROW_H_MAX || N <= 0 || N % ft::BN;
 }
 
 // Epilogue of the int8 product: out = T(float(acc) * (ys[r] * s[c]) + b[c]).
@@ -238,8 +153,8 @@ extern "C" int vt_ln_qkv(const void* x, const void* gamma, const void* beta, con
                                   static_cast<const float*>(beta), yp, nullptr, nullptr, H, eps);
   });
   if (e != cudaSuccess) return (int)e;
-  return tiles::launch_gemm(yp, static_cast<const float*>(w), static_cast<const float*>(b),
-                            static_cast<float*>(out), rows, N, H, st);
+  return (int)ft::gemm(yp, static_cast<const float*>(w), rows, N, H,
+                       ft::EpiBias{static_cast<const float*>(b), static_cast<float*>(out), N}, st);
 }
 
 // wt: (N, H) int8, the codes K-major; yq: (rows, H) int8 and ys: (rows,)

@@ -76,30 +76,29 @@
 //    conversion's shared-memory traffic competes with the products' operand
 //    reads; the pass converts once, at 2 H I (1 + 2) bytes.
 //
-// 2. The walk, vt_mlp_fwd (fp32 blocks) and vt_mlp_fwd_q8 (the int8 weight
-//    blocks with fp32 activations):
-//    H 768 and I a multiple of 128; the TPU kernel kept W1 and W2 resident
-//    in VMEM, an SM has 227 KB, so the work is cut two ways:
-//    * a block owns 32 rows and one slice of I ("split"); it computes LN(x)
-//      once into shared memory, then walks its slice 128 columns at a time:
-//      act(LN(x) W1[:, j:j+128] + b1) into shared memory,
-//      then that slice's contribution to all H output columns, accumulated
-//      in registers across the whole walk;
-//    * W1 and W2 stream through shared memory in tiles, double-buffered with
-//      cp.async; rows are padded by 16 bytes against bank conflicts; plain
-//      FMA in full fp32;
-//    * the number of splits keeps about one block per SM; each split writes
-//      its fp32 partial sums to a workspace and mlp_epilogue adds them in a
-//      fixed order (deterministic), then applies b2, the mask, the residual
-//      and, post-LN, the LayerNorm.
-//    The fp32 w8 blocks here (vt_mlp_fwd_q8) take int8 weights and
-//    per-out-channel fp32 scales s1 (I), s2 (H), dequantized tile by tile in
-//    shared memory (mlp_common.cuh): w = float(q) * s, as the plain
-//    composition's linear does.  They replace the fp32 fused_mlp_block_fwd_q8
-//    and fused_mlp_postln_fwd_q8 of vault_tpu/ops/pallas_mlp.py; no dropout
-//    mask.
-#include "mlp_common.cuh"
+// 2. The fp32 tiles (gemm_tiles.cuh), vt_mlp_fwd (the fp32 blocks) and
+//    vt_mlp_fwd_q8 (the int8 weight blocks with fp32 activations): H a
+//    multiple of 128 from 128 to 8,192, I a multiple of 128, the bf16
+//    core's three-launch shape on fp32 FMA tiles (the fp32 route is on no
+//    serving path; it is held to 1e-4 of its plain version):
+//      a. pre-LN: gm::row_prologue (gemm_common.cuh, LN statistics in
+//         double) writes y = LN(x) in fp32 into the workspace;
+//      b. a = act(y W1 + b1) (post-LN: act(x W1 + b1)) into the workspace,
+//         ft::gemm with the activation in its epilogue (ft::EpiAct);
+//      c. a W2 split along K into S fp32 slices (ft::pick_splits: 2 at
+//         2,048 rows, 8 at 320), which mlp_epilogue adds in order before b2,
+//         the mask and the residual (and, post-LN, the LayerNorm).
+//    The walk this replaces held an H-wide fp32 accumulator in registers
+//    across each 32-row tile and took H 768 alone.
+//    The fp32 w8 blocks (vt_mlp_fwd_q8) take int8 weights and
+//    per-out-channel fp32 scales s1 (I), s2 (H): one pass dequantizes both
+//    matrices to fp32 scratch (ft::launch_dequant, w = float(q) * s, as the
+//    plain composition's linear does), then the launches above.  They
+//    replace the fp32 fused_mlp_block_fwd_q8 and fused_mlp_postln_fwd_q8 of
+//    vault_tpu/ops/pallas_mlp.py; no dropout mask.
+#include "gemm_common.cuh"
 #include "gemm_sm90.cuh"
+#include "gemm_tiles.cuh"
 
 namespace {
 
@@ -271,64 +270,63 @@ int launch_q8_wgmma(const void* x, const void* gamma, const void* beta, const vo
                       I, eps, act, postln, st);
 }
 
-// W: the weights' type, T or int8_t (then s1, s2 are their scales).
-template <typename T, int NF, bool POSTLN, typename W = T>
-int launch(const void* x, const void* gamma, const void* beta, const void* w1,
-           const void* b1, const void* w2, const void* b2, const void* m, void* out,
-           float* ws, int rows, int I, float eps, int act, cudaStream_t stream,
-           const float* s1 = nullptr, const float* s2 = nullptr) {
-  constexpr int H = NF * 16 * NW;
-  const int splits = pick_splits(rows, I);
-  const int tiles = (rows + BM - 1) / BM;
-  const size_t smem = main_smem<T, H, W>();
-  {
-    const cudaError_t e = allow_smem<mlp_main<T, NF, POSTLN, W>>(smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  mlp_main<T, NF, POSTLN, W><<<dim3(tiles, splits), NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      static_cast<const W*>(w1), static_cast<const T*>(b1), static_cast<const W*>(w2), ws,
-      nullptr, rows, tiles * BM, I, I / splits, eps, act, s1, s2);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_epilogue<T, POSTLN>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      static_cast<const T*>(b2), static_cast<const T*>(m), ws, static_cast<T*>(out), rows, H,
-      tiles * BM, splits, eps, stream);
+// Workspace of the fp32 tiles (fp32 elements): with int8 weights their
+// fp32 copies W1 (H, I) and W2 (I, H); pre-LN y (rows, H); a (rows, I);
+// the S slices (S, rows, H) of a W2.
+size_t tiles_workspace_floats(int rows, int H, int I, bool postln, bool q8) {
+  return (q8 ? 2 * (size_t)H * I : 0) + (postln ? 0 : (size_t)rows * H) + (size_t)rows * I +
+         (size_t)ft::pick_splits(rows, H, I) * rows * H;
 }
 
-template <typename T, bool POSTLN, typename W = T>
-int dispatch_h(int H, const void* x, const void* gamma, const void* beta,
-               const void* w1, const void* b1, const void* w2, const void* b2,
-               const void* m, void* out, float* ws, int rows, int I, float eps, int act,
-               cudaStream_t st, const float* s1 = nullptr, const float* s2 = nullptr) {
-  if (H == 768)
-    return launch<T, 6, POSTLN, W>(x, gamma, beta, w1, b1, w2, b2, m, out, ws, rows, I, eps,
-                                   act, st, s1, s2);
-  return (int)cudaErrorInvalidValue;
+int launch_tiles(const float* x, const float* gamma, const float* beta, const float* w1,
+                 const float* b1, const float* w2, const float* b2, const float* m, float* out,
+                 float* ws, int rows, int H, int I, float eps, int act, bool postln,
+                 cudaStream_t st) {
+  if (!tiles_shape_ok(rows, H, I)) return (int)cudaErrorInvalidValue;
+  const int splits = ft::pick_splits(rows, H, I);
+  float* y = ws;
+  float* a = ws + (postln ? 0 : (size_t)rows * H);
+  float* slices = a + (size_t)rows * I;
+  cudaError_t e;
+  if (!postln && (e = gm::with_row(H, [&](auto P, auto EXACT) {
+                    gm::row_prologue<float, decltype(P)::value, true, false, decltype(EXACT)::value>
+                        <<<rows, gm::RT, 0, st>>>(x, gamma, beta, y, nullptr, nullptr, H, eps);
+                  })) != cudaSuccess)
+    return (int)e;
+  if ((e = ft::with_act(act, b1, a, I, [&](auto epi) {
+         return ft::gemm(postln ? x : y, w1, rows, I, H, epi, st);
+       })) != cudaSuccess)
+    return (int)e;
+  if ((e = ft::gemm(a, w2, rows, H, I, ft::StoreSlice{slices, rows, H}, st, splits)) !=
+      cudaSuccess)
+    return (int)e;
+  return (int)(postln ? launch_epilogue<float, true>(x, gamma, beta, b2, m, slices, out, rows, H,
+                                                     rows, splits, eps, st)
+                      : launch_epilogue<float, false>(x, gamma, beta, b2, m, slices, out, rows, H,
+                                                      rows, splits, eps, st));
 }
 
 }  // namespace
 
-// fp32 elements of workspace vt_mlp_fwd and vt_mlp_fwd_q8 need for these
-// shapes (the fp32 partial sums of the I splits).
-extern "C" long long vt_mlp_workspace(int rows, int H, int I) {
-  if (rows <= 0 || I <= 0 || I % BN1 != 0) return -1;
-  return (long long)pick_splits(rows, I) * ((rows + BM - 1) / BM) * BM * H;
+// fp32 elements of workspace vt_mlp_fwd (q8 = 0) and vt_mlp_fwd_q8 (q8 =
+// 1) need for these shapes.
+extern "C" long long vt_mlp_workspace(int rows, int H, int I, int postln, int q8) {
+  if (!tiles_shape_ok(rows, H, I)) return -1;
+  return (long long)tiles_workspace_floats(rows, H, I, postln != 0, q8 != 0);
 }
 
-// The walk: the fp32 blocks.
+// The fp32 blocks on the tiles: every operand fp32 (a bf16 block runs on
+// the core, vt_mlp_fwd_wgmma).
 extern "C" int vt_mlp_fwd(const void* x, const void* gamma, const void* beta,
                           const void* w1, const void* b1, const void* w2,
                           const void* b2, const void* m, void* out, void* ws,
                           int rows, int H, int I, float eps, int act, int postln,
                           int dtype, void* stream) {
-  if (rows <= 0 || I <= 0 || I % BN1 != 0 || dtype != vt::kF32) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* wsf = static_cast<float*>(ws);
-  return postln
-      ? dispatch_h<float, true>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st)
-      : dispatch_h<float, false>(H, x, gamma, beta, w1, b1, w2, b2, m, out, wsf, rows, I, eps, act, st);
+  if (dtype != vt::kF32) return (int)cudaErrorInvalidValue;
+  auto c = [](const void* p) { return static_cast<const float*>(p); };
+  return launch_tiles(c(x), c(gamma), c(beta), c(w1), c(b1), c(w2), c(b2), c(m),
+                      static_cast<float*>(out), static_cast<float*>(ws), rows, H, I, eps, act,
+                      postln != 0, static_cast<cudaStream_t>(stream));
 }
 
 // fp32 elements of workspace vt_mlp_fwd_wgmma needs for these shapes.
@@ -366,24 +364,28 @@ extern "C" int vt_mlp_fwd_q8_wgmma(const void* x, const void* gamma, const void*
                          H, I, eps, act, postln != 0, static_cast<cudaStream_t>(stream));
 }
 
-// The w8 blocks with fp32 activations on the walk (ops/cuda_mlp.py
+// The w8 blocks with fp32 activations on the tiles (ops/cuda_mlp.py
 // mlp_route): w1q (H, I) and w2q (I, H) int8, s1 (I) and s2 (H) fp32; x,
-// gamma, beta, b1, b2 and out fp32; no mask.  Workspace as vt_mlp_fwd.  A
-// bf16 block is refused: it runs on the core (vt_mlp_fwd_q8_wgmma).
+// gamma, beta, b1, b2 and out fp32; no mask.  The weights are dequantized
+// to fp32 into the front of the workspace, then the fp32 block runs on
+// them.  A bf16 block is refused: it runs on the core (vt_mlp_fwd_q8_wgmma).
 extern "C" int vt_mlp_fwd_q8(const void* x, const void* gamma, const void* beta,
                              const void* w1q, const void* s1, const void* b1,
                              const void* w2q, const void* s2, const void* b2, void* out,
                              void* ws, int rows, int H, int I, float eps, int act,
                              int postln, int dtype, void* stream) {
-  if (rows <= 0 || I <= 0 || I % BN1 != 0) return (int)cudaErrorInvalidValue;
+  if (dtype != vt::kF32 || !tiles_shape_ok(rows, H, I)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* wsf = static_cast<float*>(ws);
-  const float* s1f = static_cast<const float*>(s1);
-  const float* s2f = static_cast<const float*>(s2);
-#define VT_MLP_Q8(T, P)                                                                  \
-  dispatch_h<T, P, int8_t>(H, x, gamma, beta, w1q, b1, w2q, b2, nullptr, out, wsf, rows, \
-                           I, eps, act, st, s1f, s2f)
-  if (dtype == vt::kF32) return postln ? VT_MLP_Q8(float, true) : VT_MLP_Q8(float, false);
-#undef VT_MLP_Q8
-  return (int)cudaErrorInvalidValue;
+  auto c = [](const void* p) { return static_cast<const float*>(p); };
+  float* w1 = static_cast<float*>(ws);
+  float* w2 = w1 + (size_t)H * I;
+  cudaError_t e;
+  if ((e = ft::launch_dequant(static_cast<const int8_t*>(w1q), c(s1), w1, H, I, st)) !=
+          cudaSuccess ||
+      (e = ft::launch_dequant(static_cast<const int8_t*>(w2q), c(s2), w2, I, H, st)) !=
+          cudaSuccess)
+    return (int)e;
+  return launch_tiles(c(x), c(gamma), c(beta), w1, c(b1), w2, c(b2), nullptr,
+                      static_cast<float*>(out), w2 + (size_t)I * H, rows, H, I, eps, act,
+                      postln != 0, st);
 }

@@ -65,216 +65,33 @@
 //      g. mlp_bwd_reduce_cols: the partial rows in a fixed order, 32 warps
 //         on each 32 columns.
 //
-// 2. The walk, vt_mlp_bwd: the fp32 blocks (H 768, I a multiple of 128).
-//    The TPU kernel kept both weight matrices in VMEM; an SM has 227 KB, so
-//    the design is the forward walk (mlp_common.cuh) with a third product
-//    per slice: mlp_bwd_walk, a block of 16 rows and one split of I, puts
-//    its first operand (LN(x) pre-LN, x post-LN) and its masked cotangent
-//    into shared memory once, then walks its split 128 columns at a time:
-//    h1 = a1 W1[:, s] + b1 and da = gc W2[s, :]^T (both in fp32), a and
-//    dh1 = da gelu'(h1) written out, dh1 kept in shared memory, and dy +=
-//    dh1 W1[:, s]^T into a 768-wide accumulator held in registers across
-//    the walk.  W1 and W2 stream through shared memory in 128-column tiles,
-//    double-buffered with cp.async, plain FMA in full fp32.  The split
-//    partials of dy go to a workspace; the row kernels add them in a fixed
-//    order.  Post-LN reruns the forward walk first (mlp_main, also writing
-//    a) for the LN backward, then walks the masked ds.
+// 2. The fp32 tiles (gemm_tiles.cuh), vt_mlp_bwd: the fp32 blocks, H a
+//    multiple of 128 from 128 to 8,192, I a multiple of 128; the products
+//    on fp32 FMA tiles, their (rows, I) intermediates through device memory
+//    as on the core.  One pass transposes W1 and W2 into the workspace (the
+//    tiles read B (K, N) row-major; dh1 W1^T and gc W2^T need the
+//    transposes), then, pre-LN, six launches:
+//      a. gm::row_prologue: y = LN(x), the y output; with a mask gc = g m
+//         (mul_rows) into the workspace, else gc is g;
+//      b. h1 = y W1 with the epilogue z = h1 + b1 (into the dh1 output, which
+//         the next product's epilogue overwrites) and a = gelu(z) (EpiZA);
+//      c. gc W2^T with the epilogue dh1 = da gelu'(z) (EpiDh1, in place);
+//      d. dh1 W1^T split along K = I into S fp32 slices (ft::pick_splits);
+//      e. mlp_bwd_preln_rows (the slices in order), f. mlp_bwd_reduce_cols.
+//    Post-LN: a = gelu(x W1 + b1) and z (EpiZA), a W2 in S slices,
+//    mlp_bwd_postln_rows (ds, the masked ds output, the partial rows), ds W2^T
+//    into dh1 (EpiDh1), dh1 W1^T in S slices, mlp_bwd_postln_dx,
+//    mlp_bwd_reduce_cols.  z is kept (in dh1) rather than recomputed: fp32
+//    tiles have no spare rate for a fourth product.  The walk this replaces
+//    held a 768-wide dy accumulator in registers across each 16-row tile and
+//    took H 768 alone.
 #include <algorithm>
 
-#include "mlp_common.cuh"
+#include "gemm_common.cuh"
 #include "gemm_sm90.cuh"
+#include "gemm_tiles.cuh"
 
 namespace {
-
-// The fp32 walk's tiling.
-constexpr int BMW = 16;              // rows per walk block
-constexpr int TPRW = NT / BMW;       // threads per row (16)
-constexpr int KTW = 64;              // hidden rows per weight tile
-constexpr int LD1W = BN1 + 4;        // W1 tile [h][j], dh ld
-constexpr int LDWW = KTW + 4;        // W2 tile [j][h] ld
-constexpr int BUFW = (KTW * LD1W > BN1 * LDWW) ? KTW * LD1W : BN1 * LDWW;
-
-template <int H>
-constexpr size_t walk_smem() {
-  return (2 * (size_t)BUFW + 2 * (size_t)BMW * (H + 4) + (size_t)BMW * LD1W) * sizeof(float);
-}
-
-// Grid (row tiles, splits), fp32.  LN: a1 = LN(x) (pre-LN, y written by
-// split 0) else a1 = x.  g m (or g) is the cotangent at the MLP output.
-// Writes a (when a_out is given) and dh1 for its columns, and its fp32
-// partial of dh1 W1^T to ws[split].
-template <int NF, bool LN>
-__global__ void __launch_bounds__(NT)
-mlp_bwd_walk(const float* __restrict__ x, const float* __restrict__ g,
-             const float* __restrict__ m, const float* __restrict__ gamma,
-             const float* __restrict__ beta, const float* __restrict__ w1,
-             const float* __restrict__ b1, const float* __restrict__ w2,
-             float* __restrict__ ws, float* __restrict__ a_out,
-             float* __restrict__ dh1_out, float* __restrict__ y_out, int rows,
-             int rows_pad, int I, int ic, float eps) {
-  constexpr int H = NF * 16 * NW;
-  constexpr int LDX = H + 4;
-  constexpr int NK = H / KTW;          // weight tiles per product
-  constexpr int PER = 3 * NK;          // tiles per 128-column slice
-  constexpr int FC = BN1 / TPRW;       // slice columns per thread
-  constexpr int F3 = KTW / TPRW;       // dy columns per thread per tile
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* wbuf = reinterpret_cast<float*>(smem_raw);  // 2 x BUFW
-  float* a1s = wbuf + 2 * BUFW;                     // (BMW, LDX) LN(x) or x
-  float* gs = a1s + BMW * LDX;                      // (BMW, LDX) masked cotangent
-  float* dh = gs + BMW * LDX;                       // (BMW, LD1W) dh1 of the slice
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BMW;
-  const int i0 = blockIdx.y * ic;
-  const int n_tiles = (ic / BN1) * PER;
-
-  // tile t: slice t / PER; phase p = t % PER: W1[h0:h0+KTW, slice] ([h][j])
-  // for the first and third products, W2[slice, h0:h0+KTW] ([j][h]) for the
-  // second.
-  auto fetch = [&](int t) {
-    float* dst = wbuf + (t & 1) * BUFW;
-    const int p = t % PER, j0 = i0 + (t / PER) * BN1;
-    constexpr int V = 4;
-    if (p < NK || p >= 2 * NK) {
-      const int h0 = (p < NK ? p : p - 2 * NK) * KTW;
-      const float* src = w1 + (size_t)h0 * I + j0;
-      for (int c = tid; c < KTW * (BN1 / V); c += NT) {
-        const int r = c / (BN1 / V), col = (c % (BN1 / V)) * V;
-        cp_async16(dst + r * LD1W + col, src + (size_t)r * I + col);
-      }
-    } else {
-      const int h0 = (p - NK) * KTW;
-      const float* src = w2 + (size_t)j0 * H + h0;
-      for (int c = tid; c < BN1 * (KTW / V); c += NT) {
-        const int r = c / (KTW / V), col = (c % (KTW / V)) * V;
-        cp_async16(dst + r * LDWW + col, src + (size_t)r * H + col);
-      }
-    }
-    cp_async_commit();
-  };
-
-  fetch(0);
-
-  // ---- prologue: a1s = LN(x) or x, gs = g m or g; rows past `rows` are 0
-  {
-    const int r = tid / TPRW, cl = tid % TPRW;
-    const bool ok = row0 + r < rows;
-    const size_t off = (size_t)(row0 + r) * H;
-    float sum = 0.0f;
-    for (int c = cl; c < H; c += TPRW) {
-      const float v = ok ? x[off + c] : 0.0f;
-      a1s[r * LDX + c] = v;
-      sum += v;
-      float gv = ok ? g[off + c] : 0.0f;
-      if (m != nullptr && ok) gv = gv * m[off + c];
-      gs[r * LDX + c] = gv;
-    }
-    if constexpr (LN) {
-      const float mean = group_sum<TPRW>(sum) / H;
-      float sq = 0.0f;
-      for (int c = cl; c < H; c += TPRW) {
-        const float d = a1s[r * LDX + c] - mean;
-        sq += d * d;
-      }
-      const float inv = 1.0f / sqrtf(group_sum<TPRW>(sq) / H + eps);
-      const bool write_y = ok && blockIdx.y == 0;
-      for (int c = cl; c < H; c += TPRW) {
-        const float y = (a1s[r * LDX + c] - mean) * inv;
-        const float yc = y * gamma[c] + beta[c];
-        a1s[r * LDX + c] = yc;
-        if (write_y) y_out[off + c] = yc;
-      }
-    }
-  }
-
-  // thread (fr, fq) owns slice columns fq FC .. fq FC + FC of row fr (f1 =
-  // h1, f2 = da) and dy columns q KTW + fq + TPRW jj (f3).
-  float f1[FC], f2[FC], f3[NK * F3];
-#pragma unroll
-  for (int i = 0; i < FC; ++i) f1[i] = f2[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NK * F3; ++i) f3[i] = 0.0f;
-  const int fr = tid / TPRW, fq = tid % TPRW;
-
-  int t = 0;
-  auto wait_tile = [&]() -> const float* {
-    if (t + 1 < n_tiles) {
-      fetch(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile t (and, at t = 0, the prologue) visible
-    return wbuf + (t & 1) * BUFW;
-  };
-  auto release = [&]() {
-    __syncthreads();  // every warp is done with wbuf[t & 1]
-    ++t;
-  };
-
-  for (int j0 = i0; j0 < i0 + ic; j0 += BN1) {
-    // ---- h1 = a1 W1[:, slice]
-    for (int p = 0; p < NK; ++p) {
-      const float* wt = wait_tile();
-      const int k0 = p * KTW;
-      for (int k = 0; k < KTW; ++k) {
-        const float a = a1s[fr * LDX + k0 + k];
-#pragma unroll
-        for (int c = 0; c < FC; ++c) f1[c] = fmaf(a, wt[k * LD1W + fq * FC + c], f1[c]);
-      }
-      release();
-    }
-    // ---- da = gc W2[slice, :]^T
-    for (int p = 0; p < NK; ++p) {
-      const float* wt = wait_tile();
-      const int k0 = p * KTW;
-      for (int k = 0; k < KTW; ++k) {
-        const float a = gs[fr * LDX + k0 + k];
-#pragma unroll
-        for (int c = 0; c < FC; ++c) f2[c] = fmaf(a, wt[(fq * FC + c) * LDWW + k], f2[c]);
-      }
-      release();
-    }
-    // ---- a = gelu(h1 + b1), dh1 = da gelu'(h1 + b1), each thread on the
-    // columns it accumulated
-#pragma unroll
-    for (int c = 0; c < FC; ++c) {
-      const int cc = fq * FC + c;
-      const float h = f1[c] + b1[j0 + cc];
-      const float d = f2[c] * vt::gelu_grad(h);
-      dh[fr * LD1W + cc] = d;
-      if (row0 + fr < rows) {
-        const size_t o = (size_t)(row0 + fr) * I + j0 + cc;
-        dh1_out[o] = d;
-        if (a_out) a_out[o] = vt::activate(h, vt::kGeluErf);
-      }
-      f1[c] = f2[c] = 0.0f;
-    }
-    __syncthreads();  // dh complete
-    // ---- dy[:, h0:h0+KTW] += dh1 W1[h0:h0+KTW, slice]^T, tile by tile
-#pragma unroll
-    for (int q = 0; q < NK; ++q) {
-      const float* wt = wait_tile();
-      for (int j = 0; j < BN1; ++j) {
-        const float a = dh[fr * LD1W + j];
-#pragma unroll
-        for (int jj = 0; jj < F3; ++jj)
-          f3[q * F3 + jj] = fmaf(a, wt[(fq + TPRW * jj) * LD1W + j], f3[q * F3 + jj]);
-      }
-      release();
-    }
-  }
-
-  // partial dy of this split -> ws[split] (rows padded to BMW)
-  float* dst = ws + ((size_t)blockIdx.y * rows_pad + row0) * H;
-#pragma unroll
-  for (int q = 0; q < NK; ++q)
-#pragma unroll
-    for (int jj = 0; jj < F3; ++jj)
-      dst[(size_t)fr * H + q * KTW + fq + TPRW * jj] = f3[q * F3 + jj];
-}
 
 // Row kernels (mlp_common.cuh row_shape): a block takes rb consecutive
 // rows, one at a time, and sums their dgamma/dbeta terms into its partial
@@ -532,65 +349,116 @@ cudaError_t launch_reduce_cols(const float* part, int rows, int H, float* dgamma
   return cudaGetLastError();
 }
 
-// Workspace of the fp32 walk (fp32 elements): split partials (the larger of
-// the two walks' needs), ds (post-LN), dgamma/dbeta partial rows.
-struct Layout {
-  int splits_a, pad_a, splits_w, pad_w;
-  size_t acc, dsf, part;
+// Epilogues of the fp32 tiles' products.  EpiZA: z = h1 + b1 into zbuf
+// (the dh1 output) and, when a is given, a = gelu(z).  EpiDh1: dh1 = da
+// gelu'(z), z read from the same place (each element by the one thread that
+// writes it).
+struct EpiZA {
+  const float* b1;
+  float *z, *a;
+  int n;
+  __device__ __forceinline__ void operator()(int r, int c, float4 v, int) const {
+    const float4 bb = __ldg(reinterpret_cast<const float4*>(b1 + c));
+    const float4 zv = make_float4(v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w);
+    const size_t o = (size_t)r * n + c;
+    *reinterpret_cast<float4*>(z + o) = zv;
+    if (a)
+      *reinterpret_cast<float4*>(a + o) =
+          make_float4(vt::activate(zv.x, vt::kGeluErf), vt::activate(zv.y, vt::kGeluErf),
+                      vt::activate(zv.z, vt::kGeluErf), vt::activate(zv.w, vt::kGeluErf));
+  }
 };
 
-Layout layout(int rows, int H, int I, bool postln) {
-  Layout l;
-  l.splits_a = pick_splits(rows, I, BM);
-  l.pad_a = (rows + BM - 1) / BM * BM;
-  l.splits_w = pick_splits(rows, I, BMW);
-  l.pad_w = (rows + BMW - 1) / BMW * BMW;
-  size_t acc = (size_t)l.splits_w * l.pad_w;
-  if (postln) acc = std::max(acc, (size_t)l.splits_a * l.pad_a);
-  l.acc = acc * H;
+struct EpiDh1 {
+  float* dh1;
+  int n;
+  __device__ __forceinline__ void operator()(int r, int c, float4 v, int) const {
+    float4* p = reinterpret_cast<float4*>(dh1 + (size_t)r * n + c);
+    const float4 z = *p;
+    *p = make_float4(v.x * vt::gelu_grad(z.x), v.y * vt::gelu_grad(z.y),
+                     v.z * vt::gelu_grad(z.z), v.w * vt::gelu_grad(z.w));
+  }
+};
+
+// gc = g m, fp32, four values a thread.
+__global__ void mul_rows(const float* __restrict__ g, const float* __restrict__ m,
+                         float* __restrict__ gc, long n4) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long)gridDim.x * blockDim.x) {
+    const float4 a = reinterpret_cast<const float4*>(g)[i];
+    const float4 b = reinterpret_cast<const float4*>(m)[i];
+    reinterpret_cast<float4*>(gc)[i] = make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+  }
+}
+
+// Workspace of the fp32 tiles (fp32 elements): W1^T (I, H) and W2^T (H, I),
+// the S fp32 slices (S, rows, H) of a W2 (post-LN) and of dh1 W1^T (the
+// same (rows, H, I) shape, so the same S), dsf (rows, H) post-LN, the
+// dgamma/dbeta partial rows, gc (rows, H) pre-LN.
+struct TilesLayout {
+  size_t wt, acc, dsf, part, gc;
+  int splits;
+};
+
+TilesLayout tiles_layout(int rows, int H, int I, bool postln) {
+  TilesLayout l;
+  l.splits = ft::pick_splits(rows, H, I);
+  l.wt = 2 * (size_t)H * I;
+  l.acc = (size_t)l.splits * rows * H;
   l.dsf = postln ? (size_t)rows * H : 0;
   l.part = (size_t)row_blocks(rows) * 2 * H;
+  l.gc = postln ? 0 : (size_t)rows * H;
   return l;
 }
 
-template <int NF, bool POSTLN>
-int launch_bwd(const float* x, const float* g, const float* gamma, const float* beta,
-               const float* w1, const float* b1, const float* w2, const float* b2,
-               const float* m, float* dx, float* dh1, float* a, float* yds, float* dgamma,
-               float* dbeta, float* ws, int rows, int I, float eps, cudaStream_t st) {
-  constexpr int H = NF * 16 * NW;
-  const Layout l = layout(rows, H, I, POSTLN);
-  float* acc = ws;
+int launch_bwd_tiles(const float* x, const float* g, const float* gamma, const float* beta,
+                     const float* w1, const float* b1, const float* w2, const float* b2,
+                     const float* m, float* dx, float* dh1, float* a, float* yds, float* dgamma,
+                     float* dbeta, float* ws, int rows, int H, int I, float eps, bool postln,
+                     cudaStream_t st) {
+  if (!tiles_shape_ok(rows, H, I)) return (int)cudaErrorInvalidValue;
+  const TilesLayout l = tiles_layout(rows, H, I, postln);
+  float* w1t = ws;
+  float* w2t = w1t + (size_t)H * I;
+  float* acc = ws + l.wt;
   float* dsf = acc + l.acc;
   float* part = dsf + l.dsf;
-  const dim3 walk_grid((rows + BMW - 1) / BMW, l.splits_w);
-  const size_t smem = walk_smem<H>();
+  float* gc = part + l.part;
+  const ft::StoreSlice slices{acc, rows, H};
   cudaError_t e;
-  if constexpr (!POSTLN) {
-    if ((e = allow_smem<mlp_bwd_walk<NF, true>>(smem)) != cudaSuccess) return (int)e;
-    mlp_bwd_walk<NF, true><<<walk_grid, NT, smem, st>>>(
-        x, g, m, gamma, beta, w1, b1, w2, acc, a, dh1, yds, rows, l.pad_w, I,
-        I / l.splits_w, eps);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    e = launch_preln_rows<float>(x, g, gamma, acc, l.splits_w, l.pad_w, dx, part, rows, H, eps, st);
-  } else {
-    const size_t smem_a = main_smem<float, H>();
-    if ((e = allow_smem<mlp_main<float, NF, true>>(smem_a)) != cudaSuccess) return (int)e;
-    mlp_main<float, NF, true><<<dim3(l.pad_a / BM, l.splits_a), NT, smem_a, st>>>(
-        x, gamma, beta, w1, b1, w2, acc, a, rows, l.pad_a, I, I / l.splits_a,
-        eps, vt::kGeluErf, nullptr, nullptr);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if ((e = launch_postln_rows<float>(x, g, gamma, b2, m, acc, l.splits_a, l.pad_a, yds, dsf,
-                                       part, rows, H, eps, st)) != cudaSuccess)
+  if ((e = ft::launch_transpose(w1, w1t, H, I, st)) != cudaSuccess ||
+      (e = ft::launch_transpose(w2, w2t, I, H, st)) != cudaSuccess)
+    return (int)e;
+  if (postln) {
+    if ((e = ft::gemm(x, w1, rows, I, H, EpiZA{b1, dh1, a, I}, st)) != cudaSuccess ||
+        (e = ft::gemm(a, w2, rows, H, I, slices, st, l.splits)) != cudaSuccess ||
+        (e = launch_postln_rows<float>(x, g, gamma, b2, m, acc, l.splits, rows, yds, dsf, part,
+                                       rows, H, eps, st)) != cudaSuccess ||
+        (e = ft::gemm(yds, w2t, rows, I, H, EpiDh1{dh1, I}, st)) != cudaSuccess ||
+        (e = ft::gemm(dh1, w1t, rows, H, I, slices, st, l.splits)) != cudaSuccess ||
+        (e = launch_postln_dx<float>(dsf, acc, l.splits, rows, dx, rows, H, st)) != cudaSuccess)
       return (int)e;
-    if ((e = allow_smem<mlp_bwd_walk<NF, false>>(smem)) != cudaSuccess) return (int)e;
-    mlp_bwd_walk<NF, false><<<walk_grid, NT, smem, st>>>(
-        x, yds, nullptr, gamma, beta, w1, b1, w2, acc, nullptr, dh1, nullptr,
-        rows, l.pad_w, I, I / l.splits_w, eps);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    e = launch_postln_dx<float>(dsf, acc, l.splits_w, l.pad_w, dx, rows, H, st);
+  } else {
+    if ((e = gm::with_row(H, [&](auto P, auto EXACT) {
+           gm::row_prologue<float, decltype(P)::value, true, false, decltype(EXACT)::value>
+               <<<rows, gm::RT, 0, st>>>(x, gamma, beta, yds, nullptr, nullptr, H, eps);
+         })) != cudaSuccess)
+      return (int)e;
+    const float* gm_ = g;
+    if (m) {
+      const long n4 = (long)rows * H / 4;
+      mul_rows<<<(int)std::min<long>((n4 + 255) / 256, 8L * num_sms()), 256, 0, st>>>(g, m, gc,
+                                                                                     n4);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      gm_ = gc;
+    }
+    if ((e = ft::gemm(yds, w1, rows, I, H, EpiZA{b1, dh1, a, I}, st)) != cudaSuccess ||
+        (e = ft::gemm(gm_, w2t, rows, I, H, EpiDh1{dh1, I}, st)) != cudaSuccess ||
+        (e = ft::gemm(dh1, w1t, rows, H, I, slices, st, l.splits)) != cudaSuccess ||
+        (e = launch_preln_rows<float>(x, g, gamma, acc, l.splits, rows, dx, part, rows, H, eps,
+                                      st)) != cudaSuccess)
+      return (int)e;
   }
-  if (e != cudaSuccess) return (int)e;
   return (int)launch_reduce_cols(part, rows, H, dgamma, dbeta, st);
 }
 
@@ -697,12 +565,12 @@ int launch_bwd_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* g,
 // fp32 elements of workspace vt_mlp_bwd needs for these shapes (fp32
 // blocks only).
 extern "C" long long vt_mlp_bwd_workspace(int rows, int H, int I, int dtype, int postln) {
-  if (rows <= 0 || I <= 0 || I % BN1 != 0 || dtype != vt::kF32) return -1;
-  const Layout l = layout(rows, H, I, postln != 0);
-  return (long long)(l.acc + l.dsf + l.part);
+  if (!tiles_shape_ok(rows, H, I) || dtype != vt::kF32) return -1;
+  const TilesLayout l = tiles_layout(rows, H, I, postln != 0);
+  return (long long)(l.wt + l.acc + l.dsf + l.part + l.gc);
 }
 
-// The walk: the fp32 blocks.  yds: y = LN(x) (pre-LN) or ds (post-LN),
+// The fp32 blocks on the tiles.  yds: y = LN(x) (pre-LN) or ds (post-LN),
 // (rows, H); dh1 and a (rows, I); dgamma, dbeta (H).
 extern "C" int vt_mlp_bwd(const void* x, const void* g, const void* gamma,
                           const void* beta, const void* w1, const void* b1,
@@ -710,17 +578,12 @@ extern "C" int vt_mlp_bwd(const void* x, const void* g, const void* gamma,
                           void* dh1, void* a, void* yds, void* dgamma, void* dbeta,
                           void* ws, int rows, int H, int I, float eps, int postln,
                           int dtype, void* stream) {
-  if (rows <= 0 || I <= 0 || I % BN1 != 0 || H != 768 || dtype != vt::kF32)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != vt::kF32) return (int)cudaErrorInvalidValue;
   auto c = [](const void* p) { return static_cast<const float*>(p); };
   auto v = [](void* p) { return static_cast<float*>(p); };
-  return postln ? launch_bwd<6, true>(c(x), c(g), c(gamma), c(beta), c(w1), c(b1), c(w2), c(b2),
-                                      c(m), v(dx), v(dh1), v(a), v(yds), v(dgamma), v(dbeta),
-                                      v(ws), rows, I, eps, st)
-                : launch_bwd<6, false>(c(x), c(g), c(gamma), c(beta), c(w1), c(b1), c(w2), c(b2),
-                                       c(m), v(dx), v(dh1), v(a), v(yds), v(dgamma), v(dbeta),
-                                       v(ws), rows, I, eps, st);
+  return launch_bwd_tiles(c(x), c(g), c(gamma), c(beta), c(w1), c(b1), c(w2), c(b2), c(m), v(dx),
+                          v(dh1), v(a), v(yds), v(dgamma), v(dbeta), v(ws), rows, H, I, eps,
+                          postln != 0, static_cast<cudaStream_t>(stream));
 }
 
 // fp32 elements of workspace vt_mlp_bwd_wgmma needs for these shapes.

@@ -1,28 +1,8 @@
 // Pieces shared by the fused MLP kernels, forward (mlp.cu) and backward
-// (mlp_bwd.cu): the walk's tiling constants, cp.async helpers, the split
-// picker and the main forward walk (mlp_main: the fp32 blocks, with fp32 or
-// int8 weights; the fp32 post-LN backward reruns it to rebuild the MLP
-// output before its LayerNorm backward); for the wgmma route the width contract,
-// the row kernels' shapes (row_shape), ln_rows_bf16 and the first
-// products' activation epilogue (EpiAct).
-//
-// mlp_main: grid (row tiles, splits).  Block (r, s) owns rows [32 r, 32 r +
-// 32) and I columns [s * ic, (s + 1) * ic).  It computes LN(x) (pre-LN) or
-// x (post-LN) once into shared memory, then walks its slice 128 columns at
-// a time: act(xa W1[:, j:j+128] + b1) into shared memory (also written to
-// a_out when that is given), then that slice's
-// contribution to all H output columns, accumulated in fp32 across the
-// walk.  W1 and W2 stream through shared memory in tiles, double-buffered
-// with cp.async; plain FMA in full fp32.  The block writes its fp32
-// partial (32, H) to ws[s].
-//
-// Weight type W: T (the fp blocks), or int8_t with per-column fp32 scales s1
-// (I) and s2 (H) (the w8 blocks).  int8 tiles arrive through the same
-// cp.async ring at a quarter of the bytes (dense rows of 128 or H bytes,
-// every copy 16-byte aligned), and each is dequantized into one tile of T in
-// shared memory before the product reads it: w = T(float(q) * s), as the
-// plain version's linear does.  One barrier separates the copy's arrival
-// from that pass, another the pass from the product.
+// (mlp_bwd.cu), and the LN->QKV kernels: cp.async helpers, fixed-order
+// sums, the SM count, the shared-memory opt-in; for the wgmma route the
+// width contract, the row kernels' shapes (row_shape), ln_rows_bf16 and the
+// first products' activation epilogue (EpiAct).
 #pragma once
 
 #include <math.h>
@@ -32,19 +12,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int BM = 32;       // rows per block of mlp_main
-constexpr int NW = 8;        // warps per block
-constexpr int NT = NW * 32;  // threads per block
-constexpr int BN1 = 128;     // I columns per sub-slice (16 per warp)
-constexpr int TPR = NT / BM; // threads per row in mlp_main's prologue (8)
-
-template <typename T> struct Tiles {
-  static constexpr int PAD = 16 / sizeof(T);                // 16-byte row pad
-  static constexpr int KT1 = 256 / sizeof(T);               // W1 tile rows (k)
-  static constexpr int KT2 = 64 / sizeof(T);                // W2 tile rows (k)
-  static constexpr int LD1 = BN1 + PAD;                     // W1 tile / hs ld
-};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -65,190 +32,6 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// Shared-memory bytes of mlp_main: the weight ring (two tiles of W, plus
-// one dequantized tile of T when W is int8), xa and hs.
-template <typename T, int H, typename W = T>
-constexpr size_t main_smem() {
-  using TL = Tiles<T>;
-  constexpr size_t w1 = (size_t)TL::KT1 * TL::LD1;
-  constexpr size_t w2 = (size_t)TL::KT2 * (H + TL::PAD);
-  constexpr size_t buf = w1 > w2 ? w1 : w2;  // elements
-  constexpr size_t ring = std::is_same<W, T>::value ? 2 * buf * sizeof(T)
-                                                     : 2 * buf + buf * sizeof(T);
-  return ring + (size_t)BM * (H + TL::PAD) * sizeof(T)       // ring, xa
-         + (size_t)BM * TL::LD1 * sizeof(T);                 // hs
-}
-
-// (rows, cols) int8 codes, dense, -> dst (ld elements a row) as
-// T(float(q) * scale[col]), four columns a step.
-template <typename T>
-__device__ __forceinline__ void dequant_tile(const int8_t* __restrict__ src, T* __restrict__ dst,
-                                             int rows, int cols, int ld,
-                                             const float* __restrict__ scale) {
-  const int per_row = cols / 4;
-  for (int c = threadIdx.x; c < rows * per_row; c += NT) {
-    const int r = c / per_row, col = (c % per_row) * 4;
-    const char4 q = *reinterpret_cast<const char4*>(src + r * cols + col);
-    const float4 s = *reinterpret_cast<const float4*>(scale + col);
-    T* d = dst + r * ld + col;
-    d[0] = vt::from_f<T>(__fmul_rn(static_cast<float>(q.x), s.x));
-    d[1] = vt::from_f<T>(__fmul_rn(static_cast<float>(q.y), s.y));
-    d[2] = vt::from_f<T>(__fmul_rn(static_cast<float>(q.z), s.z));
-    d[3] = vt::from_f<T>(__fmul_rn(static_cast<float>(q.w), s.w));
-  }
-}
-
-template <typename T, int NF, bool POSTLN, typename W = T>
-__global__ void __launch_bounds__(NT)
-mlp_main(const T* __restrict__ x, const T* __restrict__ gamma,
-         const T* __restrict__ beta, const W* __restrict__ w1,
-         const T* __restrict__ b1, const W* __restrict__ w2,
-         float* __restrict__ ws, T* __restrict__ a_out, int rows, int rows_pad,
-         int I, int ic, float eps, int act, const float* __restrict__ s1,
-         const float* __restrict__ s2) {
-  using TL = Tiles<T>;
-  constexpr int H = NF * 16 * NW;
-  constexpr int LDX = H + TL::PAD;
-  constexpr int LD2 = H + TL::PAD;
-  constexpr int LD1 = TL::LD1;
-  constexpr int KT1 = TL::KT1, KT2 = TL::KT2;
-  constexpr int N1 = H / KT1;        // W1 tiles per sub-slice
-  constexpr int N2 = BN1 / KT2;      // W2 tiles per sub-slice
-  constexpr int BUF = (KT1 * LD1 > KT2 * LD2) ? KT1 * LD1 : KT2 * LD2;  // elements
-  static_assert(std::is_same<T, float>::value, "the walk runs the fp32 blocks alone");
-  constexpr bool kQ8 = !std::is_same<W, T>::value;
-  constexpr int SD1 = kQ8 ? BN1 : LD1;  // row strides of the ring's tiles
-  constexpr int SD2 = kQ8 ? H : LD2;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  W* ring = reinterpret_cast<W*>(smem_raw);  // 2 x BUF: the cp.async ring
-  // the tiles the products read: the ring itself, or (int8 weights) one
-  // dequantized tile behind it
-  T* wbuf = kQ8 ? reinterpret_cast<T*>(ring + 2 * BUF) : reinterpret_cast<T*>(smem_raw);
-  T* xa = wbuf + (kQ8 ? 1 : 2) * BUF;        // (BM, LDX) first operand
-  T* hs = xa + BM * LDX;                     // (BM, LD1) activation
-
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * BM;
-  const int i0 = blockIdx.y * ic;
-  const int n_tiles = (ic / BN1) * (N1 + N2);
-
-  // tile t of the stream: sub-slice t / (N1 + N2); first N1 tiles are W1
-  // (KT1 x 128 at rows k0, columns i0 + 128 sub), then N2 tiles of W2
-  // (KT2 x H at rows i0 + 128 sub + k0).
-  auto fetch = [&](int t) {
-    W* dst = ring + (t & 1) * BUF;
-    const int sub = t / (N1 + N2), p = t % (N1 + N2);
-    constexpr int V = 16 / sizeof(W);  // elements per 16-byte copy
-    if (p < N1) {
-      const W* src = w1 + (size_t)(p * KT1) * I + i0 + sub * BN1;
-      for (int c = tid; c < KT1 * (BN1 / V); c += NT) {
-        const int r = c / (BN1 / V), col = (c % (BN1 / V)) * V;
-        cp_async16(dst + r * SD1 + col, src + (size_t)r * I + col);
-      }
-    } else {
-      const W* src = w2 + (size_t)(i0 + sub * BN1 + (p - N1) * KT2) * H;
-      for (int c = tid; c < KT2 * (H / V); c += NT) {
-        const int r = c / (H / V), col = (c % (H / V)) * V;
-        cp_async16(dst + r * SD2 + col, src + (size_t)r * H + col);
-      }
-    }
-    cp_async_commit();
-  };
-
-  fetch(0);
-
-  // ---- prologue: xa = LN(x) (pre-LN) or x (post-LN); rows past `rows` are 0
-  {
-    const int r = tid / TPR, cl = tid % TPR;
-    const bool ok = row0 + r < rows;
-    const T* xr = x + (size_t)(row0 + r) * H;
-    float sum = 0.0f;
-    for (int c = cl; c < H; c += TPR) {
-      const T v = ok ? xr[c] : vt::from_f<T>(0.0f);
-      xa[r * LDX + c] = v;
-      sum += vt::to_f(v);
-    }
-    if constexpr (!POSTLN) {
-      const float mean = group_sum<TPR>(sum) / H;
-      float sq = 0.0f;
-      for (int c = cl; c < H; c += TPR) {
-        const float d = vt::to_f(xa[r * LDX + c]) - mean;
-        sq += d * d;
-      }
-      const float inv = 1.0f / sqrtf(group_sum<TPR>(sq) / H + eps);
-      for (int c = cl; c < H; c += TPR) {
-        const float y = (vt::to_f(xa[r * LDX + c]) - mean) * inv;
-        xa[r * LDX + c] = vt::from_f<T>(y * vt::to_f(gamma[c]) + vt::to_f(beta[c]));
-      }
-    }
-  }
-
-  // accumulators: thread (r = tid/8, q = tid%8) owns GEMM1 columns 16 q ..
-  // 16 q + 16 and GEMM2 columns q + 8 j of row r.
-  constexpr int F1 = BN1 / 8, F2 = H / 8;
-  float f1[F1], f2[F2];
-#pragma unroll
-  for (int i = 0; i < F1; ++i) f1[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < F2; ++i) f2[i] = 0.0f;
-  const int fr = tid >> 3, fq = tid & 7;  // fp32 thread mapping
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      fetch(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile t (and, at t = 0, xa) visible to every warp
-    const int sub = t / (N1 + N2), p = t % (N1 + N2);
-    const T* wt = wbuf + (kQ8 ? 0 : (t & 1) * BUF);
-    if constexpr (kQ8) {
-      const W* q = ring + (t & 1) * BUF;
-      if (p < N1) dequant_tile<T>(q, wbuf, KT1, BN1, LD1, s1 + i0 + sub * BN1);
-      else dequant_tile<T>(q, wbuf, KT2, H, LD2, s2);
-      __syncthreads();  // the dequantized tile is whole before any fragment loads
-    }
-    if (p < N1) {
-      // GEMM1: acc1 += xa[:, k0:k0+KT1] wt
-      const int k0 = p * KT1;
-      for (int k = 0; k < KT1; ++k) {
-        const float a = xa[fr * LDX + k0 + k];
-#pragma unroll
-        for (int c = 0; c < F1; ++c) f1[c] = fmaf(a, wt[k * LD1 + fq * F1 + c], f1[c]);
-      }
-      if (p == N1 - 1) {
-        // sub-slice done: hs = act(acc1 + b1)
-        const int j0 = i0 + sub * BN1;
-#pragma unroll
-        for (int c = 0; c < F1; ++c) {
-          const int cc = fq * F1 + c;
-          const float av = vt::activate(f1[c] + b1[j0 + cc], act);
-          hs[fr * LD1 + cc] = av;
-          if (a_out && row0 + fr < rows) a_out[(size_t)(row0 + fr) * I + j0 + cc] = av;
-          f1[c] = 0.0f;
-        }
-      }
-    } else {
-      // GEMM2: acc2 += hs[:, k0:k0+KT2] wt   (hs complete: written before
-      // the previous iteration's closing barrier)
-      const int k0 = (p - N1) * KT2;
-      for (int k = 0; k < KT2; ++k) {
-        const float a = hs[fr * LD1 + k0 + k];
-#pragma unroll
-        for (int j = 0; j < F2; ++j) f2[j] = fmaf(a, wt[k * LD2 + fq + 8 * j], f2[j]);
-      }
-    }
-    __syncthreads();  // every warp is done with this tile and hs
-  }
-
-  // partial sums of this split -> ws[split] (rows padded to BM)
-  float* dst = ws + ((size_t)blockIdx.y * rows_pad + row0) * H;
-#pragma unroll
-  for (int j = 0; j < F2; ++j) dst[(size_t)fr * H + fq + 8 * j] = f2[j];
-}
-
 int num_sms() {
   static int n = 0;
   if (n == 0) {
@@ -258,21 +41,6 @@ int num_sms() {
     if (n <= 0) n = 132;
   }
   return n;
-}
-
-// Splits of I for blocks of `bm` rows: the fewest that keep the waves of
-// one-block-per-SM shortest.
-int pick_splits(int rows, int I, int bm = BM) {
-  const int tiles = (rows + bm - 1) / bm, nsub = I / BN1, sms = num_sms();
-  int best = 1;
-  long best_cost = -1;
-  for (int s = 1; s <= nsub; ++s) {
-    if (nsub % s) continue;
-    const long waves = (tiles * (long)s + sms - 1) / sms;
-    const long cost = waves * (nsub / s);
-    if (best_cost < 0 || cost < best_cost) best = s, best_cost = cost;
-  }
-  return best;
 }
 
 // Raise a kernel's dynamic shared-memory limit, once per kernel and process.
@@ -304,6 +72,13 @@ constexpr int ROW_MAX_H = 8192;
 // of 64 for both products, 16-byte TMA rows; the row kernels: H <= 8,192).
 inline bool core_shape_ok(int rows, int H, int I) {
   return rows > 0 && H >= 64 && H <= ROW_MAX_H && H % 64 == 0 && I >= 64 && I % 64 == 0;
+}
+
+// The widths the fp32 blocks on gemm_tiles take (gemm_tiles.cuh: both
+// products' N a multiple of 128; the pre-LN row pass gm::row_prologue: H a
+// multiple of its 128 threads up to 8,192).
+inline bool tiles_shape_ok(int rows, int H, int I) {
+  return rows > 0 && H >= 128 && H <= ROW_MAX_H && H % 128 == 0 && I >= 128 && I % 128 == 0;
 }
 
 // exact: H = threads x PER, every column a thread holds lies in the row,

@@ -5,8 +5,9 @@ port imports nothing of that package).
 Trainer contract (replacing torch DataLoader + collate_fn,
 vault/tmsc_utils/trainer.py:290-310): a dataset exposes ``num_examples``,
 ``num_batches(bs)`` and ``batches(bs, shuffle, rng)`` yielding
-``(features_dict, labels)`` numpy batches.  The grouped sampler, the lazy
-dataset and the parallel decode pool are not ported yet.
+``(features_dict, labels)`` numpy batches.  :func:`parallel_map` is the
+decode pool the processor's ``num_workers`` runs on.  The grouped sampler
+and the lazy dataset are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +53,29 @@ class InMemoryDataset:
             if self.batch_transform is not None:
                 feats, labels = self.batch_transform(feats, labels)
             yield feats, labels
+
+
+_decode_pools: dict = {}
+_decode_pools_lock = threading.Lock()
+
+
+def parallel_map(fn, items, num_workers: int = 0):
+    """Map ``fn`` over ``items`` in order, on a shared pool of
+    ``num_workers`` threads when that is more than 0: the parallel-decode
+    role of the reference's ``DataLoader(num_workers=...)``
+    (vault/tmsc_utils/trainer.py:290-310).  Image resizing in numpy, PIL and
+    PyTorch releases the GIL, so threads suit it.  The results are those of
+    the serial map, in the same order, for any worker count."""
+    if not num_workers or len(items) <= 1:
+        return [fn(x) for x in items]
+    with _decode_pools_lock:  # the main and prefetch threads may race here
+        pool = _decode_pools.get(num_workers)
+        if pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = _decode_pools[num_workers] = ThreadPoolExecutor(
+                num_workers, thread_name_prefix="vault-decode")
+    return list(pool.map(fn, items))
 
 
 def prefetch(iterator, size: int = 2):

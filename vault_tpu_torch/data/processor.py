@@ -4,9 +4,10 @@
 Reference: ``VaultProcessor.from_pretrained`` builds a ViltProcessor whose
 text tokenizer is swapped for the BERT tower's (vault/models/vault/
 processor.py:6-18), producing ``input_ids / attention_mask / token_type_ids /
-pixel_values / pixel_mask``.  Images are processed serially, on the host
-(numpy out) or on a named device (tensors on it out); worker threads and
-training-time augmentation are not ported yet.
+pixel_values / pixel_mask``.  Images are processed on the host (numpy out)
+or on a named device (tensors on it out), their resizing spread over
+``num_workers`` threads (``data/loader.py`` ``parallel_map``; the same
+results for any count).  Training-time augmentation is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,15 +30,18 @@ class VaultProcessor:
     def __init__(self, tokenizer, max_length: int = 40,
                  canvas: Union[None, str, Tuple[int, int]] = DEFAULT_CANVAS,
                  safe_images: bool = True, shorter: Optional[int] = None,
-                 device="cpu"):
+                 device="cpu", num_workers: int = 0):
         """``canvas``: a fixed (H, W) pins pixel_values to one shape;
         ``"auto"`` picks the smallest {384,608}-bucketed canvas per batch;
         ``None`` pads to the batch max (the reference's behaviour).
         ``device``: where images are resized and collated.  On the CPU,
         pixel_values and pixel_mask come back as numpy arrays, as from the
         JAX package's processor; on another device, as tensors there (a
-        server passes its model's device)."""
+        server passes its model's device).  ``num_workers``: threads the
+        images' resizing runs on (0: the calling thread); at batch 64 the
+        host's preprocessing is what a server waits on."""
         self.tokenizer = tokenizer
+        self.num_workers = num_workers
         self.device = torch.device(device)
         self.max_length = max_length
         self.canvas = canvas
@@ -55,17 +59,20 @@ class VaultProcessor:
         return self.tokenizer.batch_encode(
             list(texts), text_pairs, max_length=max_length or self.max_length)
 
-    def encode_images(self, images: Sequence[np.ndarray]):
+    def encode_images(self, images: Sequence[np.ndarray],
+                      num_workers: Optional[int] = None):
+        """Crop (serially), resize on ``num_workers`` threads (default: the
+        processor's), collate."""
+        from vault_tpu_torch.data.loader import parallel_map
+
         auto = self.canvas == "auto"
         max_hw = None if auto else self.canvas
-        processed = []
-        for im in images:
-            im = np.asarray(im)
-            if self.safe_images:
-                im = safe_aspect_crop(im)
-            processed.append(resize_stage(im, shorter=self.shorter,
-                                          longer=self.longer, max_hw=max_hw,
-                                          device=self.device))
+        cropped = [safe_aspect_crop(np.asarray(im)) if self.safe_images
+                   else np.asarray(im) for im in images]
+        processed = parallel_map(
+            lambda im: resize_stage(im, shorter=self.shorter, longer=self.longer,
+                                    max_hw=max_hw, device=self.device),
+            cropped, self.num_workers if num_workers is None else num_workers)
         canvas = bucket_canvas(processed) if auto else self.canvas
         pixel_values, pixel_mask = pad_batch(processed, canvas=canvas)
         if self.device.type == "cpu":

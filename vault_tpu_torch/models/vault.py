@@ -71,9 +71,12 @@ def vault_apply(params, cfg: VaultConfig, input_ids=None, attention_mask=None,
                 token_type_ids=None, pixel_values=None, pixel_mask=None,
                 inputs_embeds=None, image_embeds=None, image_token_type_idx=1,
                 deterministic=True, generator=None, use_pallas="auto",
-                remat=False, merge_patches_to=None) -> ViltOutput:
+                remat=False, merge_patches_to=None,
+                merge_at_layer=0) -> ViltOutput:
     """VaultModel.forward equivalent (vault/models/vault/model.py:207-218,
-    369-372): optional LM pass, then ViLT with inputs_embeds."""
+    369-372): optional LM pass, then ViLT with inputs_embeds.
+    ``merge_patches_to`` / ``merge_at_layer``: ToMe patch-token merging
+    (``vilt_apply``, ops/token_merge.py)."""
     vilt_cfg = cfg.resolved_vilt()
     vilt_token_types = token_type_ids
     if cfg.text_tower is not None:
@@ -86,7 +89,7 @@ def vault_apply(params, cfg: VaultConfig, input_ids=None, attention_mask=None,
         params["vilt"], vilt_cfg, input_ids, attention_mask, vilt_token_types,
         pixel_values, pixel_mask, inputs_embeds, image_embeds,
         image_token_type_idx, deterministic, generator, use_pallas, remat,
-        merge_patches_to)
+        merge_patches_to, merge_at_layer)
 
 
 # ---------------------------------------------------------------------------
@@ -131,12 +134,13 @@ def vault_with_llama_tower(params, vilt_cfg: ViltConfig, llama_cfg,
 def vault_for_classification(params, cfg: VaultConfig, batch: Dict[str, Any],
                              head_dropout: float = 0.1, deterministic=True,
                              generator=None, use_pallas="auto", remat=False,
-                             merge_patches_to=None):
+                             merge_patches_to=None, merge_at_layer=0):
     """VaultForTMSC.forward (vault/models/vault/model.py:547-570): backbone
     pooler -> dropout -> linear logits."""
     out = vault_apply(params, cfg, deterministic=deterministic,
                       generator=generator, use_pallas=use_pallas,
-                      remat=remat, merge_patches_to=merge_patches_to, **batch)
+                      remat=remat, merge_patches_to=merge_patches_to,
+                      merge_at_layer=merge_at_layer, **batch)
     return classifier_head_apply(params["head"], out.pooler_output,
                                  head_dropout, deterministic, generator)
 
@@ -206,11 +210,14 @@ class VaultForClassification(_ServedModel):
     device it raises.  Weights are seeded random (``seed``) until loaded.
     ``forward(batch)`` returns the logits of a deterministic pass.
     :meth:`quantize` turns it into its int8 serving form in place.
+    ``merge_to`` / ``merge_at_layer``: serve with ToMe patch-token merging
+    (``vilt_apply``), threaded into every forward as ``use_pallas`` is.
     """
 
     def __init__(self, cfg: VaultConfig, n_classes: int = 3, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 use_pallas="auto", head_dropout: float = 0.1):
+                 use_pallas="auto", head_dropout: float = 0.1,
+                 merge_to: Optional[int] = None, merge_at_layer: int = 0):
         super().__init__()
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
@@ -219,11 +226,14 @@ class VaultForClassification(_ServedModel):
             setattr(self, name, mod)
         self.head = init_classifier_head(gen, cfg.vilt.hidden_size, n_classes)
         self.cfg = cfg
+        self.n_classes = n_classes
         self.use_pallas = use_pallas
         self.head_dropout = head_dropout
+        self.merge_to, self.merge_at_layer = merge_to, merge_at_layer
         self.to(device=device, dtype=dtype)
 
-    def quantize(self, mode: str = "w8a8") -> "VaultForClassification":
+    def quantize(self, mode: str = "w8a8", force: bool = False
+                 ) -> "VaultForClassification":
         """Quantize every encoder linear in place (ops/quantize.py
         ``quantize_model_params``: int8 codes and fp32 per-out-channel
         scales), for serving, as the JAX package's ``scripts/serve.py``
@@ -231,12 +241,18 @@ class VaultForClassification(_ServedModel):
         left at "auto" becomes :func:`~vault_tpu_torch.serving.serving_impl`
         (w8a8: the fused LN->QKV and MLP kernels).  Afterwards the model's
         dtypes are fixed: a cast (``.to(dtype)``, ``.bfloat16()``) would
-        turn the fp32 scales into the new type, so it raises."""
+        turn the fp32 scales into the new type, so it raises.  The
+        composition with the model's head width and merging is checked
+        first (``serving.check_serving_composition``, as the JAX package's
+        ``scripts/serve.py`` does): a measured-bad one raises unless
+        ``force``; warnings go through ``warnings.warn``."""
         from vault_tpu_torch.ops.quantize import quantize_model_params
-        from vault_tpu_torch.serving import serving_impl
+        from vault_tpu_torch.serving import check_composition, serving_impl
 
         if self.quant_mode is not None:
             raise RuntimeError(f"the model is already quantized ({self.quant_mode})")
+        check_composition(self.n_classes, mode, self.merge_to, self.merge_at_layer,
+                          force)
         quantize_model_params(self, mode=mode)
         self.quant_mode = mode
         if self.use_pallas == "auto":
@@ -248,7 +264,8 @@ class VaultForClassification(_ServedModel):
         return vault_for_classification(
             self, self.cfg, batch, head_dropout=self.head_dropout,
             deterministic=True,
-            use_pallas=self.use_pallas if use_pallas is None else use_pallas)
+            use_pallas=self.use_pallas if use_pallas is None else use_pallas,
+            merge_patches_to=self.merge_to, merge_at_layer=self.merge_at_layer)
 
 
 class VaultWithLlamaTower(_ServedModel):

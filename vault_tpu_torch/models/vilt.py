@@ -11,8 +11,11 @@ The numerical contract of HF ``ViltModel`` that the reference delegates to
 
 As in the JAX package, valid patches are gathered valid-first in raster
 order into a fixed ``num_patch_tokens`` budget with the padded slots masked
-(HF instead samples them with ``torch.multinomial``).  Token merging (ToMe)
-is not ported yet: it raises.
+(HF instead samples them with ``torch.multinomial``).  Token merging
+(ToMe, ``ops/token_merge.py``) merges the patch tokens at embedding time
+(``merge_at_layer`` 0) or after ``merge_at_layer`` encoder layers, as the
+JAX package does; the merged tokens' sizes ride the attention's additive
+key bias as log(size).
 """
 
 from __future__ import annotations
@@ -189,9 +192,13 @@ def visual_embed(params, cfg: ViltConfig, pixel_values, pixel_mask,
 def joint_embed(params, cfg: ViltConfig, input_ids=None, attention_mask=None,
                 token_type_ids=None, pixel_values=None, pixel_mask=None,
                 inputs_embeds=None, image_embeds=None, image_token_type_idx=1,
-                deterministic=True, generator=None):
+                deterministic=True, generator=None, merge_patches_to=None):
     """ViltEmbeddings.forward: text + visual + modality types, concatenated.
-    Returns (tokens, mask)."""
+
+    Returns (tokens, mask, sizes); ``sizes`` is None unless
+    ``merge_patches_to`` is set, in which case the patch tokens are
+    ToMe-merged down to that count (ops/token_merge.py) and ``sizes``
+    carries each token's multiplicity for proportional attention."""
     text = text_embed(params, cfg, input_ids, token_type_ids, inputs_embeds,
                       deterministic, generator)
     b, l_text = text.shape[:2]
@@ -212,9 +219,24 @@ def joint_embed(params, cfg: ViltConfig, input_ids=None, attention_mask=None,
 
     text = text + params["modality_type"][0]
     img = img + params["modality_type"][image_token_type_idx]
+
+    sizes = None
+    if merge_patches_to is not None and img.shape[1] - 1 > merge_patches_to:
+        # merge after every per-token add (position, modality), so the
+        # size-weighted average composes the final embedded tokens; CLS
+        # (image slot 0) is exempt: the pooler reads it
+        from vault_tpu_torch.ops.token_merge import merge_tokens_to
+
+        patches, p_sizes, p_mask = merge_tokens_to(img[:, 1:], img_mask[:, 1:],
+                                                   merge_patches_to)
+        img = torch.cat([img[:, :1], patches], dim=1)
+        img_mask = torch.cat([img_mask[:, :1], p_mask.to(img_mask.dtype)], dim=1)
+        sizes = torch.cat([torch.ones((b, l_text + 1), dtype=torch.float32,
+                                      device=img.device), p_sizes], dim=1)
+
     tokens = torch.cat([text, img], dim=1)
     mask = torch.cat([attention_mask.to(img_mask.dtype), img_mask], dim=1)
-    return tokens, mask
+    return tokens, mask, sizes
 
 
 # ---------------------------------------------------------------------------
@@ -261,14 +283,52 @@ def _encoder_layer(lp, cfg: ViltConfig, x, bias, deterministic,
 
 
 def vilt_encode(params, cfg: ViltConfig, x, attention_mask, deterministic=True,
-                generator=None, use_pallas="auto", remat=False):
+                generator=None, use_pallas="auto", remat=False, key_sizes=None,
+                merge_spec=None):
     """Encoder stack over the joint sequence, each layer under activation
-    checkpointing when ``remat`` (ops/nn.py ``remat_apply``)."""
-    bias = extend_attention_mask(attention_mask, torch.float32)
-    for lp in params["layers"]:
-        x = remat_apply(_encoder_layer, remat, generator, lp, cfg, x, bias,
-                        deterministic, use_pallas=use_pallas)
-    return x
+    checkpointing when ``remat`` (ops/nn.py ``remat_apply``).  Returns
+    (hidden states, attention mask).
+
+    ``key_sizes`` (B, L): the multiplicities of embed-time merged tokens,
+    added to the key bias as log(size).  ``merge_spec`` ``(layer,
+    patch_start, target)``: after ``layer`` layers, ToMe-merge the tokens
+    from ``patch_start`` on down to ``target``; the layers run in two
+    segments around the merge, and the returned mask is the merged one."""
+    def make_bias(mask, sizes):
+        bias = extend_attention_mask(mask, torch.float32)
+        if sizes is not None:
+            # proportional attention: a key standing for s merged tokens
+            # weighs s-fold in every softmax, through the (B, 1, 1, L) bias
+            bias = bias + torch.log(torch.clamp(sizes, min=1.0))[:, None, None, :]
+        return bias
+
+    def run_layers(h, bias, lo, hi):
+        for lp in params["layers"][lo:hi]:
+            h = remat_apply(_encoder_layer, remat, generator, lp, cfg, h, bias,
+                            deterministic, use_pallas=use_pallas)
+        return h
+
+    n_layers = cfg.num_hidden_layers
+    if merge_spec is None:
+        return (run_layers(x, make_bias(attention_mask, key_sizes), 0, n_layers),
+                attention_mask)
+
+    from vault_tpu_torch.ops.token_merge import merge_tokens_to
+
+    # one merge per forward: embed-time sizes would be counted twice here
+    if key_sizes is not None:
+        raise ValueError("merge_spec excludes embed-time merging (key_sizes)")
+    layer, patch_start, target = merge_spec
+    layer = max(0, min(int(layer), n_layers))
+    x = run_layers(x, make_bias(attention_mask, None), 0, layer)
+    patches, p_sizes, p_mask = merge_tokens_to(
+        x[:, patch_start:], attention_mask[:, patch_start:], target)
+    x = torch.cat([x[:, :patch_start], patches], dim=1)
+    mask = torch.cat([attention_mask[:, :patch_start],
+                      p_mask.to(attention_mask.dtype)], dim=1)
+    sizes = torch.cat([torch.ones((x.shape[0], patch_start), dtype=torch.float32,
+                                  device=x.device), p_sizes], dim=1)
+    return run_layers(x, make_bias(mask, sizes), layer, n_layers), mask
 
 
 def pooler(params, x):
@@ -280,17 +340,33 @@ def vilt_apply(params, cfg: ViltConfig, input_ids=None, attention_mask=None,
                token_type_ids=None, pixel_values=None, pixel_mask=None,
                inputs_embeds=None, image_embeds=None, image_token_type_idx=1,
                deterministic=True, generator=None, use_pallas="auto",
-               remat=False, merge_patches_to=None) -> ViltOutput:
-    """Full ViltModel.forward equivalent (modeling_vilt.py:599-717)."""
-    if merge_patches_to is not None:
-        raise NotImplementedError(
-            "merge_patches_to: token merging is not ported yet")
-    tokens, mask = joint_embed(params, cfg, input_ids, attention_mask,
-                               token_type_ids, pixel_values, pixel_mask,
-                               inputs_embeds, image_embeds,
-                               image_token_type_idx, deterministic, generator)
-    x = vilt_encode(params, cfg, tokens, mask, deterministic, generator,
-                    use_pallas, remat)
+               remat=False, merge_patches_to=None,
+               merge_at_layer=0) -> ViltOutput:
+    """Full ViltModel.forward equivalent (modeling_vilt.py:599-717).
+
+    ``merge_patches_to``: ToMe-merge the patch tokens down to this count
+    (ops/token_merge.py); 87 makes the joint sequence 40 + 1 + 87 = 128.
+    ``merge_at_layer`` picks where: 0 merges the embeddings before the
+    encoder, k > 0 merges after k encoder layers, on contextualized tokens
+    (less divergence for (layers - k) / layers of the savings)."""
+    embed_merge = merge_patches_to if merge_at_layer == 0 else None
+    tokens, mask, sizes = joint_embed(params, cfg, input_ids, attention_mask,
+                                      token_type_ids, pixel_values, pixel_mask,
+                                      inputs_embeds, image_embeds,
+                                      image_token_type_idx, deterministic,
+                                      generator, embed_merge)
+    merge_spec = None
+    if merge_patches_to is not None and merge_at_layer > 0:
+        if input_ids is not None:
+            l_text = input_ids.shape[1]
+        elif inputs_embeds is not None:
+            l_text = inputs_embeds.shape[1]
+        else:
+            raise ValueError("merge_at_layer > 0 needs a text span")
+        merge_spec = (merge_at_layer, l_text + 1, merge_patches_to)
+    x, mask = vilt_encode(params, cfg, tokens, mask, deterministic, generator,
+                          use_pallas, remat, key_sizes=sizes,
+                          merge_spec=merge_spec)
     x = layer_norm(params["final_ln"], x, cfg.layer_norm_eps)
     pooled = pooler(params, x) if "pooler" in params else None
     return ViltOutput(last_hidden_state=x, pooler_output=pooled,

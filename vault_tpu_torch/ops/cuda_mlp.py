@@ -11,9 +11,9 @@ BERT layers), runs forward and backward on the wgmma/TMA GEMM core
 (rows, I) intermediates through device memory, and so do the bf16 blocks
 with int8 weights, pre-LN and post-LN (``vt_mlp_fwd_q8_wgmma``: one pass
 dequantizes both weight matrices to bf16 scratch in front of the same
-launches); fp32 blocks, int8 weights or not, run on the 32-row walk
-(``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_fwd_q8``,
-``vt_mlp_bwd``), which keeps them on chip.  The w8a8 blocks, bf16 and fp32
+launches); fp32 blocks, int8 weights or not, run the same shape of
+launches on fp32 FMA tiles (``csrc/gemm_tiles.cuh`` ``gemm_tiles``:
+``vt_mlp_fwd``, ``vt_mlp_fwd_q8``, ``vt_mlp_bwd``).  The w8a8 blocks, bf16 and fp32
 alike, run on the int8 instance of the same core (:func:`w8a8_route`,
 ``vt_mlp_w8a8``), their weight codes held K-major (``ops/quantize.py``
 ``k_major``).  Each design has its width contract (:func:`_check_sizes`); a
@@ -42,7 +42,7 @@ launched.
     blocks with int8 weights only (ops/quantize.py w8), replacing the JAX
     package's functions of the same names: the bf16 blocks dequantize both
     matrices in one pass to bf16 scratch in front of the core's launches,
-    the fp32 ones tile by tile inside the walk; plain versions
+    the fp32 ones to fp32 scratch in front of the tiles' launches; plain versions
     :func:`mlp_block_q8_plain` and :func:`mlp_postln_q8_plain`.  Their gradient is autograd of the plain
     composition with ``w_q`` weights: to the LN, both scales, both biases
     and x, none to the codes.
@@ -89,13 +89,12 @@ from vault_tpu_torch.ops.quantize import is_k_major, quantize_activation
 # 8,192).  The w8a8 blocks on its int8 instance: H and I multiples of 128
 # (the int8 stage is 128 deep), H up to 8,192 (the row passes hold a row in
 # registers) and I up to 32,768 (so does the requantization pass, a row of
-# the activation).  The walk: H 768 alone (its row tiles hold an H-wide fp32
-# accumulator, instantiated at 768; widening it is its redesign) and I a
-# multiple of 128.
+# the activation).  The fp32 tiles: H and I multiples of 128 (both products'
+# output widths are tile widths of gemm_tiles), H up to 8,192 (the row
+# passes hold a row in registers).
 CORE_H_MULTIPLE, CORE_H_MAX, CORE_I_MULTIPLE = 64, 8192, 64
 W8A8_MULTIPLE, W8A8_H_MAX, W8A8_I_MAX = 128, 8192, 32768
-HIDDEN_SIZES = (768,)  # H of the walk
-I_MULTIPLE = 128       # its intermediate size is a multiple of this
+TILES_MULTIPLE, TILES_H_MAX = 128, 8192
 _ACTS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1, "relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
@@ -103,7 +102,7 @@ _SIGNATURES = {
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_fwd_q8": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float]
                       + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
-    "vt_mlp_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "vt_mlp_workspace": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "vt_mlp_fwd_wgmma": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
                          + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
     "vt_mlp_wgmma_workspace": ([ctypes.c_int] * 4, ctypes.c_longlong),
@@ -125,14 +124,14 @@ def mlp_route(dtype: torch.dtype, int8_weights: bool = False, postln: bool = Fal
     """Which design runs a block with activations in ``dtype`` on the card:
     "wgmma" (the ``*_wgmma`` C entries) for every bf16 block, forward and
     backward, pre-LN and post-LN, with bf16 weights or int8 ones
-    (``vt_mlp_fwd_q8_wgmma``, behind its dequantization pass); "walk"
-    (``mlp_main`` / ``mlp_bwd_walk``: ``vt_mlp_fwd``, ``vt_mlp_bwd``,
-    ``vt_mlp_fwd_q8``) for fp32.  The wrappers launch the entries it names
+    (``vt_mlp_fwd_q8_wgmma``, behind its dequantization pass); "tiles"
+    (the same launches on fp32 FMA tiles, ``gemm_tiles``: ``vt_mlp_fwd``,
+    ``vt_mlp_bwd``, ``vt_mlp_fwd_q8``) for fp32.  The wrappers launch the entries it names
     and hold a block to its width contract.  ``int8_weights`` and
     ``postln`` name the block; neither moves it off its dtype's design."""
     if dtype not in _DTYPES:
         raise TypeError(f"mlp_route: dtype {dtype} not supported (bfloat16 or float32)")
-    return "wgmma" if dtype == torch.bfloat16 else "walk"
+    return "wgmma" if dtype == torch.bfloat16 else "tiles"
 
 
 def _mlp_block_plain(ln_p, p_in, p_out, x, eps, act, m=None):
@@ -167,7 +166,7 @@ def w8a8_route(dtype: torch.dtype) -> str:
 
 def _check_sizes(what, x, w1, design):
     """x in a dtype and w1 (H, I) at widths ``design`` takes ("wgmma",
-    "w8a8" or "walk"); returns (H, I)."""
+    "w8a8" or "tiles"); returns (H, I)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported "
                         "(bfloat16 or float32)")
@@ -188,10 +187,12 @@ def _check_sizes(what, x, w1, design):
                 f"{what}: hidden size {h} / intermediate size {i}: the int8 core takes "
                 f"H a multiple of {W8A8_MULTIPLE} from {W8A8_MULTIPLE} to {W8A8_H_MAX} "
                 f"and I a multiple of {W8A8_MULTIPLE} up to {W8A8_I_MAX}")
-    elif h not in HIDDEN_SIZES or i % I_MULTIPLE or i == 0:
-        raise ValueError(f"{what}: hidden size {h} / intermediate size {i}: the {design} "
-                         f"kernels take H in {HIDDEN_SIZES} and I a multiple of "
-                         f"{I_MULTIPLE}")
+    elif h % TILES_MULTIPLE or not TILES_MULTIPLE <= h <= TILES_H_MAX \
+            or i % TILES_MULTIPLE or i == 0:
+        raise ValueError(
+            f"{what}: hidden size {h} / intermediate size {i}: the fp32 tiles take H a "
+            f"multiple of {TILES_MULTIPLE} from {TILES_MULTIPLE} to {TILES_H_MAX} and I a "
+            f"multiple of {TILES_MULTIPLE}")
     return h, i
 
 
@@ -222,16 +223,15 @@ def _launch(postln, gamma, beta, w1, b1, w2, b2, x, m, eps, act):
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             None if m is None else m.data_ptr(), out.data_ptr())
     # the route's scratch, sized by the C side: LN(x) or the fp32 split-K
-    # slices and the activation (wgmma), or the fp32 partial sums of the I
-    # splits (walk)
+    # slices and the activation, bf16 (wgmma) or fp32 (tiles)
     if mlp_route(x.dtype) == "wgmma":
         ws = torch.empty(lib.vt_mlp_wgmma_workspace(rows, h, i, int(postln)),
                          dtype=torch.float32, device=x.device)
         code = lib.vt_mlp_fwd_wgmma(*ptrs, ws.data_ptr(), rows, h, i, float(eps),
                                     _ACTS[act], int(postln), stream)
     else:
-        ws = torch.empty(lib.vt_mlp_workspace(rows, h, i), dtype=torch.float32,
-                         device=x.device)
+        ws = torch.empty(lib.vt_mlp_workspace(rows, h, i, int(postln), 0),
+                         dtype=torch.float32, device=x.device)
         code = lib.vt_mlp_fwd(*ptrs, ws.data_ptr(), rows, h, i, float(eps), _ACTS[act],
                               int(postln), _DTYPES[x.dtype], stream)
     _build.check(lib, code, what)
@@ -564,8 +564,8 @@ fused_mlp_postln_fwd_w8a8.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# w8: int8 weights dequantized in the kernel (csrc/mlp.cu: vt_mlp_fwd_q8_wgmma
-# for the bf16 blocks, vt_mlp_fwd_q8 for the fp32 ones)
+# w8: int8 weights dequantized by a pass in front of the products (csrc/mlp.cu:
+# vt_mlp_fwd_q8_wgmma for the bf16 blocks, vt_mlp_fwd_q8 for the fp32 ones)
 # ---------------------------------------------------------------------------
 
 def _plain_on_quantized(postln, key, gamma, beta, w1q, s1, b1, w2q, s2, b2, x,
@@ -614,16 +614,15 @@ def _launch_q8(postln, gamma, beta, w1q, s1, b1, w2q, s2, b2, x, eps, act):
     ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1q.data_ptr(), s1.data_ptr(),
             b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr())
     # the route's scratch, sized by the C side: the weights dequantized to
-    # bf16, LN(x) and the activation (wgmma), or the fp32 partial sums of
-    # the I splits (walk)
+    # bf16 (wgmma) or fp32 (tiles), then the route's block scratch
     if route == "wgmma":
         ws = torch.empty(lib.vt_mlp_q8_wgmma_workspace(rows, h, i, int(postln)),
                          dtype=torch.float32, device=x.device)
         code = lib.vt_mlp_fwd_q8_wgmma(*ptrs, ws.data_ptr(), rows, h, i, float(eps),
                                        _ACTS[act], int(postln), stream)
     else:
-        ws = torch.empty(lib.vt_mlp_workspace(rows, h, i), dtype=torch.float32,
-                         device=x.device)
+        ws = torch.empty(lib.vt_mlp_workspace(rows, h, i, int(postln), 1),
+                         dtype=torch.float32, device=x.device)
         code = lib.vt_mlp_fwd_q8(*ptrs, ws.data_ptr(), rows, h, i, float(eps), _ACTS[act],
                                  int(postln), _DTYPES[dt], stream)
     _build.check(lib, code, what)

@@ -13,7 +13,10 @@
 :func:`serving_impl` picks the kernel selector a quantized model serves on,
 and :func:`check_serving_composition` refuses or warns about (head width,
 quantization, token merging) compositions whose divergence the JAX package
-measured.  Data-parallel serving waits for the parallel slice of the port.
+measured; :func:`check_composition` applies it where a quantized model is
+built (``VaultForClassification.quantize``), raising on a refusal unless
+forced.  A merged model (``merge_to``) serves through the engine as any
+other: the engine calls the model.  Data-parallel serving waits for the parallel slice of the port.
 """
 
 from __future__ import annotations
@@ -82,6 +85,24 @@ def check_serving_composition(n_classes: int, quantize: Optional[str],
             "(w8 and w8a8 alike); the lowest-divergence single lever is "
             "--merge_to with --merge_at_layer 4 (docs/BENCHMARKS.md)")
     return refusals, warnings
+
+
+def check_composition(n_classes: int, quantize: Optional[str],
+                      merge_to: Optional[int], merge_at_layer: int = 0,
+                      force: bool = False):
+    """:func:`check_serving_composition` where a server's model is built:
+    each warning through ``warnings.warn``; refusals raise ``ValueError``
+    unless ``force``, which turns them into warnings."""
+    import warnings
+
+    refusals, comp_warnings = check_serving_composition(n_classes, quantize, merge_to,
+                                                        merge_at_layer)
+    for w in comp_warnings:
+        warnings.warn(w, stacklevel=3)
+    if refusals and not force:
+        raise ValueError("refusing the serving composition: " + "; ".join(refusals))
+    for r in refusals:
+        warnings.warn(f"forced: {r}", stacklevel=3)
 
 
 def serving_impl(mode: Optional[str], device=None):

@@ -32,11 +32,14 @@ How it maps onto PyTorch:
     (:func:`classifier_apply_fn` sets it from the config); any other leaf
     without a gradient raises, since it means the autograd graph was cut.
 
-Not ported: ``num_data_shards > 1``, ``zero_opt``, tensor parallelism, a
-``mesh``, multiple hosts, ``profile_dir`` and token merging (``merge_to``)
-raise ``NotImplementedError``.  ``rng_impl`` has no counterpart (the port
-has one generator kind) and is ignored; ``merge_at_layer`` only matters
-with ``merge_to``.  There is no ``precompile``: PyTorch runs eagerly.
+Token merging trains as in the JAX package: :func:`classifier_apply_fn`
+threads ``merge_to`` and ``merge_at_layer`` into the forward (the
+size-weighted average is differentiable, the merge decisions piecewise
+constant).  Not ported: ``num_data_shards > 1``, ``zero_opt``, tensor
+parallelism, a ``mesh``, multiple hosts and ``profile_dir`` raise
+``NotImplementedError``.  ``rng_impl`` has no counterpart (the port has one
+generator kind) and is ignored.  There is no ``precompile``: PyTorch runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -115,7 +118,7 @@ class TrainArgs:
     rng_impl: Optional[str] = "rbg"           # no counterpart; ignored
     use_pallas: Any = "auto"                  # read by classifier_apply_fn
     remat: bool = True                        # read by classifier_apply_fn
-    merge_to: Optional[int] = None            # not ported: must stay None
+    merge_to: Optional[int] = None            # read by classifier_apply_fn
     merge_at_layer: int = 0
     compute_dtype: str = "float32"
     checkpoint_dir: Optional[str] = None
@@ -132,16 +135,20 @@ class TrainArgs:
 def classifier_apply_fn(cfg, args: TrainArgs,
                         head_dropout: float = 0.1) -> Callable:
     """``apply_fn`` of the VAuLT classifier for :class:`Trainer`, with
-    ``args.use_pallas`` and ``args.remat`` threaded in as the JAX package's
-    experiments thread them.  Its ``unreached`` names the leaves the loss
-    never reads (:func:`~vault_tpu_torch.models.vault.unreached_leaf`)."""
+    ``args.use_pallas``, ``args.remat``, ``args.merge_to`` and
+    ``args.merge_at_layer`` threaded in as the JAX package's experiments
+    thread them (``experiments/clsf_vault.py``).  Its ``unreached`` names
+    the leaves the loss never reads
+    (:func:`~vault_tpu_torch.models.vault.unreached_leaf`)."""
     use_pallas, remat = args.use_pallas, args.remat
+    merge_to, merge_at_layer = args.merge_to, args.merge_at_layer
 
     def apply_fn(params, batch, deterministic, generator):
         return vault_for_classification(
             params, cfg, batch, head_dropout=head_dropout,
             deterministic=deterministic, generator=generator,
-            use_pallas=use_pallas, remat=remat)
+            use_pallas=use_pallas, remat=remat, merge_patches_to=merge_to,
+            merge_at_layer=merge_at_layer)
 
     apply_fn.unreached = unreached_leaf(cfg)
     return apply_fn
@@ -227,8 +234,7 @@ class Trainer:
                     "tensor_parallel": tensor_parallel,
                     "num_data_shards > 1": (args.num_data_shards or 1) > 1,
                     "zero_opt": args.zero_opt,
-                    "profile_dir": args.profile_dir is not None,
-                    "merge_to (token merging)": args.merge_to is not None}
+                    "profile_dir": args.profile_dir is not None}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
