@@ -18,7 +18,11 @@ layout) and a short ``Trainer.train()`` with a dev evaluation and a
 checkpoint; then serves and trains it with token merging (ToMe, the patch
 tokens merged to 87: bf16 and the w8a8 levered configuration at layer 0,
 batch 8 and 64, its engine, the fp32 model merged at layer 4, one merged
-training step).  It checks the launch counts, the gradients and the outputs.
+training step); then serves it from checkpoint files (HF-layout
+directories written and loaded, ``python -m vault_tpu_torch.cli.
+quantize_ckpt`` and five ``cli.serve`` servers answering HTTP, the served
+forward exported with ``torch.export``, saved, loaded and run).  It checks
+the launch counts, the gradients and the outputs.
 Each phase prints one JSON line; any failure exits non-zero.  Device
 times come from CUPTI traces, each held against the CUDA-event time of the
 same calls (``device_ms``).  The last line
@@ -27,7 +31,7 @@ exits non-zero and prints no result.  Imports nothing of JAX or of the JAX
 package.
 
 ``--phases a,b`` runs only the named groups of phases (``kernels``,
-``vault``, ``w8``, ``llama``, ``train``, ``merge``) while working on one of them; such
+``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``) while working on one of them; such
 a run ends with ``{"partial": [...]}``, not with the ``ok`` line.
 """
 
@@ -2410,6 +2414,362 @@ def trainer_phase(dev, cfg):
          logs=handler.directory())
 
 
+# ---------------------------------------------------------------------------
+# Serving from checkpoint files (the serve and quantize CLIs, torch.export)
+# ---------------------------------------------------------------------------
+
+# Requests per CLI-built server, concurrent, max_batch 8: two served batches.
+SERVE_REQUESTS = 16
+# The BERTweet-base tower in the HF layout (vinai/bertweet-base's
+# config.json widths): RoBERTa positions, one token type, 130 positions.
+BERTWEET_CONFIG = dict(model_type="roberta", vocab_size=64001, hidden_size=768,
+                       num_hidden_layers=12, num_attention_heads=12,
+                       intermediate_size=3072, hidden_act="gelu",
+                       max_position_embeddings=130, type_vocab_size=1,
+                       layer_norm_eps=1e-5, pad_token_id=1, bos_token_id=0,
+                       eos_token_id=2)
+SERVE_WORDS = ("a the cat dog on couch sits next to window red blue small big "
+               "photo of happy sad man woman street car").split()
+
+
+def seeded_state_dict(module, seed):
+    """The module's state dict with seeded numpy values in place of its own
+    (LayerNorm scales about 1, everything else about 0.02), fp32."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, t in module.state_dict().items():
+        a = rng.standard_normal(tuple(t.shape), dtype=np.float32) * np.float32(0.02)
+        out[k] = a + np.float32(1.0) if k.endswith(".scale") else a
+    return out
+
+
+def fastbpe_files(directory: Path, size: int):
+    """A fairseq ``vocab.txt`` (``size`` entries with the four specials and
+    ``<mask>`` that ``FastBPE`` adds) and ``bpe.codes`` merging each of
+    ``SERVE_WORDS`` whole; single characters, with and without the ``@@``
+    continuation mark, cover any other word."""
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789!?.,'")
+    tokens = list(dict.fromkeys(SERVE_WORDS + chars + [c + "@@" for c in chars]))
+    tokens += [f"tok{i}" for i in range(size - 5 - len(tokens))]
+    (directory / "vocab.txt").write_text("".join(f"{t} {len(tokens) - i}\n"
+                                                 for i, t in enumerate(tokens)))
+    merges = []
+    for w in SERVE_WORDS:
+        pieces = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(pieces) > 1:
+            merges.append(f"{pieces[0]} {pieces[1]} 1")
+            pieces = [pieces[0] + pieces[1]] + pieces[2:]
+    (directory / "bpe.codes").write_text("\n".join(dict.fromkeys(merges)) + "\n")
+
+
+def write_hf_dirs(root: Path):
+    """Three checkpoint directories in the HF layout from seeded numpy, with
+    this package's safetensors writer: bert-base-uncased (fp32, ``bert.``,
+    a 30,522-entry WordPiece vocab), ViLT-B/32 (fp32, ``vilt.``) and
+    BERTweet-base (bf16, ``roberta.``, a fairseq vocab and fastBPE codes).
+    Returns, per directory, its path, the port-layout arrays its weights
+    hold (bf16-rounded for BERTweet) and its size on disk."""
+    import torch
+
+    from vault_tpu_torch.config import TextTowerConfig
+    from vault_tpu_torch.models import bert as bert_mod
+    from vault_tpu_torch.models import vilt as vilt_mod
+    from vault_tpu_torch.models.convert import bert_params_to_torch, vilt_params_to_torch
+    from vault_tpu_torch.models.pretrained import save_safetensors
+    from vault_tpu_torch.presets import bert_base_uncased, vilt_b32
+
+    gen = torch.Generator().manual_seed(0)
+    bertweet = TextTowerConfig(**{k: v for k, v in BERTWEET_CONFIG.items()
+                                  if k not in ("model_type", "bos_token_id", "eos_token_id")},
+                               position_embedding_style="roberta")
+    specs = {"bert-base-uncased": ("bert", bert_base_uncased(), "bert.", torch.float32,
+                                   dict(model_type="bert", **dataclasses.asdict(
+                                       bert_base_uncased()))),
+             "vilt-b32-mlm": ("vilt", vilt_b32(), "vilt.", torch.float32,
+                              dict(model_type="vilt", **dataclasses.asdict(vilt_b32()))),
+             "bertweet-base": ("bert", bertweet, "roberta.", torch.bfloat16,
+                               BERTWEET_CONFIG)}
+    out = {}
+    for seed, (name, (kind, cfg, prefix, dtype, config)) in enumerate(specs.items()):
+        d = root / name
+        d.mkdir()
+        tower = (vilt_mod.init_vilt(gen, cfg) if kind == "vilt"
+                 else bert_mod.init_bert(gen, cfg))
+        port = seeded_state_dict(tower, seed)
+        to_hf = vilt_params_to_torch if kind == "vilt" else bert_params_to_torch
+        hf = {k: v.to(dtype) for k, v in to_hf(port, cfg, prefix).items()}
+        save_safetensors(hf, str(d / "model.safetensors"), {"format": "pt"})
+        (d / "config.json").write_text(json.dumps(config))
+        if name == "bert-base-uncased":
+            vocab = synthetic_vocab()
+            (d / "vocab.txt").write_text("".join(t + "\n" for t in vocab))
+        elif name == "bertweet-base":
+            fastbpe_files(d, BERTWEET_CONFIG["vocab_size"])
+            port = {k: torch.from_numpy(v).bfloat16().float().numpy() for k, v in port.items()}
+        out[name] = (d, port, sum(f.stat().st_size for f in d.iterdir()))
+    return out
+
+
+def check_loaded(model, tower: str, port: dict):
+    """Every parameter of ``model``'s ``tower`` equals its source array."""
+    import torch
+
+    sd = model.state_dict()
+    for k, a in port.items():
+        t = sd[f"{tower}.{k}"]
+        if t.dtype != torch.float32 or not torch.equal(t.cpu(), torch.from_numpy(a)):
+            fail(f"serve: {tower}.{k} on the card differs from its checkpoint array")
+
+
+SERVE_CASES = (
+    # (name, CLI arguments past the shared ones, launches per served batch,
+    #  export the served forward)
+    ("bf16", ["--ckpt", "{ft}"], EVAL_LAUNCHES, True),
+    ("w8a8", ["--ckpt", "{w8a8}"], W8A8_LAUNCHES, True),
+    ("w8", ["--ckpt", "{w8}"], W8_LAUNCHES, False),
+    ("w8a8_merge87", ["--ckpt", "{w8a8}", "--merge_to", str(MERGE_TO)], W8A8_LAUNCHES, False),
+    ("bertweet_bf16", ["--bert", "{bertweet}"], EVAL_LAUNCHES, False),
+)
+
+
+def http_json(url, payload=None, timeout=120.0):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+        return body if r.headers["Content-Type"].startswith("text/plain") else json.loads(body)
+
+
+def serve_requests(seed=3):
+    """``SERVE_REQUESTS`` (PNG bytes base64, text, image) of assorted
+    landscape photo sizes and short texts."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        h = int(rng.integers(300, 700))
+        im = rng.integers(0, 256, (h, int(h * rng.uniform(1.2, 1.55)), 3), dtype=np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(im).save(buf, format="PNG")
+        text = (f"a {rng.choice(['red', 'small', 'happy'])} "
+                f"{rng.choice(['cat', 'dog', 'man'])} sits on the couch next to photo{i}")
+        out.append((base64.b64encode(buf.getvalue()).decode(), text, im))
+    return out
+
+
+def served_phase(name, model, processor, server, launches):
+    """``SERVE_REQUESTS`` concurrent POST /predict to a started CLI-built
+    server after the CLI's warm-up request: launches per served batch, each
+    response against a direct forward of the same model on its processed
+    batch (the rows of ``serving_phase``), /healthz and /metrics."""
+    import torch
+
+    from vault_tpu_torch.cli.serve import warm_up
+    from vault_tpu_torch.serving import pad_rows
+
+    base = f"http://127.0.0.1:{server.port}"
+    reqs = serve_requests()
+    warm_up(server)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
+        futs = [pool.submit(http_json, f"{base}/predict", {"text": t, "image_b64": b})
+                for b, t, _ in reqs]
+        results = [f.result()["output"] for f in futs]
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = read_counts()
+    health = http_json(f"{base}/healthz")
+    metrics = http_json(f"{base}/metrics").decode()
+    # the warm-up is one request and one batch of the server's counts
+    if not health["ok"] or health["requests_served"] != len(reqs) + 1:
+        fail(f"serve {name}: /healthz {health}")
+    if f"vault_requests_served {len(reqs) + 1}" not in metrics:
+        fail(f"serve {name}: /metrics does not count {len(reqs) + 1} requests:\n{metrics}")
+    batches = health["batches_run"] - 1
+    if counts != {k: v * batches for k, v in launches.items()}:
+        fail(f"serve {name}: launches {counts} for {batches} batches")
+    direct = []
+    with torch.inference_mode():
+        for lo in range(0, len(reqs), 8):
+            part = reqs[lo:lo + 8]
+            enc = processor([im for _, _, im in part], [t for _, t, _ in part])
+            enc = {k: pad_rows(v, 8) for k, v in enc.items()}
+            direct.append(model(enc).float().cpu().numpy()[:len(part)])
+    direct = np.concatenate(direct)
+    got = np.asarray(results, np.float32)
+    err = float(np.abs(got - direct).max())
+    if got.shape != direct.shape or not np.isfinite(got).all() or err > 1e-2:
+        fail(f"serve {name}: responses {got.shape} vs direct forward: max abs diff {err}")
+    return dict(requests=len(reqs), batches=batches, launches=counts,
+                max_abs_diff_vs_direct=err, bit_equal_vs_direct=err == 0.0,
+                wall_s=wall_s, stats=health)
+
+
+def export_phase(name, model, cfg, dev, root: Path, launches):
+    """The served forward exported at batch 8 (``vault_tpu_torch.export``),
+    saved, loaded and run: logits bit-equal to the eager kernel path, the
+    same launches, one ``vault_tpu_torch`` node per launch; the artifact's
+    size, and the wall ms of eager against loaded in turns."""
+    import torch
+
+    from vault_tpu_torch.export import export_forward, exported_ops, load_forward
+
+    batch = entry_batch(cfg, 8, dev)
+    path = root / f"{name}.pt2"
+    with torch.inference_mode():
+        reset_counts()
+        eager = model(batch)
+        torch.cuda.synchronize()
+        eager_counts = read_counts()
+    t0 = time.perf_counter()
+    program = export_forward(model, (batch,), str(path))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_forward(str(path))
+    load_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        reset_counts()
+        out = loaded(batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    if eager_counts != launches or counts != launches:
+        fail(f"export {name}: launches eager {eager_counts}, loaded {counts}, "
+             f"expected {launches}")
+    if out.shape != eager.shape or not torch.equal(out, eager):
+        fail(f"export {name}: loaded logits differ from the eager kernel path by "
+             f"{(out.float() - eager.float()).abs().max().item()}")
+    nodes = {}
+    for op in exported_ops(program):
+        nodes[op] = nodes.get(op, 0) + 1
+    # one node per launch (the counters' names, "encoder_attention" the
+    # operator "attention"); besides them only the fp32-output products
+    want = {f"vault_tpu_torch.{'attention' if k == 'encoder_attention' else k}.default": n
+            for k, n in launches.items() if n}
+    if {k: v for k, v in nodes.items() if "matmul_fp32" not in k} != want:
+        fail(f"export {name}: graph nodes {nodes} for launches {launches}")
+    samples = {"eager": [], "loaded": []}
+    with torch.inference_mode():
+        for turn in ("eager", "loaded", "loaded", "eager"):
+            fn = (lambda: model(batch)) if turn == "eager" else (lambda: loaded(batch))
+            samples[turn] += [time_ms(fn, iters=5, warmup=2) for _ in range(3)]
+    return dict(artifact_bytes=path.stat().st_size, export_s=export_s, load_s=load_s,
+                launches=counts, graph_ops=nodes, bit_equal=True,
+                eager_ms=float(np.median(samples["eager"])),
+                loaded_ms=float(np.median(samples["loaded"])), ms_samples=samples)
+
+
+def serve_phase(dev):
+    """VAuLT-base served from checkpoint files: HF-layout directories
+    written and loaded bit-equal, a fine-tuned npz quantized by
+    ``cli.quantize_ckpt`` (w8a8, w8), five servers built by ``cli.serve``
+    answering HTTP, a refused composition, and the bf16 and w8a8 forwards
+    exported, saved, loaded and run.  Returns each server's launches per
+    served batch."""
+    import tempfile
+
+    import torch
+
+    from vault_tpu_torch.cli import quantize_ckpt, serve
+    from vault_tpu_torch.convert import params_to_jax
+    from vault_tpu_torch.models.pretrained import load_torch_state_dict, load_vault_backbone
+    from vault_tpu_torch.models.vault import VaultForClassification, init_classifier_head
+    from vault_tpu_torch.presets import vault_base
+    from vault_tpu_torch.training.checkpoint import save_checkpoint
+
+    Path("build").mkdir(exist_ok=True)
+    path_counts = {}
+    with tempfile.TemporaryDirectory(dir="build", prefix="serve_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        dirs = write_hf_dirs(root)
+        write_s = time.perf_counter() - t0
+        vilt_dir, bert_dir, tweet_dir = (str(dirs[n][0]) for n in (
+            "vilt-b32-mlm", "bert-base-uncased", "bertweet-base"))
+        read_s = {}
+        for name, (d, _, _) in dirs.items():
+            t0 = time.perf_counter()
+            load_torch_state_dict(str(d))
+            read_s[name] = time.perf_counter() - t0
+        loads = {}
+        for tower_name, bert, cfg in (("bertweet-base", tweet_dir, vault_base("bertweet-base")),
+                                      ("bert-base-uncased", bert_dir, vault_base())):
+            t0 = time.perf_counter()
+            backbone = load_vault_backbone(cfg, torch.Generator().manual_seed(0),
+                                           vilt_dir, bert)
+            load_s = time.perf_counter() - t0
+            model = VaultForClassification(cfg, device=dev)
+            model.load_state_dict({**model.state_dict(), **backbone})
+            check_loaded(model, "vilt", dirs["vilt-b32-mlm"][1])
+            check_loaded(model, "bert", dirs[tower_name][1])
+            loads[tower_name] = load_s
+        # the fine-tuned checkpoint: the bert-base backbone just loaded, a
+        # seeded head
+        head = init_classifier_head(torch.Generator().manual_seed(1), cfg.vilt.hidden_size, 3)
+        model.load_state_dict({**model.state_dict(),
+                               **{f"head.{k}": v for k, v in head.state_dict().items()}})
+        ft = root / "finetuned.npz"
+        save_checkpoint(str(ft), {"params": params_to_jax(model.state_dict(),
+                                                          as_numpy=False)})
+        del model, backbone
+        quantized, quantize_s = {}, {}
+        for mode in ("w8a8", "w8"):
+            quantized[mode] = root / f"finetuned_{mode}.npz"
+            t0 = time.perf_counter()
+            quantize_ckpt.main(["--vilt", vilt_dir, "--bert", bert_dir, "--ckpt", str(ft),
+                                "--out", str(quantized[mode]), "--mode", mode])
+            quantize_s[mode] = time.perf_counter() - t0
+        emit(phase="serve", step="files", write_s=write_s, read_s=read_s,
+             load_vault_backbone_s=loads, loaded_bit_equal=True,
+             dir_bytes={n: v[2] for n, v in dirs.items()},
+             npz_bytes={"finetuned": ft.stat().st_size,
+                        **{m: p.stat().st_size for m, p in quantized.items()}},
+             quantize_ckpt_s=quantize_s)
+
+        fill = {"ft": str(ft), "w8a8": str(quantized["w8a8"]),
+                "w8": str(quantized["w8"]), "bertweet": tweet_dir}
+        shared = ["--vilt", vilt_dir, "--bert", bert_dir, "--port", "0",
+                  "--max_batch", "8", "--max_wait_ms", "50"]
+        for name, extra, launches, export in SERVE_CASES:
+            args = serve.parse_args(shared + [a.format(**fill) for a in extra])
+            t0 = time.perf_counter()
+            model, processor, server = serve.build(args)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            server.start()
+            try:
+                result = served_phase(name, model, processor, server, launches)
+            finally:
+                server.close()
+            if server.engine._worker.is_alive():
+                fail(f"serve {name}: the engine's worker did not stop")
+            if export:
+                result["export"] = export_phase(name, model, model.cfg, dev, root, launches)
+            emit(phase="serve", step=name, build_s=build_s, quant_mode=model.quant_mode,
+                 use_pallas=model.use_pallas, merge_to=model.merge_to, **result)
+            path_counts[f"serve_{name}"] = launches
+            del model, processor, server
+            torch.cuda.empty_cache()
+
+        refused = ["--n_classes", "3129", "--quantize", "w8a8", "--merge_to", str(MERGE_TO)]
+        try:
+            serve.build(serve.parse_args(shared + refused))
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        if code != 2:
+            fail(f"serve: a refused composition exited with {code}, expected 2")
+        emit(phase="serve", step="refusal", argv=refused, exit_code=code)
+    return path_counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2418,7 +2778,7 @@ def _leaves(tree):
     return [tree]
 
 
-PHASES = ("kernels", "vault", "w8", "llama", "train", "merge")
+PHASES = ("kernels", "vault", "w8", "llama", "train", "merge", "serve")
 
 
 def main():
@@ -2514,6 +2874,8 @@ def main():
         del model
         torch.cuda.empty_cache()
         _, path_counts["train_step_merged"] = train_step_phase(dev, merge_to=MERGE_TO)
+    if "serve" in phases:
+        path_counts.update(serve_phase(dev))
     emit(phase="trace_checks", short_share=TRACE_SHORT_SHARE, long_share=TRACE_LONG_SHARE,
          launch_gap_ms=LAUNCH_GAP_MS, **TRACE_LOG)
     if set(phases) != set(PHASES):

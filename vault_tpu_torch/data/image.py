@@ -1,5 +1,5 @@
-"""Image pipeline: ViltProcessor-equivalent resize/normalize/pad (port of
-the JAX package's ``vault_tpu/data/image.py``, serving subset).
+"""Image pipeline: ViltProcessor-equivalent crop/resize/normalize/pad (port
+of the JAX package's ``vault_tpu/data/image.py``).
 
   * HF ``ViltImageProcessor``: shortest-edge resize to 384 with the longer
     side capped at 384*1333/800, both floored to multiples of 32; rescale
@@ -68,6 +68,31 @@ def safe_aspect_crop(image: np.ndarray) -> np.ndarray:
     new_w = int(h * MAX_ASPECT_RATIO)
     left = int(round((w - new_w) / 2.0))
     return image[:, left:left + new_w]
+
+
+def relative_random_crop(rng: np.random.Generator, image: np.ndarray,
+                         ratio: float = 0.9) -> np.ndarray:
+    """Random crop to ``ratio`` of each side — train-time augmentation
+    (vault/models/vault/utils.py:51-57)."""
+    h, w = image.shape[:2]
+    ch, cw = int(ratio * h), int(ratio * w)
+    top = int(rng.integers(0, h - ch + 1))
+    left = int(rng.integers(0, w - cw + 1))
+    return image[top:top + ch, left:left + cw]
+
+
+def crop_stage(image: np.ndarray, safe: bool = True,
+               augment_rng: Optional[np.random.Generator] = None,
+               crop_ratio: float = 0.9) -> np.ndarray:
+    """[safe-crop] -> [random-crop].  Consumes the augment rng, so callers
+    batching images run this stage serially (the stream stays
+    deterministic); the crops are view slices, so that costs nothing."""
+    image = np.asarray(image)
+    if safe:
+        image = safe_aspect_crop(image)
+    if augment_rng is not None:
+        image = relative_random_crop(augment_rng, image, crop_ratio)
+    return image
 
 
 def rgba_to_rgb(img: np.ndarray) -> np.ndarray:

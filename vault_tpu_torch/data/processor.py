@@ -1,5 +1,5 @@
 """VaultProcessor: joint text+image preprocessing (port of the JAX package's
-``vault_tpu/data/processor.py``, serving subset).
+``vault_tpu/data/processor.py``).
 
 Reference: ``VaultProcessor.from_pretrained`` builds a ViltProcessor whose
 text tokenizer is swapped for the BERT tower's (vault/models/vault/
@@ -7,7 +7,9 @@ processor.py:6-18), producing ``input_ids / attention_mask / token_type_ids /
 pixel_values / pixel_mask``.  Images are processed on the host (numpy out)
 or on a named device (tensors on it out), their resizing spread over
 ``num_workers`` threads (``data/loader.py`` ``parallel_map``; the same
-results for any count).  Training-time augmentation is not ported yet.
+results for any count).  The tokenizer is the port's own (``batch_encode``)
+or an HF tokenizer (called as one).  Training-time augmentation
+(``augment_rng``) random-crops each image before its resize.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ import torch
 from vault_tpu_torch.data.image import (
     DEFAULT_CANVAS,
     bucket_canvas,
+    crop_stage,
     pad_batch,
     resize_stage,
-    safe_aspect_crop,
 )
 
 
@@ -56,19 +58,44 @@ class VaultProcessor:
     def encode_text(self, texts: Sequence[str],
                     text_pairs: Optional[Sequence[Optional[str]]] = None,
                     max_length: Optional[int] = None) -> Dict[str, np.ndarray]:
-        return self.tokenizer.batch_encode(
-            list(texts), text_pairs, max_length=max_length or self.max_length)
+        max_length = max_length or self.max_length
+        if hasattr(self.tokenizer, "batch_encode"):
+            return self.tokenizer.batch_encode(
+                list(texts), text_pairs, max_length=max_length)
+        # an HF tokenizer (AutoTokenizer of a checkpoint directory)
+        kw = dict(padding="max_length", truncation=True, max_length=max_length,
+                  return_tensors="np")
+        if text_pairs is not None and any(p is not None for p in text_pairs):
+            if any(p is None for p in text_pairs):
+                # HF rejects None entries inside a pair list (the native
+                # batch_encode handles per-element None); encode row-wise so
+                # mixed lists behave identically across tokenizer types
+                rows = [self.tokenizer(t, p, **kw) if p is not None
+                        else self.tokenizer(t, **kw)
+                        for t, p in zip(texts, text_pairs)]
+                enc = {k: np.concatenate([np.asarray(r[k]) for r in rows])
+                       for k in rows[0].keys()}
+            else:
+                enc = self.tokenizer(list(texts), list(text_pairs), **kw)
+        else:
+            enc = self.tokenizer(list(texts), **kw)
+        out = {k: np.asarray(v, np.int32) for k, v in enc.items()
+               if k in ("input_ids", "attention_mask", "token_type_ids")}
+        if "token_type_ids" not in out:
+            out["token_type_ids"] = np.zeros_like(out["input_ids"])
+        return out
 
     def encode_images(self, images: Sequence[np.ndarray],
+                      augment_rng: Optional[np.random.Generator] = None,
                       num_workers: Optional[int] = None):
-        """Crop (serially), resize on ``num_workers`` threads (default: the
-        processor's), collate."""
+        """Crop (serially: the crops consume ``augment_rng``), resize on
+        ``num_workers`` threads (default: the processor's), collate."""
         from vault_tpu_torch.data.loader import parallel_map
 
         auto = self.canvas == "auto"
         max_hw = None if auto else self.canvas
-        cropped = [safe_aspect_crop(np.asarray(im)) if self.safe_images
-                   else np.asarray(im) for im in images]
+        cropped = [crop_stage(im, safe=self.safe_images, augment_rng=augment_rng)
+                   for im in images]
         processed = parallel_map(
             lambda im: resize_stage(im, shorter=self.shorter, longer=self.longer,
                                     max_hw=max_hw, device=self.device),
@@ -80,13 +107,14 @@ class VaultProcessor:
         return pixel_values, pixel_mask
 
     def __call__(self, images, texts, text_pairs=None,
+                 augment_rng: Optional[np.random.Generator] = None,
                  max_length: Optional[int] = None) -> Dict[str, np.ndarray]:
         if isinstance(texts, str):
             texts = [texts]
         if not isinstance(images, (list, tuple)):
             images = [images]
         enc = self.encode_text(texts, text_pairs, max_length)
-        pixel_values, pixel_mask = self.encode_images(images)
+        pixel_values, pixel_mask = self.encode_images(images, augment_rng)
         enc["pixel_values"] = pixel_values
         enc["pixel_mask"] = pixel_mask
         return enc

@@ -26,15 +26,15 @@ from vault_tpu_torch.ops.nn import ParamDict, dropout, init_linear, linear
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the one named, else the card.
-    Without a card and without a named device this raises; nothing drops
-    to the CPU on its own."""
-    if device is not None:
+    Without a card, None or a CUDA device raises; nothing drops to the CPU
+    on its own."""
+    if device is not None and torch.device(device).type != "cuda":
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
-    return torch.device("cuda")
+    return torch.device("cuda" if device is None else device)
 
 
 # ---------------------------------------------------------------------------

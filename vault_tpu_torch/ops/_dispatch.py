@@ -1,9 +1,12 @@
 """What the kernel wrappers of ``ops/cuda_attention.py``,
-``ops/cuda_ln_qkv.py`` and the w8a8 half of ``ops/cuda_mlp.py`` share: the
-operand check before a launch, and the ``torch.autograd.Function`` that
-runs a kernel (CUDA tensors) or its plain version (CPU tensors) forward and
-takes the gradient of a reference composition backward, as the JAX
-package's ``custom_vjp``s take the vjp of their XLA compositions.
+``ops/cuda_ln_qkv.py``, ``ops/cuda_mlp.py`` and ``ops/cuda_swiglu.py``
+share: the operand check before a launch; :class:`KernelOp`, a serving
+kernel and its plain version behind one operator of the
+``vault_tpu_torch`` namespace, so that ``torch.export`` can trace a launch;
+and the ``torch.autograd.Function`` that runs a kernel (CUDA tensors) or
+its plain version (CPU tensors) forward and takes the gradient of a
+reference composition backward, as the JAX package's ``custom_vjp``s take
+the vjp of their XLA compositions.
 """
 
 from __future__ import annotations
@@ -38,35 +41,69 @@ def check_operands(what: str, x: torch.Tensor, operands: Dict[str, Spec]) -> Non
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {x.device}")
 
 
+class KernelOp:
+    """A forward kernel and its plain version behind the operator
+    ``vault_tpu_torch::<name>`` (``torch.library.custom_op``, ``schema`` its
+    signature: the tensors, then the static arguments keyword-only).  The
+    operator's CUDA implementation is ``kernel``, a wrapper that launches
+    (and counts the launch) or raises; its CPU implementation is ``plain``;
+    ``fake`` gives the output's shape, type and strides while a program is
+    traced.  The wrapper is looked up at each call, so replacing a module's
+    wrapper (a test running a plain version in its place) reaches the
+    operator too.
+
+    Called, a KernelOp runs ``plain`` when every tensor lies on the CPU and
+    ``kernel`` otherwise, directly; while ``torch.export`` traces it calls
+    the operator, so the exported program holds one node per launch and
+    launches the hand-written kernel when it runs on the card."""
+
+    def __init__(self, name: str, schema: str, kernel: Callable, plain: Callable,
+                 fake: Callable):
+        self.kernel, self.plain = kernel, plain
+        self.op = torch.library.custom_op(
+            f"vault_tpu_torch::{name}", lambda *ts, **kw: self.plain(*ts, **kw),
+            mutates_args=(), device_types="cpu", schema=schema)
+        self.op.register_kernel("cuda", lambda *ts, **kw: self.kernel(*ts, **kw))
+        self.op.register_fake(fake)
+
+    def __call__(self, *ts, **kw) -> torch.Tensor:
+        if torch.compiler.is_exporting():
+            return self.op(*ts, **kw)
+        on_cpu = all(t is None or t.device.type == "cpu" for t in ts)
+        return (self.plain if on_cpu else self.kernel)(*ts, **kw)
+
+
 class _KernelOrPlain(torch.autograd.Function):
-    """forward: ``plain(*ts, **kw)`` when every tensor lies on the CPU,
-    else ``kernel(*ts, **kw)``, which launches or raises; backward:
-    autograd of ``ref(*ts, **kw)`` recomputed from the saved inputs, for
-    the inputs that need a gradient."""
+    """forward: ``op(*ts, **kw)`` (:class:`KernelOp`: the plain version for
+    CPU tensors, else the kernel); backward: autograd of ``ref(*ts, **kw)``
+    recomputed from the saved inputs, for the inputs that need a gradient."""
 
     @staticmethod
-    def forward(ctx, fns, kw, *ts):
-        ctx.fns, ctx.kw = fns, kw
+    def forward(ctx, op, ref, kw, *ts):
+        ctx.ref, ctx.kw = ref, kw
         ctx.save_for_backward(*ts)
-        kernel, plain, _ = fns
-        on_cpu = all(t is None or t.device.type == "cpu" for t in ts)
-        return (plain if on_cpu else kernel)(*ts, **kw)
+        return op(*ts, **kw)
 
     @staticmethod
     def backward(ctx, g):
-        need = ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() if n else t
                       for t, n in zip(ctx.saved_tensors, need)]
-            out = ctx.fns[2](*leaves, **ctx.kw)
+            out = ctx.ref(*leaves, **ctx.kw)
             grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, need) if n],
                                              g, allow_unused=True))
-        return (None, None, *(next(grads) if n else None for n in need))
+        return (None, None, None, *(next(grads) if n else None for n in need))
 
 
-def kernel_or_plain(kernel: Callable, plain: Callable, ref: Callable, *ts,
-                    **kw) -> torch.Tensor:
+def kernel_or_plain(op: KernelOp, ref: Callable, *ts, **kw) -> torch.Tensor:
     """Differentiable call of a kernel: see :class:`_KernelOrPlain`.  The
     tensors go positionally; ``kw`` holds the static arguments.  A tensor
     passed detached is a constant: it gets no gradient."""
-    return _KernelOrPlain.apply((kernel, plain, ref), kw, *ts)
+    return _KernelOrPlain.apply(op, ref, kw, *ts)
+
+
+def like(i: int) -> Callable:
+    """A fake implementation whose output is shaped like the ``i``-th
+    tensor argument (the MLP and SwiGLU blocks: x in, x's shape out)."""
+    return lambda *ts, **kw: torch.empty_like(ts[i])

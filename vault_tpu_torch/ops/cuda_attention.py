@@ -29,6 +29,10 @@ the backward recomputes through it, the bias detached.
 
 Both kernels take the head dims of :data:`HEAD_DIMS`; a wrapper refuses any
 other before it looks at the device, so the contract shows on any tensor.
+Each is also the operator ``vault_tpu_torch::attention`` /
+``attention_gqa`` (``ops/_dispatch.py`` ``KernelOp``, returning the
+(B, L, H, D) tensor), which the forward calls while ``torch.export`` traces
+it.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import ctypes
 import torch
 
 from vault_tpu_torch.ops import _build
-from vault_tpu_torch.ops._dispatch import kernel_or_plain
+from vault_tpu_torch.ops._dispatch import KernelOp, kernel_or_plain
 from vault_tpu_torch.ops.attention import attend_plain, gqa_attend_plain
 
 # The head dims both kernels take (attention_common.cuh's D): 32 (BERT-small),
@@ -110,16 +114,36 @@ def _kernel(q, k, v, bias):
     return out.permute(0, 2, 1, 3)
 
 
+def _blhd(fn, copy=False):
+    """An attention's (B, H, L, D) result as the (B, L, H, D) tensor the
+    kernels write (the plain versions' results are copied to that layout):
+    the operators' outputs are contiguous, the wrappers return the head
+    view of them."""
+    if copy:
+        return lambda q, k, v, bias: fn(q, k, v, bias).transpose(1, 2).contiguous()
+    return lambda q, k, v, bias: fn(q, k, v, bias).transpose(1, 2)
+
+
+def _fake_blhd(q, k, v, bias):
+    b, h, l, d = q.shape
+    return q.new_empty((b, l, h, d))
+
+
+_SCHEMA = "(Tensor q, Tensor k, Tensor v, Tensor bias) -> Tensor"
+ATTENTION = KernelOp("attention", _SCHEMA, _blhd(lambda *ts: _kernel(*ts)),
+                     _blhd(attention_plain, copy=True), _fake_blhd)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """q/k/v: (B, H, L, D), D in :data:`HEAD_DIMS`, any strides with
     contiguous rows (for example head views of one fused projection); bias:
     (B, 1, 1, L) float32 additive key bias.  Returns (B, H, L, D) in q's
-    dtype: on the card a view of a (B, L, H, D) tensor, so merging the heads
-    back costs no copy."""
+    dtype, a view of a (B, L, H, D) tensor, so merging the heads back costs
+    no copy."""
     # the bias is a constant of the attention mask: no gradient
-    return kernel_or_plain(_kernel, attention_plain, attention_plain, q, k, v,
-                           bias.detach())
+    return kernel_or_plain(ATTENTION, ATTENTION.plain, q, k, v,
+                           bias.detach()).permute(0, 2, 1, 3)
 
 
 fused_attention.launches = 0
@@ -186,14 +210,18 @@ def _gqa_kernel(q, k, v, bias):
     return out.permute(0, 2, 1, 3)
 
 
+ATTENTION_GQA = KernelOp("attention_gqa", _SCHEMA, _blhd(lambda *ts: _gqa_kernel(*ts)),
+                         _blhd(attention_gqa_plain, copy=True), _fake_blhd)
+
+
 def fused_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor) -> torch.Tensor:
     """q: (B, H, L, D); k/v: (B, G, L, D) with G dividing H, unrepeated;
     bias: contiguous (B, 1, L, L) float32, additive (causal and padding,
-    masked entries at a finite fill).  Returns (B, H, L, D) in q's dtype: on
-    the card a view of a (B, L, H, D) tensor."""
-    return kernel_or_plain(_gqa_kernel, attention_gqa_plain, attention_gqa_plain,
-                           q, k, v, bias.detach())
+    masked entries at a finite fill).  Returns (B, H, L, D) in q's dtype, a
+    view of a (B, L, H, D) tensor."""
+    return kernel_or_plain(ATTENTION_GQA, ATTENTION_GQA.plain, q, k, v,
+                           bias.detach()).permute(0, 2, 1, 3)
 
 
 fused_attention_gqa.launches = 0

@@ -23,6 +23,9 @@ composition (LN, then one linear over the concatenated weights), as the JAX
 package's ``_fused_ln_qkv_bwd``.  The kernel wrappers launch for CUDA
 tensors and raise on anything the kernels do not take; CPU tensors take the
 plain versions.  Each wrapper counts its launches in ``<wrapper>.launches``.
+Both are also operators, ``vault_tpu_torch::ln_qkv`` and ``ln_qkv_w8a8``
+(``ops/_dispatch.py`` ``KernelOp``), which the forward calls while
+``torch.export`` traces it.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import ctypes
 import torch
 
 from vault_tpu_torch.ops import _build
-from vault_tpu_torch.ops._dispatch import check_operands, kernel_or_plain
+from vault_tpu_torch.ops._dispatch import KernelOp, check_operands, kernel_or_plain
 from vault_tpu_torch.ops.nn import layer_norm, layer_norm_f32, linear
 from vault_tpu_torch.ops.quantize import is_k_major
 
@@ -172,6 +175,21 @@ fused_ln_qkv_fwd.launches = 0
 fused_ln_qkv_fwd_w8a8.launches = 0
 
 
+def _fake(*ts, **kw):
+    x, w = ts[-1], ts[2]
+    return x.new_empty((*x.shape[:-1], w.shape[1]))
+
+
+LN_QKV = KernelOp(
+    "ln_qkv", "(Tensor gamma, Tensor beta, Tensor wqkv, Tensor bqkv, Tensor x, *, "
+    "float eps) -> Tensor", lambda *ts, **kw: fused_ln_qkv_fwd(*ts, **kw), ln_qkv_plain,
+    _fake)
+LN_QKV_W8A8 = KernelOp(
+    "ln_qkv_w8a8", "(Tensor gamma, Tensor beta, Tensor wqkv_q, Tensor sqkv, Tensor bqkv, "
+    "Tensor x, *, float eps) -> Tensor",
+    lambda *ts, **kw: fused_ln_qkv_fwd_w8a8(*ts, **kw), ln_qkv_w8a8_plain, _fake)
+
+
 def _zero_bias(ps, key, dtype):
     """Each projection's bias, zeros where a ``qkv_bias=False`` model has
     none (in the type of the biases present, else ``dtype``)."""
@@ -198,7 +216,7 @@ def _w8a8_operands(ps, dtype):
 
     srcs = [p[k] for p in ps for k in ("w_q8", "w_scale", "b") if k in p]
     if (torch.is_grad_enabled() or not isinstance(ps[0], torch.nn.Module)
-            or any(t.is_inference() for t in srcs)):
+            or torch.compiler.is_exporting() or any(t.is_inference() for t in srcs)):
         return build()
     # the sources themselves are held, so an id is never reused while kept
     key = [(id(t), t.data_ptr(), t.device, t._version) for t in srcs]
@@ -216,12 +234,11 @@ def fused_ln_qkv(ln_p, pq, pk, pv, x, eps: float = 1e-12) -> torch.Tensor:
     ps = (pq, pk, pv)
     g, b = ln_p["scale"], ln_p["bias"]
     if all("w_q8" in p for p in ps):
-        return kernel_or_plain(fused_ln_qkv_fwd_w8a8, ln_qkv_w8a8_plain,
-                               _ln_qkv_w8a8_ref, g, b, *_w8a8_operands(ps, x.dtype),
-                               x, eps=eps)
+        return kernel_or_plain(LN_QKV_W8A8, _ln_qkv_w8a8_ref, g, b,
+                               *_w8a8_operands(ps, x.dtype), x, eps=eps)
     if any("w" not in p for p in ps):
         y = layer_norm(ln_p, x, eps)
         return torch.cat([linear(p, y) for p in ps], dim=-1)
     w = torch.cat([p["w"] for p in ps], dim=1)
-    return kernel_or_plain(fused_ln_qkv_fwd, ln_qkv_plain, ln_qkv_plain, g, b, w,
+    return kernel_or_plain(LN_QKV, ln_qkv_plain, g, b, w,
                            _zero_bias(ps, "w", pq["w"].dtype), x, eps=eps)

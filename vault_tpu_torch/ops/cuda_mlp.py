@@ -58,7 +58,11 @@ there.  For tensors on the CPU the same Function runs the plain forward
 (:func:`_mlp_block_plain`, :func:`_mlp_postln_plain`, the counterparts of
 ``_mlp_block_xla`` and ``_mlp_postln_xla``) and the plain backward.  The
 dropout mask is a constant of the draw and gets no gradient.  Each kernel
-wrapper counts its launches in ``<wrapper>.launches``.
+wrapper counts its launches in ``<wrapper>.launches``.  Each forward kernel
+with its plain version is also an operator (``ops/_dispatch.py``
+``KernelOp``: ``vault_tpu_torch::mlp_block``, ``mlp_postln`` and their
+``_q8`` and ``_w8a8`` forms), which the forward calls while ``torch.export``
+traces it.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ import math
 import torch
 
 from vault_tpu_torch.ops import _build
-from vault_tpu_torch.ops._dispatch import check_operands, kernel_or_plain
+from vault_tpu_torch.ops._dispatch import KernelOp, check_operands, kernel_or_plain, like
 from vault_tpu_torch.ops.nn import (
     act_fn,
     dropout_mask,
@@ -410,6 +414,23 @@ fused_mlp_block_bwd.launches = 0
 fused_mlp_postln_block_bwd.launches = 0
 
 
+def _fp_plain(postln, gamma, beta, w1, b1, w2, b2, x, m=None, eps=1e-12, act="gelu"):
+    """The fp blocks' plain versions with the kernels' flat argument list."""
+    plain = _mlp_postln_plain if postln else _mlp_block_plain
+    return plain({"scale": gamma, "bias": beta}, {"w": w1, "b": b1}, {"w": w2, "b": b2},
+                 x, eps, act, m)
+
+
+_FP_SCHEMA = ("(Tensor gamma, Tensor beta, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+              "Tensor x, Tensor? m, *, float eps, str act) -> Tensor")
+MLP_BLOCK = KernelOp("mlp_block", _FP_SCHEMA,
+                     lambda *ts, **kw: fused_mlp_block_fwd(*ts, **kw),
+                     functools.partial(_fp_plain, False), like(6))
+MLP_POSTLN = KernelOp("mlp_postln", _FP_SCHEMA,
+                      lambda *ts, **kw: fused_mlp_postln_fwd(*ts, **kw),
+                      functools.partial(_fp_plain, True), like(6))
+
+
 class _FusedMLP(torch.autograd.Function):
     """One fused MLP block, pre-LN or post-LN, differentiable.  Forward
     saves only the inputs; backward recomputes inside the backward kernel
@@ -420,12 +441,8 @@ class _FusedMLP(torch.autograd.Function):
     def forward(ctx, gamma, beta, w1, b1, w2, b2, x, m, eps, act, postln):
         ctx.save_for_backward(gamma, beta, w1, b1, w2, b2, x, m)
         ctx.eps, ctx.act, ctx.postln = eps, act, postln
-        if x.device.type == "cpu":
-            plain = _mlp_postln_plain if postln else _mlp_block_plain
-            return plain({"scale": gamma, "bias": beta}, {"w": w1, "b": b1},
-                         {"w": w2, "b": b2}, x, eps, act, m)
-        kernel = fused_mlp_postln_fwd if postln else fused_mlp_block_fwd
-        return kernel(gamma, beta, w1, b1, w2, b2, x, m, eps=eps, act=act)
+        return (MLP_POSTLN if postln else MLP_BLOCK)(gamma, beta, w1, b1, w2, b2, x, m,
+                                                     eps=eps, act=act)
 
     @staticmethod
     def backward(ctx, g):
@@ -649,20 +666,33 @@ fused_mlp_block_fwd_q8.launches = 0
 fused_mlp_postln_fwd_q8.launches = 0
 
 
+_Q_SCHEMA = ("(Tensor gamma, Tensor beta, Tensor w1q, Tensor s1, Tensor b1, Tensor w2q, "
+             "Tensor s2, Tensor b2, Tensor x, *, float eps, str act) -> Tensor")
+# per weight key, the (pre-LN, post-LN) operators of that family
+_QUANTIZED_OPS = {
+    "w_q8": (KernelOp("mlp_block_w8a8", _Q_SCHEMA,
+                      lambda *ts, **kw: fused_mlp_block_fwd_w8a8(*ts, **kw),
+                      mlp_block_w8a8_plain, like(8)),
+             KernelOp("mlp_postln_w8a8", _Q_SCHEMA,
+                      lambda *ts, **kw: fused_mlp_postln_fwd_w8a8(*ts, **kw),
+                      mlp_postln_w8a8_plain, like(8))),
+    "w_q": (KernelOp("mlp_block_q8", _Q_SCHEMA,
+                     lambda *ts, **kw: fused_mlp_block_fwd_q8(*ts, **kw),
+                     mlp_block_q8_plain, like(8)),
+            KernelOp("mlp_postln_q8", _Q_SCHEMA,
+                     lambda *ts, **kw: fused_mlp_postln_fwd_q8(*ts, **kw),
+                     mlp_postln_q8_plain, like(8)))}
+
+
 def _quantized_block(postln, ln_p, p_in, p_out, x, eps, act, drop_mask):
     """The JAX package's dispatch of weights that are not both fp: w8a8 or
     w8 on both projections and no mask takes that family's kernel
     (differentiable through the plain composition on the same weights),
     anything else the plain composition."""
     plain = _mlp_postln_plain if postln else _mlp_block_plain
-    families = {
-        "w_q8": ((fused_mlp_block_fwd_w8a8, fused_mlp_postln_fwd_w8a8),
-                 (mlp_block_w8a8_plain, mlp_postln_w8a8_plain)),
-        "w_q": ((fused_mlp_block_fwd_q8, fused_mlp_postln_fwd_q8),
-                (mlp_block_q8_plain, mlp_postln_q8_plain))}
-    for key, (kernels, plains) in families.items():
+    for key, ops in _QUANTIZED_OPS.items():
         if key in p_in and key in p_out and drop_mask is None:
-            return kernel_or_plain(kernels[postln], plains[postln],
+            return kernel_or_plain(ops[postln],
                                    functools.partial(_plain_on_quantized, postln, key),
                                    ln_p["scale"], ln_p["bias"], p_in[key],
                                    p_in["w_scale"], p_in["b"], p_out[key],

@@ -30,7 +30,9 @@ with its plain PyTorch versions beside it (port of
     package's vjp.
 
 :data:`I_TILE` is a constant of the function, not a tuning knob: it fixes
-the requantization groups and so the int8 codes.
+the requantization groups and so the int8 codes.  The kernel is also the
+operator ``vault_tpu_torch::swiglu_w8a8`` (``ops/_dispatch.py``
+``KernelOp``), which the forward calls while ``torch.export`` traces it.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import ctypes
 import torch
 
 from vault_tpu_torch.ops import _build
-from vault_tpu_torch.ops._dispatch import check_operands, kernel_or_plain
+from vault_tpu_torch.ops._dispatch import KernelOp, check_operands, kernel_or_plain, like
 from vault_tpu_torch.ops.nn import int8_matmul, linear, rms_norm, silu
 from vault_tpu_torch.ops.quantize import is_k_major, quantize_activation
 
@@ -170,6 +172,12 @@ def fused_swiglu_block_fwd_w8a8(ln_w, wgq, sg, wuq, su, wdq, sd, x,
 
 fused_swiglu_block_fwd_w8a8.launches = 0
 
+SWIGLU_W8A8 = KernelOp(
+    "swiglu_w8a8", "(Tensor ln_w, Tensor wgq, Tensor sg, Tensor wuq, Tensor su, Tensor wdq, "
+    "Tensor sd, Tensor x, *, float eps) -> Tensor",
+    lambda *ts, **kw: fused_swiglu_block_fwd_w8a8(*ts, **kw), swiglu_block_w8a8_plain,
+    like(7))
+
 
 def _w8a8_ref(ln_w, wgq, sg, wuq, su, wdq, sd, x, eps=1e-5):
     """The composition the kernel's gradient is taken of."""
@@ -183,8 +191,7 @@ def swiglu_block(ln_w, p_gate, p_up, p_down, x, eps: float = 1e-5) -> torch.Tens
     three projections take the fused kernel (its plain version for CPU
     tensors); anything else the plain composition."""
     if "w_q8" in p_gate and "w_q8" in p_up and "w_q8" in p_down:
-        return kernel_or_plain(fused_swiglu_block_fwd_w8a8, swiglu_block_w8a8_plain,
-                               _w8a8_ref, ln_w,
+        return kernel_or_plain(SWIGLU_W8A8, _w8a8_ref, ln_w,
                                p_gate["w_q8"], p_gate["w_scale"], p_up["w_q8"],
                                p_up["w_scale"], p_down["w_q8"], p_down["w_scale"], x,
                                eps=eps)

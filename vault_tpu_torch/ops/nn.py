@@ -53,6 +53,23 @@ class ParamDict(nn.Module):
         return self[key] if key in self else default
 
 
+def _mm_fp32(x2, w, b=None):
+    if b is None:
+        return torch.mm(x2, w, out_dtype=torch.float32)
+    return torch.addmm(b, x2, w, out_dtype=torch.float32)
+
+
+# The same product as an operator, which the forward calls while
+# torch.export traces it: the exported program then runs the same cuBLAS
+# call as eager.  (A fake-tensor decomposition of addmm's out_dtype overload
+# in torch 2.11 reads out_dtype as beta and fails the trace.)
+_mm_fp32_op = torch.library.custom_op(
+    "vault_tpu_torch::matmul_fp32", _mm_fp32, mutates_args=(), device_types="cuda",
+    schema="(Tensor x2, Tensor w, Tensor? b) -> Tensor")
+_mm_fp32_op.register_fake(
+    lambda x2, w, b: x2.new_empty((x2.shape[0], w.shape[1]), dtype=torch.float32))
+
+
 class _MatmulFP32(torch.autograd.Function):
     """``x2 @ w (+ b)`` for a bf16 pair on the card: the tensor cores with an
     fp32 output, the bias added in fp32 by the same call.  PyTorch has no
@@ -67,9 +84,7 @@ class _MatmulFP32(torch.autograd.Function):
     def forward(ctx, x2, w, b):
         ctx.save_for_backward(x2, w)
         ctx.has_bias = b is not None
-        if b is None:
-            return torch.mm(x2, w, out_dtype=torch.float32)
-        return torch.addmm(b, x2, w, out_dtype=torch.float32)
+        return (_mm_fp32_op if torch.compiler.is_exporting() else _mm_fp32)(x2, w, b)
 
     @staticmethod
     def backward(ctx, gy):

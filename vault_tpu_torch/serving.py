@@ -332,6 +332,7 @@ class InferenceServer:
         return self
 
     def close(self):
-        self.httpd.shutdown()
+        if self._thread.is_alive():  # shutdown() waits for a serve_forever loop
+            self.httpd.shutdown()
         self.httpd.server_close()
         self.engine.close()
