@@ -20,8 +20,10 @@ tokens merged to 87: bf16 and the w8a8 levered configuration at layer 0,
 batch 8 and 64, its engine, the fp32 model merged at layer 4, one merged
 training step); then serves it from checkpoint files (HF-layout
 directories written and loaded, ``python -m vault_tpu_torch.cli.
-quantize_ckpt`` and five ``cli.serve`` servers answering HTTP, the served
-forward exported with ``torch.export``, saved, loaded and run).  It checks
+quantize_ckpt`` on the card and on the host with equal results, five
+``cli.serve`` servers answering HTTP bit-equal to a direct forward, the
+served forward exported with ``torch.export``, saved, loaded and run, and
+the host cost of launching through the operators).  It checks
 the launch counts, the gradients and the outputs.
 Each phase prints one JSON line; any failure exits non-zero.  Device
 times come from CUPTI traces, each held against the CUDA-event time of the
@@ -2605,12 +2607,22 @@ def served_phase(name, model, processor, server, launches):
             direct.append(model(enc).float().cpu().numpy()[:len(part)])
     direct = np.concatenate(direct)
     got = np.asarray(results, np.float32)
-    err = float(np.abs(got - direct).max())
-    if got.shape != direct.shape or not np.isfinite(got).all() or err > 1e-2:
-        fail(f"serve {name}: responses {got.shape} vs direct forward: max abs diff {err}")
+    # the server and the direct forward run the same kernels on the same
+    # batches, so a response equals its row bit for bit; the rows differ
+    # from each other, so a response sent back to another request shows
+    if (got.shape != direct.shape or not np.isfinite(direct).all()
+            or not np.array_equal(got, direct)):
+        err = float(np.abs(got - direct).max()) if got.shape == direct.shape else None
+        fail(f"serve {name}: responses {got.shape} differ from the direct forward "
+             f"{direct.shape}: max abs diff {err}")
+    apart = np.abs(direct[:, None] - direct[None]).max(-1)
+    row_gap = float(apart[~np.eye(len(direct), dtype=bool)].min())
+    if row_gap == 0.0:
+        fail(f"serve {name}: two requests got the same logits; the check cannot "
+             "tell their responses apart")
     return dict(requests=len(reqs), batches=batches, launches=counts,
-                max_abs_diff_vs_direct=err, bit_equal_vs_direct=err == 0.0,
-                wall_s=wall_s, stats=health)
+                bit_equal_vs_direct=True, min_row_gap=row_gap, wall_s=wall_s,
+                stats=health)
 
 
 def export_phase(name, model, cfg, dev, root: Path, launches):
@@ -2659,20 +2671,76 @@ def export_phase(name, model, cfg, dev, root: Path, launches):
     with torch.inference_mode():
         for turn in ("eager", "loaded", "loaded", "eager"):
             fn = (lambda: model(batch)) if turn == "eager" else (lambda: loaded(batch))
-            samples[turn] += [time_ms(fn, iters=5, warmup=2) for _ in range(3)]
+            samples[turn] += [time_ms(fn, iters=5, warmup=1) for _ in range(2)]
     return dict(artifact_bytes=path.stat().st_size, export_s=export_s, load_s=load_s,
                 launches=counts, graph_ops=nodes, bit_equal=True,
                 eager_ms=float(np.median(samples["eager"])),
                 loaded_ms=float(np.median(samples["loaded"])), ms_samples=samples)
 
 
+def operator_route_cost(model, cfg, dev, rounds=8, iters=5):
+    """The host cost of launching through the ``vault_tpu_torch`` operators:
+    the served forward at batch 8 with every kernel launched directly
+    (eager's route) and through its operator (``KernelOp.eager_operator``,
+    the exported program's route), in alternating rounds in this process.
+    Per forward: the thread's CPU ms while it queues ``iters`` forwards, and
+    the wall ms to their end; each route's median and range, whether every
+    operator round was slower than every direct round, and where the host
+    time of one forward goes on each route (``host_profile``)."""
+    import torch
+
+    from vault_tpu_torch.ops._dispatch import KernelOp
+
+    batch = entry_batch(cfg, 8, dev)
+    samples = {r: {"cpu_ms": [], "wall_ms": []} for r in ("direct", "operator")}
+    profiles = {}
+    with torch.inference_mode():
+        for i in range(rounds):
+            for route in ("direct", "operator")[::1 if i % 2 == 0 else -1]:
+                KernelOp.eager_operator = route == "operator"
+                try:
+                    model(batch)
+                    torch.cuda.synchronize()
+                    c0, w0 = time.thread_time(), time.perf_counter()
+                    for _ in range(iters):
+                        model(batch)
+                    c1 = time.thread_time()
+                    torch.cuda.synchronize()
+                    w1 = time.perf_counter()
+                    if i == rounds - 1:
+                        profiles[route] = host_profile(lambda: model(batch), top=6)
+                finally:
+                    KernelOp.eager_operator = False
+                samples[route]["cpu_ms"].append((c1 - c0) * 1e3 / iters)
+                samples[route]["wall_ms"].append((w1 - w0) * 1e3 / iters)
+    out = {}
+    for route, s in samples.items():
+        for key, v in s.items():
+            out[f"{route}_{key}"] = float(np.median(v))
+            out[f"{route}_{key}_range"] = [min(v), max(v)]
+    for key in ("cpu_ms", "wall_ms"):
+        out[f"operator_slower_every_round_{key}"] = (
+            min(samples["operator"][key]) > max(samples["direct"][key]))
+    return dict(out, rounds=rounds, forwards_per_round=iters, samples=samples,
+                host_profile=profiles)
+
+
+def same_npz(a: Path, b: Path) -> bool:
+    """Two npz files hold the same keys and equal arrays."""
+    with np.load(a) as za, np.load(b) as zb:
+        return (sorted(za.files) == sorted(zb.files)
+                and all(np.array_equal(za[k], zb[k]) for k in za.files))
+
+
 def serve_phase(dev):
     """VAuLT-base served from checkpoint files: HF-layout directories
     written and loaded bit-equal, a fine-tuned npz quantized by
-    ``cli.quantize_ckpt`` (w8a8, w8), five servers built by ``cli.serve``
-    answering HTTP, a refused composition, and the bf16 and w8a8 forwards
-    exported, saved, loaded and run.  Returns each server's launches per
-    served batch."""
+    ``cli.quantize_ckpt`` (w8a8, w8) on the card and equal to the same run
+    on the CPU, five servers built by ``cli.serve`` answering HTTP, a
+    refused composition, and the bf16 and w8a8 forwards exported, saved,
+    loaded and run, and timed on both launch routes
+    (``operator_route_cost``).  Returns each server's launches per served
+    batch."""
     import tempfile
 
     import torch
@@ -2686,6 +2754,7 @@ def serve_phase(dev):
 
     Path("build").mkdir(exist_ok=True)
     path_counts = {}
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(dir="build", prefix="serve_") as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
@@ -2719,19 +2788,30 @@ def serve_phase(dev):
         save_checkpoint(str(ft), {"params": params_to_jax(model.state_dict(),
                                                           as_numpy=False)})
         del model, backbone
-        quantized, quantize_s = {}, {}
+        # quantized on the card (the CLI's default), and on the host to
+        # hold the card's codes, scales and bf16 leaves against
+        quantized, quantize_s, quantize_cpu_s = {}, {}, {}
         for mode in ("w8a8", "w8"):
             quantized[mode] = root / f"finetuned_{mode}.npz"
+            argv = ["--vilt", vilt_dir, "--bert", bert_dir, "--ckpt", str(ft), "--mode", mode]
             t0 = time.perf_counter()
-            quantize_ckpt.main(["--vilt", vilt_dir, "--bert", bert_dir, "--ckpt", str(ft),
-                                "--out", str(quantized[mode]), "--mode", mode])
+            quantize_ckpt.main(argv + ["--out", str(quantized[mode])])
             quantize_s[mode] = time.perf_counter() - t0
+            on_cpu = root / f"finetuned_{mode}_cpu.npz"
+            t0 = time.perf_counter()
+            quantize_ckpt.main(argv + ["--out", str(on_cpu), "--device", "cpu"])
+            quantize_cpu_s[mode] = time.perf_counter() - t0
+            if not same_npz(quantized[mode], on_cpu):
+                fail(f"serve: the {mode} checkpoint quantized on the card differs from "
+                     "the one quantized on the CPU")
+            on_cpu.unlink()
         emit(phase="serve", step="files", write_s=write_s, read_s=read_s,
              load_vault_backbone_s=loads, loaded_bit_equal=True,
              dir_bytes={n: v[2] for n, v in dirs.items()},
              npz_bytes={"finetuned": ft.stat().st_size,
                         **{m: p.stat().st_size for m, p in quantized.items()}},
-             quantize_ckpt_s=quantize_s)
+             quantize_ckpt_s=quantize_s, quantize_ckpt_cpu_s=quantize_cpu_s,
+             quantized_card_equals_cpu=True)
 
         fill = {"ft": str(ft), "w8a8": str(quantized["w8a8"]),
                 "w8": str(quantized["w8"]), "bertweet": tweet_dir}
@@ -2752,6 +2832,7 @@ def serve_phase(dev):
                 fail(f"serve {name}: the engine's worker did not stop")
             if export:
                 result["export"] = export_phase(name, model, model.cfg, dev, root, launches)
+                result["operator_route"] = operator_route_cost(model, model.cfg, dev)
             emit(phase="serve", step=name, build_s=build_s, quant_mode=model.quant_mode,
                  use_pallas=model.use_pallas, merge_to=model.merge_to, **result)
             path_counts[f"serve_{name}"] = launches
@@ -2767,6 +2848,7 @@ def serve_phase(dev):
         if code != 2:
             fail(f"serve: a refused composition exited with {code}, expected 2")
         emit(phase="serve", step="refusal", argv=refused, exit_code=code)
+    emit(phase="serve", step="total", seconds=time.perf_counter() - t_phase)
     return path_counts
 
 

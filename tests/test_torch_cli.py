@@ -116,7 +116,8 @@ def test_port_quantized_checkpoint_restores_in_jax(tmp_path, mode):
     parameters, bf16 leaves as bf16 and codes in their logical layout."""
     _, p = _jax_params(2)
     jckpt.save_checkpoint(str(tmp_path / "fp"), {"params": p})
-    line = quantize_ckpt.main(["--debug_tiny", "--ckpt", str(tmp_path / "fp.npz"),
+    line = quantize_ckpt.main(["--debug_tiny", "--device", "cpu",
+                               "--ckpt", str(tmp_path / "fp.npz"),
                                "--out", str(tmp_path / "q.npz"), "--mode", mode])
     assert line.startswith(f"wrote {tmp_path / 'q.npz'} ({mode}; ")
     want = jq.quantize_model_params(_cast_bf16(p), mode=mode)
@@ -182,6 +183,18 @@ def test_default_device_is_the_card(monkeypatch):
         serve.build(args)
 
 
+def test_quantize_default_device_is_the_card(monkeypatch, tmp_path):
+    """quantize_ckpt runs on the card unless asked for the CPU: without one
+    it raises before it reads the checkpoint."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--debug_tiny", "--ckpt", str(tmp_path / "absent.npz"),
+            "--out", str(tmp_path / "q.npz")]
+    assert quantize_ckpt.parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize_ckpt.main(argv)
+    assert not (tmp_path / "q.npz").exists()
+
+
 def test_checkpoint_directories_are_served(tmp_path):
     """Without --ckpt the backbone comes from the checkpoint directories and
     the tokenizer from the language tower's (a BERTweet fastBPE layout)."""
@@ -244,7 +257,7 @@ def test_serve_cli_subprocess_answers(tmp_path):
     model = VaultForClassification(debug_tiny_vault_config(), device="cpu", seed=2)
     save_checkpoint(str(tmp_path / "fp"), {"params": params_to_jax(model.state_dict(),
                                                                    as_numpy=False)})
-    quantize_ckpt.main(["--debug_tiny", "--ckpt", str(tmp_path / "fp.npz"),
+    quantize_ckpt.main(["--debug_tiny", "--device", "cpu", "--ckpt", str(tmp_path / "fp.npz"),
                         "--out", str(tmp_path / "q.npz")])
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

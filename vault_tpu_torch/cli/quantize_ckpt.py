@@ -10,7 +10,9 @@ either package restores it; ``python -m vault_tpu_torch.cli.serve`` detects
 the stored form from the npz keys, so serving skips the per-start
 requantization.  The w8a8 MLP codes, which the port holds K-major, are
 written in their logical (in, out) layout (``convert.params_to_jax``) and
-laid K-major again on restore (``convert.params_from_jax``).
+laid K-major again on restore (``convert.params_from_jax``).  The
+quantization runs on the card (``--device cuda``, the default: without a
+card it raises); ``--device cpu`` runs it on the host, with the same codes.
 """
 
 from __future__ import annotations
@@ -35,9 +37,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--n_classes", type=int, default=3)
     ap.add_argument("--debug_tiny", action="store_true",
                     help="tiny model geometry (CI smoke; matches the serve CLI)")
-    ap.add_argument("--device", default="cpu",
-                    help="where the quantization runs (a host-side transform; "
-                         "default cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
     return ap.parse_args(argv)
 
 
@@ -47,13 +48,13 @@ def main(argv=None) -> str:
 
     from vault_tpu_torch.cli import model_config, restore_params
     from vault_tpu_torch.convert import params_to_jax
-    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.models.vault import VaultForClassification, resolve_device
     from vault_tpu_torch.ops.quantize import quantize_model_params
     from vault_tpu_torch.training.checkpoint import save_checkpoint
 
     args = parse_args(argv)
     model = VaultForClassification(model_config(args), n_classes=args.n_classes,
-                                   device=args.device)
+                                   device=resolve_device(args.device))
     restore_params(model, args.ckpt)
     model.to(torch.bfloat16)
     quantize_model_params(model, mode=args.mode)

@@ -55,7 +55,12 @@ class KernelOp:
     Called, a KernelOp runs ``plain`` when every tensor lies on the CPU and
     ``kernel`` otherwise, directly; while ``torch.export`` traces it calls
     the operator, so the exported program holds one node per launch and
-    launches the hand-written kernel when it runs on the card."""
+    launches the hand-written kernel when it runs on the card.  Eager calls
+    skip the operator because its dispatch costs host time in a forward
+    that the host bounds; ``eager_operator`` (a class attribute) sends them
+    through it too, which is how ``chip_smoke.py`` times the two routes."""
+
+    eager_operator = False
 
     def __init__(self, name: str, schema: str, kernel: Callable, plain: Callable,
                  fake: Callable):
@@ -67,7 +72,7 @@ class KernelOp:
         self.op.register_fake(fake)
 
     def __call__(self, *ts, **kw) -> torch.Tensor:
-        if torch.compiler.is_exporting():
+        if self.eager_operator or torch.compiler.is_exporting():
             return self.op(*ts, **kw)
         on_cpu = all(t is None or t.device.type == "cpu" for t in ts)
         return (self.plain if on_cpu else self.kernel)(*ts, **kw)
