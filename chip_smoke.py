@@ -22,8 +22,7 @@ training step); then serves it from checkpoint files (HF-layout
 directories written and loaded, ``python -m vault_tpu_torch.cli.
 quantize_ckpt`` on the card and on the host with equal results, five
 ``cli.serve`` servers answering HTTP bit-equal to a direct forward, the
-served forward exported with ``torch.export``, saved, loaded and run, and
-the host cost of launching through the operators).  It checks
+served forward exported with ``torch.export``, saved, loaded and run).  It checks
 the launch counts, the gradients and the outputs.
 Each phase prints one JSON line; any failure exits non-zero.  Device
 times come from CUPTI traces, each held against the CUDA-event time of the
@@ -2629,7 +2628,8 @@ def export_phase(name, model, cfg, dev, root: Path, launches):
     """The served forward exported at batch 8 (``vault_tpu_torch.export``),
     saved, loaded and run: logits bit-equal to the eager kernel path, the
     same launches, one ``vault_tpu_torch`` node per launch; the artifact's
-    size, and the wall ms of eager against loaded in turns."""
+    size, the wall ms of eager against loaded in turns, and where the host
+    time of one forward goes in each (``host_profile``)."""
     import torch
 
     from vault_tpu_torch.export import export_forward, exported_ops, load_forward
@@ -2672,56 +2672,12 @@ def export_phase(name, model, cfg, dev, root: Path, launches):
         for turn in ("eager", "loaded", "loaded", "eager"):
             fn = (lambda: model(batch)) if turn == "eager" else (lambda: loaded(batch))
             samples[turn] += [time_ms(fn, iters=5, warmup=1) for _ in range(2)]
+        profiles = {"eager": host_profile(lambda: model(batch), top=6),
+                    "loaded": host_profile(lambda: loaded(batch), top=6)}
     return dict(artifact_bytes=path.stat().st_size, export_s=export_s, load_s=load_s,
                 launches=counts, graph_ops=nodes, bit_equal=True,
                 eager_ms=float(np.median(samples["eager"])),
-                loaded_ms=float(np.median(samples["loaded"])), ms_samples=samples)
-
-
-def operator_route_cost(model, cfg, dev, rounds=8, iters=5):
-    """The host cost of launching through the ``vault_tpu_torch`` operators:
-    the served forward at batch 8 with every kernel launched directly
-    (eager's route) and through its operator (``KernelOp.eager_operator``,
-    the exported program's route), in alternating rounds in this process.
-    Per forward: the thread's CPU ms while it queues ``iters`` forwards, and
-    the wall ms to their end; each route's median and range, whether every
-    operator round was slower than every direct round, and where the host
-    time of one forward goes on each route (``host_profile``)."""
-    import torch
-
-    from vault_tpu_torch.ops._dispatch import KernelOp
-
-    batch = entry_batch(cfg, 8, dev)
-    samples = {r: {"cpu_ms": [], "wall_ms": []} for r in ("direct", "operator")}
-    profiles = {}
-    with torch.inference_mode():
-        for i in range(rounds):
-            for route in ("direct", "operator")[::1 if i % 2 == 0 else -1]:
-                KernelOp.eager_operator = route == "operator"
-                try:
-                    model(batch)
-                    torch.cuda.synchronize()
-                    c0, w0 = time.thread_time(), time.perf_counter()
-                    for _ in range(iters):
-                        model(batch)
-                    c1 = time.thread_time()
-                    torch.cuda.synchronize()
-                    w1 = time.perf_counter()
-                    if i == rounds - 1:
-                        profiles[route] = host_profile(lambda: model(batch), top=6)
-                finally:
-                    KernelOp.eager_operator = False
-                samples[route]["cpu_ms"].append((c1 - c0) * 1e3 / iters)
-                samples[route]["wall_ms"].append((w1 - w0) * 1e3 / iters)
-    out = {}
-    for route, s in samples.items():
-        for key, v in s.items():
-            out[f"{route}_{key}"] = float(np.median(v))
-            out[f"{route}_{key}_range"] = [min(v), max(v)]
-    for key in ("cpu_ms", "wall_ms"):
-        out[f"operator_slower_every_round_{key}"] = (
-            min(samples["operator"][key]) > max(samples["direct"][key]))
-    return dict(out, rounds=rounds, forwards_per_round=iters, samples=samples,
+                loaded_ms=float(np.median(samples["loaded"])), ms_samples=samples,
                 host_profile=profiles)
 
 
@@ -2738,9 +2694,7 @@ def serve_phase(dev):
     ``cli.quantize_ckpt`` (w8a8, w8) on the card and equal to the same run
     on the CPU, five servers built by ``cli.serve`` answering HTTP, a
     refused composition, and the bf16 and w8a8 forwards exported, saved,
-    loaded and run, and timed on both launch routes
-    (``operator_route_cost``).  Returns each server's launches per served
-    batch."""
+    loaded and run.  Returns each server's launches per served batch."""
     import tempfile
 
     import torch
@@ -2832,7 +2786,6 @@ def serve_phase(dev):
                 fail(f"serve {name}: the engine's worker did not stop")
             if export:
                 result["export"] = export_phase(name, model, model.cfg, dev, root, launches)
-                result["operator_route"] = operator_route_cost(model, model.cfg, dev)
             emit(phase="serve", step=name, build_s=build_s, quant_mode=model.quant_mode,
                  use_pallas=model.use_pallas, merge_to=model.merge_to, **result)
             path_counts[f"serve_{name}"] = launches

@@ -6,7 +6,7 @@ StableHLO artifact).
 Export traces with fake tensors, so the hand-written kernels cannot be
 traced through their ``ctypes`` launches: each is an operator of the
 ``vault_tpu_torch`` namespace (``ops/_dispatch.py`` ``KernelOp``), which the
-traced forward calls while exporting.  The program therefore holds one node
+forward calls in eager mode and while it is traced.  The program therefore holds one node
 per kernel launch (``torch.ops.vault_tpu_torch.mlp_block``, ...), and runs
 the kernel on the card and its plain version on the CPU.  The trace is
 non-strict (``strict=False``): Dynamo does not trace the kernels'

@@ -52,15 +52,12 @@ class KernelOp:
     wrapper (a test running a plain version in its place) reaches the
     operator too.
 
-    Called, a KernelOp runs ``plain`` when every tensor lies on the CPU and
-    ``kernel`` otherwise, directly; while ``torch.export`` traces it calls
-    the operator, so the exported program holds one node per launch and
-    launches the hand-written kernel when it runs on the card.  Eager calls
-    skip the operator because its dispatch costs host time in a forward
-    that the host bounds; ``eager_operator`` (a class attribute) sends them
-    through it too, which is how ``chip_smoke.py`` times the two routes."""
-
-    eager_operator = False
+    Called, a KernelOp calls the operator, which dispatches on the tensors'
+    device: ``plain`` when they lie on the CPU, ``kernel`` on the card.  So
+    eager calls and an exported program (one node per launch) take the same
+    route, and the program launches the hand-written kernels on the card.
+    Tensors on any other device go to ``kernel``, which refuses them (the
+    operator would hand a meta tensor to ``fake``)."""
 
     def __init__(self, name: str, schema: str, kernel: Callable, plain: Callable,
                  fake: Callable):
@@ -72,10 +69,9 @@ class KernelOp:
         self.op.register_fake(fake)
 
     def __call__(self, *ts, **kw) -> torch.Tensor:
-        if self.eager_operator or torch.compiler.is_exporting():
-            return self.op(*ts, **kw)
-        on_cpu = all(t is None or t.device.type == "cpu" for t in ts)
-        return (self.plain if on_cpu else self.kernel)(*ts, **kw)
+        if any(t is not None and t.device.type not in ("cpu", "cuda") for t in ts):
+            return self.kernel(*ts, **kw)
+        return self.op(*ts, **kw)
 
 
 class _KernelOrPlain(torch.autograd.Function):

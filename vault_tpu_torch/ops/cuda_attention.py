@@ -31,8 +31,8 @@ Both kernels take the head dims of :data:`HEAD_DIMS`; a wrapper refuses any
 other before it looks at the device, so the contract shows on any tensor.
 Each is also the operator ``vault_tpu_torch::attention`` /
 ``attention_gqa`` (``ops/_dispatch.py`` ``KernelOp``, returning the
-(B, L, H, D) tensor), which the forward calls while ``torch.export`` traces
-it.
+(B, L, H, D) tensor), through which the forward launches it, in eager
+mode and in an exported program alike.
 """
 
 from __future__ import annotations

@@ -24,8 +24,8 @@ package's ``_fused_ln_qkv_bwd``.  The kernel wrappers launch for CUDA
 tensors and raise on anything the kernels do not take; CPU tensors take the
 plain versions.  Each wrapper counts its launches in ``<wrapper>.launches``.
 Both are also operators, ``vault_tpu_torch::ln_qkv`` and ``ln_qkv_w8a8``
-(``ops/_dispatch.py`` ``KernelOp``), which the forward calls while
-``torch.export`` traces it.
+(``ops/_dispatch.py`` ``KernelOp``), through which the forward launches
+them, in eager mode and in an exported program alike.
 """
 
 from __future__ import annotations

@@ -61,8 +61,8 @@ dropout mask is a constant of the draw and gets no gradient.  Each kernel
 wrapper counts its launches in ``<wrapper>.launches``.  Each forward kernel
 with its plain version is also an operator (``ops/_dispatch.py``
 ``KernelOp``: ``vault_tpu_torch::mlp_block``, ``mlp_postln`` and their
-``_q8`` and ``_w8a8`` forms), which the forward calls while ``torch.export``
-traces it.
+``_q8`` and ``_w8a8`` forms), through which the forward launches it, in
+eager mode and in an exported program alike.
 """
 
 from __future__ import annotations

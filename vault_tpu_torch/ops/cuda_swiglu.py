@@ -32,7 +32,8 @@ with its plain PyTorch versions beside it (port of
 :data:`I_TILE` is a constant of the function, not a tuning knob: it fixes
 the requantization groups and so the int8 codes.  The kernel is also the
 operator ``vault_tpu_torch::swiglu_w8a8`` (``ops/_dispatch.py``
-``KernelOp``), which the forward calls while ``torch.export`` traces it.
+``KernelOp``), through which the forward launches it, in eager mode and in
+an exported program alike.
 """
 
 from __future__ import annotations
