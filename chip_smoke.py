@@ -22,8 +22,12 @@ training step); then serves it from checkpoint files (HF-layout
 directories written and loaded, ``python -m vault_tpu_torch.cli.
 quantize_ckpt`` on the card and on the host with equal results, five
 ``cli.serve`` servers answering HTTP bit-equal to a direct forward, the
-served forward exported with ``torch.export``, saved, loaded and run).  It checks
-the launch counts, the gradients and the outputs.
+served forward exported with ``torch.export``, saved, loaded and run); then
+trains the paper's tasks and the remaining heads at full width (the
+experiment CLI ``cli.clsf_vault`` in process on MVSA and Twitter201X; the
+MLM, VQA, retrieval and NLVR2 heads through their trainers, each on
+synthetic files written under ``build/``).  It checks the launch counts,
+the gradients and the outputs.
 Each phase prints one JSON line; any failure exits non-zero.  Device
 times come from CUPTI traces, each held against the CUDA-event time of the
 same calls (``device_ms``).  The last line
@@ -32,7 +36,8 @@ exits non-zero and prints no result.  Imports nothing of JAX or of the JAX
 package.
 
 ``--phases a,b`` runs only the named groups of phases (``kernels``,
-``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``) while working on one of them; such
+``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``, ``tasks``) while
+working on one of them; such
 a run ends with ``{"partial": [...]}``, not with the ``ok`` line.
 """
 
@@ -2463,13 +2468,14 @@ def fastbpe_files(directory: Path, size: int):
     (directory / "bpe.codes").write_text("\n".join(dict.fromkeys(merges)) + "\n")
 
 
-def write_hf_dirs(root: Path):
+def write_hf_dirs(root: Path, names=None):
     """Three checkpoint directories in the HF layout from seeded numpy, with
     this package's safetensors writer: bert-base-uncased (fp32, ``bert.``,
     a 30,522-entry WordPiece vocab), ViLT-B/32 (fp32, ``vilt.``) and
-    BERTweet-base (bf16, ``roberta.``, a fairseq vocab and fastBPE codes).
-    Returns, per directory, its path, the port-layout arrays its weights
-    hold (bf16-rounded for BERTweet) and its size on disk."""
+    BERTweet-base (bf16, ``roberta.``, a fairseq vocab and fastBPE codes);
+    ``names`` picks some of them (each keeps its seed).  Returns, per
+    directory, its path, the port-layout arrays its weights hold
+    (bf16-rounded for BERTweet) and its size on disk."""
     import torch
 
     from vault_tpu_torch.config import TextTowerConfig
@@ -2492,6 +2498,8 @@ def write_hf_dirs(root: Path):
                                BERTWEET_CONFIG)}
     out = {}
     for seed, (name, (kind, cfg, prefix, dtype, config)) in enumerate(specs.items()):
+        if names is not None and name not in names:
+            continue
         d = root / name
         d.mkdir()
         tower = (vilt_mod.init_vilt(gen, cfg) if kind == "vilt"
@@ -2805,6 +2813,387 @@ def serve_phase(dev):
     return path_counts
 
 
+# ---------------------------------------------------------------------------
+# The paper's tasks and the remaining heads (the experiment CLI; MLM, VQA,
+# retrieval, NLVR2)
+# ---------------------------------------------------------------------------
+
+# VQAv2's answer vocabulary as dandelin/vilt-b32-finetuned-vqa publishes it
+VQA_ANSWERS = 3129
+# Examples per task: 64 train (two steps of 32), 32 evaluated; retrieval
+# pairs 16 texts with 16 images (32 training pairs, 256 evaluated).
+TASK_TRAIN = 64
+TASK_EVAL = 32
+RETRIEVAL_IDS = 16
+TASK_WORDS = SERVE_WORDS
+
+
+def task_sentence(rng, n=12):
+    return " ".join(rng.choice(TASK_WORDS, n))
+
+
+def write_task_images(directory: Path, names, seed):
+    """Seeded noise JPEGs of tweet-photo sizes (608 x 400 landscape, 400 x
+    608 portrait), which the (384, 608) canvas holds after the resize."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    directory.mkdir(parents=True, exist_ok=True)
+    for i, name in enumerate(names):
+        hw = (400, 608) if i % 4 else (608, 400)
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            directory / name, quality=90)
+
+
+def write_mvsa(root: Path):
+    """MVSA-Single's layout: ``labelResultAll.txt`` (text and image labels),
+    ``data/<id>.txt`` and ``data/<id>.jpg``."""
+    rng = np.random.default_rng(21)
+    d = root / "MVSA_Single"
+    kinds = ["positive", "neutral", "negative"]
+    ids = [str(i) for i in range(1, TASK_TRAIN + 1)]
+    write_task_images(d / "data", [f"{i}.jpg" for i in ids], seed=22)
+    with open(d / "labelResultAll.txt", "w") as f:
+        f.write("ID\ttext,image\n")
+        for i in ids:
+            f.write(f"{i}\t{kinds[rng.integers(3)]},{kinds[rng.integers(3)]}\n")
+    for i in ids:
+        (d / "data" / f"{i}.txt").write_text(task_sentence(rng) + " #mynewcar @user")
+    return d
+
+
+def write_twitter(root: Path):
+    """Twitter-2015's layout: ``<split>.tsv`` (id, label, image, tweet with
+    $T$, target) and ``<dir>_images/``."""
+    rng = np.random.default_rng(23)
+    d, imgs = root / "twitter2015", root / "twitter2015_images"
+    d.mkdir()
+    write_task_images(imgs, [f"{i}.jpg" for i in range(16)] + ["17_06_4705.jpg"], seed=24)
+    for split, n in (("train", TASK_TRAIN), ("dev", 16), ("test", 16)):
+        with open(d / f"{split}.tsv", "w") as f:
+            f.write("index\t#1 Label\t#2 ImageID\t#3 String\t#3 String\n")
+            for i in range(n):
+                f.write(f"{i}\t{rng.integers(3) - 1}\t{i % 16}.jpg\t"
+                        f"{task_sentence(rng)} $T$ {task_sentence(rng, 4)}\t"
+                        f"{task_sentence(rng, 2)}\n")
+    return d
+
+
+def task_launches(steps, eval_batches, images=1):
+    """Kernel launches of ``steps`` training steps and ``eval_batches``
+    evaluation batches, each forward run ``images`` times (the pair head)."""
+    return {k: images * (steps * STEP_LAUNCHES[k] + eval_batches * EVAL_LAUNCHES[k])
+            for k in KERNEL_NAMES}
+
+
+def task_path(name, tr, plain_fn, feats8, step_batch, run_counts, want, run_s,
+              metrics, images=1, mlm_cfg=None, **extra):
+    """What each task path reports: its run's launches against ``want``, one
+    deterministic batch-8 forward on the kernel path held against the plain
+    path (its launches too), every loss finite, then a training step's wall
+    and busy ms and the card's idle share.
+
+    The head's logits are held to ``FORWARD_LIMITS["logits"]``.  The MLM
+    head (``mlm_cfg``, its model config) reads the text span of the last
+    hidden state through a fixed 30,522-word product, so its logits reach
+    about 2.7 where a bf16 ulp is 2^-6: they are held to that limit times
+    max(1, max|plain logit|), and the backbone the kernels run is held as
+    the ``forward`` phase holds it, its pooler within
+    ``FORWARD_LIMITS["pooler"]``; the text span's distance is reported."""
+    import torch
+
+    from vault_tpu_torch.models.vault import batch_to_device, vault_apply
+
+    if run_counts != want:
+        fail(f"tasks {name}: launches {run_counts}, expected {want}")
+    losses = {k: v for k, v in metrics.items() if "loss" in k}
+    if not losses or not all(math.isfinite(v) for v in losses.values()):
+        fail(f"tasks {name}: losses {losses}")
+    tree = tr.compute_params({k: v.detach() for k, v in tr.params.items()})
+    batch = batch_to_device({k: v for k, v in feats8.items() if k != "label_weights"},
+                            tr.device)
+    with torch.inference_mode():
+        reset_counts()
+        out = tr.apply_fn(tree, batch, True, None)
+        torch.cuda.synchronize()
+        fwd_counts = read_counts()
+        ref = plain_fn(tree, batch, True, None).float()
+        backbone = {}
+        if mlm_cfg is not None:
+            if out.dtype != torch.float32 or tuple(out.shape) != (
+                    8, batch["input_ids"].shape[1], mlm_cfg.vilt.vocab_size):
+                fail(f"tasks {name}: logits {out.dtype} {tuple(out.shape)}")
+            k_out, p_out = (vault_apply(tree, mlm_cfg, use_pallas=sel, **batch)
+                            for sel in (tr.args.use_pallas, False))
+            span = batch["input_ids"].shape[1]
+            k_text = k_out.last_hidden_state[:, :span].float()
+            p_text = p_out.last_hidden_state[:, :span].float()
+            backbone = {
+                "pooler_max_abs_err": (k_out.pooler_output.float()
+                                       - p_out.pooler_output.float()).abs().max().item(),
+                "text_hidden_max_abs_err": (k_text - p_text).abs().max().item(),
+                "text_hidden_max_abs": p_text.abs().max().item()}
+            del k_out, p_out, k_text, p_text
+        out = out.float()
+    want_fwd = {k: images * v for k, v in EVAL_LAUNCHES.items()}
+    if fwd_counts != want_fwd:
+        fail(f"tasks {name}: launches of a batch-8 forward {fwd_counts}, expected {want_fwd}")
+    if not bool(torch.isfinite(out).all()):
+        fail(f"tasks {name}: the batch-8 forward is not finite")
+    err = (out - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item()) if mlm_cfg is not None else 1.0
+    limit = FORWARD_LIMITS["logits"] * scale
+    if err > limit:
+        fail(f"tasks {name}: kernel path vs plain path, logits {err} (limit {limit})")
+    if backbone and backbone["pooler_max_abs_err"] > FORWARD_LIMITS["pooler"]:
+        fail(f"tasks {name}: kernel path vs plain path, pooler "
+             f"{backbone['pooler_max_abs_err']} (limit {FORWARD_LIMITS['pooler']})")
+    del tree, out, ref
+    b, lab, w = tr._to_device(*tr._pad(*step_batch))
+    step = lambda: tr.train_step(b, lab, w, 1000)
+    step()
+    torch.cuda.synchronize()
+    samples = [time_ms(step, iters=1, warmup=0) for _ in range(3)]
+    busy, kernels = device_ms(step, iters=2, warmup=0)
+    ms = float(np.median(samples))
+    emit(phase="tasks", path=name, run_s=run_s, launches=run_counts,
+         launches_per_forward=fwd_counts, logits_max_abs_err=err, logits_scale=scale,
+         limit=limit, **backbone, step_ms=ms, step_ms_samples=samples,
+         device_busy_ms=busy, idle_share=1.0 - busy / ms,
+         top_kernels_ms=dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6]),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, metrics=metrics, **extra)
+    torch.cuda.reset_peak_memory_stats()
+
+
+def cli_paths(root: Path, dirs):
+    """``cli.clsf_vault.main`` in process on MVSA (dual heads) and
+    Twitter201X: one epoch over 64 examples, a dev and a test evaluation,
+    the backbone from the HF-layout directories."""
+    import torch
+
+    from vault_tpu_torch.cli import clsf_vault
+    from vault_tpu_torch.training.trainer import classifier_apply_fn
+
+    shared = ["--vilt_model_name_or_path", str(dirs["vilt-b32-mlm"][0]),
+              "--bert_model_name_or_path", str(dirs["bert-base-uncased"][0]),
+              "--canvas", "384x608", "--num_train_epochs", "1", "--disable_tqdm",
+              "--experiment_root", str(root / "logs")]
+    cases = {
+        "cli_mvsa": (["MVSA", "--root_dir", str(write_mvsa(root)),
+                      "--train_split", "train", "dev", "test", "--val_split", "dev",
+                      "--test_split", "test"], "VaultTMSCMVSA"),
+        "cli_twitter201x": (["Twitter201X", "--dir", str(write_twitter(root)),
+                             "--train_split", "train", "--dev_split", "dev",
+                             "--test_split", "test"], "VaultTMSCTwitter201X"),
+    }
+    counts = {}
+    for name, (argv, exp) in cases.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        (tr,) = clsf_vault.main(argv + shared)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_counts = read_counts()
+        eval_batches = sum(ds.num_batches(tr.args.eval_batch_size)
+                           for ds in (tr.dev_dataset, tr.test_dataset))
+        want = task_launches(tr.train_dataset.num_batches(TRAIN_BATCH), eval_batches)
+        logs = Path(tr.exp_handler.directory())
+        if not (logs / "aggregated_metrics.yml").exists() or logs.parent.name != exp:
+            fail(f"tasks {name}: no aggregated_metrics.yml under {logs}")
+        h = tr.exp_handler
+        metrics = {**{k: v[-1] for k, v in h._series.items()}, **h._finals}
+        feats, labels = next(tr.train_dataset.batches(TRAIN_BATCH))
+        eight = {k: v[:8] for k, v in feats.items()}
+        run_cfg = clsf_vault.model_config(clsf_vault.parse_args(argv + shared))
+        plain = classifier_apply_fn(run_cfg, dataclasses.replace(tr.args, use_pallas=False))
+        task_path(name, tr, plain, eight, (feats, labels), run_counts, want, run_s, metrics,
+                  argv=argv[:1], logs=str(logs), aggregated_metrics=True,
+                  train_examples=tr.train_dataset.num_examples, eval_batches=eval_batches)
+        counts[name] = run_counts
+        del tr
+        torch.cuda.empty_cache()
+    return counts
+
+
+def head_paths(dev, root: Path, dirs):
+    """MLM, VQA, retrieval and NLVR2 through their trainers at full width:
+    seeded random weights, ``TrainArgs`` defaults (batch 32, remat, bf16
+    compute, dropout 0.1 in BERT)."""
+    import json as json_mod
+
+    import torch
+
+    from vault_tpu_torch.data.loader import InMemoryDataset
+    from vault_tpu_torch.data.nlvr2 import Nlvr2Dataset
+    from vault_tpu_torch.data.processor import VaultProcessor
+    from vault_tpu_torch.data.retrieval import RetrievalDataset
+    from vault_tpu_torch.data.vqa_dataset import VqaDataset
+    from vault_tpu_torch.models import vault as vm
+    from vault_tpu_torch.models.pretrained import build_tokenizer
+    from vault_tpu_torch.presets import vault_base
+    from vault_tpu_torch.training import trainer as trm
+    from vault_tpu_torch.training.mlm import mask_tokens, mlm_accuracy, mlm_loss
+    from vault_tpu_torch.training.task_trainers import (
+        ImagesAndTextTrainer,
+        RetrievalTrainer,
+        VqaTrainer,
+    )
+
+    class MlmTrainer(trm.Trainer):
+        """The Trainer with the MLM loss and masked accuracy (the JAX
+        package has no MLM trainer either: ``training/mlm.py`` gives them).
+        The evaluation keeps each row's logits for ``mlm_accuracy``."""
+
+        def calculate_loss(self, logits, labels, weight, train):
+            return mlm_loss(logits, labels, weight)
+
+        def get_eval_preds(self, logits):
+            return list(logits)
+
+        def evaluation_metrics(self, y_true, y_pred):
+            acc = mlm_accuracy(torch.from_numpy(np.stack(y_pred)),
+                               torch.from_numpy(np.stack(y_true)))
+            return {"mlm_accuracy": acc.item()}
+
+    cfg = vault_base("bert-base-uncased")
+    tok = build_tokenizer(str(dirs["bert-base-uncased"][0]))
+    proc = VaultProcessor(tok, canvas=(384, 608))
+    vcfg = cfg.resolved_vilt()
+
+    def params(seed, head_key, head):
+        gen = torch.Generator().manual_seed(seed)
+        sd = vm.init_vault(gen, cfg).state_dict()
+        if head_key == "pair":
+            sd.update({f"vilt.{k}": v for k, v in vm.resize_modality_type_embeddings(
+                {"modality_type": sd["vilt.modality_type"]}, 2).items()})
+        sd.update({f"{head_key}.{k}": v for k, v in head(gen).state_dict().items()})
+        return sd
+
+    def run(trainer_cls, factory, sd, train_ds, test_ds, eval_batches, epochs=1, images=1,
+            max_steps=-1):
+        """Train on ``train_ds``, then evaluate ``test_ds`` once."""
+        args = train_args(num_train_epochs=epochs, max_steps=max_steps)
+        tr = trainer_cls(factory(cfg, args), sd, args, train_ds, test_dataset=test_ds,
+                         device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        steps = epochs * train_ds.num_batches(TRAIN_BATCH)
+        steps = min(steps, max_steps) if max_steps > 0 else steps
+        h = tr.exp_handler
+        metrics = {**{k: v[-1] for k, v in h._series.items()}, **h._finals}
+        feats, labels = next(train_ds.batches(TRAIN_BATCH))
+        eight = {k: v[:8] for k, v in feats.items()}
+        plain = factory(cfg, train_args(use_pallas=False))
+        return tr, plain, eight, (feats, labels), counts, \
+            task_launches(steps, eval_batches, images), run_s, metrics
+
+    out = {}
+    # MLM: ViLT-B/32's 30,522-word vocabulary, the decoder tied to ViLT's
+    # word table; three steps, then mlm_accuracy on an evaluation batch
+    feats, _ = entry_features(cfg, TASK_TRAIN + TRAIN_BATCH, seed=31)
+    special = (feats["attention_mask"] == 0)
+    special[:, 0] = True
+    ids, labels = mask_tokens(torch.Generator().manual_seed(32),
+                              torch.from_numpy(feats["input_ids"]).long(),
+                              torch.from_numpy(special.astype(np.int32)),
+                              tok.mask_token_id, cfg.vilt.vocab_size)
+    feats["input_ids"] = ids.numpy()
+    labels = labels.numpy()
+    n = TASK_TRAIN
+    train_ds, eval_ds = (InMemoryDataset({k: v[sl] for k, v in feats.items()}, labels[sl])
+                         for sl in (slice(0, n), slice(n, None)))
+    sd = params(41, "mlm", lambda g: vm.init_mlm_head(g, vcfg))
+    res = run(MlmTrainer, trm.mlm_apply_fn, sd, train_ds, eval_ds, 1, epochs=2, max_steps=3)
+    task_path("mlm", *res, mlm_cfg=cfg, vocab=cfg.vilt.vocab_size,
+              masked_share=float((labels != -100).mean()))
+    out["mlm"] = res[4]
+    del res
+    torch.cuda.empty_cache()
+
+    # VQA: VQAv2-format questions and annotations over a 3,129-answer vocabulary
+    rng = np.random.default_rng(33)
+    vqa = root / "vqa"
+    write_task_images(vqa / "images", [f"{i}.jpg" for i in range(16)], seed=34)
+    label2id = {f"answer {i}": i for i in range(VQA_ANSWERS)}
+    for split, n_q in (("train", TASK_TRAIN), ("val", TASK_EVAL)):
+        qs = [{"question_id": i, "image_id": i % 16, "question": task_sentence(rng, 8)}
+              for i in range(n_q)]
+        anns = [{"question_id": i, "image_id": i % 16,
+                 "answers": [{"answer": f"answer {rng.integers(VQA_ANSWERS)}"}
+                             for _ in range(10)]} for i in range(n_q) if i % 8]
+        (vqa / f"{split}_q.json").write_text(json_mod.dumps({"questions": qs}))
+        (vqa / f"{split}_a.json").write_text(json_mod.dumps({"annotations": anns}))
+    ds = {split: VqaDataset(str(vqa / f"{split}_q.json"), str(vqa / f"{split}_a.json"),
+                            str(vqa / "images"), proc, label2id=label2id)
+          for split in ("train", "val")}
+    sd = params(42, "vqa", lambda g: vm.init_vqa_head(g, vcfg, VQA_ANSWERS))
+    res = run(VqaTrainer, trm.vqa_apply_fn, sd, ds["train"], ds["val"],
+              ds["val"].num_batches(TRAIN_BATCH))
+    task_path("vqa", *res, answers=VQA_ANSWERS,
+              unlabeled_rows=int((ds["train"].label_weights == 0).sum()))
+    out["vqa"] = res[4]
+    del res
+    torch.cuda.empty_cache()
+
+    # retrieval: 16 texts and their images, one sampled negative each
+    write_task_images(root / "retrieval", [f"{i}.jpg" for i in range(RETRIEVAL_IDS)], seed=35)
+    rds = RetrievalDataset([f"r{i}" for i in range(RETRIEVAL_IDS)],
+                           [task_sentence(rng) for _ in range(RETRIEVAL_IDS)],
+                           [str(root / "retrieval" / f"{i}.jpg")
+                            for i in range(RETRIEVAL_IDS)], proc, seed=36)
+    sd = params(43, "rank", lambda g: vm.init_rank_head(g, vcfg))
+    # two epochs of one step; the evaluation scores all 16 x 16 pairs
+    res = run(RetrievalTrainer, trm.retrieval_apply_fn, sd, rds, rds,
+              -(-RETRIEVAL_IDS ** 2 // TRAIN_BATCH), epochs=2)
+    if not all(f"test_{kind}-R@{k}" in res[7] for kind in ("image", "text")
+               for k in (1, 5, 10)):
+        fail(f"tasks retrieval: no R@k in {sorted(res[7])}")
+    task_path("retrieval", *res, pairs_evaluated=RETRIEVAL_IDS ** 2)
+    out["retrieval"] = res[4]
+    del res
+    torch.cuda.empty_cache()
+
+    # NLVR2: the pair head over two images per example (two backbone passes)
+    nl = root / "nlvr2"
+    write_task_images(nl / "images", [f"dev-{i}-0-img{s}.png" for i in range(TASK_TRAIN)
+                                      for s in (0, 1)][:32], seed=37)
+    for split, n_r in (("train", TASK_TRAIN), ("dev", TASK_EVAL)):
+        recs = [{"identifier": f"dev-{i % 16}-0-{i}", "sentence": task_sentence(rng),
+                 "label": "True" if rng.integers(2) else "False"} for i in range(n_r)]
+        (nl / f"{split}.jsonl").write_text("\n".join(json_mod.dumps(r) for r in recs))
+    ds = {split: Nlvr2Dataset(str(nl / f"{split}.jsonl"), str(nl / "images"), proc)
+          for split in ("train", "dev")}
+    sd = params(44, "pair", lambda g: vm.init_pair_head(g, vcfg))
+    res = run(ImagesAndTextTrainer, trm.images_and_text_apply_fn, sd, ds["train"],
+              ds["dev"], ds["dev"].num_batches(TRAIN_BATCH), images=2)
+    task_path("nlvr2", *res, images=2)
+    out["nlvr2"] = res[4]
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def tasks_phase(dev):
+    """The tasks group: the experiment CLI and the four remaining heads,
+    each path's launches, its forward against the plain path and its step
+    times (``task_path``).  Returns each path's launches."""
+    import tempfile
+
+    Path("build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir="build", prefix="tasks_") as tmp:
+        root = Path(tmp)
+        dirs = write_hf_dirs(root, names=("bert-base-uncased", "vilt-b32-mlm"))
+        counts = cli_paths(root, dirs)
+        counts.update(head_paths(dev, root, dirs))
+    emit(phase="tasks", step="total", seconds=time.perf_counter() - t0)
+    return {f"tasks_{k}": v for k, v in counts.items()}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2813,7 +3202,7 @@ def _leaves(tree):
     return [tree]
 
 
-PHASES = ("kernels", "vault", "w8", "llama", "train", "merge", "serve")
+PHASES = ("kernels", "vault", "w8", "llama", "train", "merge", "serve", "tasks")
 
 
 def main():
@@ -2911,6 +3300,8 @@ def main():
         _, path_counts["train_step_merged"] = train_step_phase(dev, merge_to=MERGE_TO)
     if "serve" in phases:
         path_counts.update(serve_phase(dev))
+    if "tasks" in phases:
+        path_counts.update(tasks_phase(dev))
     emit(phase="trace_checks", short_share=TRACE_SHORT_SHARE, long_share=TRACE_LONG_SHARE,
          launch_gap_ms=LAUNCH_GAP_MS, **TRACE_LOG)
     if set(phases) != set(PHASES):

@@ -1,5 +1,6 @@
 """The port's command-line entry points (``vault_tpu_torch/cli/``) against the
-JAX package's ``scripts/serve.py`` and ``scripts/quantize_ckpt.py``.
+JAX package's ``scripts/serve.py``, ``scripts/quantize_ckpt.py`` and
+``experiments/clsf_vault.py``.
 
 A w8a8 checkpoint written by the JAX package (``vault_tpu.ops.quantize`` +
 ``vault_tpu.training.checkpoint``) is served by the port's ``build``
@@ -43,7 +44,8 @@ from vault_tpu_torch.ops.quantize import is_k_major
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL, RTOL = 1e-3, 2.0 ** -7
-CLIS = ["vault_tpu_torch.cli.serve", "vault_tpu_torch.cli.quantize_ckpt"]
+CLIS = ["vault_tpu_torch.cli.serve", "vault_tpu_torch.cli.quantize_ckpt",
+        "vault_tpu_torch.cli.clsf_vault"]
 
 
 def _jax_params(seed=0, n_classes=3):
@@ -327,3 +329,159 @@ def test_hygiene_covers_the_serving_modules():
     files = {str(p.relative_to(hygiene.ROOT)) for p in hygiene.PORT_FILES}
     assert {n.replace(".", "/") + ".py" for n in names - {"vault_tpu_torch.cli"}} <= files
     assert "vault_tpu_torch/cli/__init__.py" in files
+
+
+# ---------------------------------------------------------------------------
+# The experiment CLI, ``python -m vault_tpu_torch.cli.clsf_vault``, against
+# ``experiments/clsf_vault.py`` in process: the same synthetic data (solid
+# colours, so both packages' resizes give the same pixels), ``--debug_tiny``
+# without a text tower and every dropout at 0, and the same weights, a
+# JAX-written checkpoint both load with ``--model_load_filename``.  The
+# metrics both write: losses within fp32 atol 1e-5 / bf16 atol 2e-2 (as
+# tests/test_torch_task_trainers.py), the discrete metrics equal.
+# ---------------------------------------------------------------------------
+
+def _make_bloomberg(root, n=24):
+    d = root / "bloomberg"
+    (d / "Twitter_images").mkdir(parents=True)
+    with open(d / "bloomberg-textimage.csv", "w") as f:
+        f.write("tweet_id,tweet,other,text_is_represented,image_adds\n")
+        for i in range(n):
+            f.write(f"{i},tweet number {i} #mynewcar,x,{i % 2},{(i // 2) % 2}\n")
+    for i in range(n):
+        Image.new("RGB", (60, 50), (i * 10 % 255, 40, 90)).save(
+            d / "Twitter_images" / f"T{i}.jpg")
+    return str(d)
+
+
+def _make_mvsa(root, n=20):
+    d = root / "MVSA_Single"
+    (d / "data").mkdir(parents=True)
+    kinds = ["positive", "neutral", "negative"]
+    with open(d / "labelResultAll.txt", "w") as f:
+        f.write("ID\ttext,image\n")
+        for i in range(1, n + 1):
+            f.write(f"{i}\t{kinds[i % 3]},{kinds[(i // 3) % 3]}\n")
+    for i in range(1, n + 1):
+        (d / "data" / f"{i}.txt").write_text(f"tweet {i} @user http://t.co/{i} 😀")
+        Image.new("RGB", (50, 40 + i), (i * 12 % 255, 70, 20)).save(d / "data" / f"{i}.jpg")
+    return str(d)
+
+
+def _jax_cli():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_clsf_vault", os.path.join(REPO, "experiments", "clsf_vault.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _metrics(root, exp):
+    import yaml
+
+    (run,) = os.listdir(os.path.join(root, exp))
+    with open(os.path.join(root, exp, run, "metrics.yml")) as f:
+        return run, yaml.safe_load(f)["experiment_0"]
+
+
+CLSF_CASES = {
+    "Bloomberg": (_make_bloomberg, ["--dev_size", "4", "--test_size", "4",
+                                    "--tasks", "text_is_represented", "image_adds",
+                                    "--val_split", "dev", "--test_split", "test"], 2,
+                  "VaultTMSCBloomberg"),
+    "MVSA": (_make_mvsa, ["--train_split", "train", "--val_split", "dev",
+                          "--test_split", "test"], 6, "VaultTMSCMVSA"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("task", list(CLSF_CASES))
+def test_clsf_vault_matches_the_jax_cli(tmp_path, monkeypatch, task, dtype):
+    """MVSA (dual heads, ``--preprocessed`` off) and Bloomberg (two label
+    columns, multi-label BCE): one epoch of 4-example batches with a dev
+    evaluation after each step (a fresh loss window each, so the JAX
+    trainer compiles its step once) and a test evaluation; the run
+    directories and every metric."""
+    from vault_tpu.config import VaultConfig as JVaultConfig
+    from vault_tpu.config import tiny_vilt_config as j_tiny_vilt
+    from vault_tpu_torch.cli import clsf_vault
+
+    make, extra, n_out, exp = CLSF_CASES[task]
+    root = make(tmp_path)
+    jcfg = JVaultConfig(vilt=j_tiny_vilt(image_size=64, patch_size=16, num_patch_tokens=16,
+                                         vocab_size=30522))
+    p = jvault.init_vault(jax.random.PRNGKey(4), jcfg)
+    p["head"] = jvault.init_classifier_head(jax.random.PRNGKey(5), 32, n_out)
+    jckpt.save_checkpoint(str(tmp_path / "init"), jax.tree.map(np.asarray, p))
+    argv = [task, "--root_dir", root, *extra, "--debug_tiny", "--vilt_dropout_prob", "0",
+            "--model_load_filename", str(tmp_path / "init"), "--num_train_epochs", "1",
+            "--train_batch_size", "4", "--eval_batch_size", "4", "--lr", "1e-3",
+            "--compute_dtype", dtype, "--opt_state_dtype", "float32", "--disable_tqdm",
+            "--device", "cpu", "--eval_steps", "1"]
+    monkeypatch.setattr(sys, "argv", ["clsf_vault.py", *argv, "--experiment_root",
+                                      str(tmp_path / "jax")])
+    _jax_cli().main()
+    (trainer,) = clsf_vault.main(argv + ["--experiment_root", str(tmp_path / "torch")])
+    run_ref, ref = _metrics(str(tmp_path / "jax"), exp)
+    run, ours = _metrics(str(tmp_path / "torch"), exp)
+    assert run == run_ref
+    assert ours.keys() == ref.keys() and "test_eval_loss" in ref
+    assert trainer.args.early_stopping_metric == "eval_loss"
+    for k, v in ref.items():
+        if "loss" in k:
+            np.testing.assert_allclose(ours[k], v, atol={"float32": 1e-5,
+                                                         "bfloat16": 2e-2}[dtype], err_msg=k)
+        elif k == "train_pairs_per_sec":  # a wall-clock rate, not a result
+            assert ours[k] > 0, k
+        else:
+            assert ours[k] == v, k
+    assert os.path.exists(os.path.join(str(tmp_path / "torch"), exp, run,
+                                       "aggregated_metrics.yml"))
+
+
+def test_clsf_vault_twitter_runs_with_a_text_tower(tmp_path):
+    """Twitter201X with the bert tower and the placeholder token (the
+    tokenizer grows by one entry; the word table, already wider, keeps its
+    rows, as in the JAX script), on the host."""
+    from vault_tpu_torch.cli import clsf_vault
+
+    d, imgs = tmp_path / "twitter2015", tmp_path / "twitter2015_images"
+    d.mkdir()
+    imgs.mkdir()
+    for split in ("train", "dev"):
+        with open(d / f"{split}.tsv", "w") as f:
+            f.write("index\t#1 Label\t#2 ImageID\t#3 String\t#3 String\n")
+            for i in range(8):
+                f.write(f"{i}\t{i % 3 - 1}\tim{i % 2}.jpg\ttweet {i} about $T$\ttarget {i}\n")
+    for i in range(2):
+        Image.new("RGB", (80, 60), (i * 40, 100, 150)).save(imgs / f"im{i}.jpg")
+    (trainer,) = clsf_vault.main([
+        "Twitter201X", "--dir", str(d), "--train_split", "train", "--dev_split", "dev",
+        "--test_split", "dev", "--bert_model_name_or_path", "bert-base-uncased",
+        "--debug_tiny", "--num_train_epochs", "1", "--train_batch_size", "4",
+        "--add_placeholder_token", "--device", "cpu", "--disable_tqdm",
+        "--experiment_root", str(tmp_path / "logs")])
+    assert trainer.params["bert.embeddings.word"].shape[0] == 30522
+    assert "test_eval_accuracy" in trainer.exp_handler._finals
+    assert os.path.exists(os.path.join(trainer.exp_handler.directory(),
+                                       "aggregated_metrics.yml"))
+
+
+def test_clsf_vault_device_and_unported_flags(tmp_path, monkeypatch):
+    """The card by default (raising without one), the mesh flags and entity
+    linking refused by name."""
+    from vault_tpu_torch.cli import clsf_vault
+
+    root = _make_mvsa(tmp_path, n=6)
+    base = ["MVSA", "--root_dir", root, "--debug_tiny"]
+    for extra, match in ((["--num_data_shards", "2"], "--num_data_shards"),
+                         (["--zero_opt"], "--zero_opt"),
+                         (["--coordinator_address", "localhost:1"], "--coordinator_address"),
+                         (["--entity_cache", "x.json"], "--entity_cache")):
+        with pytest.raises(NotImplementedError, match=match):
+            clsf_vault.main(base + extra + ["--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        clsf_vault.main(base)

@@ -157,6 +157,18 @@ def resize_stage(image: np.ndarray, shorter: int = SHORTER,
     return resize_normalize(np.asarray(image), (th, tw), device=device)
 
 
+def preprocess_image(image: np.ndarray, safe: bool = True,
+                     augment_rng: Optional[np.random.Generator] = None,
+                     crop_ratio: float = 0.9, shorter: int = SHORTER,
+                     longer: Optional[int] = None,
+                     max_hw: Optional[Tuple[int, int]] = None,
+                     device="cpu") -> torch.Tensor:
+    """One image's whole path: [safe-crop] -> [random-crop] ->
+    resize+normalize, (C, H, W) on ``device``."""
+    cropped = crop_stage(image, safe, augment_rng, crop_ratio)
+    return resize_stage(cropped, shorter, longer, max_hw, device=device)
+
+
 def bucket_canvas_from_sizes(sizes: Sequence[Tuple[int, int]],
                              buckets: Tuple[int, ...] = (SHORTER, 608)
                              ) -> Tuple[int, int]:
@@ -180,6 +192,24 @@ def bucket_canvas(images: Sequence[np.ndarray],
     canvases exist ((384, 608) for landscape batches, (608, 384) portrait,
     (384, 384), (608, 608) mixed)."""
     return bucket_canvas_from_sizes([im.shape[1:] for im in images], buckets)
+
+
+def canvas_key(height: int, width: int,
+               buckets: Tuple[int, ...] = (SHORTER, 608),
+               shorter: int = SHORTER,
+               longer: int = LONGER) -> Tuple[int, int]:
+    """The bucketed canvas a raw (height, width) image occupies after the
+    safe crop and the resize: the grouping key of orientation-bucketed
+    sampling (``loader.grouped_batch_indices``).  Batches homogeneous in
+    this key land on their own canvas under :func:`bucket_canvas`."""
+    if max(width / height, height / width) > MAX_ASPECT_RATIO:
+        # safe_aspect_crop clamps the longer side first
+        if height > width:
+            height = int(width * MAX_ASPECT_RATIO)
+        else:
+            width = int(height * MAX_ASPECT_RATIO)
+    th, tw = target_size(height, width, shorter, longer)
+    return bucket_canvas_from_sizes([(th, tw)], buckets)
 
 
 def pad_batch(images: Sequence[torch.Tensor],

@@ -6,14 +6,16 @@ Trainer contract (replacing torch DataLoader + collate_fn,
 vault/tmsc_utils/trainer.py:290-310): a dataset exposes ``num_examples``,
 ``num_batches(bs)`` and ``batches(bs, shuffle, rng)`` yielding
 ``(features_dict, labels)`` numpy batches.  :func:`parallel_map` is the
-decode pool the processor's ``num_workers`` runs on.  The grouped sampler
-and the lazy dataset are not ported yet.
+decode pool the processor's ``num_workers`` runs on;
+:func:`grouped_batch_indices` the canvas-grouped sampler the datasets of
+``data/datasets.py`` draw from.  The lazy dataset and the lazy loading of
+the datasets are not ported yet: no caller of the port needs them.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,6 +55,36 @@ class InMemoryDataset:
             if self.batch_transform is not None:
                 feats, labels = self.batch_transform(feats, labels)
             yield feats, labels
+
+
+def grouped_batch_indices(keys: Sequence, batch_size: int,
+                          shuffle: bool = False,
+                          rng: Optional[np.random.Generator] = None
+                          ) -> Iterator[np.ndarray]:
+    """Yield index batches drawn within groups of equal ``keys``.
+
+    Used for orientation-bucketed sampling: with keys =
+    ``image.canvas_key(h, w)`` every batch is canvas-homogeneous, so the
+    processor's auto canvas gives orientation-pure batches the (384, 608)
+    geometry instead of the mixed-batch 608x608.  Shuffling stays uniform
+    within each group and the batch order is shuffled across groups, with
+    the same draws from ``rng`` as the JAX package's sampler; at most one
+    partial batch per group.  With shuffle=False the groups keep dataset
+    order (deterministic eval)."""
+    keys = list(keys)
+    groups: Dict = {}
+    for i, k in enumerate(keys):
+        groups.setdefault(k, []).append(i)
+    batches = []
+    for k in sorted(groups, key=repr):
+        g = np.asarray(groups[k])
+        if shuffle:
+            (rng or np.random.default_rng()).shuffle(g)
+        for start in range(0, len(g), batch_size):
+            batches.append(g[start:start + batch_size])
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(batches)
+    yield from batches
 
 
 _decode_pools: dict = {}

@@ -73,6 +73,36 @@ def init_bert(gen: torch.Generator, cfg: TextTowerConfig) -> ParamDict:
     return ParamDict(embeddings=embeddings, layers=layers)
 
 
+def grow_word_embeddings(bert_params, new_size: int,
+                         generator: Optional[torch.Generator] = None,
+                         stddev: float = 0.02):
+    """Grow a BERT tower's word table to ``new_size`` rows, the new rows
+    drawn normal(0, stddev) from ``generator`` (HF resize_token_embeddings
+    semantics, used by TomBERT's resize, reference
+    vault/models/tombert/model.py:185-187).  ``bert_params`` is the tower's
+    state dict (key ``embeddings.word``); a new one is returned, the old
+    rows unchanged.  The draws follow the JAX package's rule, not its
+    stream."""
+    return {**bert_params, "embeddings.word": grow_rows(
+        bert_params["embeddings.word"], new_size, generator, stddev)}
+
+
+def grow_rows(table, new_size: int,
+              generator: Optional[torch.Generator] = None,
+              stddev: float = 0.02):
+    """``table`` with rows appended up to ``new_size``, each drawn
+    normal(0, stddev) from ``generator`` (seed 0 when none is given); the
+    table itself when it already has ``new_size`` rows or more."""
+    old, dim = table.shape
+    if new_size <= old:
+        return table
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    extra = torch.randn((new_size - old, dim), generator=generator,
+                        device=generator.device) * stddev
+    return torch.cat([table, extra.to(table.device, table.dtype)])
+
+
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------

@@ -16,8 +16,10 @@ Layout notes:
   * every float is upcast to fp32, as the JAX package's ``_np`` does, so a
     bf16 or fp16 checkpoint gives the same parameters in both packages.
 
-Sources may hold tensors or numpy arrays.  The task-head converters wait for
-their heads.
+Sources may hold tensors or numpy arrays.  The task-head converters
+(``*_head_from_torch``) return the head's state dict (``transform.w``, ...),
+to be placed under its key of the model (``mlm``, ``vqa``, ``rank``,
+``pair``).
 """
 
 from __future__ import annotations
@@ -202,3 +204,55 @@ def vilt_params_to_torch(params: Mapping, cfg: ViltConfig, prefix: str = "") -> 
     if "pooler.w" in params:
         _lin_out(sd, "pooler.dense", params, "pooler")
     return {prefix + k: v for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# Task-head converters (HF ViltFor* checkpoints <-> the port's head state dicts)
+# ---------------------------------------------------------------------------
+
+def mlm_head_from_torch(state_dict: Mapping, prefix: str = "mlm_score.") -> StateDict:
+    """ViltForMaskedLM's mlm_score (modeling_vilt.py:889-908); the decoder is
+    tied to the word embeddings, so only the transform and the bias are
+    stored."""
+    sd = strip_prefix(state_dict, prefix)
+    out: StateDict = {}
+    _lin(out, sd, "transform", "transform.dense")
+    _ln(out, sd, "transform_ln", "transform.LayerNorm")
+    out["bias"] = _f32(sd["bias"])
+    return out
+
+
+def _seq_head_from_torch(state_dict: Mapping, prefix: str) -> StateDict:
+    """Sequential(Linear, LayerNorm, GELU, Linear) under ``prefix``."""
+    sd = strip_prefix(state_dict, prefix)
+    out: StateDict = {}
+    _lin(out, sd, "in", "0")
+    _ln(out, sd, "ln", "1")
+    _lin(out, sd, "out", "3")
+    return out
+
+
+def vqa_head_from_torch(state_dict: Mapping, prefix: str = "classifier.") -> StateDict:
+    """ViltForQuestionAnswering's Sequential(Linear, LN, GELU, Linear)."""
+    return _seq_head_from_torch(state_dict, prefix)
+
+
+def rank_head_from_torch(state_dict: Mapping, prefix: str = "") -> StateDict:
+    """ViltForImageAndTextRetrieval's rank_output, or the itm-checkpoint
+    surgery: row 1 of a 2-way itm_score head becomes the rank head
+    (vault/models/vault/model.py:375-405)."""
+    sd = strip_prefix(state_dict, prefix)
+    out: StateDict = {}
+    if "rank_output.weight" in sd:
+        _lin(out, sd, "out", "rank_output")
+        return out
+    itm: StateDict = {}
+    _lin(itm, sd, "itm", "itm_score.fc" if "itm_score.fc.weight" in sd else "itm_score")
+    out["out.w"] = itm["itm.w"][:, 1:2].contiguous()
+    out["out.b"] = itm["itm.b"][1:2].clone()
+    return out
+
+
+def pair_head_from_torch(state_dict: Mapping, prefix: str = "classifier.") -> StateDict:
+    """ViltForImagesAndTextClassification's NLVR2 classifier."""
+    return _seq_head_from_torch(state_dict, prefix)

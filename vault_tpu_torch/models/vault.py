@@ -1,11 +1,27 @@
-"""VAuLT: language tower -> ViLT co-encoder composition and the classifier
-head (port of ``vault_tpu/models/vault.py``, backbone and TMSC head).
+"""VAuLT: language tower -> ViLT co-encoder composition and the task heads
+(port of ``vault_tpu/models/vault.py``).
 
 Reference mechanism (vault/models/vault/model.py:151-218): ``lm_preprocess``
 runs BERT over ``input_ids``, nulls them, and passes ``last_hidden_state`` to
 ViLT as ``inputs_embeds``.  Here that is explicit function composition, as
 in the JAX package, plus :class:`VaultForClassification`, the module a user
 builds and calls.
+
+Heads (reference locations):
+  * TMSC / MVSA / Bloomberg classifier: Dropout + Linear on pooler_output
+    (vault/models/vault/model.py:512-570)
+  * MLM: HF ViltMLMHead — dense+act+LN transform, decoder tied to ViLT word
+    embeddings + free bias (vault/models/vault/model.py:467-468)
+  * VQA: Linear(h,2h)+LN+GELU+Linear (vault/models/vault/model.py:472-509)
+  * Retrieval: rank_output Linear(h,1) (vault/models/vault/model.py:375-405)
+  * Images+Text (NLVR2): per-image backbone passes with
+    image_token_type_idx=i+1, concatenated poolers, 2-layer classifier
+    (vault/models/vault/model.py:408-464)
+
+Heads are drawn on the host from a ``torch.Generator`` (the JAX package's
+rules, not its streams).  The resizing helpers take and return dicts: a
+state dict (or the nested form :func:`~vault_tpu_torch.convert.param_tree`
+gives).
 """
 
 from __future__ import annotations
@@ -21,7 +37,16 @@ from vault_tpu_torch.models import bert as bert_mod
 from vault_tpu_torch.models import llama as llama_mod
 from vault_tpu_torch.models import vilt as vilt_mod
 from vault_tpu_torch.models.vilt import ViltOutput
-from vault_tpu_torch.ops.nn import ParamDict, dropout, init_linear, linear
+from vault_tpu_torch.ops.nn import (
+    ParamDict,
+    act_fn,
+    dropout,
+    init_layer_norm,
+    init_linear,
+    layer_norm,
+    linear,
+    matmul_fp32,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -108,6 +133,126 @@ def classifier_head_apply(head, pooled, dropout_prob=0.1, deterministic=True,
     return linear(head["out"], x)
 
 
+def init_mlm_head(gen: torch.Generator, cfg: ViltConfig) -> ParamDict:
+    return ParamDict(
+        transform=init_linear(gen, cfg.hidden_size, cfg.hidden_size,
+                              cfg.initializer_range),
+        transform_ln=init_layer_norm(cfg.hidden_size),
+        bias=torch.zeros(cfg.vocab_size))
+
+
+def mlm_head_apply(head, vilt_params, cfg: ViltConfig, hidden):
+    """ViltMLMHead with the decoder tied to ViLT's word embeddings
+    (modeling_vilt.py:889-908).  The decoder product returns fp32 from
+    operands of the compute type (bf16 on the card's tensor cores, exact
+    products), as the JAX package's ``preferred_element_type=f32`` does; it
+    is not a kernel of the JAX package."""
+    x = linear(head["transform"], hidden)
+    x = act_fn(cfg.hidden_act)(x)
+    x = layer_norm(head["transform_ln"], x, cfg.layer_norm_eps)
+    logits = matmul_fp32(x, vilt_params["text_embeddings"]["word"].t())
+    return logits + head["bias"]
+
+
+def init_vqa_head(gen: torch.Generator, cfg: ViltConfig, n_classes: int) -> ParamDict:
+    h = cfg.hidden_size
+    return ParamDict(**{
+        "in": init_linear(gen, h, h * 2, cfg.initializer_range),
+        "ln": init_layer_norm(h * 2),
+        "out": init_linear(gen, h * 2, n_classes, cfg.initializer_range)})
+
+
+def vqa_head_apply(head, cfg: ViltConfig, pooled):
+    x = linear(head["in"], pooled)
+    # HF builds this head with a bare nn.LayerNorm: torch's default eps
+    # 1e-5, not config.layer_norm_eps (modeling_vilt.py:925-929)
+    x = layer_norm(head["ln"], x, 1e-5)
+    x = act_fn("gelu")(x)
+    return linear(head["out"], x)
+
+
+def renew_vqa_classifier(gen: torch.Generator, head, n_classes: int,
+                         stddev: float = 0.02):
+    """VaultForQuestionAnswering's n_classes override: the final linear
+    drawn anew, normal(0, 0.02) weights and zero bias
+    (vault/models/vault/model.py:472-509), on the head's device and type.
+    Returns a head of ``head``'s kind (a ParamDict or a dict)."""
+    w = head["in"]["w"]
+    out = init_linear(gen, w.shape[1], n_classes, stddev).to(w.device, w.dtype)
+    if isinstance(head, ParamDict):
+        return ParamDict(**{"in": head["in"], "ln": head["ln"], "out": out})
+    return {**head, "out": out}
+
+
+def init_rank_head(gen: torch.Generator, cfg: ViltConfig) -> ParamDict:
+    return ParamDict(out=init_linear(gen, cfg.hidden_size, 1, cfg.initializer_range))
+
+
+def rank_head_apply(head, pooled):
+    return linear(head["out"], pooled)
+
+
+def rank_head_from_itm(itm_head) -> ParamDict:
+    """Reference checkpoint surgery (vault/models/vault/model.py:375-405): an
+    ``itm`` checkpoint carries a 2-way itm_score head; the retrieval rank
+    head is its row 1 (the "match" logit)."""
+    return ParamDict(out=ParamDict(w=itm_head["w"][:, 1:2].detach().clone(),
+                                   b=itm_head["b"][1:2].detach().clone()))
+
+
+def init_pair_head(gen: torch.Generator, cfg: ViltConfig, n_classes: int = 2,
+                   num_images: int = 2) -> ParamDict:
+    h = cfg.hidden_size * num_images
+    return ParamDict(**{
+        "in": init_linear(gen, h, h, cfg.initializer_range),
+        "ln": init_layer_norm(h),
+        "out": init_linear(gen, h, n_classes, cfg.initializer_range)})
+
+
+def pair_head_apply(head, cfg: ViltConfig, pooled_concat):
+    x = linear(head["in"], pooled_concat)
+    # bare nn.LayerNorm in HF: torch's default eps 1e-5 (modeling_vilt.py:1136-1141)
+    x = layer_norm(head["ln"], x, 1e-5)
+    x = act_fn("gelu")(x)
+    return linear(head["out"], x)
+
+
+def resize_token_embeddings(params, cfg: VaultConfig, new_size: int,
+                            generator: Optional[torch.Generator] = None,
+                            stddev: float = 0.02):
+    """Grow the word-embedding table to ``new_size`` rows (new rows
+    normal(0, 0.02) from ``generator``).  Like the reference's
+    resize_token_embeddings (vault/models/vault/model.py:130-135), the LM
+    tower's table is resized when there is one, otherwise ViLT's.
+    ``params`` is the model's state dict; returns (state dict, config)."""
+    key = ("bert.embeddings.word" if cfg.text_tower is not None
+           else "vilt.text_embeddings.word")
+    if new_size <= params[key].shape[0]:
+        return params, cfg
+    params = {**params, key: bert_mod.grow_rows(params[key], new_size,
+                                                generator, stddev)}
+    if cfg.text_tower is not None:
+        cfg = dataclasses.replace(
+            cfg, text_tower=dataclasses.replace(cfg.text_tower, vocab_size=new_size))
+    else:
+        cfg = dataclasses.replace(cfg, vilt=dataclasses.replace(cfg.vilt,
+                                                                vocab_size=new_size))
+    return params, cfg
+
+
+def resize_modality_type_embeddings(vilt_params, num_images: int):
+    """Grow ViLT's modality-type table from 2 to num_images+1 rows, copying
+    the single pretrained image row into every image slot: the reference's
+    resize_token_type_embeddings (vault/models/vault/model.py:437-456).
+    ``vilt_params``: ViLT's state dict (or its nested form); a new dict is
+    returned."""
+    table = vilt_params["modality_type"]
+    if table.shape[0] >= num_images + 1:
+        return vilt_params
+    new = torch.cat([table[0:1]] + [table[1:2]] * num_images)
+    return {**vilt_params, "modality_type": new}
+
+
 def vault_with_llama_tower(params, vilt_cfg: ViltConfig, llama_cfg,
                            input_ids, attention_mask=None, token_type_ids=None,
                            pixel_values=None, pixel_mask=None,
@@ -145,6 +290,61 @@ def vault_for_classification(params, cfg: VaultConfig, batch: Dict[str, Any],
                                  head_dropout, deterministic, generator)
 
 
+def vault_for_mlm(params, cfg: VaultConfig, batch, deterministic=True,
+                  generator=None, use_pallas="auto", remat=False,
+                  merge_patches_to=None):
+    """VaultForMaskedLM (vault/models/vault/model.py:467-468): MLM logits
+    (fp32) over the text span of the joint sequence (text tokens precede
+    the patches, so patch merging leaves the text span's indices intact)."""
+    out = vault_apply(params, cfg, deterministic=deterministic,
+                      generator=generator, use_pallas=use_pallas, remat=remat,
+                      merge_patches_to=merge_patches_to, **batch)
+    text_hidden = out.last_hidden_state[:, :batch["input_ids"].shape[1]]
+    return mlm_head_apply(params["mlm"], params["vilt"], cfg.resolved_vilt(),
+                          text_hidden)
+
+
+def vault_for_vqa(params, cfg: VaultConfig, batch, deterministic=True,
+                  generator=None, use_pallas="auto", remat=False,
+                  merge_patches_to=None):
+    out = vault_apply(params, cfg, deterministic=deterministic,
+                      generator=generator, use_pallas=use_pallas, remat=remat,
+                      merge_patches_to=merge_patches_to, **batch)
+    return vqa_head_apply(params["vqa"], cfg.resolved_vilt(), out.pooler_output)
+
+
+def vault_for_retrieval(params, cfg: VaultConfig, batch, deterministic=True,
+                        generator=None, use_pallas="auto", remat=False,
+                        merge_patches_to=None):
+    out = vault_apply(params, cfg, deterministic=deterministic,
+                      generator=generator, use_pallas=use_pallas, remat=remat,
+                      merge_patches_to=merge_patches_to, **batch)
+    return rank_head_apply(params["rank"], out.pooler_output)
+
+
+def vault_for_images_and_text(params, cfg: VaultConfig, batch,
+                              deterministic=True, generator=None,
+                              use_pallas="auto", remat=False,
+                              merge_patches_to=None):
+    """VaultForImagesAndTextClassification: pixel_values (B, num_images, C,
+    H, W); one whole backbone pass (the text tower included) per image with
+    its own modality slot i + 1, poolers concatenated.  The passes draw
+    their dropout from ``generator`` one after the other."""
+    pixel_values = batch["pixel_values"]
+    pixel_mask = batch.get("pixel_mask")
+    pooled = []
+    for i in range(pixel_values.shape[1]):
+        sub = dict(batch)
+        sub["pixel_values"] = pixel_values[:, i]
+        sub["pixel_mask"] = None if pixel_mask is None else pixel_mask[:, i]
+        sub["image_token_type_idx"] = i + 1
+        out = vault_apply(params, cfg, deterministic=deterministic,
+                          generator=generator, use_pallas=use_pallas, remat=remat,
+                          merge_patches_to=merge_patches_to, **sub)
+        pooled.append(out.pooler_output)
+    return pair_head_apply(params["pair"], cfg.resolved_vilt(), torch.cat(pooled, -1))
+
+
 def unreached_leaf(cfg: VaultConfig) -> Callable[[str], bool]:
     """Predicate on state-dict keys: the leaves the classifier's loss never
     reaches, which autograd leaves without a gradient where ``jax.grad``
@@ -159,6 +359,17 @@ def unreached_leaf(cfg: VaultConfig) -> Callable[[str], bool]:
         unread.add("vilt.text_embeddings.position")
     frozen = cfg.freeze_lm
     return lambda key: key in unread or (frozen and key.startswith("bert."))
+
+
+def mlm_unreached_leaf(cfg: VaultConfig) -> Callable[[str], bool]:
+    """:func:`unreached_leaf` for the MLM head: its decoder is tied to
+    ViLT's text word table (``mlm_head_apply``), so that table is read and
+    gets its gradient; the logits come from the last hidden state, so
+    ViLT's pooler is unread; the rest is as for the classifier."""
+    base = unreached_leaf(cfg)
+    pooler = {"vilt.pooler.w", "vilt.pooler.b"}
+    return lambda key: key in pooler or (key != "vilt.text_embeddings.word"
+                                         and base(key))
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:

@@ -32,6 +32,12 @@ How it maps onto PyTorch:
     (:func:`classifier_apply_fn` sets it from the config); any other leaf
     without a gradient raises, since it means the autograd graph was cut.
 
+The task heads have factories of their own beside
+:func:`classifier_apply_fn` (:func:`mlm_apply_fn`, :func:`vqa_apply_fn`,
+:func:`retrieval_apply_fn`, :func:`images_and_text_apply_fn`), and the task
+trainers (training/task_trainers.py) override the hooks at the bottom of
+:class:`Trainer`.
+
 Token merging trains as in the JAX package: :func:`classifier_apply_fn`
 threads ``merge_to`` and ``merge_at_layer`` into the forward (the
 size-weighted average is differentiable, the merge decisions piecewise
@@ -62,9 +68,14 @@ from vault_tpu_torch.convert import (
 )
 from vault_tpu_torch.models.vault import (
     batch_to_device,
+    mlm_unreached_leaf,
     resolve_device,
     unreached_leaf,
     vault_for_classification,
+    vault_for_images_and_text,
+    vault_for_mlm,
+    vault_for_retrieval,
+    vault_for_vqa,
 )
 from vault_tpu_torch.training import losses as losses_mod
 from vault_tpu_torch.training.experiment import ExperimentHandler
@@ -152,6 +163,49 @@ def classifier_apply_fn(cfg, args: TrainArgs,
 
     apply_fn.unreached = unreached_leaf(cfg)
     return apply_fn
+
+
+def _head_apply_fn(forward, cfg, args: TrainArgs, unreached) -> Callable:
+    """``apply_fn`` of a task head's forward (``vault_for_mlm``, ...) with
+    ``args.use_pallas``, ``args.remat`` and ``args.merge_to`` threaded in.
+    The head forwards merge patch tokens at the embeddings only, as the JAX
+    package's do, so a ``merge_at_layer`` past 0 raises."""
+    if args.merge_at_layer:
+        raise ValueError("the task heads merge patch tokens at the embeddings "
+                         f"only; merge_at_layer={args.merge_at_layer}")
+    use_pallas, remat, merge_to = args.use_pallas, args.remat, args.merge_to
+
+    def apply_fn(params, batch, deterministic, generator):
+        return forward(params, cfg, batch, deterministic=deterministic,
+                       generator=generator, use_pallas=use_pallas, remat=remat,
+                       merge_patches_to=merge_to)
+
+    apply_fn.unreached = unreached
+    return apply_fn
+
+
+def mlm_apply_fn(cfg, args: TrainArgs) -> Callable:
+    """``apply_fn`` of the MLM head (``vault_for_mlm``).  ViLT's text word
+    table is read by the tied decoder, so it is not among the unreached
+    leaves (:func:`~vault_tpu_torch.models.vault.mlm_unreached_leaf`)."""
+    return _head_apply_fn(vault_for_mlm, cfg, args, mlm_unreached_leaf(cfg))
+
+
+def vqa_apply_fn(cfg, args: TrainArgs) -> Callable:
+    """``apply_fn`` of the VQA head (``vault_for_vqa``)."""
+    return _head_apply_fn(vault_for_vqa, cfg, args, unreached_leaf(cfg))
+
+
+def retrieval_apply_fn(cfg, args: TrainArgs) -> Callable:
+    """``apply_fn`` of the retrieval rank head (``vault_for_retrieval``)."""
+    return _head_apply_fn(vault_for_retrieval, cfg, args, unreached_leaf(cfg))
+
+
+def images_and_text_apply_fn(cfg, args: TrainArgs) -> Callable:
+    """``apply_fn`` of the pair head (``vault_for_images_and_text``, two
+    backbone passes).  Every row of the resized modality-type table is
+    read (text 0, image slots 1 and 2)."""
+    return _head_apply_fn(vault_for_images_and_text, cfg, args, unreached_leaf(cfg))
 
 
 class EarlyStopping:
@@ -474,7 +528,7 @@ class Trainer:
             # metrics, the loss rides along
             out = torch.cat([logits.float().reshape(-1),
                              loss.float().reshape(1)]).cpu().numpy()
-            loss, logits = out[-1], out[:-1].reshape(len(labels_p), -1)
+            loss, logits = out[-1], out[:-1].reshape(tuple(logits.shape))
             # the loss is a weighted mean over the valid mass; re-weight by it
             mass = float(weight.sum())
             total_loss += float(loss) * mass
