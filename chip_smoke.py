@@ -26,8 +26,12 @@ served forward exported with ``torch.export``, saved, loaded and run); then
 trains the paper's tasks and the remaining heads at full width (the
 experiment CLI ``cli.clsf_vault`` in process on MVSA and Twitter201X; the
 MLM, VQA, retrieval and NLVR2 heads through their trainers, each on
-synthetic files written under ``build/``).  It checks the launch counts,
-the gradients and the outputs.
+synthetic files written under ``build/``); then trains and evaluates the
+paper's baselines, TomBERT and TomViLT with a frozen ResNet-101, through
+``python -m vault_tpu_torch.cli.tmsc_tombert`` in process (the attention
+kernel at their lengths, the ResNet on the card against the host, each
+model's forward and step against its plain path).  It checks the launch
+counts, the gradients and the outputs.
 Each phase prints one JSON line; any failure exits non-zero.  Device
 times come from CUPTI traces, each held against the CUDA-event time of the
 same calls (``device_ms``).  The last line
@@ -36,7 +40,8 @@ exits non-zero and prints no result.  Imports nothing of JAX or of the JAX
 package.
 
 ``--phases a,b`` runs only the named groups of phases (``kernels``,
-``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``, ``tasks``) while
+``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``, ``tasks``,
+``baselines``) while
 working on one of them; such
 a run ends with ``{"partial": [...]}``, not with the ``ok`` line.
 """
@@ -2201,6 +2206,34 @@ def zero_in_exact_arithmetic(name: str) -> bool:
     return name.endswith(".k.b")
 
 
+def grad_rel(kernel_grads, plain_grads, unread):
+    """Per leaf ||g_kernel - g_plain|| / ||g_plain|| of one step's
+    gradients on the two paths.  Returns (rel, noise, bad): ``noise`` the
+    two norms of each leaf whose gradient is 0 in exact arithmetic
+    (``zero_in_exact_arithmetic``, held finite only); ``bad`` the leaves
+    with an unexpected gradient: one the loss never reads (``unread``)
+    with a nonzero gradient, any other with a zero or non-finite one."""
+    import torch
+
+    rel, noise, bad = {}, {}, []
+    for k, gp in plain_grads.items():
+        gk = kernel_grads[k]
+        nk, np_ = (torch.linalg.vector_norm(t.double()).item() for t in (gk, gp))
+        finite = math.isfinite(nk) and math.isfinite(np_)
+        if unread(k):
+            if nk != 0.0 or np_ != 0.0:
+                bad.append((k, nk, np_))
+        elif zero_in_exact_arithmetic(k):
+            noise[k] = [nk, np_]
+            if not finite:
+                bad.append((k, nk, np_))
+        elif not finite or nk == 0.0 or np_ == 0.0:
+            bad.append((k, nk, np_))
+        else:
+            rel[k] = torch.linalg.vector_norm(gk.double() - gp.double()).item() / np_
+    return rel, noise, bad
+
+
 def entry_features(cfg, n, seed):
     """``n`` examples in the ``entry()`` layout as host numpy arrays (a
     dataset's form): 40 text tokens with ragged padding, a 384x608 canvas,
@@ -2275,25 +2308,10 @@ def train_step_phase(dev, merge_to=None):
     if not torch.equal(kern["gen"], plain["gen"]):
         fail("the kernel path and the plain path drew different dropout streams")
     loss_diff = abs(kern["loss"] - plain["loss"])
-    rel, zero, noise = {}, [], {}
-    for k, gp in plain["grads"].items():
-        gk = kern["grads"][k]
-        nk, np_ = (torch.linalg.vector_norm(t.double()).item() for t in (gk, gp))
-        if k in UNUSED_LEAVES:
-            if nk != 0.0 or np_ != 0.0:
-                fail(f"{k}: VAuLT never reads it, yet its gradient is nonzero")
-            continue
-        if zero_in_exact_arithmetic(k):
-            if not (math.isfinite(nk) and math.isfinite(np_)):
-                zero.append((k, nk, np_))
-            noise[k] = [nk, np_]
-            continue
-        if not (math.isfinite(nk) and math.isfinite(np_)) or nk == 0.0 or np_ == 0.0:
-            zero.append((k, nk, np_))
-            continue
-        rel[k] = torch.linalg.vector_norm(gk.double() - gp.double()).item() / np_
-    if zero:
-        fail(f"leaves without a finite nonzero gradient: {zero[:8]}")
+    rel, noise, bad = grad_rel(kern["grads"], plain["grads"], UNUSED_LEAVES.__contains__)
+    if bad:
+        fail(f"leaves with an unexpected gradient (an unread leaf's nonzero, another's "
+             f"zero or not finite): {bad[:8]}")
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
     loss_kernel = kern["loss"]
     if loss_diff > STEP_LIMITS["loss"] or worst[0][1] > STEP_LIMITS["grad_rel"]:
@@ -3194,6 +3212,392 @@ def tasks_phase(dev):
     return {f"tasks_{k}": v for k, v in counts.items()}
 
 
+# ---------------------------------------------------------------------------
+# The baselines group: TomBERT and TomViLT (the paper's baselines) at the
+# reference's default configuration, bert-base-uncased text stacks, one
+# cross layer, a frozen ResNet-101 at a 224 crop (49 regions of 2,048),
+# 64 tweet+target and 16 target tokens, TomViLT on ViLT-B/32 with the tweet
+# tower; through ``python -m vault_tpu_torch.cli.tmsc_tombert`` in process.
+# ---------------------------------------------------------------------------
+
+RESNET_DEPTH = 101
+# Encoder attention lengths on the baselines' path: the target (16), ViLT
+# in TomViLT (40 text + 16 attended tokens), the tweet+target pair (64) and
+# TomBERT's multimodal stack (the pooled visual token + 64).
+BASELINE_ATTENTION_L = (16, 56, 64, 65)
+# Kernel launches of the baselines' paths.  TomBERT: the
+# tweet, target and multimodal stacks have 12 layers each, the cross layer
+# one post-LN MLP block (its attention stays on the plain composition, as
+# the JAX package keeps it on XLA).  TomViLT: the target stack and VAuLT's
+# BERT 12 layers each, the cross layer, ViLT's 12 pre-LN layers.  Neither
+# trains with remat, and attention takes its kernel only when deterministic.
+TOMBERT_EVAL_LAUNCHES = launches(encoder_attention=36, mlp_postln=37)
+TOMBERT_STEP_LAUNCHES = launches(mlp_postln=37, mlp_postln_bwd=37)
+TOMVILT_EVAL_LAUNCHES = launches(encoder_attention=36, mlp_postln=25, mlp_block=12)
+TOMVILT_STEP_LAUNCHES = launches(mlp_postln=25, mlp_block=12, mlp_postln_bwd=25,
+                                 mlp_block_bwd=12)
+TOMVILT_NO_TWEET_EVAL_LAUNCHES = launches(encoder_attention=24, mlp_postln=13, mlp_block=12)
+# ResNet-101 region features on the card against the same fp32 tree on the
+# host (TF32 off): max |card - host| over the features' largest magnitude.
+RESNET_LIMIT = 1e-4
+
+
+def check_baseline_attention(gen, dev):
+    """The encoder-attention kernel at the baselines' lengths (batch 8, 12
+    heads, head dim 64, bf16, a ragged key mask), against its plain
+    version: the bf16 limit, the per-row gate with its fp8 control, timed
+    beside the plain version and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    rows = []
+    for l in BASELINE_ATTENTION_L:
+        q, k, v, bias = attention_case(gen, 8, 12, l, torch.bfloat16, dev, fused=True)
+        out, again = ca.fused_attention(q, k, v, bias), ca.fused_attention(q, k, v, bias)
+        ref = ca.attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not math.isfinite(err) or err > LIMITS["bfloat16"]:
+            fail(f"baselines attention L {l}: max |kernel - plain| {err} > {LIMITS['bfloat16']}")
+        if not torch.equal(out, again):
+            fail(f"baselines attention L {l}: two launches differ")
+        row = dict(kernel="encoder_attention", path="baselines", shape=[8, 12, l, 64],
+                   dtype="bfloat16", max_abs_err=err, limit=LIMITS["bfloat16"],
+                   bit_equal_repeat=True, route=ca.attention_route(torch.bfloat16))
+        check_attention_rows("baselines attention", (8, 12, l, 64), q, k, v, bias, out, ref,
+                             row)
+        allowed = bias > -1.0
+        timed(lambda: ca.fused_attention(q, k, v, bias), "", row)
+        timed(lambda: ca.attention_plain(q, k, v, bias), "plain_", row)
+        timed(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed),
+              "library_", row)
+        row["bound_ms"], row["bound_by"] = bound_ms(4.0 * 8 * 12 * l * l * 64,
+                                                    4.0 * q.numel() * 2 + bias.numel() * 4,
+                                                    torch.bfloat16)
+        check_route("encoder_attention", row)
+        emit(phase="baselines", step="attention", **row)
+        rows.append(row)
+    return rows
+
+
+def write_torchvision_resnet(path: Path, depth=RESNET_DEPTH, seed=31):
+    """A torchvision-layout ResNet state dict from seeded numpy, saved with
+    ``torch.save``: He-normal convolutions, BatchNorm weights about 1 (each
+    block's last one about 0.2, damping the residual growth that running
+    statistics of 0 and 1 do not normalize), biases and running means
+    about 0, running variances about 1.  Returns the state dict."""
+    import torch
+
+    from vault_tpu_torch.models.resnet import RESNET_LAYERS
+
+    rng = np.random.default_rng(seed)
+    kind, blocks = RESNET_LAYERS[depth]
+    sd = {}
+
+    def conv(name, o, i, k):
+        w = rng.standard_normal((o, i, k, k), dtype=np.float32) * np.float32(
+            math.sqrt(2.0 / (i * k * k)))
+        sd[f"{name}.weight"] = torch.from_numpy(w)
+
+    def bn(name, c, gamma=1.0):
+        noise = lambda s: rng.standard_normal(c, dtype=np.float32) * np.float32(s)
+        sd[f"{name}.weight"] = torch.from_numpy(np.float32(gamma) * (1 + noise(0.05)))
+        sd[f"{name}.bias"] = torch.from_numpy(noise(0.02))
+        sd[f"{name}.running_mean"] = torch.from_numpy(noise(0.02))
+        sd[f"{name}.running_var"] = torch.from_numpy(
+            rng.uniform(0.9, 1.1, c).astype(np.float32))
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    in_c, expansion = 64, 1 if kind == "basic" else 4
+    for s, (w, n) in enumerate(zip([64, 128, 256, 512], blocks)):
+        for b in range(n):
+            pre, out_c = f"layer{s + 1}.{b}", w * expansion
+            if kind == "basic":
+                conv(f"{pre}.conv1", w, in_c, 3), bn(f"{pre}.bn1", w)
+                conv(f"{pre}.conv2", w, w, 3), bn(f"{pre}.bn2", w, 0.2)
+            else:
+                conv(f"{pre}.conv1", w, in_c, 1), bn(f"{pre}.bn1", w)
+                conv(f"{pre}.conv2", w, w, 3), bn(f"{pre}.bn2", w)
+                conv(f"{pre}.conv3", out_c, w, 1), bn(f"{pre}.bn3", out_c, 0.2)
+            if b == 0:
+                conv(f"{pre}.downsample.0", out_c, in_c, 1)
+                bn(f"{pre}.downsample.1", out_c)
+            in_c = out_c
+    sd["fc.weight"] = torch.zeros(1000, in_c)
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def check_resnet_features(dev, pth: Path, images):
+    """ResNet-101 region features of 8 preprocessed images on the card
+    against the same tree on the host (fp32, TF32 off), within
+    ``RESNET_LIMIT`` of the features' scale; the 32-image cache batch
+    timed on the card."""
+    import torch
+
+    from vault_tpu_torch.convert import param_tree
+    from vault_tpu_torch.models.pretrained import load_resnet_tower
+    from vault_tpu_torch.models.resnet import resnet_features
+
+    sd = load_resnet_tower(str(pth), RESNET_DEPTH)
+    host = param_tree(sd)
+    card = param_tree({k: v.to(dev) for k, v in sd.items()})
+    x = torch.from_numpy(np.ascontiguousarray(images[:8]))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = resnet_features(host, RESNET_DEPTH, x)
+        host_s = time.perf_counter() - t0
+        out = resnet_features(card, RESNET_DEPTH, x.to(dev)).cpu()
+        if tuple(out.shape) != (8, 49, 2048):
+            fail(f"baselines ResNet-101 features {tuple(out.shape)}, expected (8, 49, 2048)")
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item() / scale
+        if not math.isfinite(err) or err > RESNET_LIMIT:
+            fail(f"baselines ResNet-101 card vs host: {err} of the scale > {RESNET_LIMIT}")
+        x32 = torch.from_numpy(np.ascontiguousarray(images[:32])).to(dev)
+        fn = lambda: resnet_features(card, RESNET_DEPTH, x32)
+        busy, kernels = device_ms(fn, iters=3, warmup=1)
+        wall = time_ms(fn, iters=3, warmup=0)
+    emit(phase="baselines", step="resnet101", rows=8, max_rel_err=err, limit=RESNET_LIMIT,
+         scale=scale, host_s=host_s, batch32_device_ms=busy, batch32_wall_ms=wall,
+         top_kernels_ms=dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:4]))
+
+
+def baseline_step_vs_plain(name, tr, plain_fn, batch, lab, w):
+    """One batch-32 step's loss and gradients on the kernel path against the
+    plain path (the same masters, batch and generator seed: the dropout
+    streams match), under ``STEP_LIMITS``; returns the kernel path's
+    launches.  Leaves the loss does not reach get no gradient on either
+    path (a frozen ResNet, ViLT's image path)."""
+    import torch
+
+    kernel_fn = tr.apply_fn
+    res = {}
+    for path, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
+        tr.apply_fn = fn
+        gen = tr.step_generator(0)
+        reset_counts()
+        loss, grads = tr.loss_and_grads(batch, lab, w, gen)
+        torch.cuda.synchronize()
+        res[path] = dict(loss=loss.item(), grads=grads, counts=read_counts(),
+                         gen=gen.get_state())
+    tr.apply_fn = kernel_fn
+    kern, plain = res["kernel"], res["plain"]
+    if any(plain["counts"].values()):
+        fail(f"baselines {name}: the plain path launched kernels {plain['counts']}")
+    if not torch.equal(kern["gen"], plain["gen"]):
+        fail(f"baselines {name}: the paths drew different dropout streams")
+    rel, _, bad = grad_rel(kern["grads"], plain["grads"], tr.apply_fn.unreached)
+    if bad:
+        fail(f"baselines {name}: leaves with an unexpected gradient: {bad[:8]}")
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    loss_diff = abs(kern["loss"] - plain["loss"])
+    if loss_diff > STEP_LIMITS["loss"] or worst[0][1] > STEP_LIMITS["grad_rel"]:
+        fail(f"baselines {name} step kernel path vs plain path: loss diff {loss_diff}, "
+             f"worst leaves {worst} (limits {STEP_LIMITS})")
+    return kern["counts"], dict(loss_kernel_path=kern["loss"], loss_abs_diff=loss_diff,
+                                grad_rel_worst=worst, leaves_checked=len(rel),
+                                grad_rel_median=float(np.median(list(rel.values()))))
+
+
+def baseline_cli_path(name, argv, want_eval, want_step, plain_fn_of):
+    """``cli.tmsc_tombert.main`` in process (one epoch over 64 examples, a
+    dev and a test evaluation): its launches, one frozen-cache computation
+    per split, a batch-8 evaluation forward and a batch-32 step each held
+    against the plain path, the step's wall and busy ms, idle share and
+    peak memory."""
+    import torch
+
+    from vault_tpu_torch.cli import tmsc_tombert
+    from vault_tpu_torch.data.tombert_dataset import TomBertTmscDataset
+    from vault_tpu_torch.models.vault import batch_to_device
+
+    caches = {}
+    replace = TomBertTmscDataset.replace_images_with_embeddings
+
+    def counted(ds, embeddings):
+        caches[ds.name] = caches.get(ds.name, 0) + 1
+        return replace(ds, embeddings)
+
+    TomBertTmscDataset.replace_images_with_embeddings = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        (tr,) = tmsc_tombert.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_counts = read_counts()
+    finally:
+        TomBertTmscDataset.replace_images_with_embeddings = replace
+    splits = (tr.train_dataset, tr.dev_dataset, tr.test_dataset)
+    if sorted(caches.values()) != [1, 1, 1] or any(
+            ds.embeddings is None or ds._emb_src is not tr.resnet_params for ds in splits):
+        fail(f"baselines {name}: frozen-cache computations per split {caches}")
+    if any(ds.embeddings.shape[1:] != (49, 2048) for ds in splits):
+        fail(f"baselines {name}: cached regions {splits[0].embeddings.shape}")
+    steps = tr.train_dataset.num_batches(TRAIN_BATCH)
+    eval_batches = sum(ds.num_batches(tr.args.eval_batch_size) for ds in splits[1:])
+    want = {k: steps * want_step[k] + eval_batches * want_eval[k] for k in KERNEL_NAMES}
+    if run_counts != want:
+        fail(f"baselines {name}: launches {run_counts}, expected {want}")
+    h = tr.exp_handler
+    metrics = {**{k: v[-1] for k, v in h._series.items()}, **h._finals}
+    losses = {k: v for k, v in metrics.items() if "loss" in k}
+    if not losses or not all(math.isfinite(v) for v in losses.values()):
+        fail(f"baselines {name}: losses {losses}")
+    if not (Path(h.directory()) / "aggregated_metrics.yml").exists():
+        fail(f"baselines {name}: no aggregated_metrics.yml under {h.directory()}")
+    peak_run = torch.cuda.max_memory_allocated() / 1e9
+
+    plain_fn = plain_fn_of(tr)
+    tree = tr.compute_params({k: v.detach() for k, v in tr.params.items()})
+    feats, _ = next(tr.dev_dataset.batches(8))
+    batch8 = batch_to_device(feats, tr.device)
+    with torch.inference_mode():
+        reset_counts()
+        out = tr.apply_fn(tree, batch8, True, None)
+        torch.cuda.synchronize()
+        fwd_counts = read_counts()
+        ref = plain_fn(tree, batch8, True, None)
+        fwd_ms = time_ms(lambda: tr.apply_fn(tree, batch8, True, None), iters=5)
+        plain_fwd_ms = time_ms(lambda: plain_fn(tree, batch8, True, None), iters=5)
+    if fwd_counts != want_eval:
+        fail(f"baselines {name}: launches of a batch-8 forward {fwd_counts}, expected "
+             f"{want_eval}")
+    out, ref = out.float(), ref.float()
+    if not bool(torch.isfinite(out).all()) or tuple(out.shape) != (8, 3):
+        fail(f"baselines {name}: the batch-8 forward {tuple(out.shape)} is not finite")
+    err = (out - ref).abs().max().item()
+    if err > FORWARD_LIMITS["logits"]:
+        fail(f"baselines {name}: kernel path vs plain path, logits {err} "
+             f"(limit {FORWARD_LIMITS['logits']})")
+    del tree
+
+    feats, labels = next(tr.train_dataset.batches(TRAIN_BATCH))
+    b, lab, w = tr._to_device(*tr._pad(feats, labels))
+    step_counts, step_cmp = baseline_step_vs_plain(name, tr, plain_fn, b, lab, w)
+    if step_counts != want_step:
+        fail(f"baselines {name}: launches of a training step {step_counts}, expected "
+             f"{want_step}")
+    torch.cuda.reset_peak_memory_stats()
+    step = lambda: tr.train_step(b, lab, w, 1000)
+    step()
+    torch.cuda.synchronize()
+    samples = [time_ms(step, iters=1, warmup=0) for _ in range(3)]
+    busy, kernels = device_ms(step, iters=2, warmup=0)
+    ms = float(np.median(samples))
+    emit(phase="baselines", path=name, run_s=run_s, launches=run_counts,
+         cache_computations=caches, launches_per_forward=fwd_counts,
+         launches_per_step=step_counts, logits_max_abs_err=err,
+         limit=FORWARD_LIMITS["logits"], forward8_ms=fwd_ms, plain_forward8_ms=plain_fwd_ms,
+         **step_cmp, step_limits=STEP_LIMITS, step_ms=ms, step_ms_samples=samples,
+         device_busy_ms=busy, idle_share=1.0 - busy / ms,
+         top_kernels_ms=dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6]),
+         peak_mem_gb_run=peak_run, peak_mem_gb_step=torch.cuda.max_memory_allocated() / 1e9,
+         params_m=sum(v.numel() for v in tr.params.values()) / 1e6,
+         metrics=metrics, logs=h.directory())
+    return tr, run_counts
+
+
+def tomvilt_no_tweet_forward(tr, vault_cfg, text_cfg):
+    """TomViLT without the tweet tower (``use_tweet_bert`` off: ViLT reads
+    the token ids with its own word table), on the trained TomViLT's
+    parameters: a batch-8 forward's launches and its logits against the
+    plain path."""
+    import dataclasses as dc
+
+    import torch
+
+    from vault_tpu_torch.models.vault import batch_to_device
+    from vault_tpu_torch.training.task_trainers import tomvilt_apply_fn
+
+    cfg = dc.replace(vault_cfg, text_tower=None)
+    fns = {impl: tomvilt_apply_fn(cfg, text_cfg, RESNET_DEPTH, use_pallas=impl)
+           for impl in ("auto", False)}
+    tree = tr.compute_params({k: v.detach() for k, v in tr.params.items()
+                              if not k.startswith("vault.bert.")})
+    feats, _ = next(tr.dev_dataset.batches(8))
+    batch8 = batch_to_device(feats, tr.device)
+    with torch.inference_mode():
+        reset_counts()
+        out = fns["auto"](tree, batch8, True, None).float()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ref = fns[False](tree, batch8, True, None).float()
+    if counts != TOMVILT_NO_TWEET_EVAL_LAUNCHES:
+        fail(f"baselines tomvilt without the tweet tower: launches {counts}, expected "
+             f"{TOMVILT_NO_TWEET_EVAL_LAUNCHES}")
+    err = (out - ref).abs().max().item()
+    if not bool(torch.isfinite(out).all()) or err > FORWARD_LIMITS["logits"]:
+        fail(f"baselines tomvilt without the tweet tower: logits {err} "
+             f"(limit {FORWARD_LIMITS['logits']})")
+    emit(phase="baselines", path="tomvilt_no_tweet_forward", launches_per_forward=counts,
+         logits_max_abs_err=err, limit=FORWARD_LIMITS["logits"])
+    return counts
+
+
+def baselines_phase(dev):
+    """The baselines group: the attention kernel at the baselines' lengths,
+    the ResNet-101 features on the card against the host, then TomBERT and
+    TomViLT through the CLI on full-width files under a temporary
+    ``build/baselines_*``.  Returns each path's launches."""
+    import tempfile
+
+    import torch
+
+    from vault_tpu_torch.cli import tmsc_tombert
+    from vault_tpu_torch.training.task_trainers import tombert_apply_fn, tomvilt_apply_fn
+
+    Path("build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    check_baseline_attention(torch.Generator(device=dev).manual_seed(15), dev)
+    counts = {}
+    with tempfile.TemporaryDirectory(dir="build", prefix="baselines_") as tmp:
+        root = Path(tmp)
+        dirs = write_hf_dirs(root, names=("bert-base-uncased", "vilt-b32-mlm"))
+        pth = root / "resnet101.pth"
+        write_torchvision_resnet(pth)
+        twitter = write_twitter(root)
+        shared = ["--dir", str(twitter), "--train_split", "train", "--dev_split", "dev",
+                  "--test_split", "test", "--model_name_or_path",
+                  str(dirs["bert-base-uncased"][0]), "--resnet_weights", str(pth),
+                  "--num_train_epochs", "1", "--disable_tqdm",
+                  "--experiment_root", str(root / "logs")]
+        argv = ["TomBERT"] + shared
+        args = tmsc_tombert.parse_args(argv)
+        text_cfg = tmsc_tombert.text_config(args)
+        tr, counts["baselines_tombert_cli"] = baseline_cli_path(
+            "tombert_cli", argv, TOMBERT_EVAL_LAUNCHES, TOMBERT_STEP_LAUNCHES,
+            lambda tr: tombert_apply_fn(text_cfg, args.pooling, RESNET_DEPTH,
+                                        use_pallas=False))
+        check_resnet_features(dev, pth, tr.train_dataset.images)
+        del tr
+        torch.cuda.empty_cache()
+
+        argv = ["TomViLT", "--use_tweet_bert", "--vilt_model_name_or_path",
+                str(dirs["vilt-b32-mlm"][0])] + shared
+        args = tmsc_tombert.parse_args(argv)
+        vault_cfg = tmsc_tombert.vault_config(args, text_cfg)
+
+        tr, counts["baselines_tomvilt_cli"] = baseline_cli_path(
+            "tomvilt_cli", argv, TOMVILT_EVAL_LAUNCHES, TOMVILT_STEP_LAUNCHES,
+            lambda tr: tomvilt_apply_fn(vault_cfg, text_cfg, RESNET_DEPTH,
+                                        head_dropout=args.vilt_dropout_prob,
+                                        use_pallas=False))
+        counts["baselines_tomvilt_no_tweet"] = tomvilt_no_tweet_forward(tr, vault_cfg,
+                                                                        text_cfg)
+        del tr
+        torch.cuda.empty_cache()
+    emit(phase="baselines", step="total", seconds=time.perf_counter() - t0)
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -3202,7 +3606,8 @@ def _leaves(tree):
     return [tree]
 
 
-PHASES = ("kernels", "vault", "w8", "llama", "train", "merge", "serve", "tasks")
+PHASES = ("kernels", "vault", "w8", "llama", "train", "merge", "serve", "tasks",
+          "baselines")
 
 
 def main():
@@ -3302,6 +3707,8 @@ def main():
         path_counts.update(serve_phase(dev))
     if "tasks" in phases:
         path_counts.update(tasks_phase(dev))
+    if "baselines" in phases:
+        path_counts.update(baselines_phase(dev))
     emit(phase="trace_checks", short_share=TRACE_SHORT_SHARE, long_share=TRACE_LONG_SHARE,
          launch_gap_ms=LAUNCH_GAP_MS, **TRACE_LOG)
     if set(phases) != set(PHASES):

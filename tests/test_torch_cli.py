@@ -45,7 +45,7 @@ from vault_tpu_torch.ops.quantize import is_k_major
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL, RTOL = 1e-3, 2.0 ** -7
 CLIS = ["vault_tpu_torch.cli.serve", "vault_tpu_torch.cli.quantize_ckpt",
-        "vault_tpu_torch.cli.clsf_vault"]
+        "vault_tpu_torch.cli.clsf_vault", "vault_tpu_torch.cli.tmsc_tombert"]
 
 
 def _jax_params(seed=0, n_classes=3):
@@ -470,18 +470,225 @@ def test_clsf_vault_twitter_runs_with_a_text_tower(tmp_path):
 
 
 def test_clsf_vault_device_and_unported_flags(tmp_path, monkeypatch):
-    """The card by default (raising without one), the mesh flags and entity
-    linking refused by name."""
+    """The card by default (raising without one), the mesh flags refused by
+    name."""
     from vault_tpu_torch.cli import clsf_vault
 
     root = _make_mvsa(tmp_path, n=6)
     base = ["MVSA", "--root_dir", root, "--debug_tiny"]
     for extra, match in ((["--num_data_shards", "2"], "--num_data_shards"),
                          (["--zero_opt"], "--zero_opt"),
-                         (["--coordinator_address", "localhost:1"], "--coordinator_address"),
-                         (["--entity_cache", "x.json"], "--entity_cache")):
+                         (["--coordinator_address", "localhost:1"], "--coordinator_address")):
         with pytest.raises(NotImplementedError, match=match):
             clsf_vault.main(base + extra + ["--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         clsf_vault.main(base)
+
+
+def test_clsf_vault_entity_cache_matches_the_jax_cli(tmp_path, monkeypatch):
+    """Twitter201X with ``--entity_cache`` (and ``--add_placeholder_token``):
+    two targets linked with descriptions and one without, so two entity
+    tokens and ``$T$`` grow the tokenizer, the two entity rows ViLT's word
+    table (no text tower; the minimal tokenizer's ``$T$`` id lies inside
+    the table already), and the linked targets carry their tokens.  The weights are a
+    JAX-written checkpoint of the grown table (the max-pooled rows are held
+    in tests/test_torch_entity_linking.py); solid-colour images.  The run
+    directories and every metric as for the other tasks."""
+    import json
+
+    from vault_tpu.config import VaultConfig as JVaultConfig
+    from vault_tpu.config import tiny_vilt_config as j_tiny_vilt
+    from vault_tpu_torch.cli import clsf_vault
+
+    d, imgs = tmp_path / "twitter2015", tmp_path / "twitter2015_images"
+    d.mkdir()
+    imgs.mkdir()
+    for split, n in (("train", 8), ("dev", 4), ("test", 4)):
+        with open(d / f"{split}.tsv", "w") as f:
+            f.write("index\t#1 Label\t#2 ImageID\t#3 String\t#3 String\n")
+            for i in range(n):
+                f.write(f"{i}\t{i % 3 - 1}\tim{i % 2}.jpg\ttweet {i} about $T$\t"
+                        f"target {i % 3}\n")
+    for i in range(2):
+        Image.new("RGB", (80, 60), (i * 40, 100, 150)).save(imgs / f"im{i}.jpg")
+    cache = tmp_path / "entities.json"
+    cache.write_text(json.dumps({"target 0": ["Zero", "a zero of the cat"],
+                                 "target 1": ["One", "the one blue dog"],
+                                 "target 2": ["Two", None]}))
+    jcfg = JVaultConfig(vilt=j_tiny_vilt(image_size=64, patch_size=16, num_patch_tokens=16,
+                                         vocab_size=30522 + 2))
+    p = jvault.init_vault(jax.random.PRNGKey(4), jcfg)
+    p["head"] = jvault.init_classifier_head(jax.random.PRNGKey(5), 32, 3)
+    jckpt.save_checkpoint(str(tmp_path / "init"), jax.tree.map(np.asarray, p))
+    argv = ["Twitter201X", "--dir", str(d), "--train_split", "train", "--dev_split", "dev",
+            "--test_split", "test", "--entity_cache", str(cache), "--add_placeholder_token",
+            "--debug_tiny", "--vilt_dropout_prob", "0", "--model_load_filename",
+            str(tmp_path / "init"), "--num_train_epochs", "1", "--train_batch_size", "4",
+            "--eval_batch_size", "4", "--lr", "1e-3", "--compute_dtype", "float32",
+            "--opt_state_dtype", "float32", "--disable_tqdm", "--device", "cpu",
+            "--eval_steps", "1"]
+    monkeypatch.setattr(sys, "argv", ["clsf_vault.py", *argv, "--experiment_root",
+                                      str(tmp_path / "jax")])
+    _jax_cli().main()
+    (trainer,) = clsf_vault.main(argv + ["--experiment_root", str(tmp_path / "torch")])
+    run_ref, ref = _metrics(str(tmp_path / "jax"), "VaultTMSCTwitter201X")
+    run, ours = _metrics(str(tmp_path / "torch"), "VaultTMSCTwitter201X")
+    assert run == run_ref
+    assert ours.keys() == ref.keys() and "test_eval_loss" in ref
+    for k, v in ref.items():
+        if "loss" in k:
+            np.testing.assert_allclose(ours[k], v, atol=1e-5, err_msg=k)
+        elif k == "train_pairs_per_sec":
+            assert ours[k] > 0, k
+        else:
+            assert ours[k] == v, k
+    assert trainer.params["vilt.text_embeddings.word"].shape[0] == 30522 + 2
+    texts = trainer.train_dataset.texts
+    assert texts[0].endswith("target 0/[Zero]") and texts[2].endswith("target 2")
+
+
+# ---------------------------------------------------------------------------
+# The baselines' CLI, ``python -m vault_tpu_torch.cli.tmsc_tombert``, against
+# ``experiments/tmsc_tombert.py`` in process: a Twitter-2015 layout with
+# noise images (the two packages' resizes agree within 1.1e-6 after the
+# normalization, tests/test_torch_datasets.py), ``--debug_tiny`` (ResNet-18,
+# a 64-pixel crop), the same weights in both (a JAX-written checkpoint
+# through ``--model_load_filename``, its ResNet the torchvision-layout
+# ``--resnet_weights`` file both packages cache the region embeddings
+# from), and every dropout at 0 (the tiny text config's 0.1 patched to 0 in
+# both packages; ``--vilt_dropout_prob 0``), so the two runs draw nothing.
+# The metrics as for clsf_vault: losses fp32 atol 1e-5, the rest equal.
+# ---------------------------------------------------------------------------
+
+def _make_twitter(root, n_train=8, n_eval=4, seed=0):
+    rng = np.random.default_rng(seed)
+    d, imgs = root / "twitter2015", root / "twitter2015_images"
+    d.mkdir()
+    imgs.mkdir()
+    words = "a the cat dog red blue sits on big small".split()
+    for split, n in (("train", n_train), ("dev", n_eval), ("test", n_eval)):
+        with open(d / f"{split}.tsv", "w") as f:
+            f.write("index\t#1 Label\t#2 ImageID\t#3 String\t#3 String\n")
+            for i in range(n):
+                tweet = " ".join(rng.choice(words, 6))
+                f.write(f"{i}\t{i % 3 - 1}\tim{i % 3}.jpg\t{tweet} $T$ {rng.choice(words)}"
+                        f"\ttarget {words[i % len(words)]}\n")
+    for i, hw in enumerate(((50, 70), (80, 45), (64, 64))):
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            imgs / f"im{i}.jpg", format="PNG")  # lossless: both decode the same pixels
+    return d
+
+
+def _torchvision_resnet18(path, seed=0):
+    """A torchvision-layout ResNet-18 state dict with moved BatchNorm
+    statistics, saved with ``torch.save``."""
+    from tests.test_tom_models import _torch_resnet
+
+    torch.manual_seed(seed)
+    sd = _torch_resnet(18).state_dict()
+    g = torch.Generator().manual_seed(seed)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            v.copy_(0.1 * torch.randn(v.shape, generator=g))
+        elif k.endswith("running_var"):
+            v.copy_(0.5 + torch.rand(v.shape, generator=g))
+    torch.save(sd, path)
+    return sd
+
+
+def _no_text_dropout(monkeypatch):
+    import vault_tpu.config as jconfig
+    import vault_tpu_torch.config as tconfig
+
+    for mod in (jconfig, tconfig):
+        base = mod.tiny_text_config
+        monkeypatch.setattr(mod, "tiny_text_config", lambda _b=base, **kw: _b(
+            **{**kw, "hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0}))
+
+
+def _jax_tombert_cli():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_tmsc_tombert", os.path.join(REPO, "experiments", "tmsc_tombert.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TMSC_CASES = {"TomBERT": ["--pooling", "both"], "TomViLT": ["--use_tweet_bert"],
+              "TomViLT_vilt_only": []}
+
+
+@pytest.mark.parametrize("case", list(TMSC_CASES))
+def test_tmsc_tombert_matches_the_jax_cli(tmp_path, monkeypatch, case):
+    """One epoch of 4-example batches with a dev evaluation after each step
+    and a test evaluation, TomBERT (pooling "both") and TomViLT with and
+    without the tweet tower: the run directories and every metric; the
+    region cache computed once per split."""
+    from vault_tpu.config import VaultConfig as JVaultConfig
+    from vault_tpu.config import tiny_text_config as j_tiny_text
+    from vault_tpu.config import tiny_vilt_config as j_tiny_vilt
+    from vault_tpu.models import tombert as jtombert
+    from vault_tpu.models import tomvilt as jtomvilt
+    from vault_tpu.models.resnet import resnet_params_from_torch as j_resnet_from_torch
+    from vault_tpu_torch.cli import tmsc_tombert
+
+    _no_text_dropout(monkeypatch)
+    model = case.split("_")[0]
+    d = _make_twitter(tmp_path)
+    sd = _torchvision_resnet18(tmp_path / "r18.pth")
+    text = j_tiny_text(vocab_size=30522, hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    key = jax.random.PRNGKey(4)
+    if model == "TomBERT":
+        p = jtombert.init_tombert(key, text, 3, "both", 512, 1, resnet_depth=18)
+    else:
+        vcfg = JVaultConfig(vilt=j_tiny_vilt(vocab_size=30522),
+                            text_tower=text if "--use_tweet_bert" in TMSC_CASES[case] else None)
+        p = jtomvilt.init_tomvilt(key, vcfg, text, 3, 512, 1, resnet_depth=18)
+    p["resnet"] = j_resnet_from_torch(sd, 18)
+    jckpt.save_checkpoint(str(tmp_path / "init"), jax.tree.map(np.asarray, p))
+    argv = [model, "--dir", str(d), "--train_split", "train", "--dev_split", "dev",
+            "--test_split", "test", *TMSC_CASES[case], "--debug_tiny",
+            "--resnet_weights", str(tmp_path / "r18.pth"), "--vilt_dropout_prob", "0",
+            "--model_load_filename", str(tmp_path / "init"), "--num_train_epochs", "1",
+            "--train_batch_size", "4", "--eval_batch_size", "4", "--lr", "1e-3",
+            "--compute_dtype", "float32", "--opt_state_dtype", "float32",
+            "--disable_tqdm", "--device", "cpu", "--eval_steps", "1"]
+    monkeypatch.setattr(sys, "argv", ["tmsc_tombert.py", *argv, "--experiment_root",
+                                      str(tmp_path / "jax")])
+    _jax_tombert_cli().main()
+    (trainer,) = tmsc_tombert.main(argv + ["--experiment_root", str(tmp_path / "torch")])
+    exp = f"{model}TMSC"
+    run_ref, ref = _metrics(str(tmp_path / "jax"), exp)
+    run, ours = _metrics(str(tmp_path / "torch"), exp)
+    assert run == run_ref
+    assert ours.keys() == ref.keys() and "test_eval_loss" in ref
+    for k, v in ref.items():
+        if "loss" in k:
+            np.testing.assert_allclose(ours[k], v, atol=1e-5, err_msg=k)
+        elif k == "train_pairs_per_sec":
+            assert ours[k] > 0, k
+        else:
+            assert ours[k] == v, k
+    for ds in (trainer.train_dataset, trainer.dev_dataset, trainer.test_dataset):
+        assert ds.embeddings.shape == (ds.num_examples, 4, 512)
+        assert ds._emb_src is trainer.resnet_params
+
+
+def test_tmsc_tombert_refusals(tmp_path, monkeypatch, capsys):
+    """``--merge_to`` exits 2 (the JAX script's parser error), the mesh
+    flags raise by name, and the card is the default device."""
+    from vault_tpu_torch.cli import tmsc_tombert
+
+    base = ["TomBERT", "--dir", str(tmp_path), "--train_split", "train", "--debug_tiny"]
+    with pytest.raises(SystemExit) as e:
+        tmsc_tombert.parse_args(base + ["--merge_to", "8"])
+    assert e.value.code == 2 and "--merge_to" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError, match="--zero_opt"):
+        tmsc_tombert.main(base + ["--zero_opt", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmsc_tombert.main(base)

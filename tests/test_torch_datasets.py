@@ -4,6 +4,14 @@ canvas-grouped sampler, the text preprocessing (``text/preprocess.py``,
 ``text/segmenter.py``), and the MLM masking and metrics
 (``training/mlm.py``).
 
+TomBERT's data (``data/tombert_dataset.py``): ``imagenet_preprocess``
+against the JAX package's on noise images of odd geometries (portrait,
+landscape, smaller than the crop, one side unchanged), atol 5e-6 after the
+normalization (measured max 1.1e-6; the JAX package's resize is jitted, so
+its sample positions are fused multiply-adds, as the port computes them),
+and ``TomBertTmscDataset``'s features and batches, eager and per fetch, the
+same ids, masks and labels and images within that tolerance.
+
 The fixtures are those of tests/test_datasets.py (Twitter-201X TSV,
 Bloomberg CSV, MVSA ``labelResultAll.txt``, solid-colour images) plus VQAv2
 JSON, NLVR2 jsonl and retrieval images; each dataset is built by both
@@ -29,6 +37,7 @@ from vault_tpu.data import datasets as jds
 from vault_tpu.data import loader as jloader
 from vault_tpu.data import nlvr2 as jnlvr2
 from vault_tpu.data import retrieval as jretrieval
+from vault_tpu.data import tombert_dataset as jtombert_ds
 from vault_tpu.data import vqa as jvqa
 from vault_tpu.data import vqa_dataset as jvqa_ds
 from vault_tpu.data.image import canvas_key as j_canvas_key
@@ -41,6 +50,7 @@ from vault_tpu_torch.data import datasets as tds
 from vault_tpu_torch.data import loader as tloader
 from vault_tpu_torch.data import nlvr2 as tnlvr2
 from vault_tpu_torch.data import retrieval as tretrieval
+from vault_tpu_torch.data import tombert_dataset as ttombert_ds
 from vault_tpu_torch.data import vqa as tvqa
 from vault_tpu_torch.data import vqa_dataset as tvqa_ds
 from vault_tpu_torch.data.image import canvas_key
@@ -124,6 +134,68 @@ def test_twitter_dataset_matches_jax(twitter_dir, buckets):
     for path in ("a.jpg", "c.png"):
         p = os.path.join(os.path.dirname(twitter_dir), "twitter2015_images", path)
         np.testing.assert_array_equal(tds.load_image_file(p), jds.load_image_file(p))
+
+
+PREPROCESS_ATOL = 5e-6
+
+
+@pytest.mark.parametrize("hw,crop", [((300, 200), 224), ((200, 333), 224), ((480, 640), 224),
+                                     ((50, 40), 64), ((97, 131), 64), ((30, 500), 64),
+                                     ((64, 90), 64)])
+def test_imagenet_preprocess_matches_jax(hw, crop):
+    """Short side to the crop (floor geometry), the round-half center
+    crop, ImageNet normalization: portrait, landscape, images smaller than
+    the crop (upscaled), a thin strip, and one side already at the crop."""
+    img = np.random.default_rng(sum(hw)).integers(0, 256, (*hw, 3), dtype=np.uint8)
+    ref = jtombert_ds.imagenet_preprocess(img, crop)
+    ours = ttombert_ds.imagenet_preprocess(img, crop)
+    assert ours.shape == ref.shape == (3, crop, crop) and ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, atol=PREPROCESS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("on_fetch", [False, True])
+def test_tombert_dataset_matches_jax(twitter_dir, on_fetch):
+    """Both encodings (the tweet+target pair at 16 tokens, the target at
+    5), the entity map, the image fallback, eager and per-fetch images,
+    the frozen-ResNet cache served in place of the images, under a seeded
+    shuffle."""
+    imgs = os.path.join(os.path.dirname(twitter_dir), "twitter2015_images")
+    rng = np.random.default_rng(3)
+    for name, hw in (("a.jpg", (70, 50)), ("b.jpg", (40, 90))):
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            os.path.join(imgs, name), format="PNG")
+    jp, tp = _procs()
+    kw = dict(max_total_length=16, max_target_length=5, crop_size=32,
+              preprocess_on_fetch=on_fetch, num_workers=2,
+              entity_map={"the fox": "[fox]"})
+    ref = jtombert_ds.TomBertTmscDataset(twitter_dir, ["train", "dev"], jp, **kw)
+    ours = ttombert_ds.TomBertTmscDataset(twitter_dir, ["train", "dev"], tp, **kw)
+    assert ours.name == ref.name and ours.label_mapping == ref.label_mapping
+    assert ours.num_examples == ref.num_examples == 8 and ours.num_batches(3) == 3
+    for k, v in ref.features.items():
+        np.testing.assert_array_equal(ours.features[k], v, err_msg=k)
+    assert (ours.images is None) == (ref.images is None) == on_fetch
+
+    def check(o, r):
+        o, r = list(o), list(r)
+        assert len(o) == len(r) == 3
+        for (fo, lo), (fr, lr) in zip(o, r):
+            assert fo.keys() == fr.keys()
+            for k in fr:
+                if k in ("images", "visual_embeddings"):
+                    np.testing.assert_allclose(fo[k], fr[k], atol=PREPROCESS_ATOL, rtol=0)
+                else:
+                    np.testing.assert_array_equal(fo[k], fr[k], err_msg=k)
+            np.testing.assert_array_equal(lo, lr)
+
+    check(ours.batches(3, shuffle=True, rng=np.random.default_rng(5)),
+          ref.batches(3, shuffle=True, rng=np.random.default_rng(5)))
+    assert ours._err_count == ref._err_count > 0
+    emb = rng.normal(size=(8, 1, 6)).astype(np.float32)
+    ours.replace_images_with_embeddings(emb)
+    ref.replace_images_with_embeddings(emb)
+    check(ours.batches(3, shuffle=True, rng=np.random.default_rng(6)),
+          ref.batches(3, shuffle=True, rng=np.random.default_rng(6)))
 
 
 @pytest.fixture

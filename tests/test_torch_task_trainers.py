@@ -326,3 +326,120 @@ def test_retrieval_recall_keeps_a_tied_positive():
     for k in ref:
         assert ours[k] == pytest.approx(ref[k], abs=1e-6), k
     assert ours["text-R@1"] == 0.75 and ours["text-R@5"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# TomBERT / TomViLT: ``TomBertTrainer`` with its frozen-ResNet cache, two
+# steps against the JAX package's on each package's ``TomBertTmscDataset``
+# over the same files (ResNet-18, 64-pixel crop, 4 regions), dropout off,
+# the same tolerances as above; the cached regions within fp32 5e-5 of
+# their largest magnitude (measured 1.1e-6 of it; about 1.7e-4 absolute).
+# ---------------------------------------------------------------------------
+
+def _tom_twitter(root):
+    from PIL import Image
+
+    rng = np.random.default_rng(31)
+    d, imgs = root / "twitter2015", root / "twitter2015_images"
+    d.mkdir()
+    imgs.mkdir()
+    words = "a the cat dog red blue sits on big small".split()
+    for split, n in (("train", N), ("dev", 4)):
+        with open(d / f"{split}.tsv", "w") as f:
+            f.write("index\t#1 Label\t#2 ImageID\t#3 String\t#3 String\n")
+            for i in range(n):
+                f.write(f"{i}\t{i % 3 - 1}\tim{i % 3}.jpg\t{' '.join(rng.choice(words, 5))} "
+                        f"$T$\ttarget {words[i]}\n")
+    for i, hw in enumerate(((50, 70), (80, 45), (64, 64))):
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            imgs / f"im{i}.jpg", format="PNG")
+    return str(d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["tombert", "tomvilt"])
+def test_tombert_trainer_matches_jax(tmp_path, family, dtype):
+    from vault_tpu.data.processor import VaultProcessor as JProcessor
+    from vault_tpu.data.tombert_dataset import TomBertTmscDataset as JTomDataset
+    from vault_tpu.models import tombert as jtombert
+    from vault_tpu.models import tomvilt as jtomvilt
+    from vault_tpu.text.wordpiece import WordPieceTokenizer as JWordPiece
+    from vault_tpu_torch.data.processor import VaultProcessor
+    from vault_tpu_torch.data.tombert_dataset import TomBertTmscDataset
+    from vault_tpu_torch.text.wordpiece import WordPieceTokenizer
+
+    no_drop = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    jtext, ttext = j_tiny_text(**no_drop), tiny_text_config(**no_drop)
+    vocab = {t: i for i, t in enumerate(
+        "[PAD] [UNK] [CLS] [SEP] [MASK] a the cat dog red blue sits on big small "
+        "target $T$".split())}
+    d = _tom_twitter(tmp_path)
+    kw = dict(max_total_length=16, max_target_length=6, crop_size=64)
+    jp_ = JProcessor(JWordPiece(dict(vocab)), max_length=16)
+    tp_ = VaultProcessor(WordPieceTokenizer(dict(vocab)), max_length=16)
+    jtrain, jdev = (JTomDataset(d, s, jp_, **kw) for s in ("train", "dev"))
+    ttrain, tdev = (TomBertTmscDataset(d, s, tp_, **kw) for s in ("train", "dev"))
+    key = jax.random.PRNGKey(2)
+    if family == "tombert":
+        jp = jtombert.init_tombert(key, jtext, 3, "first", 512, 1, resnet_depth=18)
+        japply = lambda p, b, deterministic, rng: jtombert.tombert_apply(
+            p, jtext, resnet_depth=18, deterministic=deterministic, rng=rng, **b)
+        apply_fn = ttt.tombert_apply_fn(ttext, resnet_depth=18, use_pallas=False)
+    else:
+        jv = JVaultConfig(vilt=j_tiny_vilt(), text_tower=jtext)
+        tv = VaultConfig(vilt=tiny_vilt_config(), text_tower=ttext)
+        jp = jtomvilt.init_tomvilt(key, jv, jtext, 3, 512, 1, resnet_depth=18)
+        japply = lambda p, b, deterministic, rng: jtomvilt.tomvilt_apply(
+            p, jv, jtext, resnet_depth=18, head_dropout=0.0, deterministic=deterministic,
+            rng=rng, **b)
+        apply_fn = ttt.tomvilt_apply_fn(tv, ttext, resnet_depth=18, head_dropout=0.0,
+                                        use_pallas=False)
+    jp = jax.tree.map(np.asarray, jp)
+    args = dict(lr=1e-3, train_batch_size=4, eval_batch_size=4, num_train_epochs=1,
+                eval_steps=1, seed=3, opt_state_dtype="float32", compute_dtype=dtype,
+                use_pallas=False, remat=False, disable_tqdm=True)
+    jh = JHandler(str(tmp_path / "jax"), "Toy")
+    jparams = jax.tree.map(jnp.asarray, jp)
+    jtr = jtt.TomBertTrainer(japply, jparams, JTrainArgs(num_data_shards=1, **args), jtrain,
+                             dev_dataset=jdev, exp_handler=jh,
+                             resnet_params=jparams["resnet"], resnet_depth=18)
+    jtr.train()
+    p0 = params_from_jax(jp)
+    th = ExperimentHandler(str(tmp_path / "torch"), "Toy")
+    resnet = {k[len("resnet."):]: v for k, v in p0.items() if k.startswith("resnet.")}
+    ttr = ttt.TomBertTrainer(apply_fn, p0, TrainArgs(**args), ttrain, dev_dataset=tdev,
+                             exp_handler=th, resnet_params=resnet, resnet_depth=18,
+                             device="cpu")
+    ttr.train()
+    for ours, ref in ((ttrain, jtrain), (tdev, jdev)):
+        assert ours.embeddings.shape == ref.embeddings.shape == (ours.num_examples, 4, 512)
+        scale = float(np.abs(ref.embeddings).max())  # the regions grow with depth
+        np.testing.assert_allclose(ours.embeddings / scale, ref.embeddings / scale, atol=5e-5)
+        assert ours._emb_src is resnet
+    ttr._cache_embeddings(ttrain)  # the same ResNet dict: the cache stays
+    assert ttrain._emb_src is resnet
+
+    ours, ref = th._series, jh._series
+    assert ours.keys() == ref.keys() and len(ours["train_loss"]) == 2
+    for k in ref:
+        if "loss" in k:
+            np.testing.assert_allclose(ours[k], ref[k], atol=LOSS_ATOL[dtype], err_msg=k)
+        else:
+            assert ours[k] == pytest.approx(ref[k], abs=1e-12), k
+    want = params_from_jax(jax.tree.map(np.asarray, jtr.params))
+    err2 = ref2 = 0.0
+    for k, w in want.items():
+        got = ttr.params[k].detach()
+        assert torch.isfinite(got).all(), k
+        if k.startswith("resnet."):  # frozen: no update in either package
+            assert torch.equal(got, p0[k]) and torch.equal(w, p0[k]), k
+            continue
+        if k.endswith(".k.b"):
+            continue
+        d_ref, d_ours = w - p0[k], got - p0[k]
+        err = torch.linalg.vector_norm(d_ours - d_ref).item()
+        norm = torch.linalg.vector_norm(d_ref).item()
+        if PARAM_TOL[dtype] is not None:
+            assert err <= PARAM_TOL[dtype] * norm + 1e-12, (k, err, norm)
+        err2, ref2 = err2 + err ** 2, ref2 + norm ** 2
+    assert err2 ** 0.5 <= PARAM_TOTAL_TOL[dtype] * ref2 ** 0.5, (err2, ref2)

@@ -17,12 +17,14 @@ with a warning), the head is drawn from ``--seed`` + rep.  Training runs on
 the card (``--device`` unset or ``cuda``; without a card it raises);
 ``--device cpu`` is the only way onto the host, where the kernels' plain
 versions run.  ``--debug_tiny`` takes the JAX script's tiny geometry and a
-64x64 canvas.
+64x64 canvas.  Twitter201X links its targets to entities with
+``--entity_cache`` (and ``--wiki_store`` to build a missing cache,
+``text/entity_linking.py``): each linked target carries its entity token,
+and each rep's active text tower grows a max-pooled row per entity.
 
 Not ported yet, and refused with ``NotImplementedError``: the mesh flags
-(``cli/args.py`` ``refuse_unported``), and ``--entity_cache`` /
-``--wiki_store`` (entity linking, ``text/entity_linking.py``).
-:func:`main` takes an argument list and returns the trainers it ran.
+(``cli/args.py`` ``refuse_unported``).  :func:`main` takes an argument list
+and returns the trainers it ran.
 """
 
 from __future__ import annotations
@@ -71,10 +73,12 @@ VAULT_MODEL_ARGS = dict(
     debug_tiny=dict(action="store_true",
                     help="debug: tiny model geometry + tiny image canvas"),
     entity_cache=dict(type=str,
-                      help="JSON entity cache (Twitter201X; entity linking is "
-                           "not ported yet: raises)"),
+                      help="JSON entity cache (Twitter201X: target -> [entity, "
+                           "description]); adds entity tokens to the tokenizer, "
+                           "their embeddings max-pooled"),
     wiki_store=dict(type=str,
-                    help="offline entity-linking store (not ported yet: raises)"),
+                    help="offline alias-store file to link with when "
+                         "--entity_cache does not exist yet (Twitter201X)"),
     entity_threshold=dict(default=0.0, type=float,
                           help="linker confidence threshold"),
     canvas=dict(default="default", type=str,
@@ -201,9 +205,10 @@ def _processor(args, tokenizer):
     return VaultProcessor(tokenizer, max_length=args.max_length, **kw)
 
 
-def _datasets(args, processor, text_pre):
+def _datasets(args, processor, text_pre, entity_map=None):
     """(train, dev, test, n_classes, trainer class, dataset label,
-    experiment name) of the task."""
+    experiment name) of the task.  ``entity_map``: Twitter201X's target ->
+    entity token."""
     from vault_tpu_torch.data.datasets import (
         Twitter201XDataset,
         VisionLanguageDataset,
@@ -221,7 +226,7 @@ def _datasets(args, processor, text_pre):
             return Twitter201XDataset(
                 args.dir, kinds, processor, image_dir=args.image_dir,
                 max_length=args.max_length, augment=augment,
-                num_workers=args.max_num_workers,
+                num_workers=args.max_num_workers, entity_map=entity_map or None,
                 orientation_buckets=args.orientation_buckets,
                 label_mapping=label_mapping)
 
@@ -273,16 +278,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
 
     from vault_tpu_torch.models.pretrained import build_tokenizer
     from vault_tpu_torch.models.vault import resize_token_embeddings, resolve_device
+    from vault_tpu_torch.text.entity_linking import integrate_entities_into_vault
     from vault_tpu_torch.text.preprocess import demojizer_selector, twitter_preprocessor
     from vault_tpu_torch.training.experiment import ExperimentHandler
     from vault_tpu_torch.training.trainer import classifier_apply_fn
 
     args = parse_args(argv)
     refuse_unported(args)
-    if args.entity_cache or args.wiki_store:
-        raise NotImplementedError(
-            "--entity_cache/--wiki_store: entity linking (text/entity_linking.py) "
-            "is not ported yet")
     device = resolve_device(args.device)
     logging.basicConfig(level=args.logging_level.upper(), filename=args.logging_file)
 
@@ -301,10 +303,28 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     def text_pre(t):
         return pre(demojizer(t))
 
+    # entities resolve before the datasets, so their tokens reach the
+    # encoded text (the reference appends "/[entity]" to each linked target,
+    # vault/tmsc_utils/dataset.py:260-283)
+    entity_map, entity_descriptions = {}, []
+    if args.task == "Twitter201X":
+        from vault_tpu_torch.data.datasets import read_twitter201x
+        from vault_tpu_torch.text.entity_linking import resolve_entities_for_cli
+
+        def read_targets():
+            kinds = (list(args.train_split) + list(args.dev_split or [])
+                     + list(args.test_split or []))
+            return [e.target for e in read_twitter201x(args.dir, kinds)]
+
+        entity_map, entity_descriptions = resolve_entities_for_cli(
+            args.entity_cache, args.wiki_store, args.entity_threshold,
+            tokenizer, read_targets)
     if args.add_placeholder_token and hasattr(tokenizer, "add_tokens"):
+        # after the entity tokens: the rows appended per rep (entity rows,
+        # then the random $T$ row) follow the token ids
         tokenizer.add_tokens(["$T$"])
     train_ds, dev_ds, test_ds, n_classes, trainer_cls, dataset_label, exp_name = \
-        _datasets(args, processor, text_pre)
+        _datasets(args, processor, text_pre, entity_map)
     targs = trainer_args_from_namespace(args)
 
     trainers = []
@@ -326,6 +346,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
 
         params = build_params(args, cfg, n_classes, args.seed + rep)
         run_cfg = cfg
+        if entity_descriptions:
+            params, run_cfg = integrate_entities_into_vault(
+                params, run_cfg, entity_descriptions, tokenizer)
         if args.add_placeholder_token and hasattr(tokenizer, "__len__"):
             params, run_cfg = resize_token_embeddings(
                 params, run_cfg, len(tokenizer),

@@ -56,10 +56,12 @@ def params_from_jax(tree: Mapping, cfg: Optional[VaultConfig] = None,
                     llama_cfg=None) -> Dict[str, torch.Tensor]:
     """State dict of :class:`~vault_tpu_torch.models.vault.
     VaultForClassification` or :class:`~vault_tpu_torch.models.vault.
-    VaultWithLlamaTower` (or of any subtree's module) from the JAX package's
-    pytree.  Key ``a.layers.<i>.b.c`` holds leaf
-    ``tree[a]["layers"][b][c][i]``; a layer's bare arrays (the Llama
-    tower's ``input_ln`` and ``post_ln``) unstack the same way, and
+    VaultWithLlamaTower`, of a TomBERT or TomViLT tree (or of any subtree's
+    module) from the JAX package's pytree.  Key ``a.layers.<i>.b.c`` holds
+    leaf ``tree[a]["layers"][b][c][i]``; a list (the ResNet's stages, lists
+    of block dicts) numbers its items, so ``resnet.layer2.3.conv1`` holds
+    ``tree["resnet"]["layer2"][3]["conv1"]``; a layer's bare arrays (the
+    Llama tower's ``input_ln`` and ``post_ln``) unstack the same way, and
     quantized leaves keep their int8 and fp32 types.  With ``cfg`` (and
     ``llama_cfg``, a ``LlamaConfig``, for the ``llama`` subtree) the stacked
     layer axes are checked against the configs' depths."""
@@ -78,6 +80,9 @@ def params_from_jax(tree: Mapping, cfg: Optional[VaultConfig] = None,
                     walk_layers(v, f"{prefix}layers", tower)
                 else:
                     walk(v, f"{prefix}{k}.", tower if prefix else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.", tower)
         else:
             out[prefix[:-1]] = _tensor(node)
 
@@ -118,7 +123,8 @@ def _insert(tree: dict, parts, leaf):
 def params_to_jax(state_dict: Mapping[str, torch.Tensor],
                   as_numpy: bool = True) -> Dict[str, Any]:
     """The JAX package's nested parameter tree from a state dict: keys split
-    on ".", ``layers.<i>`` leaves stacked on axis 0 (on the host).  Leaves
+    on ".", ``layers.<i>`` leaves stacked on axis 0 (on the host), any other
+    numbered children (the ResNet's blocks) gathered into lists.  Leaves
     are numpy arrays (:func:`to_numpy`), or CPU tensors when not
     ``as_numpy``; either way they are copies, never the state dict's own
     tensors."""
@@ -140,6 +146,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
                              "not numbered 0..n-1")
         _insert(tree, list(prefix + rest),
                 torch.stack([layers[i].detach() for i in range(len(layers))]).cpu())
+    tree = _listify(tree)
     if as_numpy:
         tree = _map(to_numpy, tree)
     return tree
@@ -148,7 +155,22 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
 def _map(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def _listify(node):
+    """Nested dicts with their numbered children (keys "0".."n-1") made
+    lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        if sorted(map(int, node)) != list(range(len(node))):
+            raise ValueError(f"children {sorted(node)} are not numbered 0..n-1")
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 def opt_state_from_jax(state, cfg: Optional[VaultConfig] = None) -> AdamWState:
@@ -175,13 +197,4 @@ def param_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     root: Dict[str, Any] = {}
     for key, t in state_dict.items():
         _insert(root, key.split("."), t)
-
-    def listify(node):
-        if not isinstance(node, dict):
-            return node
-        node = {k: listify(v) for k, v in node.items()}
-        if node and all(k.isdigit() for k in node):
-            return [node[str(i)] for i in range(len(node))]
-        return node
-
-    return listify(root)
+    return _listify(root)

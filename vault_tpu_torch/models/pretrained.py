@@ -223,6 +223,18 @@ def load_bert_tower(model_dir: str, cfg: TextTowerConfig) -> Dict[str, torch.Ten
     return bert_params_from_torch(sd, cfg)
 
 
+def load_resnet_tower(weights_path: str, depth: int) -> Dict[str, torch.Tensor]:
+    """The ResNet's state dict (``models/resnet.py`` keys, fp32) from a
+    torchvision ResNet state dict saved with ``torch.save`` (``.pth``): the
+    stand-in for the reference's ``pretrained=True`` ResNets
+    (vault/modules.py:210-308).  ``weights_only=True`` loads tensors only,
+    never pickled modules."""
+    from vault_tpu_torch.models.resnet import resnet_params_from_torch
+
+    sd = torch.load(weights_path, map_location="cpu", weights_only=True)
+    return resnet_params_from_torch(sd, depth)
+
+
 def build_tokenizer(name_or_path: str, max_length: int = 40):
     """The tokenizer of a local checkpoint directory: fastBPE for BERTweet's
     ``bpe.codes`` + ``vocab.txt``, WordPiece for a ``vocab.txt``, byte-level

@@ -13,9 +13,10 @@ Behavioral rebuilds of the reference's Vault trainers
   * VQA: BCE * n_labels, answer-score accuracy (:211-283);
   * Retrieval: scores over all image-text pairs -> image/text R@{1,5,10}
     (:286-415), evaluated in batches (the reference loops pair at a time;
-    same math).
-
-The TomBERT trainer waits for the baselines (``models/resnet.py``).
+    same math);
+  * TomBERT / TomViLT: TMSC with the frozen-ResNet embedding cache
+    (vault/models/tombert/trainer.py:63-77), and the ``apply_fn`` factories
+    of the two baselines.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from vault_tpu_torch.convert import param_tree
 from vault_tpu_torch.training import losses
 from vault_tpu_torch.training.metrics import accuracy, f1_score
 from vault_tpu_torch.training.trainer import Trainer, _progress
@@ -35,6 +37,97 @@ from vault_tpu_torch.training.trainer import Trainer, _progress
 class TmscTrainer(Trainer):
     """The base Trainer already matches the reference's TMSC adapter; the
     class exists for symmetry and task-specific extension."""
+
+
+class TomBertTrainer(Trainer):
+    """TMSC trainer of TomBERT and TomViLT with the frozen-ResNet embedding
+    cache: with the image encoder frozen, the region embeddings of every
+    split are computed once, before training, on the trainer's device at
+    ``eval_batch_size``, and handed to the dataset
+    (``replace_images_with_embeddings``), whose batches then carry them in
+    place of the images.  The reference computes them during epoch 0 and
+    caches after (vault/models/tombert/trainer.py:63-77); computing them
+    first is the same arithmetic.
+
+    ``resnet_params``: the ResNet's state dict (``stem.*``,
+    ``layer<s>.<b>.*``).  A dataset remembers the dict its cache came from
+    (by identity), so a later rep with a fresh ResNet recomputes it."""
+
+    def __init__(self, *args, resnet_params=None, resnet_depth: int = 101,
+                 train_image_encoder: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.resnet_params = resnet_params
+        self.resnet_depth = resnet_depth
+        self.train_image_encoder = train_image_encoder
+
+    @torch.no_grad()
+    def _cache_embeddings(self, dataset):
+        from vault_tpu_torch.models.resnet import resnet_features
+
+        if (self.train_image_encoder or self.resnet_params is None
+                or not hasattr(dataset, "replace_images_with_embeddings")):
+            return
+        if (getattr(dataset, "embeddings", None) is not None
+                and getattr(dataset, "_emb_src", None) is self.resnet_params):
+            return
+        tree = param_tree({k: v.detach().to(self.device)
+                           for k, v in self.resnet_params.items()})
+
+        def feats(images):
+            x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+            return resnet_features(tree, self.resnet_depth, x).cpu().numpy()
+
+        bs = self.args.eval_batch_size
+        if dataset.images is not None:
+            embs = [feats(dataset.images[s:s + bs])
+                    for s in range(0, dataset.images.shape[0], bs)]
+        else:  # decoded per fetch: stream the images in index order
+            dataset.embeddings = None  # serve images, not a stale cache
+            embs = [feats(f["images"]) for f, _ in dataset.batches(bs, shuffle=False)]
+        dataset.replace_images_with_embeddings(np.concatenate(embs))
+        dataset._emb_src = self.resnet_params
+
+    def train(self):
+        for ds in (self.train_dataset, self.dev_dataset, self.test_dataset):
+            if ds is not None:
+                self._cache_embeddings(ds)
+        return super().train()
+
+
+def tombert_apply_fn(cfg, pooling: str = "first", resnet_depth: int = 101,
+                     train_image_encoder: bool = False, tweet_cfg=None,
+                     use_pallas="auto"):
+    """``apply_fn`` of TomBERT for :class:`Trainer` (the JAX package's
+    ``experiments/tmsc_tombert.py`` builds it inline; no remat there
+    either).  Its ``unreached`` names a frozen ResNet's leaves."""
+    from vault_tpu_torch.models.tombert import tombert_apply, tombert_unreached_leaf
+
+    def apply_fn(params, batch, deterministic, generator):
+        return tombert_apply(params, cfg, pooling=pooling, resnet_depth=resnet_depth,
+                             train_image_encoder=train_image_encoder,
+                             tweet_cfg=tweet_cfg, deterministic=deterministic,
+                             generator=generator, use_pallas=use_pallas, **batch)
+
+    apply_fn.unreached = tombert_unreached_leaf(train_image_encoder)
+    return apply_fn
+
+
+def tomvilt_apply_fn(vault_cfg, target_cfg, resnet_depth: int = 101,
+                     train_image_encoder: bool = False, head_dropout: float = 0.1,
+                     use_pallas="auto"):
+    """``apply_fn`` of TomViLT for :class:`Trainer`.  Its ``unreached``
+    names a frozen ResNet's leaves, ViLT's image path and what VAuLT leaves
+    unread (``models/tomvilt.py`` ``tomvilt_unreached_leaf``)."""
+    from vault_tpu_torch.models.tomvilt import tomvilt_apply, tomvilt_unreached_leaf
+
+    def apply_fn(params, batch, deterministic, generator):
+        return tomvilt_apply(params, vault_cfg, target_cfg, resnet_depth=resnet_depth,
+                             train_image_encoder=train_image_encoder,
+                             head_dropout=head_dropout, deterministic=deterministic,
+                             generator=generator, use_pallas=use_pallas, **batch)
+
+    apply_fn.unreached = tomvilt_unreached_leaf(vault_cfg, train_image_encoder)
+    return apply_fn
 
 
 def _stop_on_eval_loss(trainer: Trainer):
