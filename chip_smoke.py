@@ -30,8 +30,13 @@ synthetic files written under ``build/``); then trains and evaluates the
 paper's baselines, TomBERT and TomViLT with a frozen ResNet-101, through
 ``python -m vault_tpu_torch.cli.tmsc_tombert`` in process (the attention
 kernel at their lengths, the ResNet on the card against the host, each
-model's forward and step against its plain path).  It checks the launch
-counts, the gradients and the outputs.
+model's forward and step against its plain path); then the training
+core's last options and the native host cores (a step under remat False,
+True and "dots" on both paths, the int8 AdamW moments on the card against
+the host, a ``Trainer.train()`` with int8 moments, "dots", ``profile_dir``,
+a resume and a NaN check, ``cli.clsf_vault`` with images held and decoded
+at batch time, the C++ resize and WordPiece cores against PIL and
+Python).  It checks the launch counts, the gradients and the outputs.
 Each phase prints one JSON line; any failure exits non-zero.  Device
 times come from CUPTI traces, each held against the CUDA-event time of the
 same calls (``device_ms``).  The last line
@@ -41,7 +46,7 @@ package.
 
 ``--phases a,b`` runs only the named groups of phases (``kernels``,
 ``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``, ``tasks``,
-``baselines``) while
+``baselines``, ``options``) while
 working on one of them; such
 a run ends with ``{"partial": [...]}``, not with the ``ok`` line.
 """
@@ -54,6 +59,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3598,6 +3604,502 @@ def baselines_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The options group: the training core's last options (remat="dots", the
+# int8 AdamW moments, profile_dir and the NaN checks, the lazy datasets)
+# and the native host cores, at VAuLT-base's full width.
+# ---------------------------------------------------------------------------
+
+# Kernel launches of one training step per remat mode on the kernel path:
+# without remat each MLP block runs once per layer; under True and "dots"
+# the backward reruns it (the kernels are operators, which "dots"
+# recomputes, as the JAX policy saves no pallas_call).
+REMAT_STEP_LAUNCHES = {False: launches(mlp_block=12, mlp_postln=12, mlp_block_bwd=12,
+                                       mlp_postln_bwd=12),
+                       True: STEP_LAUNCHES, "dots": STEP_LAUNCHES}
+# The 2-D products (aten mm / addmm, one cuBLAS launch each) of one layer's
+# forward that remat=True recomputes and "dots" keeps (ops/nn.py
+# _SAVED_PRODUCTS), per tower: on the kernel path the fused QKV product and
+# the attention output projection (the MLP is one kernel); on the plain
+# path Q, K, V, the output projection and the MLP's two halves.  The
+# recompute stops once it holds what the backward reads, but each bf16
+# product here is a Function (ops/nn.py _MatmulFP32) that packs its saved
+# inputs after its product runs, so it reaches even ViLT's second MLP
+# product, whose output no backward reads (an fp32 aten mm packs them
+# first: on the CPU the recompute stops short of that one).
+LAYER_PRODUCTS = {"auto": {"bert": 2, "vilt": 2}, False: {"bert": 6, "vilt": 6}}
+# "dots" against True on one path, same generator: the same operations on
+# the same values (bit-equal expected).
+DOTS_VS_TRUE = 1e-6
+# The int8 moments on the card against the host: each step's fp32 moment
+# math is elementwise and correctly rounded on both, so the codes should
+# agree; a code may move by one where the two sides round a value at a
+# code boundary apart.
+INT8_FLIP = {"max_step": 1, "share": 1e-4, "rel": 1e-6}
+OPTIONS_STEPS = 4  # Trainer.train(): two eval windows of two steps
+OPTIONS_WINDOW = 2
+
+
+def _count_products():
+    """A dispatch mode counting the aten ``mm`` / ``addmm`` calls under it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Products(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "aten" and func.overloadpacket.__name__ in ("mm", "addmm"):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return Products()
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """The dropout masks ``ops.nn.dropout_mask`` draws (the MLP kernels'),
+    in order, first runs and recomputes alike."""
+    from vault_tpu_torch.ops import cuda_mlp
+    from vault_tpu_torch.ops import nn as nn_ops
+
+    real, seen = nn_ops.dropout_mask, []
+
+    def record(*a, **kw):
+        m = real(*a, **kw)
+        seen.append(m)
+        return m
+
+    nn_ops.dropout_mask = cuda_mlp.dropout_mask = record
+    try:
+        yield seen
+    finally:
+        nn_ops.dropout_mask = cuda_mlp.dropout_mask = real
+
+
+def remat_dots_phase(dev):
+    """One training step (batch 32, dropout 0.1, bf16 compute) under
+    remat False, True and "dots", each on the kernel path and the plain
+    path: exact kernel launches, the cuBLAS products of "dots" those of
+    True less the layers' recomputed ones, each mode's gradients against
+    the plain path's, "dots" against True (gradients and dropout masks),
+    peak memory; wall and busy ms of each.  Returns the "dots" step's
+    launches on the kernel path."""
+    import torch
+
+    from vault_tpu_torch.data.loader import InMemoryDataset
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.presets import vault_base
+    from vault_tpu_torch.training.trainer import Trainer, classifier_apply_fn
+
+    cfg = vault_base("bert-base-uncased")
+    towers = {"bert": cfg.text_tower, "vilt": cfg.vilt}
+    # the MLP kernels' masks: one per layer of a tower with dropout
+    masked = sum(t.num_hidden_layers for t in towers.values() if t.hidden_dropout_prob > 0)
+    feats, labels = entry_features(cfg, TRAIN_BATCH, seed=3)
+    tr = Trainer(classifier_apply_fn(cfg, train_args()),
+                 VaultForClassification(cfg, device=dev, dtype=torch.float32, seed=0),
+                 train_args(), InMemoryDataset(feats, labels), device=dev)
+    batch, lab, w = tr._to_device(*tr._pad(feats, labels))
+    res = {}
+    for impl in ("auto", False):
+        for remat in (False, True, "dots"):
+            tr.apply_fn = classifier_apply_fn(cfg, train_args(use_pallas=impl, remat=remat))
+            gen = tr.step_generator(0)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with recorded_masks() as masks, _count_products() as products:
+                loss, grads = tr.loss_and_grads(batch, lab, w, gen)
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            counts = read_counts()
+            run = lambda: tr.loss_and_grads(batch, lab, w, tr.step_generator(0))
+            wall = [time_ms(run, iters=1, warmup=0) for _ in range(2)]
+            busy, _ = device_ms(run, iters=1, warmup=1)
+            res[impl, remat] = dict(loss=loss.item(), grads=grads, gen=gen.get_state(),
+                                    counts=counts, products=products.n,
+                                    masks=masks, peak_gb=peak / 1e9,
+                                    wall_ms=float(np.median(wall)), busy_ms=busy)
+    report = {}
+    for (impl, remat), r in res.items():
+        want = REMAT_STEP_LAUNCHES[remat] if impl == "auto" else launches()
+        if r["counts"] != want:
+            fail(f"options remat={remat!r} on {impl}: launches {r['counts']}, expected {want}")
+        report[f"{impl}/{remat}"] = {k: r[k] for k in ("loss", "products", "peak_gb",
+                                                       "wall_ms", "busy_ms")}
+    for impl in ("auto", False):
+        recomputed = sum(LAYER_PRODUCTS[impl][name] * t.num_hidden_layers
+                         for name, t in towers.items())
+        if res[impl, "dots"]["products"] != res[impl, True]["products"] - recomputed:
+            fail(f"options on {impl}: {res[impl, 'dots']['products']} products under "
+                 f"'dots', expected {res[impl, True]['products']} under True less "
+                 f"{recomputed} recomputed")
+        ends = {str(r): res[impl, r]["gen"] for r in (False, True, "dots")}
+        if not all(torch.equal(e, ends["False"]) for e in ends.values()):
+            fail(f"options on {impl}: the step generators end apart under the remat modes")
+    for remat in (False, True, "dots"):
+        kern, plain = res["auto", remat], res[False, remat]
+        rel, _, bad = grad_rel(kern["grads"], plain["grads"], UNUSED_LEAVES.__contains__)
+        worst = max(rel.items(), key=lambda kv: kv[1])
+        loss_diff = abs(kern["loss"] - plain["loss"])
+        if bad or worst[1] > STEP_LIMITS["grad_rel"] or loss_diff > STEP_LIMITS["loss"]:
+            fail(f"options remat={remat!r}: kernel vs plain path, loss diff {loss_diff}, "
+                 f"worst leaf {worst}, unexpected {bad[:4]} (limits {STEP_LIMITS})")
+        report[f"auto/{remat}"].update(grad_rel_worst=worst, loss_abs_diff=loss_diff)
+    dots_vs_true = {}
+    for impl in ("auto", False):
+        a, b = res[impl, "dots"]["grads"], res[impl, True]["grads"]
+        rel = max(torch.linalg.vector_norm((a[k] - b[k]).double()).item()
+                  / max(torch.linalg.vector_norm(b[k].double()).item(), 1e-30) for k in b)
+        equal = sum(torch.equal(a[k], b[k]) for k in b)
+        dots_vs_true[str(impl)] = dict(max_rel=rel, bit_equal_leaves=equal, leaves=len(b))
+        if rel > DOTS_VS_TRUE:
+            fail(f"options on {impl}: 'dots' gradients {rel} from True's (limit {DOTS_VS_TRUE})")
+    m_dots, m_true = res["auto", "dots"]["masks"], res["auto", True]["masks"]
+    # each MLP mask drawn twice, in the layer's run and in its recompute
+    # (which the backward reaches last layer first), and the same masks
+    # under True and "dots"
+    if (len(m_dots) != 2 * masked or len(m_true) != len(m_dots)
+            or not all(torch.equal(a, b) for a, b in zip(m_dots, m_true))
+            or not all(torch.equal(m_dots[i], m_dots[-1 - i]) for i in range(masked))):
+        fail(f"options: the dropout masks under 'dots' ({len(m_dots)}) differ from those "
+             f"under True ({len(m_true)}) or between a layer's run and its recompute")
+    peaks = {str(r): res["auto", r]["peak_gb"] for r in (False, True, "dots")}
+    if not peaks["dots"] <= peaks["False"]:
+        fail(f"options: peak memory under 'dots' {peaks['dots']} GB above False's {peaks['False']}")
+    emit(phase="options", step="remat_dots", batch=TRAIN_BATCH, modes=report,
+         layer_products={str(k): v for k, v in LAYER_PRODUCTS.items()}, dots_vs_true=dots_vs_true, limit=DOTS_VS_TRUE,
+         masks_checked=len(m_dots), peak_gb_above_start=peaks,
+         launches={str(r): res["auto", r]["counts"] for r in (False, True, "dots")})
+    counts = res["auto", "dots"]["counts"]
+    del res, tr
+    torch.cuda.empty_cache()
+    return counts
+
+
+def int8_moments_phase(dev):
+    """Three ``HfAdamW(state_dtype="int8")`` steps from fixed seeded
+    gradients, on the card and on the host, over ViLT-B/32's parameters
+    and the head (stacked layer leaves and single ones; the host's steps
+    over all of VAuLT-base would take 20 s): codes equal but for
+    ``INT8_FLIP``, scales and parameters within its relative limit.  Then
+    over all of VAuLT-base on the card: the moments' bytes beside bf16's,
+    and the optimizer pass's busy and wall ms beside the bf16 pass's."""
+    import torch
+
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.presets import vault_base
+    from vault_tpu_torch.training.optimizer import hf_adamw
+
+    cfg = vault_base("bert-base-uncased")
+    every = {k: v.to(dev) for k, v in VaultForClassification(
+        cfg, device="cpu", dtype=torch.float32, seed=0).state_dict().items()
+        if v.is_floating_point()}
+    card = {k: v.clone() for k, v in every.items() if k.startswith(("vilt.", "head."))}
+    host = {k: v.cpu() for k, v in card.items()}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grads = [{k: torch.randn(v.shape, generator=gen, device=dev) * 10.0 ** -(2 + i)
+              for k, v in card.items()} for i in range(3)]
+    tx = hf_adamw(1e-3, weight_decay=0.01, state_dtype="int8")
+    s_host, s_card = tx.init(host), tx.init(card)
+    t0 = time.perf_counter()
+    for g in grads:
+        s_host = tx.step_(host, {k: v.cpu() for k, v in g.items()}, s_host)
+    host_s = time.perf_counter() - t0
+    for g in grads:
+        s_card = tx.step_(card, g, s_card)
+    torch.cuda.synchronize()
+    codes = flips = worst_step = 0
+    worst_scale = worst_param = 0.0
+    for leaf, m_host in [*s_host.mu.items(), *(("nu:" + k, v) for k, v in s_host.nu.items())]:
+        m_card = (s_card.nu[leaf[3:]] if leaf.startswith("nu:") else s_card.mu[leaf])
+        d = (m_card.q.cpu().int() - m_host.q.int()).abs()
+        codes += d.numel()
+        flips += int((d > 0).sum())
+        worst_step = max(worst_step, int(d.max()))
+        worst_scale = max(worst_scale, ((m_card.scale.cpu() - m_host.scale).abs()
+                                        / m_host.scale).max().item())
+    for k, p in host.items():
+        worst_param = max(worst_param, (card[k].cpu() - p).abs().max().item()
+                          / max(p.abs().max().item(), 1e-30))
+    if (worst_step > INT8_FLIP["max_step"] or flips > INT8_FLIP["share"] * codes
+            or worst_scale > INT8_FLIP["rel"] or worst_param > INT8_FLIP["rel"]):
+        fail(f"options int8 moments, card vs host: {flips} of {codes} codes moved (by up to "
+             f"{worst_step}), scales {worst_scale}, parameters {worst_param} (limits "
+             f"{INT8_FLIP})")
+    checked = sum(v.numel() for v in host.values())
+    del host, card, grads, s_host, s_card
+    n = sum(v.numel() for v in every.values())
+    g0 = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-3 for k, v in every.items()}
+    bf16 = hf_adamw(1e-3, weight_decay=0.01, state_dtype=torch.bfloat16)
+    s_int8, s_bf16 = tx.init(every), bf16.init(every)
+    int8_bytes = 2 * sum(m.q.numel() + 4 * m.scale.numel() for m in s_int8.mu.values())
+    passes = {}
+    for name, opt, state in (("int8", tx, s_int8), ("bfloat16", bf16, s_bf16)):
+        step = lambda: opt.step_(every, g0, state)
+        busy, kernels = device_ms(step, iters=2, warmup=1)
+        passes[name] = dict(busy_ms=busy, wall_ms=time_ms(step, iters=3, warmup=1),
+                            kernels=len(kernels))
+    emit(phase="options", step="int8_moments", parameters=n, leaves=len(every),
+         jax_leaves=len(s_int8.mu), checked_parameters=checked, steps=3, codes=codes,
+         codes_moved=flips,
+         max_code_step=worst_step, scale_max_rel=worst_scale, param_max_rel=worst_param,
+         limits=INT8_FLIP, host_steps_s=host_s, moment_bytes_int8=int8_bytes,
+         moment_bytes_bf16=2 * 2 * n, optimizer_pass=passes)
+    del every, g0, s_int8, s_bf16
+    torch.cuda.empty_cache()
+
+
+def _trace_summary(profile_dir: Path):
+    """(trace files, steps spanned, kernel and operator names) of the
+    Chrome traces under ``profile_dir``."""
+    files = sorted(profile_dir.glob("*.json"))
+    steps, kernels, ops, size = set(), set(), set(), 0
+    for f in files:
+        size += f.stat().st_size
+        for e in json.loads(f.read_text())["traceEvents"]:
+            name = str(e.get("name", ""))
+            if name.startswith("train_step:"):
+                steps.add(int(name.split(":")[1]))
+            elif e.get("cat") == "kernel":
+                kernels.add(name)
+            elif name.startswith("vault_tpu_torch::"):
+                ops.add(name)
+    return files, sorted(steps), kernels, sorted(ops), size
+
+
+def trainer_options_phase(dev):
+    """``Trainer.train()`` at full width with int8 moments, remat "dots",
+    ``profile_dir``, a dev set and a checkpoint at each window: the trace
+    spans exactly the second window's steps and holds the MLP kernels;
+    a run cut by ``max_steps`` and resumed ends on the uninterrupted run's
+    parameters and codes bit for bit; a NaN injected into a step's forward
+    raises under ``enable_nan_checks(True)``.  Returns the full run's
+    launches."""
+    import shutil
+
+    import torch
+
+    from vault_tpu_torch.data.loader import InMemoryDataset
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.presets import vault_base
+    from vault_tpu_torch.training.experiment import ExperimentHandler
+    from vault_tpu_torch.training.trainer import Trainer, classifier_apply_fn
+    from vault_tpu_torch.utils import profiling
+
+    cfg = vault_base("bert-base-uncased")
+    feats, labels = entry_features(cfg, OPTIONS_STEPS * TRAIN_BATCH, seed=4)
+    dev_ds = InMemoryDataset(*entry_features(cfg, TRAIN_BATCH, seed=5))
+    # checkpoints (1.8 GB each) go to the build directory, the trace to the
+    # output directory (then removed: its summary is printed)
+    root = Path("build") / "chip_smoke_options"
+    profile_dir = OUT_DIR / "options_profile"
+    for d in (root, profile_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    init = VaultForClassification(cfg, device="cpu", dtype=torch.float32, seed=1).state_dict()
+
+    def run(name, **kw):
+        args = train_args(num_train_epochs=1, eval_steps=OPTIONS_WINDOW,
+                          opt_state_dtype="int8", remat="dots",
+                          checkpoint_dir=str(root / name), **kw)
+        tr = Trainer(classifier_apply_fn(cfg, args), init, args,
+                     InMemoryDataset(feats, labels), dev_dataset=dev_ds,
+                     exp_handler=ExperimentHandler(str(root / "logs"), name), device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        return tr, read_counts(), time.perf_counter() - t0
+
+    try:  # the trace (tens of MB) is read here and not brought back
+        full, counts, wall = run("full", profile_dir=str(profile_dir))
+        files, steps, kernels, ops, size = _trace_summary(profile_dir)
+    finally:
+        shutil.rmtree(profile_dir, ignore_errors=True)
+    windows = OPTIONS_STEPS // OPTIONS_WINDOW
+    want = {k: OPTIONS_STEPS * REMAT_STEP_LAUNCHES["dots"][k] + windows * EVAL_LAUNCHES[k]
+            for k in KERNEL_NAMES}
+    if counts != want:
+        fail(f"options Trainer.train(): launches {counts}, expected {want}")
+    second = list(range(OPTIONS_WINDOW, 2 * OPTIONS_WINDOW))
+    want_kernels = ("ln_rows_bf16", "mlp_epilogue", "mlp_bwd_preln_rows", "mlp_bwd_postln_rows")
+    missing = [k for k in want_kernels if not any(k in name for name in kernels)]
+    want_ops = ["vault_tpu_torch::mlp_block", "vault_tpu_torch::mlp_postln"]
+    if len(files) != 1 or steps != second or missing or not set(want_ops) <= set(ops):
+        fail(f"options profile_dir: {len(files)} traces spanning steps {steps} (expected one, "
+             f"{second}), MLP kernels missing {missing}, operators {ops}")
+
+    _, cut_counts, _ = run("cut", max_steps=OPTIONS_WINDOW)
+    resumed, _, resume_wall = run("cut", resume=True)
+    diff = [k for k in full.params if not torch.equal(full.params[k], resumed.params[k])]
+    for mine, theirs in ((full.opt_state.mu, resumed.opt_state.mu),
+                         (full.opt_state.nu, resumed.opt_state.nu)):
+        diff += [k for k in mine if not (torch.equal(mine[k].q, theirs[k].q)
+                                         and torch.equal(mine[k].scale, theirs[k].scale))]
+    if diff or not resumed.opt_state.count == full.opt_state.count == OPTIONS_STEPS:
+        fail(f"options resume: {len(diff)} leaves differ from the uninterrupted run "
+             f"(first {diff[:4]}), steps {resumed.opt_state.count} / {full.opt_state.count}")
+    losses = full.exp_handler._series
+    if not all(math.isfinite(v) for v in losses["train_loss"] + losses["eval_loss"]):
+        fail(f"options Trainer.train(): losses {losses}")
+
+    bad = {k: v[:TRAIN_BATCH].copy() for k, v in feats.items()}
+    bad["pixel_values"][3, 1, 5, 7] = np.nan
+    good = resumed._to_device(*resumed._pad({k: v[:TRAIN_BATCH] for k, v in feats.items()},
+                                            labels[:TRAIN_BATCH]))
+    poisoned = resumed._to_device(*resumed._pad(bad, labels[:TRAIN_BATCH]))
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        profiling.enable_nan_checks(True)
+        resumed.train_step(*good, 100)  # finite: no alarm
+        checked_step_s = time.perf_counter() - t0
+        try:
+            resumed.train_step(*poisoned, 101)
+        except RuntimeError as e:
+            raised = str(e).splitlines()[0]
+    finally:
+        profiling.enable_nan_checks(False)
+    if raised is None or "NaN produced by" not in raised:
+        fail(f"options: a NaN pixel under enable_nan_checks(True) did not raise ({raised})")
+    ckpt_bytes = sum(f.stat().st_size for f in (root / "full").glob("*.npz"))
+    shutil.rmtree(root, ignore_errors=True)
+    emit(phase="options", step="trainer", steps=OPTIONS_STEPS, window=OPTIONS_WINDOW,
+         wall_s=wall, resumed_wall_s=resume_wall, launches=counts, cut_launches=cut_counts,
+         train_loss=losses["train_loss"], eval_loss=losses["eval_loss"],
+         trace=dict(files=len(files), steps=steps, bytes=size, kernels=len(kernels),
+                    mlp_kernels=[k for k in sorted(kernels)
+                                 if any(w in k for w in want_kernels)][:8], operators=ops),
+         resume_bit_equal_leaves=len(full.params) + 2 * len(full.opt_state.mu),
+         checkpoint_bytes=ckpt_bytes, nan_check=raised, checked_step_s=checked_step_s)
+    del full, resumed
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def lazy_twitter_images():
+    """``data.datasets.Twitter201XDataset`` with ``lazy_images=True`` for
+    the experiment CLI, which builds the datasets from that name."""
+    from vault_tpu_torch.data import datasets
+
+    eager = datasets.Twitter201XDataset
+
+    class Lazy(eager):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, lazy_images=True, **kw)
+
+    datasets.Twitter201XDataset = Lazy
+    try:
+        yield
+    finally:
+        datasets.Twitter201XDataset = eager
+
+
+def _median_ms(fn, repeats=5):
+    samples = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(samples))
+
+
+def lazy_and_native_phase(dev):
+    """``cli.clsf_vault`` on the synthetic Twitter201X files of the tasks
+    group, once with the images held and once decoded at batch time: equal
+    metrics.  The native resize and WordPiece cores, built on this machine,
+    against the PIL and Python paths on the same files, bit for bit; the
+    host preprocessing ms of a batch of 32 on each."""
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from vault_tpu_torch.cli import clsf_vault
+    from vault_tpu_torch.data.datasets import load_image_file, read_twitter201x
+    from vault_tpu_torch.data.image import IMAGE_MEAN, IMAGE_STD, target_size
+    from vault_tpu_torch.data.native_image import resize_normalize_native
+    from vault_tpu_torch.models.pretrained import build_tokenizer
+
+    Path("build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build", prefix="options_") as tmp:
+        root = Path(tmp)
+        dirs = write_hf_dirs(root, names=("bert-base-uncased", "vilt-b32-mlm"))
+        twitter = write_twitter(root)
+        argv = ["Twitter201X", "--dir", str(twitter), "--train_split", "train",
+                "--dev_split", "dev", "--test_split", "test",
+                "--vilt_model_name_or_path", str(dirs["vilt-b32-mlm"][0]),
+                "--bert_model_name_or_path", str(dirs["bert-base-uncased"][0]),
+                "--canvas", "384x608", "--num_train_epochs", "1", "--disable_tqdm",
+                "--max_num_workers", "4", "--experiment_root", str(root / "logs")]
+        runs = {}
+        for mode in ("eager", "lazy"):
+            with lazy_twitter_images() if mode == "lazy" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                (tr,) = clsf_vault.main(argv)
+                torch.cuda.synchronize()
+            held = tr.train_dataset._images is not None
+            if held != (mode == "eager"):
+                fail(f"options lazy_and_native: the {mode} run's train set holds images: {held}")
+            h = tr.exp_handler
+            runs[mode] = dict(seconds=time.perf_counter() - t0,
+                              metrics={**{k: v for k, v in h._series.items()},
+                                       **{k: v for k, v in h._finals.items()
+                                          if "per_sec" not in k}},
+                              errors=tr.train_dataset._err_count)
+            del tr
+            torch.cuda.empty_cache()
+        if runs["eager"]["metrics"] != runs["lazy"]["metrics"]:
+            fail(f"options: the lazy run's metrics {runs['lazy']['metrics']} differ from the "
+                 f"eager run's {runs['eager']['metrics']}")
+
+        images = [load_image_file(str(p)) for p in sorted(
+            (root / "twitter2015_images").glob("*.jpg"))]
+        sizes = [target_size(*im.shape[:2]) for im in images]
+
+        def pil_path(im, hw):
+            out = np.asarray(Image.fromarray(im).resize((hw[1], hw[0]), Image.BICUBIC),
+                             np.float32)
+            return ((out / 255.0 - IMAGE_MEAN) / IMAGE_STD).transpose(2, 0, 1)
+
+        resize_diff = [int((resize_normalize_native(im, hw, IMAGE_MEAN, IMAGE_STD)
+                            != pil_path(im, hw)).sum()) for im, hw in zip(images, sizes)]
+        tok = build_tokenizer(str(dirs["bert-base-uncased"][0]), 40)
+        texts = [t for e in read_twitter201x(str(twitter), ["train", "dev", "test"])
+                 for t in (e.targetless_tweet, e.target)]
+        tok._ids_for_text(texts[0])  # loads the native core
+        python_ids = lambda t: tok.convert_tokens_to_ids(tok.tokenize(t))
+        text_diff = sum(tok._native.tokenize_to_ids(t) != python_ids(t) for t in texts)
+        if any(resize_diff) or text_diff or not tok._native.available:
+            fail(f"options native cores vs PIL / Python: {sum(resize_diff)} pixels, "
+                 f"{text_diff} of {len(texts)} texts differ")
+        batch_im = [(images[i % len(images)], sizes[i % len(sizes)]) for i in range(TRAIN_BATCH)]
+        batch_tx = texts[:TRAIN_BATCH]
+        host_ms = {
+            "resize_native": _median_ms(lambda: [resize_normalize_native(
+                im, hw, IMAGE_MEAN, IMAGE_STD) for im, hw in batch_im]),
+            "resize_pil": _median_ms(lambda: [pil_path(im, hw) for im, hw in batch_im]),
+            "wordpiece_native": _median_ms(lambda: [tok._native.tokenize_to_ids(t)
+                                                    for t in batch_tx]),
+            "wordpiece_python": _median_ms(lambda: [python_ids(t) for t in batch_tx])}
+    emit(phase="options", step="lazy_and_native", runs=runs, images_checked=len(images),
+         texts_checked=len(texts), host_ms_batch32=host_ms, cpus=os.cpu_count())
+
+
+def options_phase(dev):
+    """The options group.  Returns (the "dots" step's launches, the path
+    launches of its trainer run)."""
+    t0 = time.perf_counter()
+    dots = remat_dots_phase(dev)
+    int8_moments_phase(dev)
+    trainer_counts = trainer_options_phase(dev)
+    lazy_and_native_phase(dev)
+    emit(phase="options", step="total", seconds=time.perf_counter() - t0)
+    return dots, {"options_trainer": trainer_counts}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -3607,7 +4109,7 @@ def _leaves(tree):
 
 
 PHASES = ("kernels", "vault", "w8", "llama", "train", "merge", "serve", "tasks",
-          "baselines")
+          "baselines", "options")
 
 
 def main():
@@ -3709,6 +4211,10 @@ def main():
         path_counts.update(tasks_phase(dev))
     if "baselines" in phases:
         path_counts.update(baselines_phase(dev))
+    dots_counts = launches()
+    if "options" in phases:
+        dots_counts, counts = options_phase(dev)
+        path_counts.update(counts)
     emit(phase="trace_checks", short_share=TRACE_SHORT_SHARE, long_share=TRACE_LONG_SHARE,
          launch_gap_ms=LAUNCH_GAP_MS, **TRACE_LOG)
     if set(phases) != set(PHASES):
@@ -3759,6 +4265,7 @@ def main():
                      replaces=sources[name][1], launches=n_launches,
                      launches_path=path,
                      launches_per_train_step=step_counts[name],
+                     launches_per_dots_step=dots_counts[name],
                      max_abs_err=max(r["max_abs_err"] for r in timed),
                      ms=mean("ms"), wall_ms=mean("wall_ms"), plain_ms=mean("plain_ms"),
                      bound_ms=mean("bound_ms"),

@@ -276,6 +276,92 @@ def test_load_mvsa_and_its_dataset_match_jax(mvsa_dirs, preprocessed):
                   ref.batches(4, shuffle=True, rng=np.random.default_rng(1)))
 
 
+def _equal_batches(ours, ref):
+    """Batches equal bit for bit (the same resize on both sides)."""
+    ours, ref = list(ours), list(ref)
+    assert len(ours) == len(ref)
+    for (fo, lo), (fr, lr) in zip(ours, ref):
+        assert fo.keys() == fr.keys()
+        for k in fr:
+            np.testing.assert_array_equal(np.asarray(fo[k]), np.asarray(fr[k]), err_msg=k)
+        np.testing.assert_array_equal(lo, lr)
+
+
+@pytest.mark.parametrize("workers", [0, 3])
+@pytest.mark.parametrize("buckets", [False, True])
+def test_lazy_twitter_dataset_matches_jax_and_eager(twitter_dir, buckets, workers):
+    """``lazy_images``: the JAX package's lazy batches, and the port's eager
+    ones bit for bit, under a seeded shuffle with augmentation; the canvas
+    keys from file headers (the missing image's from the fallback's); the
+    fallback counted at each fetch, as in the JAX package."""
+    jp, tp = _procs(canvas="auto" if buckets else (64, 64))
+    kw = dict(max_length=16, orientation_buckets=buckets, augment=True,
+              num_workers=workers)
+    ref = jds.Twitter201XDataset(twitter_dir, ["train", "dev"], jp, lazy_images=True, **kw)
+    lazy = tds.Twitter201XDataset(twitter_dir, ["train", "dev"], tp, lazy_images=True,
+                                  **kw)
+    eager = tds.Twitter201XDataset(twitter_dir, ["train", "dev"], tp, **kw)
+    assert lazy._images is None and lazy._err_count == ref._err_count == 0
+    assert lazy._canvas_keys() == ref._canvas_keys() == eager._canvas_keys()
+    assert lazy.num_batches(3) == ref.num_batches(3) == eager.num_batches(3)
+    run = lambda ds: ds.batches(3, shuffle=True, rng=np.random.default_rng(5))
+    _same_batches(run(lazy), run(ref))
+    _equal_batches(run(lazy), run(eager))
+    # two passes over the lazy set, one over the JAX package's
+    assert lazy._err_count == 2 * ref._err_count == 2 * eager._err_count == 4
+
+
+@pytest.mark.parametrize("workers", [0, 3])
+@pytest.mark.parametrize("buckets", [False, True])
+def test_lazy_vl_dataset_matches_jax_and_eager(tmp_path, buckets, workers):
+    """``VisionLanguageDataset(lazy=True)`` over landscape and portrait
+    files: the JAX package's lazy batches and the port's eager ones, the
+    orientation keys from the headers."""
+    paths = []
+    for i in range(7):
+        p = str(tmp_path / f"i{i}.jpg")
+        _img(p, size=(80, 50) if i % 3 else (50, 80), color=(i * 30, 10, 5))
+        paths.append(p)
+    ids, texts = [str(i) for i in range(7)], ["the fox", "a good dog"] * 3 + ["a cat"]
+    labels = np.arange(7, dtype=np.int32)
+    jp, tp = _procs(canvas="auto" if buckets else (64, 64), max_length=8)
+    kw = dict(orientation_buckets=buckets, num_workers=workers, augment=True)
+    ref = jds.VisionLanguageDataset(ids, texts, paths, labels, jp, lazy=True, **kw)
+    lazy = tds.VisionLanguageDataset(ids, texts, paths, labels, tp, lazy=True, **kw)
+    eager = tds.VisionLanguageDataset(ids, texts, paths, labels, tp, **kw)
+    assert lazy._images is None
+    assert lazy._canvas_keys() == ref._canvas_keys() == eager._canvas_keys()
+    assert lazy.num_batches(2) == ref.num_batches(2) == eager.num_batches(2)
+    run = lambda ds: ds.batches(2, shuffle=True, rng=np.random.default_rng(2))
+    _same_batches(run(lazy), run(ref))
+    _equal_batches(run(lazy), run(eager))
+
+
+def test_lazy_dataset_and_peek_image_size_match_jax(tmp_path):
+    """``LazyDataset`` hands ``encode_batch`` the JAX package's index
+    batches and train flag; ``peek_image_size`` reads (H, W) from the
+    header as the JAX package's does, equal to the decoded shape."""
+    seen = {"ours": [], "ref": []}
+
+    def encode(tag):
+        def enc(sel, train):
+            seen[tag].append((list(sel), train))
+            return {"x": np.asarray(sel)}, np.asarray(sel) % 2
+        return enc
+
+    ours, ref = tloader.LazyDataset(encode("ours"), 11), jloader.LazyDataset(encode("ref"), 11)
+    assert ours.num_examples == 11 and ours.num_batches(4) == ref.num_batches(4) == 3
+    for shuffle in (False, True):
+        _equal_batches(ours.batches(4, shuffle, np.random.default_rng(3)),
+                       ref.batches(4, shuffle, np.random.default_rng(3)))
+    assert seen["ours"] == seen["ref"] and {t for _, t in seen["ours"]} == {False, True}
+    for size in ((80, 50), (33, 120)):
+        p = str(tmp_path / f"{size[0]}.png")
+        _img(p, size=size)
+        assert tloader.peek_image_size(p) == jloader.peek_image_size(p) \
+            == tds.load_image_file(p).shape[:2] == (size[1], size[0])
+
+
 def test_grouped_batch_indices_and_canvas_keys_match_jax():
     keys = ["a", "b", "a", "a", "b", "c", "a", "b", ("x", 1), ("x", 1)]
     for shuffle in (False, True):

@@ -219,8 +219,11 @@ def test_unported_paths_raise():
     _, tcfg = _cfgs()
     model = tvault.VaultForClassification(tcfg, device="cpu")
     _, tb = _sides(_batch(), "float32")
-    with pytest.raises(NotImplementedError):
-        tvault.vault_for_classification(model, tcfg, tb, remat="dots")
+    with pytest.raises(ValueError, match="remat"):
+        tvault.vault_for_classification(model, tcfg, tb, remat="everything")
+    # remat="dots" is ported (tests/test_torch_trainer_options.py)
+    logits = tvault.vault_for_classification(model, tcfg, tb, remat="dots")
+    assert logits.requires_grad and bool(torch.isfinite(logits).all())
     # token merging is ported (tests/test_torch_token_merge.py): the 16
     # patch tokens merge down to 4, the mask follows
     with torch.inference_mode():

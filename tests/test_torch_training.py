@@ -100,8 +100,14 @@ def test_hf_adamw_matches_jax(state_dtype, correct_bias, weight_decay):
 
 
 def test_hf_adamw_int8_moments_wait():
-    with pytest.raises(NotImplementedError, match="int8"):
-        topt.hf_adamw(1e-3, state_dtype="int8")
+    """The int8 moments no longer wait: ``state_dtype="int8"`` builds
+    fresh blockwise moments, the JAX package's ``_q8_encode(zeros)`` (codes
+    0, scales float32(1e-12), one block row per 256 values)."""
+    tx = topt.hf_adamw(1e-3, state_dtype="int8")
+    state = tx.init({"b": torch.zeros(300)})
+    for m in (state.mu["b"], state.nu["b"]):
+        assert m.q.dtype == torch.int8 and tuple(m.q.shape) == (2, topt.INT8_BLOCK)
+        assert not m.q.any() and torch.equal(m.scale, torch.full((2, 1), 1e-12))
 
 
 def test_make_optimizer_warmup_from_ratio():
@@ -327,8 +333,8 @@ def test_step_generator_is_a_function_of_seed_and_step():
 
 def test_unported_knobs_raise():
     # merge_to is ported (tests/test_torch_token_merge.py trains with it)
-    for kw in (dict(zero_opt=True), dict(num_data_shards=2),
-               dict(profile_dir="trace")):
+    # profile_dir is ported (tests/test_torch_trainer_options.py)
+    for kw in (dict(zero_opt=True), dict(num_data_shards=2)):
         with pytest.raises(NotImplementedError):
             Trainer(None, {}, TrainArgs(**kw), None, device="cpu")
 

@@ -7,7 +7,9 @@ argparse kwargs), and the subcommands compose them, as the reference does
 mesh flags (``--num_data_shards`` above 1, ``--zero_opt`` and the
 multi-host ``--coordinator_address``, ``--num_processes``, ``--process_id``)
 wait for the port's parallel modules: :func:`refuse_unported` raises
-``NotImplementedError`` naming each one that was set.
+``NotImplementedError`` naming each one that was set.  Every other flag of
+the JAX package's trainer runs, ``--opt_state_dtype int8`` and
+``--profile_dir`` included.
 """
 
 from __future__ import annotations
@@ -78,15 +80,17 @@ TRAINER_ARGS = dict(
                        "weights either way)"),
     opt_state_dtype=dict(default="bfloat16",
                          choices=["float32", "bfloat16", "int8"], type=str,
-                         help="AdamW m/v storage dtype (int8 moments are not "
-                              "ported yet and raise)"),
+                         help="AdamW m/v storage dtype (int8: blockwise codes "
+                              "with an fp32 scale per 256 values, the JAX "
+                              "package's blocks over stacked layers)"),
     grad_dtype=dict(default=None, choices=["float32", "bfloat16"], type=str,
                     help="grad buffer dtype between backward and optimizer"),
     rng_impl=dict(default="rbg", choices=["threefry2x32", "rbg"], type=str,
                   help="the JAX package's dropout generator kind; the port "
                        "has one torch.Generator kind and ignores it"),
     profile_dir=dict(default=None, type=str,
-                     help="profiler trace directory (not ported yet: raises)"),
+                     help="write a torch.profiler Chrome trace of the second "
+                          "eval window here"),
     zero_opt=dict(action="store_true",
                   help="ZeRO-1 moment sharding (not ported yet: raises)"),
     seed=dict(default=0, type=int, help="base random seed"),

@@ -14,19 +14,20 @@ the layout the port's SwiGLU kernel reads; going back, every leaf leaves in
 the JAX package's row-major layout.  The optimizer's moments are
 parameter-shaped trees, so :func:`opt_state_from_jax` and
 :func:`opt_state_to_jax` map them the same way, with the step count beside
-them as in the JAX package's ``HfAdamWState(count, mu, nu)``.
+them as in the JAX package's ``HfAdamWState(count, mu, nu)``; int8 moments
+are ``Q8Moment(q, scale)`` leaves of the stacked tree, one per JAX leaf.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vault_tpu_torch.config import VaultConfig
 from vault_tpu_torch.ops.quantize import k_major, k_major_site
-from vault_tpu_torch.training.optimizer import AdamWState
+from vault_tpu_torch.training.optimizer import AdamWState, Q8Moment
 
 
 def _tensor(a) -> torch.Tensor:
@@ -120,6 +121,19 @@ def _insert(tree: dict, parts, leaf):
     tree[parts[-1]] = leaf
 
 
+def stacked_leaf(key: str) -> Optional[Tuple[str, int]]:
+    """``("a.layers.b.c", i)`` for the key ``a.layers.<i>.b.c`` of a layer
+    that the JAX package stacks on axis 0 into the leaf
+    ``tree[a]["layers"][b][c]``; None for any other key.  The one rule of
+    the stacking: :func:`params_to_jax` and the int8 moments' blocks
+    (``training/optimizer.py`` ``q8_groups``) both read it."""
+    parts = key.split(".")
+    if "layers" in parts[:-1] and parts[parts.index("layers") + 1].isdigit():
+        j = parts.index("layers")
+        return ".".join(parts[:j + 1] + parts[j + 2:]), int(parts[j + 1])
+    return None
+
+
 def params_to_jax(state_dict: Mapping[str, torch.Tensor],
                   as_numpy: bool = True) -> Dict[str, Any]:
     """The JAX package's nested parameter tree from a state dict: keys split
@@ -129,22 +143,20 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
     ``as_numpy``; either way they are copies, never the state dict's own
     tensors."""
     tree: Dict[str, Any] = {}
-    stacks: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    stacks: Dict[str, Dict[int, torch.Tensor]] = {}
     for key, t in state_dict.items():
-        parts = key.split(".")
-        if "layers" in parts[:-1] and parts[parts.index("layers") + 1].isdigit():
-            j = parts.index("layers")
-            where = (tuple(parts[:j + 1]), tuple(parts[j + 2:]))
-            stacks.setdefault(where, {})[int(parts[j + 1])] = t
+        stacked = stacked_leaf(key)
+        if stacked is not None:
+            stacks.setdefault(stacked[0], {})[stacked[1]] = t
         else:
             # a copy even on the host: the trainer's checkpoint is written on
             # another thread while the next step updates the masters in place
-            _insert(tree, parts, t.detach().to("cpu", copy=True))
-    for (prefix, rest), layers in stacks.items():
+            _insert(tree, key.split("."), t.detach().to("cpu", copy=True))
+    for leaf, layers in stacks.items():
         if sorted(layers) != list(range(len(layers))):
-            raise ValueError(f"{'.'.join(prefix)}: layers {sorted(layers)} are "
-                             "not numbered 0..n-1")
-        _insert(tree, list(prefix + rest),
+            raise ValueError(f"{leaf.rsplit('.', 1)[0]}: layers {sorted(layers)} "
+                             "are not numbered 0..n-1")
+        _insert(tree, leaf.split("."),
                 torch.stack([layers[i].detach() for i in range(len(layers))]).cpu())
     tree = _listify(tree)
     if as_numpy:
@@ -157,6 +169,8 @@ def _map(fn, tree):
         return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_map(fn, v) for v in tree]
+    if isinstance(tree, Q8Moment):
+        return Q8Moment(*(fn(t) for t in tree))
     return fn(tree)
 
 
@@ -173,20 +187,69 @@ def _listify(node):
     return node
 
 
+def _is_q8(node) -> bool:
+    """A ``Q8Moment`` of either package (a ``(q, scale)`` namedtuple)."""
+    return isinstance(node, tuple) and getattr(node, "_fields", None) == ("q", "scale")
+
+
+def _q8_leaves(tree, prefix="") -> Dict[str, Q8Moment]:
+    """The ``Q8Moment`` leaves of a JAX-layout moment tree, keyed by their
+    dotted paths (the keys of ``optimizer.q8_groups``); any other leaf
+    raises."""
+    if _is_q8(tree):
+        return {prefix[:-1]: Q8Moment(_tensor(tree.q), _tensor(tree.scale))}
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        raise ValueError(f"{prefix[:-1]}: a float moment among int8 moments")
+    out: Dict[str, Q8Moment] = {}
+    for k, v in items:
+        out.update(_q8_leaves(v, f"{prefix}{k}."))
+    return out
+
+
+def _holds_q8(tree) -> bool:
+    if _is_q8(tree):
+        return True
+    if isinstance(tree, Mapping):
+        return any(_holds_q8(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_holds_q8(v) for v in tree)
+    return False
+
+
 def opt_state_from_jax(state, cfg: Optional[VaultConfig] = None) -> AdamWState:
     """The port's optimizer state from the JAX package's ``HfAdamWState``
-    (or any ``(count, mu, nu)`` triple of host trees)."""
+    (or any ``(count, mu, nu)`` triple of host trees).  Int8 moments
+    (``Q8Moment`` leaves) stay one per JAX leaf, keyed by its dotted path,
+    since their blocks span the stacked layers."""
     count, mu, nu = state
+    if _holds_q8(mu):
+        return AdamWState(int(np.asarray(count)), _q8_leaves(mu), _q8_leaves(nu))
     return AdamWState(int(np.asarray(count)), params_from_jax(mu, cfg),
                       params_from_jax(nu, cfg))
 
 
+def _q8_to_jax(moments: Mapping[str, Q8Moment], as_numpy: bool):
+    tree: Dict[str, Any] = {}
+    for leaf, m in moments.items():
+        _insert(tree, leaf.split("."),
+                Q8Moment(*(t.detach().to("cpu", copy=True) for t in m)))
+    tree = _listify(tree)
+    return _map(to_numpy, tree) if as_numpy else tree
+
+
 def opt_state_to_jax(state: AdamWState, as_numpy: bool = True) -> tuple:
     """``(count, mu, nu)`` in the JAX package's layout: count an int32
-    scalar, the moments nested and stacked as :func:`params_to_jax`."""
+    scalar, the moments nested and stacked as :func:`params_to_jax`; int8
+    moments as ``Q8Moment(q, scale)`` leaves."""
     count = np.asarray(state.count, np.int32)
-    return (count if as_numpy else torch.tensor(state.count, dtype=torch.int32),
-            params_to_jax(state.mu, as_numpy), params_to_jax(state.nu, as_numpy))
+    count = count if as_numpy else torch.tensor(state.count, dtype=torch.int32)
+    if any(isinstance(m, Q8Moment) for m in state.mu.values()):
+        return count, _q8_to_jax(state.mu, as_numpy), _q8_to_jax(state.nu, as_numpy)
+    return count, params_to_jax(state.mu, as_numpy), params_to_jax(state.nu, as_numpy)
 
 
 def param_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

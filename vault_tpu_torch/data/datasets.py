@@ -114,12 +114,15 @@ def read_twitter201x(dir: str, kinds: Union[str, Sequence[str]]) -> List[TmscExa
 class Twitter201XDataset:
     """TMSC dataset for VAuLT: text = targetless_tweet [SEP] target, single
     sequence (vault/models/vault/dataset.py:256-311); images via the
-    processor's safe pipeline with optional per-epoch augmentation."""
+    processor's safe pipeline with optional per-epoch augmentation.
+    ``lazy_images``: each batch's images are decoded when it is fetched, on
+    the ``num_workers`` pool, with the eager path's fallback image and
+    error count."""
 
     def __init__(self, dir: str, kinds: Union[str, Sequence[str]], processor,
                  image_dir: Optional[str] = None, max_length: int = 40,
                  label_mapping: Optional[Dict[str, int]] = None,
-                 augment: bool = False,
+                 augment: bool = False, lazy_images: bool = False,
                  text_preprocessor: Optional[Callable] = None,
                  orientation_buckets: bool = False, num_workers: int = 0,
                  entity_map: Optional[Dict[str, str]] = None):
@@ -160,16 +163,20 @@ class Twitter201XDataset:
         self.labels = np.asarray(
             [self.label_mapping[e.label] for e in self.examples], np.int32)
         self._text_enc = processor.encode_text(self.texts, max_length=max_length)
-        from vault_tpu_torch.data.loader import parallel_map
+        self._err_count = 0
+        self._images: Optional[List[np.ndarray]] = None
+        self._canvas_keys_cache = None
+        if not lazy_images:
+            from vault_tpu_torch.data.loader import parallel_map
 
-        pairs = parallel_map(
-            lambda e: load_image_with_fallback(self.image_dir, e.image_bn),
-            self.examples, num_workers)
-        self._err_count = sum(int(err) for _, err in pairs)
-        self._images: List[np.ndarray] = [img for img, _ in pairs]
-        if self._err_count:
-            logger.warning("%d errors occurred whilst loading images",
-                           self._err_count)
+            pairs = parallel_map(
+                lambda e: load_image_with_fallback(self.image_dir, e.image_bn),
+                self.examples, num_workers)
+            self._err_count = sum(int(err) for _, err in pairs)
+            self._images = [img for img, _ in pairs]
+            if self._err_count:
+                logger.warning("%d errors occurred whilst loading images",
+                               self._err_count)
 
     @property
     def num_examples(self) -> int:
@@ -183,10 +190,39 @@ class Twitter201XDataset:
             return _grouped_num_batches(self._canvas_keys(), batch_size)
         return (self.num_examples + batch_size - 1) // batch_size
 
-    def _canvas_keys(self):
-        from vault_tpu_torch.data.image import canvas_key
+    def _fetch_images(self, sel):
+        """The batch's images: held, or (lazy) decoded now on the decode
+        pool, a failed decode counted and replaced by the fallback image."""
+        if self._images is not None:
+            return [self._images[i] for i in sel]
+        from vault_tpu_torch.data.loader import parallel_map
 
-        return [canvas_key(*im.shape[:2]) for im in self._images]
+        pairs = parallel_map(
+            lambda i: load_image_with_fallback(self.image_dir,
+                                               self.examples[i].image_bn),
+            list(sel), self.num_workers)
+        self._err_count += sum(int(err) for _, err in pairs)
+        return [img for img, _ in pairs]
+
+    def _canvas_keys(self):
+        if self._canvas_keys_cache is None:
+            from vault_tpu_torch.data.image import canvas_key
+
+            if self._images is not None:
+                sizes = [im.shape[:2] for im in self._images]
+            else:
+                from vault_tpu_torch.data.loader import peek_image_size
+
+                sizes = []
+                for e in self.examples:
+                    try:
+                        sizes.append(peek_image_size(
+                            os.path.join(self.image_dir, e.image_bn)))
+                    except Exception:
+                        sizes.append(peek_image_size(
+                            os.path.join(self.image_dir, FAIL_IMAGE_BN)))
+            self._canvas_keys_cache = [canvas_key(h, w) for h, w in sizes]
+        return self._canvas_keys_cache
 
     def batches(self, batch_size: int, shuffle: bool = False,
                 rng: Optional[np.random.Generator] = None):
@@ -196,7 +232,7 @@ class Twitter201XDataset:
         for sel in _index_batches(self.num_examples, batch_size, shuffle,
                                   rng, keys):
             feats = {k: v[sel] for k, v in self._text_enc.items()}
-            images = [self._images[i] for i in sel]
+            images = self._fetch_images(sel)
             aug = rng if (train and self.augment) else None
             pv, pm = self.processor.encode_images(images, augment_rng=aug,
                                                   num_workers=self.num_workers)
@@ -350,11 +386,13 @@ def load_mvsa(root_dir: str, splits: Union[str, Sequence[str]],
 # ---------------------------------------------------------------------------
 
 class VisionLanguageDataset:
-    """Eager (image, text) dataset driving the VaultProcessor — the
-    rebuild of VisionAndLanguageDataset (vault/vl_utils/dataset.py:22-307)."""
+    """Eager or lazy (image, text) dataset driving the VaultProcessor — the
+    rebuild of VisionAndLanguageDataset (vault/vl_utils/dataset.py:22-307).
+    ``lazy``: images are decoded at batch time (on the ``num_workers``
+    pool), not held."""
 
     def __init__(self, ids, texts, image_paths, labels, processor,
-                 name: str = "vl", max_length: int = 40,
+                 name: str = "vl", max_length: int = 40, lazy: bool = False,
                  augment: bool = False,
                  text_preprocessor: Optional[Callable] = None,
                  orientation_buckets: bool = False, num_workers: int = 0):
@@ -383,10 +421,13 @@ class VisionLanguageDataset:
         self.image_paths = list(image_paths)
         self.labels = np.asarray(labels)
         self._text_enc = processor.encode_text(self.texts, max_length=max_length)
-        from vault_tpu_torch.data.loader import parallel_map
+        self._images: Optional[List[np.ndarray]] = None
+        self._canvas_keys_cache = None
+        if not lazy:
+            from vault_tpu_torch.data.loader import parallel_map
 
-        self._images: List[np.ndarray] = parallel_map(
-            load_image_file, self.image_paths, num_workers)
+            self._images = parallel_map(load_image_file, self.image_paths,
+                                        num_workers)
 
     @property
     def num_examples(self) -> int:
@@ -397,20 +438,36 @@ class VisionLanguageDataset:
             return _grouped_num_batches(self._canvas_keys(), batch_size)
         return (self.num_examples + batch_size - 1) // batch_size
 
-    def _canvas_keys(self):
-        from vault_tpu_torch.data.image import canvas_key
+    def _raw_image(self, i: int) -> np.ndarray:
+        if self._images is not None:
+            return self._images[i]
+        return load_image_file(self.image_paths[i])
 
-        return [canvas_key(*im.shape[:2]) for im in self._images]
+    def _canvas_keys(self):
+        if self._canvas_keys_cache is None:
+            from vault_tpu_torch.data.image import canvas_key
+
+            if self._images is not None:
+                sizes = [im.shape[:2] for im in self._images]
+            else:
+                from vault_tpu_torch.data.loader import peek_image_size
+
+                sizes = [peek_image_size(p) for p in self.image_paths]
+            self._canvas_keys_cache = [canvas_key(h, w) for h, w in sizes]
+        return self._canvas_keys_cache
 
     def batches(self, batch_size: int, shuffle: bool = False,
                 rng: Optional[np.random.Generator] = None):
+        from vault_tpu_torch.data.loader import parallel_map
+
         rng = rng or np.random.default_rng()
         train = shuffle
         keys = self._canvas_keys() if self.orientation_buckets else None
         for sel in _index_batches(self.num_examples, batch_size, shuffle,
                                   rng, keys):
             feats = {k: v[sel] for k, v in self._text_enc.items()}
-            images = [self._images[i] for i in sel]
+            images = parallel_map(self._raw_image, list(sel),
+                                  0 if self._images is not None else self.num_workers)
             aug = rng if (train and self.augment) else None
             pv, pm = self.processor.encode_images(images, augment_rng=aug,
                                                   num_workers=self.num_workers)

@@ -7,14 +7,15 @@ of the JAX package's ``vault_tpu/data/image.py``).
   * ``safe_dict_concat`` collation: zero-pad images to a canvas and emit a
     pixel_mask (vault/vl_utils/dataset_utils.py:7-36).
 
-Geometry is numpy.  The resize is ``F.interpolate(mode="bicubic",
-antialias=True)``, PyTorch's PIL-style antialiased bicubic, in PIL's order
-(width pass, uint8 levels, height pass, uint8 levels) before normalizing,
-on whichever device the caller names: the host, or the card, where a
-serving batch's images resize in a fraction of the host's time.  The JAX
-package resamples bit-exactly like PIL; this one lands within one uint8
-level of it on the host (tests/test_torch_serving.py), and the card's
-result within one level of the host's (tests/test_torch_cuda.py).
+Geometry is numpy.  On the host a uint8 RGB image resizes through the
+native core (``data/native_image.py``, ``csrc/host/imagecore.cpp``), PIL's
+fixed-point bicubic bit for bit with the normalize fused, as the JAX
+package resizes it.  Other inputs, and every image resized on the card
+(where a serving batch's images resize in a fraction of the host's time),
+take ``F.interpolate(mode="bicubic", antialias=True)``, PyTorch's PIL-style
+antialiased bicubic, in PIL's order (width pass, uint8 levels, height
+pass, uint8 levels) before normalizing: within one uint8 level of PIL's
+(tests/test_torch_serving.py, tests/test_torch_cuda.py).
 """
 
 from __future__ import annotations
@@ -127,10 +128,15 @@ def resize_normalize(image: np.ndarray, out_hw: Tuple[int, int],
                      mean: float = IMAGE_MEAN, std: float = IMAGE_STD,
                      device="cpu") -> torch.Tensor:
     """(H, W, C) uint8 -> (C, out_h, out_w) float32 normalized, on
-    ``device``.  Like PIL, the width pass runs first and its result is
-    stored as uint8 levels before the height pass; with that, the result is
-    within one uint8 level of PIL's ``Image.resize(..., BICUBIC)``."""
+    ``device``.  A uint8 image on the host: the native core, equal to PIL's
+    ``Image.resize(..., BICUBIC)``.  Otherwise, like PIL, the width pass
+    runs first and its result is stored as uint8 levels before the height
+    pass; with that, the result is within one uint8 level of PIL's."""
     img = np.ascontiguousarray(_to_rgb_hwc(image))
+    if img.dtype == np.uint8 and torch.device(device).type == "cpu":
+        from vault_tpu_torch.data.native_image import resize_normalize_native
+
+        return torch.from_numpy(resize_normalize_native(img, out_hw, mean, std))
     if not img.flags.writeable:  # e.g. decoded by PIL; torch wants writable
         img = img.copy()
     x = torch.from_numpy(img).to(device).permute(2, 0, 1)[None].float()

@@ -1,6 +1,6 @@
-"""Dataset protocol, in-memory dataset and background prefetch (a copy of
-``InMemoryDataset`` and ``prefetch`` from ``vault_tpu/data/loader.py``; the
-port imports nothing of that package).
+"""Dataset protocol, in-memory and lazy datasets and background prefetch (a
+copy of ``vault_tpu/data/loader.py``; the port imports nothing of that
+package).
 
 Trainer contract (replacing torch DataLoader + collate_fn,
 vault/tmsc_utils/trainer.py:290-310): a dataset exposes ``num_examples``,
@@ -8,8 +8,10 @@ vault/tmsc_utils/trainer.py:290-310): a dataset exposes ``num_examples``,
 ``(features_dict, labels)`` numpy batches.  :func:`parallel_map` is the
 decode pool the processor's ``num_workers`` runs on;
 :func:`grouped_batch_indices` the canvas-grouped sampler the datasets of
-``data/datasets.py`` draw from.  The lazy dataset and the lazy loading of
-the datasets are not ported yet: no caller of the port needs them.
+``data/datasets.py`` draw from.  :class:`LazyDataset` encodes each batch
+when it is fetched (images decoded at batch time), and
+:func:`peek_image_size` reads an image's size from its header, which the
+lazy datasets' orientation buckets use instead of a decode.
 """
 
 from __future__ import annotations
@@ -87,6 +89,16 @@ def grouped_batch_indices(keys: Sequence, batch_size: int,
     yield from batches
 
 
+def peek_image_size(path: str) -> Tuple[int, int]:
+    """(H, W) from the file header without decoding pixels: the lazy
+    datasets' orientation keys."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        w, h = im.size
+    return h, w
+
+
 _decode_pools: dict = {}
 _decode_pools_lock = threading.Lock()
 
@@ -153,3 +165,33 @@ def prefetch(iterator, size: int = 2):
             yield item
     finally:
         stop.set()
+
+
+class LazyDataset:
+    """Per-fetch encoding (images decoded and augmented at batch time), the
+    reference's lazy mode (vault/vl_utils/dataset.py:148-158) for datasets
+    too big to pre-encode, or when augmentation must resample each epoch.
+    ``encode_batch(indices, train)`` returns ``(features, labels)``;
+    ``train`` is true for the shuffled (training) stream."""
+
+    def __init__(self, encode_batch: Callable[[Sequence[int], bool],
+                                              Tuple[Dict, np.ndarray]],
+                 num: int, name: str = "dataset"):
+        self.encode_batch = encode_batch
+        self._num = num
+        self.name = name
+
+    @property
+    def num_examples(self) -> int:
+        return self._num
+
+    def num_batches(self, batch_size: int) -> int:
+        return (self._num + batch_size - 1) // batch_size
+
+    def batches(self, batch_size: int, shuffle: bool = False,
+                rng: Optional[np.random.Generator] = None):
+        idx = np.arange(self._num)
+        if shuffle:
+            (rng or np.random.default_rng()).shuffle(idx)
+        for start in range(0, self._num, batch_size):
+            yield self.encode_batch(idx[start:start + batch_size].tolist(), shuffle)

@@ -9,8 +9,8 @@ The JAX package stacks the layers on axis 0 and runs them with
 ``lax.scan``; here they are an ``nn.ModuleList`` run by a Python loop.
 Parameters are named after the JAX package's pytree keys (``embed``,
 ``input_ln``, ``post_ln`` and ``final_ln`` are bare tensors, the seven
-projections ``{"w"}`` modules without biases).  Loading a HF checkpoint
-(``llama_params_from_torch``) is not ported yet.
+projections ``{"w"}`` modules without biases).  A HF checkpoint loads
+through ``models/convert.py`` ``llama_params_from_torch``.
 """
 
 from __future__ import annotations

@@ -252,28 +252,52 @@ def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
+# The products that remat="dots" keeps: those without batch dimensions
+# (jax.checkpoint_policies.dots_with_no_batch_dims_saveable).  A 3-D
+# ``x @ w`` reaches the dispatcher as a view and an ``mm``; ``bmm`` and
+# ``baddbmm`` (attention's batched products) and the kernels' operators
+# recompute, as a ``pallas_call`` is not a dot the JAX policy saves.
+_SAVED_PRODUCTS = ("mm", "addmm", "linear")
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if func.namespace == "aten" and func.overloadpacket.__name__ in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def remat_apply(fn, remat, generator: Optional[torch.Generator], *args,
                 **kwargs):
     """``fn(*args, generator=..., **kwargs)``, one encoder layer, under
-    per-layer activation checkpointing when ``remat`` is true and autograd
-    records (the counterpart of the JAX package's ``maybe_remat``):
-    the layer keeps no activations and reruns in the backward.
+    per-layer activation checkpointing when ``remat`` is set and autograd
+    records (the counterpart of the JAX package's ``maybe_remat``).
+    ``remat=True``: the layer keeps no activations and reruns whole in the
+    backward.  ``remat="dots"``: the layer keeps the outputs of its products
+    without batch dimensions (the Q/K/V and output projections, the plain
+    MLP's halves; ``_SAVED_PRODUCTS``) and reruns everything else, the
+    attention's batched products and the kernels included (selective
+    checkpointing, ``torch.utils.checkpoint.create_selective_checkpoint_
+    contexts``).
 
     The layer draws its dropout masks from ``generator``, and
     ``torch.utils.checkpoint`` replays only the default generators, so the
     layer runs on a fresh generator started from the state ``generator``
     had when the layer began: the rerun draws the same masks.  ``generator``
     is then moved on to where the layer's first run left it, so the layers
-    draw the same stream with remat on and off.  ``remat="dots"`` (keep the
-    products, recompute the elementwise chains) is not ported yet: it
-    raises."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots': the dots-saveable policy is not ported yet; use "
-            "remat=True or False")
+    draw the same stream under every ``remat``."""
+    if remat not in (False, True, "dots"):
+        raise ValueError(f"remat={remat!r}: expected False, True or 'dots'")
     if not remat or not torch.is_grad_enabled():
         return fn(*args, generator=generator, **kwargs)
-    from torch.utils.checkpoint import checkpoint
+    from torch.utils.checkpoint import checkpoint, noop_context_fn
 
     start = None if generator is None else generator.get_state()
     end = []
@@ -288,8 +312,8 @@ def remat_apply(fn, remat, generator: Optional[torch.Generator], *args,
             end.append(gen.get_state())
         return out
 
-    out = checkpoint(layer, *args, use_reentrant=False,
-                     preserve_rng_state=False)
+    out = checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False,
+                     context_fn=_dots_contexts if remat == "dots" else noop_context_fn)
     if end:
         generator.set_state(end[0])
     return out

@@ -1,6 +1,8 @@
-"""WordPiece tokenizer, HF ``BertTokenizer``-compatible (pure-Python copy of
-the JAX package's ``vault_tpu/text/wordpiece.py``, without its native fast
-path).
+"""WordPiece tokenizer, HF ``BertTokenizer``-compatible (a copy of the JAX
+package's ``vault_tpu/text/wordpiece.py``).  Body text that is ASCII and
+holds no protected token goes to the native C++ core
+(``text/native.py``, built at first use), as in the JAX package; other text
+goes through the Python tokenizer here.  Both give the same ids.
 
 The reference swaps ViLT's tokenizer for the BERT tower's
 (vault/models/vault/processor.py:6-18) and relies on HF tokenization
@@ -131,6 +133,7 @@ class WordPieceTokenizer:
         self.mask_token = mask_token
         self.max_chars_per_word = max_chars_per_word
         self.added_tokens: Dict[str, int] = {}
+        self._native = None  # the C++ core, loaded at the first encode
 
     # -- vocab management (reference: --add_placeholder_token adds "$T$" and
     #    resizes embeddings, experiments/clsf_vault.py:99-100, 205-209) -----
@@ -216,6 +219,19 @@ class WordPieceTokenizer:
         return chunks
 
     def _ids_for_text(self, text: str) -> List[int]:
+        """Body text to ids: the native core for ASCII text without a
+        protected token (and a vocabulary numbered 0..n-1), the Python
+        tokenizer for the rest, as the JAX package routes it."""
+        if self._native is None:
+            from vault_tpu_torch.text.native import NativeWordPiece
+
+            self._native = NativeWordPiece(self.vocab, self.vocab[self.unk_token],
+                                           self.basic.lowercase,
+                                           self.max_chars_per_word)
+        if self._native.available and not any(t in text for t in self._protected):
+            ids = self._native.tokenize_to_ids(text)
+            if ids is not None:
+                return ids
         return self.convert_tokens_to_ids(self.tokenize(text))
 
     def convert_tokens_to_ids(self, tokens: Sequence[str]) -> List[int]:

@@ -8,8 +8,10 @@ tuples and lists by index, so the optimizer's ``(count, mu, nu)`` is
 (``convert.params_to_jax``); a bf16 leaf is stored as its uint16 bits under
 ``<key>::bfloat16``, since npz has no bf16.  Leaves are tensors (any
 device) or numpy arrays; restored leaves are CPU tensors where the target
-holds tensors, numpy arrays elsewhere.  The orbax and multi-host variants
-are not ported yet.
+holds tensors, numpy arrays elsewhere.  Int8 moments are ``Q8Moment(q,
+scale)`` namedtuples, so their codes are ``<leaf>/0`` (int8) and their
+scales ``<leaf>/1`` (fp32), as in the JAX package's files.  The multi-host
+(orbax) variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -76,6 +78,15 @@ def restore_checkpoint(path: str, target: Any) -> Any:
             return torch.from_numpy(data[tagged[key]].view(np.int16).copy()
                                     ).view(torch.bfloat16)
         if key not in data.files:
+            # int8 moments are (q, scale) pairs under <leaf>/0 and /1: one
+            # kind of moments restored into the other is refused by kind
+            parent = key.rsplit("/", 1)[0]
+            if f"{key}/0" in data.files or (key.endswith(("/0", "/1"))
+                                            and parent in data.files):
+                raise ValueError(
+                    f"dtype mismatch at {parent if parent in data.files else key}: "
+                    "int8 moments (q, scale) against float moments; a checkpoint "
+                    "restores only into the moment kind it was written with")
             raise KeyError(f"{key} is not in {os.path.basename(path)}")
         arr = data[key]
         if arr.dtype.kind == "V":

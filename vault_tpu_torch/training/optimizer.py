@@ -19,17 +19,26 @@ step_` updates the fp32 master parameters and the moments **in place**: the
 port keeps one copy of each instead of returning new trees.  The moments
 may be stored in bf16 (``state_dtype=torch.bfloat16``): the moment math runs
 in fp32, the new moments are rounded once to the stored type, and the
-update reads the *rounded* stored moments, as the JAX package does.  The
-blockwise int8 moments (``state_dtype="int8"``) are not ported yet: they
-raise.
+update reads the *rounded* stored moments, as the JAX package does.
+
+``state_dtype="int8"`` stores each moment as blockwise int8 codes
+(:class:`Q8Moment`: one fp32 absmax scale per 256 values, the second
+moment as sqrt(v)), the JAX package's 8-bit moments.  The blocks run over
+the JAX package's leaves: the ``layers.<i>`` parameters of one stacked leaf
+(``convert.stacked_leaf``) share one code sequence over their values in
+layer order, padded once at its end, so the codes, the scales and the
+checkpoints are the JAX package's.  Unlike the bf16 path, the int8 update
+reads the *unrounded* fp32 moments of the step, as the JAX package's
+``update_q8`` does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, NamedTuple, Optional
+from typing import Callable, Dict, List, Mapping, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def linear_warmup_linear_decay(base_lr: float, warmup_steps: int,
@@ -52,19 +61,75 @@ def linear_warmup_linear_decay(base_lr: float, warmup_steps: int,
 
 class AdamWState(NamedTuple):
     """count: optimizer steps taken; mu, nu: first and second moments keyed
-    like the parameters."""
+    like the parameters, or with int8 moments :class:`Q8Moment`s keyed by
+    the JAX package's leaf (:func:`q8_groups`)."""
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
 
 
-def _state_dtype(state_dtype) -> Optional[torch.dtype]:
+# ---------------------------------------------------------------------------
+# Blockwise int8 moments (the JAX package's ``Q8Moment``, ``_q8_encode`` and
+# ``_q8_decode``): int8 codes and one fp32 absmax/127 scale per block of
+# INT8_BLOCK values; the moment math runs in fp32 and is encoded once a step.
+# ---------------------------------------------------------------------------
+
+INT8_BLOCK = 256
+
+
+class Q8Moment(NamedTuple):
+    q: torch.Tensor      # int8 (nb, INT8_BLOCK)
+    scale: torch.Tensor  # fp32 (nb, 1) per-block absmax / 127
+
+
+def _q8_encode(x: torch.Tensor) -> Q8Moment:
+    """Codes of ``x`` flattened and zero-padded to whole blocks: scale
+    ``max(absmax / 127, 1e-12)``, code ``round(x / scale)`` (half to even)
+    clipped to +-127."""
+    flat = x.float().reshape(-1)
+    nb = -(-flat.numel() // INT8_BLOCK)
+    blocks = F.pad(flat, (0, nb * INT8_BLOCK - flat.numel())).view(nb, INT8_BLOCK)
+    # divided by a tensor: on the card PyTorch turns a division by a Python
+    # number into a product with its reciprocal, which rounds otherwise
+    absmax = blocks.abs().amax(1, keepdim=True)
+    scale = torch.clamp_min(absmax / absmax.new_full((), 127.0), 1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return Q8Moment(q, scale)
+
+
+def _q8_decode(m: Q8Moment, size: int) -> torch.Tensor:
+    """The first ``size`` values of ``m``, flat fp32."""
+    return (m.q.float() * m.scale).reshape(-1)[:size]
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """fp32 square root, correctly rounded as XLA's and the card's are.
+    PyTorch's vectorized CPU kernel is not (an ulp off in about 0.6% of
+    values, AVX-512 builds), which moves a block's scale; through float64,
+    rounded once to float32, it is exact."""
+    return torch.sqrt(x.double()).float() if x.device.type == "cpu" else torch.sqrt(x)
+
+
+def q8_groups(keys) -> Dict[str, List[str]]:
+    """The JAX package's leaves over the port's parameter keys: a stacked
+    leaf (``convert.stacked_leaf``) maps to its ``layers.<i>`` keys in layer
+    order, any other leaf to its own key."""
+    from vault_tpu_torch.convert import stacked_leaf  # convert imports this module
+
+    groups: Dict[str, Dict[int, str]] = {}
+    for k in keys:
+        leaf, i = stacked_leaf(k) or (k, 0)
+        groups.setdefault(leaf, {})[i] = k
+    return {leaf: [members[i] for i in sorted(members)]
+            for leaf, members in groups.items()}
+
+
+def _state_dtype(state_dtype):
+    """A torch dtype, None, or "int8"."""
     if state_dtype is None or isinstance(state_dtype, torch.dtype):
-        return state_dtype
+        return "int8" if state_dtype == torch.int8 else state_dtype
     if str(state_dtype) == "int8":
-        raise NotImplementedError(
-            "state_dtype='int8': the blockwise int8 moments are not ported "
-            "yet; use 'float32' or 'bfloat16'")
+        return "int8"
     return getattr(torch, str(state_dtype))
 
 
@@ -73,7 +138,8 @@ class HfAdamW:
 
     ``learning_rate``: a float or a schedule ``step -> lr``.
     ``state_dtype``: None (the parameters' dtype, exact HF semantics),
-    ``torch.float32``, ``torch.bfloat16``, or their names."""
+    ``torch.float32``, ``torch.bfloat16``, their names, or "int8" (the
+    blockwise moments)."""
 
     def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0,
@@ -88,7 +154,20 @@ class HfAdamW:
         lr = self.learning_rate
         return float(lr(step)) if callable(lr) else float(lr)
 
+    @property
+    def int8(self) -> bool:
+        return self.state_dtype == "int8"
+
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
+        if self.int8:
+            def fresh(keys):
+                n = sum(params[k].numel() for k in keys)
+                return _q8_encode(torch.zeros(n, device=params[keys[0]].device))
+
+            groups = q8_groups(params)
+            return AdamWState(0, {g: fresh(ks) for g, ks in groups.items()},
+                              {g: fresh(ks) for g, ks in groups.items()})
+
         def zeros(p):
             return torch.zeros_like(p, dtype=self.state_dtype or p.dtype)
 
@@ -116,6 +195,11 @@ class HfAdamW:
         lr, step_size = self.step_sizes(count)
         decay = float(np.float32(lr) * np.float32(self.weight_decay))
         b1, b2 = self.b1, self.b2
+        if self.int8:
+            for leaf, keys in q8_groups(params).items():
+                self._step_q8([params[k] for k in keys], [grads[k] for k in keys],
+                              state.mu[leaf], state.nu[leaf], step_size, decay)
+            return AdamWState(count, state.mu, state.nu)
         # the JAX package's operation order, each op in fp32
         for k, p in params.items():
             g = grads[k].float()
@@ -128,6 +212,30 @@ class HfAdamW:
                 upd = upd - decay * p.float()
             p.add_(upd.to(p.dtype))
         return AdamWState(count, state.mu, state.nu)
+
+    def _step_q8(self, ps, gs, mu: Q8Moment, nu: Q8Moment, step_size: float,
+                 decay: float):
+        """One JAX leaf's int8 step (``update_q8``): ``ps`` its parameters
+        in layer order, decoded and encoded as one flat sequence."""
+        b1, b2 = self.b1, self.b2
+        cat = lambda ts: torch.cat([t.float().reshape(-1) for t in ts])
+        g32 = cat(gs)
+        n = g32.numel()
+        m32 = b1 * _q8_decode(mu, n) + (1 - b1) * g32
+        s = _q8_decode(nu, n)  # the stored sqrt(v)
+        v32 = b2 * s * s + (1 - b2) * g32 * g32
+        root = _sqrt(v32)
+        for dst, src in ((mu, _q8_encode(m32)), (nu, _q8_encode(root))):
+            dst.q.copy_(src.q)
+            dst.scale.copy_(src.scale)
+        # the update reads the unrounded fp32 moments
+        upd = (-step_size * m32) / (root + self.eps)
+        if self.weight_decay > 0.0:
+            upd = upd - decay * cat(ps)
+        off = 0
+        for p in ps:
+            p.add_(upd[off:off + p.numel()].view(p.shape).to(p.dtype))
+            off += p.numel()
 
 
 hf_adamw = HfAdamW  # the JAX package's name and signature

@@ -41,8 +41,13 @@ trainers (training/task_trainers.py) override the hooks at the bottom of
 Token merging trains as in the JAX package: :func:`classifier_apply_fn`
 threads ``merge_to`` and ``merge_at_layer`` into the forward (the
 size-weighted average is differentiable, the merge decisions piecewise
-constant).  Not ported: ``num_data_shards > 1``, ``zero_opt``, tensor
-parallelism, a ``mesh``, multiple hosts and ``profile_dir`` raise
+constant).  ``remat`` is False, True or "dots" (ops/nn.py ``remat_apply``),
+``opt_state_dtype`` "float32", "bfloat16" or "int8" (training/optimizer.py).
+``profile_dir`` traces the second eval window (utils/profiling.py
+``trace``), as the JAX package does; while ``utils.profiling.
+enable_nan_checks`` is on, each step runs under its NaN checks.  The
+multi-device options (``num_data_shards > 1``, ``zero_opt``, tensor
+parallelism, a ``mesh``, multiple hosts) are not ported yet and raise
 ``NotImplementedError``.  ``rng_impl`` has no counterpart (the port has one
 generator kind) and is ignored.  There is no ``precompile``: PyTorch runs
 eagerly.
@@ -50,11 +55,12 @@ eagerly.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -80,7 +86,8 @@ from vault_tpu_torch.models.vault import (
 from vault_tpu_torch.training import losses as losses_mod
 from vault_tpu_torch.training.experiment import ExperimentHandler
 from vault_tpu_torch.training.metrics import classification_results
-from vault_tpu_torch.training.optimizer import AdamWState, make_optimizer
+from vault_tpu_torch.training.optimizer import AdamWState, Q8Moment, make_optimizer
+from vault_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -128,7 +135,7 @@ class TrainArgs:
     num_data_shards: Optional[int] = None     # one device: None or 1
     rng_impl: Optional[str] = "rbg"           # no counterpart; ignored
     use_pallas: Any = "auto"                  # read by classifier_apply_fn
-    remat: bool = True                        # read by classifier_apply_fn
+    remat: Union[bool, str] = True            # False, True or "dots"
     merge_to: Optional[int] = None            # read by classifier_apply_fn
     merge_at_layer: int = 0
     compute_dtype: str = "float32"
@@ -287,8 +294,7 @@ class Trainer:
         unported = {"mesh": mesh is not None,
                     "tensor_parallel": tensor_parallel,
                     "num_data_shards > 1": (args.num_data_shards or 1) > 1,
-                    "zero_opt": args.zero_opt,
-                    "profile_dir": args.profile_dir is not None}
+                    "zero_opt": args.zero_opt}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
@@ -368,8 +374,14 @@ class Trainer:
                                for (k, p), g in zip(trainable.items(), grads)}
 
     def train_step(self, batch, labels, weight, step: int) -> torch.Tensor:
-        """Forward, backward and one optimizer update on device tensors.
+        """Forward, backward and one optimizer update on device tensors,
+        under the NaN checks while ``utils.profiling.enable_nan_checks`` is
+        on, marked ``train_step:<step>`` in a ``profile_dir`` trace.
         Returns the on-device pair [loss * valid mass, valid mass]."""
+        with profiling.nan_checks(), torch.profiler.record_function(f"train_step:{step}"):
+            return self._train_step(batch, labels, weight, step)
+
+    def _train_step(self, batch, labels, weight, step: int) -> torch.Tensor:
         k = self.args.grad_accum_steps
         if k <= 1:
             loss, grads = self.loss_and_grads(batch, labels, weight,
@@ -420,61 +432,74 @@ class Trainer:
         step = 0
         window_acc, window_n, window_t0 = None, 0, time.perf_counter()
         start_step = self._maybe_resume() if a.resume else 0
-        for epoch in range(int(a.num_train_epochs)):
-            if early_stop:
-                break
-            batch_iter = self.train_dataset.batches(
-                a.train_batch_size, shuffle=True, rng=data_rng)
-            if a.prefetch_batches > 0:
-                from vault_tpu_torch.data.loader import prefetch
-
-                batch_iter = prefetch(batch_iter, a.prefetch_batches)
-            pbar = _progress(batch_iter, a.disable_tqdm, total=steps_per_epoch,
-                             desc=f"epoch {epoch + 1}/{int(a.num_train_epochs)}")
-            for batch, labels in pbar:
-                if step < start_step:  # resume: fast-forward the schedule
-                    step += 1
-                    continue
-                if a.max_steps > 0 and step >= a.max_steps:
-                    logger.info("Forcibly stopping training")
-                    early_stop = True
+        # profile_dir: one trace of the first whole eval window after the
+        # first (which holds the kernel builds and the allocator's warm-up);
+        # closed at that window's end, or where training ends, or raises
+        profile, profiled, profile_stop = contextlib.ExitStack(), False, 0
+        with profile:
+            for epoch in range(int(a.num_train_epochs)):
+                if early_stop:
                     break
-                if window_acc is None or step % eval_steps == 0:
-                    window_acc = torch.zeros(2, dtype=torch.float32,
-                                             device=self.device)
-                    window_n, window_t0 = 0, time.perf_counter()
-                n = labels.shape[0]
-                batch, labels, weight = self._pad(batch, labels)
-                window_acc += self.train_step(
-                    *self._to_device(batch, labels, weight), step)
-                window_n += n
+                batch_iter = self.train_dataset.batches(
+                    a.train_batch_size, shuffle=True, rng=data_rng)
+                if a.prefetch_batches > 0:
+                    from vault_tpu_torch.data.loader import prefetch
 
-                if (step + 1) % eval_steps == 0:
-                    # the one host read of the window: it waits for every
-                    # step of the window, so the elapsed time is real
-                    window_sum, window_mass = window_acc.cpu().numpy()
-                    self.window_times.append(
-                        (time.perf_counter() - window_t0, window_n))
-                    results = dict(
-                        train_loss=float(window_sum) / max(float(window_mass), 1e-9))
-                    if hasattr(pbar, "set_postfix"):
-                        pbar.set_postfix(train_loss=f"{results['train_loss']:.4f}")
-                    if self.dev_dataset is not None:
-                        results.update(self.evaluate(self.dev_dataset))
-                    self.exp_handler.set_dict_metrics(results)
-                    logger.info("step %d (epoch %d): %s", step + 1, epoch + 1,
-                                results)
-                    early_stop = self.early_stopping.step(
-                        results.get(a.early_stopping_metric), params=self.params,
-                        **{**results, "epoch": epoch + 1,
-                           "step": (step + 1) // eval_steps})
-                    if early_stop:
-                        logger.info("Early stopping at step %d", step + 1)
+                    batch_iter = prefetch(batch_iter, a.prefetch_batches)
+                pbar = _progress(batch_iter, a.disable_tqdm, total=steps_per_epoch,
+                                 desc=f"epoch {epoch + 1}/{int(a.num_train_epochs)}")
+                for batch, labels in pbar:
+                    if step < start_step:  # resume: fast-forward the schedule
+                        step += 1
+                        continue
+                    if a.max_steps > 0 and step >= a.max_steps:
+                        logger.info("Forcibly stopping training")
+                        early_stop = True
                         break
-                    self._maybe_checkpoint(step + 1)
-                step += 1
-            if hasattr(pbar, "close"):
-                pbar.close()
+                    if window_acc is None or step % eval_steps == 0:
+                        window_acc = torch.zeros(2, dtype=torch.float32,
+                                                 device=self.device)
+                        window_n, window_t0 = 0, time.perf_counter()
+                        if (a.profile_dir and not profiled
+                                and step >= start_step + eval_steps):
+                            profile.enter_context(profiling.trace(a.profile_dir))
+                            profiled, profile_stop = True, step + eval_steps
+                    n = labels.shape[0]
+                    batch, labels, weight = self._pad(batch, labels)
+                    window_acc += self.train_step(
+                        *self._to_device(batch, labels, weight), step)
+                    window_n += n
+
+                    if (step + 1) % eval_steps == 0:
+                        # the one host read of the window: it waits for every
+                        # step of the window, so the elapsed time is real
+                        window_sum, window_mass = window_acc.cpu().numpy()
+                        if profile_stop and step + 1 >= profile_stop:
+                            profile.close()
+                            profile_stop = 0
+                            logger.info("profiler trace written to %s", a.profile_dir)
+                        self.window_times.append(
+                            (time.perf_counter() - window_t0, window_n))
+                        results = dict(
+                            train_loss=float(window_sum) / max(float(window_mass), 1e-9))
+                        if hasattr(pbar, "set_postfix"):
+                            pbar.set_postfix(train_loss=f"{results['train_loss']:.4f}")
+                        if self.dev_dataset is not None:
+                            results.update(self.evaluate(self.dev_dataset))
+                        self.exp_handler.set_dict_metrics(results)
+                        logger.info("step %d (epoch %d): %s", step + 1, epoch + 1,
+                                    results)
+                        early_stop = self.early_stopping.step(
+                            results.get(a.early_stopping_metric), params=self.params,
+                            **{**results, "epoch": epoch + 1,
+                               "step": (step + 1) // eval_steps})
+                        if early_stop:
+                            logger.info("Early stopping at step %d", step + 1)
+                            break
+                        self._maybe_checkpoint(step + 1)
+                    step += 1
+                if hasattr(pbar, "close"):
+                    pbar.close()
 
         self._flush_checkpoint()
         if self._ckpt_pool is not None:
@@ -610,7 +635,11 @@ class Trainer:
             for mine, theirs in ((self.opt_state.mu, opt.mu),
                                  (self.opt_state.nu, opt.nu)):
                 for k, v in mine.items():
-                    v.copy_(theirs[k])
+                    if isinstance(v, Q8Moment):
+                        v.q.copy_(theirs[k].q)
+                        v.scale.copy_(theirs[k].scale)
+                    else:
+                        v.copy_(theirs[k])
         self.opt_state = AdamWState(opt.count, self.opt_state.mu,
                                     self.opt_state.nu)
         step = int(state["step"])
