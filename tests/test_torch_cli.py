@@ -86,7 +86,8 @@ def test_help_renders(cli):
     assert "usage: python -m " + cli in res.stdout
     if cli.endswith("serve"):
         assert "12.5-16.7%" in res.stdout and "--device" in res.stdout
-        assert "--dp" not in res.stdout and "--tp" not in res.stdout
+        for flag in ("--dp", "--tp", "--pp"):
+            assert flag in res.stdout, flag
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -470,17 +471,33 @@ def test_clsf_vault_twitter_runs_with_a_text_tower(tmp_path):
 
 
 def test_clsf_vault_device_and_unported_flags(tmp_path, monkeypatch):
-    """The card by default (raising without one), the mesh flags refused by
-    name."""
+    """The card by default (raising without one); the mesh flags are ported:
+    more data ranks than the (absent) group raises with no fallback, a
+    coordinator without the process count raises, and ``--zero_opt`` with
+    ``--coordinator_address`` trains on the group it joins (one gloo rank
+    here, torch.distributed initialized and torn down)."""
+    import torch.distributed as dist
+
     from vault_tpu_torch.cli import clsf_vault
+    from vault_tpu_torch.parallel.multihost import free_port
 
     root = _make_mvsa(tmp_path, n=6)
-    base = ["MVSA", "--root_dir", root, "--debug_tiny"]
-    for extra, match in ((["--num_data_shards", "2"], "--num_data_shards"),
-                         (["--zero_opt"], "--zero_opt"),
-                         (["--coordinator_address", "localhost:1"], "--coordinator_address")):
-        with pytest.raises(NotImplementedError, match=match):
-            clsf_vault.main(base + extra + ["--device", "cpu"])
+    base = ["MVSA", "--root_dir", root, "--debug_tiny", "--num_train_epochs", "1",
+            "--disable_tqdm", "--experiment_root", str(tmp_path / "logs")]
+    with pytest.raises(RuntimeError, match="initialized torch.distributed"):
+        clsf_vault.main(base + ["--num_data_shards", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="num_processes"):
+        clsf_vault.main(base + ["--coordinator_address", "localhost:1", "--device", "cpu"])
+    try:
+        (trainer,) = clsf_vault.main(base + [
+            "--zero_opt", "--coordinator_address", f"localhost:{free_port()}",
+            "--num_processes", "1", "--process_id", "0", "--device", "cpu"])
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert trainer.args.zero_opt and trainer.dp == 1
+        assert trainer.opt_state.count > 0 and trainer.exp_handler._series["train_loss"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         clsf_vault.main(base)
@@ -680,15 +697,63 @@ def test_tmsc_tombert_matches_the_jax_cli(tmp_path, monkeypatch, case):
 
 def test_tmsc_tombert_refusals(tmp_path, monkeypatch, capsys):
     """``--merge_to`` exits 2 (the JAX script's parser error), the mesh
-    flags raise by name, and the card is the default device."""
+    flags are ported (``--zero_opt`` and ``--num_data_shards`` reach the
+    TrainArgs; more data ranks than the absent group raise at the trainer,
+    with no fallback), and the card is the default device."""
     from vault_tpu_torch.cli import tmsc_tombert
+    from vault_tpu_torch.cli.args import apply_device_arg, trainer_args_from_namespace
+    from vault_tpu_torch.training.trainer import Trainer
 
     base = ["TomBERT", "--dir", str(tmp_path), "--train_split", "train", "--debug_tiny"]
     with pytest.raises(SystemExit) as e:
         tmsc_tombert.parse_args(base + ["--merge_to", "8"])
     assert e.value.code == 2 and "--merge_to" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="--zero_opt"):
-        tmsc_tombert.main(base + ["--zero_opt", "--device", "cpu"])
+    args = tmsc_tombert.parse_args(base + ["--zero_opt", "--num_data_shards", "2",
+                                           "--device", "cpu"])
+    apply_device_arg(args)  # no coordinator: nothing to join
+    targs = trainer_args_from_namespace(args)
+    assert targs.zero_opt and targs.num_data_shards == 2
+    with pytest.raises(RuntimeError, match="initialized torch.distributed"):
+        Trainer(None, {}, targs, None, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmsc_tombert.main(base)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--dp", "3", "--max_batch", "8"], "--max_batch 8 must divide by --dp 3"),
+    (["--pp", "--tp", "2"], "--pp is mutually exclusive"),
+    (["--pp", "--dp", "2"], "--pp is mutually exclusive"),
+    (["--pp", "--merge_to", "8"], "--merge_to is not supported with --pp")])
+def test_serve_parallel_flag_checks(flags, match, capsys):
+    """The JAX script's checks of --dp, --tp and --pp: each exits 2."""
+    with pytest.raises(SystemExit) as e:
+        serve.parse_args(["--debug_tiny", "--device", "cpu", *flags])
+    assert e.value.code == 2 and match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--dp", "2", "--tp", "2"],
+                                   ["--pp"], ["--tp", "2", "--quantize", "w8a8"]])
+def test_serve_parallel_forward_matches_the_model(flags, monkeypatch):
+    """``cli.serve.build`` with --dp/--tp/--pp on the host (named once per
+    shard): the served callable's rows equal the model's direct forward
+    (DP exactly; TP and the pipeline within the file's bf16 tolerances:
+    the row products are summed in another order, and the w8a8 direct
+    forward runs the fused blocks' plain versions, which round at the
+    kernels' points).  On the card, more devices than are visible
+    raise."""
+    from vault_tpu_torch.serving import pad_rows
+
+    model, processor, server = serve.build(_args(*flags))
+    server.close()
+    enc = {k: pad_rows(v, 4) for k, v in _batch(processor).items()}
+    with torch.inference_mode():
+        direct = model(enc).float()
+        served = server.engine.apply(enc).float()
+    if flags == ["--dp", "2"]:
+        assert torch.equal(served, direct)
+    else:
+        np.testing.assert_allclose(served.numpy(), direct.numpy(), atol=ATOL, rtol=RTOL)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="asks for 2 devices; 1 card"):
+        serve.serving_devices("cuda", 2)

@@ -53,6 +53,11 @@ def test_every_module_imports_with_jax_and_vault_tpu_blocked():
         "checkpoint", "experiment", "losses", "metrics", "optimizer", "trainer")
             } | {"vault_tpu_torch.data.loader", "vault_tpu_torch.models.llama",
                  "vault_tpu_torch.ops.cuda_swiglu"} <= set(modules)
+    # the parallel layer, every module of it
+    parallel = {f"vault_tpu_torch.parallel.{m}" for m in (
+        "dryrun", "mesh", "multihost", "pipeline", "shard_map_step", "sharding",
+        "tensor_parallel", "zero")}
+    assert parallel == {m for m in modules if m.startswith("vault_tpu_torch.parallel.")}
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['vault_tpu'] = None\n"

@@ -476,3 +476,30 @@ def test_nan_checks_raise_forward_and_backward_and_turn_off():
     assert torch.isnan(tr.params["head.out.w"]).all()
     tr.apply_fn = inner
     assert torch.isnan(tr.train_step(*fwd, 4)[0])
+
+
+def test_nan_checks_cover_the_evaluation():
+    """The trainer's evaluation batches run under the NaN checks too, as
+    the JAX package's jitted eval step runs under ``jax_debug_nans``: a NaN
+    pixel in a dev batch raises at the first operator that makes a NaN
+    (``aten``'s cast of the pixels), naming it; with the checks off the
+    evaluation returns a NaN loss.  A forward the caller runs outside the
+    trainer stays outside the checks."""
+    _, tcfg = _cfgs()
+    feats, labels = _toy_data(tcfg, n=4)
+    bad = dict(feats, pixel_values=feats["pixel_values"].copy())
+    bad["pixel_values"][2, 1, 5, 5] = np.nan
+    model = tvault.VaultForClassification(tcfg, device="cpu")
+    tr = _trainer(tcfg, model, TrainArgs(lr=1e-3, eval_batch_size=4, disable_tqdm=True),
+                  None)
+    try:
+        profiling.enable_nan_checks(True)
+        assert np.isfinite(tr.evaluate(InMemoryDataset(feats, labels))["eval_loss"])
+        with pytest.raises(RuntimeError, match="NaN produced by aten"):
+            tr.evaluate(InMemoryDataset(bad, labels))
+        with torch.no_grad():  # the user's own forward: not checked
+            out = model(tvault.batch_to_device(bad, "cpu"))
+        assert torch.isnan(out).any()
+    finally:
+        profiling.enable_nan_checks(False)
+    assert np.isnan(tr.evaluate(InMemoryDataset(bad, labels))["eval_loss"])

@@ -332,11 +332,16 @@ def test_step_generator_is_a_function_of_seed_and_step():
 
 
 def test_unported_knobs_raise():
-    # merge_to is ported (tests/test_torch_token_merge.py trains with it)
-    # profile_dir is ported (tests/test_torch_trainer_options.py)
-    for kw in (dict(zero_opt=True), dict(num_data_shards=2)):
-        with pytest.raises(NotImplementedError):
-            Trainer(None, {}, TrainArgs(**kw), None, device="cpu")
+    """The mesh knobs are ported (tests/test_torch_parallel*.py): more data
+    ranks than the (absent) group has raises, with no fallback to one
+    process; ``zero_opt`` on one process has nothing to split and runs
+    plain.  (merge_to and profile_dir are ported too:
+    tests/test_torch_token_merge.py, tests/test_torch_trainer_options.py.)"""
+    with pytest.raises(RuntimeError, match="initialized torch.distributed"):
+        Trainer(None, {}, TrainArgs(num_data_shards=2), None, device="cpu")
+    tr = Trainer(None, {"w": torch.zeros(2)}, TrainArgs(zero_opt=True), None,
+                 device="cpu")
+    assert tr.mesh is None and tr.dp == 1
 
 
 def test_classifier_apply_fn_reads_the_train_args(monkeypatch):

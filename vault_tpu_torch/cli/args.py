@@ -3,13 +3,14 @@
 
 Every model, dataset and trainer contributes a dict of flags (name ->
 argparse kwargs), and the subcommands compose them, as the reference does
-(experiments/utils.py:5-36).  The flag names are the JAX package's.  The
-mesh flags (``--num_data_shards`` above 1, ``--zero_opt`` and the
-multi-host ``--coordinator_address``, ``--num_processes``, ``--process_id``)
-wait for the port's parallel modules: :func:`refuse_unported` raises
-``NotImplementedError`` naming each one that was set.  Every other flag of
-the JAX package's trainer runs, ``--opt_state_dtype int8`` and
-``--profile_dir`` included.
+(experiments/utils.py:5-36).  The flag names are the JAX package's, and
+every flag of the JAX package's trainer runs.  The multi-process flags
+(``--coordinator_address``, ``--num_processes``, ``--process_id``) join a
+``torch.distributed`` group in :func:`apply_device_arg`, as the JAX
+package's joins ``jax.distributed``: launch the same command once per rank,
+each with its ``--process_id``; the trainer then runs data-parallel over
+the group (``--num_data_shards`` ranks, by default all of them), with
+``--zero_opt`` splitting the AdamW moments over them.
 """
 
 from __future__ import annotations
@@ -57,8 +58,9 @@ TRAINER_ARGS = dict(
     max_steps=dict(default=-1, type=int, help="max number of steps"),
     num_train_epochs=dict(default=10, type=int, help="training epochs"),
     warmup_ratio=dict(default=0.1, type=float, help="warmup fraction of steps"),
-    num_data_shards=dict(type=int, help="data-parallel width (one device only: "
-                                        "1 or unset)"),
+    num_data_shards=dict(type=int, help="data-parallel width: the ranks of the "
+                                        "torch.distributed group (default: "
+                                        "all of them; more raises)"),
     use_pallas=dict(default="auto", type=str, nargs="?", const="batched",
                     help="kernel selector: auto (default; the fused QKV "
                          "product and the MLP and attention kernels on the "
@@ -92,37 +94,45 @@ TRAINER_ARGS = dict(
                      help="write a torch.profiler Chrome trace of the second "
                           "eval window here"),
     zero_opt=dict(action="store_true",
-                  help="ZeRO-1 moment sharding (not ported yet: raises)"),
+                  help="ZeRO-1: split the AdamW moments over the data-parallel "
+                       "ranks (each rank stores and updates 1/N of them; "
+                       "parallel/zero.py)"),
     seed=dict(default=0, type=int, help="base random seed"),
     checkpoint_dir=dict(default=None, type=str,
                         help="write {params, opt_state, step} checkpoints "
-                             "here at every eval window"),
+                             "here at every eval window (several processes: "
+                             "a torch.distributed.checkpoint directory that "
+                             "every rank writes its shards into)"),
     resume=dict(action="store_true",
                 help="resume mid-schedule from checkpoint_dir's last "
                      "checkpoint (restores params/opt_state/step)"),
+    # several processes: launch the SAME command once per rank with its own
+    # --process_id; torch.distributed joins them into one group
     coordinator_address=dict(default=None, type=str,
-                             help="multi-host coordinator (not ported yet: "
-                                  "raises)"),
+                             help="host:port of rank 0; its presence joins "
+                                  "a torch.distributed group"),
     num_processes=dict(default=None, type=int,
-                       help="multi-host process count (not ported yet: raises)"),
+                       help="total number of processes (ranks) in the job"),
     process_id=dict(default=None, type=int,
-                    help="multi-host process index (not ported yet: raises)"),
+                    help="this process's rank in [0, num_processes)"),
 )
 
 
-def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming every mesh flag that was set
-    (they wait for the port's parallel modules)."""
-    set_flags = [name for name, on in (
-        ("--num_data_shards", (args.num_data_shards or 1) > 1),
-        ("--zero_opt", args.zero_opt),
-        ("--coordinator_address", args.coordinator_address is not None),
-        ("--num_processes", args.num_processes is not None),
-        ("--process_id", args.process_id is not None)) if on]
-    if set_flags:
-        raise NotImplementedError(
-            f"{', '.join(set_flags)}: multi-device training is not ported yet "
-            "(one device only)")
+def apply_device_arg(args) -> None:
+    """The JAX package's ``apply_device_arg`` flow: with
+    ``--coordinator_address``, join the ``torch.distributed`` group
+    (parallel/mesh.py ``init_distributed``) before any model is built, so
+    the trainer's mesh spans every rank.  ``--device`` itself is read where
+    the model is placed (``models.vault.resolve_device``)."""
+    if getattr(args, "coordinator_address", None) is None:
+        if getattr(args, "num_processes", None) not in (None, 1):
+            raise ValueError("--num_processes needs --coordinator_address")
+        return
+    from vault_tpu_torch.parallel.mesh import default_backend, init_distributed
+
+    init_distributed(args.coordinator_address, args.num_processes,
+                     args.process_id,
+                     backend=default_backend(getattr(args, "device", None)))
 
 
 def trainer_args_from_namespace(args, **overrides):

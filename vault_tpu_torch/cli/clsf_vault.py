@@ -22,8 +22,9 @@ versions run.  ``--debug_tiny`` takes the JAX script's tiny geometry and a
 ``text/entity_linking.py``): each linked target carries its entity token,
 and each rep's active text tower grows a max-pooled row per entity.
 
-Not ported yet, and refused with ``NotImplementedError``: the mesh flags
-(``cli/args.py`` ``refuse_unported``).  :func:`main` takes an argument list
+The mesh flags run: ``--coordinator_address`` joins a ``torch.distributed``
+group (``cli/args.py`` ``apply_device_arg``), over which the trainer runs
+data-parallel (``--num_data_shards``, ``--zero_opt``).  :func:`main` takes an argument list
 and returns the trainers it ran.
 """
 
@@ -39,7 +40,7 @@ from vault_tpu_torch.cli.args import (
     GENERAL_ARGS,
     TRAINER_ARGS,
     add_arguments,
-    refuse_unported,
+    apply_device_arg,
     trainer_args_from_namespace,
 )
 
@@ -284,7 +285,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     from vault_tpu_torch.training.trainer import classifier_apply_fn
 
     args = parse_args(argv)
-    refuse_unported(args)
+    apply_device_arg(args)
     device = resolve_device(args.device)
     logging.basicConfig(level=args.logging_level.upper(), filename=args.logging_file)
 

@@ -23,8 +23,14 @@ kernel selector is ``serving.serving_impl``'s.  Requests are padded to
 card (``--device cuda``, the default: without a card it raises); ``--device
 cpu`` runs the kernels' plain versions.
 
-Not offered yet: the JAX script's ``--dp``, ``--tp`` and ``--pp`` (data-,
-tensor- and pipeline-parallel serving) wait for the port's parallel modules.
+Several devices, in this one process (``serving.py``): ``--dp N`` splits
+each padded batch over N devices, each running the single-device forward
+with its kernels; ``--tp N`` runs the Megatron-sharded layers over N
+devices (the products in plain PyTorch, the attention kernel on each
+device's heads), composing with ``--quantize``; both together form a dp x
+tp mesh; ``--pp`` runs the 2-stage pipeline (``parallel/pipeline.py``).
+The devices are ``cuda:0`` .. ``cuda:<n-1>`` (fewer cards than asked
+raises), or the host named n times with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -58,6 +64,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="int8 serving: w8 = int8 weights only (bf16 products), "
                          "w8a8 = activations quantized per row too, so the "
                          "products run in int8 (ops/quantize.py)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel serving over N devices: the padded "
+                         "batch is split over them and each shard runs the "
+                         "single-device forward, kernels included "
+                         "(serving.dp_sharded_forward; --max_batch must "
+                         "divide by N).  Composes with --tp as an N x M mesh")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel serving over N devices: the encoder "
+                         "layers are Megatron-sharded (parallel/sharding.py: "
+                         "QKV/MLP-in column, attn-out/MLP-out row) and the "
+                         "row products are summed over the devices "
+                         "(serving.tp_forward).  Composes with --quantize "
+                         "(int8 codes and scales shard the same way).  The "
+                         "products run in plain PyTorch, the attention "
+                         "kernel on each device's heads")
+    ap.add_argument("--pp", action="store_true",
+                    help="2-stage pipelined serving (the reference's "
+                         "PipelineVaultMixin): LM tower on the first card, "
+                         "ViLT and the head on the second (the first again on "
+                         "a one-card machine, on a second stream), "
+                         "micro-batches overlapped (parallel/pipeline.py).  "
+                         "Not with --tp/--dp or --merge_to")
     ap.add_argument("--merge_to", type=int, default=None,
                     help="ToMe patch-token merging (ops/token_merge.py): merge "
                          "the patch tokens down to N before the co-encoder (87 "
@@ -83,7 +111,75 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.int8 and args.quantize and args.quantize != "w8":
         ap.error(f"--int8 (alias for --quantize w8) conflicts with "
                  f"--quantize {args.quantize}")
+    if args.dp < 1 or args.tp < 1:
+        ap.error("--dp and --tp must be at least 1")
+    if args.dp > 1 and args.max_batch % args.dp:
+        ap.error(f"--max_batch {args.max_batch} must divide by --dp {args.dp}")
+    if args.pp and (args.tp > 1 or args.dp > 1):
+        ap.error("--pp is mutually exclusive with --tp/--dp")
+    if args.pp and args.merge_to is not None:
+        ap.error("--merge_to is not supported with --pp (the pipeline "
+                 "stages run without the merge seam)")
     return args
+
+
+def serving_devices(device, n: int):
+    """``n`` devices for ``--dp`` x ``--tp``: ``cuda:0`` .. ``cuda:<n-1>``
+    (raising when fewer cards are visible, with no fallback), or the host
+    named ``n`` times."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise RuntimeError(f"--dp x --tp asks for {n} devices; {have} card(s) "
+                           "visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def parallel_forward(model, args, device):
+    """The served callable for ``--dp``/``--tp``/``--pp``: ``model`` itself
+    when none is set."""
+    from vault_tpu_torch.convert import param_tree
+    from vault_tpu_torch.models.vault import classifier_head_apply, vault_for_classification
+
+    if args.pp:
+        from vault_tpu_torch.parallel.pipeline import PipelineVault
+
+        pipe = PipelineVault(model.state_dict(), model.cfg, lm_device=device,
+                             inner_batch_size=max(1, args.max_batch // 2),
+                             use_pallas=model.use_pallas)
+        head = param_tree({k[5:]: v.to(pipe.vilt_device)
+                           for k, v in model.state_dict().items()
+                           if k.startswith("head.")})
+
+        def pp_forward(batch):
+            pooled = pipe(**{k: v for k, v in batch.items()
+                             if k in ("input_ids", "attention_mask", "token_type_ids",
+                                      "pixel_values", "pixel_mask")}).pooler_output
+            return classifier_head_apply(head, pooled, 0.0, True)
+
+        return pp_forward
+    if args.dp == 1 and args.tp == 1:
+        return model
+    cfg, use_pallas = model.cfg, model.use_pallas
+
+    def apply_fn(params, batch):
+        return vault_for_classification(
+            param_tree(params), cfg, batch, head_dropout=0.0, deterministic=True,
+            use_pallas=use_pallas, merge_patches_to=model.merge_to,
+            merge_at_layer=model.merge_at_layer)
+
+    devices = serving_devices(device, args.dp * args.tp)
+    if args.tp == 1:
+        from vault_tpu_torch.serving import dp_sharded_forward
+
+        return dp_sharded_forward(apply_fn, devices, model.state_dict())
+    from vault_tpu_torch.serving import mesh_forward
+
+    return mesh_forward(apply_fn, devices, model.state_dict(), dp=args.dp, tp=args.tp)
 
 
 def stored_mode(path: str):
@@ -170,7 +266,8 @@ def build(args: argparse.Namespace):
     canvas = canvas if canvas == "auto" else tuple(
         int(v) for v in canvas.lower().split("x"))
     processor = VaultProcessor(build_tokenizer(args.bert), canvas=canvas, device=device)
-    server = InferenceServer(processor, model, host=args.host, port=args.port,
+    server = InferenceServer(processor, parallel_forward(model, args, device),
+                             host=args.host, port=args.port,
                              max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
     return model, processor, server
 

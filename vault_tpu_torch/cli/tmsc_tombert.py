@@ -20,8 +20,8 @@ Linked entities and ``$T$`` grow the text towers' word tables.  Training
 runs on the card (``--device`` unset or ``cuda``; without a card it
 raises); ``--device cpu`` is the only way onto the host.  ``--debug_tiny``
 takes tiny towers, ResNet-18 and a 64-pixel crop.  ``--merge_to`` is refused,
-as in the JAX script; the mesh flags raise ``NotImplementedError``
-(``cli/args.py`` ``refuse_unported``).  :func:`main` takes an argument list
+as in the JAX script; the mesh flags run as in ``cli/clsf_vault.py``
+(``cli/args.py`` ``apply_device_arg``).  :func:`main` takes an argument list
 and returns the trainers it ran.
 """
 
@@ -36,7 +36,7 @@ from vault_tpu_torch.cli.args import (
     GENERAL_ARGS,
     TRAINER_ARGS,
     add_arguments,
-    refuse_unported,
+    apply_device_arg,
     trainer_args_from_namespace,
 )
 
@@ -248,7 +248,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     )
 
     args = parse_args(argv)
-    refuse_unported(args)
+    apply_device_arg(args)
     device = resolve_device(args.device)
     logging.basicConfig(level=args.logging_level.upper(), filename=args.logging_file)
 

@@ -35,6 +35,12 @@ from vault_tpu_torch.ops.nn import (
     layer_norm,
     linear,
     remat_apply,
+    take,
+)
+from vault_tpu_torch.parallel.tensor_parallel import (
+    current_tp,
+    local_heads,
+    row_linear,
 )
 
 
@@ -122,7 +128,7 @@ def bert_embed(params, cfg: TextTowerConfig, input_ids, token_type_ids=None,
                deterministic=True, generator=None):
     emb = params["embeddings"]
     if inputs_embeds is None:
-        inputs_embeds = emb["word"][input_ids]
+        inputs_embeds = take(emb["word"], input_ids)
     b, l = inputs_embeds.shape[:2]
     dev = inputs_embeds.device
     if position_ids is None:
@@ -139,15 +145,43 @@ def bert_embed(params, cfg: TextTowerConfig, input_ids, token_type_ids=None,
     if token_type_ids is None:
         token_type_ids = torch.zeros((b, l), dtype=torch.int64, device=dev)
 
-    x = (inputs_embeds + emb["position"][position_ids]
-         + emb["token_type"][token_type_ids])
+    x = (inputs_embeds + take(emb["position"], position_ids)
+         + take(emb["token_type"], token_type_ids))
     x = layer_norm(emb["ln"], x, cfg.layer_norm_eps)
     return dropout(generator, x, cfg.hidden_dropout_prob, deterministic)
 
 
+def _encoder_layer_tp(lp, cfg: TextTowerConfig, x, bias, deterministic,
+                      generator, use_pallas, tp):
+    """One post-LN BERT layer on this shard's heads and intermediate
+    columns (parallel/tensor_parallel.py): Q/K/V and ``mlp_in`` column
+    shards, ``attn_out`` and ``mlp_out`` row shards summed before the bias,
+    the residual and the LN.  The products run the plain composition; the
+    attention core runs the selector's kernel on the local heads.  The
+    dropout draws are the unsharded layer's, cut to the local heads."""
+    fuse_qkv = parse_impl(use_pallas, x.device)[0]
+    q, k, v = project_qkv(lp, tp.enter(x), local_heads(cfg.num_attention_heads, tp),
+                          fuse_qkv)
+    ctx = merge_heads(attend(q, k, v, bias, generator,
+                             cfg.attention_probs_dropout_prob, deterministic,
+                             use_pallas=use_pallas))
+    attn = dropout(generator, row_linear(lp["attn_out"], ctx, tp),
+                   cfg.hidden_dropout_prob, deterministic)
+    x = layer_norm(lp["attn_ln"], x + attn, cfg.layer_norm_eps)
+    mlp = act_fn(cfg.hidden_act)(linear(lp["mlp_in"], tp.enter(x)))
+    mlp = dropout(generator, row_linear(lp["mlp_out"], mlp, tp),
+                  cfg.hidden_dropout_prob, deterministic)
+    return layer_norm(lp["mlp_ln"], x + mlp, cfg.layer_norm_eps)
+
+
 def _encoder_layer(lp, cfg: TextTowerConfig, x, bias, deterministic,
                    generator=None, use_pallas="auto"):
-    """One post-LN BERT layer."""
+    """One post-LN BERT layer (on the shards of the active tensor-parallel
+    group, when one is set)."""
+    tp = current_tp()
+    if tp is not None:
+        return _encoder_layer_tp(lp, cfg, x, bias, deterministic, generator,
+                                 use_pallas, tp)
     fuse_qkv, _, fuse_mlp, _ = parse_impl(use_pallas, x.device)
     q, k, v = project_qkv(lp, x, cfg.num_attention_heads, fuse_qkv)
     ctx = merge_heads(attend(q, k, v, bias, generator,

@@ -24,8 +24,9 @@ from torch import nn
 
 from vault_tpu_torch.ops.attention import attend, merge_heads, split_heads
 from vault_tpu_torch.ops.attention import gqa_attend_plain as _gqa_attend
-from vault_tpu_torch.ops.nn import ParamDict, init_linear, linear
+from vault_tpu_torch.ops.nn import ParamDict, init_linear, linear, silu
 from vault_tpu_torch.ops.nn import rms_norm as _rms_norm
+from vault_tpu_torch.parallel.tensor_parallel import current_tp, local_heads, row_linear
 from vault_tpu_torch.ops.quantize import QUANT_MODES, k_major_site, quantize_linear_params
 
 
@@ -144,7 +145,30 @@ def init_lm_projection(gen: torch.Generator, in_dim: int, out_dim: int,
 # Apply
 # ---------------------------------------------------------------------------
 
+def _layer_tp(lp, cfg: LlamaConfig, x, bias, position_ids, tp):
+    """One Llama layer on this shard's heads (query and K/V heads split
+    alike) and intermediate columns, the plain composition throughout, as
+    the JAX package's tensor-parallel path runs (parallel/
+    tensor_parallel.py): q/k/v, ``gate`` and ``up`` column shards, ``o``
+    and ``down`` row shards summed before the residual."""
+    h = local_heads(cfg.num_attention_heads, tp)
+    kvh = local_heads(cfg.num_key_value_heads, tp)
+    d = cfg.head_dim
+    y = tp.enter(_rms_norm(lp["input_ln"], x, cfg.rms_norm_eps))
+    q = _rope(split_heads(linear(lp["q"], y), h), position_ids, cfg.rope_theta, d)
+    k = _rope(split_heads(linear(lp["k"], y), kvh), position_ids, cfg.rope_theta, d)
+    v = split_heads(linear(lp["v"], y), kvh)
+    ctx = _gqa_attend(q, k, v, bias, h // kvh) if kvh != h else attend(q, k, v, bias)
+    x = x + row_linear(lp["o"], merge_heads(ctx), tp)
+    y = tp.enter(_rms_norm(lp["post_ln"], x, cfg.rms_norm_eps))
+    mlp = silu(linear(lp["gate"], y)) * linear(lp["up"], y)
+    return x + row_linear(lp["down"], mlp, tp)
+
+
 def _layer(lp, cfg: LlamaConfig, x, bias, position_ids):
+    tp = current_tp()
+    if tp is not None:
+        return _layer_tp(lp, cfg, x, bias, position_ids, tp)
     h = cfg.num_attention_heads
     kvh = cfg.num_key_value_heads
     d = cfg.head_dim

@@ -49,6 +49,12 @@ from vault_tpu_torch.ops.nn import (
     linear,
     matmul_fp32,
     remat_apply,
+    take,
+)
+from vault_tpu_torch.parallel.tensor_parallel import (
+    current_tp,
+    local_heads,
+    row_linear,
 )
 
 
@@ -116,12 +122,12 @@ def text_embed(params, cfg: ViltConfig, input_ids=None, token_type_ids=None,
     ``cfg.add_text_position_embeddings`` is False."""
     te = params["text_embeddings"]
     if inputs_embeds is None:
-        inputs_embeds = te["word"][input_ids]
+        inputs_embeds = take(te["word"], input_ids)
     b, l = inputs_embeds.shape[:2]
     dev = inputs_embeds.device
     if token_type_ids is None:
         token_type_ids = torch.zeros((b, l), dtype=torch.int64, device=dev)
-    x = inputs_embeds + te["token_type"][token_type_ids]
+    x = inputs_embeds + take(te["token_type"], token_type_ids)
     if cfg.add_text_position_embeddings:
         x = x + te["position"][torch.arange(l, device=dev)][None]
     x = layer_norm(te["ln"], x, cfg.layer_norm_eps)
@@ -243,9 +249,33 @@ def joint_embed(params, cfg: ViltConfig, input_ids=None, attention_mask=None,
 # Encoder
 # ---------------------------------------------------------------------------
 
+def _encoder_layer_tp(lp, cfg: ViltConfig, x, bias, deterministic,
+                      generator, use_pallas, tp):
+    """One pre-LN ViLT layer on this shard's heads and intermediate columns
+    (parallel/tensor_parallel.py; see ``models/bert.py``
+    ``_encoder_layer_tp``)."""
+    fuse_qkv = parse_impl(use_pallas, x.device)[0]
+    y = tp.enter(layer_norm(lp["ln_before"], x, cfg.layer_norm_eps))
+    q, k, v = project_qkv(lp, y, local_heads(cfg.num_attention_heads, tp), fuse_qkv)
+    ctx = merge_heads(attend(q, k, v, bias, generator,
+                             cfg.attention_probs_dropout_prob, deterministic,
+                             use_pallas=use_pallas))
+    x = x + dropout(generator, row_linear(lp["attn_out"], ctx, tp),
+                    cfg.hidden_dropout_prob, deterministic)
+    y = tp.enter(layer_norm(lp["ln_after"], x, cfg.layer_norm_eps))
+    mlp = act_fn(cfg.hidden_act)(linear(lp["mlp_in"], y))
+    return x + dropout(generator, row_linear(lp["mlp_out"], mlp, tp),
+                       cfg.hidden_dropout_prob, deterministic)
+
+
 def _encoder_layer(lp, cfg: ViltConfig, x, bias, deterministic,
                    generator=None, use_pallas="auto"):
-    """One pre-LN ViLT layer (modeling_vilt.py ViltLayer.forward)."""
+    """One pre-LN ViLT layer (modeling_vilt.py ViltLayer.forward), on the
+    shards of the active tensor-parallel group when one is set."""
+    tp = current_tp()
+    if tp is not None:
+        return _encoder_layer_tp(lp, cfg, x, bias, deterministic, generator,
+                                 use_pallas, tp)
     fuse_qkv, fuse_lnqkv, fuse_mlp, _ = parse_impl(use_pallas, x.device)
     if fuse_lnqkv:
         from vault_tpu_torch.ops.cuda_ln_qkv import fused_ln_qkv

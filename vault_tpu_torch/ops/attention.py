@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from vault_tpu_torch.ops.nn import linear
+from vault_tpu_torch.ops.nn import dropout, linear
 
 # What "auto" resolves to for CUDA tensors: the fused (H, 3H) QKV product,
 # the fused MLP-block kernels and the attention kernel.  On the CPU "auto"
@@ -113,11 +113,10 @@ def attend_plain(
     if bias is not None:
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1)
-    if not deterministic and dropout_rate > 0.0:
-        keep = 1.0 - dropout_rate
-        u = torch.rand(probs.shape, generator=dropout_generator,
-                       device=probs.device)
-        probs = torch.where(u < keep, probs / keep, torch.zeros_like(probs))
+    # the heads axis: under tensor parallelism each rank keeps its heads'
+    # block of the whole layer's mask (ops/nn.py ``shard_draws``)
+    probs = dropout(dropout_generator, probs, dropout_rate, deterministic,
+                    heads_axis=1)
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from vault_tpu_torch.ops.nn import take
+
 
 def interpolate_pos_grid(grid: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                          out_h: int, out_w: int) -> torch.Tensor:
@@ -48,10 +50,12 @@ def interpolate_pos_grid(grid: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     wy = (sy - y0.to(torch.float32))[..., None]
     wx = (sx - x0.to(torch.float32))[..., None]
 
-    v00 = grid[y0, x0]  # (B, out_h, out_w, C) via advanced-index gather
-    v01 = grid[y0, x1]
-    v10 = grid[y1, x0]
-    v11 = grid[y1, x1]
+    # (B, out_h, out_w, C) via advanced-index gathers, their gradients
+    # summed in fp32 (ops/nn.py ``take``)
+    v00 = take(grid, y0, x0)
+    v01 = take(grid, y0, x1)
+    v10 = take(grid, y1, x0)
+    v11 = take(grid, y1, x1)
 
     top = v00 * (1 - wx) + v01 * wx
     bot = v10 * (1 - wx) + v11 * wx

@@ -20,6 +20,7 @@ pytree dict.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -226,29 +227,116 @@ def act_fn(name: str):
     raise ValueError(f"unknown activation {name!r}")
 
 
+class _Take(torch.autograd.Function):
+    """``table[indices]`` whose backward sums the rows' gradients in fp32
+    and rounds the table's gradient once (see :func:`take`)."""
+
+    @staticmethod
+    def forward(ctx, table, *indices):
+        ctx.save_for_backward(*indices)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[indices]
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = torch.zeros(ctx.shape, dtype=torch.float32, device=grad.device)
+        g.index_put_(tuple(ctx.saved_tensors), grad.float(), accumulate=True)
+        return (g.to(ctx.dtype),) + (None,) * len(ctx.saved_tensors)
+
+
+def take(table: torch.Tensor, *indices: torch.Tensor) -> torch.Tensor:
+    """``table[indices]`` (an embedding lookup, a position-grid gather).
+    PyTorch's backward of a lookup (``index_put_`` with ``accumulate``) adds
+    the rows' gradients one at a time in the table's dtype, so a bf16 table
+    whose rows are read many times (the token-type row, by every token of
+    the batch) gets a sum rounded to bf16 at each of its terms: on the card
+    the token-type row's gradient of a batch-32 step then moved by 6%
+    between two data-parallel ranks (640 terms each) and one process
+    (1,280).  On the card a bf16 table's lookup sums the rows' gradients
+    in fp32 and rounds once.  On the CPU, and for an fp32 table or one without a gradient, the
+    plain lookup runs: it rounds as the JAX package's does there (XLA's
+    CPU scatter-add), which the parity tests hold the port to.  With the
+    fp32 sum on the CPU too, the bf16 parity tests' losses stay within
+    their tolerances, but two of them flip one prediction each and their
+    exact metrics part: Bloomberg through the CLI (eval accuracy 0.25
+    against 0.0 in one window of 4 rows) and the VQA trainer (0.667
+    against 0.611)."""
+    if (not table.is_cuda or table.dtype == torch.float32
+            or not (torch.is_grad_enabled() and table.requires_grad)):
+        return table[indices]
+    return _Take.apply(table, *indices)
+
+
+# Where a draw lands when a batch or the heads are split over ranks: each
+# rank draws the mask of the whole (global) tensor from the generator every
+# rank shares, and keeps its own block, so the masks do not depend on the
+# split (the counterpart of the JAX package's threefry streams, which are a
+# function of the global element index).  Set by :func:`shard_draws`.
+_DRAW_SHARDS = {"rows": None, "heads": None}
+
+
+@contextlib.contextmanager
+def shard_draws(rows=None, heads=None):
+    """Within the block, every dropout draw (:func:`uniform`) is made at the
+    global shape and cut to this rank's block: ``rows=(index, count)``
+    splits the leading (batch-major) axis, as data parallelism does;
+    ``heads=(index, count)`` splits the heads axis of the attention
+    probabilities, as tensor parallelism does.  A module-level setting, not
+    a thread-local one: the backward's recompute under ``remat`` may run on
+    another thread and must draw the same masks."""
+    saved = dict(_DRAW_SHARDS)
+    _DRAW_SHARDS.update(rows=rows, heads=heads)
+    try:
+        yield
+    finally:
+        _DRAW_SHARDS.update(saved)
+
+
+def uniform(generator: torch.Generator, shape, device=None,
+            heads_axis: Optional[int] = None) -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` from ``generator``, cut from the global
+    draw when :func:`shard_draws` is active (``heads_axis`` names the axis
+    that the heads split applies to)."""
+    shape = list(shape)
+    cuts = []
+    rows, heads = _DRAW_SHARDS["rows"], _DRAW_SHARDS["heads"]
+    if rows is not None and rows[1] > 1:
+        cuts.append((0, rows))
+    if heads is not None and heads[1] > 1 and heads_axis is not None:
+        cuts.append((heads_axis, heads))
+    full = list(shape)
+    for axis, (_, count) in cuts:
+        full[axis] *= count
+    u = torch.rand(full, generator=generator, device=device)
+    for axis, (index, _) in cuts:
+        u = u.narrow(axis, index * shape[axis], shape[axis])
+    return u
+
+
 def dropout_mask(generator: torch.Generator, shape, rate: float,
                  dtype=torch.float32, device=None) -> torch.Tensor:
     """Pre-scaled inverted-dropout mask in {0, 1/keep}, for kernels that
     apply dropout inside a fused region (ops/cuda_mlp.py ``m`` operand).
-    The draw comes from ``generator``; it does not reproduce JAX's stream,
-    so parity tests feed both packages the same mask."""
+    The draw comes from ``generator`` (:func:`uniform`); it does not
+    reproduce JAX's stream, so parity tests feed both packages the same
+    mask."""
     if generator is None:
         raise ValueError("dropout_mask needs a torch.Generator")
     keep = 1.0 - rate
-    u = torch.rand(shape, generator=generator, device=device)
+    u = uniform(generator, shape, device)
     return torch.where(u < keep, torch.tensor(1.0 / keep, dtype=dtype,
                                               device=device),
                        torch.zeros((), dtype=dtype, device=device))
 
 
 def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, heads_axis: Optional[int] = None) -> torch.Tensor:
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs a torch.Generator when not deterministic")
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = uniform(generator, x.shape, x.device, heads_axis)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 

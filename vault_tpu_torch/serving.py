@@ -16,7 +16,16 @@ quantization, token merging) compositions whose divergence the JAX package
 measured; :func:`check_composition` applies it where a quantized model is
 built (``VaultForClassification.quantize``), raising on a refusal unless
 forced.  A merged model (``merge_to``) serves through the engine as any
-other: the engine calls the model.  Data-parallel serving waits for the parallel slice of the port.
+other: the engine calls the model.
+
+Serving over several devices runs in one process over a list of devices
+(the JAX package's single controller; one list may name a device twice,
+which is how one card stands in for two): :func:`dp_sharded_forward` splits
+the padded batch and runs each shard's single-device forward, kernels
+included, on its device; :func:`tp_forward` runs the Megatron layers
+(parallel/tensor_parallel.py) on the parameter shards of each device, one
+thread per shard, the partial products summed over the list; with both, a
+``dp x tp`` list forms a mesh (:func:`mesh_forward`).
 """
 
 from __future__ import annotations
@@ -115,6 +124,134 @@ def serving_impl(mode: Optional[str], device=None):
         return "auto"
     on_cuda = device is not None and torch.device(device).type == "cuda"
     return "fuselnqkv+fusemlp" + ("+batched" if on_cuda else "")
+
+
+def _replicas(params, devices):
+    """One copy of the state dict ``params`` per distinct device (a device
+    named twice shares its copy); strides are kept, so K-major int8 codes
+    stay K-major."""
+    copies = {}
+    for d in devices:
+        d = torch.device(d)
+        if str(d) not in copies:
+            copies[str(d)] = {k: v.to(d) for k, v in params.items()}
+    return [copies[str(torch.device(d))] for d in devices]
+
+
+def _split(batch, n: int):
+    """The batch dict's rows in ``n`` equal shards (the rows must divide)."""
+    rows = len(next(iter(batch.values())))
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split over {n} devices")
+    m = rows // n
+    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()} for i in range(n)]
+
+
+def dp_sharded_forward(apply_fn: Callable, devices, params) -> Callable:
+    """Data-parallel serving over ``devices`` (the JAX package's
+    ``dp_sharded_forward``, there over a mesh "data" axis under
+    ``shard_map``, so its Pallas kernels stay engaged per shard).  The
+    parameters are copied to each device, the padded batch is split in
+    ``len(devices)`` shards, and each shard's single-device forward
+    ``apply_fn(params, batch) -> logits`` is launched on its device with
+    its kernels; the logits come back on ``devices[0]``.  The batch rows
+    must divide by the device count (the engine pads to ``max_batch``;
+    ``cli.serve`` checks ``--max_batch``).  Returns ``fwd(batch)``."""
+    devices = [torch.device(d) for d in devices]
+    replicas = _replicas(params, devices)
+
+    def fwd(batch):
+        from vault_tpu_torch.models.vault import batch_to_device
+
+        outs = [apply_fn(p, batch_to_device(b, d))
+                for p, b, d in zip(replicas, _split(batch, len(devices)), devices)]
+        return torch.cat([o.to(devices[0]) for o in outs])
+
+    return fwd
+
+
+def _run_threads(fns):
+    """Run each of ``fns`` in a thread of its own; their results in order.
+    The first error is raised after every thread ended (a thread's failure
+    breaks the others' barriers instead of leaving them waiting)."""
+    results, errors = [None] * len(fns), [None] * len(fns)
+
+    def run(i):
+        try:
+            with torch.no_grad():
+                results[i] = fns[i]()
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errors[i] = e
+            for f in fns:
+                shared = getattr(f, "shared", None)
+                if shared is not None:
+                    shared.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    first = next((e for e in errors if e is not None
+                  and not isinstance(e, threading.BrokenBarrierError)), None)
+    first = first or next((e for e in errors if e is not None), None)
+    if first is not None:
+        raise first
+    return results
+
+
+def mesh_forward(apply_fn: Callable, devices, params, dp: int = 1, tp: int = 1
+                 ) -> Callable:
+    """Serving over a ``dp x tp`` list of devices (row-major: data group
+    ``d`` holds ``devices[d * tp:(d + 1) * tp]``): each data group takes its
+    rows of the batch, and within it each device runs the tensor-parallel
+    layers on its parameter shards (parallel/sharding.py), in a thread of
+    its own; the row products are summed over the group in shard order, so
+    every shard of a group holds the same activations.  ``apply_fn(params,
+    batch) -> logits`` is the single-device forward, which takes the
+    tensor-parallel path while a group is active.  Returns ``fwd(batch)``
+    with the logits on ``devices[0]``."""
+    from vault_tpu_torch.parallel.sharding import shard_params
+    from vault_tpu_torch.parallel.tensor_parallel import (
+        ThreadTP,
+        ThreadTPShared,
+        thread_tp,
+    )
+
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != dp * tp:
+        raise ValueError(f"a {dp} x {tp} mesh needs {dp * tp} devices, "
+                         f"got {len(devices)}")
+    shards = [shard_params(params, i % tp, tp) for i in range(len(devices))]
+    placed = [{k: v.to(d) for k, v in s.items()} for s, d in zip(shards, devices)]
+
+    def fwd(batch):
+        from vault_tpu_torch.models.vault import batch_to_device
+
+        fns, groups = [], []
+        for di, rows in enumerate(_split(batch, dp)):
+            shared = ThreadTPShared(tp)
+            groups.append(shared)
+            for mi in range(tp):
+                i = di * tp + mi
+
+                def one(i=i, mi=mi, rows=rows, shared=shared):
+                    with thread_tp(ThreadTP(mi, shared)):
+                        return apply_fn(placed[i], batch_to_device(rows, devices[i]))
+
+                one.shared = shared
+                fns.append(one)
+        outs = _run_threads(fns)
+        return torch.cat([outs[di * tp].to(devices[0]) for di in range(dp)])
+
+    return fwd
+
+
+def tp_forward(apply_fn: Callable, devices, params) -> Callable:
+    """Tensor-parallel serving over ``devices`` (:func:`mesh_forward` with
+    one data group)."""
+    return mesh_forward(apply_fn, devices, params, dp=1, tp=len(devices))
 
 
 def decode_image(data: bytes) -> np.ndarray:

@@ -10,8 +10,17 @@ tuples and lists by index, so the optimizer's ``(count, mu, nu)`` is
 device) or numpy arrays; restored leaves are CPU tensors where the target
 holds tensors, numpy arrays elsewhere.  Int8 moments are ``Q8Moment(q,
 scale)`` namedtuples, so their codes are ``<leaf>/0`` (int8) and their
-scales ``<leaf>/1`` (fp32), as in the JAX package's files.  The multi-host
-(orbax) variants are not ported yet.
+scales ``<leaf>/1`` (fp32), as in the JAX package's files.
+
+Several processes (the counterpart of the JAX package's
+``save_/restore_checkpoint_multihost``, which write orbax directories):
+:func:`save_checkpoint_multihost` and :func:`restore_checkpoint_multihost`
+go through ``torch.distributed.checkpoint``.  Every rank enters the call
+with a flat dict of its tensors, named so that tensors that differ between
+ranks (ZeRO moment slices, tensor-parallel shards) have names of their own;
+each rank writes its own, and a tensor that several ranks hold under one
+name is written once.  Restore copies into the live tensors, in place.
+These directories do not cross to the JAX package (nor to orbax).
 """
 
 from __future__ import annotations
@@ -126,3 +135,36 @@ def restore_checkpoint(path: str, target: Any) -> Any:
             os.path.basename(path), len(migrations),
             ", ".join(f"{a}->{b}" for a, b in pairs), migrations[0][0])
     return out
+
+
+def save_checkpoint_multihost(path: str, state: Dict[str, torch.Tensor]):
+    """Every rank of the initialized world writes ``state`` (a flat dict of
+    tensors) into the directory ``path``, through
+    ``torch.distributed.checkpoint``.  The files go to ``path + ".tmp"``
+    first, and rank 0 moves them into place once every rank has written,
+    so an interrupted save leaves the last good directory."""
+    import shutil
+
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    tmp = path + ".tmp"
+    if dist.get_rank() == 0 and os.path.isdir(tmp):
+        shutil.rmtree(tmp)
+    dist.barrier()
+    dcp.save({k: v.detach() for k, v in state.items()}, checkpoint_id=tmp)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    dist.barrier()
+
+
+@torch.no_grad()
+def restore_checkpoint_multihost(path: str, state: Dict[str, torch.Tensor]):
+    """Load the directory ``path`` into ``state``'s tensors in place
+    (every rank enters the call with the names it wrote)."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.load({k: v.detach() for k, v in state.items()}, checkpoint_id=path)

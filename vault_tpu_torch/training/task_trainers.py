@@ -272,8 +272,9 @@ class RetrievalTrainer(Trainer):
     @torch.no_grad()
     def evaluate(self, dataset) -> Dict[str, float]:
         """``dataset`` must expose ``all_pairs_batches(batch_size)`` yielding
-        (batch, labels, image_ids, text_ids).  One host read per batch: the
-        logits and the loss come back together."""
+        (batch, labels, image_ids, text_ids).  One host read per batch
+        (:meth:`Trainer.eval_forward`): the logits and the loss come back
+        together."""
         a = self.args
         tree = self.compute_params({k: v.detach() for k, v in self.params.items()})
         image_scores: Dict = defaultdict(dict)
@@ -285,14 +286,10 @@ class RetrievalTrainer(Trainer):
                 desc="eval", leave=False):
             n = labels.shape[0]
             batch_p, labels_p, weight = self._pad(batch, labels)
-            bt, lt, wt = self._to_device(batch_p, labels_p, weight)
-            logits = self.apply_fn(tree, bt, True, None)
-            loss = self.calculate_loss(logits, lt, wt, train=False)
-            out = torch.cat([logits.float().reshape(-1),
-                             loss.float().reshape(1)]).cpu().numpy()
-            total_loss += float(out[-1]) * n
+            logits, loss_sum = self.eval_forward(tree, batch_p, labels_p, weight)
+            total_loss += loss_sum
             n_pairs += n
-            logits = out[:-1][:n]
+            logits = logits.reshape(-1)[:n]
             preds.extend(self.get_eval_preds(logits))
             trues.extend(self.get_eval_true(labels))
             for s, lab, iid, tid in zip(logits.tolist(),

@@ -45,12 +45,33 @@ constant).  ``remat`` is False, True or "dots" (ops/nn.py ``remat_apply``),
 ``opt_state_dtype`` "float32", "bfloat16" or "int8" (training/optimizer.py).
 ``profile_dir`` traces the second eval window (utils/profiling.py
 ``trace``), as the JAX package does; while ``utils.profiling.
-enable_nan_checks`` is on, each step runs under its NaN checks.  The
-multi-device options (``num_data_shards > 1``, ``zero_opt``, tensor
-parallelism, a ``mesh``, multiple hosts) are not ported yet and raise
-``NotImplementedError``.  ``rng_impl`` has no counterpart (the port has one
+enable_nan_checks`` is on, each step and each evaluation batch runs under
+its NaN checks.  ``rng_impl`` has no counterpart (the port has one
 generator kind) and is ignored.  There is no ``precompile``: PyTorch runs
 eagerly.
+
+Several devices: one process per rank over ``torch.distributed``
+(parallel/mesh.py), where the JAX package's trainer runs one program over a
+mesh.  With a ``mesh`` (or ``num_data_shards > 1``, or an initialized world
+of more than one process, which builds one):
+  * every process runs the same loop on the same seeded batches and keeps
+    its rows of each (``mesh.shard_batch``), padded to ``dp *
+    grad_accum_steps``; each rank draws the dropout masks of the whole
+    batch from the shared step generator and keeps its rows
+    (ops/nn.py ``shard_draws``), so ``dp`` ranks equal one process on the
+    same global batch;
+  * each rank scales its weighted loss by its share of the global valid
+    mass; the gradients are then summed over the "data" group in one fp32
+    bucket, once a step (after the last micro-batch), so they are the
+    global mean's;
+  * ``zero_opt`` splits the moments over the "data" ranks
+    (parallel/zero.py); ``tensor_parallel`` splits the encoder layers over
+    the "model" ranks (parallel/sharding.py, parallel/tensor_parallel.py);
+  * evaluation gathers every rank's logits; only rank 0 writes the
+    ExperimentHandler's files and weights; checkpoints go through
+    ``torch.distributed.checkpoint``, every rank writing its own shards
+    (training/checkpoint.py ``save_checkpoint_multihost``), while a world of
+    one keeps the npz that crosses to and from the JAX package.
 """
 
 from __future__ import annotations
@@ -87,6 +108,9 @@ from vault_tpu_torch.training import losses as losses_mod
 from vault_tpu_torch.training.experiment import ExperimentHandler
 from vault_tpu_torch.training.metrics import classification_results
 from vault_tpu_torch.training.optimizer import AdamWState, Q8Moment, make_optimizer
+from vault_tpu_torch.ops.nn import shard_draws
+from vault_tpu_torch.parallel import mesh as mesh_mod
+from vault_tpu_torch.parallel.mesh import pad_to_multiple
 from vault_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
@@ -132,7 +156,7 @@ class TrainArgs:
     model_load_filename: Optional[str] = None
     discard_classifier: bool = False
     seed: int = 0
-    num_data_shards: Optional[int] = None     # one device: None or 1
+    num_data_shards: Optional[int] = None     # default: the world's ranks
     rng_impl: Optional[str] = "rbg"           # no counterpart; ignored
     use_pallas: Any = "auto"                  # read by classifier_apply_fn
     remat: Union[bool, str] = True            # False, True or "dots"
@@ -265,40 +289,35 @@ class EarlyStopping:
         return self.best_metrics if self.best is not None else None
 
 
-def pad_to_multiple(batch: Dict[str, np.ndarray], multiple: int):
-    """Pad every leading axis to a multiple of ``multiple`` with zeros.
-    Returns (padded_batch, real_count)."""
-    sizes = {np.shape(x)[0] for x in batch.values()}
-    if len(sizes) != 1:
-        raise ValueError(f"inconsistent batch dims {sizes}")
-    n = sizes.pop()
-    rem = (-n) % multiple
-    if rem == 0:
-        return batch, n
-    return {k: np.pad(np.asarray(x), [(0, rem)] + [(0, 0)] * (np.ndim(x) - 1))
-            for k, x in batch.items()}, n
-
-
 class Trainer:
     """Generic task trainer.  Task adapters override the hooks at the
     bottom (the reference's calculate_loss / get_eval_preds /
     evaluation_metrics pattern).
 
-    ``params``: a state dict (or a module, whose state dict is taken); the
-    trainer keeps its own copies on ``device`` (the card unless named)."""
+    ``params``: a state dict (or a module, whose state dict is taken), the
+    whole model on every process; the trainer keeps its own copies (this
+    rank's shards under ``tensor_parallel``) on ``device`` (the card unless
+    named).  ``mesh``: a :class:`~vault_tpu_torch.parallel.mesh.Mesh`; by
+    default one is built over the initialized world when it has more than
+    one process or ``num_data_shards > 1`` asks for one (which raises
+    without an initialized group)."""
 
     def __init__(self, apply_fn: Callable, params, args: TrainArgs,
                  train_dataset, dev_dataset=None, test_dataset=None,
                  exp_handler: Optional[ExperimentHandler] = None,
                  mesh=None, tensor_parallel: bool = False, device=None):
-        unported = {"mesh": mesh is not None,
-                    "tensor_parallel": tensor_parallel,
-                    "num_data_shards > 1": (args.num_data_shards or 1) > 1,
-                    "zero_opt": args.zero_opt}
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"Trainer: {', '.join(bad)} not ported yet (one device only)")
+        if mesh is None and ((args.num_data_shards or 1) > 1
+                             or mesh_mod.world_size() > 1):
+            mesh = mesh_mod.make_mesh(args.num_data_shards)
+        self.mesh = mesh
+        self.dp = mesh.num_data if mesh is not None else 1
+        self.tp = mesh.num_model if mesh is not None and tensor_parallel else 1
+        self.p0 = mesh_mod.process_index() == 0
+        self._tp_group = None
+        if self.tp > 1:
+            from vault_tpu_torch.parallel.tensor_parallel import ProcessTP
+
+            self._tp_group = ProcessTP(mesh.model_group)
         self.apply_fn = apply_fn
         self.args = args
         self.train_dataset = train_dataset
@@ -306,11 +325,14 @@ class Trainer:
         self.test_dataset = test_dataset
         self.exp_handler = exp_handler or ExperimentHandler()
         self.device = resolve_device(device)
+        if mesh is not None and self.device.type == "cuda":
+            # NCCL's barrier and its communicators take the current device
+            torch.cuda.set_device(self.device)
         if isinstance(params, torch.nn.Module):
             params = params.state_dict()
         self.params = {k: v.detach().to(self.device, copy=True)
                        .requires_grad_(v.is_floating_point())
-                       for k, v in params.items()}
+                       for k, v in self._shard(params).items()}
         self.early_stopping = EarlyStopping(
             args.early_stopping_patience, delta=args.early_stopping_delta,
             higher_better=args.higher_better)
@@ -326,6 +348,55 @@ class Trainer:
     def trainable(self) -> Dict[str, torch.Tensor]:
         return {k: v for k, v in self.params.items() if v.requires_grad}
 
+    # ------------------------------------------------------------ parallel
+    def _shard(self, params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's tensor-parallel shards of whole parameters."""
+        if self.tp == 1:
+            return dict(params)
+        from vault_tpu_torch.parallel.sharding import shard_params
+
+        return shard_params(params, self.mesh.model_index, self.tp)
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The whole parameters on the device (the tensor-parallel shards
+        gathered over the "model" group; the parameters themselves
+        otherwise)."""
+        if self.tp == 1:
+            return self.params
+        from vault_tpu_torch.parallel.mesh import all_gather
+        from vault_tpu_torch.parallel.sharding import shard_dim, vault_param_specs
+
+        specs = vault_param_specs(self.params)
+        out = {}
+        for k, v in self.params.items():
+            d = shard_dim(specs[k])
+            out[k] = v.detach() if d is None else torch.cat(
+                all_gather(v.detach(), self.mesh.model_group), dim=d)
+        return out
+
+    def _parallel(self):
+        """The block's dropout draws cut to this rank's rows and heads, and
+        the tensor-parallel group active."""
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            from vault_tpu_torch.parallel.tensor_parallel import use_tp
+
+            stack.enter_context(shard_draws(
+                rows=(self.mesh.data_index, self.dp),
+                heads=(self.mesh.model_index, self.tp) if self.tp > 1 else None))
+            stack.enter_context(use_tp(self._tp_group))
+        return stack
+
+    def _rows(self, batch, labels, weight):
+        """This rank's rows of a padded host batch (all of it on one
+        process), cut per micro-batch (``mesh.shard_batch``)."""
+        if self.mesh is None:
+            return batch, labels, weight
+        k = max(1, self.args.grad_accum_steps)
+        return (mesh_mod.shard_batch(self.mesh, batch, k),
+                mesh_mod.shard_batch(self.mesh, labels, k),
+                mesh_mod.shard_batch(self.mesh, weight, k))
+
     # --------------------------------------------------------------- steps
     def _build_optimizer(self, steps_per_epoch: int):
         self._built_for = steps_per_epoch
@@ -335,6 +406,10 @@ class Trainer:
             a.lr, num_steps, a.warmup_ratio, a.adam_beta1, a.adam_beta2,
             a.adam_epsilon, a.weight_decay, a.correct_bias,
             state_dtype=a.opt_state_dtype)
+        if a.zero_opt and self.mesh is not None:
+            from vault_tpu_torch.parallel.zero import ZeroAdamW
+
+            self.tx = ZeroAdamW(self.tx, self.mesh.data_group)
         self.opt_state = self.tx.init(self.trainable)
 
     def compute_params(self, params: Mapping[str, torch.Tensor]):
@@ -356,22 +431,46 @@ class Trainer:
         seed = int(seq.generate_state(1, np.uint64)[0] >> 1)
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def loss_and_grads(self, batch, labels, weight, generator):
-        """(loss, {name: gradient}) of one training forward."""
+    def loss_and_grads(self, batch, labels, weight, generator, reduce=True):
+        """(loss, {name: gradient}) of one training forward; ``self._mass``
+        is left at the valid mass the loss averages over.  Over several
+        ranks, the loss is scaled by this rank's share of the global mass
+        and, with ``reduce``, the gradients (and the loss) are summed over
+        the "data" group: the global mean's.  Without it they stay this
+        rank's share, for a caller that sums several before one
+        reduction."""
         trainable = self.trainable
-        logits = self.apply_fn(self.compute_params(self.params), batch, False,
-                               generator)
-        loss = self.calculate_loss(logits, labels, weight, train=True)
-        grads = torch.autograd.grad(loss, list(trainable.values()),
-                                    allow_unused=True)
+        mass = weight.sum().float()
+        with self._parallel():
+            logits = self.apply_fn(self.compute_params(self.params), batch, False,
+                                   generator)
+            loss = self.calculate_loss(logits, labels, weight, train=True)
+            if self.mesh is not None:
+                total = mesh_mod.all_reduce_(mass.clone(), self.mesh.data_group)
+                loss = loss * (mass / torch.clamp(total, min=1.0))
+                mass = total
+            grads = torch.autograd.grad(loss, list(trainable.values()),
+                                        allow_unused=True)
+        self._mass = mass
         unreached = getattr(self.apply_fn, "unreached", lambda key: False)
         cut = [k for k, g in zip(trainable, grads) if g is None and not unreached(k)]
         if cut:
             raise RuntimeError(
                 f"no gradient reached {len(cut)} parameter leaves (first: "
                 f"{cut[:4]}): the autograd graph is cut above them")
-        return loss.detach(), {k: torch.zeros_like(p) if g is None else g
-                               for (k, p), g in zip(trainable.items(), grads)}
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(trainable.items(), grads)}
+        loss = loss.detach()
+        return self._sum_over_data(loss, grads) if reduce else (loss, grads)
+
+    def _sum_over_data(self, loss, grads):
+        """The loss and every gradient summed over the "data" group, through
+        one fp32 bucket (as they are on one process)."""
+        if self.mesh is None:
+            return loss, grads
+        *summed, loss = mesh_mod.all_reduce_bucket(
+            list(grads.values()) + [loss], self.mesh.data_group)
+        return loss, {k: v.to(grads[k].dtype) for k, v in zip(grads, summed)}
 
     def train_step(self, batch, labels, weight, step: int) -> torch.Tensor:
         """Forward, backward and one optimizer update on device tensors,
@@ -388,7 +487,8 @@ class Trainer:
                                               self.step_generator(step))
         else:
             # k micro-batches, each weighted by its valid-row mass so padded
-            # rows keep contributing nothing
+            # rows keep contributing nothing; over several ranks the shares
+            # are summed here and reduced once, after the last micro-batch
             n = labels.shape[0] // k
             grads, loss_sum, mass = None, 0.0, 0.0
             for i in range(k):
@@ -396,21 +496,23 @@ class Trainer:
                 w = weight[sl]
                 loss, g = self.loss_and_grads(
                     {kk: v[sl] for kk, v in batch.items()}, labels[sl], w,
-                    self.step_generator(step, i))
-                wsum = w.sum()
+                    self.step_generator(step, i), reduce=False)
+                wsum = self._mass
                 g = {kk: v.float() * wsum for kk, v in g.items()}
                 grads = g if grads is None else {
                     kk: grads[kk] + g[kk] for kk in grads}
                 loss_sum, mass = loss_sum + loss * wsum, mass + wsum
+            loss_sum, grads = self._sum_over_data(loss_sum, grads)
             denom = torch.clamp(mass, min=1.0)
             loss = loss_sum / denom
             grads = {kk: (v / denom).to(self.params[kk].dtype)
                      for kk, v in grads.items()}
+            self._mass = mass
         if self.args.grad_dtype == "bfloat16":
             # halves the gradient buffers' traffic; drops mantissa bits
             grads = {kk: v.to(torch.bfloat16) for kk, v in grads.items()}
         self.opt_state = self.tx.step_(self.trainable, grads, self.opt_state)
-        wsum = weight.sum()
+        wsum = self._mass
         return torch.stack([loss.float() * wsum, wsum])
 
     def _to_device(self, batch, labels, weight):
@@ -432,6 +534,9 @@ class Trainer:
         step = 0
         window_acc, window_n, window_t0 = None, 0, time.perf_counter()
         start_step = self._maybe_resume() if a.resume else 0
+        # several processes: every one has built its optimizer and restored
+        # its state before any enters the first step's collectives
+        mesh_mod.coord_barrier("trainer_start")
         # profile_dir: one trace of the first whole eval window after the
         # first (which holds the kernel builds and the allocator's warm-up);
         # closed at that window's end, or where training ends, or raises
@@ -446,7 +551,8 @@ class Trainer:
                     from vault_tpu_torch.data.loader import prefetch
 
                     batch_iter = prefetch(batch_iter, a.prefetch_batches)
-                pbar = _progress(batch_iter, a.disable_tqdm, total=steps_per_epoch,
+                pbar = _progress(batch_iter, a.disable_tqdm or not self.p0,
+                                 total=steps_per_epoch,
                                  desc=f"epoch {epoch + 1}/{int(a.num_train_epochs)}")
                 for batch, labels in pbar:
                     if step < start_step:  # resume: fast-forward the schedule
@@ -467,7 +573,7 @@ class Trainer:
                     n = labels.shape[0]
                     batch, labels, weight = self._pad(batch, labels)
                     window_acc += self.train_step(
-                        *self._to_device(batch, labels, weight), step)
+                        *self._to_device(*self._rows(batch, labels, weight)), step)
                     window_n += n
 
                     if (step + 1) % eval_steps == 0:
@@ -529,11 +635,42 @@ class Trainer:
         return self.params
 
     def train_end(self):
+        if not self.p0:
+            if self.args.model_save:
+                self.full_params()  # the shards' gather that rank 0's save enters
+            return  # every process holds the same results; only rank 0 writes
         self.exp_handler.log()
         if self.args.model_save:
             self.save_weights(self.exp_handler.model_save_filename)
         self.exp_handler.aggregate_results()
         self.exp_handler.plot()
+
+    @torch.no_grad()
+    def eval_forward(self, tree, batch_p, labels_p, weight):
+        """Logits (host, every row of the padded batch) and the weighted
+        loss sum of one evaluation batch, under the NaN checks while
+        ``utils.profiling.enable_nan_checks`` is on (as the JAX package's
+        eval step runs under ``jax_debug_nans``).  Over several ranks each
+        runs its rows and the logits of every rank are gathered.  One host
+        read per batch: the loss rides with the logits."""
+        bt, lt, wt = self._to_device(*self._rows(batch_p, labels_p, weight))
+        with profiling.nan_checks(), self._parallel():
+            logits = self.apply_fn(tree, bt, True, None)
+            loss = self.calculate_loss(logits, lt, wt, train=False)
+        # the loss is a weighted mean over the valid mass; re-weight by it
+        out = torch.cat([logits.float().reshape(-1), loss.float().reshape(1),
+                         wt.sum().float().reshape(1)])
+        parts = ([out] if self.mesh is None
+                 else mesh_mod.all_gather(out, self.mesh.data_group))
+        host = [p.cpu().numpy() for p in parts]
+        shape = tuple(logits.shape)
+        rows = np.concatenate([h[:-2].reshape(shape) for h in host])
+        if self.mesh is not None and max(1, self.args.grad_accum_steps) > 1:
+            # rows were cut per micro-batch: put them back in batch order
+            k = self.args.grad_accum_steps
+            rows = rows.reshape(self.dp, k, -1, *shape[1:]).swapaxes(0, 1
+                                                                    ).reshape(-1, *shape[1:])
+        return rows, sum(float(h[-2]) * float(h[-1]) for h in host)
 
     @torch.no_grad()
     def evaluate(self, dataset) -> Dict[str, float]:
@@ -542,22 +679,14 @@ class Trainer:
         total_loss, total_mass, preds, trues = 0.0, 0.0, [], []
         for batch, labels in _progress(
                 dataset.batches(a.eval_batch_size, shuffle=False),
-                a.disable_tqdm, total=dataset.num_batches(a.eval_batch_size),
+                a.disable_tqdm or not self.p0,
+                total=dataset.num_batches(a.eval_batch_size),
                 desc="eval", leave=False):
             n = labels.shape[0]
             batch_p, labels_p, weight = self._pad(batch, labels)
-            bt, lt, wt = self._to_device(batch_p, labels_p, weight)
-            logits = self.apply_fn(tree, bt, True, None)
-            loss = self.calculate_loss(logits, lt, wt, train=False)
-            # one host read per batch: the logits go to the host for the
-            # metrics, the loss rides along
-            out = torch.cat([logits.float().reshape(-1),
-                             loss.float().reshape(1)]).cpu().numpy()
-            loss, logits = out[-1], out[:-1].reshape(tuple(logits.shape))
-            # the loss is a weighted mean over the valid mass; re-weight by it
-            mass = float(weight.sum())
-            total_loss += float(loss) * mass
-            total_mass += mass
+            logits, loss_sum = self.eval_forward(tree, batch_p, labels_p, weight)
+            total_loss += loss_sum
+            total_mass += float(weight.sum())
             preds.extend(self.get_eval_preds(logits[:n]))
             trues.extend(self.get_eval_true(labels))
         results = dict(eval_loss=total_loss / max(total_mass, 1e-9))
@@ -566,9 +695,9 @@ class Trainer:
 
     # ------------------------------------------------------------- helpers
     def _pad(self, batch, labels):
-        # rows must split evenly into grad_accum_steps micro-batches; padded
-        # rows carry weight 0
-        multiple = max(1, self.args.grad_accum_steps)
+        # rows must split evenly into grad_accum_steps micro-batches, each
+        # over the data ranks; padded rows carry weight 0
+        multiple = self.dp * max(1, self.args.grad_accum_steps)
         padded, n = pad_to_multiple({**batch, "__labels__": labels}, multiple)
         labels_p = padded.pop("__labels__")
         total = labels_p.shape[0]
@@ -599,9 +728,37 @@ class Trainer:
                 "opt_state": opt_state_to_jax(self.opt_state, as_numpy),
                 "step": np.asarray(step)}
 
+    def multihost_state(self, step: int) -> Dict[str, torch.Tensor]:
+        """{name: tensor} of this rank for ``torch.distributed.checkpoint``
+        (training/checkpoint.py ``save_checkpoint_multihost``): the live
+        parameters, moments, count and step, a tensor-parallel rank's names
+        tagged ``@m<index>`` and a ZeRO rank's moments ``@d<index>``, so a
+        tensor that differs between ranks has a name of its own."""
+        m = self.mesh
+        tp = f"@m{m.model_index}" if self.tp > 1 else ""
+        zero = f"@d{m.data_index}" if self.args.zero_opt else ""
+        out = {f"params/{k}{tp}": v for k, v in self.params.items()}
+        for name, moments in (("mu", self.opt_state.mu), ("nu", self.opt_state.nu)):
+            for k, v in moments.items():
+                if isinstance(v, Q8Moment):
+                    out[f"{name}/{k}/q{tp}{zero}"] = v.q
+                    out[f"{name}/{k}/scale{tp}{zero}"] = v.scale
+                else:
+                    out[f"{name}/{k}{tp}{zero}"] = v
+        dev = next(iter(self.params.values())).device
+        out["count"] = torch.tensor([self.opt_state.count], device=dev)
+        out["step"] = torch.tensor([step], device=dev)
+        return out
+
     def _maybe_checkpoint(self, step: int):
         path = self._ckpt_path
         if path is None:
+            return
+        if mesh_mod.world_size() > 1:
+            # every rank enters the coordinated save with its own shards
+            from vault_tpu_torch.training.checkpoint import save_checkpoint_multihost
+
+            save_checkpoint_multihost(path, self.multihost_state(step))
             return
         from vault_tpu_torch.training.checkpoint import save_checkpoint
 
@@ -624,6 +781,18 @@ class Trainer:
 
     def _maybe_resume(self) -> int:
         path = self._ckpt_path
+        if path is not None and mesh_mod.world_size() > 1:
+            if not os.path.isdir(path):
+                return 0
+            from vault_tpu_torch.training.checkpoint import restore_checkpoint_multihost
+
+            state = self.multihost_state(0)
+            restore_checkpoint_multihost(path, state)
+            self.opt_state = AdamWState(int(state["count"].item()),
+                                        self.opt_state.mu, self.opt_state.nu)
+            step = int(state["step"].item())
+            logger.info("resumed (multihost) from %s at step %d", path, step)
+            return step
         if path is None or not os.path.exists(path + ".npz"):
             return 0
         from vault_tpu_torch.training.checkpoint import restore_checkpoint
@@ -647,19 +816,23 @@ class Trainer:
         return step
 
     def save_weights(self, path: str):
+        """The whole weights as an npz (rank 0 writes; the tensor-parallel
+        shards are gathered first, which every rank enters)."""
         from vault_tpu_torch.training.checkpoint import save_checkpoint
 
-        save_checkpoint(path, params_to_jax(self.params, as_numpy=False))
+        full = self.full_params()
+        if self.p0:
+            save_checkpoint(path, params_to_jax(full, as_numpy=False))
 
     def load_weights(self, path: str):
         """Weights from a checkpoint of either package; with
         ``discard_classifier`` the heads keep their current values."""
         from vault_tpu_torch.training.checkpoint import restore_checkpoint
 
-        target = params_to_jax(self.params, as_numpy=False)
+        target = params_to_jax(self.full_params(), as_numpy=False)
         if self.args.discard_classifier:
             target = {k: v for k, v in target.items() if k not in HEAD_KEYS}
-        self._assign(params_from_jax(restore_checkpoint(path, target)))
+        self._assign(self._shard(params_from_jax(restore_checkpoint(path, target))))
 
     # ---------------------------------------------------------- task hooks
     def calculate_loss(self, logits, labels, weight, train: bool):
