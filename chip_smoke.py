@@ -40,7 +40,11 @@ Python); then the parallel layer (ranks as worker processes sharing the
 card over gloo, and a one-rank NCCL group: data parallelism held to one
 process, ZeRO-1 and the resumed ``torch.distributed.checkpoint`` run held
 bit for bit, tensor parallelism, the 2-stage pipeline on two streams,
-data- and tensor-parallel serving over ``[cuda:0, cuda:0]``).  The serve
+data- and tensor-parallel serving over ``[cuda:0, cuda:0]``); then the
+bench CLIs in process (``cli.bench`` with its training leg,
+``cli.ablate_train``, ``cli.perf_sweep`` at batch 16 on the plain path and
+the kernels: their guards, MFUs and busy times, the chained forward's busy
+time against the vault group's).  The serve
 and tasks groups run both towers at 6 of their 12 layers (full width).
 It checks the launch counts, the gradients and the outputs.
 Each phase prints one JSON line; any failure exits non-zero.  Device
@@ -52,7 +56,7 @@ package.
 
 ``--phases a,b`` runs only the named groups of phases (``kernels``,
 ``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``, ``tasks``,
-``baselines``, ``options``, ``parallel``) while
+``baselines``, ``options``, ``parallel``, ``bench``) while
 working on one of them; such
 a run ends with ``{"partial": [...]}``, not with the ``ok`` line.
 """
@@ -73,10 +77,27 @@ from pathlib import Path
 
 import numpy as np
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
-PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core rate
-PEAK_F32_FLOPS = 67e12     # H100 SXM fp32 without tensor cores
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# The card's clocks and rates, shared with the bench CLIs (cli/bench.py):
+# CUDA-event wall time, CUPTI busy time held against it (TRACE_LOG counts
+# the checks), bounds, host profiles.  Outside the repository (or without
+# PyTorch) the import fails and main() says so.
+try:
+    from vault_tpu_torch.utils.profiling import (
+        LAUNCH_GAP_MS,
+        PEAK_BF16_FLOPS,
+        PEAK_INT8_OPS,
+        TRACE_LOG,
+        TRACE_LONG_SHARE,
+        TRACE_SHORT_SHARE,
+        bound_ms,
+        device_ms,
+        host_profile,
+        time_ms,
+    )
+except ImportError as e:
+    _IMPORT_ERROR = e
+else:
+    _IMPORT_ERROR = None
 OUT_DIR = Path("chiprun_out") / "chip_smoke"
 
 # Limits of |kernel - plain| on the same inputs.  bf16: both round the
@@ -245,198 +266,11 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def time_ms(fn, iters=20, warmup=3):
-    """Wall time per call between CUDA events: includes any gap the host
-    leaves between launches."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-# A CUPTI trace is held against the CUDA-event time of the same calls.  The
-# calls are queued behind a spin kernel long enough for the host to queue
-# them all, so the card runs them back to back and the event time is the
-# kernels' summed durations plus a launch gap after each kernel.  A trace
-# whose sum falls short of the event time by more than LAUNCH_GAP_MS a
-# kernel and TRACE_SHORT_SHARE of the event time, or whose sum exceeds the
-# event time by more than TRACE_LONG_SHARE (kernels of one stream cannot
-# overlap), is bad and is taken again; TRACE_ATTEMPTS bad traces in a row
-# fail the run.  The limits lie between the readings (NVIDIA H100 80GB
-# HBM3): good traces left gaps of 0.0012-0.0042 ms a kernel (never more
-# than 0.0042), and the short ones seen read 2/3 and 0.73 of it (a
-# 7-kernel call of 0.11 ms at 2/3 is short by 0.037 ms, above 7 x 0.003 +
-# 0.011; one attention kernel at 0.73 by about 0.019, above 0.003 + 0.007).
-# Calls the host could not queue before the spin ended (a call that waits
-# on the card) leave idle gaps the check cannot tell from a short trace:
-# their traces are kept unchecked.  TRACE_LOG counts both kinds and every
-# bad trace's ratio (kernel sum / event time), and per count of kernels a
-# call its good traces, their largest gap a kernel and their lowest ratio;
-# the run prints it.
-TRACE_SHORT_SHARE = 0.1
-TRACE_LONG_SHARE = 0.05
-LAUNCH_GAP_MS = 0.003
-TRACE_ATTEMPTS = 3
-# A trace that holds no device events at all (CUPTI hands one back now and
-# then: 4 of 192 traces in one full run, three in a row in another, on the
-# baselines' 16-token attention) is taken again, up to this many times; the
-# check of a trace against its event time keeps its TRACE_ATTEMPTS.
-# TRACE_LOG["retried"] names each timed function that took more than
-# TRACE_ATTEMPTS traces, with the traces it took.
-EMPTY_TRACE_ATTEMPTS = 8
-SPIN_CYCLES_PER_MS = 1.98e6  # the H100's top SM clock: a spin at least this long
-TRACE_LOG = {"checked": 0, "unchecked": 0, "bad_ratios": [], "no_device_time": 0,
-             "good_by_kernels": {}, "retried": {}}
-
-
-def _fn_name(fn) -> str:
-    """A timed function's name and the line it is defined on."""
-    code = getattr(fn, "__code__", None)
-    return f"{fn.__qualname__}:{code.co_firstlineno}" if code else repr(fn)
-
-
-def _traced(fn, traces: int) -> None:
-    if traces > TRACE_ATTEMPTS:
-        TRACE_LOG["retried"][_fn_name(fn)] = traces
-
-
-def device_ms(fn, iters=20, warmup=3):
-    """Device time per call: the summed durations of the CUDA kernels the
-    call launches, from a torch.profiler trace (CUPTI), each trace held
-    against the CUDA-event time of the same calls (``TRACE_SHORT_SHARE``).
-    Returns (ms, {kernel name: ms}); fails after ``TRACE_ATTEMPTS`` traces
-    that fail the check or ``EMPTY_TRACE_ATTEMPTS`` that hold no device
-    time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    t0 = time.perf_counter()
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    # the spin: twice the host time the calls took in the warm-up
-    spin_ms = min(500.0, 2.0 * iters * (time.perf_counter() - t0) * 1e3 / warmup) if warmup else 0.0
-    empty = bad = 0
-    while True:
-        attempt = empty + bad
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ev[0].record()
-            if spin_ms:
-                torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
-            ev[1].record()
-            t_host = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            ev[2].record()
-            queued_ms = (time.perf_counter() - t_host) * 1e3
-            torch.cuda.synchronize()
-        by_name, n_kernels = {}, 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
-                name = e.name.replace("(anonymous namespace)::", "")
-                name = name.removeprefix("void ").split("(")[0]
-                # the wgmma core's instances keep their tile width, mode
-                # and epilogue
-                if "gemm_kernel<" not in name:
-                    name = name.split("<")[0][:60]
-                by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-                n_kernels += 1
-        total = sum(by_name.values())
-        if total <= 0.0:
-            # CUPTI has handed back a trace without device events (once in
-            # ten runs, cause not found)
-            TRACE_LOG["no_device_time"] += 1
-            empty += 1
-            print(f"chip_smoke: profiler trace {attempt + 1} of {_fn_name(fn)} holds no device "
-                  f"time ({len(prof.events())} host events)", file=sys.stderr, flush=True)
-            if empty >= EMPTY_TRACE_ATTEMPTS:
-                fail(f"{empty} profiler traces of {_fn_name(fn)} hold no device time")
-            continue
-        if not spin_ms or queued_ms >= ev[0].elapsed_time(ev[1]):
-            TRACE_LOG["unchecked"] += 1
-            _traced(fn, attempt + 1)
-            return total, by_name
-        event_ms = ev[1].elapsed_time(ev[2]) / iters
-        gaps_ms = n_kernels / iters * LAUNCH_GAP_MS
-        if (event_ms - total - gaps_ms <= TRACE_SHORT_SHARE * event_ms
-                and total <= (1.0 + TRACE_LONG_SHARE) * event_ms):
-            TRACE_LOG["checked"] += 1
-            good = TRACE_LOG["good_by_kernels"].setdefault(str(round(n_kernels / iters)),
-                                                           [0, 0.0, 1.0])
-            good[0] += 1
-            good[1] = max(good[1], (event_ms - total) * iters / n_kernels)
-            good[2] = min(good[2], total / event_ms)
-            _traced(fn, attempt + 1)
-            return total, by_name
-        TRACE_LOG["bad_ratios"].append(total / event_ms)
-        bad += 1
-        print(f"chip_smoke: profiler trace {attempt + 1} of {_fn_name(fn)}: kernel sum {total:.4f} ms "
-              f"({n_kernels / iters:.0f} kernels) is {total / event_ms:.3f} of the "
-              f"CUDA-event time of the same calls", file=sys.stderr, flush=True)
-        if bad >= TRACE_ATTEMPTS:
-            fail(f"{bad} profiler traces disagree with the CUDA-event time of their "
-                 f"calls ({TRACE_LOG['bad_ratios'][-TRACE_ATTEMPTS:]})")
-
-
 def timed(fn, prefix, row, iters=20):
     """Device ms (``<prefix>ms``) and event wall ms (``<prefix>wall_ms``)."""
     row[prefix + "ms"], kernels = device_ms(fn, iters)
     row[prefix + "wall_ms"] = time_ms(fn, iters)
     row[prefix + "device_kernels"] = kernels
-
-
-def bound_ms(flops: float, nbytes: float, dtype, peak=None) -> tuple:
-    import torch
-
-    if peak is None:
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def host_profile(fn, iters=3, top=10):
-    """Where the host time of ``fn`` goes, ms per call: the PyTorch ops by
-    self CPU time (torch.profiler CPU trace, with their calls per call), and
-    the Python functions by own time (cProfile, which inflates Python time;
-    read it for proportions)."""
-    import cProfile
-    import pstats
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
-    pr = cProfile.Profile()
-    pr.enable()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    pr.disable()
-    st = pstats.Stats(pr).stats  # (file, line, name) -> (cc, nc, tt, ct, callers)
-    funcs = sorted(st.items(), key=lambda kv: -kv[1][2])[:top]
-    return {
-        "torch_ops_self_ms": {e.key[:60]: [e.self_cpu_time_total / 1e3 / iters,
-                                           e.count // iters] for e in ops},
-        "python_own_ms": {f"{Path(k[0]).name}:{k[2]}": [v[2] * 1e3 / iters,
-                                                         v[1] // iters]
-                          for k, v in funcs},
-    }
 
 
 # ---------------------------------------------------------------------------
@@ -1503,24 +1337,10 @@ def entry_batch(cfg, batch_size, dev, seed=0, vocab=None):
 
 
 def counters():
-    from vault_tpu_torch.ops import cuda_attention as ca
-    from vault_tpu_torch.ops import cuda_ln_qkv as cl
-    from vault_tpu_torch.ops import cuda_mlp as cm
-    from vault_tpu_torch.ops import cuda_swiglu as cs
+    """Every kernel wrapper with a launch counter, by the kernel's name."""
+    from vault_tpu_torch.utils.benchloop import launch_counters
 
-    return {"encoder_attention": ca.fused_attention,
-            "attention_gqa": ca.fused_attention_gqa,
-            "swiglu_w8a8": cs.fused_swiglu_block_fwd_w8a8,
-            "mlp_block_q8": cm.fused_mlp_block_fwd_q8,
-            "mlp_postln_q8": cm.fused_mlp_postln_fwd_q8,
-            "mlp_block": cm.fused_mlp_block_fwd,
-            "mlp_postln": cm.fused_mlp_postln_fwd,
-            "mlp_block_bwd": cm.fused_mlp_block_bwd,
-            "mlp_postln_bwd": cm.fused_mlp_postln_block_bwd,
-            "ln_qkv": cl.fused_ln_qkv_fwd,
-            "ln_qkv_w8a8": cl.fused_ln_qkv_fwd_w8a8,
-            "mlp_block_w8a8": cm.fused_mlp_block_fwd_w8a8,
-            "mlp_postln_w8a8": cm.fused_mlp_postln_fwd_w8a8}
+    return launch_counters()
 
 
 def reset_counts():
@@ -1569,6 +1389,11 @@ def forward_timings(model, cfg, dev, batch_sizes=(8, 16), impl=None):
     return timings
 
 
+# The bf16 forward's busy ms per batch size (forward_timings), from the
+# vault group; the bench group holds its chained forward to it.
+FORWARD_BUSY_MS = {}
+
+
 def forward_phase(dev):
     import torch
 
@@ -1598,6 +1423,7 @@ def forward_phase(dev):
     if (k_logits - logits.float()).abs().max().item() != 0.0:
         fail("forward: model(batch) and vault_apply disagree")
     timings = forward_timings(model, cfg, dev)
+    FORWARD_BUSY_MS.update((bs, t["device_busy_ms"]) for bs, t in timings.items())
     with torch.inference_mode():
         b = entry_batch(cfg, 16, dev, seed=1)
         timings["host_ops_ms"] = host_profile(lambda: model(b))
@@ -3698,21 +3524,6 @@ OPTIONS_STEPS = 4  # Trainer.train(): two eval windows of two steps
 OPTIONS_WINDOW = 2
 
 
-def _count_products():
-    """A dispatch mode counting the aten ``mm`` / ``addmm`` calls under it."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Products(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func.namespace == "aten" and func.overloadpacket.__name__ in ("mm", "addmm"):
-                self.n += 1
-            return func(*args, **(kwargs or {}))
-
-    return Products()
-
-
 @contextlib.contextmanager
 def recorded_masks():
     """The dropout masks ``ops.nn.dropout_mask`` draws (the MLP kernels'),
@@ -3748,6 +3559,7 @@ def remat_dots_phase(dev):
     from vault_tpu_torch.models.vault import VaultForClassification
     from vault_tpu_torch.presets import vault_base
     from vault_tpu_torch.training.trainer import Trainer, classifier_apply_fn
+    from vault_tpu_torch.utils.benchloop import ProductCount
 
     cfg = vault_base("bert-base-uncased")
     towers = {"bert": cfg.text_tower, "vilt": cfg.vilt}
@@ -3767,7 +3579,7 @@ def remat_dots_phase(dev):
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
-            with recorded_masks() as masks, _count_products() as products:
+            with recorded_masks() as masks, ProductCount() as products:
                 loss, grads = tr.loss_and_grads(batch, lab, w, gen)
                 torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - base
@@ -3775,8 +3587,9 @@ def remat_dots_phase(dev):
             run = lambda: tr.loss_and_grads(batch, lab, w, tr.step_generator(0))
             wall = [time_ms(run, iters=1, warmup=0) for _ in range(2)]
             busy, _ = device_ms(run, iters=1, warmup=1)
+            cublas = products.counts["aten::mm"] + products.counts["aten::addmm"]
             res[impl, remat] = dict(loss=loss.item(), grads=grads, gen=gen.get_state(),
-                                    counts=counts, products=products.n,
+                                    counts=counts, products=cublas,
                                     masks=masks, peak_gb=peak / 1e9,
                                     wall_ms=float(np.median(wall)), busy_ms=busy)
     report = {}
@@ -4923,8 +4736,139 @@ def parallel_phase(dev):
             "parallel_pipeline_forward": pipe_counts}
 
 
+# ---------------------------------------------------------------------------
+# The bench CLIs
+# ---------------------------------------------------------------------------
+
+# The chained forward's busy ms per forward, less the chain's own adds
+# (feedback_ms), against the vault group's busy ms of model(batch) at batch
+# 16: the same kernels on the same shapes, so within this share.
+BENCH_BUSY_SHARE = 0.05
+# Busy time is a part of the wall time of the same calls: at most this
+# factor of the slope (the two are taken in separate runs).
+BUSY_OVER_SLOPE = 1.05
+MFU_LIMIT_PCT = 95.0
+# The CLIs' chains here are shorter than their defaults (bench K 2..22 x 3,
+# ablate_train 2..8 x 2, perf_sweep 2..12 x 3), so that the whole run stays
+# near its time budget; the bench's training leg keeps train_bench's.
+BENCH_ARGV = ("--k_hi", "12", "--repeats", "2")
+ABLATE_ARGV = ("--k_lo", "1", "--k_hi", "3", "--repeats", "1")
+SWEEP_ARGV = ("--k_hi", "6", "--repeats", "2")
+
+
+def run_cli(main, environ, argv=()):
+    """A bench CLI's ``main`` in this process: (what it returns, the JSON
+    lines it printed), each line parsed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(list(argv), environ=environ)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    try:
+        return ret, [json.loads(ln) for ln in lines]
+    except ValueError:
+        fail(f"{main.__module__} printed a line that is not JSON: {lines}")
+
+
+def check_busy(name, busy, slope):
+    if not busy <= BUSY_OVER_SLOPE * slope:
+        fail(f"bench {name}: busy {busy} ms > {BUSY_OVER_SLOPE} x the slope {slope} ms")
+
+
+def bench_phase(dev):
+    """``cli.bench`` with its training leg (``VAULT_BENCH_TRAIN=1``), then
+    ``cli.ablate_train`` at the train bench's defaults, then
+    ``cli.perf_sweep`` at batch 16 over the plain path and the kernels, each
+    in this process at full width and depth.  Gates: the guard sound for the
+    forward and the training chains on both counts (products and the
+    kernels' launches, a direct forward's and step's exactly), every MFU at
+    most 95%, busy at most 1.05 x the slope, the chained forward's busy ms
+    (less the chain's own adds) within 5% of the vault group's at batch 16,
+    the plain leg's busy time above the kernels'.  Reported: the host
+    synchronizations of a chained forward, by line."""
+    import torch
+
+    from vault_tpu_torch.cli import ablate_train, bench, perf_sweep
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.presets import vault_base
+
+    seconds = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    rec, lines = run_cli(bench.main, {"VAULT_BENCH_TRAIN": "1"}, BENCH_ARGV)
+    if lines != [json.loads(json.dumps(rec))]:
+        fail(f"cli.bench printed {len(lines)} lines, not its one record")
+    seconds["bench"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split, lines = run_cli(ablate_train.main, {}, ABLATE_ARGV)
+    if lines != [json.loads(json.dumps(split))]:
+        fail(f"cli.ablate_train printed {len(lines)} lines, not its one record")
+    seconds["ablate_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows, lines = run_cli(perf_sweep.main, {"PERF_SWEEP_BATCHES": "16",
+                                            "PERF_SWEEP_IMPLS": "0,1"}, SWEEP_ARGV)
+    if lines != json.loads(json.dumps(rows)) or len(rows) != 2:
+        fail(f"cli.perf_sweep printed {lines}, not one record for each of 2 legs")
+    seconds["perf_sweep"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = read_counts()
+    train = rec["train"]
+
+    # the guard, on both counts, and exact launches per iteration
+    for name, r, want in (("forward", rec, EVAL_LAUNCHES), ("train", train, STEP_LAUNCHES)):
+        if not (r["guard_sound"] and r["launches_checked"]) or "suspect" in r:
+            fail(f"bench {name} chain: the guard failed ({r.get('suspect')})")
+        got = r["launches_per_forward" if name == "forward" else "launches_per_step"]
+        if got != want:
+            fail(f"bench {name} chain: launches per iteration {got}, expected {want}")
+    missing = [k for k, v in counts.items()
+               if v == 0 and (EVAL_LAUNCHES[k] or STEP_LAUNCHES[k])]
+    if missing:
+        fail(f"bench group: kernels of its path never launched: {missing}")
+    for key, r in (("fwd_mfu_pct", rec), ("fwd_busy_mfu_pct", rec),
+                   ("train_mfu_pct", train), ("train_busy_mfu_pct", train)):
+        if not 0 < r[key] <= MFU_LIMIT_PCT:
+            fail(f"bench {key} {r[key]} outside (0, {MFU_LIMIT_PCT}]")
+    check_busy("forward", rec["busy_ms"], rec["ms_per_step"])
+    check_busy("train", train["busy_ms"], train["ms_per_train_step"])
+    for name, v in split["variants"].items():
+        check_busy(f"ablate {name}", v["busy_ms"], v["ms"])
+    for row in rows:
+        check_busy(f"sweep impl {row['impl']}", row["busy_ms"], row["ms_per_step"])
+
+    # the chained forward's kernels against a direct forward's
+    ref = FORWARD_BUSY_MS.get(16)
+    if ref is None:  # the vault group did not run: a direct forward here
+        cfg = vault_base("bert-base-uncased")
+        model = VaultForClassification(cfg, n_classes=3, device=dev,
+                                       dtype=torch.bfloat16, seed=0)
+        b16 = entry_batch(cfg, 16, dev, seed=1)
+        with torch.inference_mode():
+            ref = device_ms(lambda: model(b16), iters=3, warmup=1)[0]
+        del model, b16
+        torch.cuda.empty_cache()
+    share = rec["busy_ms_net"] / ref - 1.0
+    if not abs(share) <= BENCH_BUSY_SHARE:
+        fail(f"bench: chained busy {rec['busy_ms_net']} ms a forward (less the chain's "
+             f"adds, {rec['feedback_ms']} ms) is {share:+.3%} from the vault group's "
+             f"{ref} ms at batch 16")
+    plain, kernel = sorted(rows, key=lambda r: r["impl"])
+    if not plain["busy_ms"] > kernel["busy_ms"]:
+        fail(f"sweep: the plain leg's busy {plain['busy_ms']} ms is not above the "
+             f"kernels' {kernel['busy_ms']} ms")
+    if rec["host_syncs_per_forward"]:
+        print(f"chip_smoke: {rec['host_syncs_per_forward']} host synchronizations per "
+              f"chained forward: {rec['host_sync_sites']}", file=sys.stderr, flush=True)
+    emit(phase="bench", forward=rec, ablate_train=split, sweep=rows,
+         vault_busy_ms_batch16=ref, chained_vs_vault_busy=share,
+         launches_in_group=counts, seconds=seconds)
+    return {"bench_forward": rec["launches_per_forward"],
+            "bench_train_step": train["launches_per_step"]}
+
+
 PHASES = ("kernels", "vault", "w8", "llama", "train", "merge", "serve", "tasks",
-          "baselines", "options", "parallel")
+          "baselines", "options", "parallel", "bench")
 
 
 def main():
@@ -4945,6 +4889,8 @@ def main():
     except ImportError as e:
         fail(f"the vault_tpu_torch package is not importable here ({e}); run "
              "from the root of the repository")
+    if _IMPORT_ERROR is not None:
+        fail(f"vault_tpu_torch.utils.profiling does not import: {_IMPORT_ERROR}")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5050,6 +4996,9 @@ def main():
     if "parallel" in phases:
         path_counts.update(parallel_phase(dev))
     lap("parallel")
+    if "bench" in phases:
+        path_counts.update(bench_phase(dev))
+    lap("bench")
     emit(phase="groups", seconds=group_s, build_s=build_s,
          total_s=sum(group_s.values()) + build_s)
     emit(phase="trace_checks", short_share=TRACE_SHORT_SHARE, long_share=TRACE_LONG_SHARE,

@@ -484,7 +484,8 @@ def test_nan_checks_cover_the_evaluation():
     pixel in a dev batch raises at the first operator that makes a NaN
     (``aten``'s cast of the pixels), naming it; with the checks off the
     evaluation returns a NaN loss.  A forward the caller runs outside the
-    trainer stays outside the checks."""
+    trainer raises too, as every jitted forward does under
+    ``jax_debug_nans`` (the model's forward enters the checks itself)."""
     _, tcfg = _cfgs()
     feats, labels = _toy_data(tcfg, n=4)
     bad = dict(feats, pixel_values=feats["pixel_values"].copy())
@@ -497,9 +498,10 @@ def test_nan_checks_cover_the_evaluation():
         assert np.isfinite(tr.evaluate(InMemoryDataset(feats, labels))["eval_loss"])
         with pytest.raises(RuntimeError, match="NaN produced by aten"):
             tr.evaluate(InMemoryDataset(bad, labels))
-        with torch.no_grad():  # the user's own forward: not checked
-            out = model(tvault.batch_to_device(bad, "cpu"))
-        assert torch.isnan(out).any()
+        with torch.no_grad(), pytest.raises(RuntimeError, match="NaN produced by aten"):
+            model(tvault.batch_to_device(bad, "cpu"))  # the user's own forward
     finally:
         profiling.enable_nan_checks(False)
     assert np.isnan(tr.evaluate(InMemoryDataset(bad, labels))["eval_loss"])
+    with torch.no_grad():
+        assert torch.isnan(model(tvault.batch_to_device(bad, "cpu"))).any()

@@ -1,6 +1,10 @@
 """Command-line entry points of the port (``python -m vault_tpu_torch.cli.<name>``):
 ``quantize_ckpt`` and ``serve``, counterparts of the JAX package's
-``scripts/quantize_ckpt.py`` and ``scripts/serve.py``, and what they share."""
+``scripts/quantize_ckpt.py`` and ``scripts/serve.py``, and what they share;
+the experiment CLIs ``clsf_vault`` and ``tmsc_tombert``; the bench CLIs
+``bench``, ``train_bench``, ``perf_sweep`` and ``ablate_train``
+(counterparts of ``bench.py`` and ``scripts/{train_bench,perf_sweep,
+ablate_train}.py``; what they share is in ``cli/_bench.py``)."""
 
 from __future__ import annotations
 

@@ -47,6 +47,7 @@ from vault_tpu_torch.ops.nn import (
     linear,
     matmul_fp32,
 )
+from vault_tpu_torch.utils.profiling import nan_checked
 
 
 def resolve_device(device=None) -> torch.device:
@@ -419,7 +420,8 @@ class VaultForClassification(_ServedModel):
 
     Runs on the card unless ``device`` names another; with no card and no
     device it raises.  Weights are seeded random (``seed``) until loaded.
-    ``forward(batch)`` returns the logits of a deterministic pass.
+    ``forward(batch)`` returns the logits of a deterministic pass, under
+    the NaN checks while ``utils.profiling.enable_nan_checks`` is on.
     :meth:`quantize` turns it into its int8 serving form in place.
     ``merge_to`` / ``merge_at_layer``: serve with ToMe patch-token merging
     (``vilt_apply``), threaded into every forward as ``use_pallas`` is.
@@ -470,6 +472,7 @@ class VaultForClassification(_ServedModel):
             self.use_pallas = serving_impl(mode, self.device)
         return self
 
+    @nan_checked
     def forward(self, batch: Dict[str, Any], use_pallas=None) -> torch.Tensor:
         batch = batch_to_device(batch, self.device)
         return vault_for_classification(
@@ -493,7 +496,7 @@ class VaultWithLlamaTower(_ServedModel):
     exist at once; :meth:`quantize` does the same to a built model.  Either
     way only the tower is quantized; ViLT and ``lm_proj`` stay in ``dtype``.
     ``forward(batch)`` returns the :class:`ViltOutput` of a deterministic
-    pass.
+    pass, under the NaN checks while they are on.
     """
 
     def __init__(self, vilt_cfg: ViltConfig, llama_cfg: "llama_mod.LlamaConfig",
@@ -522,6 +525,7 @@ class VaultWithLlamaTower(_ServedModel):
         self.quant_mode = mode
         return self
 
+    @nan_checked
     def forward(self, batch: Dict[str, Any], use_pallas=None) -> ViltOutput:
         batch = batch_to_device(batch, self.device)
         return vault_with_llama_tower(

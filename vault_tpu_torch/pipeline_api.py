@@ -6,7 +6,8 @@ The serving-side counterpart of the reference's README quickstart
 a head's output, every call padded to ``max_batch`` rows (one shape for the
 kernels) and cut back to the real rows.  Preprocessing and forward times are
 kept (``stats``); the forward's timer ends after the outputs reach the host,
-so it holds the card's time too.
+so it holds the card's time too.  While ``utils.profiling.enable_nan_checks``
+is on, the forward runs under its NaN checks.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from vault_tpu_torch.config import VaultConfig
 from vault_tpu_torch.data.processor import VaultProcessor
 from vault_tpu_torch.models.vault import batch_to_device, vault_apply
-from vault_tpu_torch.utils.profiling import StepTimer
+from vault_tpu_torch.utils.profiling import StepTimer, nan_checks
 
 
 def _device_of(params) -> torch.device:
@@ -76,7 +77,7 @@ class VaultPipeline:
             enc = self.processor(list(images), list(texts))
         enc = self._pad({k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
                          for k, v in enc.items()}, n)
-        with self.forward_timer, torch.inference_mode():
+        with self.forward_timer, torch.inference_mode(), nan_checks():
             out = self._fwd(self.params, batch_to_device(enc, self.device))
             out = tuple(o.float().cpu().numpy()[:n] for o in out) if isinstance(
                 out, tuple) else out.float().cpu().numpy()[:n]

@@ -44,6 +44,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from vault_tpu_torch.utils import profiling
+
 
 # The JAX package's measured-bad composition guard (vault_tpu/serving.py,
 # budgets from its docs/BENCHMARKS.md head-divergence table): narrow pooled
@@ -178,7 +180,7 @@ def _run_threads(fns):
 
     def run(i):
         try:
-            with torch.no_grad():
+            with torch.no_grad(), profiling.nan_checks():
                 results[i] = fns[i]()
         except BaseException as e:  # noqa: BLE001 (re-raised below)
             errors[i] = e
@@ -287,7 +289,9 @@ class BatchingEngine:
     ``apply(features_dict) -> logits`` takes a full ``max_batch``-sized
     processor output (numpy arrays, or tensors from a processor that works
     on the card) and returns a tensor or array; it runs under
-    ``torch.inference_mode()``.  Short batches are padded by repeating row 0.
+    ``torch.inference_mode()`` on the engine's thread, and under the NaN
+    checks while ``utils.profiling.enable_nan_checks`` is on (a NaN fails
+    the batch's requests).  Short batches are padded by repeating row 0.
     """
 
     def __init__(self, processor, apply: Callable, max_batch: int = 8,
@@ -374,7 +378,7 @@ class BatchingEngine:
                                      [it.text for it in items])
                 n = len(items)
                 feats = {k: pad_rows(v, self.max_batch) for k, v in enc.items()}
-                with torch.inference_mode():
+                with torch.inference_mode(), profiling.nan_checks():
                     out = self.apply(feats)
                     if isinstance(out, torch.Tensor):
                         out = out.float().cpu().numpy()
