@@ -11,7 +11,10 @@ then bf16 on the fused LN->QKV selector; then quantized w8a8, int8 weights
 and activations, forward and engine; then quantized w8, int8 weights only,
 forward and engine), serves the Llama-3-8B-geometry tower feeding ViLT-B/32
 through ``VaultWithLlamaTower`` (all 32 layers, w8a8 tower, the GQA
-attention and SwiGLU kernels), then trains VAuLT-base: one step on the
+attention and SwiGLU kernels), then the tower at the published Llama-2-7B,
+TinyLlama-1.1B, SmolLM-135M and OpenLLaMA-3B geometries (all layers, w8a8;
+TinyLlama's w8 too; the kernels alone at each geometry's widths), then
+trains VAuLT-base: one step on the
 kernel path against one on the plain path
 (fp32 masters, bf16 compute, remat, dropout 0.1, batch 32 at the ``entry()``
 layout) and a short ``Trainer.train()`` with a dev evaluation and a
@@ -187,10 +190,12 @@ ROUTE_KERNELS = {
 # blocks and both w8a8 blocks) are checked at (the wgmma core's width
 # contract): BERT-large (H 1,024, I 4,096) and H 512 / I 2,048.
 OTHER_WIDTHS = ((1024, 4096), (512, 2048))
-# The SwiGLU block's other widths (its contract: H a multiple of 128, an
-# I-tile pick_tile(I, 1,024) a multiple of 128): Llama-3.2-1B (H 2,048, I
-# 8,192) and H 512 / I 1,536 (two tiles of 768).
-SWIGLU_WIDTHS = ((2048, 8192), (512, 1536))
+# The SwiGLU block's other widths (its contract: H a multiple of 16 up to
+# 8,192, an I-tile pick_tile(I, 1,024) a multiple of 16): Llama-3.2-1B (H
+# 2,048, I 8,192) and H 512 / I 1,536 (two tiles of 768) on the exact
+# instance; SmolLM-135M (H 576, I 1,536), H 400 / I 960 and H 128 / I 1,376
+# (two tiles of 688) on the widened one.
+SWIGLU_WIDTHS = ((2048, 8192), (512, 1536), (576, 1536), (400, 960), (128, 1376))
 # One training step, kernel path vs plain path (same parameters, batch and
 # generator seed): per parameter leaf ||g_kernel - g_plain|| / ||g_plain||,
 # and |loss difference|.  The paths round bf16 activations at different
@@ -353,13 +358,17 @@ def check_attention(gen, dev):
     # longer lengths where the bf16 kernel's softmax runs online (timed, not
     # main path): ViLT-B/32 at its largest canvas, 384 x 640 (40 + 1 + 240),
     # and BERT's position limit, each with a batch row whose keys are all
-    # masked
+    # masked; the main path's shapes at head dim 100 too (timed: the padded
+    # instance, OpenLLaMA-3B's head dim)
     long_rows = ((8, 12, 281, torch.bfloat16, 64), (8, 12, 512, torch.bfloat16, 64))
     for b, h, l, dtype, d in ((8, 12, 40, torch.bfloat16, 64),
                               (8, 12, 256, torch.bfloat16, 64),
                               (2, 3, 77, torch.float32, 64),
                               *((8, 12, 256, torch.bfloat16, d) for d in (32, 96, 128)),
                               (2, 3, 77, torch.float32, 128),
+                              (8, 12, 40, torch.bfloat16, 100),
+                              (8, 12, 256, torch.bfloat16, 100),
+                              (2, 3, 77, torch.float32, 100),
                               *long_rows):
         long = (b, h, l, dtype, d) in long_rows
         q, k, v, bias = attention_case(gen, b, h, l, dtype, dev,
@@ -380,13 +389,13 @@ def check_attention(gen, dev):
             check_attention_rows("attention", (b, h, l, d), q, k, v, bias, out, ref, row)
         if d != 64 or long:
             row["path"] = "long" if long else "other"
-        if dtype == torch.bfloat16 and d == 64:
+        if dtype == torch.bfloat16 and d in (64, 100):
             allowed = bias > -1.0  # True where a key is attended
             timed(lambda: ca.fused_attention(q, k, v, bias), "", row)
             timed(lambda: ca.attention_plain(q, k, v, bias), "plain_", row)
             timed(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=allowed), "library_", row)
-            flops = 4.0 * b * h * l * l * 64
+            flops = 4.0 * b * h * l * l * d
             nbytes = 4.0 * q.numel() * q.element_size() + bias.numel() * 4
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
             check_route("encoder_attention", row)
@@ -1139,10 +1148,11 @@ def gqa_case(gen, b, h, g, l, d, dtype, dev):
 def check_attention_gqa(gen, dev):
     """The GQA kernel against its plain version: the tower's shape (16, 32
     heads on 8, 40, 128) with a padded batch, once with one query head per
-    K/V head (rep = 1), ragged fp32, the other head dims (32, 64, 96), and
-    at L = 300, where the bf16 kernel's softmax runs online."""
+    K/V head (rep = 1), ragged fp32, the other head dims of an exact
+    instance (32, 64, 96) and of a padded one (100, 80, 48, 16; 100 in fp32
+    too), and at L = 300,
+    where the bf16 kernel's softmax runs online."""
     import torch
-    import torch.nn.functional as F
 
     from vault_tpu_torch.ops import cuda_attention as ca
 
@@ -1150,7 +1160,9 @@ def check_attention_gqa(gen, dev):
     for b, h, g, l, dtype, d in ((16, 32, 8, 40, torch.bfloat16, 128),
                                  (4, 8, 8, 40, torch.bfloat16, 128),
                                  (3, 8, 2, 77, torch.float32, 128),
-                                 *((4, 8, 2, 77, torch.bfloat16, d) for d in (32, 64, 96)),
+                                 *((4, 8, 2, 77, torch.bfloat16, d)
+                                   for d in (32, 64, 96, 100, 80, 48, 16)),
+                                 (3, 8, 2, 77, torch.float32, 100),
                                  (4, 32, 8, 300, torch.bfloat16, 128)):
         q, k, v, bias = gqa_case(gen, b, h, g, l, d, dtype, dev)
         out, again = ca.fused_attention_gqa(q, k, v, bias), ca.fused_attention_gqa(q, k, v, bias)
@@ -1170,14 +1182,7 @@ def check_attention_gqa(gen, dev):
         if dtype == torch.bfloat16:
             check_attention_rows("attention_gqa", (b, h, g, l, d), q, k, v, bias, out, ref, row)
         if row["path"] == "forward":
-            timed(lambda: ca.fused_attention_gqa(q, k, v, bias), "", row)
-            timed(lambda: ca.attention_gqa_plain(q, k, v, bias), "plain_", row)
-            timed(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias.to(dtype), enable_gqa=True), "library_", row)
-            row["library"] = "F.scaled_dot_product_attention(enable_gqa=True)"
-            flops = 4.0 * b * h * l * l * 128
-            nbytes = (2.0 * q.numel() + 2.0 * k.numel()) * q.element_size() + bias.numel() * 4
-            row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+            time_gqa(row, q, k, v, bias)
             check_route("attention_gqa", row)
         emit(phase="kernel_check", **row)
         rows.append(row)
@@ -1201,6 +1206,51 @@ def swiglu_operands(gen, dev, h=4096, i=14336):
     return o
 
 
+def time_swiglu(row, o, x, args, eps):
+    """The SwiGLU kernel's device ms at ``args`` beside its plain version's,
+    a library composition's (``torch._int_mm`` on the K-major codes, per-row
+    requantization) and its bound, into ``row``."""
+    import torch
+    import torch.nn.functional as F
+
+    from vault_tpu_torch.ops import cuda_swiglu as cs
+
+    (rows, h), i, dt = x.shape, o["wgq"].shape[1], x.dtype
+
+    def lib():
+        y = F.rms_norm(x, (h,), o["ln_w"].to(dt), eps)
+        zero = torch.zeros((), device=x.device)
+        a = (F.silu(_int8_linear_lib(y, o["wgq"], o["sg"], zero))
+             * _int8_linear_lib(y, o["wuq"], o["su"], zero)).to(dt)
+        return x + _int8_linear_lib(a, o["wdq"], o["sd"], zero).to(dt)
+    # 20 calls a trace: at 5, three traces in a row at OpenLLaMA-3B's widths
+    # held 3 of the 4 launches a call (0.83 of the event time)
+    timed(lambda: cs.fused_swiglu_block_fwd_w8a8(*args), "", row)
+    timed(lambda: cs.swiglu_block_w8a8_plain(*args), "plain_", row, iters=2)
+    timed(lib, "library_", row)
+    row["library"] = ("F.rms_norm + 3 x (row quantization + torch._int_mm) + "
+                      "F.silu (composition, per-row requantization)")
+    nbytes = 3 * h * i + 2 * 2 * rows * h + 4 * (2 * i + h) + 4 * h
+    row["bound_ms"], row["bound_by"] = bound_ms(6.0 * rows * h * i, nbytes, dt, PEAK_INT8_OPS)
+
+
+def time_gqa(row, q, k, v, bias):
+    """The GQA kernel's device ms beside its plain version's, SDPA's and
+    its bound, into ``row``."""
+    import torch.nn.functional as F
+
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    b, h, l, d = q.shape
+    timed(lambda: ca.fused_attention_gqa(q, k, v, bias), "", row)
+    timed(lambda: ca.attention_gqa_plain(q, k, v, bias), "plain_", row)
+    timed(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias.to(q.dtype), enable_gqa=True), "library_", row)
+    row["library"] = "F.scaled_dot_product_attention(enable_gqa=True)"
+    nbytes = (2.0 * q.numel() + 2.0 * k.numel()) * q.element_size() + bias.numel() * 4
+    row["bound_ms"], row["bound_by"] = bound_ms(4.0 * b * h * l * l * d, nbytes, q.dtype)
+
+
 def check_swiglu(gen, dev):
     """The w8a8 SwiGLU kernel against ``swiglu_block_w8a8_plain`` at the
     tower's rows (batch 16: 640) and half of them, bf16 and fp32, and at
@@ -1209,7 +1259,6 @@ def check_swiglu(gen, dev):
     another requantization grouping) is reported; the bf16 main-width rows
     are timed and held to the int8 core's kernels (``check_route``)."""
     import torch
-    import torch.nn.functional as F
 
     from vault_tpu_torch.ops import cuda_swiglu as cs
 
@@ -1250,20 +1299,7 @@ def check_swiglu(gen, dev):
                    path="forward" if main and (rows, dtype) == (640, torch.bfloat16)
                    else "other")
         if main and dtype == torch.bfloat16:
-            def lib():
-                y = F.rms_norm(x, (h,), o["ln_w"].to(dtype), 1e-5)
-                zero = torch.zeros((), device=dev)
-                a = (F.silu(_int8_linear_lib(y, o["wgq"], o["sg"], zero))
-                     * _int8_linear_lib(y, o["wuq"], o["su"], zero)).to(dtype)
-                return x + _int8_linear_lib(a, o["wdq"], o["sd"], zero).to(dtype)
-            timed(lambda: cs.fused_swiglu_block_fwd_w8a8(*args), "", row, iters=5)
-            timed(lambda: cs.swiglu_block_w8a8_plain(*args), "plain_", row, iters=2)
-            timed(lib, "library_", row, iters=5)
-            row["library"] = ("F.rms_norm + 3 x (row quantization + torch._int_mm) + "
-                              "F.silu (composition, per-row requantization)")
-            ops = 6.0 * rows * h * i
-            nbytes = 3 * h * i + 2 * 2 * rows * h + 4 * (2 * i + h) + 4 * h
-            row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, dtype, PEAK_INT8_OPS)
+            time_swiglu(row, o, x, args, 1e-5)
             row["bound_share"] = row["bound_ms"] / row["ms"]
             check_route("swiglu_w8a8", row)
         emit(phase="kernel_check", **row)
@@ -1849,6 +1885,210 @@ def llama_phase(dev):
     del model
     torch.cuda.empty_cache()
     return counts
+
+
+# The published Llama-architecture geometries whose widths the Llama-3-8B
+# one does not cover, from each model's config.json on the Hugging Face hub
+# (hidden size, layers, heads and KV heads, intermediate size, vocabulary,
+# RMSNorm eps, RoPE base, positions): the SwiGLU kernel's widened instance
+# (H 576 and 3,200; I-tiles of 688, 704, 960) and the GQA kernel's padded
+# instance (OpenLLaMA-3B's head dim 100).  All layers, seeded random weights.
+LLAMA_GEOMETRIES = {
+    "meta-llama/Llama-2-7b-hf": dict(
+        hidden_size=4096, num_hidden_layers=32, num_attention_heads=32,
+        num_key_value_heads=32, intermediate_size=11008, vocab_size=32000,
+        rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=4096),
+    "TinyLlama/TinyLlama-1.1B-Chat-v1.0": dict(
+        hidden_size=2048, num_hidden_layers=22, num_attention_heads=32,
+        num_key_value_heads=4, intermediate_size=5632, vocab_size=32000,
+        rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=2048),
+    "HuggingFaceTB/SmolLM-135M": dict(
+        hidden_size=576, num_hidden_layers=30, num_attention_heads=9,
+        num_key_value_heads=3, intermediate_size=1536, vocab_size=49152,
+        rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=2048),
+    "openlm-research/open_llama_3b": dict(
+        hidden_size=3200, num_hidden_layers=26, num_attention_heads=32,
+        num_key_value_heads=32, intermediate_size=8640, vocab_size=32000,
+        rms_norm_eps=1e-6, rope_theta=10000.0, max_position_embeddings=2048),
+}
+# the geometry whose tower also runs quantized w8 (int8 weights only)
+LLAMA_W8_GEOMETRY = "TinyLlama/TinyLlama-1.1B-Chat-v1.0"
+
+
+def llama_launches(layers, swiglu=True):
+    """A Llama-tower forward feeding ViLT-B/32: a GQA attention and (w8a8)
+    a SwiGLU kernel in each tower layer, then ViLT's 12 layers on "auto"."""
+    return launches(attention_gqa=layers, swiglu_w8a8=layers if swiglu else 0,
+                    encoder_attention=12, mlp_block=12)
+
+
+def check_geometry_kernels(gen, dev, name, cfg, rows, counts):
+    """The tower's two kernels alone at the geometry's widths and ``rows``
+    (batch 16 at 40 tokens), bf16: the SwiGLU block bit-equal to its plain
+    version, the GQA attention within ``LIMITS`` and the row gate of its
+    plain version, repeats bit-equal; each timed beside its bound, its
+    plain version and a library call (``torch._int_mm`` on the K-major
+    codes; SDPA)."""
+    import torch
+
+    from vault_tpu_torch.ops import cuda_attention as ca
+    from vault_tpu_torch.ops import cuda_swiglu as cs
+
+    bf = torch.bfloat16
+    h, i, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    o = swiglu_operands(gen, dev, h, i)
+    x = torch.randn((rows, h), generator=gen, device=dev).to(bf)
+    args = [o[k] for k in ("ln_w", "wgq", "sg", "wuq", "su", "wdq", "sd")] + [x]
+    out, again = cs.fused_swiglu_block_fwd_w8a8(*args), cs.fused_swiglu_block_fwd_w8a8(*args)
+    ref = cs.swiglu_block_w8a8_plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not math.isfinite(err) or err != 0.0:
+        fail(f"swiglu_w8a8 {name} rows={rows}: max |kernel - plain| {err}, expected bit-equal")
+    if not torch.equal(out, again):
+        fail(f"swiglu_w8a8 {name}: two launches differ")
+    ti = cs.pick_tile(i, cs.I_TILE)
+    sw = dict(kernel="swiglu_w8a8", geometry=name, rows=rows, hidden=h, intermediate=i,
+              i_tile=ti, dtype="bfloat16", max_abs_err=err, limit=0.0,
+              bit_equal_repeat=True, route=cs.swiglu_route(bf),
+              launches=counts["swiglu_w8a8"],
+              instance="exact" if h % 128 == 0 and ti % 128 == 0 else "widened")
+
+    time_swiglu(sw, o, x, args, cfg.rms_norm_eps)
+    check_route("swiglu_w8a8", sw)
+    emit(phase="kernel_check", **sw)
+    del o, x, args, out, again, ref
+
+    b, heads, kv, l = rows // 40, cfg.num_attention_heads, cfg.num_key_value_heads, 40
+    q, k, v, bias = gqa_case(gen, b, heads, kv, l, d, bf, dev)
+    out, again = ca.fused_attention_gqa(q, k, v, bias), ca.fused_attention_gqa(q, k, v, bias)
+    ref = ca.attention_gqa_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not math.isfinite(err) or err > LIMITS["bfloat16"]:
+        fail(f"attention_gqa {name} {(b, heads, kv, l, d)}: max |kernel - plain| {err} > "
+             f"{LIMITS['bfloat16']}")
+    if not torch.equal(out, again):
+        fail(f"attention_gqa {name}: two launches differ")
+    at = dict(kernel="attention_gqa", geometry=name, shape=[b, heads, l, d], kv_heads=kv,
+              dtype="bfloat16", max_abs_err=err, limit=LIMITS["bfloat16"],
+              bit_equal_repeat=True, route=ca.attention_route(bf),
+              launches=counts["attention_gqa"],
+              instance="exact" if d in ca.EXACT_HEAD_DIMS else "padded")
+    check_attention_rows("attention_gqa", (b, heads, kv, l, d), q, k, v, bias, out, ref, at)
+    time_gqa(at, q, k, v, bias)
+    check_route("attention_gqa", at)
+    emit(phase="kernel_check", **at)
+    return [sw, at]
+
+
+def llama_geometries_phase(dev):
+    """The Llama tower at each of ``LLAMA_GEOMETRIES`` (published widths,
+    all layers, w8a8, seeded random weights) feeding a bf16 ViLT-B/32
+    through ``VaultWithLlamaTower``, batch 16: launches per forward exact,
+    the kernel path bit-equal to the same forward with the SwiGLU wrapper
+    swapped for its plain version, the distance from the tower's plain path
+    reported; each of the tower's kernels alone at the geometry's widths
+    (``check_geometry_kernels``).  ``LLAMA_W8_GEOMETRY`` also runs w8 (int8
+    weights, the GQA kernel, the plain SwiGLU composition): finite, its
+    distance from the same tower in bf16 reported.  Returns the launch
+    tables and the kernel rows."""
+    import torch
+
+    from vault_tpu_torch.config import ViltConfig
+    from vault_tpu_torch.models.llama import LlamaConfig
+    from vault_tpu_torch.models.vault import VaultWithLlamaTower, vault_with_llama_tower
+
+    bs, vilt_cfg = 16, ViltConfig()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    counts_by, rows = {}, []
+
+    def forward(model, batch, want, what):
+        reset_counts()
+        out = model(batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != want:
+            fail(f"{what}: launches per forward {counts}, expected {want}")
+        if out.pooler_output.shape != (bs, vilt_cfg.hidden_size) or not (
+                torch.isfinite(out.pooler_output.float()).all()
+                and torch.isfinite(out.last_hidden_state.float()).all()):
+            fail(f"{what}: pooler {tuple(out.pooler_output.shape)} not finite")
+        return out, counts
+
+    def distance(a, b):
+        return {"pooler": (a.pooler_output.float() - b.pooler_output.float()).abs().max().item(),
+                "hidden": (a.last_hidden_state.float() - b.last_hidden_state.float()
+                           ).abs().max().item()}
+
+    for name, fields in LLAMA_GEOMETRIES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = LlamaConfig(attn_impl="pallas", mlp_impl="pallas", **fields)
+        layers = cfg.num_hidden_layers
+        t0 = time.perf_counter()
+        model = VaultWithLlamaTower(vilt_cfg, cfg, device=dev, dtype=torch.bfloat16, seed=0,
+                                    quantize="w8a8")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        codes = sum(p.numel() for p in model["llama"].parameters() if p.dtype == torch.int8)
+        batch = entry_batch(None, bs, dev, vocab=cfg.vocab_size)
+        want = llama_launches(layers)
+        with torch.inference_mode():
+            out, counts = forward(model, batch, want, f"llama {name}")
+            reset_counts()
+            with swiglu_plain_version():
+                p_out = model(batch)
+            torch.cuda.synchronize()
+            if read_counts() != dict(want, swiglu_w8a8=0):
+                fail(f"llama {name} through the SwiGLU plain version: launches {read_counts()}")
+            vs_plain = distance(out, p_out)
+            if not (torch.equal(out.pooler_output, p_out.pooler_output)
+                    and torch.equal(out.last_hidden_state, p_out.last_hidden_state)):
+                fail(f"llama {name} kernel path vs the SwiGLU kernel's plain version: "
+                     f"max |diff| {vs_plain}, expected bit-equal")
+            del p_out
+            xla_cfg = dataclasses.replace(cfg, attn_impl="xla", mlp_impl="xla")
+            x_out = vault_with_llama_tower(model, vilt_cfg, xla_cfg, deterministic=True,
+                                           use_pallas=model.use_pallas, **batch)
+            vs_xla = dict(distance(out, x_out), pooler_rms=x_out.pooler_output.float(
+            ).square().mean().sqrt().item())
+            del x_out
+            run = lambda: model(batch)
+            ms = time_ms(run, iters=2, warmup=1)
+            busy, kernels = device_ms(run, iters=2, warmup=0)
+        counts_by[name] = counts
+        row = dict(phase="llama_geometry", geometry=name, layers=layers, batch=bs,
+                   head_dim=cfg.head_dim, build_s=build_s,
+                   tower_int8_code_bytes=codes, launches_per_forward=counts,
+                   vs_swiglu_plain_version=vs_plain, vs_swiglu_plain_version_limit="bit-equal",
+                   vs_tower_plain_path=vs_xla, ms=ms, device_busy_ms=busy,
+                   idle_share=1.0 - busy / ms, attention_ms=attention_ms(kernels),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, out
+        torch.cuda.empty_cache()
+        kernel_rows = check_geometry_kernels(gen, dev, name, cfg, bs * 40, counts)
+        row.update(i_tile=kernel_rows[0]["i_tile"],
+                   instances={r["kernel"]: r["instance"] for r in kernel_rows})
+        rows += kernel_rows
+        if name == LLAMA_W8_GEOMETRY:
+            torch.cuda.empty_cache()
+            with torch.inference_mode():
+                ref = VaultWithLlamaTower(vilt_cfg, cfg, device=dev, dtype=torch.bfloat16,
+                                          seed=0)
+                b_out = ref(batch)
+                del ref
+                torch.cuda.empty_cache()
+                w8 = VaultWithLlamaTower(vilt_cfg, cfg, device=dev, dtype=torch.bfloat16,
+                                         seed=0, quantize="w8")
+                w8_out, w8_counts = forward(w8, batch, llama_launches(layers, swiglu=False),
+                                            f"llama {name} w8")
+                row["w8"] = dict(launches_per_forward=w8_counts,
+                                 distance_from_bf16=distance(w8_out, b_out))
+                del w8, w8_out, b_out
+            torch.cuda.empty_cache()
+        emit(**row)
+    return counts_by, rows
 
 
 # ---------------------------------------------------------------------------
@@ -4957,8 +5197,11 @@ def main():
         del model
         torch.cuda.empty_cache()
     lap("vault_w8")
+    geometry_rows = []
     if "llama" in phases:
         path_counts["llama_w8a8"] = llama_phase(dev)
+        geometry_counts, geometry_rows = llama_geometries_phase(dev)
+        path_counts.update({f"llama {k}": v for k, v in geometry_counts.items()})
     lap("llama")
     step_counts = launches()
     if "train" in phases:
@@ -5082,6 +5325,18 @@ def main():
             if r.get("route") == "wgmma":
                 entry["train_device_kernels"] = r["device_kernels"]
         kernels.append(entry)
+    # the Llama tower's two kernels at the published geometries of
+    # LLAMA_GEOMETRIES: the widened SwiGLU and padded GQA instances beside the
+    # exact ones, launches from that geometry's forward
+    for r in geometry_rows:
+        kernels.append(dict(
+            name=f"{r['kernel']}@{r['geometry']}", route="cuda",
+            source=sources[r["kernel"]][0], replaces=sources[r["kernel"]][1],
+            launches=r["launches"], launches_path=f"llama {r['geometry']}",
+            instance=r["instance"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            wall_ms=r["wall_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], library=r["library"],
+            design="wgmma", device_kernels=r["device_kernels"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

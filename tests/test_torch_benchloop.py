@@ -276,21 +276,28 @@ def test_launch_counters_name_every_counted_wrapper():
     assert benchloop.count_launches(lambda: None) == {k: 0 for k in counters}
 
 
-def test_slope_ms_takes_the_per_iteration_time():
+def test_slope_ms_takes_the_per_iteration_time(monkeypatch):
     """(t(k_hi) - t(k_lo)) / (k_hi - k_lo) of a run whose k iterations each
-    sleep 8 ms, on the host's clock; the once-per-call part cancels."""
-    import time
+    take 8 ms after 20 ms once per call, on a simulated host clock (the
+    module's ``time``), so that no other work on the host moves the result;
+    the once-per-call part cancels."""
+    import types
 
+    clock = [0.0]
+    monkeypatch.setattr(benchloop, "time",
+                        types.SimpleNamespace(perf_counter=lambda: clock[0]))
     calls = []
 
     def run(k):
         calls.append(k)
-        time.sleep(0.02 + 0.008 * k)
+        clock[0] += 0.02 + 0.008 * k
 
     s = benchloop.slope_ms(run, 1, 4, repeats=2)
     assert calls == [1, 1, 1, 4, 4]
     assert 7.5 <= s["ms"] <= 14.0, s
+    assert s["ms"] == pytest.approx(8.0)
     assert s["t_hi_ms"] > s["t_lo_ms"] >= 28.0
+    assert (s["t_lo_ms"], s["t_hi_ms"]) == (pytest.approx(28.0), pytest.approx(52.0))
     with pytest.raises(ValueError, match="must exceed"):
         benchloop.slope_ms(run, 3, 3)
 

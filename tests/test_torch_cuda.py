@@ -39,7 +39,7 @@ def dev():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("l", [1, 40, 77, 256, 257, 300, 512])
 @pytest.mark.parametrize("fused", [False, True])
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 100, 48])
 def test_attention_kernel_matches_plain(dev, dtype, l, fused, d):
     from vault_tpu_torch.ops import cuda_attention as ca
     from vault_tpu_torch.ops.attention import split_heads
@@ -106,7 +106,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     from vault_tpu_torch.ops import cuda_attention as ca
     from vault_tpu_torch.ops import cuda_mlp as cm
 
-    q = torch.zeros((1, 2, 8, 48), device=dev)  # head dim 48: not 32, 64, 96, 128
+    q = torch.zeros((1, 2, 8, 130), device=dev)  # head dim 130: past 128
     with pytest.raises(ValueError):
         ca.fused_attention(q, q, q, torch.zeros((1, 1, 1, 8), device=dev))
     x = torch.zeros((4, 32), device=dev)
@@ -805,7 +805,7 @@ def _gqa_case(dev, b, h, g, l, d, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("l", [1, 40, 77, 256, 300])
 @pytest.mark.parametrize("rep", [1, 4])
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 100, 80, 48, 16])
 def test_attention_gqa_kernel_matches_plain(dev, dtype, l, rep, d):
     from vault_tpu_torch.ops import cuda_attention as ca
 
@@ -828,7 +828,7 @@ def test_attention_gqa_wrapper_rejects_and_differentiates(dev):
 
     q, k, v, bias = _gqa_case(dev, 3, 8, 2, 40, 128, torch.float32, seed=9)
     n = ca.fused_attention_gqa.launches
-    for bad in ((q[..., :48], k[..., :48], v[..., :48], bias),        # head dim 48
+    for bad in ((q[..., :6], k[..., :6], v[..., :6], bias),           # head dim 6
                 (q, k[:, :1].expand(3, 3, 40, 128), v, bias),          # 3 does not divide 8
                 (q, k, v, bias[:, :, :1]),                             # a key bias
                 (q, k, v, bias.to(torch.bfloat16)),
@@ -862,14 +862,31 @@ SWIGLU_ARGS = ("ln_w", "wgq", "sg", "wuq", "su", "wdq", "sd")
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rows", [1, 77, 320, 640])
-@pytest.mark.parametrize("h,i", [(4096, 2048), (2048, 8192), (512, 1536)])
-def test_swiglu_w8a8_kernel_matches_plain(dev, dtype, rows, h, i):
+@pytest.mark.parametrize("h,i", [(4096, 2048), (2048, 8192), (512, 1536), (4096, 11008),
+                                 (576, 1536), (2048, 5632), (400, 960), (64, 64),
+                                 (16, 48)])
+def test_swiglu_w8a8_kernel_matches_plain(dev, monkeypatch, dtype, rows, h, i):
     """Bit-equal to ``swiglu_block_w8a8_plain`` (two I-tiles at H 4,096,
     fourteen at the tower's width in chip_smoke.py; Llama-3.2-1B's widths,
-    eight; H 512 / I 1,536, two tiles of 768), through the wrapper and
-    through the dispatch; the gradient is that of the per-row composition."""
+    eight; H 512 / I 1,536, two tiles of 768; the widened instance at
+    Llama-2-7B's, sixteen tiles of 688, SmolLM-135M's (H 576), TinyLlama's,
+    eight of 704, H 400 / I 960, and below one stage, H 64 / a tile of 64
+    and the narrowest, H 16 / one tile of 48),
+    through the wrapper and through the dispatch; the gradient is that of
+    the per-row composition."""
     from vault_tpu_torch.ops import cuda_swiglu as cs
 
+    if min(h, cs.pick_tile(i, cs.I_TILE)) <= 64:
+        # torch._int_mm (cuBLASLt) refuses the plain versions' int8 products
+        # at (H, tile) (64, 64) and (16, 48): take them exactly in float64
+        # (|sums| < 2^53)
+        from vault_tpu_torch.ops import nn
+
+        def exact(a, b):
+            y = a.reshape(-1, b.shape[0]).double() @ b.double()
+            return y.int().reshape(*a.shape[:-1], b.shape[1])
+        monkeypatch.setattr(cs, "int8_matmul", exact)
+        monkeypatch.setattr(nn, "int8_matmul", exact)
     o, g = _swiglu_operands(dev, i=i, h=h)
     x = torch.randn((rows, h), generator=g, device=dev).to(dtype)
     args = [o[k] for k in SWIGLU_ARGS] + [x]
@@ -902,13 +919,13 @@ def test_swiglu_wrapper_rejects_what_the_kernel_does_not_take(dev):
     bad = {"bf16 norm weight": [o["ln_w"].to(torch.bfloat16)] + args[1:],
            "fp weights": [args[0], o["wgq"].float()] + args[2:],
            "row-major codes": [args[0], o["wgq"].contiguous()] + args[2:],
-           "I-tile not a multiple of 128": [args[0], cols(o["wgq"], 1000),
+           "I-tile not a multiple of 16": [args[0], cols(o["wgq"], 1000),
                                             o["sg"][:, :1000].contiguous(),
                                             cols(o["wuq"], 1000), o["su"][:, :1000].contiguous(),
                                             o["wdq"][:1000], args[6], x],
-           "H 704": [args[0][:704].contiguous(), o["wgq"][:704], args[2], o["wuq"][:704],
-                     args[4], cols(o["wdq"], 704), o["sd"][:, :704].contiguous(),
-                     x[:, :704].contiguous()],
+           "H 712": [args[0][:712].contiguous(), o["wgq"][:712], args[2], o["wuq"][:712],
+                     args[4], cols(o["wdq"], 712), o["sd"][:, :712].contiguous(),
+                     x[:, :712].contiguous()],
            "fp16 x": args[:7] + [x.to(torch.float16)],
            "cpu x": args[:7] + [x.cpu()]}
     n = cs.fused_swiglu_block_fwd_w8a8.launches

@@ -583,12 +583,14 @@ def test_w8a8_wrappers_take_every_activation(postln, act):
 
 @pytest.mark.parametrize("gqa", [False, True])
 @pytest.mark.parametrize("d,accepted", [(32, True), (64, True), (96, True), (128, True),
-                                        (16, False), (48, False), (80, False),
-                                        (256, False)])
+                                        (16, True), (48, True), (80, True), (100, True),
+                                        (8, True), (40, True), (256, False), (6, False),
+                                        (130, False), (4, False), (102, False)])
 def test_attention_wrappers_hold_their_head_dim_contract(gqa, d, accepted):
-    """Both attention kernels take head dims 32, 64, 96 and 128: a CPU call
-    reaches the device check ("no kernel" for a CPU tensor) or raises the
-    head-dim error first."""
+    """Both attention kernels take every head dim that is a multiple of 4
+    from 8 to 128 (OpenLLaMA-3B's 100 among them): a CPU call reaches the
+    device check ("no kernel" for a CPU tensor) or raises the head-dim error
+    first."""
     from vault_tpu_torch.ops import cuda_attention as ca
 
     q = torch.zeros((1, 2, 5, d))
@@ -599,7 +601,7 @@ def test_attention_wrappers_hold_their_head_dim_contract(gqa, d, accepted):
         fn, bias = ca._kernel, torch.zeros((1, 1, 1, 5))
         counter = ca.fused_attention
     before = counter.launches
-    with pytest.raises(ValueError, match="no kernel" if accepted else "with D in"):
+    with pytest.raises(ValueError, match="no kernel" if accepted else "with D a multiple"):
         fn(q, q, q, bias)
     assert counter.launches == before
     assert d in ca.HEAD_DIMS if accepted else d not in ca.HEAD_DIMS
@@ -763,13 +765,17 @@ def _swiglu_args(h, i, dtype=torch.bfloat16, rows=2, layout=None):
             torch.zeros((rows, h), dtype=dtype))
 
 
-# (H, I) the SwiGLU kernel takes: H a multiple of 128 up to 8,192, I whose
-# tile pick_tile(I, 1024) is a multiple of 128 (Llama-3-8B, Llama-3.2-1B, a
-# tile below 1,024) and some it refuses
+# (H, I) the SwiGLU kernel takes: H a multiple of 16 from 16 to 8,192, I
+# whose tile pick_tile(I, 1024) is a multiple of 16 (Llama-3-8B,
+# Llama-3.2-1B, a tile below 1,024; the published Llama-2-7B, Llama-2-13B,
+# TinyLlama-1.1B, SmolLM-135M and -360M, OpenLLaMA-3B geometries; tiles of
+# 688, 704 and 864 under H 128, H 400, the narrowest) and some it refuses
 SWIGLU_WIDTHS = [(4096, 14336), (2048, 8192), (512, 1536), (128, 128), (8192, 1024),
-                 (256, 768)]
-SWIGLU_REFUSED = [(64, 1024), (4160, 1024), (8320, 1024), (512, 1000), (512, 1152),
-                  (512, 0)]
+                 (256, 768), (4096, 11008), (5120, 13824), (2048, 5632), (576, 1536),
+                 (960, 2560), (3200, 8640), (128, 1376), (128, 1408), (128, 1728),
+                 (400, 960), (16, 48), (64, 1024), (4160, 1024), (512, 1152)]
+SWIGLU_REFUSED = [(8320, 1024), (512, 1000), (512, 0), (72, 1024), (8, 1024), (8208, 1024),
+                  (512, 1032)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -982,7 +982,7 @@ def test_new_kernel_wrappers_never_fall_back():
     _, s = _swiglu_inputs("float32", rows=2, h=4096, i=1024)
     with pytest.raises(ValueError, match="CUDA"):
         cs.fused_swiglu_block_fwd_w8a8(*(s[k] for k in SWIGLU_ARGS))
-    _, s = _swiglu_inputs("float32", rows=2, h=64, i=64)
+    _, s = _swiglu_inputs("float32", rows=2, h=72, i=64)   # H not a multiple of 16
     with pytest.raises(ValueError, match="hidden size"):
         cs.fused_swiglu_block_fwd_w8a8(*(s[k] for k in SWIGLU_ARGS))
     assert counts() == before

@@ -6,8 +6,8 @@
 // (_attn_kernel_batched) and fused_attention_dotbatch
 // (_attn_kernel_dotbatch), all in vault_tpu/ops/pallas_attention.py.
 //
-// Operands: q, k, v, out (B, H, L, D), D = 32, 64, 96 or 128 (BERT-base
-// and ViLT-B/32: 64), with contiguous rows of D (any
+// Operands: q, k, v, out (B, H, L, D), D a multiple of 4 from 8 to 128
+// (BERT-base and ViLT-B/32: 64), with contiguous rows of D (any
 // batch, head and row strides, so q, k and v can be views into the fused
 // QKV projection and out a view of the (B, L, H) layout the next product
 // reads), all bf16 or all fp32; bias (B, 1, 1, L) fp32, an additive key

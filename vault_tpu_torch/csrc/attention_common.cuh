@@ -1,7 +1,11 @@
 // The attention kernels shared by the encoder attention (attention.cu) and
 // the grouped-query attention of the Llama tower (attention_gqa.cu):
-// out = softmax(q k^T / sqrt(d) + bias) v, head dim D = 32, 64, 96 or 128
-// (32 BERT-small, 64 BERT-base and -large, ViLT-B/32, 96, 128 Llama-3-8B).
+// out = softmax(q k^T / sqrt(d) + bias) v, head dim d any multiple of 4 from
+// 8 to 128, the head dims the TPU kernels take.  d = 32, 64, 96 or 128 (32
+// BERT-small, 64 BERT-base and -large, ViLT-B/32, TinyLlama, SmolLM, 128
+// Llama-2 and Llama-3-8B) run the exact instances, D = d; any other d (100
+// OpenLLaMA-3B, 80, 48, 40, 16) a padded one, D = d rounded up to 32, whose
+// tiles hold zeros at columns d..D (see "Padded instances" below).
 //
 // Index map.  q and out have H = G * rep heads, k and v have G.  Query head
 // g * rep + i reads K/V head g, so the rep query heads of a group are folded
@@ -60,6 +64,17 @@
 // limit), the design of the first port: 4 warps of 16 query rows, the key
 // tiles double-buffered by cp.async, pass 1 for the row max and sum, pass 2
 // recomputes each score tile, normalises before P V.
+//
+// Padded instances (PAD; d < D, the Map's d).  A head of d bf16 columns
+// need not start on 16 bytes (100 columns are 200 bytes), and TMA takes
+// only 16-byte strides, so these load K and V like Q, by cp.async of 8
+// bytes (4 columns) into the same swizzled tiles, zeros at columns d..D and
+// keys past L, each tile waited for and fenced to the async proxy before
+// the __syncthreads that ends the tile before its use (no mbarriers); fp32
+// takes 16-byte copies of 4 columns as before.  The zero columns add exact
+// zeros to every score (Q's and K's) and leave the output columns d..D zero
+// (V's), which are never stored; the scale is 1 / sqrt(d).  The exact
+// instances keep their code.
 #pragma once
 
 #include <math.h>
@@ -80,7 +95,8 @@ struct Map {
   int L, rep;
   Strides q, k, v, o;
   long long bias_b, bias_q;
-  float scale;  // 1 / sqrt(D)
+  float scale;  // 1 / sqrt(d)
+  int d;        // the head dim (<= the instance's D)
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -138,14 +154,29 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool val
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 8 : 0;  // 0: eight zero bytes
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+// The byte offset of column col (a multiple of 4) of row r in a swizzled
+// tile of `rows` rows (see Tiles).
+__device__ __forceinline__ int swizzled(int r, int col, int rows) {
+  return (col / 32) * (rows * 64) + r * 64 + ((((col % 32) / 8) ^ ((r >> 1) & 3)) << 4) +
+         (col % 8) * 2;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
+// k, v: read by the padded instances (PAD) only, the exact ones take tk, tv.
+template <int D, bool PAD = false>
 __global__ void __launch_bounds__(NT)
-attention_wgmma(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
+attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const float* __restrict__ bias,
                 bf16* __restrict__ out, Map mp, Coords ck, Coords cv, int stages) {
   using T = Tiles<D>;
@@ -180,6 +211,20 @@ attention_wgmma(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap 
       sm90::tma_load(vb + c * KEYS * 64, &tv, 32 * c, coord(cv, 1, key0, g, b),
                      coord(cv, 2, key0, g, b), coord(cv, 3, key0, g, b), fv);
   };
+  // PAD: K and V of key tile t into stage t % stages by cp.async, every
+  // thread a share (zeros at columns >= d and keys >= L)
+  auto copy_tile = [&](int t) {
+    unsigned char* kb = gbase + (skv - base) + (t % stages) * T::STAGE;
+    const bf16* kh = k + b * mp.k.b + g * mp.k.h;
+    const bf16* vh = v + b * mp.v.b + g * mp.v.h;
+    for (int i = threadIdx.x; i < KEYS * D / 4; i += NT) {
+      const int r = i / (D / 4), col = 4 * (i % (D / 4)), key = t * KEYS + r;
+      const bool ok = key < L && col < mp.d;
+      const int at = swizzled(r, col, KEYS);
+      cp_async8(kb + at, ok ? kh + key * mp.k.l + col : kh, ok);
+      cp_async8(kb + T::KV_BYTES + at, ok ? vh + key * mp.v.l + col : vh, ok);
+    }
+  };
   // the key bias of tile t into its stage's slot (zeros past L)
   auto fetch_bias = [&](int t) {
     if (!key_bias || threadIdx.x >= KEYS) return;
@@ -190,19 +235,34 @@ attention_wgmma(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap 
   if (threadIdx.x == 0) {
     for (int s = 0; s < 2 * stages; ++s) sm90::mbar_init(bars + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int t = 0; t < stages && t < n_kt; ++t) fetch_tile(t);
+    if constexpr (!PAD)
+      for (int t = 0; t < stages && t < n_kt; ++t) fetch_tile(t);
   }
+  if constexpr (PAD)
+    for (int t = 0; t < stages && t < n_kt; ++t) copy_tile(t);
   for (int t = 0; t < stages && t < n_kt; ++t) fetch_bias(t);
-  // Q: 64 folded rows, 16-byte pieces into the swizzled blocks; rows past
-  // rep * L are zero (the wait covers the first tiles' key bias too)
+  // Q: 64 folded rows, 16-byte pieces into the swizzled blocks (PAD: 8-byte
+  // pieces, zeros at columns >= d); rows past rep * L are zero (the wait
+  // covers the first tiles' key bias, and PAD their K and V, too)
   const bf16* qb = q + b * mp.q.b;
-  for (int i = threadIdx.x; i < BQ * D / 8; i += NT) {
-    const int r = i / (D / 8), p = i % (D / 8);
-    int head, pos;
-    fold(mp, g, f0 + r, head, pos);
-    const bf16* src = qb + head * mp.q.h + pos * mp.q.l + 8 * p;
-    cp_async16(gbase + (p / 4) * (BQ * 64) + r * 64 + (((p % 4) ^ ((r >> 1) & 3)) << 4), src,
-               f0 + r < n_rows);
+  if constexpr (PAD) {
+    for (int i = threadIdx.x; i < BQ * D / 4; i += NT) {
+      const int r = i / (D / 4), col = 4 * (i % (D / 4));
+      int head, pos;
+      fold(mp, g, f0 + r, head, pos);
+      const bool ok = f0 + r < n_rows && col < mp.d;
+      cp_async8(gbase + swizzled(r, col, BQ), ok ? qb + head * mp.q.h + pos * mp.q.l + col : qb,
+                ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BQ * D / 8; i += NT) {
+      const int r = i / (D / 8), p = i % (D / 8);
+      int head, pos;
+      fold(mp, g, f0 + r, head, pos);
+      const bf16* src = qb + head * mp.q.h + pos * mp.q.l + 8 * p;
+      cp_async16(gbase + (p / 4) * (BQ * 64) + r * 64 + (((p % 4) ^ ((r >> 1) & 3)) << 4), src,
+                 f0 + r < n_rows);
+    }
   }
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
   // cp.async writes through the generic proxy, wgmma reads through the async one
@@ -234,7 +294,7 @@ attention_wgmma(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap 
     float sc[KEYS / 2];
 #pragma unroll
     for (int e = 0; e < KEYS / 2; ++e) sc[e] = 0.0f;
-    sm90::mbar_wait(bars + 8 * s, ph);
+    if constexpr (!PAD) sm90::mbar_wait(bars + 8 * s, ph);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -314,7 +374,7 @@ attention_wgmma(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap 
     for (int i = 0; i < KEYS / 4; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 
     // O += P V: V N-contiguous (transpose bit), a k16 step 16 rows
-    sm90::mbar_wait(bars + 8 * (stages + s), ph);
+    if constexpr (!PAD) sm90::mbar_wait(bars + 8 * (stages + s), ph);
     sm90::fence_regs(pa);
     sm90::wgmma_fence();
 #pragma unroll
@@ -327,11 +387,14 @@ attention_wgmma(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap 
 
     if (t + 1 < n_kt) {
       // every warp is done with stage s, and the key bias of tile t + 1
-      // (fetched a tile or more ago) is complete and visible
+      // (fetched a tile or more ago; PAD: its K and V too) is complete and
+      // visible
       asm volatile("cp.async.wait_all;\n" ::: "memory");
+      if constexpr (PAD) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
       if (t + stages < n_kt) {
-        if (threadIdx.x == 0) fetch_tile(t + stages);
+        if constexpr (PAD) copy_tile(t + stages);
+        else if (threadIdx.x == 0) fetch_tile(t + stages);
         fetch_bias(t + stages);
       }
     }
@@ -348,8 +411,9 @@ attention_wgmma(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap 
     bf16* dst = out + b * mp.o.b + head * mp.o.h + pos * mp.o.l + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      if (!PAD || 8 * j + 2 * (lane & 3) < mp.d)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
   }
 }
 
@@ -377,29 +441,32 @@ inline cudaError_t kv_map(CUtensorMap* map, Coords* at, const void* ptr, const S
   return sm90::make_map_nd(map, ptr, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-template <int D>
+template <int D, bool PAD = false>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
                  int G, const Map& mp, cudaStream_t stream) {
   using T = Tiles<D>;
-  CUtensorMap tk, tv;
-  Coords ck, cv;
+  CUtensorMap tk{}, tv{};
+  Coords ck{}, cv{};
   cudaError_t e;
-  if ((e = kv_map(&tk, &ck, k, mp.k, D, mp.L, G, B, KEYS)) != cudaSuccess) return (int)e;
-  if ((e = kv_map(&tv, &cv, v, mp.v, D, mp.L, G, B, KEYS)) != cudaSuccess) return (int)e;
+  if constexpr (!PAD) {
+    if ((e = kv_map(&tk, &ck, k, mp.k, D, mp.L, G, B, KEYS)) != cudaSuccess) return (int)e;
+    if ((e = kv_map(&tv, &cv, v, mp.v, D, mp.L, G, B, KEYS)) != cudaSuccess) return (int)e;
+  }
   // as many stages as there are key tiles, up to MAX_STAGES
   const int n_kt = (mp.L + KEYS - 1) / KEYS;
   const int stages = n_kt < MAX_STAGES ? n_kt : MAX_STAGES;
   static bool smem_set = false;  // once per instantiation and library
   if (!smem_set) {
-    if ((e = cudaFuncSetAttribute(attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if ((e = cudaFuncSetAttribute(attention_wgmma<D, PAD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)T::smem(MAX_STAGES))) != cudaSuccess)
       return (int)e;
     smem_set = true;
   }
   const dim3 grid((mp.rep * mp.L + BQ - 1) / BQ, G, B);
-  attention_wgmma<D><<<grid, NT, T::smem(stages), stream>>>(
-      static_cast<const bf16*>(q), tk, tv, static_cast<const float*>(bias),
-      static_cast<bf16*>(out), mp, ck, cv, stages);
+  attention_wgmma<D, PAD><<<grid, NT, T::smem(stages), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), tk,
+      tv, static_cast<const float*>(bias), static_cast<bf16*>(out), mp, ck, cv, stages);
   return (int)cudaGetLastError();
 }
 
@@ -415,25 +482,27 @@ constexpr int LDP = FBK + 4;
 template <int D> struct Ldf { static constexpr int v = (D > FBK ? D : FBK) + 4; };
 
 // Rows [row0, row0 + 64) of one K/V head's (L, D) matrix (rows `ld` elements
-// apart) into a (64, D) tile, asynchronously; rows past L are zero.
-template <int D>
-__device__ void load_tile(float* dst, const float* src, long long ld, int row0, int L) {
+// apart) into a (64, D) tile, asynchronously; rows past L are zero (PAD:
+// columns from d on too).
+template <int D, bool PAD>
+__device__ void load_tile(float* dst, const float* src, long long ld, int row0, int L, int d) {
   constexpr int PER_ROW = D / 4, LD = Lds<D>::v;
   for (int c = threadIdx.x; c < 64 * PER_ROW; c += NT) {
     const int r = c / PER_ROW, col = (c % PER_ROW) * 4;
-    const bool ok = row0 + r < L;
+    const bool ok = row0 + r < L && (!PAD || col < d);
     cp_async16(dst + r * LD + col, ok ? src + (row0 + r) * ld + col : src, ok);
   }
 }
 
 // Folded query rows [f0, f0 + 64) of group g (`src` at the batch row's
-// first head) into a (64, D) tile; rows past rep * L are zero.
-template <int D>
+// first head) into a (64, D) tile; rows past rep * L are zero (PAD: columns
+// from d on too).
+template <int D, bool PAD>
 __device__ void load_q_tile(float* dst, const float* src, const Map& mp, int g, int f0) {
   constexpr int PER_ROW = D / 4, LD = Lds<D>::v;
   for (int c = threadIdx.x; c < 64 * PER_ROW; c += NT) {
     const int r = c / PER_ROW, col = (c % PER_ROW) * 4, f = f0 + r;
-    const bool ok = f < mp.rep * mp.L;
+    const bool ok = f < mp.rep * mp.L && (!PAD || col < mp.d);
     const float* row = src + (g * mp.rep + f / mp.L) * mp.q.h + (f % mp.L) * mp.q.l + col;
     cp_async16(dst + r * LD + col, ok ? row : src, ok);
   }
@@ -486,7 +555,7 @@ constexpr size_t fma_smem_bytes() {
   return (size_t)BQ * Ldf<D>::v * 4 + (size_t)(BQ + 4 * FBK) * Lds<D>::v * 4 + (size_t)BQ * LDP * 4;
 }
 
-template <int D>
+template <int D, bool PAD = false>
 __global__ void __launch_bounds__(NT)
 attention_fma(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
@@ -517,11 +586,11 @@ attention_fma(const float* __restrict__ q, const float* __restrict__ k,
   auto fetch = [&](int t) {
     float* dst = kv + (t & 1) * 2 * FBK * LD;
     const int kt = t < n_kt ? t : t - n_kt;
-    load_tile<D>(dst, kg, mp.k.l, kt * FBK, L);
-    if (t >= n_kt) load_tile<D>(dst + FBK * LD, vg, mp.v.l, kt * FBK, L);
+    load_tile<D, PAD>(dst, kg, mp.k.l, kt * FBK, L, mp.d);
+    if (t >= n_kt) load_tile<D, PAD>(dst + FBK * LD, vg, mp.v.l, kt * FBK, L, mp.d);
     asm volatile("cp.async.commit_group;\n" ::);
   };
-  load_q_tile<D>(qs, q + b * mp.q.b, mp, g, f0);
+  load_q_tile<D, PAD>(qs, q + b * mp.q.b, mp, g, f0);
   fetch(0);
 
   float m = -INFINITY, l = 0.0f;
@@ -578,24 +647,25 @@ attention_fma(const float* __restrict__ q, const float* __restrict__ k,
     const int c0 = half * (D / 2);
     float* dst = out + b * mp.o.b + head * mp.o.h + pos * mp.o.l + c0;
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) dst[c] = s[r * LDS + c0 + c];
+    for (int c = 0; c < D / 2; ++c)
+      if (!PAD || c0 + c < mp.d) dst[c] = s[r * LDS + c0 + c];
   }
 }
 
-template <int D>
+template <int D, bool PAD = false>
 int launch_fma(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
                int G, const Map& mp, cudaStream_t stream) {
   constexpr size_t smem = fma_smem_bytes<D>();
   static bool smem_set = false;  // once per instantiation and library
   if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(attention_fma<D>,
+    const cudaError_t e = cudaFuncSetAttribute(attention_fma<D, PAD>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
   const dim3 grid((mp.rep * mp.L + BQ - 1) / BQ, G, B);
-  attention_fma<D><<<grid, NT, smem, stream>>>(
+  attention_fma<D, PAD><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(bias), static_cast<float*>(out), mp);
   return (int)cudaGetLastError();
@@ -603,29 +673,38 @@ int launch_fma(const void* q, const void* k, const void* v, const void* bias, vo
 
 // ================================================================ dispatch
 
-// B batch rows, G K/V heads, G * mp.rep query heads; dtype a vt::Dtype.
-template <int D>
+// B batch rows, G K/V heads, G * mp.rep query heads; dtype a vt::Dtype;
+// PAD: head dim mp.d < D.
+template <int D, bool PAD = false>
 int launch_attention(const void* q, const void* k, const void* v, const void* bias, void* out,
                      int B, int G, Map mp, int dtype, cudaStream_t stream) {
   if (B <= 0 || G <= 0 || mp.L <= 0 || mp.rep <= 0) return (int)cudaErrorInvalidValue;
-  mp.scale = 1.0f / sqrtf((float)D);
+  mp.scale = 1.0f / sqrtf((float)(PAD ? mp.d : D));
   if (dtype == vt::kBF16)
-    return launch_wgmma<D>(q, k, v, bias, out, B, G, mp, stream);
-  if (dtype == vt::kF32) return launch_fma<D>(q, k, v, bias, out, B, G, mp, stream);
+    return launch_wgmma<D, PAD>(q, k, v, bias, out, B, G, mp, stream);
+  if (dtype == vt::kF32) return launch_fma<D, PAD>(q, k, v, bias, out, B, G, mp, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// launch_attention at a run-time head dim: 32, 64, 96 or 128.
+// launch_attention at a run-time head dim, a multiple of 4 from 8 to 128:
+// the exact instance at 32, 64, 96 and 128, else the padded one of the
+// next of them.
 inline int launch_attention_d(int head_dim, const void* q, const void* k, const void* v,
-                              const void* bias, void* out, int B, int G, const Map& mp, int dtype,
+                              const void* bias, void* out, int B, int G, Map mp, int dtype,
                               cudaStream_t stream) {
+  mp.d = head_dim;
   switch (head_dim) {
     case 32: return launch_attention<32>(q, k, v, bias, out, B, G, mp, dtype, stream);
     case 64: return launch_attention<64>(q, k, v, bias, out, B, G, mp, dtype, stream);
     case 96: return launch_attention<96>(q, k, v, bias, out, B, G, mp, dtype, stream);
     case 128: return launch_attention<128>(q, k, v, bias, out, B, G, mp, dtype, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if (head_dim < 8 || head_dim > 128 || head_dim % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (head_dim < 32) return launch_attention<32, true>(q, k, v, bias, out, B, G, mp, dtype, stream);
+  if (head_dim < 64) return launch_attention<64, true>(q, k, v, bias, out, B, G, mp, dtype, stream);
+  if (head_dim < 96) return launch_attention<96, true>(q, k, v, bias, out, B, G, mp, dtype, stream);
+  return launch_attention<128, true>(q, k, v, bias, out, B, G, mp, dtype, stream);
 }
 
 }  // namespace

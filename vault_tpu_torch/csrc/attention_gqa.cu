@@ -14,9 +14,10 @@
 // Masked entries carry finfo(float32).min, which the kernel keeps finite
 // (attention_common.cuh); rep = 1 is multi-head attention with a 2-D bias.
 //
-// Operands: q, out (B, H, L, d); k, v (B, G, L, d); d = 32, 64, 96 or 128
-// (Llama-3-8B); contiguous rows, any other strides; bf16 or fp32; bias
-// contiguous fp32.
+// Operands: q, out (B, H, L, d); k, v (B, G, L, d); d a multiple of 4 from 8
+// to 128 (128: Llama-2, Llama-3-8B; 64: TinyLlama, SmolLM; 100: OpenLLaMA-3B,
+// on the padded instance of attention_common.cuh); contiguous rows, any
+// other strides; bf16 or fp32; bias contiguous fp32.
 //
 // What bounds it on an H100: at the tower's (16, 32, 40, 128) the work is
 // 4 B H L^2 d = 0.4 GFLOP against 6.6 MB of operands (q and out 5.2 MB, K/V

@@ -20,9 +20,10 @@
 //   change every training step.  The int8 forms of wgmma have no transpose
 //   bit, so an int8 B is K-contiguous: the w8a8 MLP and SwiGLU weights are
 //   held so at rest (ops/quantize.py k_major).
-//   A stage holds 128 bytes of K, one 128-byte swizzle row: K is a multiple
-//   of 64 (bf16) or 128 (int8); M and N are anything: TMA fills the rows
-//   and columns past the edge with zeros on load and the epilogue skips them.
+//   A stage holds 128 bytes of K, one 128-byte swizzle row; M, N and K are
+//   anything whose rows are 16-byte multiples: TMA fills the rows, columns
+//   and k past the edge with zeros on load (a last stage of K in part, whose
+//   zeros add nothing to the products) and the epilogue skips them.
 //
 // Split-K: with S splits a work item is (tile, split s); split s walks its
 // own range of K (the k-steps cut into S near-equal runs) and its epilogue
@@ -62,6 +63,13 @@
 //     row and col clamped into (M, N); it stores only when `in` (the pair
 //     lies inside).  It reads its other operands with __ldg: a plain load
 //     would be ordered behind the stores of the pairs before it.
+// Runs (int8): a segmented epilogue with `seg_cols` too (SegMapped below)
+// reads K as runs of seg_cols columns, a 16-byte multiple that need not be
+// one of the stage: both operands through 3-d maps (run column, run, row)
+// whose boxes stop at their run's end, so each run is seg = ceil(seg_cols /
+// 128) stages with zeros past it, and a segment is one run (the SwiGLU
+// block's down product over I-tiles of 688 or 960 columns).
+//
 // Stages: as many as fit in 200 KB, at most 6.  The grid is persistent, a
 // block per SM walking work items N fastest, then rows, then splits (or,
 // ROWS_FIRST, rows fastest), so the blocks that run together share A's
@@ -172,6 +180,21 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int outer, int in
                      Operand<T>::MAP);
 }
 
+// The same matrix with its inner dimension cut into runs of `run` columns
+// (a 16-byte multiple dividing inner), as a 3-d array (run column, run,
+// row) read in boxes of (128 bytes, 1, box_outer): a box stops at its run's
+// end, zeros past it.
+template <class T>
+inline cudaError_t make_map_runs(CUtensorMap* map, const void* ptr, int outer, int inner,
+                                 int run, int box_outer) {
+  if (outer <= 0 || run <= 0 || inner <= 0 || inner % run != 0) return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)run, (cuuint64_t)(inner / run), (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)run * sizeof(T), (cuuint64_t)inner * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)Operand<T>::K, 1, (cuuint32_t)box_outer};
+  return make_map_nd(map, ptr, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                     Operand<T>::MAP);
+}
+
 // -------------------------------------------------------------- device side
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -222,6 +245,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The same for a 3-d map: the box at coordinates (c0, c1, c2).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -638,6 +671,12 @@ template <class E, class = void>
 struct Segmented : std::false_type {};
 template <class E>
 struct Segmented<E, decltype((void)&E::scale)> : std::true_type {};
+// A segmented epilogue with `seg_cols` as well reads K in runs (see the
+// head of this file): its seg is ceil(seg_cols / k per stage).
+template <class E, class = void>
+struct SegMapped : std::false_type {};
+template <class E>
+struct SegMapped<E, decltype((void)&E::seg_cols)> : std::true_type {};
 template <class E>
 __device__ __forceinline__ int seg_steps(const E& epi) {
   if constexpr (Segmented<E>::value) return epi.seg;
@@ -672,7 +711,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   constexpr bool kDual = MODE != COOP;
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   constexpr bool kSeg = Segmented<Epi>::value;
+  constexpr bool kRuns = SegMapped<Epi>::value;
   static_assert(!(kInt8 && B_MN), "an int8 B is K-contiguous: wgmma has no int8 transpose");
+  static_assert(!kRuns || (kSeg && MODE == COOP), "runs: a segmented COOP product");
   static_assert(kInt8 || !kSeg, "segments fold an s32 accumulator");
   static_assert(kInt8 ? MODE != DUAL : MODE != DUAL_A, "int8: COOP or DUAL_A; bf16: COOP or DUAL");
   extern __shared__ unsigned char smem_raw[];
@@ -711,19 +752,26 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
           mbar_expect_tx(full, S::STAGE);
           const uint32_t sa = base + s * S::STAGE, sb = sa + S::A_BYTES;
           const int k0 = kt * Operand<T>::K;
-          tma_load(sa, &ta, k0, m0, full);
-          if constexpr (B_MN) {
-#pragma unroll
-            for (int q = 0; q < BN / 64; ++q)
-              tma_load(sb + q * (64 * BK * 2), &tb, n0 + 64 * q, k0, full);
+          if constexpr (kRuns) {
+            // k-step kt is stage kt % seg of run kt / seg
+            const int run = kt / seg_n, c0 = (kt - run * seg_n) * Operand<T>::K;
+            tma_load(sa, &ta, c0, run, m0, full);
+            tma_load(sb, &tb, c0, run, n0, full);
           } else {
-            tma_load(sb, &tb, k0, n0, full);
-          }
-          if constexpr (MODE == DUAL) {
-            tma_load(sa + S::PAIR, &ta2, k0, m0, full);
-            tma_load(sb + S::PAIR, &tb2, k0, n0, full);
-          } else if constexpr (MODE == DUAL_A) {
-            tma_load(sb + S::B_BYTES, &tb2, k0, n0, full);
+            tma_load(sa, &ta, k0, m0, full);
+            if constexpr (B_MN) {
+#pragma unroll
+              for (int q = 0; q < BN / 64; ++q)
+                tma_load(sb + q * (64 * BK * 2), &tb, n0 + 64 * q, k0, full);
+            } else {
+              tma_load(sb, &tb, k0, n0, full);
+            }
+            if constexpr (MODE == DUAL) {
+              tma_load(sa + S::PAIR, &ta2, k0, m0, full);
+              tma_load(sb + S::PAIR, &tb2, k0, n0, full);
+            } else if constexpr (MODE == DUAL_A) {
+              tma_load(sb + S::B_BYTES, &tb2, k0, n0, full);
+            }
           }
           if (++s == ST) s = 0, ph ^= 1;
         }
@@ -884,25 +932,42 @@ struct Same {
 
 // C = A B through the kernel above, epilogue `epi`.  a: (M, K); b: (K, N)
 // when B_MN, else (N, K); dual: a2 (M, K), b2 (N, K); DUAL_A: b2 (N, K);
-// splits: of K (see the head of this file; 1 for a segmented epilogue,
-// whose seg must divide the k-steps).  Returns the launch's error
-// (cudaErrorInvalidValue for a shape or pointer the maps refuse).
+// K in whole stages, or with a last stage in part (rows of 16-byte
+// multiples), or in runs (SegMapped); splits: of K (see the head of this
+// file; 1 for a segmented epilogue, whose seg must divide the k-steps).
+// Returns the launch's error (cudaErrorInvalidValue for a shape or pointer
+// the maps refuse).
 template <int BN, bool B_MN, int MODE = COOP, bool ROWS_FIRST = false, class Epi, class T>
 cudaError_t gemm(const T* a, const T* b, int M, int N, int K, Epi epi, cudaStream_t st,
                  const typename Same<T>::type* a2 = nullptr,
                  const typename Same<T>::type* b2 = nullptr, int splits = 1) {
   using S = Shape<BN, MODE>;
   constexpr int KB = Operand<T>::K;
-  if (M <= 0 || N <= 0 || K <= 0 || K % KB != 0 || splits < 1 || splits > K / KB)
-    return cudaErrorInvalidValue;
+  constexpr bool kRuns = SegMapped<Epi>::value;
+  if (M <= 0 || N <= 0 || K <= 0 || (K * sizeof(T)) % 16 != 0) return cudaErrorInvalidValue;
+  // the kernel's K: whole stages (of each run)
+  int kp = (K + KB - 1) / KB * KB;
+  if constexpr (kRuns) {
+    const int run = epi.seg_cols;
+    if (run <= 0 || K % run != 0 || (run * sizeof(T)) % 16 != 0 || epi.seg != (run + KB - 1) / KB)
+      return cudaErrorInvalidValue;
+    kp = K / run * epi.seg * KB;
+  }
+  if (splits < 1 || splits > kp / KB) return cudaErrorInvalidValue;
   if constexpr (Segmented<Epi>::value) {
-    if (splits != 1 || epi.seg <= 0 || (K / KB) % epi.seg != 0) return cudaErrorInvalidValue;
+    if (splits != 1 || epi.seg <= 0 || (kp / KB) % epi.seg != 0) return cudaErrorInvalidValue;
   }
   CUtensorMap ta, tb, ta2, tb2;
   cudaError_t e;
-  if ((e = make_map<T>(&ta, a, M, K, BM)) != cudaSuccess) return e;
-  if ((e = B_MN ? make_map<T>(&tb, b, K, N, 64) : make_map<T>(&tb, b, N, K, BN)) != cudaSuccess)
-    return e;
+  if constexpr (kRuns) {
+    if ((e = make_map_runs<T>(&ta, a, M, K, epi.seg_cols, BM)) != cudaSuccess) return e;
+    if ((e = make_map_runs<T>(&tb, b, N, K, epi.seg_cols, BN)) != cudaSuccess) return e;
+  } else {
+    if ((e = make_map<T>(&ta, a, M, K, BM)) != cudaSuccess) return e;
+    if ((e = B_MN ? make_map<T>(&tb, b, K, N, 64) : make_map<T>(&tb, b, N, K, BN)) !=
+        cudaSuccess)
+      return e;
+  }
   ta2 = ta, tb2 = tb;
   if constexpr (MODE == DUAL) {
     if ((e = make_map<T>(&ta2, a2, M, K, BM)) != cudaSuccess) return e;
@@ -920,7 +985,7 @@ cudaError_t gemm(const T* a, const T* b, int M, int N, int K, Epi epi, cudaStrea
   }
   const int items = ((N + BN - 1) / BN) * ((M + BM - 1) / BM) * splits;
   kernel<<<items < sm_count() ? items : sm_count(), THREADS, S::SMEM, st>>>(ta, tb, ta2, tb2, M,
-                                                                          N, K, splits, epi);
+                                                                          N, kp, splits, epi);
   return cudaGetLastError();
 }
 

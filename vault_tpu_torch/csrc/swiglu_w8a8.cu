@@ -26,9 +26,26 @@
 // Operands: x, out (rows, H) bf16 or fp32; w (H) fp32; Wg, Wu (H, I) and Wd
 // (I, H) int8 held K-major, i.e. stored as their transposes Wg^T, Wu^T (I,
 // H) and Wd^T (H, I), row-major (ops/quantize.py k_major: the int8 wgmma has
-// no transpose bit); sg, su (I) and sd (H) fp32.  H a multiple of 128 up to
-// 8,192, I with an I-tile that is a multiple of 128 (Llama-3-8B: H 4,096, I
-// 14,336 = 14 tiles of 1,024; Llama-3.2-1B: 2,048 and 8,192).
+// no transpose bit); sg, su (I) and sd (H) fp32.  H a multiple of 16 from 16
+// to 8,192, I with an I-tile that is a multiple of 16: the widths the TPU
+// kernel takes at the published Llama geometries (Llama-3-8B: H 4,096, I
+// 14,336 = 14 tiles of 1,024; Llama-2-7B: 4,096 and 11,008 = 16 tiles of
+// 688; TinyLlama-1.1B: 2,048 and 5,632 = 8 of 704; SmolLM-135M: 576 and
+// 1,536 = 2 of 768; OpenLLaMA-3B: 3,200 and 8,640 = 9 of 960).
+//
+// Two instances, chosen by width.  H a multiple of 128 with a tile that is
+// one too (Llama-3-8B, Llama-3.2-1B) takes the exact one: whole stages of
+// the int8 core everywhere, the row pass without column guards.  Any other
+// width takes the widened one: the row pass guards its columns (the RMS sum
+// still in thread and block order, so repeats are bit-equal); the gate/up
+// products read H in stages of 128 with zeros past H (TMA fills a box past
+// the edge, 16-byte rows: H a multiple of 16); and, where the tile is not a
+// multiple of 128, the down product reads each I-tile as a run of its own
+// (the core's runs, EpiDownRuns: 3-d maps whose boxes stop at the tile's
+// end, 16-byte runs: a tile a multiple of 16), so a 128-deep stage over a
+// 688-wide tile reads zeros past it, not the next tile's columns.  The
+// integer sums are exact either way, so both agree bit for bit with the
+// plain version.
 //
 // What bounds it on an H100: 6 rows H I int8 operations (225 GOP at 640
 // rows, 0.114 ms at 1,979 TOP/s) against 176 MB of weights (0.053 ms): the
@@ -67,15 +84,16 @@ __device__ __forceinline__ float silu_mul_rn(float g, float u) {
   return __fmul_rn(__fmul_rn(g, sig), u);
 }
 
-// One row per block, H = RT n columns, n <= PER: RMSNorm rounded to T, then
+// One row per block, H = RT n columns, n <= PER (GUARD: H any multiple of
+// 16, thread t holding the columns t + RT i < H): RMSNorm rounded to T, then
 // the row's int8 codes and scale.
-template <typename T, int PER>
+template <typename T, int PER, bool GUARD = false>
 __global__ void __launch_bounds__(gm::RT)
 rms_quant_rows(const T* __restrict__ x, const float* __restrict__ w, int8_t* __restrict__ q,
                float* __restrict__ scale, int H, float eps) {
   __shared__ double redd[gm::RT / 32];
   __shared__ float redf[gm::RT / 32];
-  const int n = H / gm::RT;
+  const int n = GUARD ? (H - (int)threadIdx.x + gm::RT - 1) / gm::RT : H / gm::RT;
   const size_t base = static_cast<size_t>(blockIdx.x) * H + threadIdx.x;
   float v[PER];
   double ss = 0.0;
@@ -124,9 +142,9 @@ struct EpiSwiGLU {
   }
 };
 
-// One block per (row, I-tile of ti <= IT columns, a multiple of 128), eight
-// consecutive columns a thread: the tile's row maximum, then its int8 codes
-// and scale.
+// One block per (row, I-tile of ti <= IT columns, a multiple of 16: the
+// 16-byte loads stay aligned), eight consecutive columns a thread: the
+// tile's row maximum, then its int8 codes and scale.
 template <typename T>
 __global__ void __launch_bounds__(gm::RT)
 requant_tiles(const T* __restrict__ a, int I, int ti, int8_t* __restrict__ q,
@@ -170,6 +188,14 @@ struct EpiDown {
   }
 };
 
+// The same where the tile is not a whole number of 128-column stages: the
+// down product reads each tile as a run of seg_cols = ti columns, zeros past
+// it (the core's runs, sm90::SegMapped).
+template <typename T>
+struct EpiDownRuns : EpiDown<T> {
+  int seg_cols;  // ti
+};
+
 struct Bufs {
   int8_t* yq;  // (rows, H) codes of the normalised rows
   float* ys;   // (rows,) their scales
@@ -184,9 +210,15 @@ int swiglu(const void* x, const void* w, const void* wgt, const void* sg, const 
            const void* su, const void* wdt, const void* sd, const Bufs& bf, void* out, int rows,
            int H, int I, int ti, float eps, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
+  // the exact instance: whole stages, rows of whole 128-column slots
+  const bool exact = H % gm::RT == 0 && ti % sm90::ROW_BYTES == 0;
   cudaError_t e = gm::with_per(H, [&](auto P) {
-    rms_quant_rows<T, decltype(P)::value><<<rows, gm::RT, 0, st>>>(
-        xt, static_cast<const float*>(w), bf.yq, bf.ys, H, eps);
+    if (exact)
+      rms_quant_rows<T, decltype(P)::value><<<rows, gm::RT, 0, st>>>(
+          xt, static_cast<const float*>(w), bf.yq, bf.ys, H, eps);
+    else
+      rms_quant_rows<T, decltype(P)::value, true><<<rows, gm::RT, 0, st>>>(
+          xt, static_cast<const float*>(w), bf.yq, bf.ys, H, eps);
   });
   if (e != cudaSuccess) return (int)e;
   const EpiSwiGLU<T> gu{bf.ys, static_cast<const float*>(sg), static_cast<const float*>(su),
@@ -198,8 +230,12 @@ int swiglu(const void* x, const void* w, const void* wgt, const void* sg, const 
   requant_tiles<T><<<dim3(rows, I / ti), gm::RT, 0, st>>>(static_cast<const T*>(bf.a), I, ti,
                                                            bf.aq, bf.as);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const EpiDown<T> down{bf.as, I / ti, ti / sm90::ROW_BYTES, static_cast<const float*>(sd), xt,
+  const int seg = (ti + sm90::ROW_BYTES - 1) / sm90::ROW_BYTES;  // stages of a tile
+  const EpiDown<T> down{bf.as, I / ti, seg, static_cast<const float*>(sd), xt,
                         static_cast<T*>(out), H};
+  if (ti % sm90::ROW_BYTES != 0)
+    return (int)sm90::gemm<DOWN_BN, false, sm90::COOP, ROWS_FIRST>(
+        bf.aq, static_cast<const int8_t*>(wdt), rows, H, I, EpiDownRuns<T>{down, ti}, st);
   return (int)sm90::gemm<DOWN_BN, false, sm90::COOP, ROWS_FIRST>(
       bf.aq, static_cast<const int8_t*>(wdt), rows, H, I, down, st);
 }
@@ -207,16 +243,16 @@ int swiglu(const void* x, const void* w, const void* wgt, const void* sg, const 
 }  // namespace
 
 // Scratch: yq (rows, H) int8, ys (rows,) fp32, a (rows, I) in x's type, aq
-// (rows, I) int8, as (rows, I / ti) fp32.  ti: the I-tile, pick_tile(I,
-// 1024) (ops/cuda_swiglu.py), a multiple of 128 dividing I.  Every pointer
-// 16-byte aligned.
+// (rows, I) int8, as (rows, I / ti) fp32.  H a multiple of 16 up to 8,192;
+// ti: the I-tile, pick_tile(I, 1024) (ops/cuda_swiglu.py), a multiple of 16
+// dividing I.  Every pointer 16-byte aligned.
 extern "C" int vt_swiglu_w8a8(const void* x, const void* w, const void* wgt, const void* sg,
                               const void* wut, const void* su, const void* wdt, const void* sd,
                               void* yq, void* ys, void* a, void* aq, void* as, void* out,
                               int rows, int H, int I, int ti, float eps, int dtype,
                               void* stream) {
-  if (rows <= 0 || H <= 0 || H % sm90::ROW_BYTES || H > gm::ROW_H_MAX || ti <= 0 ||
-      ti % sm90::ROW_BYTES || ti > IT || I <= 0 || I % ti)
+  if (rows <= 0 || H <= 0 || H % 16 || H > gm::ROW_H_MAX || ti <= 0 || ti % 16 || ti > IT ||
+      I <= 0 || I % ti)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Bufs bf{static_cast<int8_t*>(yq), static_cast<float*>(ys), a, static_cast<int8_t*>(aq),

@@ -27,8 +27,13 @@ version :func:`attention_gqa_plain` is the JAX package's ``_gqa_attend``;
 the backward recomputes through it, the bias detached.
 ``fused_attention_gqa.launches`` counts its launches.
 
-Both kernels take the head dims of :data:`HEAD_DIMS`; a wrapper refuses any
-other before it looks at the device, so the contract shows on any tensor.
+Both kernels take the head dims of :data:`HEAD_DIMS`, every multiple of 4
+from 8 to 128 (the JAX package's Pallas kernels take any); a wrapper
+refuses any other before it looks at the device, so the contract shows on
+any tensor.  The dims of :data:`EXACT_HEAD_DIMS` run instances of their own
+width whose K and V come by TMA; any other runs the padded instance of the
+next of them (100 on 128), which copies 8 bytes at a time, so its operands
+need only 8-byte aligned rows (``attention_common.cuh``).
 Each is also the operator ``vault_tpu_torch::attention`` /
 ``attention_gqa`` (``ops/_dispatch.py`` ``KernelOp``, returning the
 (B, L, H, D) tensor), through which the forward launches it, in eager
@@ -45,9 +50,13 @@ from vault_tpu_torch.ops import _build
 from vault_tpu_torch.ops._dispatch import KernelOp, kernel_or_plain
 from vault_tpu_torch.ops.attention import attend_plain, gqa_attend_plain
 
-# The head dims both kernels take (attention_common.cuh's D): 32 (BERT-small),
-# 64 (BERT-base and -large, ViLT-B/32, BERTweet), 96, 128 (Llama-3-8B).
-HEAD_DIMS = (32, 64, 96, 128)
+# The head dims both kernels take: every multiple of 4 from 8 to 128.  The
+# exact instances (attention_common.cuh's D): 32 (BERT-small), 64 (BERT-base
+# and -large, ViLT-B/32, BERTweet, TinyLlama, SmolLM), 96, 128 (Llama-2,
+# Llama-3-8B); the others (100: OpenLLaMA-3B) run padded to the next.
+HEAD_DIMS = tuple(range(8, 129, 4))
+EXACT_HEAD_DIMS = (32, 64, 96, 128)
+_HEAD_DIM_RULE = "D a multiple of 4 from 8 to 128"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"vt_attention_fwd": (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
@@ -71,25 +80,36 @@ def attention_plain(q, k, v, bias):
     return attend_plain(q, k, v, bias)
 
 
+def _copy_elements(q) -> int:
+    """Elements of one copy into the kernel's tiles: 16 bytes for the exact
+    instances, 4 columns (8 bytes in bf16, 16 in fp32) for the padded ones;
+    every row, head and batch offset and the base must be whole copies."""
+    return 16 // q.element_size() if q.shape[-1] in EXACT_HEAD_DIMS else 4
+
+
+def _check_rows(what, name, t, vec):
+    if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3]) \
+            or t.data_ptr() % (vec * t.element_size()):
+        raise ValueError(f"{what}: {name} needs contiguous rows and rows and base aligned "
+                         f"to {vec * t.element_size()} bytes at head dim {t.shape[-1]}")
+
+
 def _check(q, k, v, bias):
     if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"fused_attention: q must be (B, H, L, D) with D in {HEAD_DIMS}, "
+        raise ValueError(f"fused_attention: q must be (B, H, L, D) with {_HEAD_DIM_RULE}, "
                          f"got {tuple(q.shape)}")
     if not q.is_cuda:
         raise ValueError(f"fused_attention: tensors on {q.device} have no "
                          "kernel; only CPU (plain) and CUDA are supported")
     attention_route(q.dtype)
-    vec = 16 // q.element_size()  # elements per 16-byte copy
+    vec = _copy_elements(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or t.stride() != q.stride()):
             raise ValueError(f"fused_attention: {name} {tuple(t.shape)} "
                              f"{t.dtype} {t.device} strides {t.stride()} does "
                              "not match q")
-        if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"fused_attention: {name} needs contiguous rows, "
-                             "16-byte aligned rows and base")
+        _check_rows("fused_attention", name, t, vec)
     b, _, l, _ = q.shape
     if (bias.shape != (b, 1, 1, l) or bias.dtype != torch.float32
             or bias.device != q.device or not bias.is_contiguous()):
@@ -137,7 +157,8 @@ ATTENTION = KernelOp("attention", _SCHEMA, _blhd(lambda *ts: _kernel(*ts)),
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """q/k/v: (B, H, L, D), D in :data:`HEAD_DIMS`, any strides with
-    contiguous rows (for example head views of one fused projection); bias:
+    contiguous, aligned rows (for example head views of one fused
+    projection); bias:
     (B, 1, 1, L) float32 additive key bias.  Returns (B, H, L, D) in q's
     dtype, a view of a (B, L, H, D) tensor, so merging the heads back costs
     no copy."""
@@ -167,7 +188,7 @@ def attention_gqa_plain(q, k, v, bias):
 def _check_gqa(q, k, v, bias):
     what = "fused_attention_gqa"
     if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{what}: q must be (B, H, L, D) with D in {HEAD_DIMS}, "
+        raise ValueError(f"{what}: q must be (B, H, L, D) with {_HEAD_DIM_RULE}, "
                          f"got {tuple(q.shape)}")
     if not q.is_cuda:
         raise ValueError(f"{what}: tensors on {q.device} have no kernel; only "
@@ -178,15 +199,12 @@ def _check_gqa(q, k, v, bias):
             or k.shape[1] == 0 or h % k.shape[1]):
         raise ValueError(f"{what}: k and v must be (B, G, L, D) with G dividing H = {h}, "
                          f"got {tuple(k.shape)} and {tuple(v.shape)} for q {tuple(q.shape)}")
-    vec = 16 // q.element_size()  # elements per 16-byte copy
+    vec = _copy_elements(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}, q {q.dtype} "
                              f"on {q.device}")
-        if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} needs contiguous rows, 16-byte aligned "
-                             "rows and base")
+        _check_rows(what, name, t, vec)
     if (bias.shape != (b, 1, l, l) or bias.dtype != torch.float32
             or bias.device != q.device or not bias.is_contiguous()):
         raise ValueError(f"{what}: bias must be contiguous float32 (B, 1, L, L) = "

@@ -48,11 +48,14 @@ from vault_tpu_torch.ops.nn import int8_matmul, linear, rms_norm, silu
 from vault_tpu_torch.ops.quantize import is_k_major, quantize_activation
 
 I_TILE = 1024        # the largest group of I columns requantized together
-# The kernel's widths: H a multiple of 128 (the int8 core's 128-byte stage)
-# up to 8,192 (its row pass holds a row in registers); I whose tile
-# pick_tile(I, I_TILE) is a multiple of 128 (a tile is a whole number of the
-# down product's stages).
-H_MULTIPLE, H_MAX, TILE_MULTIPLE = 128, 8192, 128
+# The kernel's widths, those of the JAX package's Pallas kernel at every
+# published Llama geometry: H a multiple of 16 (16-byte rows of codes: the
+# int8 core reads H in 128-byte stages with zeros past it) from 16 to 8,192
+# (its row pass holds a row in registers); I whose tile pick_tile(I, I_TILE)
+# is a multiple of 16 (688 for Llama-2-7B: the down product reads each tile
+# as a run of its own, zeros past it).  H a multiple of 128 with a tile
+# that is one too runs the exact instance (csrc/swiglu_w8a8.cu).
+H_MULTIPLE, H_MAX, TILE_MULTIPLE = 16, 8192, 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"vt_swiglu_w8a8": (
     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
