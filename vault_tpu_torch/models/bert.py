@@ -42,6 +42,7 @@ from vault_tpu_torch.parallel.tensor_parallel import (
     local_heads,
     row_linear,
 )
+from vault_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -205,13 +206,15 @@ def bert_encode(params, cfg: TextTowerConfig, x, attention_mask,
                 deterministic=True, generator=None, use_pallas="auto",
                 bias=None, remat=False):
     """Run the encoder layers, each under activation checkpointing when
-    ``remat`` (ops/nn.py ``remat_apply``).  ``bias`` (a prebuilt additive
+    ``remat`` (ops/nn.py ``remat_apply``) and each in a ``vault.layer``
+    span (utils/profiling.py ``span``).  ``bias`` (a prebuilt additive
     mask) takes precedence over ``attention_mask``."""
     if bias is None and attention_mask is not None:
         bias = extend_attention_mask(attention_mask, torch.float32)
     for lp in params["layers"]:
-        x = remat_apply(_encoder_layer, remat, generator, lp, cfg, x, bias,
-                        deterministic, use_pallas=use_pallas)
+        with span("vault.layer"):
+            x = remat_apply(_encoder_layer, remat, generator, lp, cfg, x, bias,
+                            deterministic, use_pallas=use_pallas)
     return x
 
 
@@ -224,9 +227,11 @@ def bert_apply(params, cfg: TextTowerConfig, input_ids=None,
 
     Mirrors ``self.bert(**bert_kwargs).last_hidden_state`` at
     vault/models/vault/model.py:189-190.  Dropout, when not deterministic,
-    draws from ``generator``.
+    draws from ``generator``.  The embeddings run in a ``vault.text_embed``
+    span.
     """
-    x = bert_embed(params, cfg, input_ids, token_type_ids, position_ids,
-                   inputs_embeds, attention_mask, deterministic, generator)
+    with span("vault.text_embed"):
+        x = bert_embed(params, cfg, input_ids, token_type_ids, position_ids,
+                       inputs_embeds, attention_mask, deterministic, generator)
     return bert_encode(params, cfg, x, attention_mask, deterministic,
                        generator, use_pallas, remat=remat)

@@ -47,7 +47,7 @@ from vault_tpu_torch.ops.nn import (
     linear,
     matmul_fp32,
 )
-from vault_tpu_torch.utils.profiling import nan_checked
+from vault_tpu_torch.utils.profiling import nan_checked, span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,17 +80,20 @@ def lm_encode(params, cfg: VaultConfig, input_ids, attention_mask,
               generator=None, use_pallas="auto", remat=False):
     """The reference's ``lm_preprocess`` (vault/models/vault/model.py:151-202):
     run the LM tower; token-type guard for towers with <2 segment types
-    (RoBERTa/BERTweet, :174-180); a frozen LM is detached (:189-190)."""
-    tower = cfg.text_tower
-    if tower.type_vocab_size < 2 and token_type_ids is not None:
-        token_type_ids = torch.zeros_like(token_type_ids)
-    hidden = bert_mod.bert_apply(
-        params["bert"], tower, input_ids, attention_mask, token_type_ids,
-        inputs_embeds=inputs_embeds, deterministic=deterministic,
-        generator=generator, use_pallas=use_pallas, remat=remat)
-    if cfg.freeze_lm:
-        hidden = hidden.detach()
-    return hidden
+    (RoBERTa/BERTweet, :174-180); a frozen LM is detached (:189-190).
+    The whole runs in a ``vault.text_tower`` span (utils/profiling.py
+    ``span``)."""
+    with span("vault.text_tower"):
+        tower = cfg.text_tower
+        if tower.type_vocab_size < 2 and token_type_ids is not None:
+            token_type_ids = torch.zeros_like(token_type_ids)
+        hidden = bert_mod.bert_apply(
+            params["bert"], tower, input_ids, attention_mask, token_type_ids,
+            inputs_embeds=inputs_embeds, deterministic=deterministic,
+            generator=generator, use_pallas=use_pallas, remat=remat)
+        if cfg.freeze_lm:
+            hidden = hidden.detach()
+        return hidden
 
 
 def vault_apply(params, cfg: VaultConfig, input_ids=None, attention_mask=None,
@@ -282,13 +285,14 @@ def vault_for_classification(params, cfg: VaultConfig, batch: Dict[str, Any],
                              generator=None, use_pallas="auto", remat=False,
                              merge_patches_to=None, merge_at_layer=0):
     """VaultForTMSC.forward (vault/models/vault/model.py:547-570): backbone
-    pooler -> dropout -> linear logits."""
+    pooler -> dropout -> linear logits, the head in a ``vault.head`` span."""
     out = vault_apply(params, cfg, deterministic=deterministic,
                       generator=generator, use_pallas=use_pallas,
                       remat=remat, merge_patches_to=merge_patches_to,
                       merge_at_layer=merge_at_layer, **batch)
-    return classifier_head_apply(params["head"], out.pooler_output,
-                                 head_dropout, deterministic, generator)
+    with span("vault.head"):
+        return classifier_head_apply(params["head"], out.pooler_output,
+                                     head_dropout, deterministic, generator)
 
 
 def vault_for_mlm(params, cfg: VaultConfig, batch, deterministic=True,

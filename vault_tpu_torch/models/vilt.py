@@ -56,6 +56,7 @@ from vault_tpu_torch.parallel.tensor_parallel import (
     local_heads,
     row_linear,
 )
+from vault_tpu_torch.utils.profiling import span
 
 
 class ViltOutput(NamedTuple):
@@ -316,8 +317,9 @@ def vilt_encode(params, cfg: ViltConfig, x, attention_mask, deterministic=True,
                 generator=None, use_pallas="auto", remat=False, key_sizes=None,
                 merge_spec=None):
     """Encoder stack over the joint sequence, each layer under activation
-    checkpointing when ``remat`` (ops/nn.py ``remat_apply``).  Returns
-    (hidden states, attention mask).
+    checkpointing when ``remat`` (ops/nn.py ``remat_apply``) and each in a
+    ``vault.layer`` span (utils/profiling.py ``span``).  Returns (hidden
+    states, attention mask).
 
     ``key_sizes`` (B, L): the multiplicities of embed-time merged tokens,
     added to the key bias as log(size).  ``merge_spec`` ``(layer,
@@ -334,8 +336,9 @@ def vilt_encode(params, cfg: ViltConfig, x, attention_mask, deterministic=True,
 
     def run_layers(h, bias, lo, hi):
         for lp in params["layers"][lo:hi]:
-            h = remat_apply(_encoder_layer, remat, generator, lp, cfg, h, bias,
-                            deterministic, use_pallas=use_pallas)
+            with span("vault.layer"):
+                h = remat_apply(_encoder_layer, remat, generator, lp, cfg, h, bias,
+                                deterministic, use_pallas=use_pallas)
         return h
 
     n_layers = cfg.num_hidden_layers
@@ -378,13 +381,20 @@ def vilt_apply(params, cfg: ViltConfig, input_ids=None, attention_mask=None,
     (ops/token_merge.py); 87 makes the joint sequence 40 + 1 + 87 = 128.
     ``merge_at_layer`` picks where: 0 merges the embeddings before the
     encoder, k > 0 merges after k encoder layers, on contextualized tokens
-    (less divergence for (layers - k) / layers of the savings)."""
+    (less divergence for (layers - k) / layers of the savings).
+
+    Spans (utils/profiling.py ``span``): ``vault.vilt_embed`` holds
+    :func:`joint_embed` (patchify, mask downsampling, position
+    interpolation, patch selection, the modality adds), and
+    ``vault.vilt_encoder`` the encoder, the final LayerNorm and the
+    pooler."""
     embed_merge = merge_patches_to if merge_at_layer == 0 else None
-    tokens, mask, sizes = joint_embed(params, cfg, input_ids, attention_mask,
-                                      token_type_ids, pixel_values, pixel_mask,
-                                      inputs_embeds, image_embeds,
-                                      image_token_type_idx, deterministic,
-                                      generator, embed_merge)
+    with span("vault.vilt_embed"):
+        tokens, mask, sizes = joint_embed(params, cfg, input_ids, attention_mask,
+                                          token_type_ids, pixel_values, pixel_mask,
+                                          inputs_embeds, image_embeds,
+                                          image_token_type_idx, deterministic,
+                                          generator, embed_merge)
     merge_spec = None
     if merge_patches_to is not None and merge_at_layer > 0:
         if input_ids is not None:
@@ -394,10 +404,11 @@ def vilt_apply(params, cfg: ViltConfig, input_ids=None, attention_mask=None,
         else:
             raise ValueError("merge_at_layer > 0 needs a text span")
         merge_spec = (merge_at_layer, l_text + 1, merge_patches_to)
-    x, mask = vilt_encode(params, cfg, tokens, mask, deterministic, generator,
-                          use_pallas, remat, key_sizes=sizes,
-                          merge_spec=merge_spec)
-    x = layer_norm(params["final_ln"], x, cfg.layer_norm_eps)
-    pooled = pooler(params, x) if "pooler" in params else None
+    with span("vault.vilt_encoder"):
+        x, mask = vilt_encode(params, cfg, tokens, mask, deterministic, generator,
+                              use_pallas, remat, key_sizes=sizes,
+                              merge_spec=merge_spec)
+        x = layer_norm(params["final_ln"], x, cfg.layer_norm_eps)
+        pooled = pooler(params, x) if "pooler" in params else None
     return ViltOutput(last_hidden_state=x, pooler_output=pooled,
                       attention_mask=mask)

@@ -44,7 +44,10 @@ size-weighted average is differentiable, the merge decisions piecewise
 constant).  ``remat`` is False, True or "dots" (ops/nn.py ``remat_apply``),
 ``opt_state_dtype`` "float32", "bfloat16" or "int8" (training/optimizer.py).
 ``profile_dir`` traces the second eval window (utils/profiling.py
-``trace``), as the JAX package does; while ``utils.profiling.
+``trace``), as the JAX package does: each step's ``train_step:<n>`` span
+holds the ``vault.step.*`` spans of its forward, backward and optimizer,
+and the model's ``vault.*`` spans of its towers, encoder layers and head
+(utils/profiling.py ``span``); while ``utils.profiling.
 enable_nan_checks`` is on, each step and each evaluation batch runs under
 its NaN checks.  ``rng_impl`` has no counterpart (the port has one
 generator kind) and is ignored.  There is no ``precompile``: PyTorch runs
@@ -438,28 +441,36 @@ class Trainer:
         and, with ``reduce``, the gradients (and the loss) are summed over
         the "data" group: the global mean's.  Without it they stay this
         rank's share, for a caller that sums several before one
-        reduction."""
+        reduction.  Spans (utils/profiling.py ``span``):
+        ``vault.step.forward`` holds the cast of the masters
+        (``vault.step.cast_params``), the forward and the loss;
+        ``vault.step.backward`` the backward and the zero gradients of the
+        unreached leaves."""
         trainable = self.trainable
         mass = weight.sum().float()
         with self._parallel():
-            logits = self.apply_fn(self.compute_params(self.params), batch, False,
-                                   generator)
-            loss = self.calculate_loss(logits, labels, weight, train=True)
-            if self.mesh is not None:
-                total = mesh_mod.all_reduce_(mass.clone(), self.mesh.data_group)
-                loss = loss * (mass / torch.clamp(total, min=1.0))
-                mass = total
-            grads = torch.autograd.grad(loss, list(trainable.values()),
-                                        allow_unused=True)
+            with profiling.span("vault.step.forward"):
+                with profiling.span("vault.step.cast_params"):
+                    params = self.compute_params(self.params)
+                logits = self.apply_fn(params, batch, False, generator)
+                loss = self.calculate_loss(logits, labels, weight, train=True)
+                if self.mesh is not None:
+                    total = mesh_mod.all_reduce_(mass.clone(), self.mesh.data_group)
+                    loss = loss * (mass / torch.clamp(total, min=1.0))
+                    mass = total
+            with profiling.span("vault.step.backward"):
+                grads = torch.autograd.grad(loss, list(trainable.values()),
+                                            allow_unused=True)
+                unreached = getattr(self.apply_fn, "unreached", lambda key: False)
+                cut = [k for k, g in zip(trainable, grads)
+                       if g is None and not unreached(k)]
+                if cut:
+                    raise RuntimeError(
+                        f"no gradient reached {len(cut)} parameter leaves (first: "
+                        f"{cut[:4]}): the autograd graph is cut above them")
+                grads = {k: torch.zeros_like(p) if g is None else g
+                         for (k, p), g in zip(trainable.items(), grads)}
         self._mass = mass
-        unreached = getattr(self.apply_fn, "unreached", lambda key: False)
-        cut = [k for k, g in zip(trainable, grads) if g is None and not unreached(k)]
-        if cut:
-            raise RuntimeError(
-                f"no gradient reached {len(cut)} parameter leaves (first: "
-                f"{cut[:4]}): the autograd graph is cut above them")
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(trainable.items(), grads)}
         loss = loss.detach()
         return self._sum_over_data(loss, grads) if reduce else (loss, grads)
 
@@ -475,9 +486,11 @@ class Trainer:
     def train_step(self, batch, labels, weight, step: int) -> torch.Tensor:
         """Forward, backward and one optimizer update on device tensors,
         under the NaN checks while ``utils.profiling.enable_nan_checks`` is
-        on, marked ``train_step:<step>`` in a ``profile_dir`` trace.
-        Returns the on-device pair [loss * valid mass, valid mass]."""
-        with profiling.nan_checks(), torch.profiler.record_function(f"train_step:{step}"):
+        on, in a ``train_step:<step>`` span (utils/profiling.py ``span``:
+        only while a profiler records, as in a ``profile_dir`` trace), the
+        optimizer's update in a ``vault.step.optimizer`` span.  Returns the
+        on-device pair [loss * valid mass, valid mass]."""
+        with profiling.nan_checks(), profiling.span(f"train_step:{step}"):
             return self._train_step(batch, labels, weight, step)
 
     def _train_step(self, batch, labels, weight, step: int) -> torch.Tensor:
@@ -508,10 +521,11 @@ class Trainer:
             grads = {kk: (v / denom).to(self.params[kk].dtype)
                      for kk, v in grads.items()}
             self._mass = mass
-        if self.args.grad_dtype == "bfloat16":
-            # halves the gradient buffers' traffic; drops mantissa bits
-            grads = {kk: v.to(torch.bfloat16) for kk, v in grads.items()}
-        self.opt_state = self.tx.step_(self.trainable, grads, self.opt_state)
+        with profiling.span("vault.step.optimizer"):
+            if self.args.grad_dtype == "bfloat16":
+                # halves the gradient buffers' traffic; drops mantissa bits
+                grads = {kk: v.to(torch.bfloat16) for kk, v in grads.items()}
+            self.opt_state = self.tx.step_(self.trainable, grads, self.opt_state)
         wsum = self._mass
         return torch.stack([loss.float() * wsum, wsum])
 

@@ -6,7 +6,9 @@ package).
 must synchronize inside the timed block to count the card's time.
 :func:`trace` records the host's operators and the card's kernels with
 ``torch.profiler`` into a Chrome trace JSON (``chrome://tracing``,
-Perfetto), where the JAX package records an xprof trace.
+Perfetto), where the JAX package records an xprof trace; :func:`span`
+marks the program's layers on the same timeline, and only while a profiler
+records.
 :func:`enable_nan_checks` is the counterpart of ``jax_debug_nans``: a NaN
 that an operation of a forward or a training step produces raises at that
 operation.
@@ -78,6 +80,24 @@ class StepTimer:
         if items_per_step:
             out["items_per_sec"] = items_per_step / out["mean_s"]
         return out
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range on the profiler's clock: ``torch.profiler.
+    record_function(name)`` while a profiler records, else one shared
+    context that does nothing.  The flag is read at each call, since a
+    profiler starts after the model is built; with none running nothing of
+    the profiler is entered, so an exported or fake-tensor-traced forward
+    holds no profiler node.  The program's spans (``vault.*``: the towers,
+    each encoder layer, the head, a training step's forward, backward and
+    optimizer) and ``train_step:<n>`` go through it; :func:`trace`'s files
+    and ``portbench/spans.py`` read them."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
