@@ -2395,6 +2395,7 @@ def train_step_phase(dev, merge_to=None):
 
     from vault_tpu_torch.data.loader import InMemoryDataset
     from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.ops import cuda_adamw
     from vault_tpu_torch.presets import vault_base
     from vault_tpu_torch.training.trainer import Trainer, classifier_apply_fn
 
@@ -2452,11 +2453,19 @@ def train_step_phase(dev, merge_to=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    adamw_before = cuda_adamw.fused_adamw.launches
     step(2)
     torch.cuda.synchronize()
     counts = read_counts()
     if counts != STEP_LAUNCHES:
         fail(f"launches per training step {counts}, expected {STEP_LAUNCHES}")
+    # the optimizer: every leaf (fp32 masters, fp32 gradients, bf16
+    # moments: one dtype group) in one launch of csrc/adamw.cu
+    optimizer = dict(adamw_launches=cuda_adamw.fused_adamw.launches - adamw_before,
+                     fused_leaves=tr.tx.fused_leaves, loop_leaves=tr.tx.loop_leaves)
+    if optimizer != dict(adamw_launches=1, fused_leaves=len(tr.trainable), loop_leaves=0):
+        fail(f"the training step's optimizer: {optimizer}, expected one launch over "
+             f"all {len(tr.trainable)} leaves")
     # the yardstick beside the kernel path: the plain path, or (merged)
     # the unmerged kernel path
     other = "plain" if merge_to is None else "unmerged"
@@ -2483,7 +2492,7 @@ def train_step_phase(dev, merge_to=None):
          leaves_checked=len(rel), unused_leaves=sorted(UNUSED_LEAVES),
          key_bias_grad_norms_kernel_plain=dict(sorted(noise.items())[:4]),
          key_bias_grad_norm_max=max(max(v) for v in noise.values()),
-         limits=STEP_LIMITS, launches_per_step=counts, ms=ms,
+         limits=STEP_LIMITS, launches_per_step=counts, optimizer=optimizer, ms=ms,
          ms_samples=samples["kernel"], **{f"{other}_ms": float(np.median(samples[other])),
                                           f"{other}_ms_samples": samples[other]},
          pairs_per_s=TRAIN_BATCH / ms * 1e3,
@@ -3889,6 +3898,55 @@ def remat_dots_phase(dev):
     return counts
 
 
+def adamw_fused_vs_loop(params, grads, tx, state):
+    """The bf16-moment update of ``params`` (fp32 masters, fp32 gradients)
+    through ``csrc/adamw.cu`` against the per-leaf loop, its plain version,
+    from copies of the same state: one step bit-equal (parameters and both
+    moments), then each route timed (CUPTI busy ms, CUDA-event wall ms and
+    the host's ms to queue a step) beside the kernel's bound, 20 bytes an
+    element over 3.35 TB/s."""
+    import torch
+
+    from vault_tpu_torch.ops import cuda_adamw
+
+    copies = lambda: ({k: v.clone() for k, v in params.items()},
+                      type(state)(state.count, {k: v.clone() for k, v in state.mu.items()},
+                                  {k: v.clone() for k, v in state.nu.items()}))
+    (p_f, s_f), (p_l, s_l) = copies(), copies()
+    n0 = cuda_adamw.fused_adamw.launches
+    s_f = tx.step_(p_f, grads, s_f)
+    fused_launches, fused_leaves = cuda_adamw.fused_adamw.launches - n0, tx.fused_leaves
+    s_l = tx.step_(p_l, grads, s_l, plain=True)
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    differ = [k for k in params if not all(torch.equal(bits(a), bits(b)) for a, b in (
+        (p_f[k], p_l[k]), (s_f.mu[k], s_l.mu[k]), (s_f.nu[k], s_l.nu[k])))]
+    if differ or fused_launches != 1 or fused_leaves != len(params):
+        fail(f"adamw: the fused step over {len(params)} leaves ({fused_launches} launches, "
+             f"{fused_leaves} leaves fused) differs from the loop in {differ[:8]}")
+    del p_l, s_l
+    n = sum(v.numel() for v in params.values())
+    out = dict(leaves=len(params), parameters=n, bit_equal=True,
+               bound_ms=bound_ms(0, 20 * n, torch.float32)[0])
+    for route in ("fused", "loop"):
+        step = lambda: tx.step_(p_f, grads, s_f, plain=route == "loop")
+        busy, kernels = device_ms(step, iters=2, warmup=1)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            host.append((time.perf_counter() - t0) * 1e3)
+        out[route] = dict(busy_ms=busy, wall_ms=time_ms(step, iters=3, warmup=1),
+                          host_ms=float(np.median(host)), host_ms_samples=host,
+                          kernels=len(kernels),
+                          top_kernels_ms=dict(sorted(kernels.items(),
+                                                     key=lambda kv: -kv[1])[:3]))
+    del p_f, s_f
+    torch.cuda.empty_cache()
+    return out
+
+
 def int8_moments_phase(dev):
     """Three ``HfAdamW(state_dtype="int8")`` steps from fixed seeded
     gradients, on the card and on the host, over ViLT-B/32's parameters
@@ -3946,6 +4004,7 @@ def int8_moments_phase(dev):
     bf16 = hf_adamw(1e-3, weight_decay=0.01, state_dtype=torch.bfloat16)
     s_int8, s_bf16 = tx.init(every), bf16.init(every)
     int8_bytes = 2 * sum(m.q.numel() + 4 * m.scale.numel() for m in s_int8.mu.values())
+    fused_vs_loop = adamw_fused_vs_loop(every, g0, bf16, s_bf16)
     passes = {}
     for name, opt, state in (("int8", tx, s_int8), ("bfloat16", bf16, s_bf16)):
         step = lambda: opt.step_(every, g0, state)
@@ -3957,7 +4016,7 @@ def int8_moments_phase(dev):
          codes_moved=flips,
          max_code_step=worst_step, scale_max_rel=worst_scale, param_max_rel=worst_param,
          limits=INT8_FLIP, host_steps_s=host_s, moment_bytes_int8=int8_bytes,
-         moment_bytes_bf16=2 * 2 * n, optimizer_pass=passes)
+         moment_bytes_bf16=2 * 2 * n, optimizer_pass=passes, adamw=fused_vs_loop)
     del every, g0, s_int8, s_bf16
     torch.cuda.empty_cache()
 
@@ -4534,7 +4593,14 @@ def worker_ranks(out: Path, dev, rank: int):
                 if not torch.equal(v, zero._slice(dp_mu[k]))]
     unequal += [f"nu/{k}" for k, v in tr.opt_state.nu.items()
                 if not torch.equal(v, zero._slice(dp_nu[k]))]
+    # the optimizer's routes in the last step: every leaf on csrc/adamw.cu,
+    # the slices on a leaf's last axis (not contiguous) by their row strides
+    zero_routes = dict(fused=zero.fused_leaves, loop=zero.loop_leaves,
+                       sliced=sum(not zero._slice(p).is_contiguous()
+                                  for p in tr.trainable.values()),
+                       leaves=len(tr.trainable))
     res.update(zero_counts=zcounts, zero_wall_ms=zwalls, zero_unequal=unequal[:8],
+               zero_routes=zero_routes,
                zero_leaves=len(tr.params) + 2 * len(tr.opt_state.mu),
                zero_moment_bytes=moment_bytes(tr.opt_state),
                zero_gather_ms=sum(meter["zero_gather"]) / PARALLEL_STEPS,
@@ -4909,6 +4975,9 @@ def parallel_phase(dev):
                             f"expected {STEP_LAUNCHES}")
         if r["zero_unequal"]:
             problems.append(f"ZeRO-1 vs data parallelism, not bit-equal: {r['zero_unequal']}")
+        routes = r["zero_routes"]
+        if (routes["fused"], routes["loop"]) != (routes["leaves"], 0):
+            problems.append(f"ZeRO-1's optimizer routes {routes}: every leaf on the kernel")
         if r["tp_counts"] != TP_LAUNCHES:
             problems.append(f"TP forward launches per rank {r['tp_counts']}, expected "
                             f"{TP_LAUNCHES}")
@@ -4942,6 +5011,7 @@ def parallel_phase(dev):
          waited_for_reference_s=r0["waited_s"], seconds=r0["dp_s"])
     emit(phase="parallel_zero", backend=r0["backend"], ranks=2,
          moment_dtype=r0["moment_dtype"], bit_equal_leaves=r0["zero_leaves"],
+         optimizer_routes=[r["zero_routes"] for r in ranks],
          moment_bytes_per_rank=[r["zero_moment_bytes"] for r in ranks],
          dp_moment_bytes_per_rank=[r["dp_moment_bytes"] for r in ranks],
          step_wall_ms=[r["zero_wall_ms"] for r in ranks],

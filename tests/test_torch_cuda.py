@@ -1065,3 +1065,237 @@ def test_w8a8_model_forward_launches_each_kernel_per_layer(dev, monkeypatch):
     monkeypatch.setattr(cm, "fused_mlp_postln_fwd_w8a8", cm.mlp_postln_w8a8_plain)
     with torch.inference_mode():
         assert torch.equal(model(batch), out)
+
+
+# HF AdamW (csrc/adamw.cu) against the per-leaf loop, its plain version: the
+# same fp32 operations in the same order, so bit-equal.  Leaf sizes: one
+# element, a ragged 7, a LayerNorm bias, an MLP matrix and BERTweet's word
+# table (6,000 full chunks), a leaf whose storage starts 4 bytes (fp32) or
+# 2 bytes (bf16) past 16-byte alignment, with a gradient that does too, the
+# ViLT patch projection with its gradient in the layout the convolution's
+# backward gives it (output channels fastest: copied contiguous for the
+# kernel), and ZeRO's slices: rank 1's half of a (768, 3072) MLP weight on
+# its last axis, parameter and gradient at row stride 3,072 (16-byte
+# words), and of a (3, 6, 10) leaf, rows of 5 (element by element).
+ADAMW_SHAPES = [(1,), (7,), (768,), (3072, 768), (64001, 768)]
+PATCH = (768, 3, 32, 32)
+SLICED = [((768, 3072), 1), ((3, 6, 10), 2)]
+
+
+def _slice_of(whole, axis):
+    n = whole.shape[axis] // 2
+    return whole.narrow(axis, n, n)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _adamw_equal(a, b):
+    return torch.equal(_bits(a), _bits(b))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose storage begins one element in."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = base[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _adamw_leaves(dev, dtype, gen):
+    params = {f"w{i}": (torch.randn(s, generator=gen, device=dev) * 0.05).to(dtype)
+              for i, s in enumerate(ADAMW_SHAPES)}
+    params["misaligned"] = _misaligned(torch.randn((3, 1001), generator=gen,
+                                                   device=dev).to(dtype))
+    params["patch"] = (torch.randn(PATCH, generator=gen, device=dev) * 0.05).to(dtype)
+    for i, (shape, axis) in enumerate(SLICED):
+        params[f"sliced{i}"] = _slice_of(
+            (torch.randn(shape, generator=gen, device=dev) * 0.05).to(dtype), axis)
+    return params
+
+
+def _adamw_grads(params, dtype, gen, step):
+    grads = {k: (torch.randn(p.shape, generator=gen, device=p.device)
+                 * 10.0 ** -(1 + step % 3)).to(dtype) for k, p in params.items()}
+    grads["misaligned"] = _misaligned(grads["misaligned"])
+    grads["patch"] = grads["patch"].permute(1, 2, 3, 0).contiguous().permute(3, 0, 1, 2)
+    assert grads["patch"].stride() == (1, 786432, 24576, 768)
+    for i, (shape, axis) in enumerate(SLICED):
+        grads[f"sliced{i}"] = _slice_of(
+            (torch.randn(shape, generator=gen, device=gen.device)
+             * 10.0 ** -(1 + step % 3)).to(dtype), axis)
+    return grads
+
+
+def _loop_step(tx, params, grads, state):
+    """``tx.step_`` with every leaf on the loop."""
+    state = tx.step_(params, grads, state, plain=True)
+    assert (tx.fused_leaves, tx.loop_leaves) == (0, len(params))
+    return state
+
+
+def _launches(tx):
+    """The optimizer's launch lists by group: the same objects while the
+    device tables are kept."""
+    return {key: held[1] for key, held in tx._fused._tables.items()}
+
+
+def _kept(tx, before):
+    now = _launches(tx)
+    return now.keys() == before.keys() and all(now[k] is before[k] for k in now)
+
+
+def _assert_adamw_equal(params, ref, state, ref_state, step):
+    for k in params:
+        for name, a, b in (("param", params[k], ref[k]), ("mu", state.mu[k], ref_state.mu[k]),
+                           ("nu", state.nu[k], ref_state.nu[k])):
+            assert a.dtype == b.dtype and _adamw_equal(a, b), (step, k, name)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("state_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("correct_bias", [False, True])
+def test_fused_adamw_is_bit_equal_to_the_loop(dev, p_dtype, g_dtype,
+                                              state_dtype, weight_decay, correct_bias):
+    """Five steps on a warmup schedule, every leaf in one launch, against
+    the loop from the same parameters, moments and gradients."""
+    from vault_tpu_torch.ops import cuda_adamw
+    from vault_tpu_torch.training import optimizer as topt
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    params = _adamw_leaves(dev, p_dtype, gen)
+    ref = {k: v.clone() for k, v in params.items()}
+    make = lambda: topt.hf_adamw(topt.linear_warmup_linear_decay(1e-3, 2, 6),
+                                 weight_decay=weight_decay, correct_bias=correct_bias,
+                                 state_dtype=state_dtype)
+    tx, tx_ref = make(), make()
+    state, ref_state = tx.init(params), tx_ref.init(ref)
+    for step in range(5):
+        grads = _adamw_grads(params, g_dtype, gen, step)
+        n = cuda_adamw.fused_adamw.launches
+        state = tx.step_(params, grads, state)
+        assert cuda_adamw.fused_adamw.launches == n + 1
+        assert (tx.fused_leaves, tx.loop_leaves) == (len(params), 0)
+        ref_state = _loop_step(tx_ref, ref, grads, ref_state)
+        torch.cuda.synchronize()
+        _assert_adamw_equal(params, ref, state, ref_state, step)
+        if step == 0:
+            built = _launches(tx)
+    # the tables were built once: the tensors stayed the same
+    assert _kept(tx, built)
+
+
+def test_fused_adamw_launches_once_per_dtype_group(dev):
+    """fp32 and bf16 parameters with their own moment types and one fp32
+    leaf with a bf16 gradient: three groups, three launches, every leaf
+    bit-equal to the loop.  A new state rebuilds the tables; ZeRO-style new
+    views of the same tensors do not.  A parameter the kernel does not
+    take on the card (transposed, fp16) is refused before anything runs."""
+    from vault_tpu_torch.ops import cuda_adamw
+    from vault_tpu_torch.training import optimizer as topt
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = {**{f"f{i}": torch.randn(s, generator=gen, device=dev) * 0.05
+                 for i, s in enumerate([(768,), (3072, 768), (7,)])},
+              **{f"b{i}": (torch.randn(s, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+                 for i, s in enumerate([(768,), (1000, 768)])},
+              "g16": torch.randn((300, 5), generator=gen, device=dev) * 0.05}
+    ref = {k: v.clone() for k, v in params.items()}
+    tx, tx_ref = topt.hf_adamw(1e-3, weight_decay=0.01), topt.hf_adamw(1e-3, weight_decay=0.01)
+    state, ref_state = tx.init(params), tx_ref.init(ref)
+    for step in range(3):
+        grads = {k: torch.randn(p.shape, generator=gen, device=dev).to(p.dtype) * 1e-2
+                 for k, p in params.items()}
+        grads["g16"] = grads["g16"].to(torch.bfloat16)
+        groups, loop = cuda_adamw.split(params, grads, state.mu, state.nu)
+        assert loop == [] and len(groups) == 3
+        n = cuda_adamw.fused_adamw.launches
+        state = tx.step_(params, grads, state)
+        assert cuda_adamw.fused_adamw.launches - n == len(groups)
+        assert (tx.fused_leaves, tx.loop_leaves) == (len(params), 0)
+        ref_state = _loop_step(tx_ref, ref, grads, ref_state)
+        torch.cuda.synchronize()
+        _assert_adamw_equal(params, ref, state, ref_state, step)
+        if step == 0:
+            built = _launches(tx)
+    assert _kept(tx, built) and len(built) == 3
+    views = {k: v.view(v.shape) for k, v in params.items()}
+    tx.step_(views, grads, state)
+    assert _kept(tx, built)
+    tx.step_(params, grads, tx.init(params))
+    assert all(_launches(tx)[k] is not built[k] for k in built)
+    before = {k: v.clone() for k, v in params.items()}
+    for name, bad in (("t", (torch.randn((64, 48), device=dev) * 0.05).t()),
+                      ("h", torch.randn((64, 48), device=dev).half())):
+        odd = {**params, name: bad}
+        with pytest.raises(ValueError):
+            tx.step_(odd, {**grads, name: torch.zeros_like(bad)}, tx.init(odd))
+    torch.cuda.synchronize()
+    assert all(torch.equal(params[k], before[k]) for k in params)
+
+
+@pytest.mark.parametrize("p_dtype, g_dtype, state_dtype", [
+    (torch.float32, torch.float32, torch.bfloat16), (torch.float32, torch.bfloat16, None),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16)])
+def test_fused_adamw_takes_zero_slices_by_their_rows(dev, p_dtype, g_dtype, state_dtype):
+    """Parameters, gradients and moments that are slices of larger tensors
+    (ZeRO's on a leaf's last or middle axis, moments sliced too, each
+    array with its own row stride; BERTweet's word table at 384 of its 768
+    columns): one launch, bit-equal to the loop on contiguous copies over
+    three steps."""
+    from vault_tpu_torch.ops import cuda_adamw
+    from vault_tpu_torch.training import optimizer as topt
+    from vault_tpu_torch.training.optimizer import AdamWState
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    shapes = [((768, 3072), 1), ((64001, 768), 1), ((3, 6, 10), 2), ((12, 40, 8), 1)]
+    rand = lambda shape, dtype, scale: (torch.randn(shape, generator=gen, device=dev)
+                                        * scale).to(dtype)
+    params = {f"s{i}": _slice_of(rand(shape, p_dtype, 0.05), axis)
+              for i, (shape, axis) in enumerate(shapes)}
+    m_dtype = state_dtype or p_dtype
+    # moments: slices of buffers twice as wide on the same axis, zeros
+    mom = lambda: {f"s{i}": _slice_of(torch.zeros(shape, dtype=m_dtype, device=dev), axis)
+                   for i, (shape, axis) in enumerate(shapes)}
+    state = AdamWState(0, mom(), mom())
+    assert not any(t.is_contiguous() for t in [*params.values(), *state.mu.values()])
+    ref = {k: v.contiguous() for k, v in params.items()}
+    tx, tx_ref = (topt.hf_adamw(topt.linear_warmup_linear_decay(1e-3, 1, 4), weight_decay=0.01,
+                                state_dtype=state_dtype) for _ in range(2))
+    ref_state = tx_ref.init(ref)
+    for step in range(3):
+        grads = {f"s{i}": _slice_of(rand(shape, g_dtype, 10.0 ** -(1 + step)), axis)
+                 for i, (shape, axis) in enumerate(shapes)}
+        n = cuda_adamw.fused_adamw.launches
+        state = tx.step_(params, grads, state)
+        assert cuda_adamw.fused_adamw.launches - n == 1
+        assert (tx.fused_leaves, tx.loop_leaves) == (len(params), 0)
+        ref_state = _loop_step(tx_ref, ref, {k: g.contiguous() for k, g in grads.items()},
+                               ref_state)
+        torch.cuda.synchronize()
+        _assert_adamw_equal(params, ref, state, ref_state, step)
+
+
+def test_fused_adamw_over_more_leaves_than_one_launch_takes(dev):
+    """MAX_LEAVES + 20 leaves of one group: two launches, bit-equal."""
+    from vault_tpu_torch.ops import cuda_adamw
+    from vault_tpu_torch.training import optimizer as topt
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n_leaves = cuda_adamw.MAX_LEAVES + 20
+    params = {f"w{i}": torch.randn((i % 37 + 1, 33), generator=gen, device=dev)
+              for i in range(n_leaves)}
+    ref = {k: v.clone() for k, v in params.items()}
+    tx, tx_ref = (topt.hf_adamw(1e-3, state_dtype=torch.bfloat16) for _ in range(2))
+    state, ref_state = tx.init(params), tx_ref.init(ref)
+    grads = {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+             for k, p in params.items()}
+    n = cuda_adamw.fused_adamw.launches
+    state = tx.step_(params, grads, state)
+    assert cuda_adamw.fused_adamw.launches - n == 2
+    ref_state = _loop_step(tx_ref, ref, grads, ref_state)
+    torch.cuda.synchronize()
+    _assert_adamw_equal(params, ref, state, ref_state, 0)

@@ -21,6 +21,15 @@ may be stored in bf16 (``state_dtype=torch.bfloat16``): the moment math runs
 in fp32, the new moments are rounded once to the stored type, and the
 update reads the *rounded* stored moments, as the JAX package does.
 
+On the card, fp32 and bf16 moments are updated by one launch of the
+hand-written multi-tensor kernel ``csrc/adamw.cu`` per dtype group
+(``ops/cuda_adamw.py``, in a ``vault.adamw.fused`` span), bit-equal to the
+per-leaf loop (:meth:`HfAdamW._leaf_step`), which stays the plain version
+and the CPU's path (``step_(..., plain=True)`` runs it on the card too);
+a leaf on the card that the kernel does not take raises ``ValueError``.
+``fused_leaves`` and ``loop_leaves`` count the leaves each route updated
+in the last step.
+
 ``state_dtype="int8"`` stores each moment as blockwise int8 codes
 (:class:`Q8Moment`: one fp32 absmax scale per 256 values, the second
 moment as sqrt(v)), the JAX package's 8-bit moments.  The blocks run over
@@ -39,6 +48,9 @@ from typing import Callable, Dict, List, Mapping, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from vault_tpu_torch.ops import cuda_adamw
+from vault_tpu_torch.utils.profiling import span
 
 
 def linear_warmup_linear_decay(base_lr: float, warmup_steps: int,
@@ -149,6 +161,9 @@ class HfAdamW:
         self.weight_decay = weight_decay
         self.correct_bias = correct_bias
         self.state_dtype = _state_dtype(state_dtype)
+        self._fused = cuda_adamw.FusedAdamW()
+        # the leaves each route updated in the last step
+        self.fused_leaves = self.loop_leaves = 0
 
     def lr_at(self, step: int) -> float:
         lr = self.learning_rate
@@ -188,30 +203,48 @@ class HfAdamW:
     @torch.no_grad()
     def step_(self, params: Mapping[str, torch.Tensor],
               grads: Mapping[str, torch.Tensor],
-              state: AdamWState) -> AdamWState:
+              state: AdamWState, plain: bool = False) -> AdamWState:
         """One update, in place on ``params`` and the moments in
-        ``state``; returns the state with the count advanced."""
+        ``state``; returns the state with the count advanced.  ``plain``:
+        every leaf on the per-leaf loop, the kernel's plain version (for
+        comparisons on the card)."""
         count = state.count + 1
         lr, step_size = self.step_sizes(count)
         decay = float(np.float32(lr) * np.float32(self.weight_decay))
-        b1, b2 = self.b1, self.b2
         if self.int8:
             for leaf, keys in q8_groups(params).items():
                 self._step_q8([params[k] for k in keys], [grads[k] for k in keys],
                               state.mu[leaf], state.nu[leaf], step_size, decay)
+            self.fused_leaves, self.loop_leaves = 0, len(params)
             return AdamWState(count, state.mu, state.nu)
-        # the JAX package's operation order, each op in fp32
-        for k, p in params.items():
-            g = grads[k].float()
-            m, v = state.mu[k], state.nu[k]
-            m.copy_(b1 * m.float() + (1 - b1) * g)
-            v.copy_(b2 * v.float() + (1 - b2) * (g * g))
-            # the update reads the stored (possibly rounded) moments
-            upd = (-step_size * m.float()) / (torch.sqrt(v.float()) + self.eps)
-            if self.weight_decay > 0.0:
-                upd = upd - decay * p.float()
-            p.add_(upd.to(p.dtype))
+        groups, loop = (({}, list(params)) if plain
+                        else cuda_adamw.split(params, grads, state.mu, state.nu))
+        if groups:
+            b1, b2 = self.b1, self.b2
+            with span("vault.adamw.fused"):
+                self._fused.step_(groups, cuda_adamw.Hyper(
+                    b1, 1 - b1, b2, 1 - b2, -step_size, self.eps, decay,
+                    self.weight_decay > 0.0))
+        for k in loop:
+            self._leaf_step(params[k], grads[k], state.mu[k], state.nu[k],
+                            step_size, decay)
+        self.fused_leaves = sum(len(group.rows) for group in groups.values())
+        self.loop_leaves = len(loop)
         return AdamWState(count, state.mu, state.nu)
+
+    def _leaf_step(self, p, g, m, v, step_size: float, decay: float):
+        """One leaf's update, in place: the plain version of
+        ``csrc/adamw.cu``, in the JAX package's operation order, each op in
+        fp32."""
+        b1, b2 = self.b1, self.b2
+        g = g.float()
+        m.copy_(b1 * m.float() + (1 - b1) * g)
+        v.copy_(b2 * v.float() + (1 - b2) * (g * g))
+        # the update reads the stored (possibly rounded) moments
+        upd = (-step_size * m.float()) / (torch.sqrt(v.float()) + self.eps)
+        if self.weight_decay > 0.0:
+            upd = upd - decay * p.float()
+        p.add_(upd.to(p.dtype))
 
     def _step_q8(self, ps, gs, mu: Q8Moment, nu: Q8Moment, step_size: float,
                  decay: float):

@@ -168,8 +168,12 @@ def count_products(fn: Callable[[], object]) -> Counter:
 
 
 def launch_counters() -> Dict[str, Callable]:
-    """Every kernel wrapper that counts its launches (``<wrapper>.launches``),
-    by the kernel's name."""
+    """Every kernel wrapper of the model's forward and backward that counts
+    its launches (``<wrapper>.launches``), by the kernel's name.  The
+    optimizer's kernel (``ops/cuda_adamw.py`` ``fused_adamw.launches``,
+    with ``HfAdamW.fused_leaves``) is counted apart: the launch tables
+    built from these count the model's kernels, over a whole training step
+    too."""
     from vault_tpu_torch.ops import cuda_attention as ca
     from vault_tpu_torch.ops import cuda_ln_qkv as cl
     from vault_tpu_torch.ops import cuda_mlp as cm
