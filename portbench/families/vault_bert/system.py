@@ -1,9 +1,9 @@
-"""The system under test: the PyTorch and CUDA port ``vault_tpu_torch``,
-entered where its users enter it.  Scoring calls a
-``VaultForClassification`` (quantized as its ``quantize`` does it when the
-configuration says so); training calls ``Trainer.train_step``.  This is
-the only module of the benchmark that imports the port, and it imports
-nothing else of the repository.
+"""The system under test for the ``vault_bert`` family: the PyTorch and
+CUDA port ``vault_tpu_torch``, entered where its users enter it.  Scoring
+calls a ``VaultForClassification`` (quantized as its ``quantize`` does it
+when the configuration says so); training calls ``Trainer.train_step``.
+Only a family's ``system.py`` imports the port, and it imports nothing
+else of the repository.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import torch
 from vault_tpu_torch.config import TextTowerConfig, VaultConfig, ViltConfig
 from vault_tpu_torch.models.vault import VaultForClassification
 from vault_tpu_torch.training.trainer import TrainArgs, Trainer, classifier_apply_fn
+
+MODES = ("score", "train")
 
 
 def _fields(cls, values: dict) -> dict:

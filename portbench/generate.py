@@ -1,5 +1,6 @@
-"""What a run makes from its seed: the model's weights and the traffic's
-batches, on the device, the same for the same seed.
+"""What a run makes from its seed: the model's weights (drawn by the
+configuration's family) and the traffic's batches, on the device, the
+same for the same seed.
 
 Every stream is a generator on the device seeded from the run's seed and a
 tag (:func:`derive`), so a batch can be made again from its index alone:
@@ -9,14 +10,13 @@ is data (``portbench/traffic/<name>.json``); :func:`make_batch` reads it.
 
 from __future__ import annotations
 
-import math
 import zlib
 from typing import Dict
 
 import numpy as np
 import torch
 
-from portbench.reference.vault_ref import param_shapes
+from portbench import families
 
 
 def derive(seed: int, tag: str, index: int = 0) -> int:
@@ -29,33 +29,10 @@ def generator(device, seed: int, tag: str, index: int = 0) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(derive(seed, tag, index))
 
 
-def weight_std(cfg: dict, name: str) -> float:
-    """The configuration's initializer range for a parameter: the text
-    tower's for its leaves, ViLT's for the others (and the head)."""
-    tower = "text_tower" if name.startswith("bert.") else "vilt"
-    return cfg[tower]["initializer_range"]
-
-
 def make_weights(cfg: dict, seed: int, dtype, device) -> Dict[str, torch.Tensor]:
-    """Every parameter of the configuration (``param_shapes``) from one
-    draw of standard normal values times the configuration's initializer
-    range: LayerNorm scales are 1 plus such a value, everything else
-    (matrices, embeddings, biases, LayerNorm shifts) the value itself, so
-    no leaf is a constant.  Each leaf gets storage of its own, in
-    ``dtype``."""
-    shapes = param_shapes(cfg)
-    total = sum(math.prod(s) for s in shapes.values())
-    flat = torch.randn(total, generator=generator(device, seed, "weights"),
-                       device=device, dtype=torch.float32)
-    out, off = {}, 0
-    for name, shape in shapes.items():
-        n = math.prod(shape)
-        leaf = flat[off:off + n].view(shape).mul_(weight_std(cfg, name))
-        if name.endswith(".scale"):
-            leaf.add_(1.0)
-        out[name] = leaf.to(dtype, copy=True)
-        off += n
-    return out
+    """Every parameter of the configuration, made on ``device`` in ``dtype``
+    by its family (``portbench/families/<family>/weights.py``)."""
+    return families.load(cfg, "weights").make_weights(cfg, seed, dtype, device)
 
 
 def make_batch(traffic: dict, cfg: dict, seed: int, index: int, device):

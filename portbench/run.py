@@ -4,14 +4,15 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The run makes its weights and traffic on the device from ``--seed``
-(``portbench/generate.py``), builds the system (``portbench/system.py``),
-warms up the cell's shapes, measures for ``--seconds``, then compares what
-the measured window produced with the plain reference
-(``portbench/check.py``).  With ``--trace 0`` it reports the cell's
-end-to-end metrics; with ``--trace 1`` it also traces a short window after
-the measured one and reports the per-layer metrics and the breakdown.  Its
-last line on standard output is one JSON object; each number compared is
-printed beside its limit as the last lines on standard error.
+(``portbench/generate.py``), builds the system (the ``system.py`` of the
+configuration's family, ``portbench/families/``), warms up the cell's
+shapes, measures for ``--seconds``, then compares what the measured window
+produced with the plain reference (``portbench/check.py``).  With
+``--trace 0`` it reports the cell's end-to-end metrics; with ``--trace 1``
+it also traces a short window after the measured one and reports the
+per-layer metrics and the breakdown.  Its last line on standard output is
+one JSON object; each number compared is printed beside its limit as the
+last lines on standard error.
 
 It exits with a code other than 0 and prints no result when no card (or
 fewer than the cell asks for) is present, when the program is missing, or
@@ -246,9 +247,10 @@ def build_scorer(cfg: dict, traffic: dict, seed: int, device, marks: list):
     (model, the batch maker, the first batch after the warm-up)."""
     import torch
 
-    from portbench import system
+    from portbench import families
     from portbench.generate import make_batch, make_weights
 
+    system = families.system(cfg, traffic["mode"])
     weights = make_weights(cfg, seed, getattr(torch, cfg["dtype"]), device)
     _mark(marks, "weights", device)
     model = system.build_scorer(cfg, weights)
@@ -325,9 +327,10 @@ def build_trainer(cfg: dict, traffic: dict, seed: int, device, marks: list):
     readings of those steps)."""
     import torch
 
-    from portbench import system
+    from portbench import families
     from portbench.generate import make_batch, make_weights
 
+    system = families.system(cfg, traffic["mode"])
     weights = make_weights(cfg, seed, torch.float32, device)
     _mark(marks, "weights", device)
     trainer = system.build_trainer(cfg, traffic, weights, seed)

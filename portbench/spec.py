@@ -3,8 +3,10 @@ root of the checkout lists the cells and the metrics; each configuration
 is ``portbench/configs/<name>.json``, each traffic mix
 ``portbench/traffic/<name>.json``, each metric's reader
 ``portbench/metrics/<name>.py`` (a module with ``read(ctx)``, which returns
-a number or None where it finds nothing to read).  A cell, configuration,
-traffic mix or metric is added by adding its files and its entries.
+a number or None where it finds nothing to read), and the model family a
+configuration names ``portbench/families/<family>/``
+(:mod:`portbench.families`).  A cell, configuration, traffic mix, metric
+or family is added by adding its files and its entries.
 """
 
 from __future__ import annotations

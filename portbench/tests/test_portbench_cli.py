@@ -10,7 +10,7 @@ import pytest
 
 from conftest import REPO, copy_benchmark
 
-ARGS = ["--workload", "bertweet-bf16.score_b64", "--seed", "7", "--seconds", "1",
+ARGS = ["--workload", "bertweet-bf16.score_b256", "--seed", "7", "--seconds", "1",
         "--trace", "0"]
 
 

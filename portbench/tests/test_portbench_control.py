@@ -26,8 +26,8 @@ def _readings(cell):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["bertweet-bf16.score_b64", "bert-w8a8.score_b64",
-                                  "bertweet-bf16.train_b32"])
+@pytest.mark.parametrize("cell", ["bertweet-bf16.score_b256", "bert-w8a8.score_b256",
+                                  "bertweet-bf16.train_b256"])
 def test_the_control_fails_where_the_program_passes(cell):
     judged = _readings(cell)
     assert all(c["ok"] for c in judged.pop("program").values())

@@ -1,6 +1,7 @@
 """What the benchmark may import: nothing of JAX or the JAX package
-anywhere, nothing of the program in the reference, and the program only
-through ``portbench/system.py`` (the tests drive it too)."""
+anywhere, nothing of the program in the reference nor in a family's
+weights, reference or product count, and the program only through a
+family's ``system.py`` (the tests drive it too)."""
 
 import ast
 import sys
@@ -33,8 +34,13 @@ def test_no_jax_nor_the_jax_package(path):
     assert not top_level_imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted((HERE / "reference").rglob("*.py")),
-                         ids=lambda p: p.name)
+PLAIN = sorted([*(HERE / "reference").rglob("*.py"),
+                *(p for part in ("reference", "weights", "flops")
+                  for p in (HERE / "families").glob(f"*/{part}.py"))])
+
+
+@pytest.mark.parametrize("path", PLAIN, ids=lambda p: p.name if p.parent == HERE / "reference"
+                         else p.relative_to(HERE).as_posix())
 def test_reference_imports_nothing_of_the_program(path):
     assert "vault_tpu_torch" not in top_level_imports(path)
     assert top_level_imports(path) <= {"__future__", "math", "typing", "numpy", "torch",
@@ -44,7 +50,8 @@ def test_reference_imports_nothing_of_the_program(path):
 def test_only_the_system_module_imports_the_program():
     users = {p.relative_to(HERE).as_posix() for p in SOURCES
              if "vault_tpu_torch" in top_level_imports(p) and "tests" not in p.parts}
-    assert users == {"system.py"}
+    systems = {p.relative_to(HERE).as_posix() for p in (HERE / "families").glob("*/system.py")}
+    assert "families/vault_bert/system.py" in users and users <= systems
 
 
 def test_whole_names_are_compared(monkeypatch):

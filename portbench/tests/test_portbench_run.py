@@ -17,8 +17,8 @@ from portbench.reference.vault_ref import classifier_logits
 
 CPU = torch.device("cpu")
 SEED = 2**33 + 12345
-SCORE_CELLS = ["bertweet-bf16.score_b64", "bert-w8a8.score_b64"]
-TRAIN_CELL = "bertweet-bf16.train_b32"
+SCORE_CELLS = ["bertweet-bf16.score_b256", "bert-w8a8.score_b256"]
+TRAIN_CELL = "bertweet-bf16.train_b256"
 
 
 def result(spec, cell):
@@ -123,7 +123,7 @@ def test_a_broken_training_step_is_not_correct(tiny_spec, monkeypatch, fault):
 
 @pytest.mark.parametrize("prec", [None, "int8", "fp8"])
 def test_reference_runs_and_repeats(tiny_spec, prec):
-    cell = tiny_spec.cell("bertweet-bf16.score_b64")
+    cell = tiny_spec.cell("bertweet-bf16.score_b256")
     cfg, traffic = tiny_spec.config(cell["config"]), tiny_spec.traffic(cell["traffic"])
     p = reference_weights(cfg, SEED, torch.bfloat16, CPU)
     inputs, _ = make_batch(traffic, cfg, SEED, 3, CPU)

@@ -98,7 +98,7 @@ def test_a_new_config_traffic_and_metric_are_found_by_name(tmp_path):
     cfg = json.loads((root / "configs" / "vault-bertweet-vilt-b32.json").read_text())
     cfg["name"] = "vault-bertweet-vilt-b32-merged"
     (root / "configs" / "vault-bertweet-vilt-b32-merged.json").write_text(json.dumps(cfg))
-    traffic = json.loads((root / "traffic" / "score_b64.json").read_text())
+    traffic = json.loads((root / "traffic" / "score_b256.json").read_text())
     traffic["batch"] = 8
     (root / "traffic" / "score_b8.json").write_text(json.dumps(traffic))
     (root / "metrics" / "batches.score.py").write_text(

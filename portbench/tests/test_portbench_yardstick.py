@@ -11,7 +11,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from portbench import devtrace, flops, roofline
+from portbench import devtrace, families, flops, roofline
 
 HERE = Path(__file__).resolve().parents[1]
 CANVAS = (384, 608)
@@ -33,7 +33,7 @@ def test_forward_products_at_entry_geometry():
     """bert-base-uncased + ViLT-B/32, batch 16, 40 tokens, 384 x 608: BERT
     12 x 9.14 GF, ViLT (L 256) 12 x 61.2 GF, the projection 17.2 GF."""
     cfg = config("vault-bert-base-vilt-b32-w8a8")
-    assert flops.vilt_length(cfg, 40, CANVAS) == 256
+    assert families.load(cfg, "flops").vilt_length(cfg, 40, CANVAS) == 256
     kinds = flops.forward_products(cfg, 16, 40, CANVAS)
     bert = 2 * 640 * 768 * (4 * 768 + 2 * 3072) + 4 * 16 * 40 * 40 * 768
     assert bert == pytest.approx(9.14e9, rel=1e-3)
