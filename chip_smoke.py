@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels from ``vault_tpu_torch/csrc``, holds each
 (forward and backward) against its plain PyTorch version at the main path's
-shapes, times it beside its bound and a PyTorch library call, drives the
+shapes, times it beside its bound and a PyTorch library call (the routed
+experts' grouped kernel at Moonlight-16B-A3B's widths, with its launches
+from a forward of that tower), drives the
 VAuLT-base classifier (bert-base-uncased tower + ViLT-B/32, seeded random
 weights) through ``VaultForClassification`` and a ``BatchingEngine`` (bf16;
 then bf16 on the fused LN->QKV selector; then quantized w8a8, int8 weights
@@ -58,7 +60,7 @@ exits non-zero and prints no result.  Imports nothing of JAX or of the JAX
 package.
 
 ``--phases a,b`` runs only the named groups of phases (``kernels``,
-``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``, ``tasks``,
+``moe``, ``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``, ``tasks``,
 ``baselines``, ``options``, ``parallel``, ``bench``) while
 working on one of them; such
 a run ends with ``{"partial": [...]}``, not with the ``ok`` line.
@@ -1980,6 +1982,125 @@ def check_geometry_kernels(gen, dev, name, cfg, rows, counts):
     check_route("attention_gqa", at)
     emit(phase="kernel_check", **at)
     return [sw, at]
+
+
+# Moonlight-16B-A3B's routed experts (csrc/moe_experts.cu): H 2,048, I
+# 1,408, 64 experts, 6 a token, a batch of 256 x 40 tokens, so R = 61,440
+# routed rows.  The kernel and its plain version (a cuBLAS fp32 product an
+# expert) round at the same points and sum in other orders, so an
+# intermediate element may round to its neighbour: 2^-7 of the largest
+# output.  A call is two kernels (gate/up, then down); the tower launches
+# one call in each MoE layer.
+MOE_SHAPE = dict(rows=61440, hidden=2048, intermediate=1408, experts=64, top_k=6)
+MOE_LIMIT = 2.0 ** -7
+MOE_KERNELS_PER_CALL = 2
+MOE_TOWER_LAYERS = 3  # 1 dense + 2 MoE layers at the published widths
+
+
+def moe_routing(gen, dev, kind, tokens, experts, k):
+    """(tokens, k) distinct experts a row: drawn uniformly (as a router at
+    random weights chooses), skewed (a few experts take most rows), or with
+    experts 40-63 empty and expert 7 in every row."""
+    import torch
+
+    scores = torch.rand((tokens, experts), generator=gen, device=dev)
+    if kind == "skewed":
+        scores = scores + 2.0 / (1.0 + torch.arange(experts, device=dev))
+    elif kind == "empty":
+        scores[:, 40:] = -1.0
+        scores[:, 7] = 2.0
+    return torch.topk(scores, k, dim=-1).indices
+
+
+def moe_phase(dev, gen):
+    """The grouped kernel ``vault_tpu_torch::moe_experts`` against
+    ``moe_experts_plain`` on the same card tensors at ``MOE_SHAPE`` (uniform,
+    skewed and empty-expert routings; repeats bit-equal), timed beside its
+    bound and its plain version; then its launches from a forward of the
+    Moonlight tower at the published widths (``MOE_TOWER_LAYERS`` layers),
+    the counters set to 0 just before, under ``set_sync_debug_mode("error")``:
+    one call and two ``grouped_kernel`` launches an MoE layer.  Returns the
+    kernel's row of the table."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vault_tpu_torch.models import deepseek as ds
+    from vault_tpu_torch.ops import cuda_moe, moe
+
+    r, h, i, e, k = (MOE_SHAPE[n] for n in ("rows", "hidden", "intermediate", "experts",
+                                              "top_k"))
+    tokens = r // k
+    bf = torch.bfloat16
+    wg, wu = (torch.randn((e, i, h), generator=gen, device=dev).mul_(0.02).to(bf)
+              for _ in range(2))
+    wd = torch.randn((e, h, i), generator=gen, device=dev).mul_(0.02).to(bf)
+    row = None
+    for kind in ("uniform", "skewed", "empty"):
+        offsets, order, _ = moe.dispatch(moe_routing(gen, dev, kind, tokens, e, k), e)
+        x = torch.randn((tokens, h), generator=gen, device=dev).to(bf).index_select(0, order // k)
+        route_w = torch.rand((r,), generator=gen, device=dev)
+        args = (x, wg, wu, wd, offsets, route_w)
+        out, again = cuda_moe.MOE_EXPERTS(*args), cuda_moe.MOE_EXPERTS(*args)
+        want = moe.moe_experts_plain(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        limit = MOE_LIMIT * want.float().abs().max().item()
+        what = f"moe_experts {kind} R={r} H={h} I={i} E={e}"
+        if not math.isfinite(err) or err > limit:
+            fail(f"{what}: max |kernel - plain| {err} over the limit {limit}")
+        if not torch.equal(out, again):
+            fail(f"{what}: two launches differ")
+        counts = (offsets[1:] - offsets[:-1]).tolist()
+        check = dict(kernel="moe_experts", routing=kind, **MOE_SHAPE, max_abs_err=err,
+                     limit=limit, bit_equal_repeat=True, rows_per_expert=[min(counts),
+                                                                         max(counts)])
+        if kind == "uniform":
+            timed(lambda: cuda_moe.MOE_EXPERTS(*args), "", check)
+            check["plain_ms"], _ = device_ms(lambda: moe.moe_experts_plain(*args), iters=3)
+            flops = 6.0 * r * h * i
+            nbytes = 2 * r * h * 2 + 3 * e * i * h * 2 + 2 * r * i * 2 + r * 4 + (e + 1) * 4
+            check["bound_ms"], check["bound_by"] = bound_ms(flops, nbytes, bf)
+            check["bound_share"] = check["bound_ms"] / check["ms"]
+            ran = check["device_kernels"]
+            if [n for n in ran if "grouped_kernel" not in n]:
+                fail(f"{what}: the operator ran other kernels: {sorted(ran)}")
+            row = check
+        emit(phase="kernel_check", **check)
+    del wg, wu, wd, x, out, again, want, args
+    torch.cuda.empty_cache()
+
+    cfg = ds.DeepseekConfig(num_hidden_layers=MOE_TOWER_LAYERS)
+    tower_gen = torch.Generator(device=dev).manual_seed(25)
+    p = ds.init_deepseek(tower_gen, cfg, bf)
+    ids = torch.randint(1, cfg.vocab_size, (256, 40), generator=tower_gen, device=dev)
+    lengths = torch.randint(8, 41, (256,), generator=tower_gen, device=dev)
+    mask = (torch.arange(40, device=dev)[None] < lengths[:, None]).long()
+    moe_layers = sum(cfg.is_moe(n) for n in range(cfg.num_hidden_layers))
+    with torch.inference_mode():
+        ds.deepseek_apply(p, cfg, ids, mask)
+        torch.cuda.synchronize()
+        cuda_moe.fused_moe_experts.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ds.deepseek_apply(p, cfg, ids, mask)
+                torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    calls = cuda_moe.fused_moe_experts.launches
+    grouped = sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and "grouped_kernel" in ev.name)
+    if calls != moe_layers or grouped != MOE_KERNELS_PER_CALL * moe_layers:
+        fail(f"moe_experts: a {cfg.num_hidden_layers}-layer Moonlight forward made {calls} "
+             f"calls and {grouped} grouped_kernel launches; expected {moe_layers} and "
+             f"{MOE_KERNELS_PER_CALL * moe_layers}")
+    emit(phase="moe_tower_launches", layers=cfg.num_hidden_layers, moe_layers=moe_layers,
+         calls=calls, grouped_kernel_launches=grouped, synchronised=False)
+    del p
+    torch.cuda.empty_cache()
+    row.update(launches=calls, launches_path=f"moonlight tower, {moe_layers} MoE layers",
+               kernel_launches=grouped)
+    return row
 
 
 def llama_geometries_phase(dev):
@@ -5177,7 +5298,7 @@ def bench_phase(dev):
             "bench_train_step": train["launches_per_step"]}
 
 
-PHASES = ("kernels", "vault", "w8", "llama", "train", "merge", "serve", "tasks",
+PHASES = ("kernels", "moe", "vault", "w8", "llama", "train", "merge", "serve", "tasks",
           "baselines", "options", "parallel", "bench")
 
 
@@ -5251,6 +5372,8 @@ def main():
         torch.cuda.empty_cache()
 
     lap("kernels")
+    moe_row = moe_phase(dev, gen) if "moe" in phases else None
+    lap("moe")
     if "vault" in phases or "w8" in phases:
         model, cfg, path_counts["forward"] = forward_phase(dev)
     if "vault" in phases:
@@ -5407,6 +5530,16 @@ def main():
             wall_ms=r["wall_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], library=r["library"],
             design="wgmma", device_kernels=r["device_kernels"]))
+    # the routed experts (no TPU kernel: the JAX package has none), launches
+    # from the Moonlight tower's forward
+    kernels.append(dict(
+        name="moe_experts", route="cuda", source="vault_tpu_torch/csrc/moe_experts.cu",
+        replaces=None, launches=moe_row["launches"], launches_path=moe_row["launches_path"],
+        kernel_launches=moe_row["kernel_launches"], max_abs_err=moe_row["max_abs_err"],
+        ms=moe_row["ms"], wall_ms=moe_row["wall_ms"], plain_ms=moe_row["plain_ms"],
+        bound_ms=moe_row["bound_ms"], bound_by=moe_row["bound_by"],
+        bound_share=moe_row["bound_share"], design="wgmma",
+        device_kernels=moe_row["device_kernels"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

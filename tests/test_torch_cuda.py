@@ -1299,3 +1299,102 @@ def test_fused_adamw_over_more_leaves_than_one_launch_takes(dev):
     ref_state = _loop_step(tx_ref, ref, grads, ref_state)
     torch.cuda.synchronize()
     _assert_adamw_equal(params, ref, state, ref_state, 0)
+
+
+# Moonlight-16B-A3B's routed experts: H 2,048, I 1,408, 64 experts, 6 a
+# token, a batch of 10,240 tokens (256 x 40): R = 61,440 routed rows
+MOE_H, MOE_I, MOE_E, MOE_K, MOE_TOKENS = 2048, 1408, 64, 6, 10240
+# the kernel against the plain version on the card (cuBLAS fp32 sums): the
+# same roundings, sums in another order, so an intermediate element may
+# round to its neighbour; 2^-7 of the largest output
+MOE_LIMIT = 2.0 ** -7
+
+
+def _moe_chosen(kind, g, dev):
+    """(tokens, k) distinct experts a row: drawn uniformly, skewed (a few
+    experts take most rows), or with experts 40-63 empty and expert 7 in
+    every row."""
+    scores = torch.rand((MOE_TOKENS, MOE_E), generator=g, device=dev)
+    if kind == "skewed":
+        scores = scores + 2.0 / (1.0 + torch.arange(MOE_E, device=dev))
+    elif kind == "empty":
+        scores[:, 40:] = -1.0
+        scores[:, 7] = 2.0
+    return torch.topk(scores, MOE_K, dim=-1).indices
+
+
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "empty"])
+def test_moe_experts_kernel_matches_per_expert_products(dev, kind):
+    from vault_tpu_torch.ops import cuda_moe, moe
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    chosen = _moe_chosen(kind, g, dev)
+    offsets, order, _ = moe.dispatch(chosen, MOE_E)
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    if kind == "empty":
+        assert counts[7] == MOE_TOKENS and counts[40:] == [0] * 24
+    x = torch.randn((MOE_TOKENS, MOE_H), generator=g, device=dev).to(torch.bfloat16)
+    x = x.index_select(0, order // MOE_K)
+    route_w = torch.rand((x.shape[0],), generator=g, device=dev)
+    wg, wu = (torch.randn((MOE_E, MOE_I, MOE_H), generator=g, device=dev).mul_(0.02)
+              .to(torch.bfloat16) for _ in range(2))
+    wd = torch.randn((MOE_E, MOE_H, MOE_I), generator=g, device=dev).mul_(0.02).to(torch.bfloat16)
+    n = cuda_moe.fused_moe_experts.launches
+    out = cuda_moe.MOE_EXPERTS(x, wg, wu, wd, offsets, route_w)
+    torch.cuda.synchronize()
+    assert cuda_moe.fused_moe_experts.launches - n == 1
+    want = moe.moe_experts_plain(x, wg, wu, wd, offsets, route_w)
+    err = (out.float() - want.float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= MOE_LIMIT * want.float().abs().max().item(), err
+    again = cuda_moe.MOE_EXPERTS(x, wg, wu, wd, offsets, route_w)
+    assert torch.equal(out, again)
+
+
+def _moonlight_tower(dev, layers, **kw):
+    from vault_tpu_torch.models import deepseek as ds
+
+    cfg = ds.DeepseekConfig(num_hidden_layers=layers, **kw)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    p = ds.init_deepseek(gen, cfg, torch.bfloat16)
+    ids = torch.randint(1, cfg.vocab_size, (64, 40), generator=gen, device=dev)
+    lengths = torch.randint(8, 41, (64,), generator=gen, device=dev)
+    mask = (torch.arange(40, device=dev)[None] < lengths[:, None]).long()
+    return cfg, p, ids, mask
+
+
+def test_moonlight_tower_forward_does_not_sync_and_repeats_bit_for_bit(dev):
+    """Published widths, one dense and two MoE layers: a forward under
+    set_sync_debug_mode("error"), then the same forward again."""
+    from vault_tpu_torch.models import deepseek as ds
+    from vault_tpu_torch.ops import cuda_moe
+
+    cfg, p, ids, mask = _moonlight_tower(dev, 3)
+    n = cuda_moe.fused_moe_experts.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            out = ds.deepseek_apply(p, cfg, ids, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda_moe.fused_moe_experts.launches - n == 2
+    with torch.inference_mode():
+        again = ds.deepseek_apply(p, cfg, ids, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.equal(out, again)
+
+
+def test_moonlight_tower_kernel_path_against_its_plain_path(dev, monkeypatch):
+    """One dense and one MoE layer, so both paths route the same inputs:
+    the hidden states within the bf16 forward limit, the plain path the
+    operator with the plain composition in the kernel's place."""
+    from vault_tpu_torch.models import deepseek as ds
+    from vault_tpu_torch.ops import cuda_moe, moe
+
+    cfg, p, ids, mask = _moonlight_tower(dev, 2)
+    with torch.inference_mode():
+        out = ds.deepseek_apply(p, cfg, ids, mask)
+        monkeypatch.setattr(cuda_moe, "fused_moe_experts", moe.moe_experts_plain)
+        plain = ds.deepseek_apply(p, cfg, ids, mask)
+    err = (out.float() - plain.float()).abs().max().item()
+    assert err <= LIMITS[torch.bfloat16], err

@@ -34,6 +34,7 @@ import torch
 
 from vault_tpu_torch.config import VaultConfig, ViltConfig
 from vault_tpu_torch.models import bert as bert_mod
+from vault_tpu_torch.models import deepseek as deepseek_mod
 from vault_tpu_torch.models import llama as llama_mod
 from vault_tpu_torch.models import vilt as vilt_mod
 from vault_tpu_torch.models.vilt import ViltOutput
@@ -257,19 +258,18 @@ def resize_modality_type_embeddings(vilt_params, num_images: int):
     return {**vilt_params, "modality_type": new}
 
 
-def vault_with_llama_tower(params, vilt_cfg: ViltConfig, llama_cfg,
-                           input_ids, attention_mask=None, token_type_ids=None,
-                           pixel_values=None, pixel_mask=None,
-                           image_embeds=None, deterministic=True, generator=None,
-                           use_pallas="auto") -> ViltOutput:
-    """A Llama tower's hidden states, width-projected to ViLT's hidden size,
-    in place of the BERT contextual embeddings that feed the co-encoder
-    (the JAX package's function of the same name).  ViLT's own text position
-    embeddings are switched off; ``token_type_ids`` pass through.
-    ``use_pallas`` selects the ViLT half's kernels, ``llama_cfg.attn_impl``
-    and ``mlp_impl`` the tower's."""
-    hidden = llama_mod.llama_apply(params["llama"], llama_cfg, input_ids,
-                                   attention_mask)
+def vault_with_tower(params, vilt_cfg: ViltConfig, tower: Callable, input_ids,
+                     attention_mask=None, token_type_ids=None, pixel_values=None,
+                     pixel_mask=None, image_embeds=None, deterministic=True,
+                     generator=None, use_pallas="auto") -> ViltOutput:
+    """A decoder tower's hidden states (``tower(input_ids, attention_mask)``,
+    in a ``vault.text_tower`` span), width-projected by ``lm_proj`` to
+    ViLT's hidden size, in place of the BERT contextual embeddings that
+    feed the co-encoder.  ViLT's own text position embeddings are switched
+    off; ``token_type_ids`` pass through.  ``use_pallas`` selects the ViLT
+    half's kernels."""
+    with span("vault.text_tower"):
+        hidden = tower(input_ids, attention_mask)
     if "lm_proj" in params:
         hidden = linear(params["lm_proj"], hidden)
     vcfg = dataclasses.replace(vilt_cfg, add_text_position_embeddings=False)
@@ -278,6 +278,28 @@ def vault_with_llama_tower(params, vilt_cfg: ViltConfig, llama_cfg,
         token_type_ids=token_type_ids, pixel_values=pixel_values,
         pixel_mask=pixel_mask, inputs_embeds=hidden, image_embeds=image_embeds,
         deterministic=deterministic, generator=generator, use_pallas=use_pallas)
+
+
+def vault_with_llama_tower(params, vilt_cfg: ViltConfig, llama_cfg, input_ids,
+                           attention_mask=None, **kwargs) -> ViltOutput:
+    """:func:`vault_with_tower` on a Llama tower (the JAX package's function
+    of the same name); ``llama_cfg.attn_impl`` and ``mlp_impl`` select the
+    tower's kernels."""
+    return vault_with_tower(
+        params, vilt_cfg,
+        lambda ids, mask: llama_mod.llama_apply(params["llama"], llama_cfg, ids, mask),
+        input_ids, attention_mask, **kwargs)
+
+
+def vault_with_deepseek_tower(params, vilt_cfg: ViltConfig, deepseek_cfg, input_ids,
+                              attention_mask=None, routes=None, **kwargs) -> ViltOutput:
+    """:func:`vault_with_tower` on a DeepSeek-V3 tower (models/deepseek.py);
+    ``routes``, a list, gets each MoE layer's chosen experts."""
+    return vault_with_tower(
+        params, vilt_cfg,
+        lambda ids, mask: deepseek_mod.deepseek_apply(params["deepseek"], deepseek_cfg, ids,
+                                                      mask, routes=routes),
+        input_ids, attention_mask, **kwargs)
 
 
 def vault_for_classification(params, cfg: VaultConfig, batch: Dict[str, Any],
@@ -535,3 +557,51 @@ class VaultWithLlamaTower(_ServedModel):
         return vault_with_llama_tower(
             self, self.vilt_cfg, self.llama_cfg, deterministic=True,
             use_pallas=self.use_pallas if use_pallas is None else use_pallas, **batch)
+
+
+class VaultWithDeepseekTower(_ServedModel):
+    """A DeepSeek-V3 tower (models/deepseek.py; Moonlight-16B-A3B at its
+    defaults) feeding ViLT through a width projection, with the classifier
+    head, as a module: ``deepseek``, ``lm_proj``, ``vilt`` and ``head``.
+    ``forward(batch)`` returns the logits of a deterministic pass
+    (:func:`vault_with_deepseek_tower`, then the head in a ``vault.head``
+    span), under the NaN checks while they are on.
+
+    Runs on the card unless ``device`` names another; with no card and no
+    device it raises.  Weights are seeded random (``seed``): the tower
+    drawn on the device in ``dtype`` (its norm weights and router biases
+    fp32), ``lm_proj``, ViLT and the head on the host, then moved.  On the
+    meta device nothing is drawn: a model whose weights are loaded with
+    ``load_state_dict(..., assign=True)``, as a 31 GB tower is best made.
+    ``use_pallas`` selects ViLT's kernels; the routed experts take the
+    operator ``vault_tpu_torch::moe_experts`` (the grouped kernel on the
+    card).  ``forward(batch, routes=[])`` also puts each MoE layer's chosen
+    experts (B L, k) in the list, as routed.
+    """
+
+    def __init__(self, vilt_cfg: ViltConfig, deepseek_cfg: "deepseek_mod.DeepseekConfig",
+                 n_classes: int = 3, device=None, dtype: torch.dtype = torch.float32,
+                 seed: int = 0, use_pallas="auto", head_dropout: float = 0.1):
+        super().__init__()
+        device = resolve_device(device)
+        gen = (None if device.type == "meta"
+               else torch.Generator(device=device).manual_seed(seed))
+        self.deepseek = deepseek_mod.init_deepseek(gen, deepseek_cfg, dtype, device)
+        host_gen = torch.Generator().manual_seed(seed)
+        self.lm_proj = llama_mod.init_lm_projection(
+            host_gen, deepseek_cfg.hidden_size, vilt_cfg.hidden_size).to(device, dtype)
+        self.vilt = vilt_mod.init_vilt(host_gen, vilt_cfg).to(device, dtype)
+        self.head = init_classifier_head(host_gen, vilt_cfg.hidden_size,
+                                         n_classes).to(device, dtype)
+        self.vilt_cfg, self.deepseek_cfg = vilt_cfg, deepseek_cfg
+        self.use_pallas = use_pallas
+        self.head_dropout = head_dropout
+
+    @nan_checked
+    def forward(self, batch: Dict[str, Any], use_pallas=None, routes=None) -> torch.Tensor:
+        batch = batch_to_device(batch, self.device)
+        out = vault_with_deepseek_tower(
+            self, self.vilt_cfg, self.deepseek_cfg, routes=routes, deterministic=True,
+            use_pallas=self.use_pallas if use_pallas is None else use_pallas, **batch)
+        with span("vault.head"):
+            return classifier_head_apply(self.head, out.pooler_output, self.head_dropout)

@@ -14,11 +14,11 @@ that an operation of a forward or a training step produces raises at that
 operation.
 The forward is checked by :class:`NanCheckMode`, a dispatch mode entered
 around every top-level forward while checks are on (each trainer step and
-evaluation batch, ``VaultForClassification`` and ``VaultWithLlamaTower``
-calls through :func:`nan_checked`, a ``VaultPipeline`` call, each batch a
-``BatchingEngine`` serves on its own thread, each replica thread of the
-data-parallel serving forward), the backward by autograd's anomaly mode
-(``check_nan``).
+evaluation batch, ``VaultForClassification``, ``VaultWithLlamaTower`` and
+``VaultWithDeepseekTower`` calls through :func:`nan_checked`, a
+``VaultPipeline`` call, each batch a ``BatchingEngine`` serves on its own
+thread, each replica thread of the data-parallel serving forward), the
+backward by autograd's anomaly mode (``check_nan``).
 
 The card's clocks (used by ``chip_smoke.py`` and the bench CLIs,
 ``cli/bench.py`` and its siblings): :func:`time_ms` is the CUDA-event time
@@ -92,9 +92,10 @@ def span(name: str):
     profiler starts after the model is built; with none running nothing of
     the profiler is entered, so an exported or fake-tensor-traced forward
     holds no profiler node.  The program's spans (``vault.*``: the towers,
-    each encoder layer, the head, a training step's forward, backward and
-    optimizer) and ``train_step:<n>`` go through it; :func:`trace`'s files
-    and ``portbench/spans.py`` read them."""
+    each encoder layer, the DeepSeek tower's attention and expert halves,
+    the head, a training step's forward, backward and optimizer) and
+    ``train_step:<n>`` go through it; :func:`trace`'s files and
+    ``portbench/spans.py`` read them."""
     if torch.autograd.profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _NO_SPAN
