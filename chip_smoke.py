@@ -60,7 +60,7 @@ exits non-zero and prints no result.  Imports nothing of JAX or of the JAX
 package.
 
 ``--phases a,b`` runs only the named groups of phases (``kernels``,
-``moe``, ``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``, ``tasks``,
+``attn_bwd``, ``moe``, ``vault``, ``w8``, ``llama``, ``train``, ``merge``, ``serve``, ``tasks``,
 ``baselines``, ``options``, ``parallel``, ``bench``) while
 working on one of them; such
 a run ends with ``{"partial": [...]}``, not with the ``ok`` line.
@@ -167,6 +167,7 @@ GEMM_CORE_LIMIT = 1e-4
 ROUTE_KERNELS = {
     ("encoder_attention", "wgmma"): ("attention_wgmma",),
     ("attention_gqa", "wgmma"): ("attention_wgmma",),
+    ("attention_bwd", "wgmma"): ("attention_bwd_dq", "attention_bwd_dkv"),
     ("mlp_block", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
     ("mlp_block_q8", "wgmma"): ("dequant_kernel", "gemm_kernel", "ln_rows_bf16"),
     ("mlp_postln_q8", "wgmma"): ("dequant_kernel", "gemm_kernel", "mlp_epilogue"),
@@ -204,7 +205,7 @@ SWIGLU_WIDTHS = ((2048, 8192), (512, 1536), (576, 1536), (400, 960), (128, 1376)
 # points through 24 layers and their recomputes.
 STEP_LIMITS = {"grad_rel": 5e-2, "loss": 1e-2}
 TRAIN_BATCH = 32
-KERNEL_NAMES = ("encoder_attention", "mlp_block", "mlp_postln", "mlp_block_bwd",
+KERNEL_NAMES = ("encoder_attention", "attention_bwd", "mlp_block", "mlp_postln", "mlp_block_bwd",
                 "mlp_postln_bwd", "ln_qkv", "ln_qkv_w8a8", "mlp_block_w8a8",
                 "mlp_postln_w8a8", "mlp_block_q8", "mlp_postln_q8", "attention_gqa",
                 "swiglu_w8a8")
@@ -240,10 +241,12 @@ LLAMA_LAUNCHES = launches(attention_gqa=LLAMA_LAYERS, swiglu_w8a8=LLAMA_LAYERS,
                           encoder_attention=12, mlp_block=12)
 # One training step with remat: the forward launches each MLP block once per
 # layer and remat's recompute in the backward once more; each backward kernel
-# runs once per layer; attention takes its kernel only when deterministic, so
-# a training step launches none.
-STEP_LAUNCHES = launches(mlp_block=24, mlp_postln=24, mlp_block_bwd=12,
-                         mlp_postln_bwd=12)
+# runs once per layer.  Attention takes its kernels where no dropout is
+# drawn: ViLT's 12 layers (attention dropout 0) launch the forward kernel
+# in the forward and in the recompute and the backward kernel once; BERT's
+# (dropout 0.1) run the plain composition.
+STEP_LAUNCHES = launches(encoder_attention=24, attention_bwd=12, mlp_block=24,
+                         mlp_postln=24, mlp_block_bwd=12, mlp_postln_bwd=12)
 # The serve and tasks groups run both towers at this depth (full width, 6
 # of their 12 layers) so that the whole run, the parallel group included,
 # stays near half the time limit; the full-depth forward, serving and
@@ -403,6 +406,91 @@ def check_attention(gen, dev):
             check_route("encoder_attention", row)
         emit(phase="kernel_check", **row)
         rows.append(row)
+    return rows
+
+
+# The backward kernel (``fused_attention_bwd``) against the autograd of the
+# plain composition on the same bf16 inputs and output gradient, per
+# gradient: ||kernel - plain|| / ||plain||.  Both round dP and P to bf16 at
+# the same points; the kernel also feeds dS / sqrt(d) to the tensor cores in
+# bf16 (one ulp, 2^-8 relative, of each term) and sums in other orders.
+ATTENTION_BWD_LIMIT = 2.0 ** -7
+# ViLT-B/32's attention in a training step at batch 256: 12 heads, L 256
+# (40 text + 1 + 215 patches), head dim 64.
+VILT_TRAIN_SHAPE = (256, 12, 256, 64)
+
+
+def attention_grads_plain(q, k, v, bias, dout):
+    """(dq, dk, dv): the autograd of ``attention_plain``, the parent's
+    backward of a training step's attention (forward recomputed)."""
+    import torch
+
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(ca.attention_plain(*leaves, bias), leaves, dout)
+
+
+def check_attention_bwd(gen, dev):
+    """The attention backward kernel against the autograd of the plain
+    composition: ViLT's training shape (timed: the kernel, the plain
+    version, the autograd the parent runs, and SDPA's backward as the
+    library's yardstick, never called by the port), then B 4, H 12 at L 40,
+    65, 256 and 320 and head dims 32, 64, 100 and 128, with key padding and
+    a fully masked batch row; two calls bit-equal, one counted call each."""
+    import torch
+    import torch.nn.functional as F
+
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    rows = []
+    cases = [VILT_TRAIN_SHAPE] + [(4, 12, l, d) for l in (40, 65, 256, 320)
+                                  for d in (32, 64, 100, 128)]
+    for b, h, l, d in cases:
+        q, k, v, bias = attention_case(gen, b, h, l, torch.bfloat16, dev, fused=True, d=d,
+                                       masked_row=(b, h, l, d) != VILT_TRAIN_SHAPE)
+        dout = torch.randn((b, l, h, d), generator=gen, device=dev).to(
+            torch.bfloat16).permute(0, 2, 1, 3)
+        n = ca.fused_attention_bwd.launches
+        out, again = (ca.fused_attention_bwd(q, k, v, bias, dout) for _ in range(2))
+        ref = attention_grads_plain(q, k, v, bias, dout)
+        torch.cuda.synchronize()
+        if ca.fused_attention_bwd.launches != n + 2:
+            fail(f"attention_bwd {(b, h, l, d)}: {ca.fused_attention_bwd.launches - n} "
+                 "counted launches for 2 calls")
+        errs = {}
+        for name, a, r in zip(("dq", "dk", "dv"), out, ref):
+            errs[name] = ((a.float() - r.float()).norm() / r.float().norm()).item()
+        bad = {n_: e for n_, e in errs.items()
+               if not math.isfinite(e) or e > ATTENTION_BWD_LIMIT}
+        if bad:
+            fail(f"attention_bwd {(b, h, l, d)}: ||kernel - plain|| / ||plain|| {bad} over "
+                 f"{ATTENTION_BWD_LIMIT}")
+        if not all(torch.equal(a, r) for a, r in zip(out, again)):
+            fail(f"attention_bwd {(b, h, l, d)}: two calls differ")
+        row = dict(kernel="attention_bwd", shape=[b, h, l, d], dtype="bfloat16",
+                   rel_err_by_output=errs, limit=ATTENTION_BWD_LIMIT, bit_equal_repeat=True,
+                   route="wgmma")
+        if (b, h, l, d) == VILT_TRAIN_SHAPE:
+            timed(lambda: ca.fused_attention_bwd(q, k, v, bias, dout), "", row)
+            check_route("attention_bwd", row)
+            timed(lambda: ca.attention_bwd_plain(q, k, v, bias, dout), "plain_", row)
+            timed(lambda: attention_grads_plain(q, k, v, bias, dout), "parent_path_", row)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+            timed(lambda: torch.autograd.grad(sdpa, leaves, dout, retain_graph=True),
+                  "library_", row)
+            nbytes = 7.0 * q.numel() * q.element_size() + bias.numel() * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(8.0 * b * h * l * l * d, nbytes,
+                                                        torch.bfloat16)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            del sdpa, leaves
+        else:
+            row["path"] = "other"
+        emit(phase="attention_bwd", **row)
+        rows.append(row)
+        del q, k, v, bias, dout, out, again, ref
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3490,12 +3578,13 @@ BASELINE_ATTENTION_L = (16, 56, 64, 65)
 # one post-LN MLP block (its attention stays on the plain composition, as
 # the JAX package keeps it on XLA).  TomViLT: the target stack and VAuLT's
 # BERT 12 layers each, the cross layer, ViLT's 12 pre-LN layers.  Neither
-# trains with remat, and attention takes its kernel only when deterministic.
+# trains with remat; in a step attention takes its kernels where no dropout
+# is drawn: ViLT's layers only.
 TOMBERT_EVAL_LAUNCHES = launches(encoder_attention=36, mlp_postln=37)
 TOMBERT_STEP_LAUNCHES = launches(mlp_postln=37, mlp_postln_bwd=37)
 TOMVILT_EVAL_LAUNCHES = launches(encoder_attention=36, mlp_postln=25, mlp_block=12)
-TOMVILT_STEP_LAUNCHES = launches(mlp_postln=25, mlp_block=12, mlp_postln_bwd=25,
-                                 mlp_block_bwd=12)
+TOMVILT_STEP_LAUNCHES = launches(encoder_attention=12, attention_bwd=12, mlp_postln=25,
+                                 mlp_block=12, mlp_postln_bwd=25, mlp_block_bwd=12)
 TOMVILT_NO_TWEET_EVAL_LAUNCHES = launches(encoder_attention=24, mlp_postln=13, mlp_block=12)
 # ResNet-101 region features on the card against the same fp32 tree on the
 # host (TF32 off): max |card - host| over the features' largest magnitude.
@@ -3868,8 +3957,8 @@ def baselines_phase(dev):
 # without remat each MLP block runs once per layer; under True and "dots"
 # the backward reruns it (the kernels are operators, which "dots"
 # recomputes, as the JAX policy saves no pallas_call).
-REMAT_STEP_LAUNCHES = {False: launches(mlp_block=12, mlp_postln=12, mlp_block_bwd=12,
-                                       mlp_postln_bwd=12),
+REMAT_STEP_LAUNCHES = {False: launches(encoder_attention=12, attention_bwd=12, mlp_block=12,
+                                       mlp_postln=12, mlp_block_bwd=12, mlp_postln_bwd=12),
                        True: STEP_LAUNCHES, "dots": STEP_LAUNCHES}
 # The 2-D products (aten mm / addmm, one cuBLAS launch each) of one layer's
 # forward that remat=True recomputes and "dots" keeps (ops/nn.py
@@ -4006,12 +4095,20 @@ def remat_dots_phase(dev):
             or not all(torch.equal(m_dots[i], m_dots[-1 - i]) for i in range(masked))):
         fail(f"options: the dropout masks under 'dots' ({len(m_dots)}) differ from those "
              f"under True ({len(m_true)}) or between a layer's run and its recompute")
+    # "dots" keeps less than no remat where a layer's other activations
+    # outweigh the recompute of one layer: on the plain path, whose
+    # attention keeps its fp32 (B, H, L, L) tensors.  On the kernel path the
+    # attention keeps only q, k and v, the products' outputs "dots" keeps
+    # too (ViLT's, the most of them), so there the two are reported.
     peaks = {str(r): res["auto", r]["peak_gb"] for r in (False, True, "dots")}
-    if not peaks["dots"] <= peaks["False"]:
-        fail(f"options: peak memory under 'dots' {peaks['dots']} GB above False's {peaks['False']}")
+    plain_peaks = {str(r): res[False, r]["peak_gb"] for r in (False, True, "dots")}
+    if not plain_peaks["dots"] <= plain_peaks["False"]:
+        fail(f"options: peak memory on the plain path under 'dots' {plain_peaks['dots']} GB "
+             f"above False's {plain_peaks['False']}")
     emit(phase="options", step="remat_dots", batch=TRAIN_BATCH, modes=report,
          layer_products={str(k): v for k, v in LAYER_PRODUCTS.items()}, dots_vs_true=dots_vs_true, limit=DOTS_VS_TRUE,
          masks_checked=len(m_dots), peak_gb_above_start=peaks,
+         plain_peak_gb_above_start=plain_peaks,
          launches={str(r): res["auto", r]["counts"] for r in (False, True, "dots")})
     counts = res["auto", "dots"]["counts"]
     del res, tr
@@ -5298,7 +5395,7 @@ def bench_phase(dev):
             "bench_train_step": train["launches_per_step"]}
 
 
-PHASES = ("kernels", "moe", "vault", "w8", "llama", "train", "merge", "serve", "tasks",
+PHASES = ("kernels", "attn_bwd", "moe", "vault", "w8", "llama", "train", "merge", "serve", "tasks",
           "baselines", "options", "parallel", "bench")
 
 
@@ -5372,6 +5469,8 @@ def main():
         torch.cuda.empty_cache()
 
     lap("kernels")
+    attn_bwd_rows = check_attention_bwd(gen, dev) if "attn_bwd" in phases else None
+    lap("attn_bwd")
     moe_row = moe_phase(dev, gen) if "moe" in phases else None
     lap("moe")
     if "vault" in phases or "w8" in phases:
@@ -5540,6 +5639,17 @@ def main():
         bound_ms=moe_row["bound_ms"], bound_by=moe_row["bound_by"],
         bound_share=moe_row["bound_share"], design="wgmma",
         device_kernels=moe_row["device_kernels"]))
+    # the attention backward kernel (no TPU kernel: the JAX package
+    # recomputes through XLA), at ViLT's training shape, launches from a
+    # training step
+    r = attn_bwd_rows[0]
+    kernels.append(dict(
+        name="attention_bwd", route="cuda", source="vault_tpu_torch/csrc/attention_bwd.cu",
+        replaces=None, launches=step_counts["attention_bwd"], launches_path="train_step",
+        shape=r["shape"], rel_err_by_output=r["rel_err_by_output"], ms=r["ms"],
+        wall_ms=r["wall_ms"], plain_ms=r["plain_ms"], parent_path_ms=r["parent_path_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], bound_share=r["bound_share"],
+        library_ms=r["library_ms"], design="wgmma", device_kernels=r["device_kernels"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

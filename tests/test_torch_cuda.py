@@ -10,6 +10,7 @@ magnitude ~4), fp32 1e-4 (summation order); backward, per output, 2^-5
 block included) bit-equal, the fp LN->QKV kernel in bf16 2^-7 of max(1,
 max|plain|); the q8 MLP blocks and the GQA attention at the forward limits,
 bf16 attention also per query row, 2^-5 of the row's max|plain|; the
+attention backward kernel, per gradient, 2^-7 of ||plain||; the
 dequantizing stage of the GEMM core exact.
 """
 
@@ -388,24 +389,83 @@ def test_gemm_core_matches_plain(dev, layout, tile_width, rows):
         assert err <= GEMM_CORE_LIMIT, err
 
 
-def test_gradients_flow_through_the_attention_kernel(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gradients_flow_through_the_attention_kernel(dev, dtype):
+    """bf16: the backward kernel, within ATTENTION_BWD_LIMIT of the plain
+    version's autograd; fp32: the plain version recomputed, bit-equal."""
     from vault_tpu_torch.ops import cuda_attention as ca
     from vault_tpu_torch.ops.masks import extend_attention_mask
 
     g = torch.Generator(device=dev).manual_seed(3)
     q, k, v = (torch.randn((2, 4, 40, 64), generator=g, device=dev)
-               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+               .to(dtype).requires_grad_() for _ in range(3))
     mask = torch.ones((2, 40), dtype=torch.int32, device=dev)
     mask[1, 25:] = 0
     bias = extend_attention_mask(mask)
-    cot = torch.randn((2, 4, 40, 64), generator=g, device=dev).to(torch.bfloat16)
-    n = ca.fused_attention.launches
+    cot = torch.randn((2, 4, 40, 64), generator=g, device=dev).to(dtype)
+    n, nb = ca.fused_attention.launches, ca.fused_attention_bwd.launches
     out = ca.fused_attention(q, k, v, bias)
     assert out.grad_fn is not None and ca.fused_attention.launches == n + 1
     got = torch.autograd.grad(out, (q, k, v), cot)
     ref = torch.autograd.grad(ca.attention_plain(q, k, v, bias), (q, k, v), cot)
+    assert ca.fused_attention_bwd.launches == nb + (dtype == torch.bfloat16)
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)  # the backward recomputes the plain version
+        if dtype == torch.float32:
+            assert torch.equal(a, b)  # the backward recomputes the plain version
+        else:
+            assert ((a.float() - b.float()).norm() / b.float().norm()).item() \
+                <= ATTENTION_BWD_LIMIT
+
+
+# The attention backward kernel against the autograd of the plain version,
+# per gradient ||kernel - plain|| / ||plain|| (chip_smoke.py
+# ATTENTION_BWD_LIMIT: dS / sqrt(d) enters the tensor cores in bf16).
+ATTENTION_BWD_LIMIT = 2.0 ** -7
+
+
+@pytest.mark.parametrize("l", [40, 65, 256, 320])
+@pytest.mark.parametrize("d", [32, 64, 100, 128])
+def test_attention_bwd_kernel_matches_plain(dev, l, d):
+    from vault_tpu_torch.ops import cuda_attention as ca
+    from vault_tpu_torch.ops.attention import split_heads
+    from vault_tpu_torch.ops.masks import extend_attention_mask
+
+    b, h = 4, 12
+    g = torch.Generator(device=dev).manual_seed(l * d)
+    qkv = torch.randn((b, l, 3 * h * d), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (split_heads(t, h) for t in torch.chunk(qkv, 3, dim=-1))
+    mask = torch.ones((b, l), dtype=torch.int32, device=dev)
+    mask[1, (l + 1) // 2:] = 0  # key padding
+    mask[3] = 0  # a row whose keys are all masked: uniform probabilities
+    bias = extend_attention_mask(mask)
+    dout = torch.randn((b, l, h, d), generator=g, device=dev).to(
+        torch.bfloat16).permute(0, 2, 1, 3)
+    n = ca.fused_attention_bwd.launches
+    got = ca.fused_attention_bwd(q, k, v, bias, dout)
+    torch.cuda.synchronize()
+    assert ca.fused_attention_bwd.launches == n + 1
+    again = ca.fused_attention_bwd(q, k, v, bias, dout)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(ca.attention_plain(*leaves, bias), leaves, dout)
+    for a, a2, r in zip(got, again, ref):
+        assert a.shape == r.shape and a.dtype == torch.bfloat16
+        assert torch.equal(a, a2)  # no atomics: repeats are bit-equal
+        err = ((a.float() - r.float()).norm() / r.float().norm()).item()
+        assert err <= ATTENTION_BWD_LIMIT, err
+
+
+def test_attention_bwd_refuses_other_head_dims_before_the_device(dev):
+    from vault_tpu_torch.ops import cuda_attention as ca
+
+    q = torch.zeros((2, 4, 40, 66), dtype=torch.bfloat16, device=dev)
+    bias = torch.zeros((2, 1, 1, 40), device=dev)
+    n = ca.fused_attention_bwd.launches
+    with pytest.raises(ValueError, match="multiple of 4 from 8 to 128"):
+        ca.ATTENTION_BWD.kernel(q, q, q, bias, q)
+    f = torch.zeros((2, 4, 40, 64), device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ca.ATTENTION_BWD.kernel(f, f, f, bias, f)
+    assert ca.fused_attention_bwd.launches == n
 
 
 def test_training_gradients_reach_every_layer(dev):

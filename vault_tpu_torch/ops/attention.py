@@ -155,11 +155,15 @@ def attend(
     deterministic: bool = True,
     use_pallas=False,
 ) -> torch.Tensor:
-    """The attention kernel when the selector names one and the call is
-    deterministic (the kernel has no dropout, as in the JAX package);
-    otherwise the plain composition."""
+    """The attention kernels when the selector names one and the call
+    applies no dropout, which the kernels do not draw: a deterministic call,
+    or a bf16 call at rate 0, whose gradient the backward kernel takes (a
+    bf16 training step of a tower without attention dropout, ViLT's).  A
+    call that draws a mask, and fp32 training, take the plain composition;
+    at rate 0 it draws nothing, so the generator's stream is the same on
+    either path."""
     _, _, _, impl = parse_impl(use_pallas, q.device)
-    if impl and deterministic:
+    if impl and (deterministic or (dropout_rate == 0.0 and q.dtype == torch.bfloat16)):
         from vault_tpu_torch.ops.cuda_attention import fused_attention
 
         if bias is None:

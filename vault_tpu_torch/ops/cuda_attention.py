@@ -11,14 +11,17 @@ kernels (``vault_tpu/ops/pallas_attention.py``: ``fused_attention``,
 ``fused_attention_batched``, ``fused_attention_dotbatch``); the selector
 names "grid", "batched" and "dotbatch" all reach :func:`fused_attention`.
 
-:func:`fused_attention` is differentiable through ``ops/_dispatch.py``'s
-Function (the counterpart of the JAX package's ``_pallas_attend``
-custom_vjp): the backward recomputes through the plain composition, as the
-JAX package's does through ``attend_xla`` (it has no attention backward
-kernel, so neither has the port); the bias gets no gradient.  The Function
-runs the plain version only for tensors on the CPU.  A CUDA tensor launches
-the kernel, or the call raises: there is no fallback.
-``fused_attention.launches`` counts the kernel's launches.
+:func:`fused_attention` is differentiable through :class:`_Attention`
+(the counterpart of the JAX package's ``_pallas_attend`` custom_vjp, whose
+backward recomputes through ``attend_xla``): the forward launches the
+serving kernel; the backward launches the backward kernel
+(``csrc/attention_bwd.cu``, :func:`fused_attention_bwd`, a kernel the JAX
+package does not have) for bf16 CUDA tensors, and recomputes through the
+plain composition for fp32 and CPU tensors; the bias gets no gradient.
+Only tensors on the CPU run a plain version.  A CUDA tensor launches the
+kernels, or the call raises: there is no fallback.
+``fused_attention.launches`` and ``fused_attention_bwd.launches`` count
+the launches.
 
 :func:`fused_attention_gqa` replaces the JAX package's
 ``fused_attention_gqa``: H query heads on H // rep unrepeated K/V heads and
@@ -37,12 +40,15 @@ need only 8-byte aligned rows (``attention_common.cuh``).
 Each is also the operator ``vault_tpu_torch::attention`` /
 ``attention_gqa`` (``ops/_dispatch.py`` ``KernelOp``, returning the
 (B, L, H, D) tensor), through which the forward launches it, in eager
-mode and in an exported program alike.
+mode and in an exported program alike; the backward kernel is
+``vault_tpu_torch::attention_bwd``, returning dq, dk and dv as (B, L, H, D)
+tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -94,26 +100,26 @@ def _check_rows(what, name, t, vec):
                          f"to {vec * t.element_size()} bytes at head dim {t.shape[-1]}")
 
 
-def _check(q, k, v, bias):
+def _check(q, k, v, bias, what="fused_attention"):
     if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"fused_attention: q must be (B, H, L, D) with {_HEAD_DIM_RULE}, "
+        raise ValueError(f"{what}: q must be (B, H, L, D) with {_HEAD_DIM_RULE}, "
                          f"got {tuple(q.shape)}")
     if not q.is_cuda:
-        raise ValueError(f"fused_attention: tensors on {q.device} have no "
+        raise ValueError(f"{what}: tensors on {q.device} have no "
                          "kernel; only CPU (plain) and CUDA are supported")
     attention_route(q.dtype)
     vec = _copy_elements(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or t.stride() != q.stride()):
-            raise ValueError(f"fused_attention: {name} {tuple(t.shape)} "
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} "
                              f"{t.dtype} {t.device} strides {t.stride()} does "
                              "not match q")
-        _check_rows("fused_attention", name, t, vec)
+        _check_rows(what, name, t, vec)
     b, _, l, _ = q.shape
     if (bias.shape != (b, 1, 1, l) or bias.dtype != torch.float32
             or bias.device != q.device or not bias.is_contiguous()):
-        raise ValueError(f"fused_attention: bias must be contiguous float32 "
+        raise ValueError(f"{what}: bias must be contiguous float32 "
                          f"(B, 1, 1, L) = {(b, 1, 1, l)} on {q.device}, got "
                          f"{tuple(bias.shape)} {bias.dtype} {bias.device}")
 
@@ -154,6 +160,117 @@ ATTENTION = KernelOp("attention", _SCHEMA, _blhd(lambda *ts: _kernel(*ts)),
                      _blhd(attention_plain, copy=True), _fake_blhd)
 
 
+# ---------------------------------------------------------------------------
+# The backward kernel (csrc/attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+_BWD_SIGNATURES = {"vt_attention_bwd": (
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_void_p],
+    ctypes.c_int)}
+
+
+def attention_bwd_plain(q, k, v, bias, dout):
+    """The backward kernel's function in plain PyTorch: the gradients (dq,
+    dk, dv) of :func:`attention_plain` for the output gradient ``dout``,
+    written out as its autograd computes them (an operator's implementation
+    runs below autograd): fp32 scores and softmax, dP = dO V^T rounded to
+    v's dtype as the cast of P rounds its gradient, dS = P (dP - rowsum(dP
+    P)), the products in fp32, each gradient cast to its input's dtype."""
+    d = q.shape[-1]
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), dout.float()
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(d) + bias.float(),
+                      dim=-1)
+    pb = p.to(v.dtype).float()
+    dp = torch.matmul(gf, vf.transpose(-1, -2)).to(v.dtype).float()
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(d)
+    return (torch.matmul(ds, kf).to(q.dtype), torch.matmul(ds.transpose(-1, -2), qf).to(k.dtype),
+            torch.matmul(pb.transpose(-1, -2), gf).to(v.dtype))
+
+
+def _check_bwd(q, k, v, bias, dout):
+    what = "fused_attention_bwd"
+    _check(q, k, v, bias, what)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: the backward kernel takes bfloat16, got {q.dtype} (fp32 "
+                        "recomputes through the plain composition)")
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"{what}: dout {tuple(dout.shape)} {dout.dtype} {dout.device} does "
+                         f"not match q {tuple(q.shape)} {q.dtype} {q.device}")
+    _check_rows(what, "dout", dout, _copy_elements(q))
+
+
+def _bwd_kernel(q, k, v, bias, dout):
+    _check_bwd(q, k, v, bias, dout)
+    b, h, l, d = q.shape
+    dq, dk, dv = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    stats = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)
+    lib = _build.load("attention_bwd", _BWD_SIGNATURES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.vt_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                stats.data_ptr(), b, h, l, d, *q.stride()[:3],
+                                *dout.stride()[:3], l * h * d, d, h * d, stream)
+    _build.check(lib, code, "attention_bwd")
+    fused_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _bwd_blhd(q, k, v, bias, dout):
+    return tuple(t.transpose(1, 2).contiguous()
+                 for t in attention_bwd_plain(q, k, v, bias, dout))
+
+
+def _fake_bwd(q, k, v, bias, dout):
+    return tuple(_fake_blhd(q, k, v, bias) for _ in range(3))
+
+
+ATTENTION_BWD = KernelOp(
+    "attention_bwd", "(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor dout) "
+    "-> (Tensor, Tensor, Tensor)", lambda *ts: _bwd_kernel(*ts), _bwd_blhd, _fake_bwd)
+
+
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                        dout: torch.Tensor):
+    """The gradients (dq, dk, dv) of :func:`fused_attention` for the output
+    gradient ``dout`` (B, H, L, D), q, k, v and bias as the forward takes
+    them, bf16 on the card (one call of ``csrc/attention_bwd.cu``: its
+    query pass and its key pass), :func:`attention_bwd_plain` on the CPU.
+    Each is (B, H, L, D) in q's dtype, a view of a (B, L, H, D) tensor."""
+    return tuple(t.permute(0, 2, 1, 3) for t in ATTENTION_BWD(q, k, v, bias, dout))
+
+
+fused_attention_bwd.launches = 0
+
+
+class _Attention(torch.autograd.Function):
+    """The encoder attention.  forward: the serving kernel through
+    ``ATTENTION`` (the plain version for CPU tensors), the same launch with
+    the same arguments whether or not a gradient follows; backward: the
+    backward kernel for bf16 CUDA tensors, else the autograd of
+    ``ATTENTION.plain`` recomputed from the saved inputs (fp32, and every
+    CPU tensor), for the inputs that need a gradient.  The bias is a
+    constant."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return ATTENTION(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        if q.is_cuda and q.dtype == torch.bfloat16:
+            grads = fused_attention_bwd(q, k, v, bias, g.contiguous().permute(0, 2, 1, 3))
+            return (*(t if n else None for t, n in zip(grads, need)), None)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() if n else t for t, n in zip((q, k, v), need)]
+            out = ATTENTION.plain(*leaves, bias)
+            grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, need) if n], g,
+                                             allow_unused=True))
+        return (*(next(grads) if n else None for n in need), None)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """q/k/v: (B, H, L, D), D in :data:`HEAD_DIMS`, any strides with
@@ -163,8 +280,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, a view of a (B, L, H, D) tensor, so merging the heads back costs
     no copy."""
     # the bias is a constant of the attention mask: no gradient
-    return kernel_or_plain(ATTENTION, ATTENTION.plain, q, k, v,
-                           bias.detach()).permute(0, 2, 1, 3)
+    return _Attention.apply(q, k, v, bias.detach()).permute(0, 2, 1, 3)
 
 
 fused_attention.launches = 0

@@ -180,6 +180,7 @@ def launch_counters() -> Dict[str, Callable]:
     from vault_tpu_torch.ops import cuda_swiglu as cs
 
     return {"encoder_attention": ca.fused_attention,
+            "attention_bwd": ca.fused_attention_bwd,
             "attention_gqa": ca.fused_attention_gqa,
             "swiglu_w8a8": cs.fused_swiglu_block_fwd_w8a8,
             "mlp_block_q8": cm.fused_mlp_block_fwd_q8,
