@@ -31,13 +31,19 @@ from vault_tpu.training import losses as jlosses
 from vault_tpu_torch.config import VaultConfig, tiny_text_config, tiny_vilt_config
 from vault_tpu_torch.convert import param_tree, params_from_jax, stacked_leaf
 from vault_tpu_torch.models import llama as tllama
-from vault_tpu_torch.models.vault import vault_for_classification, vault_with_llama_tower
+from vault_tpu_torch.models.vault import (
+    VaultForClassification,
+    VaultWithLlamaTower,
+    vault_for_classification,
+    vault_with_llama_tower,
+)
 from vault_tpu_torch.ops import nn as tnn
 from vault_tpu_torch.ops.nn import shard_draws, take, uniform
 from vault_tpu_torch.parallel import mesh as tmesh
 from vault_tpu_torch.parallel import pipeline as tpipe
 from vault_tpu_torch.parallel import sharding as tsharding
 from vault_tpu_torch.parallel import zero as tzero
+from vault_tpu_torch.parallel.tensor_parallel import TPGroup, use_tp
 from vault_tpu_torch.serving import dp_sharded_forward, mesh_forward, tp_forward
 from vault_tpu_torch.training import losses as tlosses
 
@@ -238,12 +244,20 @@ def _jax_tp_forward(fn, params, batch):
                       np.float32)
 
 
-@pytest.mark.parametrize("mode", [None, "w8", "w8a8"])
-def test_tp_forward_matches_jax(mode):
+_TP_CASES = [pytest.param(mode, False, id=str(mode)) for mode in (None, "w8", "w8a8")] + [
+    pytest.param(mode, impl, id=f"{mode}-{impl}") for mode in (None, "w8a8")
+    for impl in ("fuseqkv+fusemlp", "fuselnqkv+fusemlp")]
+
+
+@pytest.mark.parametrize("mode,impl", _TP_CASES)
+def test_tp_forward_matches_jax(mode, impl):
     """The VAuLT classifier on 2 shards (``serving.tp_forward``, one thread
     a shard) against the JAX package's forward on a 1 x 2 mesh, fp32
     activations: atol 2e-5 (the row products' partial sums and the LN
-    statistics in other orders; w8a8 sums its int32 partials, exact)."""
+    statistics in other orders; w8a8 sums its int32 partials, exact).  The
+    port runs under the fused selectors too: under a group a layer takes
+    the plain composition where the selector names a fused block, so the
+    reference stays ``use_pallas=False``."""
     jcfg, tcfg = _cfgs()
     params = _jax_params(jcfg)
     if mode is not None:
@@ -253,18 +267,21 @@ def test_tp_forward_matches_jax(mode):
         p, jcfg, b, head_dropout=0.0, deterministic=True, use_pallas=False), params, batch)
     ours = params_from_jax(params, tcfg)
     fwd = tp_forward(lambda p, b: vault_for_classification(
-        param_tree(p), tcfg, b, head_dropout=0.0, use_pallas=False), [CPU, CPU], ours)
+        param_tree(p), tcfg, b, head_dropout=0.0, use_pallas=impl), [CPU, CPU], ours)
     with torch.no_grad():
         out = fwd(_tensors(batch)).float().numpy()
     np.testing.assert_allclose(out, ref, atol=2e-5, rtol=0)
 
 
-def test_llama_tp_forward_matches_jax():
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_llama_tp_forward_matches_jax(impl):
     """The Llama tower feeding ViLT on 2 shards (query and K/V heads split
     alike; gate/up column, o/down row) against the JAX package's 1 x 2
-    mesh forward: atol 2e-5."""
+    mesh forward: atol 2e-5.  With ``attn_impl`` and ``mlp_impl`` "pallas"
+    the shards still run the plain composition, so the reference is the
+    same."""
     lcfg_j, vcfg_j, params = _llama_params()
-    lcfg = tllama.tiny_llama_config()
+    lcfg = tllama.tiny_llama_config(attn_impl=impl, mlp_impl=impl)
     vcfg = tiny_vilt_config(image_size=32, patch_size=16, num_patch_tokens=8)
     rng = np.random.default_rng(4)
     batch = {"input_ids": rng.integers(0, lcfg.vocab_size, (4, 8)).astype(np.int32),
@@ -279,6 +296,55 @@ def test_llama_tp_forward_matches_jax():
     with torch.no_grad():
         out = fwd(_tensors(batch)).numpy()
     np.testing.assert_allclose(out, ref, atol=2e-5, rtol=0)
+
+
+class _CountingTP(TPGroup):
+    """A group of one shard that counts the inputs entering column products."""
+
+    def __init__(self):
+        self.entered = 0
+
+    def enter(self, x):
+        self.entered += 1
+        return x
+
+    def reduce(self, x):
+        return x
+
+    def reduce_max(self, x):
+        return x
+
+
+@pytest.mark.parametrize("case", ["fuseqkv+fusemlp", "fuselnqkv+fusemlp+batched", "llama"])
+def test_layers_enter_their_column_products_under_a_group(case):
+    """Under a group every BERT, ViLT and Llama layer passes the input of
+    each of its two column products (Q/K/V; ``mlp_in`` or gate/up) through
+    the group's ``enter``, whatever the selector or the Llama impls name: a
+    fused LN->QKV, MLP or SwiGLU block would skip it, and with it the
+    backward's all-reduce, which the forward cases above cannot see.  A
+    group of one shard computes the unsharded layers: within 1e-5 of the
+    same forward at ``use_pallas=False`` under the group."""
+    _, tcfg = _cfgs()
+    if case == "llama":
+        lcfg = tllama.tiny_llama_config(attn_impl="pallas", mlp_impl="pallas")
+        vcfg = tiny_vilt_config(image_size=32, patch_size=16, num_patch_tokens=8)
+        model = VaultWithLlamaTower(vcfg, lcfg, device="cpu", seed=3)
+        layers = lcfg.num_hidden_layers + vcfg.num_hidden_layers
+        batch = {k: v for k, v in _tensors(_batch(tcfg)).items() if k != "token_type_ids"}
+        impls = (False, "fuselnqkv+fusemlp")
+    else:
+        model = VaultForClassification(tcfg, device="cpu", seed=3)
+        layers = tcfg.text_tower.num_hidden_layers + tcfg.vilt.num_hidden_layers
+        batch = _tensors(_batch(tcfg))
+        impls = (False, case)
+    outs = []
+    for impl in impls:
+        tp = _CountingTP()
+        with torch.no_grad(), use_tp(tp):
+            out = model(batch, use_pallas=impl)
+        outs.append((out.pooler_output if case == "llama" else out).numpy())
+        assert tp.entered == 2 * layers, (impl, tp.entered)
+    np.testing.assert_allclose(outs[1], outs[0], atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("mode", [None, "w8a8"])

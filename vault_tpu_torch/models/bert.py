@@ -39,6 +39,7 @@ from vault_tpu_torch.ops.nn import (
 )
 from vault_tpu_torch.parallel.tensor_parallel import (
     current_tp,
+    enter,
     local_heads,
     row_linear,
 )
@@ -152,24 +153,16 @@ def bert_embed(params, cfg: TextTowerConfig, input_ids, token_type_ids=None,
     return dropout(generator, x, cfg.hidden_dropout_prob, deterministic)
 
 
-def _encoder_layer_tp(lp, cfg: TextTowerConfig, x, bias, deterministic,
-                      generator, use_pallas, tp):
-    """One post-LN BERT layer on this shard's heads and intermediate
-    columns (parallel/tensor_parallel.py): Q/K/V and ``mlp_in`` column
-    shards, ``attn_out`` and ``mlp_out`` row shards summed before the bias,
-    the residual and the LN.  The products run the plain composition; the
-    attention core runs the selector's kernel on the local heads.  The
-    dropout draws are the unsharded layer's, cut to the local heads."""
-    fuse_qkv = parse_impl(use_pallas, x.device)[0]
-    q, k, v = project_qkv(lp, tp.enter(x), local_heads(cfg.num_attention_heads, tp),
-                          fuse_qkv)
-    ctx = merge_heads(attend(q, k, v, bias, generator,
-                             cfg.attention_probs_dropout_prob, deterministic,
-                             use_pallas=use_pallas))
-    attn = dropout(generator, row_linear(lp["attn_out"], ctx, tp),
-                   cfg.hidden_dropout_prob, deterministic)
-    x = layer_norm(lp["attn_ln"], x + attn, cfg.layer_norm_eps)
-    mlp = act_fn(cfg.hidden_act)(linear(lp["mlp_in"], tp.enter(x)))
+def postln_mlp(lp, cfg: TextTowerConfig, x, deterministic, generator,
+               fuse_mlp, tp=None):
+    """The post-LN MLP half of a BERT layer and of the Tom* cross layer:
+    ``ops/cuda_mlp.py`` ``fused_postln_mlp`` when ``fuse_mlp`` and no
+    group, else the plain composition on ``tp``'s shards."""
+    if fuse_mlp and tp is None:
+        from vault_tpu_torch.ops.cuda_mlp import fused_postln_mlp
+
+        return fused_postln_mlp(lp, cfg, x, generator, deterministic)
+    mlp = act_fn(cfg.hidden_act)(linear(lp["mlp_in"], enter(x, tp)))
     mlp = dropout(generator, row_linear(lp["mlp_out"], mlp, tp),
                   cfg.hidden_dropout_prob, deterministic)
     return layer_norm(lp["mlp_ln"], x + mlp, cfg.layer_norm_eps)
@@ -177,29 +170,21 @@ def _encoder_layer_tp(lp, cfg: TextTowerConfig, x, bias, deterministic,
 
 def _encoder_layer(lp, cfg: TextTowerConfig, x, bias, deterministic,
                    generator=None, use_pallas="auto"):
-    """One post-LN BERT layer (on the shards of the active tensor-parallel
-    group, when one is set)."""
+    """One post-LN BERT layer; under the active tensor-parallel group on
+    this shard's heads and intermediate columns (parallel/
+    tensor_parallel.py), the attention core on the selector's kernel and
+    its dropout draws the unsharded layer's, cut to the local heads."""
     tp = current_tp()
-    if tp is not None:
-        return _encoder_layer_tp(lp, cfg, x, bias, deterministic, generator,
-                                 use_pallas, tp)
     fuse_qkv, _, fuse_mlp, _ = parse_impl(use_pallas, x.device)
-    q, k, v = project_qkv(lp, x, cfg.num_attention_heads, fuse_qkv)
+    q, k, v = project_qkv(lp, enter(x, tp),
+                          local_heads(cfg.num_attention_heads, tp), fuse_qkv)
     ctx = merge_heads(attend(q, k, v, bias, generator,
                              cfg.attention_probs_dropout_prob, deterministic,
                              use_pallas=use_pallas))
-    attn = linear(lp["attn_out"], ctx)
-    attn = dropout(generator, attn, cfg.hidden_dropout_prob, deterministic)
+    attn = dropout(generator, row_linear(lp["attn_out"], ctx, tp),
+                   cfg.hidden_dropout_prob, deterministic)
     x = layer_norm(lp["attn_ln"], x + attn, cfg.layer_norm_eps)
-
-    if fuse_mlp:
-        from vault_tpu_torch.ops.cuda_mlp import fused_postln_mlp
-
-        return fused_postln_mlp(lp, cfg, x, generator, deterministic)
-    mlp = act_fn(cfg.hidden_act)(linear(lp["mlp_in"], x))
-    mlp = linear(lp["mlp_out"], mlp)
-    mlp = dropout(generator, mlp, cfg.hidden_dropout_prob, deterministic)
-    return layer_norm(lp["mlp_ln"], x + mlp, cfg.layer_norm_eps)
+    return postln_mlp(lp, cfg, x, deterministic, generator, fuse_mlp, tp)
 
 
 def bert_encode(params, cfg: TextTowerConfig, x, attention_mask,

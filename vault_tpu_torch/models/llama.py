@@ -26,7 +26,7 @@ from vault_tpu_torch.ops.attention import attend, merge_heads, split_heads
 from vault_tpu_torch.ops.attention import gqa_attend_plain as _gqa_attend
 from vault_tpu_torch.ops.nn import ParamDict, init_linear, linear, silu
 from vault_tpu_torch.ops.nn import rms_norm as _rms_norm
-from vault_tpu_torch.parallel.tensor_parallel import current_tp, local_heads, row_linear
+from vault_tpu_torch.parallel.tensor_parallel import current_tp, enter, local_heads, row_linear
 from vault_tpu_torch.ops.quantize import QUANT_MODES, k_major_site, quantize_linear_params
 
 
@@ -145,42 +145,24 @@ def init_lm_projection(gen: torch.Generator, in_dim: int, out_dim: int,
 # Apply
 # ---------------------------------------------------------------------------
 
-def _layer_tp(lp, cfg: LlamaConfig, x, bias, position_ids, tp):
-    """One Llama layer on this shard's heads (query and K/V heads split
-    alike) and intermediate columns, the plain composition throughout, as
-    the JAX package's tensor-parallel path runs (parallel/
-    tensor_parallel.py): q/k/v, ``gate`` and ``up`` column shards, ``o``
-    and ``down`` row shards summed before the residual."""
+def _layer(lp, cfg: LlamaConfig, x, bias, position_ids):
+    """One Llama layer; under the active tensor-parallel group on this
+    shard's heads (query and K/V heads split alike) and intermediate
+    columns, the plain composition throughout, as the JAX package's
+    tensor-parallel path runs (parallel/tensor_parallel.py)."""
+    tp = current_tp()
     h = local_heads(cfg.num_attention_heads, tp)
     kvh = local_heads(cfg.num_key_value_heads, tp)
     d = cfg.head_dim
-    y = tp.enter(_rms_norm(lp["input_ln"], x, cfg.rms_norm_eps))
-    q = _rope(split_heads(linear(lp["q"], y), h), position_ids, cfg.rope_theta, d)
-    k = _rope(split_heads(linear(lp["k"], y), kvh), position_ids, cfg.rope_theta, d)
-    v = split_heads(linear(lp["v"], y), kvh)
-    ctx = _gqa_attend(q, k, v, bias, h // kvh) if kvh != h else attend(q, k, v, bias)
-    x = x + row_linear(lp["o"], merge_heads(ctx), tp)
-    y = tp.enter(_rms_norm(lp["post_ln"], x, cfg.rms_norm_eps))
-    mlp = silu(linear(lp["gate"], y)) * linear(lp["up"], y)
-    return x + row_linear(lp["down"], mlp, tp)
-
-
-def _layer(lp, cfg: LlamaConfig, x, bias, position_ids):
-    tp = current_tp()
-    if tp is not None:
-        return _layer_tp(lp, cfg, x, bias, position_ids, tp)
-    h = cfg.num_attention_heads
-    kvh = cfg.num_key_value_heads
-    d = cfg.head_dim
     b, l, _ = x.shape
 
-    y = _rms_norm(lp["input_ln"], x, cfg.rms_norm_eps)
+    y = enter(_rms_norm(lp["input_ln"], x, cfg.rms_norm_eps), tp)
     q = split_heads(linear(lp["q"], y), h)
     k = split_heads(linear(lp["k"], y), kvh)
     v = split_heads(linear(lp["v"], y), kvh)
     q = _rope(q, position_ids, cfg.rope_theta, d)
     k = _rope(k, position_ids, cfg.rope_theta, d)
-    if cfg.attn_impl == "pallas":
+    if cfg.attn_impl == "pallas" and tp is None:
         from vault_tpu_torch.ops.cuda_attention import fused_attention_gqa
 
         bias4 = bias.expand(b, 1, l, l).float().contiguous()
@@ -189,18 +171,22 @@ def _layer(lp, cfg: LlamaConfig, x, bias, position_ids):
         ctx = _gqa_attend(q, k, v, bias, h // kvh)
     else:
         ctx = attend(q, k, v, bias)
-    x = x + linear(lp["o"], merge_heads(ctx))
+    x = x + row_linear(lp["o"], merge_heads(ctx), tp)
 
-    return _mlp_block(lp, cfg, x)
+    return _mlp_block(lp, cfg, x, tp)
 
 
-def _mlp_block(lp, cfg: LlamaConfig, x):
-    """The layer's MLP half: x + down(silu(gate(rms(x))) * up(rms(x)))."""
-    from vault_tpu_torch.ops.cuda_swiglu import swiglu_block, swiglu_block_plain
+def _mlp_block(lp, cfg: LlamaConfig, x, tp):
+    """The layer's MLP half: x + down(silu(gate(rms(x))) * up(rms(x))), on
+    ``ops/cuda_swiglu.py`` ``swiglu_block`` for ``mlp_impl`` "pallas" and
+    no group, else ``swiglu_block_plain``'s composition on ``tp``'s shards."""
+    if cfg.mlp_impl == "pallas" and tp is None:
+        from vault_tpu_torch.ops.cuda_swiglu import swiglu_block
 
-    block = swiglu_block if cfg.mlp_impl == "pallas" else swiglu_block_plain
-    return block(lp["post_ln"], lp["gate"], lp["up"], lp["down"], x,
-                 cfg.rms_norm_eps)
+        return swiglu_block(lp["post_ln"], lp["gate"], lp["up"], lp["down"], x,
+                            cfg.rms_norm_eps)
+    y = enter(_rms_norm(lp["post_ln"], x, cfg.rms_norm_eps), tp)
+    return x + row_linear(lp["down"], silu(linear(lp["gate"], y)) * linear(lp["up"], y), tp)
 
 
 def llama_apply(params, cfg: LlamaConfig, input_ids, attention_mask=None,

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from vault_tpu_torch.config import TextTowerConfig
-from vault_tpu_torch.models.bert import _init_layer
+from vault_tpu_torch.models.bert import _init_layer, postln_mlp
 from vault_tpu_torch.ops.attention import (
     attend_plain,
     merge_heads,
@@ -30,7 +30,6 @@ from vault_tpu_torch.ops.attention import (
 )
 from vault_tpu_torch.ops.nn import (
     ParamDict,
-    act_fn,
     dropout,
     init_linear,
     layer_norm,
@@ -55,9 +54,8 @@ def cross_layer_apply(lp, cfg: TextTowerConfig, querying, queried, bias,
                       deterministic=True, generator=None, use_pallas="auto"):
     """One cross block: cross-attention, post-LN, MLP, post-LN.  Q, K and V
     are three products (K and V read the other stream, so there is no fused
-    QKV product).  The MLP half runs the fused post-LN block
-    (``ops/cuda_mlp.py``) when the selector resolves "fusemlp", with its
-    dropout as a mask operand, as a BERT layer's does."""
+    QKV product).  The MLP half is a BERT layer's (``models/bert.py``
+    ``postln_mlp``), on one device."""
     _, _, fuse_mlp, _ = parse_impl(use_pallas, querying.device)
     heads = cfg.num_attention_heads
     q = split_heads(linear(lp["q"], querying), heads)
@@ -73,15 +71,7 @@ def cross_layer_apply(lp, cfg: TextTowerConfig, querying, queried, bias,
     attn = linear(lp["attn_out"], ctx)
     attn = dropout(generator, attn, cfg.hidden_dropout_prob, deterministic)
     x = layer_norm(lp["attn_ln"], querying + attn, cfg.layer_norm_eps)
-
-    if fuse_mlp:
-        from vault_tpu_torch.ops.cuda_mlp import fused_postln_mlp
-
-        return fused_postln_mlp(lp, cfg, x, generator, deterministic)
-    mlp = act_fn(cfg.hidden_act)(linear(lp["mlp_in"], x))
-    mlp = linear(lp["mlp_out"], mlp)
-    mlp = dropout(generator, mlp, cfg.hidden_dropout_prob, deterministic)
-    return layer_norm(lp["mlp_ln"], x + mlp, cfg.layer_norm_eps)
+    return postln_mlp(lp, cfg, x, deterministic, generator, fuse_mlp)
 
 
 def cross_encoder_apply(params, cfg: TextTowerConfig, querying, queried, bias,

@@ -53,6 +53,7 @@ from vault_tpu_torch.ops.nn import (
 )
 from vault_tpu_torch.parallel.tensor_parallel import (
     current_tp,
+    enter,
     local_heads,
     row_linear,
 )
@@ -250,52 +251,31 @@ def joint_embed(params, cfg: ViltConfig, input_ids=None, attention_mask=None,
 # Encoder
 # ---------------------------------------------------------------------------
 
-def _encoder_layer_tp(lp, cfg: ViltConfig, x, bias, deterministic,
-                      generator, use_pallas, tp):
-    """One pre-LN ViLT layer on this shard's heads and intermediate columns
-    (parallel/tensor_parallel.py; see ``models/bert.py``
-    ``_encoder_layer_tp``)."""
-    fuse_qkv = parse_impl(use_pallas, x.device)[0]
-    y = tp.enter(layer_norm(lp["ln_before"], x, cfg.layer_norm_eps))
-    q, k, v = project_qkv(lp, y, local_heads(cfg.num_attention_heads, tp), fuse_qkv)
+def _encoder_layer(lp, cfg: ViltConfig, x, bias, deterministic,
+                   generator=None, use_pallas="auto"):
+    """One pre-LN ViLT layer (modeling_vilt.py ViltLayer.forward); under the
+    active tensor-parallel group on this shard's heads and intermediate
+    columns, as ``models/bert.py`` ``_encoder_layer``.  The fused LN->QKV
+    and MLP blocks run only without a group."""
+    tp = current_tp()
+    fuse_qkv, fuse_lnqkv, fuse_mlp, _ = parse_impl(use_pallas, x.device)
+    heads = local_heads(cfg.num_attention_heads, tp)
+    if fuse_lnqkv and tp is None:
+        from vault_tpu_torch.ops.cuda_ln_qkv import fused_ln_qkv
+
+        qkv = fused_ln_qkv(lp["ln_before"], lp["q"], lp["k"], lp["v"], x,
+                           cfg.layer_norm_eps)
+        q, k, v = (split_heads(t, heads) for t in torch.chunk(qkv, 3, dim=-1))
+    else:
+        y = enter(layer_norm(lp["ln_before"], x, cfg.layer_norm_eps), tp)
+        q, k, v = project_qkv(lp, y, heads, fuse_qkv)
     ctx = merge_heads(attend(q, k, v, bias, generator,
                              cfg.attention_probs_dropout_prob, deterministic,
                              use_pallas=use_pallas))
     x = x + dropout(generator, row_linear(lp["attn_out"], ctx, tp),
                     cfg.hidden_dropout_prob, deterministic)
-    y = tp.enter(layer_norm(lp["ln_after"], x, cfg.layer_norm_eps))
-    mlp = act_fn(cfg.hidden_act)(linear(lp["mlp_in"], y))
-    return x + dropout(generator, row_linear(lp["mlp_out"], mlp, tp),
-                       cfg.hidden_dropout_prob, deterministic)
 
-
-def _encoder_layer(lp, cfg: ViltConfig, x, bias, deterministic,
-                   generator=None, use_pallas="auto"):
-    """One pre-LN ViLT layer (modeling_vilt.py ViltLayer.forward), on the
-    shards of the active tensor-parallel group when one is set."""
-    tp = current_tp()
-    if tp is not None:
-        return _encoder_layer_tp(lp, cfg, x, bias, deterministic, generator,
-                                 use_pallas, tp)
-    fuse_qkv, fuse_lnqkv, fuse_mlp, _ = parse_impl(use_pallas, x.device)
-    if fuse_lnqkv:
-        from vault_tpu_torch.ops.cuda_ln_qkv import fused_ln_qkv
-
-        qkv = fused_ln_qkv(lp["ln_before"], lp["q"], lp["k"], lp["v"], x,
-                           cfg.layer_norm_eps)
-        q, k, v = (split_heads(t, cfg.num_attention_heads)
-                   for t in torch.chunk(qkv, 3, dim=-1))
-    else:
-        y = layer_norm(lp["ln_before"], x, cfg.layer_norm_eps)
-        q, k, v = project_qkv(lp, y, cfg.num_attention_heads, fuse_qkv)
-    ctx = merge_heads(attend(q, k, v, bias, generator,
-                             cfg.attention_probs_dropout_prob, deterministic,
-                             use_pallas=use_pallas))
-    attn = linear(lp["attn_out"], ctx)
-    attn = dropout(generator, attn, cfg.hidden_dropout_prob, deterministic)
-    x = x + attn
-
-    if fuse_mlp:
+    if fuse_mlp and tp is None:
         from vault_tpu_torch.ops.cuda_mlp import fused_mlp_block
         from vault_tpu_torch.ops.nn import dropout_mask
 
@@ -306,11 +286,10 @@ def _encoder_layer(lp, cfg: ViltConfig, x, bias, deterministic,
         return fused_mlp_block(lp["ln_after"], lp["mlp_in"], lp["mlp_out"],
                                x, cfg.layer_norm_eps, cfg.hidden_act,
                                drop_mask=mask)
-    y = layer_norm(lp["ln_after"], x, cfg.layer_norm_eps)
+    y = enter(layer_norm(lp["ln_after"], x, cfg.layer_norm_eps), tp)
     mlp = act_fn(cfg.hidden_act)(linear(lp["mlp_in"], y))
-    mlp = linear(lp["mlp_out"], mlp)
-    mlp = dropout(generator, mlp, cfg.hidden_dropout_prob, deterministic)
-    return x + mlp
+    return x + dropout(generator, row_linear(lp["mlp_out"], mlp, tp),
+                       cfg.hidden_dropout_prob, deterministic)
 
 
 def vilt_encode(params, cfg: ViltConfig, x, attention_mask, deterministic=True,

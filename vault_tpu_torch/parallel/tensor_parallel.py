@@ -3,12 +3,15 @@ their column and row shards, with the reduction passed in.
 
 The JAX package gets its tensor parallelism from GSPMD: the parameters are
 sharded by ``parallel/sharding.py``'s rules and XLA inserts the
-collectives.  Here the layers of ``models/bert.py``, ``models/vilt.py`` and
-``models/llama.py`` run one body of Megatron code when a :class:`TPGroup`
-is active (:func:`use_tp`):
+collectives.  Here each layer kind of ``models/bert.py``, ``models/vilt.py``
+and ``models/llama.py`` has one body, written in the Megatron operations
+below; with no :class:`TPGroup` active (:func:`use_tp`) each operation is
+the single-device call (:func:`enter` the identity, :func:`local_heads`
+every head, :func:`row_linear` ``ops.nn.linear``), and only then do the
+layers take their fused kernels.  Under a group:
 
   * a column-parallel product (Q/K/V, ``mlp_in``, ``gate``, ``up``) runs on
-    the local output columns; its input passes :meth:`TPGroup.enter`, the
+    the local output columns; its input passes :func:`enter`, the
     identity whose backward all-reduces the gradient (Megatron's conjugate
     operator), so the replicated leaves before it (LayerNorms, embeddings)
     get the whole gradient;
@@ -34,7 +37,7 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
-from vault_tpu_torch.ops.nn import int8_matmul, matmul_fp32
+from vault_tpu_torch.ops.nn import int8_matmul, linear, matmul_fp32
 
 
 class TPGroup:
@@ -186,16 +189,27 @@ def thread_tp(tp: Optional[TPGroup]):
         _LOCAL.tp = saved
 
 
-def local_heads(heads: int, tp: TPGroup) -> int:
+def enter(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
+    """A column product's input: :meth:`TPGroup.enter`, the identity
+    without a group."""
+    return x if tp is None else tp.enter(x)
+
+
+def local_heads(heads: int, tp: Optional[TPGroup]) -> int:
+    if tp is None:
+        return heads
     if heads % tp.size:
         raise ValueError(f"{heads} heads do not split over {tp.size} shards")
     return heads // tp.size
 
 
-def row_linear(params, x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+def row_linear(params, x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
     """A row-parallel dense layer: the local rows' partial product, summed
     over the shards, then the bias (replicated), in :func:`~vault_tpu_torch.
-    ops.nn.linear`'s numerics for each weight form."""
+    ops.nn.linear`'s numerics for each weight form; without a group,
+    ``linear`` itself."""
+    if tp is None:
+        return linear(params, x)
     b = params.get("b")
     if "w_q8" in params:
         from vault_tpu_torch.ops.quantize import _codes, _scale
