@@ -177,6 +177,7 @@ ROUTE_KERNELS = {
                                    "w8a8_out"),
     ("ln_qkv", "wgmma"): ("gemm_kernel", "ln_rows_bf16"),
     ("ln_qkv_w8a8", "wgmma"): ("row_prologue", "gemm_kernel"),
+    ("linear_w8a8", "wgmma"): ("row_prologue", "gemm_kernel"),
     ("mlp_postln", "wgmma"): ("gemm_kernel", "mlp_epilogue"),
     ("mlp_block_bwd", "wgmma"): ("gemm_kernel", "ln_rows_bf16", "mlp_bwd_preln_rows"),
     ("mlp_postln_bwd", "wgmma"): ("gemm_kernel", "mlp_bwd_postln_rows", "mlp_bwd_postln_dx"),
@@ -208,7 +209,7 @@ TRAIN_BATCH = 32
 KERNEL_NAMES = ("encoder_attention", "attention_bwd", "mlp_block", "mlp_postln", "mlp_block_bwd",
                 "mlp_postln_bwd", "ln_qkv", "ln_qkv_w8a8", "mlp_block_w8a8",
                 "mlp_postln_w8a8", "mlp_block_q8", "mlp_postln_q8", "attention_gqa",
-                "swiglu_w8a8")
+                "swiglu_w8a8", "linear_w8a8")
 
 
 def launches(**counts):
@@ -224,21 +225,28 @@ EVAL_LAUNCHES = launches(encoder_attention=24, mlp_block=12, mlp_postln=12)
 # in each ViLT layer besides the above.
 LNQKV_LAUNCHES = dict(EVAL_LAUNCHES, ln_qkv=12)
 # The w8a8 model's forward (its selector, "fuselnqkv+fusemlp+batched"): the
-# int8 LN->QKV and MLP kernels in place of the bf16 MLP kernels.  BERT's
-# Q/K/V and every attention output projection are plain int8 linears
-# (torch._int_mm), as in the JAX package.
+# int8 LN->QKV and MLP kernels in place of the bf16 MLP kernels, and the
+# w8a8 linear kernel for BERT's Q, K, V and attention output projections
+# (4 x 12) and ViLT's attention output projection (12).
 W8A8_LAUNCHES = launches(encoder_attention=24, ln_qkv_w8a8=12, mlp_block_w8a8=12,
-                         mlp_postln_w8a8=12)
+                         mlp_postln_w8a8=12, linear_w8a8=60)
 # The w8 model's forward (its selector "auto": "fuseqkv+fusemlp+batched" on
 # the card): the q8 MLP kernels in place of the bf16 ones; Q/K/V and the
 # attention output projections dequantize and take the plain product.
 W8_LAUNCHES = launches(encoder_attention=24, mlp_block_q8=12, mlp_postln_q8=12)
-# The Llama-3-8B-geometry tower feeding ViLT-B/32: a GQA attention and a
-# SwiGLU kernel in each of the 32 tower layers, then ViLT's 12 layers on
-# "auto" (encoder attention and the pre-LN bf16 MLP block).
+# The Llama-3-8B-geometry tower feeding ViLT-B/32: a GQA attention, a
+# SwiGLU kernel and four w8a8 linears (q, k, v, o: H 4,096 -> 4,096 and
+# 1,024) in each of the 32 tower layers, then ViLT's 12 layers on "auto"
+# (encoder attention and the pre-LN bf16 MLP block).
 LLAMA_LAYERS = 32
 LLAMA_LAUNCHES = launches(attention_gqa=LLAMA_LAYERS, swiglu_w8a8=LLAMA_LAYERS,
-                          encoder_attention=12, mlp_block=12)
+                          linear_w8a8=4 * LLAMA_LAYERS, encoder_attention=12, mlp_block=12)
+# The same tower on its plain path (attn_impl and mlp_impl "xla"): no GQA or
+# SwiGLU kernel; the MLP's gate and up products (4,096 -> 14,336) take the
+# w8a8 linear kernel too, its down product (K 14,336, past the kernel's
+# 8,192) the composition.
+LLAMA_PLAIN_LAUNCHES = dict(LLAMA_LAUNCHES, attention_gqa=0, swiglu_w8a8=0,
+                            linear_w8a8=6 * LLAMA_LAYERS)
 # One training step with remat: the forward launches each MLP block once per
 # layer and remat's recompute in the backward once more; each backward kernel
 # runs once per layer.  Attention takes its kernels where no dropout is
@@ -1012,6 +1020,69 @@ INT8_KERNELS = {
 }
 
 
+# The w8a8 linear kernel's shapes (rows, K, N): the main path's at batch
+# 256 (BERT's q, k, v and attention output projections at 10,240 rows, ViLT's
+# attention output projection at 65,536), a Llama-3-8B K/V projection, and
+# ragged rows; the first three timed.
+LINEAR_W8A8_SHAPES = ((10240, 768, 768), (65536, 768, 768), (640, 4096, 1024),
+                      (1, 768, 768), (17, 768, 768), (40, 768, 768), (257, 768, 768))
+
+
+def check_linear_w8a8(gen, dev):
+    """The w8a8 linear kernel (``cuda_linear.linear_w8a8``) bit-equal to
+    its plain version (``nn.linear_w8a8_plain``: the row quantization in
+    PyTorch ops, torch._int_mm, the dequantization's casts) at
+    ``LINEAR_W8A8_SHAPES``, with and without a bias, an all-zero row and a
+    row of half-way ties at +-127 in each; two launches bit-equal; the
+    timed shapes beside their bound, the plain version on the K-major codes
+    and on row-major ones (the layout the model held before the kernel),
+    the route's device kernels checked."""
+    import torch
+
+    from vault_tpu_torch.ops import cuda_linear as clin
+    from vault_tpu_torch.ops.nn import linear_w8a8_plain
+    from vault_tpu_torch.ops.quantize import k_major, quantize_weight
+
+    rows_out = []
+    for i, (rows, k, n) in enumerate(LINEAR_W8A8_SHAPES):
+        q, s = quantize_weight(torch.randn((k, n), generator=gen, device=dev) * 0.05)
+        w = k_major(q)
+        x = torch.randn((rows, k), generator=gen, device=dev) * 3
+        x[0] = 0.0
+        if rows > 1:
+            x[1] = torch.arange(k, device=dev) % 9 - 4.5
+            x[1, 0], x[1, 1] = 127.0, -127.0
+        x = x.to(torch.bfloat16)
+        b = (torch.randn(n, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        for bias in (b, None):
+            out, again = clin.linear_w8a8(x, w, s, bias), clin.linear_w8a8(x, w, s, bias)
+            ref = linear_w8a8_plain(x, w, s, bias)
+            torch.cuda.synchronize()
+            what = f"linear_w8a8 rows={rows} K={k} N={n} bias={bias is not None}"
+            if not torch.equal(out, ref):
+                fail(f"{what}: max |kernel - plain| "
+                     f"{(out.float() - ref.float()).abs().max().item()}, expected bit-equal")
+            if not torch.equal(out, again):
+                fail(f"{what}: two launches differ")
+        row = dict(kernel="linear_w8a8", shape=[rows, k, n], route="wgmma", max_abs_err=0.0,
+                   bit_equal_repeat=True, bias=True, path="forward" if i < 3 else "other")
+        if i < 3:
+            row_major = q.contiguous()
+            timed(lambda: clin.linear_w8a8(x, w, s, b), "", row)
+            timed(lambda: linear_w8a8_plain(x, w, s, b), "plain_", row)
+            timed(lambda: linear_w8a8_plain(x, row_major, s, b), "library_", row)
+            row["library"] = ("the plain version on row-major codes (the model's path "
+                              "before the kernel: torch._int_mm and its cast chain)")
+            nbytes = 2 * rows * k + k * n + 4 * n + 2 * n + 2 * rows * n
+            row["bound_ms"], row["bound_by"] = bound_ms(2.0 * rows * k * n, nbytes,
+                                                        torch.bfloat16, PEAK_INT8_OPS)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            check_route("linear_w8a8", row)
+        emit(phase="kernel_check", **row)
+        rows_out.append(row)
+    return rows_out
+
+
 def _q8_linear_lib(a, wq, sc, b):
     """The library yardstick's w8 linear: the weights dequantized to a's
     type (counted in the time), then F.linear's product."""
@@ -1726,13 +1797,16 @@ def plain_versions(swaps):
 
 
 def int8_plain_versions():
-    """The three w8a8 kernels of the VAuLT-base path as their plain versions."""
+    """The four w8a8 kernels of the VAuLT-base path as their plain versions."""
+    from vault_tpu_torch.ops import cuda_linear as clin
     from vault_tpu_torch.ops import cuda_ln_qkv as cl
     from vault_tpu_torch.ops import cuda_mlp as cm
+    from vault_tpu_torch.ops.nn import linear_w8a8_plain
 
     return plain_versions([(cl, "fused_ln_qkv_fwd_w8a8", cl.ln_qkv_w8a8_plain),
                            (cm, "fused_mlp_block_fwd_w8a8", cm.mlp_block_w8a8_plain),
-                           (cm, "fused_mlp_postln_fwd_w8a8", cm.mlp_postln_w8a8_plain)])
+                           (cm, "fused_mlp_postln_fwd_w8a8", cm.mlp_postln_w8a8_plain),
+                           (clin, "linear_w8a8", linear_w8a8_plain)])
 
 
 def swiglu_plain_version():
@@ -1783,7 +1857,8 @@ def w8a8_forward_phase(dev, cfg, bf16_model):
         p_pool, p_logits = pooler_logits(model, cfg, batch, impl)
     torch.cuda.synchronize()
     plain_counts = read_counts()
-    want_plain = dict(W8A8_LAUNCHES, ln_qkv_w8a8=0, mlp_block_w8a8=0, mlp_postln_w8a8=0)
+    want_plain = dict(W8A8_LAUNCHES, ln_qkv_w8a8=0, mlp_block_w8a8=0, mlp_postln_w8a8=0,
+                      linear_w8a8=0)
     if plain_counts != want_plain:
         fail(f"w8a8 through the plain versions: launches {plain_counts}, "
              f"expected {want_plain}")
@@ -1945,8 +2020,9 @@ def llama_phase(dev):
                                        use_pallas=model.use_pallas, **batch)
         torch.cuda.synchronize()
         xla_counts = read_counts()
-        if xla_counts != dict(LLAMA_LAUNCHES, swiglu_w8a8=0, attention_gqa=0):
-            fail(f"llama tower on its plain path: launches {xla_counts}")
+        if xla_counts != LLAMA_PLAIN_LAUNCHES:
+            fail(f"llama tower on its plain path: launches {xla_counts}, expected "
+                 f"{LLAMA_PLAIN_LAUNCHES}")
         vs_xla = {"pooler": (pooled.float() - x_out.pooler_output.float()).abs().max().item(),
                   "hidden": (hidden.float() - x_out.last_hidden_state.float()
                              ).abs().max().item(),
@@ -2005,11 +2081,20 @@ LLAMA_GEOMETRIES = {
 LLAMA_W8_GEOMETRY = "TinyLlama/TinyLlama-1.1B-Chat-v1.0"
 
 
-def llama_launches(layers, swiglu=True):
+def llama_launches(cfg, w8a8=True):
     """A Llama-tower forward feeding ViLT-B/32: a GQA attention and (w8a8)
-    a SwiGLU kernel in each tower layer, then ViLT's 12 layers on "auto"."""
-    return launches(attention_gqa=layers, swiglu_w8a8=layers if swiglu else 0,
-                    encoder_attention=12, mlp_block=12)
+    a SwiGLU kernel in each tower layer, and four w8a8 linears (q, k, v, o)
+    where the geometry's widths are the linear kernel's (H and the K/V width
+    multiples of 128: SmolLM-135M's 576 is not), then ViLT's 12 layers on
+    "auto"."""
+    from vault_tpu_torch.ops import cuda_linear as clin
+
+    layers = cfg.num_hidden_layers
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    linears = w8a8 and not (cfg.hidden_size % clin.K_MULTIPLE or kv % clin.N_MULTIPLE)
+    return launches(attention_gqa=layers, swiglu_w8a8=layers if w8a8 else 0,
+                    linear_w8a8=4 * layers if linears else 0, encoder_attention=12,
+                    mlp_block=12)
 
 
 def check_geometry_kernels(gen, dev, name, cfg, rows, counts):
@@ -2242,7 +2327,7 @@ def llama_geometries_phase(dev):
         build_s = time.perf_counter() - t0
         codes = sum(p.numel() for p in model["llama"].parameters() if p.dtype == torch.int8)
         batch = entry_batch(None, bs, dev, vocab=cfg.vocab_size)
-        want = llama_launches(layers)
+        want = llama_launches(cfg)
         with torch.inference_mode():
             out, counts = forward(model, batch, want, f"llama {name}")
             reset_counts()
@@ -2290,7 +2375,7 @@ def llama_geometries_phase(dev):
                 torch.cuda.empty_cache()
                 w8 = VaultWithLlamaTower(vilt_cfg, cfg, device=dev, dtype=torch.bfloat16,
                                          seed=0, quantize="w8")
-                w8_out, w8_counts = forward(w8, batch, llama_launches(layers, swiglu=False),
+                w8_out, w8_counts = forward(w8, batch, llama_launches(cfg, w8a8=False),
                                             f"llama {name} w8")
                 row["w8"] = dict(launches_per_forward=w8_counts,
                                  distance_from_bf16=distance(w8_out, b_out))
@@ -5466,6 +5551,7 @@ def main():
             checks[name] = check_int8_family(gen, dev, name)
         checks["attention_gqa"] = check_attention_gqa(gen, dev)
         checks["swiglu_w8a8"] = check_swiglu(gen, dev)
+        checks["linear_w8a8"] = check_linear_w8a8(gen, dev)
         torch.cuda.empty_cache()
 
     lap("kernels")
@@ -5567,7 +5653,9 @@ def main():
                "attention_gqa": ("vault_tpu_torch/csrc/attention_gqa.cu",
                                  "vault_tpu/ops/pallas_attention.py:214"),
                "swiglu_w8a8": ("vault_tpu_torch/csrc/swiglu_w8a8.cu",
-                               "vault_tpu/ops/pallas_swiglu.py:186")}
+                               "vault_tpu/ops/pallas_swiglu.py:186"),
+               "linear_w8a8": ("vault_tpu_torch/csrc/linear_w8a8.cu",
+                               "vault_tpu/ops/nn.py:29")}
     # each kernel's launches in the run of the path that drives it
     # (path_counts, in the order the paths ran)
     kernels = []

@@ -1458,3 +1458,108 @@ def test_moonlight_tower_kernel_path_against_its_plain_path(dev, monkeypatch):
         plain = ds.deepseek_apply(p, cfg, ids, mask)
     err = (out.float() - plain.float()).abs().max().item()
     assert err <= LIMITS[torch.bfloat16], err
+
+
+# The w8a8 linear kernel (csrc/linear_w8a8.cu): BERT's 10,240 rows of 768
+# -> 768 and ViLT's 65,536 at batch 256, a Llama-3-8B K/V projection 4,096
+# -> 1,024, and ragged rows at 768.
+LINEAR_W8A8_SHAPES = [(10240, 768, 768), (65536, 768, 768), (640, 4096, 1024),
+                      (1, 768, 768), (17, 768, 768), (40, 768, 768), (257, 768, 768)]
+
+
+def _linear_w8a8_operands(dev, rows, k, n, bias, seed=0):
+    """K-major codes and fp32 scales of normal weights; x with an all-zero
+    row (the 1e-8 floor of the scale), a row of half-way ties whose absmax
+    is 127 (scale 1: codes +-127 and rint's ties to even), then normal
+    rows; a bf16 bias or none."""
+    from vault_tpu_torch.ops.quantize import k_major, quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(seed + rows + k)
+    q, s = quantize_weight(torch.randn((k, n), generator=g, device=dev) * 0.05)
+    x = torch.randn((rows, k), generator=g, device=dev) * 3
+    x[0] = 0.0
+    if rows > 1:
+        x[1] = torch.arange(k, device=dev) % 9 - 4.5
+        x[1, 0], x[1, 1] = 127.0, -127.0
+    b = (torch.randn(n, generator=g, device=dev) * 0.1).to(torch.bfloat16) if bias else None
+    return x.to(torch.bfloat16), k_major(q), s, b
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("rows,k,n", LINEAR_W8A8_SHAPES)
+def test_linear_w8a8_kernel_is_bit_equal_to_its_plain_version(dev, rows, k, n, bias):
+    """``linear_w8a8`` against ``linear_w8a8_plain`` (torch._int_mm and
+    PyTorch's cast chain): ``torch.equal``, one counted launch, repeats
+    bit-equal; ``linear`` takes it without a gradient."""
+    from vault_tpu_torch.ops import cuda_linear as clin
+    from vault_tpu_torch.ops.nn import linear, linear_w8a8_plain
+
+    x, w, s, b = _linear_w8a8_operands(dev, rows, k, n, bias)
+    before = clin.linear_w8a8.launches
+    out = clin.linear_w8a8(x, w, s, b)
+    torch.cuda.synchronize()
+    assert clin.linear_w8a8.launches == before + 1
+    ref = linear_w8a8_plain(x, w, s, b)
+    assert out.dtype == torch.bfloat16 and out.shape == (rows, n)
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(clin.linear_w8a8(x, w, s, b), out)
+    params = {"w_q8": w, "w_scale": s, **({"b": b} if bias else {})}
+    with torch.inference_mode():
+        assert torch.equal(linear(params, x.reshape(1, rows, k)), out.reshape(1, rows, n))
+    assert clin.linear_w8a8.launches == before + 3
+
+
+def test_shapes_outside_the_linear_kernel_take_the_composition(dev):
+    """SmolLM-135M's 576, N not a multiple of 128, row-major codes, fp32 x
+    and x with a gradient: ``linear`` runs the composition, no launch."""
+    from vault_tpu_torch.ops import cuda_linear as clin
+    from vault_tpu_torch.ops.nn import linear, linear_w8a8_plain
+    from vault_tpu_torch.ops.quantize import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for k, n, form in ((576, 576, "k_major"), (768, 200, "k_major"), (768, 768, "row_major"),
+                       (768, 768, "fp32"), (768, 768, "grad")):
+        x, w, s, b = _linear_w8a8_operands(dev, 40, k, n, True)
+        if form == "row_major":
+            w = w.contiguous()
+        if form == "fp32":
+            x, b = x.float(), b.float()
+        cases.append((form, x.requires_grad_(form == "grad"), w, s, b))
+    before = clin.linear_w8a8.launches
+    for form, x, w, s, b in cases:
+        out = linear({"w_q8": w, "w_scale": s, "b": b}, x)
+        assert torch.equal(out, linear_w8a8_plain(x, w, s, b)), form
+    torch.cuda.synchronize()
+    assert clin.linear_w8a8.launches == before
+    with pytest.raises(ValueError, match="K-major"):
+        clin.linear_w8a8(cases[2][1], cases[2][2], cases[2][3], cases[2][4])
+
+
+def test_w8a8_vault_forward_is_bit_equal_with_the_linear_kernel_off(dev, monkeypatch):
+    """A w8a8 VAuLT at width 768 on its serving selector: the logits with
+    the linear kernel (4 + 1 launches a layer pair) equal those with the
+    operator's kernel swapped for the composition."""
+    from vault_tpu_torch.config import VaultConfig, tiny_text_config, tiny_vilt_config
+    from vault_tpu_torch.models.vault import VaultForClassification
+    from vault_tpu_torch.ops import cuda_linear as clin
+    from vault_tpu_torch.ops.nn import linear_w8a8_plain
+
+    wide = dict(hidden_size=768, num_attention_heads=12, intermediate_size=1536)
+    cfg = VaultConfig(vilt=tiny_vilt_config(**wide), text_tower=tiny_text_config(**wide))
+    model = VaultForClassification(cfg, dtype=torch.bfloat16, seed=0).quantize("w8a8")
+    g = torch.Generator().manual_seed(4)
+    batch = {"input_ids": torch.randint(1, 99, (4, 8), generator=g),
+             "attention_mask": torch.ones((4, 8), dtype=torch.int64),
+             "token_type_ids": torch.zeros((4, 8), dtype=torch.int64),
+             "pixel_values": torch.randn((4, 3, 64, 64), generator=g),
+             "pixel_mask": torch.ones((4, 64, 64), dtype=torch.int64)}
+    before = clin.linear_w8a8.launches
+    with torch.inference_mode():
+        out = model(batch)
+        torch.cuda.synchronize()
+        launched = clin.linear_w8a8.launches - before
+        monkeypatch.setattr(clin, "linear_w8a8", linear_w8a8_plain)
+        off = model(batch)
+    assert launched == 4 * cfg.text_tower.num_hidden_layers + cfg.vilt.num_hidden_layers
+    assert torch.isfinite(out.float()).all() and torch.equal(out, off)

@@ -201,9 +201,10 @@ def test_llama_tree_crosses_the_bridge_both_ways(mode):
 
 @pytest.mark.parametrize("impl", IMPLS)
 def test_k_major_swiglu_codes_cross_the_bridge_both_ways(impl):
-    """The Llama MLP's w8a8 codes arrive K-major (the same (in, out) values,
-    K contiguous: the SwiGLU kernel's layout), the attention projections'
-    row-major; loaded into a tower built quantized they stay K-major; they
+    """The Llama layer's w8a8 codes arrive K-major (the same (in, out)
+    values, K contiguous: the SwiGLU kernel's layout for the MLP's, the
+    w8a8 linear kernel's for the attention projections'); loaded into a
+    tower built quantized they stay K-major; they
     leave as the JAX package's arrays, shapes unchanged; the tower on them
     matches the JAX package's."""
     jcfg, jp = _jax_tower("float32", attn_impl=impl, mlp_impl=impl)
@@ -211,17 +212,16 @@ def test_k_major_swiglu_codes_cross_the_bridge_both_ways(impl):
     tcfg = tllama.tiny_llama_config(attn_impl=impl, mlp_impl=impl)
     host = {"llama": jax.tree.map(np.asarray, jqp)}
     sd = params_from_jax(host, llama_cfg=tcfg)
-    for name in ("gate", "up", "down"):
+    for name in ("gate", "up", "down", "q", "k", "v", "o"):
         leaf = sd[f"llama.layers.1.{name}.w_q8"]
         assert is_k_major(leaf) and not leaf.is_contiguous()
         assert leaf.shape == host["llama"]["layers"][name]["w_q8"].shape[1:]
-    assert sd["llama.layers.1.q.w_q8"].is_contiguous()
     tower = ParamDict(llama=tllama.init_llama(torch.Generator().manual_seed(0), tcfg,
                                               quantize="w8a8"))
     assert is_k_major(tower["llama"]["layers"][0]["down"]["w_q8"])
     tower.load_state_dict(sd)
     assert all(is_k_major(lp[n]["w_q8"]) for lp in tower["llama"]["layers"]
-               for n in ("gate", "up", "down"))
+               for n in ("gate", "up", "down", "q", "k", "v", "o"))
     back = params_to_jax(tower.state_dict())
     assert jax.tree.structure(back) == jax.tree.structure(host)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(host)):

@@ -236,11 +236,12 @@ def _k_major(q):
 @pytest.mark.parametrize("form", ["module", "dict", "bridge"])
 @pytest.mark.parametrize("mode", ["w8", "w8a8"])
 def test_mlp_codes_are_held_k_major_in_w8a8_alone(mode, form):
-    """Every mlp_in / mlp_out w8a8 code matrix, in both towers, is held
-    K-major (the int8 MLP kernels' layout) after ``quantize``, after
+    """Every w8a8 code matrix, in both towers (mlp_in / mlp_out, and
+    q/k/v/attn_out, which the w8a8 linear kernel reads so), is held K-major
+    (the int8 kernels' layout) after ``quantize``, after
     ``quantize_model_params`` on a plain stacked dict and after
-    ``params_from_jax``; the w8 codes and the q/k/v/attn_out codes stay
-    contiguous; ``params_to_jax`` returns the JAX package's arrays."""
+    ``params_from_jax``; the w8 codes stay contiguous; ``params_to_jax``
+    returns the JAX package's arrays."""
     _, tcfg, jp, jqp, model = _quantized_trees(mode)
     key = "w_q8" if mode == "w8a8" else "w_q"
     if form == "module":
@@ -264,7 +265,7 @@ def test_mlp_codes_are_held_k_major_in_w8a8_alone(mode, form):
                         2 * (tcfg.vilt.num_hidden_layers + tcfg.text_tower.num_hidden_layers))
     for k, t in codes.items():
         assert t.dtype == torch.int8, k
-        if mode == "w8a8" and k in mlp:
+        if mode == "w8a8":
             assert _k_major(t), (k, t.stride())
         else:
             assert t.is_contiguous(), (k, t.stride())

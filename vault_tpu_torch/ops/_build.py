@@ -23,8 +23,8 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vault_tpu_torch"
-SOURCES = ("adamw", "attention", "attention_bwd", "attention_gqa", "gemm_sm90", "ln_qkv", "mlp",
-           "mlp_bwd", "mlp_w8a8", "moe_experts", "swiglu_w8a8")
+SOURCES = ("adamw", "attention", "attention_bwd", "attention_gqa", "gemm_sm90", "linear_w8a8",
+           "ln_qkv", "mlp", "mlp_bwd", "mlp_w8a8", "moe_experts", "swiglu_w8a8")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

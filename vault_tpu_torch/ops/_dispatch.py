@@ -1,12 +1,12 @@
 """What the kernel wrappers of ``ops/cuda_attention.py``,
-``ops/cuda_ln_qkv.py``, ``ops/cuda_mlp.py`` and ``ops/cuda_swiglu.py``
-share: the operand check before a launch; :class:`KernelOp`, a serving
-kernel and its plain version behind one operator of the
-``vault_tpu_torch`` namespace, so that ``torch.export`` can trace a launch;
-and the ``torch.autograd.Function`` that runs a kernel (CUDA tensors) or
-its plain version (CPU tensors) forward and takes the gradient of a
-reference composition backward, as the JAX package's ``custom_vjp``s take
-the vjp of their XLA compositions.
+``ops/cuda_linear.py``, ``ops/cuda_ln_qkv.py``, ``ops/cuda_mlp.py`` and
+``ops/cuda_swiglu.py`` share: the operand check before a launch;
+:class:`KernelOp`, a serving kernel and its plain version behind one
+operator of the ``vault_tpu_torch`` namespace, so that ``torch.export`` can
+trace a launch; and the ``torch.autograd.Function`` that runs a kernel (CUDA
+tensors) or its plain version (CPU tensors) forward and takes the gradient
+of a reference composition backward, as the JAX package's ``custom_vjp``s
+take the vjp of their XLA compositions.
 """
 
 from __future__ import annotations

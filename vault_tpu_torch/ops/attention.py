@@ -66,10 +66,14 @@ def project_qkv(lp, y: torch.Tensor, num_heads: int, fuse: bool = False):
     fp32 accumulation, so numerically identical).  Quantized weights
     (ops/quantize.py w8 ``w_q`` / w8a8 ``w_q8``) fuse the same way: weights
     and per-out-channel scales concatenated along out; w8a8 then quantizes
-    the activations once (the per-row scale is the same y's either way)."""
+    the activations once (the per-row scale is the same y's either way),
+    its codes concatenated K-major, as they are held (ops/quantize.py
+    ``k_major``)."""
     wk = next((k for k in ("w", "w_q", "w_q8") if k in lp["q"]), None)
     if fuse and wk is not None:
-        fused = {wk: torch.cat([lp["q"][wk], lp["k"][wk], lp["v"][wk]], dim=1)}
+        ws = [lp[n][wk] for n in ("q", "k", "v")]
+        fused = {wk: (torch.cat([w.t() for w in ws]).t() if wk == "w_q8"
+                      else torch.cat(ws, dim=1))}
         if wk != "w":
             fused["w_scale"] = torch.cat([lp["q"]["w_scale"], lp["k"]["w_scale"],
                                           lp["v"]["w_scale"]], dim=-1)

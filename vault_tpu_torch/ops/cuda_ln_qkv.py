@@ -36,7 +36,7 @@ import torch
 
 from vault_tpu_torch.ops import _build
 from vault_tpu_torch.ops._dispatch import KernelOp, check_operands, kernel_or_plain
-from vault_tpu_torch.ops.nn import layer_norm, layer_norm_f32, linear
+from vault_tpu_torch.ops.nn import layer_norm, layer_norm_f32, linear, linear_w8a8_plain
 from vault_tpu_torch.ops.quantize import is_k_major
 
 # The widths each kernel takes, (H multiple, H max, output-width multiple).
@@ -68,17 +68,16 @@ def ln_qkv_plain(gamma, beta, wqkv, bqkv, x, eps: float = 1e-12):
 def ln_qkv_w8a8_plain(gamma, beta, wqkv_q, sqkv, bqkv, x, eps: float = 1e-12):
     """The w8a8 kernel's function: LN (``layer_norm_f32``) rounded to x's
     type, then the w8a8 ``linear`` (per-row quantization, int8 product,
-    ``acc * (ys * s) + b``), cast to x's type."""
+    ``acc * (ys * s) + b``, ``linear_w8a8_plain``), cast to x's type."""
     y = layer_norm_f32(gamma, beta, x, eps).to(x.dtype)
-    return linear({"w_q8": wqkv_q, "w_scale": sqkv.reshape(-1), "b": bqkv},
-                  y).to(x.dtype)
+    return linear_w8a8_plain(y, wqkv_q, sqkv.reshape(-1), bqkv).to(x.dtype)
 
 
 def _ln_qkv_w8a8_ref(gamma, beta, wqkv_q, sqkv, bqkv, x, eps: float = 1e-12):
     """The XLA composition the w8a8 gradients are taken of: LN, then the
-    w8a8 linear over the concatenated weights."""
-    return linear({"w_q8": wqkv_q, "w_scale": sqkv.reshape(-1), "b": bqkv},
-                  layer_norm({"scale": gamma, "bias": beta}, x, eps))
+    w8a8 linear over the concatenated weights (``linear_w8a8_plain``)."""
+    return linear_w8a8_plain(layer_norm({"scale": gamma, "bias": beta}, x, eps), wqkv_q,
+                             sqkv.reshape(-1), bqkv)
 
 
 def ln_qkv_route(dtype: torch.dtype, w8a8: bool = False) -> str:

@@ -82,7 +82,7 @@ from vault_tpu_torch.ops.nn import (
     int8_matmul,
     layer_norm,
     layer_norm_f32,
-    linear,
+    linear_plain,
     matmul_fp32,
 )
 from vault_tpu_torch.ops.quantize import is_k_major, quantize_activation
@@ -142,7 +142,7 @@ def _mlp_block_plain(ln_p, p_in, p_out, x, eps, act, m=None):
     """Plain pre-LN MLP half of a ViLT layer.  ``m``: optional pre-scaled
     dropout mask applied to the MLP output."""
     y = layer_norm(ln_p, x, eps)
-    mlp = linear(p_out, act_fn(act)(linear(p_in, y)))
+    mlp = linear_plain(p_out, act_fn(act)(linear_plain(p_in, y)))
     if m is not None:
         mlp = mlp * m
     return x + mlp
@@ -151,7 +151,7 @@ def _mlp_block_plain(ln_p, p_in, p_out, x, eps, act, m=None):
 def _mlp_postln_plain(ln_p, p_in, p_out, x, eps, act, m=None):
     """Plain post-LN MLP half of a BERT layer (HF BertIntermediate +
     BertOutput).  ``m``: optional pre-scaled dropout mask."""
-    mlp = linear(p_out, act_fn(act)(linear(p_in, x)))
+    mlp = linear_plain(p_out, act_fn(act)(linear_plain(p_in, x)))
     if m is not None:
         mlp = mlp * m
     return layer_norm(ln_p, x + mlp, eps)

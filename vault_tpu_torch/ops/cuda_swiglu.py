@@ -44,7 +44,7 @@ import torch
 
 from vault_tpu_torch.ops import _build
 from vault_tpu_torch.ops._dispatch import KernelOp, check_operands, kernel_or_plain, like
-from vault_tpu_torch.ops.nn import int8_matmul, linear, rms_norm, silu
+from vault_tpu_torch.ops.nn import int8_matmul, linear_plain, rms_norm, silu
 from vault_tpu_torch.ops.quantize import is_k_major, quantize_activation
 
 I_TILE = 1024        # the largest group of I columns requantized together
@@ -86,9 +86,10 @@ def check_widths(what: str, h: int, i: int) -> int:
 
 
 def swiglu_block_plain(ln_w, p_gate, p_up, p_down, x, eps: float = 1e-5):
-    """The plain composition, any weight form :func:`linear` accepts."""
+    """The plain composition, any weight form ``linear`` accepts, the w8a8
+    one on its composition (``ops/nn.py`` ``linear_plain``)."""
     y = rms_norm(ln_w, x, eps)
-    return x + linear(p_down, silu(linear(p_gate, y)) * linear(p_up, y))
+    return x + linear_plain(p_down, silu(linear_plain(p_gate, y)) * linear_plain(p_up, y))
 
 
 def pick_tile(size: int, pref: int) -> int:

@@ -139,23 +139,55 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return y.reshape(*xq.shape[:-1], n)
 
 
+def linear_w8a8_plain(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor,
+                      b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The w8a8 dense layer as a composition: x quantized per row
+    (``ops/quantize.py`` ``quantize_activation``), the int8 x int8 -> int32
+    product (:func:`int8_matmul`, either layout of the codes), then
+    ``y * (x_scale * w_scale) + b`` in fp32 (the two scales multiplied
+    first, as the JAX package does), cast to bf16 for bf16 x.  The plain
+    version of ``ops/cuda_linear.py``'s kernel, and what every plain version
+    and reference composition on w8a8 weights calls by name; differentiable
+    through the scales."""
+    from vault_tpu_torch.ops.quantize import quantize_activation
+
+    xq, xs = quantize_activation(x)
+    y = int8_matmul(xq, w_q8).float() * (xs * w_scale)
+    if b is not None:
+        y = y + b
+    return y.to(x.dtype) if x.dtype == torch.bfloat16 else y
+
+
+def linear_plain(params, x: torch.Tensor) -> torch.Tensor:
+    """:func:`linear` with the w8a8 form on its composition
+    (:func:`linear_w8a8_plain`) wherever it runs: the dense layer of the
+    plain versions and reference compositions, which never launch a
+    kernel."""
+    if "w_q8" in params:
+        return linear_w8a8_plain(x, params["w_q8"], params["w_scale"], params.get("b"))
+    return linear(params, x)
+
+
 def linear(params, x: torch.Tensor) -> torch.Tensor:
     """Dense layer. params = {"w": (in, out), "b": (out,) [optional]}, the
     int8 weight-only form {"w_q": int8, "w_scale": (1, out) fp32}, or the
     w8a8 form {"w_q8": int8, "w_scale"} (ops/quantize.py).  w8 dequantizes
     the weights to x's type (fp32 for fp32 x) and runs the fp product; w8a8
     quantizes x per row and runs an int8 x int8 -> int32 product, then
-    ``y * (x_scale * w_scale) + b`` in fp32 (the two scales multiplied
-    first, as the JAX package does)."""
+    ``y * (x_scale * w_scale) + b`` in fp32 (:func:`linear_w8a8_plain`).
+    Where ``ops/cuda_linear.py`` ``kernel_takes`` the call (bf16 on the
+    card, no gradient to x, the codes K-major, widths in the kernel's), w8a8
+    runs on its kernel, the operator ``vault_tpu_torch::linear_w8a8``,
+    which gives the composition's bits."""
     b = params.get("b")
     if "w_q8" in params:
-        from vault_tpu_torch.ops.quantize import quantize_activation
+        from vault_tpu_torch.ops import cuda_linear
+        from vault_tpu_torch.ops._dispatch import kernel_or_plain
 
-        xq, xs = quantize_activation(x)
-        y = int8_matmul(xq, params["w_q8"]).float() * (xs * params["w_scale"])
-        if b is not None:
-            y = y + b
-        return y.to(x.dtype) if x.dtype == torch.bfloat16 else y
+        w, s = params["w_q8"], params["w_scale"]
+        if cuda_linear.kernel_takes(x, w, s, b):
+            return kernel_or_plain(cuda_linear.LINEAR_W8A8, linear_w8a8_plain, x, w, s, b)
+        return linear_w8a8_plain(x, w, s, b)
     if "w_q" in params:
         w = (params["w_q"].float() * params["w_scale"]).to(
             x.dtype if x.dtype == torch.bfloat16 else torch.float32)

@@ -16,15 +16,16 @@ The form is encoded in the parameter names, as in the JAX package: ``w_q``
 and ``w_scale`` select w8, ``w_q8`` and ``w_scale`` select w8a8.
 
 Layout: every leaf keeps the JAX package's (in, out) shape.  The w8a8
-codes of the MLP projections (:data:`K_MAJOR_SUBLAYERS`: the Llama MLP's,
-and BERT's and ViLT's ``mlp_in``/``mlp_out``) are held K-major: the (in,
-out) leaf is a transposed view of contiguous (out, in) storage
-(:func:`k_major`), the layout the int8 ``wgmma`` of the SwiGLU and w8a8 MLP
-kernels reads (``ops/cuda_swiglu.py``, ``ops/cuda_mlp.py``; the int8 forms
-have no transpose bit).  They are laid out so once, where they are
-quantized (here) or converted (``convert.params_from_jax``), never per
-call.  The w8 codes and the w8a8 codes of q/k/v/o and ``attn_out`` stay
-row-major.  ``torch._int_mm`` takes either layout.
+codes of every quantized projection (:data:`K_MAJOR_SUBLAYERS`: the Llama
+layer's q/k/v/o and MLP, BERT's and ViLT's q/k/v, ``attn_out``,
+``mlp_in``/``mlp_out``) are held K-major: the (in, out) leaf is a
+transposed view of contiguous (out, in) storage (:func:`k_major`), the
+layout the int8 ``wgmma`` of the w8a8 kernels reads (``ops/cuda_linear.py``,
+``ops/cuda_ln_qkv.py``, ``ops/cuda_swiglu.py``, ``ops/cuda_mlp.py``; the
+int8 forms have no transpose bit).  They are laid out so once, where they
+are quantized (here) or converted (``convert.params_from_jax``), never per
+call.  The w8 codes stay row-major.  ``torch._int_mm`` takes either
+layout.
 
 Rounding is half to even (``torch.round``, as ``jnp.round``), codes are
 clipped to +-127, and both divisions are true divisions.  On the card a
@@ -47,9 +48,9 @@ from vault_tpu_torch.ops.nn import ParamDict
 QUANT_SUBLAYERS = {"q", "k", "v", "attn_out", "mlp_in", "mlp_out",
                    "o", "gate", "up", "down"}
 QUANT_MODES = ("w8", "w8a8")
-# sublayers whose w8a8 codes are held K-major: the MLP projections, which
-# the int8 kernels take (the Llama MLP's, and BERT's and ViLT's)
-K_MAJOR_SUBLAYERS = frozenset({"gate", "up", "down", "mlp_in", "mlp_out"})
+# sublayers whose w8a8 codes are held K-major, the layout the int8 kernels
+# take: every quantized one
+K_MAJOR_SUBLAYERS = frozenset(QUANT_SUBLAYERS)
 
 
 def k_major(q: torch.Tensor) -> torch.Tensor:

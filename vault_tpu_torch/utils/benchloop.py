@@ -175,6 +175,7 @@ def launch_counters() -> Dict[str, Callable]:
     built from these count the model's kernels, over a whole training step
     too."""
     from vault_tpu_torch.ops import cuda_attention as ca
+    from vault_tpu_torch.ops import cuda_linear as clin
     from vault_tpu_torch.ops import cuda_ln_qkv as cl
     from vault_tpu_torch.ops import cuda_mlp as cm
     from vault_tpu_torch.ops import cuda_swiglu as cs
@@ -192,7 +193,8 @@ def launch_counters() -> Dict[str, Callable]:
             "ln_qkv": cl.fused_ln_qkv_fwd,
             "ln_qkv_w8a8": cl.fused_ln_qkv_fwd_w8a8,
             "mlp_block_w8a8": cm.fused_mlp_block_fwd_w8a8,
-            "mlp_postln_w8a8": cm.fused_mlp_postln_fwd_w8a8}
+            "mlp_postln_w8a8": cm.fused_mlp_postln_fwd_w8a8,
+            "linear_w8a8": clin.linear_w8a8}
 
 
 def count_launches(fn: Callable[[], object]) -> Dict[str, int]:
